@@ -1,0 +1,122 @@
+"""Serving entry point: seeded-init a model and serve batched requests
+through the continuous-batching engine (port of ``repro.launch.serve``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --requests 4 --batch 2 --max-new 4
+
+The flags are those of ``repro.launch.serve`` plus ``--device``
+(default ``cuda``; the run raises without a GPU unless ``--device cpu``
+is given). Flags whose feature belongs to a later slice of the port
+raise ``NotImplementedError`` when set away from their default.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import lm
+from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.metrics import percentile
+
+
+def _later(flag: str, slice_name: str):
+    raise NotImplementedError(f"{flag} is not ported yet ({slice_name} "
+                              f"slice of the port)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the model runs; cpu runs the kernels' "
+                        "plain PyTorch versions")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="restore params from a training checkpoint")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=256)
+    p.add_argument("--max-new", type=int, default=8)
+    p.add_argument("--prefill-chunk", type=int, default=8,
+                   help="prompt tokens consumed per slot per tick")
+    p.add_argument("--decode-steps", type=int, default=1,
+                   help="decode megatick length K (only 1 is ported)")
+    p.add_argument("--megatick-token-budget", type=int, default=None)
+    p.add_argument("--stagger", type=int, default=0,
+                   help="admit request i no earlier than tick i*STAGGER "
+                        "(0 = all at once)")
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--fusion-mode", default="auto",
+                   choices=("auto", "bsp", "ring", "pallas"))
+    p.add_argument("--sampler", default="greedy",
+                   choices=("greedy", "temperature"))
+    p.add_argument("--scheduler", default="fcfs",
+                   choices=("fcfs", "priority", "slo"))
+    p.add_argument("--deadline-ms", type=float, default=None)
+    p.add_argument("--temp", type=float, default=1.0,
+                   help="temperature sampler only (a later slice)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="temperature sampler only (a later slice)")
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--kv-blocks", type=int, default=None)
+    p.add_argument("--paged-gather", default="bounded",
+                   choices=("bounded", "masked"),
+                   help="single-device paged decode always gathers "
+                        "through the table (bounded)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--metrics-file", default=None)
+    args = p.parse_args(argv)
+
+    if args.ckpt_dir:
+        _later("--ckpt-dir", "training/checkpoint")
+    if args.tp != 1 or args.fusion_mode != "auto":
+        _later("--tp/--fusion-mode (W > 1)", "multi-GPU")
+    if args.decode_steps != 1 or args.megatick_token_budget is not None:
+        _later("--decode-steps > 1", "megatick")
+    if args.paged_gather != "bounded":
+        _later("--paged-gather masked (a W > 1 oracle)", "multi-GPU")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+
+    params = lm.init_params(cfg, seed=args.seed, device=args.device)
+    eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
+                 prefill_chunk=args.prefill_chunk, sampler=args.sampler,
+                 block_size=args.block_size, n_blocks=args.kv_blocks,
+                 scheduler=args.scheduler, device=args.device)
+    rng = np.random.default_rng(args.seed + 1)
+    for i in range(args.requests):
+        plen = min(2 + int(rng.integers(0, 6)), max(1, args.max_len - 2))
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, plen)]
+        eng.submit(Request(rid=i, prompt=prompt,
+                           max_new_tokens=args.max_new,
+                           deadline_ms=args.deadline_ms),
+                   at_tick=i * args.stagger)
+    t0 = time.time()
+    done = eng.run()
+    dt = time.time() - t0
+    toks = sum(len(r.out_tokens) for r in done)
+    lat = [r.finished_t - r.submitted_t for r in done]
+    stats = {"device": str(eng.device), "requests": len(done),
+             "new_tokens": toks, "wall_s": round(dt, 3),
+             "tok_per_s": round(toks / dt, 2),
+             "p50_latency_s": round(percentile(lat, 50), 3),
+             "p99_latency_s": round(percentile(lat, 99), 3),
+             **eng.metrics(done)}
+    print(f"[serve] {stats}")
+    if args.metrics_file:
+        with open(args.metrics_file, "w") as f:
+            json.dump(stats, f)
+    return stats
+
+
+if __name__ == "__main__":
+    main()
