@@ -1,91 +1,67 @@
-// Paged GQA flash decode for Hopper (sm_90a), W = 1.
+// Paged GQA flash decode for Hopper (sm_90a), at W = 1 and over W ranks.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
 // (`_fd_paged_kernel` / `flash_decode_paged_fused`). That kernel is one
-// serial program (grid=(1,)) that loops over every (slot, KV head), walks
-// the slot's block-table slice, DMAs each referenced (block_size, D) K/V
-// block into VMEM, keeps an online softmax, packs a (B, H, D+2) partial
-// (o, m, l) and folds the partials per source into o / l.
+// serial program (grid=(1,)) per rank that loops over every (slot, KV
+// head), walks the slot's block-table slice, DMAs each referenced block
+// this rank owns into VMEM (-1 holes and other ranks' blocks are
+// masked), keeps an online softmax, packs a (B, H, D+2) partial
+// (o, m, l), pushes it by remote DMA into every rank's inbox and folds
+// the W sources in rank order.
 //
-// Here the serial loop becomes parallel blocks and the fold a second
-// launch, both on the caller's stream:
-//   1. partial pass, grid (B, KVH, n_split): a block takes one slot, one
-//      KV head and one share of the slot's table entries. It reads each
-//      entry from the table itself (row_stride allows the engine's
-//      non-contiguous [:, :gather_width] slice), skips -1 holes, stages
-//      the K and V rows of head h through shared memory, scores the
-//      g = H / KVH query heads in fp32 with `scale`, masks positions
-//      >= cur_len[b] and (with a window) < cur_len[b] - window, runs the
-//      online softmax and accumulates P @ V. It writes (o, m, l) into an
-//      fp32 scratch (B, n_split, H, D + 2) that the wrapper allocates.
-//   2. combine pass, grid (B * H): folds the n_split partials exactly as
-//      Part 2 of the Pallas kernel does and writes o / max(l, 1e-30) in
-//      q's dtype. A row with no valid position comes out as zeros.
+// Here the serial loop becomes parallel blocks and the push/fold a
+// second launch, both on the caller's stream (fd_common.cuh):
+//   1. Part 1, grid (B, KVH, n_local * n_split): a block takes one slot,
+//      one KV head, one local rank and one share of the slot's table
+//      entries. It reads each entry from the table itself (row_stride
+//      allows the engine's non-contiguous [:, :gather_width] slice),
+//      skips -1 holes and blocks outside the rank's range
+//      [rank * n_loc, (rank + 1) * n_loc) alike, stages the block's K and
+//      V rows of head h through shared memory, scores the g = H / KVH
+//      query heads in fp32 with `scale`, masks positions >= cur_len[b]
+//      and (with a window) < cur_len[b] - window, and runs the online
+//      softmax. It writes (o, m, l) per split into an fp32 scratch.
+//   2. Part 2 (mode): NORMAL at W = 1 folds the splits and normalises;
+//      PARTIAL returns each rank's folded (o, m, l) for the bsp / ring /
+//      rs_ag combines; FUSED folds, pushes to every rank and combines the
+//      sources in rank order (the paper's Algorithm 4 Part 2), one
+//      cooperative launch over the device's local ranks (symm.cuh).
 //
 // What bounds it on the H100: decode attention is a pure stream of the
 // slot's K/V bytes -- sum over slots of blocks_read * block_size * KVH *
 // D * 2 * sizeof(T) -- at about one multiply-add per byte, so memory
-// (3.35 TB/s), not the tensor cores. The design reads every needed K/V
-// element once (all g query heads of a KV head share one staged block:
-// GQA stays native), only walks the table entries that cur_len and the
-// window can reach, and splits each slot's walk over n_split blocks so
-// that a small batch still fills the SMs. Vector loads, cp.async/TMA
-// pipelining and a fused single pass are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cfloat>
+// (3.35 TB/s), not the tensor cores; over W ranks each rank streams only
+// the blocks it owns, plus W partials of B * H * (D + 2) * 4 bytes moved
+// per rank. The design reads every needed K/V element once (all g query
+// heads of a KV head share one staged block: GQA stays native), only
+// walks the table entries that cur_len and the window can reach, and
+// splits each slot's walk over n_split blocks so that a small batch
+// still fills the SMs. Vector loads, cp.async/TMA pipelining and fusing
+// the two passes are later work.
+#include "fd_common.cuh"
 
 namespace {
 
-constexpr int NT = 128;          // threads of a partial block
-constexpr int ACCN = 8;          // accumulator registers: g * D <= NT * ACCN
-constexpr float NEG = -FLT_MAX;  // jnp.finfo(float32).min, as in Pallas
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using fd::NT;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-fd_partial(const T* __restrict__ q, const T* __restrict__ kp,
-           const T* __restrict__ vp, const int* __restrict__ cur_len,
-           const int* __restrict__ tables, int row_stride,
-           float* __restrict__ part, int H, int KVH, int bs, int C,
-           int n_split, float scale, int window) {
+fd_paged_partial(symm::Ptrs Q, symm::Ptrs K, symm::Ptrs V, symm::Ptrs CL,
+                 symm::Ptrs TB, int row_stride, symm::Ranks R, int n_loc,
+                 float* __restrict__ part, int B, int H, int KVH, int bs,
+                 int C, int n_split, float scale, int window) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int lr = blockIdx.z / n_split, sp = blockIdx.z % n_split;
   const int g = H / KVH;
-  float* qs = smem;                      // (g, D)
-  float* ks = qs + g * D;                // (bs, D + 1): padded rows
-  float* vs = ks + bs * (D + 1);         // (bs, D)
-  float* ss = vs + bs * D;               // (g, bs): scores, then p
-  float* ms = ss + g * bs;               // (g,) running max
-  float* ls = ms + g;                    // (g,) running sum
-  float* cs = ls + g;                    // (g,) this step's correction
+  const T* q = static_cast<const T*>(Q.p[lr]);
+  const T* kp = static_cast<const T*>(K.p[lr]);
+  const T* vp = static_cast<const T*>(V.p[lr]);
+  const int* tables = static_cast<const int*>(TB.p[lr]);
+  const int base = R.r[lr] * n_loc;
 
   // the table entries cur_len (and the window) can reach, split evenly
-  const int cl = cur_len[b];
+  const int cl = static_cast<const int*>(CL.p[lr])[b];
   const int c_hi = min(C, (cl + bs - 1) / bs);
   int c_lo = 0;
   if (window > 0) c_lo = min(max(cl - window, 0) / bs, c_hi);
@@ -93,146 +69,71 @@ fd_partial(const T* __restrict__ q, const T* __restrict__ kp,
   const int my_lo = c_lo + sp * per;
   const int my_hi = min(c_hi, my_lo + per);
 
-  for (int i = threadIdx.x; i < g * D; i += NT)
-    qs[i] = to_f(q[((size_t)b * H + h * g) * D + i]);
-  if (threadIdx.x < g) {
-    ms[threadIdx.x] = NEG;
-    ls[threadIdx.x] = 0.f;
-  }
-  float acc[ACCN];
-#pragma unroll
-  for (int j = 0; j < ACCN; ++j) acc[j] = 0.f;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  fd::Online<D> st(smem, g, bs);
+  st.init(q + ((size_t)b * H + h * g) * D);
   for (int c = my_lo; c < my_hi; ++c) {
     const int blk = tables[(size_t)b * row_stride + c];
-    if (blk < 0) continue;               // reclaim hole: uniform skip
-    __syncthreads();                     // last step done with ks/vs/ss
-    for (int i = threadIdx.x; i < bs * D; i += NT) {
-      const int t = i / D, d = i % D;
-      const size_t off = (((size_t)blk * bs + t) * KVH + h) * D + d;
-      ks[t * (D + 1) + d] = to_f(kp[off]);
-      vs[i] = to_f(vp[off]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < g * bs; i += NT) {
-      const int gi = i / bs, t = i % bs;
-      const int pos = c * bs + t;
-      const bool valid = pos < cl && (window <= 0 || pos >= cl - window);
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        s = fmaf(qs[gi * D + d], ks[t * (D + 1) + d], s);
-      ss[i] = valid ? s * scale : NEG;
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += NT / 32) {
-      float mx = NEG;
-      for (int t = lane; t < bs; t += 32) mx = fmaxf(mx, ss[gi * bs + t]);
-      mx = warp_max(mx);
-      const float m_old = ms[gi];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_safe = m_new <= NEG / 2 ? 0.f : m_new;
-      float sum = 0.f;
-      for (int t = lane; t < bs; t += 32) {
-        const float s = ss[gi * bs + t];
-        const float p = s <= NEG / 2 ? 0.f : expf(s - m_safe);
-        ss[gi * bs + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = m_old <= NEG / 2 ? 0.f : expf(m_old - m_safe);
-        cs[gi] = corr;
-        ls[gi] = ls[gi] * corr + sum;
-        ms[gi] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < ACCN; ++j) {
-      const int i = threadIdx.x + j * NT;
-      if (i < g * D) {
-        const int gi = i / D, d = i % D;
-        float a = acc[j] * cs[gi];
-        for (int t = 0; t < bs; ++t) a = fmaf(ss[gi * bs + t], vs[t * D + d], a);
-        acc[j] = a;
-      }
-    }
+    // a -1 hole or another rank's block: uniform skip
+    if (blk < base || blk >= base + n_loc) continue;
+    const size_t blk0 = (size_t)(blk - base) * bs;
+    st.step(
+        kp, vp, bs,
+        [&](int t) { return ((blk0 + t) * KVH + h) * D; },
+        [&](int t) {
+          const int pos = c * bs + t;
+          return pos < cl && (window <= 0 || pos >= cl - window);
+        },
+        scale);
   }
-  __syncthreads();
-  float* out = part + (((size_t)b * n_split + sp) * H + h * g) * (D + 2);
-#pragma unroll
-  for (int j = 0; j < ACCN; ++j) {
-    const int i = threadIdx.x + j * NT;
-    if (i < g * D) out[(i / D) * (D + 2) + i % D] = acc[j];
-  }
-  if (threadIdx.x < g) {
-    out[threadIdx.x * (D + 2) + D] = ms[threadIdx.x];
-    out[threadIdx.x * (D + 2) + D + 1] = ls[threadIdx.x];
-  }
+  st.store(part + ((((size_t)lr * B + b) * n_split + sp) * H + h * g) *
+                      (D + 2));
 }
 
 template <typename T, int D>
-__global__ void fd_combine(const float* __restrict__ part,
-                           T* __restrict__ o, int H, int n_split) {
-  const int bh = blockIdx.x, b = bh / H, hh = bh % H, d = threadIdx.x;
-  float acc_o = 0.f, acc_m = NEG, acc_l = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float* p = part + (((size_t)b * n_split + s) * H + hh) * (D + 2);
-    const float m_s = p[D], l_s = p[D + 1], o_s = p[d];
-    const float m_new = fmaxf(acc_m, m_s);
-    const float m_safe = m_new <= NEG / 2 ? 0.f : m_new;
-    const float ca = acc_m <= NEG / 2 ? 0.f : expf(acc_m - m_safe);
-    const float cb = m_s <= NEG / 2 ? 0.f : expf(m_s - m_safe);
-    acc_o = acc_o * ca + o_s * cb;
-    acc_l = acc_l * ca + l_s * cb;
-    acc_m = m_new;
-  }
-  o[(size_t)bh * D + d] = from_f<T>(acc_o / fmaxf(acc_l, 1e-30f));
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const int* cur_len,
-           const int* tables, int row_stride, float* part, void* out, int B,
-           int H, int KVH, int bs, int C, int n_split, float scale,
-           int window, cudaStream_t stream) {
+int launch(const symm::Ptrs& Q, const symm::Ptrs& K, const symm::Ptrs& V,
+           const symm::Ptrs& CL, const symm::Ptrs& TB, int row_stride,
+           const symm::Ranks& R, int n_local, int n_loc, float* part,
+           void* out, int B, int H, int KVH, int bs, int C, int n_split,
+           float scale, int window, int mode, int chunks,
+           const symm::Peers& P, cudaStream_t stream) {
   const int g = H / KVH;
-  const size_t smem = sizeof(float) *
-      ((size_t)g * D + (size_t)bs * (D + 1) + (size_t)bs * D +
-       (size_t)g * bs + 3 * (size_t)g);
+  const size_t smem = fd::part1_smem(g, D, bs);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fd_partial<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fd_paged_partial<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fd_partial<T, D><<<dim3(B, KVH, n_split), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), cur_len, tables, row_stride, part, H, KVH,
-      bs, C, n_split, scale, window);
+  fd_paged_partial<T, D><<<dim3(B, KVH, n_local * n_split), NT, smem,
+                           stream>>>(Q, K, V, CL, TB, row_stride, R, n_loc,
+                                     part, B, H, KVH, bs, C, n_split, scale,
+                                     window);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fd_combine<T, D><<<B * H, D, 0, stream>>>(part, static_cast<T*>(out), H,
-                                            n_split);
-  return (int)cudaGetLastError();
+  return fd::launch_part2<T, D>(mode, part, out, n_local, B, H, n_split,
+                                chunks, R, P, stream);
 }
 
 template <typename T>
-int by_dim(int D, const void* q, const void* kp, const void* vp,
-           const int* cur_len, const int* tables, int row_stride, float* part,
-           void* out, int B, int H, int KVH, int bs, int C, int n_split,
-           float scale, int window, cudaStream_t s) {
+int by_dim(int D, const symm::Ptrs& Q, const symm::Ptrs& K,
+           const symm::Ptrs& V, const symm::Ptrs& CL, const symm::Ptrs& TB,
+           int row_stride, const symm::Ranks& R, int n_local, int n_loc,
+           float* part, void* out, int B, int H, int KVH, int bs, int C,
+           int n_split, float scale, int window, int mode, int chunks,
+           const symm::Peers& P, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kp, vp, cur_len, tables, row_stride, part, out,
-                           B, H, KVH, bs, C, n_split, scale, window, s);
+      return launch<T, 32>(Q, K, V, CL, TB, row_stride, R, n_local, n_loc,
+                           part, out, B, H, KVH, bs, C, n_split, scale,
+                           window, mode, chunks, P, s);
     case 64:
-      return launch<T, 64>(q, kp, vp, cur_len, tables, row_stride, part, out,
-                           B, H, KVH, bs, C, n_split, scale, window, s);
+      return launch<T, 64>(Q, K, V, CL, TB, row_stride, R, n_local, n_loc,
+                           part, out, B, H, KVH, bs, C, n_split, scale,
+                           window, mode, chunks, P, s);
     case 128:
-      return launch<T, 128>(q, kp, vp, cur_len, tables, row_stride, part,
-                            out, B, H, KVH, bs, C, n_split, scale, window, s);
+      return launch<T, 128>(Q, K, V, CL, TB, row_stride, R, n_local, n_loc,
+                            part, out, B, H, KVH, bs, C, n_split, scale,
+                            window, mode, chunks, P, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -240,28 +141,52 @@ int by_dim(int D, const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// q (B, H, D); k/v pools (n_blocks, bs, KVH, D) contiguous, q's dtype;
-// cur_len (B,) int32; tables (B, >= C) int32 with row stride row_stride;
-// part: fp32 scratch (B, n_split, H, D + 2); out (B, H, D) in q's dtype.
-// window <= 0 means no sliding window. dtype: 0 = float32, 1 = bfloat16.
-// Returns the first cudaError_t of the two launches (0 = launched).
-extern "C" int fd_paged_launch(const void* q, const void* kp, const void* vp,
-                               const int* cur_len, const int* tables,
-                               int row_stride, void* part, void* out, int B,
-                               int H, int KVH, int D, int bs, int C,
-                               int n_split, float scale, int window,
-                               int dtype, void* stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || (H / KVH) * D > NT * ACCN ||
-      bs <= 0 || C <= 0 || n_split <= 0)
+// One launch pair on one device for its n_local ranks (ids ranks[]).
+// Per local rank: q (B, H, D); k/v pool shard (n_loc, bs, KVH, D)
+// contiguous, q's dtype, holding global blocks [rank * n_loc,
+// (rank + 1) * n_loc); cur_len (B,) int32; tables (B, >= C) int32 with
+// row stride row_stride. part: fp32 scratch (n_local, B, n_split, H,
+// D + 2). out: (n_local, B, H, D) in q's dtype for mode 0 (NORMAL, W = 1)
+// and 2 (FUSED), fp32 (n_local, B, H, D + 2) for mode 1 (PARTIAL).
+// FUSED only: the symmetric buffers' pointer tables (device arrays of W
+// entries), the mesh size W, flags per source, the call's epoch, one
+// source's slot bytes and the inbox parity stride; `chunks` blocks per
+// rank. window <= 0 means no sliding window. dtype: 0 = float32,
+// 1 = bfloat16. Returns the first cudaError_t (0 = launched).
+extern "C" int fd_paged_launch(
+    const void* const* q, const void* const* kp, const void* const* vp,
+    const void* const* cur_len, const void* const* tables, int row_stride,
+    const int* ranks, int n_local, void* part, void* out, int B, int H,
+    int KVH, int D, int bs, int n_loc, int C, int n_split, float scale,
+    int window, int dtype, int mode, int chunks, const void* inbox_tab,
+    const void* flag_tab, int W, int n_chunk, unsigned epoch,
+    long long slot_bytes, long long half, void* stream) {
+  if (B <= 0 || KVH <= 0 || H % KVH != 0 ||
+      (H / KVH) * D > fd::NT * fd::ACCN || bs <= 0 || C <= 0 ||
+      n_split <= 0 || n_local <= 0 || n_local > symm::MAX_RANKS ||
+      n_loc <= 0)
     return (int)cudaErrorInvalidValue;
+  symm::Ptrs Q, K, V, CL, TB;
+  symm::Ranks R;
+  for (int i = 0; i < n_local; ++i) {
+    Q.p[i] = q[i];
+    K.p[i] = kp[i];
+    V.p[i] = vp[i];
+    CL.p[i] = cur_len[i];
+    TB.p[i] = tables[i];
+    R.r[i] = ranks[i];
+  }
+  const symm::Peers P = symm::make_peers(inbox_tab, flag_tab, W, n_chunk,
+                                         epoch, slot_bytes, half);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   if (dtype == 0)
-    return by_dim<float>(D, q, kp, vp, cur_len, tables, row_stride, p, out,
-                         B, H, KVH, bs, C, n_split, scale, window, s);
+    return by_dim<float>(D, Q, K, V, CL, TB, row_stride, R, n_local, n_loc,
+                         p, out, B, H, KVH, bs, C, n_split, scale, window,
+                         mode, chunks, P, s);
   if (dtype == 1)
-    return by_dim<__nv_bfloat16>(D, q, kp, vp, cur_len, tables, row_stride,
-                                 p, out, B, H, KVH, bs, C, n_split, scale,
-                                 window, s);
+    return by_dim<__nv_bfloat16>(D, Q, K, V, CL, TB, row_stride, R, n_local,
+                                 n_loc, p, out, B, H, KVH, bs, C, n_split,
+                                 scale, window, mode, chunks, P, s);
   return (int)cudaErrorInvalidValue;
 }

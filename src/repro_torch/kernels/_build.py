@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each ``src/repro_torch/csrc/<name>.cu`` has a plain C interface and
-compiles on its own into ``build/repro_torch/lib<name>.so`` at the repo
-root (listed in ``.gitignore``)::
+compiles on its own (with the shared ``csrc/*.cuh`` headers) into
+``build/repro_torch/lib<name>.so`` at the repo root (listed in
+``.gitignore``)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/repro_torch/lib<name>.so csrc/<name>.cu
@@ -49,7 +50,8 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _command(name: str, out: Path, verbose: bool) -> list[str]:

@@ -4,11 +4,15 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --device cpu --requests 4 --batch 2 --max-new 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --tp 4 --fusion-mode pallas          # 4 virtual ranks on one card
 
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``
-is given). Flags whose feature belongs to a later slice of the port
-raise ``NotImplementedError`` when set away from their default.
+is given) and ``--devices`` (one device per rank, comma-separated;
+default: all ``--tp`` ranks on ``--device``). Flags whose feature
+belongs to a later slice of the port raise ``NotImplementedError`` when
+set away from their default.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.distributed import context as dctx
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.metrics import percentile
@@ -50,7 +56,11 @@ def main(argv=None):
                    help="admit request i no earlier than tick i*STAGGER "
                         "(0 = all at once)")
     p.add_argument("--requests", type=int, default=8)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="ranks of the model axis")
+    p.add_argument("--devices", default=None,
+                   help="comma-separated device per rank (default: every "
+                        "rank on --device, i.e. virtual ranks)")
     p.add_argument("--fusion-mode", default="auto",
                    choices=("auto", "bsp", "ring", "pallas"))
     p.add_argument("--sampler", default="greedy",
@@ -66,20 +76,18 @@ def main(argv=None):
     p.add_argument("--kv-blocks", type=int, default=None)
     p.add_argument("--paged-gather", default="bounded",
                    choices=("bounded", "masked"),
-                   help="single-device paged decode always gathers "
-                        "through the table (bounded)")
+                   help="W > 1 paged decode: walk each slot's table "
+                        "(bounded) or score the masked whole pool shard "
+                        "(masked; the CPU oracle, raises on the card); "
+                        "single-device decode always walks the table")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics-file", default=None)
     args = p.parse_args(argv)
 
     if args.ckpt_dir:
         _later("--ckpt-dir", "training/checkpoint")
-    if args.tp != 1 or args.fusion_mode != "auto":
-        _later("--tp/--fusion-mode (W > 1)", "multi-GPU")
     if args.decode_steps != 1 or args.megatick_token_budget is not None:
         _later("--decode-steps > 1", "megatick")
-    if args.paged_gather != "bounded":
-        _later("--paged-gather masked (a W > 1 oracle)", "multi-GPU")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -87,11 +95,16 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
 
-    params = lm.init_params(cfg, seed=args.seed, device=args.device)
-    eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
-                 prefill_chunk=args.prefill_chunk, sampler=args.sampler,
-                 block_size=args.block_size, n_blocks=args.kv_blocks,
-                 scheduler=args.scheduler, device=args.device)
+    mesh = make_mesh(args.tp, args.devices, args.device)
+    ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
+    params = lm.init_params(cfg, seed=args.seed, device=mesh.devices[0])
+    with dctx.use(ctx):
+        eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
+                     prefill_chunk=args.prefill_chunk, sampler=args.sampler,
+                     block_size=args.block_size, n_blocks=args.kv_blocks,
+                     scheduler=args.scheduler,
+                     bounded_gather=args.paged_gather == "bounded",
+                     device=mesh.devices[0])
     rng = np.random.default_rng(args.seed + 1)
     for i in range(args.requests):
         plen = min(2 + int(rng.integers(0, 6)), max(1, args.max_len - 2))
@@ -105,7 +118,9 @@ def main(argv=None):
     dt = time.time() - t0
     toks = sum(len(r.out_tokens) for r in done)
     lat = [r.finished_t - r.submitted_t for r in done]
-    stats = {"device": str(eng.device), "requests": len(done),
+    stats = {"device": str(eng.device), "tp": args.tp,
+             "devices": [str(d) for d in mesh.devices],
+             "fusion_mode": args.fusion_mode, "requests": len(done),
              "new_tokens": toks, "wall_s": round(dt, 3),
              "tok_per_s": round(toks / dt, 2),
              "p50_latency_s": round(percentile(lat, 50), 3),

@@ -20,6 +20,12 @@ Scheduling per tick, as in the JAX engine with ``decode_steps=1``:
 Everything on the card runs under ``torch.inference_mode()``. The decode
 state (KV pools, ``cur_len``, block table) is updated in place.
 
+The engine takes the ambient distribution context
+(``distributed.context.current()``) when it is built and runs every
+dispatch under it: over the W ranks of its mesh the pool is sharded on
+the block dim and the decode step goes through the fusion mode's
+patterns (``core.patterns``); nothing in the scheduling changes.
+
 Not in this slice (each raises ``NotImplementedError``): megaticks
 (``decode_steps > 1``), the seeded temperature sampler, the robustness
 plane (fault plans, watchdog, degraded ladder, drain, snapshot/restore).
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
 from repro_torch.models import lm
 from repro_torch.serving import sampler as sampler_lib
 from repro_torch.serving.kv_cache import CachePool, pow2_bucket
@@ -99,6 +106,8 @@ class Engine:
     ``prefill_chunk`` is the most prompt tokens a slot consumes per
     tick; ``block_size``/``n_blocks`` size the paged pool;
     ``scheduler`` is "fcfs", "priority", "slo" or a policy instance.
+    ``bounded_gather`` (W > 1): paged attention walks each slot's table
+    (default) or scores the masked whole pool shard (the CPU oracle).
     """
 
     def __init__(self, params, cfg, *, batch: int = 8, max_len: int = 512,
@@ -107,7 +116,8 @@ class Engine:
                  n_blocks: int | None = None,
                  scheduler: str | SchedulerPolicy = "fcfs",
                  decode_steps: int = 1, fault_plan=None, watchdog=None,
-                 degraded=None, device="cuda"):
+                 degraded=None, bounded_gather: bool = True,
+                 device="cuda"):
         if sampler == "temperature":
             raise _later("sampler='temperature' (bit-exact threefry)",
                          "sampler")
@@ -127,7 +137,16 @@ class Engine:
             raise ValueError(f"params live on {params.device}, engine "
                              f"device is {self.device}")
         self.policy = get_scheduler(scheduler)   # fail fast, pre-pool-init
+        self.ctx = dctx.current()
+        mesh = self.ctx.mesh if self.ctx.model_axis_size > 1 else None
+        if mesh is not None and mesh.distinct[0] != params.device:
+            raise ValueError(f"params live on {params.device}, the mesh's "
+                             f"first rank on {mesh.distinct[0]}")
         self.params = params
+        # what the decode step takes: one replica per distinct device
+        self.step_params = (params if mesh is None
+                            else lm.replicate(params, mesh))
+        self.bounded_gather = bool(bounded_gather)
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -281,7 +300,8 @@ class Engine:
     # ----------------------------------------------------------- scheduling
     def tick(self) -> list[Request]:
         """One scheduler step. Returns requests that finished this tick."""
-        finished = self._tick()
+        with dctx.use(self.ctx):
+            finished = self._tick()
         self.policy.on_tick_end(self.queue, self.active, self.tick_count)
         return finished
 
@@ -325,16 +345,16 @@ class Engine:
         with torch.inference_mode():
             if cmax <= 1:
                 logits, _ = lm.decode_step(
-                    self.params, torch.from_numpy(tok[:, :1]).to(dev),
+                    self.step_params, torch.from_numpy(tok[:, :1]).to(dev),
                     self.pool.state, self.cfg,
                     active=torch.from_numpy(cnt > 0).to(dev),
-                    gather_width=gw)
+                    gather_width=gw, bounded=self.bounded_gather)
             else:
                 cw = pow2_bucket(cmax, C)
                 logits, _ = lm.decode_chunk(
-                    self.params, torch.from_numpy(tok[:, :cw]).to(dev),
+                    self.step_params, torch.from_numpy(tok[:, :cw]).to(dev),
                     torch.from_numpy(cnt).to(dev), self.pool.state,
-                    self.cfg, gather_width=gw)
+                    self.cfg, gather_width=gw, bounded=self.bounded_gather)
             nxt = self._next_tokens(logits)
 
         finished = []

@@ -16,8 +16,10 @@ keys with an LRU of resident ref-0 blocks, copy-on-write of registered
 or shared blocks, preemption/abort (register the written chunks, drop
 every reference), and sliding-window reclaim that leaves ``-1`` holes
 the paged attention skips. The device half differs only in being in
-place: ``sync()`` copies the host table into the state's table tensor,
-and copy-on-write clones a block inside the existing pools.
+place: ``sync()`` copies the host table into the state's table tensor
+(one per device over a mesh), and copy-on-write clones a block inside
+the existing pools (across ranks when the two blocks live on different
+ones).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import lm
 
 
@@ -57,7 +60,10 @@ class CachePool:
 
     ``n_blocks`` defaults to contiguous parity (batch * max_len worth of
     blocks); size it smaller to serve mixed-length traffic — admission
-    then gates on block availability, not slot count.
+    then gates on block availability, not slot count. Over the W ranks
+    of the ambient mesh it is rounded up to a multiple of W, so that the
+    pool shards evenly on the block dim (global block t on rank
+    t // (n_blocks / W)).
     """
     params: object
     cfg: object
@@ -77,6 +83,8 @@ class CachePool:
         self.max_blocks = blocks_for(self.max_len, bs)
         if self.n_blocks is None:
             self.n_blocks = self.batch * self.max_blocks
+        W = dctx.current().model_axis_size
+        self.n_blocks += (-self.n_blocks) % W
         self.state = lm.init_paged_decode_state(
             self.params, self.cfg, self.batch, self.n_blocks, bs,
             self.max_blocks)
@@ -366,7 +374,10 @@ class CachePool:
         """Copy the host block table into the state's table tensor, in
         place (no-op when unchanged)."""
         if self._dirty:
-            self.state["block_tables"].copy_(torch.from_numpy(self.tables))
+            host = torch.from_numpy(self.tables)
+            tables = self.state["block_tables"]
+            for t in tables if isinstance(tables, list) else [tables]:
+                t.copy_(host)
             self._dirty = False
 
     # --------------------------------------------------------------- metrics
