@@ -11,9 +11,13 @@ source, in parallel), then runs, failing on the first phase that fails:
 7. the W-rank kernels vs their plain versions on virtual ranks of
    cuda:0, each over several calls in a row (flag reuse, both inbox
    parities): the fused AG+GEMM (W 2 and 4, the ``wo`` shape and
-   ragged ones), the paged decode over 4 ranks (fused and partial
-   modes, holes, blocks of every rank), the contiguous strided decode
-   (W 1 and 4, with a window);
+   ragged ones, one B per card and one per rank), the paged decode over
+   4 ranks (fused and partial modes, holes, blocks of every rank), the
+   contiguous strided decode (W 1 and 4, with a window), outputs
+   bit-identical on every rank; then the three fused kernels replayed
+   from CUDA graphs (alone and AG+GEMM with the paged decode in one
+   graph) with fresh inputs, the card's epoch word advancing once per
+   fused launch;
 4. the smoke llama3-8b (float32) served on the card and on the CPU:
    token-identical greedy streams, equal scheduling counters, per-step
    logits under teacher forcing within tolerance;
@@ -24,9 +28,11 @@ source, in parallel), then runs, failing on the first phase that fails:
 9. the same weights over 4 virtual ranks under ``pallas``: a short
    serve and a few contiguous-cache decode steps with every kernel's
    counters read around them, and teacher-forced logits vs tp=1;
-6. W=1 kernel timings (CUDA-graph replays) and
-10. W-rank kernel timings (queued behind a sleep kernel), each beside
-   its bound, plain version and one PyTorch library call.
+6. W=1 kernel timings and
+10. W-rank kernel timings, both in CUDA-graph replays, each beside its
+   bound, plain version and one PyTorch library call (phase 10 also
+   times an empty cooperative launch of the paged decode's grid, its
+   latency floor).
 
 ``--kernels-only`` stops after phases 1-3 and 7; ``--peers`` (two or
 more cards) then runs phase 7's checks and wall times with one rank per
@@ -40,6 +46,7 @@ without a GPU or outside a checkout of the repo.
 from __future__ import annotations
 
 import copy
+import ctypes
 import itertools
 import json
 import os
@@ -101,34 +108,15 @@ def graph_ms(fn, iters=20):
     return start.elapsed_time(end) / (3 * iters)
 
 
-def queued_ms(fn, iters=20):
-    """Mean device time of one ``fn()`` call, for calls a CUDA graph
-    cannot replay (the fused multi-rank kernels take their epoch as a
-    launch argument): a sleep kernel holds the stream while the host
-    enqueues ``iters`` calls, so the CUDA events around them time the
-    device alone. Retries with a longer sleep if the host fell behind."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    hold_s = 3 * (time.perf_counter() - t0) * iters
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
-        torch.cuda._sleep(int(hold_s * 2e9))      # cycles, <= ~2 GHz
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        held = not start.query()      # the sleep outlasted the enqueue
-        torch.cuda.synchronize()
-        if held:
-            return start.elapsed_time(end) / iters
-        hold_s *= 4
-    raise RuntimeError("queued_ms: the host could not enqueue the calls "
-                       "while the stream was held")
+# the __global__ functions of csrc/*.cu, as the profiler names them
+# ("(anonymous namespace)::<name><T, ...>(...)")
+PORT_KERNELS = ("mm_stream", "mm_kernel", "fd_paged", "ag_gemm_kernel",
+                "fd_strided_partial", "fd_comm", "fd_normal", "fd_fold")
+
+
+def port_kernel(name: str, key: str) -> bool:
+    """Whether profiler entry ``key`` is csrc kernel ``name``."""
+    return f"::{name}<" in key
 
 
 def nbytes(*ts):
@@ -282,7 +270,10 @@ def _sync(devs):
 def phase_ag_gemm(gen, epochs=3, rank_sets=VIRTUAL):
     """(7a) fused AG+GEMM vs its plain version on each set of rank
     devices, at the ``wo`` shape and ragged ones, ``epochs`` calls in a
-    row with fresh inputs (flag reuse, both inbox parities)."""
+    row with fresh inputs (flag reuse, both inbox parities); even calls
+    pass one B per card (one product per card), odd ones a copy per
+    rank (a product per rank). Outputs must be bit-identical on every
+    rank."""
     from repro_torch.distributed.context import Mesh
     from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
     worst, n = 0.0, 0
@@ -297,11 +288,17 @@ def phase_ag_gemm(gen, epochs=3, rank_sets=VIRTUAL):
                 a, b = _gemm_operands(gen, M, W * k, N, dt, False)
                 shards = [a[:, r * k:(r + 1) * k].contiguous()
                           for r in range(W)]
+                bs_ = [b.to(d) if ep % 2 == 0 else b.to(d, copy=True)
+                       for d in devs]
                 got = ag_gemm_fused([x.to(d) for x, d in zip(shards, devs)],
-                                    [b.to(d) for d in devs], mesh)
+                                    bs_, mesh)
                 want = ag_gemm_plain(shards, [b])[0]
                 _sync(devs)
                 for r in range(W):
+                    check(torch.equal(got[r].to("cuda:0"), got[0].to(
+                        "cuda:0")), f"ag_gemm {devs} M={M} N={N} {dt} "
+                                    f"epoch {ep}: rank {r}'s output differs "
+                                    f"from rank 0's")
                     err = _gemm_close(got[r].to("cuda:0"), want, dt,
                                       f"ag_gemm {devs} M={M} K={W * k} "
                                       f"N={N} {dt} epoch {ep} rank {r}")
@@ -310,7 +307,8 @@ def phase_ag_gemm(gen, epochs=3, rank_sets=VIRTUAL):
                 n += 1
     print(f"[ag_gemm] {n} calls on ranks {[len(d) for d in rank_sets]} x "
           f"{sorted({x for d in rank_sets for x in d})} match the plain "
-          f"version (max |err| at the wo shape {worst:.3e})", flush=True)
+          f"version, outputs bit-identical across ranks (max |err| at the "
+          f"wo shape {worst:.3e})", flush=True)
     return worst
 
 
@@ -438,6 +436,102 @@ def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
     print(f"[strided] {n} fused + partial calls match the plain version "
           f"(max |err| {worst:.3e})", flush=True)
     return worst
+
+
+def phase_graph_replays(gen, W=4, reps=3):
+    """(7d) the three fused kernels captured in CUDA graphs on W virtual
+    ranks at phase 7's shapes: each alone, then the AG+GEMM and the
+    fused paged decode in one graph. Every replay, with fresh inputs
+    copied into the captured tensors, must match the plain version with
+    outputs bit-identical on every rank, and the card's epoch word must
+    advance once per fused launch (a replay waits for its own pushes)."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
+    bf16, scale = torch.bfloat16, 128 ** -0.5
+    mesh = Mesh(["cuda:0"] * W)
+    M, k, N = 8, 4096 // W, 4096
+    a_st = [torch.empty((M, k), dtype=bf16, device="cuda")
+            for _ in range(W)]
+    b_st = torch.empty((W * k, N), dtype=bf16, device="cuda")
+    pg = _paged_ranks_inputs(gen, bf16, W)
+    st = _strided_inputs(gen, bf16, W)
+
+    def refill(static, new):
+        for dst, src in zip(static, new):
+            for d, s_ in zip(*(x if isinstance(x, list) else [x]
+                               for x in (dst, src))):
+                d.copy_(s_)
+
+    def fill_ag():
+        a, b = _gemm_operands(gen, M, W * k, N, bf16, False)
+        for r in range(W):
+            a_st[r].copy_(a[:, r * k:(r + 1) * k])
+        b_st.copy_(b)
+        return ag_gemm_plain([a], [b])[0]
+
+    def fill_paged():
+        new = _paged_ranks_inputs(gen, bf16, W)
+        refill(pg, new)
+        q, kps, vps, cur, tb = new
+        n_loc = kps[0].shape[0]
+        return kfd.fused_plain(
+            [kfd.paged_partial_plain(q, kps[r], vps[r], cur, tb, scale,
+                                     None, base=r * n_loc)
+             for r in range(W)], bf16)[0]
+
+    def fill_strided():
+        new = _strided_inputs(gen, bf16, W)
+        refill(st, new)
+        q, ks, vs, cur = new
+        return kfd.fused_plain(
+            [kfd.strided_partial_plain(q, ks[r], vs[r], cur, scale, None,
+                                       r, W) for r in range(W)], bf16)[0]
+
+    kernels = {
+        "ag_gemm_fused": (fill_ag, lambda: ag_gemm_fused(
+            a_st, [b_st] * W, mesh), _gemm_close),
+        "flash_decode_paged_fused": (fill_paged, lambda:
+                                     kfd.flash_decode_paged_fused(
+                                         [pg[0]] * W, pg[1], pg[2],
+                                         [pg[3]] * W, [pg[4]] * W, scale,
+                                         mesh=mesh), _close),
+        "flash_decode_fused": (fill_strided, lambda: kfd.flash_decode_fused(
+            [st[0]] * W, st[1], st[2], [st[3]] * W, scale, mesh=mesh),
+            _close)}
+    n = 0
+    for names in (["ag_gemm_fused"], ["flash_decode_paged_fused"],
+                  ["flash_decode_fused"],
+                  ["ag_gemm_fused", "flash_decode_paged_fused"]):
+        for name in names:                  # warm-up: sizes the buffers
+            kernels[name][0]()
+            kernels[name][1]()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [kernels[name][1]() for name in names]
+        torch.cuda.synchronize()
+        e0 = mesh.symm.epoch()
+        for rep in range(reps):
+            wants = [kernels[name][0]() for name in names]
+            graph.replay()
+            torch.cuda.synchronize()
+            for name, out, want in zip(names, outs, wants):
+                what = f"graph {names} replay {rep}: {name}"
+                for r in range(W):
+                    check(torch.equal(out[r], out[0]),
+                          f"{what}: rank {r}'s output differs")
+                kernels[name][2](out[0], want, bf16, what)
+            e = mesh.symm.epoch()
+            check(e == e0 + len(names) * (rep + 1),
+                  f"graph {names}: epoch word {e} after replay {rep}, "
+                  f"expected {e0 + len(names) * (rep + 1)}")
+            n += 1
+        del graph
+    print(f"[graphs] {n} CUDA-graph replays of the fused kernels (each "
+          f"alone, AG+GEMM with the paged decode) match the plain version, "
+          f"bit-identical across ranks; the epoch word advanced once per "
+          f"fused launch", flush=True)
 
 
 def wall_ms(fn, devs, iters=50):
@@ -894,11 +988,24 @@ def profile_steps(params, cfg, state, steps=4, batch=8,
            "device_busy_share": dev_ms / wall_ms if wall_ms else 0.0,
            "top_kernels": [{"name": k[1][:80], "ms_per_step":
                             k[0] / 1e3 / steps, "calls_per_step":
-                            k[2] / steps} for k in kern[:10]]}
+                            k[2] / steps} for k in kern[:10]],
+           # the port's own kernels (csrc/*.cu), wherever they rank
+           "port_kernels": {
+               name: {"ms_per_step": sum(k[0] for k in kern
+                                         if port_kernel(name, k[1]))
+                      / 1e3 / steps,
+                      "calls_per_step": sum(k[2] for k in kern
+                                            if port_kernel(name, k[1]))
+                      / steps}
+               for name in PORT_KERNELS}}
     print(f"[profile] {label}: wall {wall_ms:.2f} ms, device "
           f"{dev_ms:.2f} ms (busy share {out['device_busy_share']:.3f}); "
           f"top: " + "; ".join(f"{k['name'][:40]} {k['ms_per_step']:.2f} ms"
-                               for k in out["top_kernels"][:4]), flush=True)
+                               for k in out["top_kernels"][:4])
+          + "; port: " + ", ".join(
+              f"{n} {v['ms_per_step']:.3f} ms x {v['calls_per_step']:g}"
+              for n, v in out["port_kernels"].items()
+              if v["calls_per_step"]), flush=True)
     return out
 
 
@@ -1016,13 +1123,16 @@ def phase_timings(gen, lens, launches, per_step, errs):
 def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     """(10) device time per call and per decode step of the three W-rank
     kernels at the shapes of phase 9 (tp virtual ranks, batch 4, the
-    served lengths), beside their bound, their plain version (timed
-    eagerly: it synchronises the host) and one PyTorch library call the
-    port never makes. B of the AG+GEMM (the
-    33.5 MB ``wo``) is cycled through copies that overflow the 50 MB L2,
-    as the layers' distinct weights do."""
+    served lengths), in CUDA-graph replays like phase 6, beside their
+    bound, their plain version (timed eagerly: it synchronises the host)
+    and one PyTorch library call the port never makes. B of the AG+GEMM
+    (the 33.5 MB ``wo``) is cycled through copies that overflow the 50 MB
+    L2, as the layers' distinct weights do. The fused paged decode's row
+    also gives its latency floor: one empty cooperative launch of its
+    grid, graph-timed the same way."""
     import torch.nn.functional as F
     from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels import _build, symm
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
     L, B, H, KVH, D, bs = 32, len(lens), 32, 8, 128, 16
@@ -1056,7 +1166,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     def ag():
         b = next(cyc)
         return ag_gemm_fused(shards, [b] * tp, mesh)
-    t_k = queued_ms(ag, iters=40)
+    t_k = graph_ms(ag, iters=40)
     t_p = time_ms(lambda: ag_gemm_plain(shards, [next(cyc)] * tp),
                   iters=10)
     t_l = graph_ms(lambda: torch.matmul(a, next(cyc)), iters=40)
@@ -1065,10 +1175,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
         "src/repro/kernels/ag_gemm.py:114", t_k, t_p, t_l, by,
         tp * 2 * M * K * N / PEAK_OPS[bf16],
         f"one decode step at batch {B} over {tp} virtual ranks "
-        f"(wo: {M}x{K} . {K}x{N} bf16 per layer)",
-        bound_b_w_times_ms=1e3 * launches["ag_gemm_fused"]
-        / steps["ag_gemm_fused"] * (by + (tp - 1) * nbytes(b0))
-        / HBM_BYTES_PER_S)
+        f"(wo: {M}x{K} . {K}x{N} bf16 per layer)")
     del bw, cyc
     torch.cuda.empty_cache()
 
@@ -1086,8 +1193,16 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     vps = [vp[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(tp)]
     scale = D ** -0.5
     args = ([q] * tp, kps, vps, [cl] * tp, [tb] * tp, scale)
-    t_k = queued_ms(lambda: kfd.flash_decode_paged_fused(*args, mesh=mesh),
-                    iters=50)
+    t_k = graph_ms(lambda: kfd.flash_decode_paged_fused(*args, mesh=mesh),
+                   iters=50)
+    plan = kfd.decode_plan(B, KVH, tp, gw, symm.sm_count("cuda:0"),
+                           symm.capacity("cuda:0", kfd._per_sm_query(), D,
+                                         H // KVH, 1))
+    empty = _build.load("flash_decode_paged").symm_empty_launch
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    t_floor = graph_ms(lambda: _build.check(empty(
+        plan.grid, 128, torch.cuda.current_stream().cuda_stream),
+        "symm_empty_launch"), iters=50)
 
     def paged_plain():
         return kfd.fused_plain(
@@ -1113,7 +1228,11 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
         t_k, t_p, t_l, by,
         sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
         f"one decode step at batch {B} over {tp} virtual ranks, cur_len "
-        f"{lens}, gather width {gw}")
+        f"{lens}, gather width {gw}",
+        grid=plan.grid, n_split=plan.n_split,
+        latency_floor_call_ms=t_floor,
+        latency_floor_ms=launches["flash_decode_paged_fused"]
+        / steps["flash_decode_paged_fused"] * t_floor)
 
     # fused contiguous (strided) decode at the same lengths, S_max 256
     S_max = 256
@@ -1125,8 +1244,8 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     ks = [kc[:, r * Sl:(r + 1) * Sl].contiguous() for r in range(tp)]
     vs = [vc[:, r * Sl:(r + 1) * Sl].contiguous() for r in range(tp)]
     args = ([q] * tp, ks, vs, [cl] * tp, scale)
-    t_k = queued_ms(lambda: kfd.flash_decode_fused(*args, mesh=mesh),
-                    iters=50)
+    t_k = graph_ms(lambda: kfd.flash_decode_fused(*args, mesh=mesh),
+                   iters=50)
 
     def strided_plain():
         return kfd.fused_plain(
@@ -1177,6 +1296,7 @@ def main():
             "ag_gemm_fused": phase_ag_gemm(gen),
             "flash_decode_paged_fused": phase_paged_ranks(gen),
             "flash_decode_fused": phase_strided(gen)}
+    phase_graph_replays(gen)
     if "--kernels-only" in sys.argv:
         return
     if "--peers" in sys.argv:

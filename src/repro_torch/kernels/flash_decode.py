@@ -27,12 +27,17 @@ skipped; a slot with nothing to attend has m = NEG, l = 0 and comes out
 as zeros.
 
 Counters (kernel launches; plain-version calls): ``<wrapper>.launches``
-and ``<wrapper>.plain_calls`` on each wrapper. A multi-rank call counts
-one launch per device.
+and ``<wrapper>.plain_calls`` on each wrapper. A call counts one launch
+per device: the paged kernel is one launch in every mode
+(:func:`decode_plan` sizes its grid), the contiguous kernel a pair.
+The fused calls take their epoch from device memory (``kernels.symm``),
+so they can be captured in a CUDA graph once a warm-up call has sized
+the mesh's buffers.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -44,9 +49,8 @@ from repro_torch.kernels import _build, symm
 NEG = torch.finfo(torch.float32).min
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-_THREADS, _ACC = 128, 8          # csrc: g * D <= NT * ACCN
+_MAX_GD = 1024                   # csrc: g * D <= 1024 in both kernels
 NORMAL, PARTIAL, FUSED = 0, 1, 2  # csrc/fd_common.cuh Mode
-_SM_COUNT: dict[int, int] = {}
 
 
 # --------------------------------------------------------- plain versions
@@ -151,36 +155,100 @@ def _check_common(name, q, k, v, cur_len, mesh):
             raise ValueError(f"{name}: q, caches and cur_len must be "
                              f"contiguous")
     KVH = k[0].shape[-2]
-    if D not in _HEAD_DIMS or (H // KVH) * D > _THREADS * _ACC:
+    if D not in _HEAD_DIMS or (H // KVH) * D > _MAX_GD:
         raise ValueError(f"{name}: kernel built for head dims {_HEAD_DIMS} "
-                         f"with (H/KVH)*D <= {_THREADS * _ACC}; got D={D}, "
+                         f"with (H/KVH)*D <= {_MAX_GD}; got D={D}, "
                          f"H={H}, KVH={KVH}")
     if W > D:
         raise ValueError(f"{name}: at most D={D} ranks")
     return W
 
 
-def _sm_count(device) -> int:
-    idx = torch.device(device).index or 0
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _SM_COUNT[idx]
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The paged kernel's grid (``csrc/flash_decode_paged.cu``): a unit
+    is (local rank, slot, KV head), an item one of its ``n_split``
+    splits. ``grid`` blocks walk the items (block i takes items i,
+    i + grid, ...) and, in FUSED mode, the units the same way for the
+    combine."""
+    n_local: int
+    B: int
+    KVH: int
+    n_split: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.n_local * self.B * self.KVH
+
+    @property
+    def items(self) -> int:
+        return self.units * self.n_split
+
+    def unit(self, u: int) -> tuple[int, int, int]:
+        """(local rank, slot, KV head) of unit ``u``."""
+        return u // (self.B * self.KVH), u // self.KVH % self.B, \
+            u % self.KVH
+
+    def items_of(self, block: int) -> list[tuple[int, int, int, int]]:
+        """(local rank, slot, KV head, split) of the items ``block``
+        computes."""
+        return [(*self.unit(i // self.n_split), i % self.n_split)
+                for i in range(block, self.items, self.grid)]
+
+    def units_of(self, block: int) -> list[tuple[int, int, int]]:
+        """The units whose sources ``block`` combines (FUSED)."""
+        return [self.unit(u) for u in range(block, self.units, self.grid)]
+
+
+SPLIT_MIN = 4         # table entries a split walks at least
+LIST_CAP = 512        # csrc/flash_decode_paged.cu LIST_CAP
+
+
+def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
+                capacity: int | None = None) -> DecodePlan:
+    """Splits per unit and blocks of one paged launch. A unit walks its
+    slot's table row of ``C`` entries; it is split only while the card
+    has fewer than about two blocks per SM and every split still walks
+    ``SPLIT_MIN`` entries (at most 16 splits, and never more than
+    ``LIST_CAP`` entries per split). ``capacity`` (the blocks the card
+    holds at once) bounds the grid of a cooperative (FUSED) launch;
+    ``None`` launches one block per item."""
+    units = n_local * B * KVH
+    want = -(-2 * sm_count // max(units, 1))
+    n_split = max(1, min(want, -(-C // SPLIT_MIN), 16), -(-C // LIST_CAP))
+    items = units * n_split
+    grid = items if capacity is None else min(items, capacity)
+    return DecodePlan(n_local, B, KVH, n_split, grid)
+
+
+def split_range(c_lo: int, c_hi: int, n_split: int, sp: int) -> range:
+    """The table columns split ``sp`` walks of the reachable ``[c_lo,
+    c_hi)`` (the kernel's arithmetic)."""
+    per = -(-(c_hi - c_lo) // n_split)
+    lo = c_lo + sp * per
+    return range(lo, min(c_hi, lo + per))
+
+
+def rec_floats(g: int, D: int) -> int:
+    """fp32 words of one unit's record (o, m, l) in an inbox slot,
+    padded to 16 bytes (csrc/flash_decode_paged.cu rec_floats)."""
+    return -(-(g * D + 2 * g) // 4) * 4
 
 
 def n_splits(B: int, KVH: int, C: int, device) -> int:
-    """Work units (table entries or tiles) per slot are walked by this
-    many blocks: enough (slot, KV head, split) blocks for about two per
-    SM, at most C."""
-    want = -(-2 * _sm_count(device) // max(B * KVH, 1))
+    """Blocks per (slot, KV head) of the contiguous kernel's Part 1:
+    enough for about two per SM, at most C (its tiles) and 16."""
+    want = -(-2 * symm.sm_count(device) // max(B * KVH, 1))
     return max(1, min(C, 16, want))
 
 
 def _comm_chunks(B: int, H: int, groups, device) -> int:
-    """Blocks per rank of the communicating pass: at most four per SM
-    over the busiest device's ranks, at most one per (slot, head) row."""
+    """Blocks per rank of the contiguous kernel's communicating pass: at
+    most four per SM over the busiest device's ranks, at most one per
+    (slot, head) row."""
     per_dev = max(len(r) for r in groups.values())
-    return max(1, min(B * H, 64, 4 * _sm_count(device) // per_dev))
+    return max(1, min(B * H, 64, 4 * symm.sm_count(device) // per_dev))
 
 
 _TILE = 16                       # csrc/flash_decode.cu TILE
@@ -188,61 +256,117 @@ _TILE = 16                       # csrc/flash_decode.cu TILE
 
 def _lib(paged: bool):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    sym = [ptr, ptr, ptr, i32, i32, ctypes.c_longlong, ctypes.c_longlong,
+           ptr]
     if paged:
         fn = _build.load("flash_decode_paged").fd_paged_launch
-        head = [ptr] * 5 + [i32, ptr, i32, ptr, ptr] + [i32] * 8
+        if fn.argtypes is None:
+            fn.argtypes = ([ptr] * 5 + [i32, ptr, i32, ptr, ptr, ptr]
+                           + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + sym)
+            fn.restype = ctypes.c_int
     else:
         fn = _build.load("flash_decode").fd_launch
-        head = [ptr] * 5 + [i32, ptr, ptr] + [i32] * 6
+        if fn.argtypes is None:
+            fn.argtypes = ([ptr] * 4 + [ptr, i32, ptr, ptr] + [i32] * 6
+                           + [ctypes.c_float] + [i32] * 4 + sym)
+            fn.restype = ctypes.c_int
+    return fn
+
+
+def _per_sm_query():
+    fn = _build.load("flash_decode_paged").fd_paged_blocks_per_sm
     if fn.argtypes is None:
-        fn.argtypes = head + [ctypes.c_float] + [i32] * 4 + [
-            ptr, ptr, i32, i32, ctypes.c_uint, ctypes.c_longlong,
-            ctypes.c_longlong, ptr]
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
-            tables=None):
-    """Launch the paged (``tables`` given) or strided kernel once per
-    device over its local ranks; returns per-rank outputs ((n_local, ...)
-    views): (B, H, D) in q's dtype, or fp32 (B, H, D + 2) partials."""
+def _no_symm(W: int) -> tuple:
+    """The symmetric-buffer arguments of a launch that does not
+    communicate (the strided kernel still reads W: its positions are
+    j * W + rank)."""
+    return (None, None, None, W, 0, 0, 0)
+
+
+def _launch_paged(name, mode, q, k, v, cur_len, tables, scale, window,
+                  mesh=None):
+    """One launch of the paged kernel per device over its local ranks;
+    returns per-rank outputs ((n_local, ...) views): (B, H, D) in q's
+    dtype, or fp32 (B, H, D + 2) partials."""
     W = len(k)
     B, H, D = q[0].shape
-    KVH = k[0].shape[-2]
+    n_loc, bs, KVH = k[0].shape[:3]
+    C = tables[0].shape[1]
+    g = H // KVH
     groups = symm.rank_groups(k)
-    chunks, call = 0, None
-    if mode == FUSED:
-        comm = symm.communicator(mesh)
-        chunks = _comm_chunks(B, H, groups, k[0].device)
-        call = comm.call(B * H * (D + 2) * 4, chunks)
-    fn = _lib(tables is not None)
+    call = None
+    if mode == FUSED:               # records travel as LL lines: 8 B a word
+        call = symm.communicator(mesh).call(
+            B * KVH * rec_floats(g, D) * 8, 1)
+    fn = _lib(True)
+    dt = _DTYPES[q[0].dtype]
     outs: list = [None] * W
     for dev, ranks in groups.items():
         n_local = len(ranks)
         if n_local > 8:
             raise ValueError(f"{name}: at most 8 ranks per device, got "
                              f"{n_local} on {dev}")
-        if tables is not None:
-            n_loc, bs = k[0].shape[:2]
-            C = tables[0].shape[1]
-            n_split = n_splits(B * n_local, KVH, C, dev)
-            head = (symm.ptrs([q[r] for r in ranks]),
+        cap = (symm.capacity(dev, _per_sm_query(), D, g, dt)
+               if mode == FUSED else None)
+        plan = decode_plan(B, KVH, n_local, C, symm.sm_count(dev), cap)
+        split_rec = cnt = None
+        if plan.n_split > 1:
+            split_rec = torch.empty(
+                (plan.items, rec_floats(g, D)), dtype=torch.float32,
+                device=dev)
+            cnt = symm.counters(dev, plan.units)
+        out = (torch.empty((n_local, B, H, D + 2), dtype=torch.float32,
+                           device=dev) if mode == PARTIAL else
+               torch.empty((n_local, B, H, D), dtype=q[0].dtype,
+                           device=dev))
+        sym = (call.args(mesh.distinct.index(dev)) if call is not None
+               else _no_symm(W))
+        with torch.cuda.device(dev):
+            rc = fn(symm.ptrs([q[r] for r in ranks]),
                     symm.ptrs([k[r] for r in ranks]),
                     symm.ptrs([v[r] for r in ranks]),
                     symm.ptrs([cur_len[r] for r in ranks]),
                     symm.ptrs([tables[r] for r in ranks]),
-                    tables[ranks[0]].stride(0), symm.ints(ranks), n_local)
-            dims = (B, H, KVH, D, bs, n_loc, C, n_split)
-        else:
-            S_loc = k[0].shape[1]
-            n_split = n_splits(B * n_local, KVH, -(-S_loc // _TILE), dev)
-            head = (symm.ptrs([q[r] for r in ranks]),
-                    symm.ptrs([k[r] for r in ranks]),
-                    symm.ptrs([v[r] for r in ranks]),
-                    symm.ptrs([cur_len[r] for r in ranks]),
-                    symm.ints(ranks), n_local)
-            dims = (B, H, KVH, D, S_loc, n_split)
+                    tables[ranks[0]].stride(0), symm.ints(ranks), n_local,
+                    None if split_rec is None else split_rec.data_ptr(),
+                    None if cnt is None else cnt.data_ptr(),
+                    out.data_ptr(), B, H, KVH, D, bs, n_loc, C,
+                    plan.n_split, plan.grid, float(scale),
+                    -1 if window is None else int(window), dt, mode, *sym,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, name)
+        for i, r in enumerate(ranks):
+            outs[r] = out[i]
+    return outs
+
+
+def _launch_strided(name, mode, q, k, v, cur_len, scale, window,
+                    mesh=None):
+    """The contiguous (strided) kernel's launch pair per device over its
+    local ranks; outputs as :func:`_launch_paged`."""
+    W = len(k)
+    B, H, D = q[0].shape
+    KVH = k[0].shape[-2]
+    S_loc = k[0].shape[1]
+    groups = symm.rank_groups(k)
+    chunks, call = 0, None
+    if mode == FUSED:
+        comm = symm.communicator(mesh)
+        chunks = _comm_chunks(B, H, groups, k[0].device)
+        call = comm.call(B * H * (D + 2) * 4, chunks)
+    fn = _lib(False)
+    outs: list = [None] * W
+    for dev, ranks in groups.items():
+        n_local = len(ranks)
+        if n_local > 8:
+            raise ValueError(f"{name}: at most 8 ranks per device, got "
+                             f"{n_local} on {dev}")
+        n_split = n_splits(B * n_local, KVH, -(-S_loc // _TILE), dev)
         part = torch.empty((n_local, B, n_split, H, D + 2),
                            dtype=torch.float32, device=dev)
         out = (torch.empty((n_local, B, H, D + 2), dtype=torch.float32,
@@ -250,9 +374,14 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
                torch.empty((n_local, B, H, D), dtype=q[0].dtype,
                            device=dev))
         sym = (call.args(mesh.distinct.index(dev)) if call is not None
-               else (None, None, W, 0, 0, 0, 0))
+               else _no_symm(W))
         with torch.cuda.device(dev):
-            rc = fn(*head, part.data_ptr(), out.data_ptr(), *dims,
+            rc = fn(symm.ptrs([q[r] for r in ranks]),
+                    symm.ptrs([k[r] for r in ranks]),
+                    symm.ptrs([v[r] for r in ranks]),
+                    symm.ptrs([cur_len[r] for r in ranks]),
+                    symm.ints(ranks), n_local, part.data_ptr(),
+                    out.data_ptr(), B, H, KVH, D, S_loc, n_split,
                     float(scale), -1 if window is None else int(window),
                     _DTYPES[q[0].dtype], mode, chunks, *sym,
                     torch.cuda.current_stream(dev).cuda_stream)
@@ -312,8 +441,8 @@ def flash_decode_paged(q, k_pool, v_pool, cur_len, tables, scale,
                                   window)
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    out = _launch(name, NORMAL, [q], [k_pool], [v_pool], [cur_len], scale,
-                  window, tables=[tables])[0]
+    out = _launch_paged(name, NORMAL, [q], [k_pool], [v_pool], [cur_len],
+                        [tables], scale, window)[0]
     flash_decode_paged.launches += 1
     return out
 
@@ -342,8 +471,8 @@ def flash_decode_paged_partial(q, k_pools, v_pools, cur_len, tables, scale,
                                     cur_len[r], tables[r], scale, window,
                                     base=r * n_loc)
                 for r in range(len(k_pools))]
-    raw = _launch(name, PARTIAL, q, k_pools, v_pools, cur_len, scale,
-                  window, tables=tables)
+    raw = _launch_paged(name, PARTIAL, q, k_pools, v_pools, cur_len,
+                        tables, scale, window)
     flash_decode_paged_partial.launches += len(symm.rank_groups(k_pools))
     return [_split(x) for x in raw]
 
@@ -363,8 +492,8 @@ def flash_decode_paged_fused(q, k_pools, v_pools, cur_len, tables, scale,
             [paged_partial_plain(q[r], k_pools[r], v_pools[r], cur_len[r],
                                  tables[r], scale, window, base=r * n_loc)
              for r in range(len(k_pools))], q[0].dtype)
-    out = _launch(name, FUSED, q, k_pools, v_pools, cur_len, scale, window,
-                  mesh=mesh, tables=tables)
+    out = _launch_paged(name, FUSED, q, k_pools, v_pools, cur_len, tables,
+                        scale, window, mesh=mesh)
     flash_decode_paged_fused.launches += len(symm.rank_groups(k_pools))
     return out
 
@@ -394,8 +523,8 @@ def flash_decode_partial(q, k_shards, v_shards, cur_len, scale,
         return [strided_partial_plain(q[r], k_shards[r], v_shards[r],
                                       cur_len[r], scale, window, r, W)
                 for r in range(W)]
-    raw = _launch(name, PARTIAL, q, k_shards, v_shards, cur_len, scale,
-                  window)
+    raw = _launch_strided(name, PARTIAL, q, k_shards, v_shards, cur_len,
+                          scale, window)
     flash_decode_partial.launches += len(symm.rank_groups(k_shards))
     return [_split(x) for x in raw]
 
@@ -416,8 +545,8 @@ def flash_decode_fused(q, k_shards, v_shards, cur_len, scale,
             [strided_partial_plain(q[r], k_shards[r], v_shards[r],
                                    cur_len[r], scale, window, r, W)
              for r in range(W)], q[0].dtype)
-    out = _launch(name, NORMAL if W == 1 else FUSED, q, k_shards, v_shards,
-                  cur_len, scale, window, mesh=mesh)
+    out = _launch_strided(name, NORMAL if W == 1 else FUSED, q, k_shards,
+                          v_shards, cur_len, scale, window, mesh=mesh)
     flash_decode_fused.launches += len(symm.rank_groups(k_shards))
     return out
 

@@ -142,7 +142,11 @@ def _gemm_ok(got, want, dt):
                 .all())          # one bf16 ulp of an fp32 sum
 
 
-def _ag_gemm_case(devices, M, k, N, dt, seed):
+def _ag_gemm_case(devices, M, k, N, dt, seed, shared=False):
+    """One fused AG+GEMM call vs plain; ``shared``: the ranks of a card
+    pass one B tensor (the replicated weight: one product per card),
+    else a copy each (one product per rank). Outputs must be
+    bit-identical on every rank either way."""
     from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
     W = len(devices)
     g = torch.Generator().manual_seed(seed)
@@ -150,13 +154,15 @@ def _ag_gemm_case(devices, M, k, N, dt, seed):
     b = (torch.randn((W * k, N), generator=g) / (W * k) ** 0.5).to(dt)
     shards = [a[:, r * k:(r + 1) * k].contiguous().to(d)
               for r, d in enumerate(devices)]
-    bs = [b.to(d) for d in devices]
+    per_card = {d: b.to(d) for d in devices}
+    bs = [per_card[d] if shared else b.to(d) for d in devices]
     n0 = ag_gemm_fused.launches
     got = ag_gemm_fused(shards, bs, _mesh(devices))
     want = ag_gemm_plain([s.cpu() for s in shards], [b])[0]
     torch.cuda.synchronize()
     assert ag_gemm_fused.launches == n0 + len(set(devices))
     for o in got:
+        assert torch.equal(o.cpu(), got[0].cpu())   # identical on every rank
         assert _gemm_ok(o.cpu(), want, dt)
 
 
@@ -168,7 +174,7 @@ def test_ag_gemm_kernel_matches_plain_on_virtual_ranks(cuda, W, M, k, N,
                                                        dtype):
     for epoch in range(3):            # flag reuse, both inbox parities
         _ag_gemm_case(["cuda:0"] * W, M, k, N, getattr(torch, dtype),
-                      epoch + M * k)
+                      epoch + M * k, shared=bool(epoch % 2))
 
 
 def _paged_case(devices, dt, window, seed, B=5, H=8, KVH=2, D=64, bs=8,
@@ -238,11 +244,15 @@ def _strided_case(devices, dt, window, seed, B=4, H=8, KVH=2, D=64,
             [x.to(d) for x, d in zip(vs, devices)],
             [cur.to(d) for d in devices], scale)
     got = kfd.flash_decode_fused(*args, window=window, mesh=_mesh(devices))
+    got_p = kfd.flash_decode_partial(*args, window=window)
     torch.cuda.synchronize()
     tol = 1e-5 if dt == torch.float32 else 2e-2
     for o in got:
         assert torch.equal(o.cpu(), got[0].cpu())
         assert (o.float().cpu() - want.float()).abs().max() <= tol
+    for (o, m, l), (wo, wm, wl) in zip(got_p, parts):
+        assert (m.cpu() - wm).abs().max() <= 1e-4
+        assert (l.cpu() - wl).abs().max() <= 1e-3 * max(1.0, wl.max())
 
 
 @pytest.mark.parametrize("W", [1, 2, 4])
@@ -261,6 +271,223 @@ def test_fused_kernels_share_one_communicator_call_after_call(cuda):
         _ag_gemm_case(["cuda:0"] * 4, 8, 256, 512, torch.bfloat16, seed)
         _paged_case(["cuda:0"] * 4, torch.float32, None, seed)
         _strided_case(["cuda:0"] * 4, torch.bfloat16, 20, seed)
+
+
+def _paged_inputs(g, dt, B, H, KVH, D, bs, n_blocks, C, cur):
+    q = torch.randn((B, H, D), generator=g).to(dt)
+    kp = torch.randn((n_blocks, bs, KVH, D), generator=g).to(dt)
+    vp = torch.randn((n_blocks, bs, KVH, D), generator=g).to(dt)
+    tb = torch.randperm(n_blocks, generator=g)[:B * C].reshape(B, C) \
+        .to(torch.int32)
+    tb[0, 0] = -1                            # a reclaim hole
+    return q, kp, vp, torch.tensor(cur, dtype=torch.int32), tb
+
+
+@pytest.mark.parametrize("W,B,H,KVH,D,bs,C,cur", [
+    (1, 3, 8, 2, 128, 32, 40, [1, 700, 1280]),     # 2 tiles per block,
+    (4, 3, 8, 2, 128, 32, 40, [1, 700, 1280]),     # many splits
+    (4, 48, 32, 8, 128, 16, 4, [64] * 48),         # more units than fit
+    (1, 1, 4, 1, 64, 16, 200, [3000]),             # splits that cross a
+    (4, 1, 4, 1, 64, 16, 200, [3000]),             # run of 32 entries
+])
+@pytest.mark.parametrize("window", [None, 300])
+def test_paged_kernel_long_blocks_splits_and_many_units(cuda, W, B, H, KVH,
+                                                        D, bs, C, cur,
+                                                        window):
+    """Blocks longer than a staged tile, tables long enough to split,
+    splits whose entries cross a run of 32 table columns (compacted
+    through shared memory), and a fused grid with more units than the
+    card holds at once (each block then walks several)."""
+    from repro_torch.kernels import flash_decode as kfd
+    g = torch.Generator().manual_seed(B * C)
+    n_blocks = max(4 * B * C, 64)
+    q, kp, vp, cl, tb = _paged_inputs(g, torch.float32, B, H, KVH, D, bs,
+                                      n_blocks, C, cur)
+    scale = D ** -0.5
+    if W == 1:
+        got = kfd.flash_decode_paged(q.to(cuda), kp.to(cuda), vp.to(cuda),
+                                     cl.to(cuda), tb.to(cuda), scale,
+                                     window=window)
+        want = kfd.paged_decode_plain(q, kp, vp, cl, tb, scale, window)
+        assert (got.cpu() - want).abs().max() <= 1e-5
+        return
+    n_loc = n_blocks // W
+    kps = [kp[r * n_loc:(r + 1) * n_loc] for r in range(W)]
+    vps = [vp[r * n_loc:(r + 1) * n_loc] for r in range(W)]
+    parts = [kfd.paged_partial_plain(q, kps[r], vps[r], cl, tb, scale,
+                                     window, base=r * n_loc)
+             for r in range(W)]
+    want = kfd.fused_plain(parts, torch.float32)[0]
+    args = ([q.to(cuda)] * W, [x.to(cuda) for x in kps],
+            [x.to(cuda) for x in vps], [cl.to(cuda)] * W,
+            [tb.to(cuda)] * W, scale)
+    got = kfd.flash_decode_paged_fused(*args, window=window,
+                                       mesh=_mesh(["cuda:0"] * W))
+    got_p = kfd.flash_decode_paged_partial(*args, window=window)
+    for o in got:
+        assert torch.equal(o, got[0])
+        assert (o.cpu() - want).abs().max() <= 1e-5
+    for (o, m, l), (wo, wm, wl) in zip(got_p, parts):
+        assert (m.cpu() - wm).abs().max() <= 1e-4
+        assert (l.cpu() - wl).abs().max() <= 1e-3 * max(1.0, wl.max())
+
+
+def _epoch(mesh) -> int:
+    """The card's device-resident epoch word (one card)."""
+    torch.cuda.synchronize()
+    return mesh.symm.epoch()
+
+
+class _Replayable:
+    """Static CUDA inputs of one fused kernel, refilled in place with
+    fresh values (``fill(seed)`` returns the plain version's output),
+    and the call a CUDA graph captures (``call()``)."""
+
+    def __init__(self, kind, W, dt):
+        self.kind, self.W, self.dt = kind, W, dt
+        self.mesh = None
+        if kind == "ag_gemm":
+            self.M, self.k, self.N = 8, 256, 512
+            self.a = [torch.empty((self.M, self.k), dtype=dt, device="cuda")
+                      for _ in range(W)]
+            self.b = torch.empty((W * self.k, self.N), dtype=dt,
+                                 device="cuda")
+        elif kind == "paged":
+            self.dims = dict(B=5, H=8, KVH=2, D=64, bs=8, n_blocks=32, C=6)
+            self.cur = [1, 30, 8, 9, 48]
+            self.static = None
+        else:
+            self.B, self.H, self.KVH, self.D, self.S = 4, 8, 2, 64, 96 // W
+            self.static = None
+
+    def fill(self, seed):
+        from repro_torch.kernels import flash_decode as kfd
+        from repro_torch.kernels.ag_gemm import ag_gemm_plain
+        W, dt = self.W, self.dt
+        g = torch.Generator().manual_seed(seed)
+        if self.kind == "ag_gemm":
+            a = torch.randn((self.M, W * self.k), generator=g).to(dt)
+            b = (torch.randn((W * self.k, self.N), generator=g)
+                 / (W * self.k) ** 0.5).to(dt)
+            for r in range(W):
+                self.a[r].copy_(a[:, r * self.k:(r + 1) * self.k])
+            self.b.copy_(b)
+            return ag_gemm_plain([x.cpu() for x in self.a], [b])[0]
+        if self.kind == "paged":
+            d = self.dims
+            q, kp, vp, cl, tb = _paged_inputs(
+                g, dt, d["B"], d["H"], d["KVH"], d["D"], d["bs"],
+                d["n_blocks"], d["C"], self.cur)
+            n_loc = d["n_blocks"] // W
+            kps = [kp[r * n_loc:(r + 1) * n_loc] for r in range(W)]
+            vps = [vp[r * n_loc:(r + 1) * n_loc] for r in range(W)]
+            new = (q, kps, vps, cl, tb)
+            want = kfd.fused_plain(
+                [kfd.paged_partial_plain(q, kps[r], vps[r], cl, tb,
+                                         d["D"] ** -0.5, None,
+                                         base=r * n_loc)
+                 for r in range(W)], dt)[0]
+        else:
+            q = torch.randn((self.B, self.H, self.D), generator=g).to(dt)
+            ks = [torch.randn((self.B, self.S, self.KVH, self.D),
+                              generator=g).to(dt) for _ in range(W)]
+            vs = [torch.randn((self.B, self.S, self.KVH, self.D),
+                              generator=g).to(dt) for _ in range(W)]
+            cl = torch.tensor([1, W + 1, 50, 96], dtype=torch.int32)
+            new = (q, ks, vs, cl)
+            want = kfd.fused_plain(
+                [kfd.strided_partial_plain(q, ks[r], vs[r], cl,
+                                           self.D ** -0.5, None, r, W)
+                 for r in range(W)], dt)[0]
+        if self.static is None:
+            self.static = tuple(
+                [x.cuda() for x in t] if isinstance(t, list) else t.cuda()
+                for t in new)
+        else:
+            for dst, src in zip(self.static, new):
+                for d_, s_ in zip(dst if isinstance(dst, list) else [dst],
+                                  src if isinstance(src, list) else [src]):
+                    d_.copy_(s_)
+        return want
+
+    def call(self):
+        from repro_torch.kernels import flash_decode as kfd
+        from repro_torch.kernels.ag_gemm import ag_gemm_fused
+        W = self.W
+        if self.kind == "ag_gemm":
+            return ag_gemm_fused(self.a, [self.b] * W, self.mesh)
+        if self.kind == "paged":
+            q, kps, vps, cl, tb = self.static
+            return kfd.flash_decode_paged_fused(
+                [q] * W, kps, vps, [cl] * W, [tb] * W,
+                self.dims["D"] ** -0.5, mesh=self.mesh)
+        q, ks, vs, cl = self.static
+        return kfd.flash_decode_fused([q] * W, ks, vs, [cl] * W,
+                                      self.D ** -0.5, mesh=self.mesh)
+
+    def check(self, got, want):
+        for o in got:
+            assert torch.equal(o, got[0])      # identical on every rank
+        if self.kind == "ag_gemm":
+            assert _gemm_ok(got[0].cpu(), want, self.dt)
+        else:
+            tol = 1e-5 if self.dt == torch.float32 else 2e-2
+            assert (got[0].float().cpu() - want.float()).abs().max() <= tol
+
+
+def _capture(cases, mesh):
+    """Warm every case up (sizes the mesh's buffers), then capture one
+    call of each, in order, in one CUDA graph."""
+    for c in cases:
+        c.mesh = mesh
+        c.fill(0)
+        c.call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c.call() for c in cases]
+    return graph, outs
+
+
+@pytest.mark.parametrize("kind", ["ag_gemm", "paged", "strided"])
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_kernel_replays_from_a_cuda_graph(cuda, kind, W, dtype):
+    """One call captured in a CUDA graph, replayed three times with
+    fresh inputs copied in: every replay matches the plain version, and
+    the card's epoch word advances once per replay (a replayed call
+    waits for this replay's pushes, not the capture's)."""
+    case = _Replayable(kind, W, getattr(torch, dtype))
+    mesh = _mesh(["cuda:0"] * W)
+    graph, (out,) = _capture([case], mesh)
+    e0 = _epoch(mesh)
+    for rep in range(3):
+        want = case.fill(rep + 1)
+        graph.replay()
+        torch.cuda.synchronize()
+        case.check(out, want)
+        assert _epoch(mesh) == e0 + rep + 1
+    del graph
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_one_graph_mixes_ag_gemm_and_fused_paged_decode(cuda, W):
+    """The fused AG+GEMM and the fused paged decode of one layer, in one
+    graph on one mesh, replayed three times with fresh inputs."""
+    cases = [_Replayable("ag_gemm", W, torch.bfloat16),
+             _Replayable("paged", W, torch.bfloat16),
+             _Replayable("ag_gemm", W, torch.bfloat16)]
+    mesh = _mesh(["cuda:0"] * W)
+    graph, outs = _capture(cases, mesh)
+    e0 = _epoch(mesh)
+    for rep in range(3):
+        wants = [c.fill(10 * rep + i + 1) for i, c in enumerate(cases)]
+        graph.replay()
+        torch.cuda.synchronize()
+        for c, o, w in zip(cases, outs, wants):
+            c.check(o, w)
+        assert _epoch(mesh) == e0 + 3 * (rep + 1)
+    del graph
 
 
 @pytest.fixture
@@ -303,20 +530,15 @@ def test_serve_over_real_peers(two_gpus):
 _MISSING_RANK = r"""
 import sys, time, torch
 from repro_torch.distributed.context import Mesh
-from repro_torch.kernels import symm
-from repro_torch.kernels.ag_gemm import _lib
+from repro_torch.kernels.ag_gemm import launch_card
 W, M, k, N = 2, 4, 64, 64
 mesh = Mesh(["cuda:0"] * W)
 a = torch.randn(M, k, device="cuda")
 b = torch.randn(W * k, N, device="cuda")
 c = torch.empty(M, N, device="cuda")
-call = symm.communicator(mesh).call(M * k * 4, 4)
 t0 = time.time()
 # launch rank 0 alone: rank 1 never pushes its shard
-rc = _lib()(symm.ptrs([a]), symm.ptrs([b]), symm.ptrs([c]), symm.ints([0]),
-            1, M, N, k, 0, *call.args(0),
-            torch.cuda.current_stream().cuda_stream)
-assert rc == 0, rc
+launch_card([a], [b], [c], [0], mesh)
 try:
     torch.cuda.synchronize()
 except RuntimeError as e:
