@@ -6,15 +6,19 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then runs, failing on the first phase that fails:
 
 1. device: the card's name and power limit, CUDA present;
-2. GEMM kernel vs its plain version at the decode shapes of llama3-8b;
+2. GEMM kernels vs their plain version at the decode shapes of llama3-8b
+   (M 1, 3, 8, 16) and ragged ones, and the grouped launches (wq/wk/wv,
+   wg/wu) bit-equal to single-product calls;
 3. paged flash-decode kernel vs its plain version at full-width heads;
 7. the W-rank kernels vs their plain versions on virtual ranks of
    cuda:0, each over several calls in a row (flag reuse, both inbox
    parities): the fused AG+GEMM (W 2 and 4, the ``wo`` shape and
    ragged ones, one B per card and one per rank), the paged decode over
    4 ranks (fused and partial modes, holes, blocks of every rank), the
-   contiguous strided decode (W 1 and 4, with a window), outputs
-   bit-identical on every rank; then the three fused kernels replayed
+   contiguous strided decode (W 1 and 4, with a window, shards that are
+   not whole tiles; one launch per card per call in every mode, by the
+   counters and the profiler), outputs bit-identical on every rank;
+   then the three fused kernels replayed
    from CUDA graphs (alone and AG+GEMM with the paged decode in one
    graph) with fresh inputs, the card's epoch word advancing once per
    fused launch;
@@ -26,13 +30,16 @@ source, in parallel), then runs, failing on the first phase that fails:
 5. full-width llama3-8b (bf16, seeded random weights) served through
    the engine, with both W=1 kernels' launch counters read around it;
 9. the same weights over 4 virtual ranks under ``pallas``: a short
-   serve and a few contiguous-cache decode steps with every kernel's
-   counters read around them, and teacher-forced logits vs tp=1;
-6. W=1 kernel timings and
-10. W-rank kernel timings, both in CUDA-graph replays, each beside its
-   bound, plain version and one PyTorch library call (phase 10 also
-   times an empty cooperative launch of the paged decode's grid, its
-   latency floor).
+   serve and a few contiguous-cache decode steps (over the 4 ranks, then
+   on one) with every kernel's counters read around them, and
+   teacher-forced logits vs tp=1;
+6. W=1 kernel timings (the GEMM per shape and per group, its latency
+   floor, and the host's time per call of the GEMM wrappers beside
+   ``torch.matmul``'s) and
+10. W-rank kernel timings (and the contiguous decode at W = 1), both in
+   CUDA-graph replays, each beside its bound, plain version and one
+   PyTorch library call (phase 10 also times an empty cooperative
+   launch of the paged decode's grid, its latency floor).
 
 ``--kernels-only`` stops after phases 1-3 and 7; ``--peers`` (two or
 more cards) then runs phase 7's checks and wall times with one rank per
@@ -110,8 +117,8 @@ def graph_ms(fn, iters=20):
 
 # the __global__ functions of csrc/*.cu, as the profiler names them
 # ("(anonymous namespace)::<name><T, ...>(...)")
-PORT_KERNELS = ("mm_stream", "mm_kernel", "fd_paged", "ag_gemm_kernel",
-                "fd_strided_partial", "fd_comm", "fd_normal", "fd_fold")
+PORT_KERNELS = ("gemm_stream", "mm_kernel", "fd_paged", "fd_strided",
+                "ag_gemm_kernel")
 
 
 def port_kernel(name: str, key: str) -> bool:
@@ -148,6 +155,9 @@ def gemm_cases():
         [("unembed", 4096, 128256, torch.float32, True, 1)]
 
 
+GEMM_GROUPS = (("wqkv", ("wq", "wk", "wv")), ("wgu", ("wg", "wu")))
+
+
 def _gemm_operands(gen, M, K, N, dtype, trans_b):
     a = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
     bshape = (N, K) if trans_b else (K, N)
@@ -156,33 +166,74 @@ def _gemm_operands(gen, M, K, N, dtype, trans_b):
     return a, b
 
 
+def _gemm_err(got, want, dt, what):
+    """GEMM kernel vs plain: f32 within 1e-4 of the largest |C| (fp32
+    sums in another order); bf16 within 1 ulp (rtol 1e-2) -- both round
+    an fp32 sum to bf16 -- plus 1e-4 of the largest |C| for sums near
+    zero. Returns the max |err|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    if dt == torch.float32:
+        ok = err.max().item() <= 1e-4 * scale
+    else:
+        ok = bool((err <= 1e-2 * want.abs() + 1e-4 * scale).all())
+    check(ok, f"{what}: max err {err.max().item():.3e} (scale "
+              f"{scale:.3e})")
+    return err.max().item()
+
+
 def phase_gemm(gen):
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    """(2) the GEMM kernels vs the plain version at the llama3-8b decode
+    shapes (M = batch 1, 3, 8, 16) and ragged ones, then the grouped
+    launches (wq/wk/wv, wg/wu): bit-equal to single-product calls and
+    within the GEMM's tolerance of the plain version."""
+    from repro_torch.kernels.matmul import matmul, matmul_group, matmul_plain
     worst = 0.0
     cases = [(n, M, K, N, dt, tb) for (n, K, N, dt, tb, _) in gemm_cases()
-             for M in (1, 3, 8)]
+             for M in (1, 3, 8, 16)]
+    # general kernel (rows not whole 16-byte words), then the streaming
+    # kernel's ragged tiles, strips and M tiles
     cases += [("ragged", 5, 100, 77, torch.bfloat16, False),
               ("ragged", 5, 100, 77, torch.float32, False),
-              ("ragged_t", 5, 100, 77, torch.float32, True)]
+              ("ragged_t", 5, 100, 77, torch.float32, True),
+              ("ragged_t", 5, 136, 77, torch.bfloat16, True),
+              ("ragged_tma", 20, 136, 1000, torch.bfloat16, False),
+              ("ragged_tma", 20, 136, 1000, torch.float32, False)]
     for name, M, K, N, dt, tb in cases:
         a, b = _gemm_operands(gen, M, K, N, dt, tb)
-        got = matmul(a, b, trans_b=tb).float()
-        want = matmul_plain(a, b, tb).float()
+        got = matmul(a, b, trans_b=tb)
+        want = matmul_plain(a, b, tb)
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        scale = want.abs().max().item()
-        if dt == torch.float32:
-            # fp32 sums in another order: 1e-4 of the largest |C|
-            ok = err.max().item() <= 1e-4 * scale
-        else:
-            # both round an fp32 sum to bf16: within 1 ulp (rtol 1e-2),
-            # plus 1e-4 of the largest |C| for sums near zero
-            ok = bool((err <= 1e-2 * want.abs() + 1e-4 * scale).all())
-        check(ok, f"GEMM {name} M={M} K={K} N={N} {dt}: max err "
-                  f"{err.max().item():.3e} (scale {scale:.3e})")
-        if name not in ("ragged", "ragged_t"):
-            worst = max(worst, err.max().item())
-    print(f"[gemm] {len(cases)} cases match the plain version "
+        err = _gemm_err(got, want, dt, f"GEMM {name} M={M} K={K} N={N} "
+                                       f"{dt}")
+        if not name.startswith("ragged"):
+            worst = max(worst, err)
+    shapes = {n: (K, N) for n, K, N, _, _, _ in gemm_cases()}
+    n_groups = 0
+    for gname, members in GEMM_GROUPS:
+        K = shapes[members[0]][0]
+        for M in (1, 3, 8, 16):
+            a = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            bs = [(torch.randn((K, shapes[m][1]), generator=gen,
+                               device="cuda") / K ** 0.5).to(torch.bfloat16)
+                  for m in members]
+            n0 = matmul.launches
+            got = matmul_group(a, bs)
+            check(matmul.launches == n0 + 1, f"GEMM group {gname}: "
+                  f"{matmul.launches - n0} launches, not 1")
+            for m, b, c in zip(members, bs, got):
+                single = matmul(a, b)
+                torch.cuda.synchronize()
+                check(torch.equal(c, single), f"GEMM group {gname} M={M}: "
+                      f"{m} differs from its single-product call")
+                worst = max(worst, _gemm_err(
+                    c, matmul_plain(a, b), torch.bfloat16,
+                    f"GEMM group {gname} M={M} {m}"))
+            n_groups += 1
+    print(f"[gemm] {len(cases)} cases and {n_groups} grouped launches "
+          f"match the plain version, groups bit-equal to single calls "
           f"(max |err| {worst:.3e})", flush=True)
     return worst
 
@@ -246,19 +297,6 @@ def _close(got, want, dtype, what):
     return err
 
 
-def _gemm_close(got, want, dtype, what):
-    """AG+GEMM vs plain, with phase_gemm's tolerances."""
-    err = (got.float() - want.float()).abs()
-    scale = want.float().abs().max().item()
-    if dtype == torch.float32:
-        ok = err.max().item() <= 1e-4 * scale
-    else:
-        ok = bool((err <= 1e-2 * want.float().abs() + 1e-4 * scale).all())
-    check(ok, f"{what}: max err {err.max().item():.3e} (scale "
-              f"{scale:.3e})")
-    return err.max().item()
-
-
 VIRTUAL = (["cuda:0"] * 2, ["cuda:0"] * 4)     # virtual ranks of one card
 
 
@@ -299,7 +337,7 @@ def phase_ag_gemm(gen, epochs=3, rank_sets=VIRTUAL):
                         "cuda:0")), f"ag_gemm {devs} M={M} N={N} {dt} "
                                     f"epoch {ep}: rank {r}'s output differs "
                                     f"from rank 0's")
-                    err = _gemm_close(got[r].to("cuda:0"), want, dt,
+                    err = _gemm_err(got[r].to("cuda:0"), want, dt,
                                       f"ag_gemm {devs} M={M} K={W * k} "
                                       f"N={N} {dt} epoch {ep} rank {r}")
                     if dt == torch.bfloat16 and N == 4096:
@@ -381,6 +419,8 @@ def phase_paged_ranks(gen, epochs=3, rank_sets=(["cuda:0"] * 4,)):
 
 
 def _strided_inputs(gen, dtype, W, B=8, H=32, KVH=8, D=128, S_max=512):
+    """Strided W-rank inputs; S_max 600 gives shards of S_max / W rows
+    that are not whole tiles of 16 at W = 4 (150 rows)."""
     q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, S_max, KVH, D), generator=gen, device="cuda") \
         .to(dtype)
@@ -394,9 +434,27 @@ def _strided_inputs(gen, dtype, W, B=8, H=32, KVH=8, D=128, S_max=512):
     return q, ks, vs, cur
 
 
+def _kernel_launches(fn, name):
+    """Launches of csrc kernel ``name`` (and of all the port's kernels)
+    in one ``fn()`` call, from the profiler's device trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()                  # buffers sized, lib loaded
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return (sum(e.count for e in ev if port_kernel(name, e.key)),
+            sum(e.count for e in ev for k in PORT_KERNELS
+                if port_kernel(k, e.key)))
+
+
 def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
     """(7c) contiguous strided flash decode, fused (at W = 1 the
-    single-source path) and its partial mode, vs plain."""
+    single-source path) and its partial mode, vs plain, also over shards
+    that are not whole tiles; then one call of each mode is counted by
+    the wrappers' counters and in the profiler's device trace: one
+    launch per card per call."""
     from repro_torch.core.flash_decode import combine_bsp, finalize
     from repro_torch.distributed.context import Mesh
     from repro_torch.kernels import flash_decode as kfd
@@ -406,9 +464,12 @@ def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
         W = len(devs)
         mesh = Mesh(devs)
         for dt in (torch.float32, torch.bfloat16):
-            for window in (None, 100):
-                for ep in range(epochs):
-                    q, ks, vs, cur = _strided_inputs(gen, dt, W)
+            for window, S_max, n_ep in ((None, 512, epochs),
+                                        (100, 512, epochs),
+                                        (100, 600, 1)):
+                for ep in range(n_ep):
+                    q, ks, vs, cur = _strided_inputs(gen, dt, W,
+                                                     S_max=S_max)
                     args = ([q.to(d) for d in devs],
                             [x.to(d) for x, d in zip(ks, devs)],
                             [x.to(d) for x, d in zip(vs, devs)],
@@ -421,7 +482,8 @@ def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
                     want = kfd.fused_plain(parts, dt)[0]
                     got_p = kfd.flash_decode_partial(*args, window=window)
                     _sync(devs)
-                    what = f"strided {devs} {dt} window {window} epoch {ep}"
+                    what = (f"strided {devs} {dt} S_max {S_max} window "
+                            f"{window} epoch {ep}")
                     got = [o.to("cuda:0") for o in got]
                     for r in range(W):
                         check(torch.equal(got[r], got[0]),
@@ -433,8 +495,31 @@ def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
                     )[0]).to(dt)
                     _close(comb, want, dt, what + " partial")
                     n += 1
+    counted = []
+    for devs in rank_sets:
+        W = len(devs)
+        mesh = Mesh(devs)
+        q, ks, vs, cur = _strided_inputs(gen, torch.bfloat16, W)
+        args = ([q.to(d) for d in devs], [x.to(d) for x, d in zip(ks, devs)],
+                [x.to(d) for x, d in zip(vs, devs)],
+                [cur.to(d) for d in devs], scale)
+        cards = len(set(devs))
+        for mode, wrapper, call in (
+                ("NORMAL" if W == 1 else "FUSED", kfd.flash_decode_fused,
+                 lambda: kfd.flash_decode_fused(*args, mesh=mesh)),
+                ("PARTIAL", kfd.flash_decode_partial,
+                 lambda: kfd.flash_decode_partial(*args))):
+            n0 = wrapper.launches
+            mine, port = _kernel_launches(call, "fd_strided")
+            counter = (wrapper.launches - n0) // 2    # warm-up + traced call
+            check(counter == cards and mine == cards and port == cards,
+                  f"strided W={W} {mode}: {counter} counted, {mine} "
+                  f"fd_strided and {port} port kernels traced per call; "
+                  f"want {cards}")
+            counted.append(f"W={W} {mode}")
     print(f"[strided] {n} fused + partial calls match the plain version "
-          f"(max |err| {worst:.3e})", flush=True)
+          f"(max |err| {worst:.3e}); one launch per card per call, by the "
+          f"counters and the profiler: {', '.join(counted)}", flush=True)
     return worst
 
 
@@ -490,7 +575,7 @@ def phase_graph_replays(gen, W=4, reps=3):
 
     kernels = {
         "ag_gemm_fused": (fill_ag, lambda: ag_gemm_fused(
-            a_st, [b_st] * W, mesh), _gemm_close),
+            a_st, [b_st] * W, mesh), _gemm_err),
         "flash_decode_paged_fused": (fill_paged, lambda:
                                      kfd.flash_decode_paged_fused(
                                          [pg[0]] * W, pg[1], pg[2],
@@ -752,9 +837,10 @@ def phase_full_width():
         check(plain == 0, f"{name}: {plain} plain-version calls on the "
                           f"main path")
     check(steps > 0, "full width: no decode step ran")
-    check(counts["matmul"][0] == steps * (7 * cfg.n_layers + 1)
+    # per layer: wq/wk/wv grouped, wo, wg/wu grouped, wd; the unembed
+    check(counts["matmul"][0] == steps * (4 * cfg.n_layers + 1)
           and counts["flash_decode_paged"][0] == steps * cfg.n_layers,
-          f"launches {counts} != (225, 32) per step x {steps} steps")
+          f"launches {counts} != (129, 32) per step x {steps} steps")
     toks = sum(len(r.out_tokens) for r in done)
     m = eng.metrics(done)
     # the logits themselves: one teacher-forced step on the served model
@@ -859,15 +945,23 @@ def phase_full_width_ranks(params, tp=4):
         wall = time.time() - t0
         steps = steps_run[0]
         serve_launches = {f.__name__: f.launches for f in (matmul, *fused)}
-        # the contiguous-cache path: 4 steps over a strided cache
+        # the contiguous-cache path: 4 steps over a strided cache on the
+        # tp ranks, then 4 on one rank (the kernel's NORMAL mode)
         c_steps = 4
-        with dctx.use(ctx), torch.inference_mode():
-            st = lm.init_decode_state(params, cfg, 4, 256)
-            tok = torch.randint(1, cfg.vocab_size, (4, 1), device="cuda")
-            for _ in range(c_steps):
-                lg_c, _ = step_fn(params, tok, st, cfg)
-                tok = lg_c[:, 0].argmax(-1, keepdim=True)
-            torch.cuda.synchronize()
+        c_launches = []
+        for c_ctx in (ctx, dctx.DistContext()):
+            n0 = kfd.flash_decode_fused.launches
+            with dctx.use(c_ctx), torch.inference_mode():
+                st = lm.init_decode_state(params, cfg, 4, 256)
+                tok = torch.randint(1, cfg.vocab_size, (4, 1),
+                                    device="cuda")
+                for _ in range(c_steps):
+                    lg_c, _ = step_fn(params, tok, st, cfg)
+                    tok = lg_c[:, 0].argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+            check(bool(torch.isfinite(lg_c).all()),
+                  "contiguous path: non-finite logits")
+            c_launches.append(kfd.flash_decode_fused.launches - n0)
     finally:
         lm.decode_step = step_fn
     launches = {f.__name__: f.launches for f in (matmul, *fused, *others)}
@@ -885,15 +979,16 @@ def phase_full_width_ranks(params, tp=4):
     check(all(launches[f.__name__] == 0 for f in others),
           f"full width tp={tp} pallas went through another mode's "
           f"kernels: {launches}")
-    check(serve_launches == {"matmul": steps * (6 * L + 1),
+    check(serve_launches == {"matmul": steps * (3 * L + 1),
                              "ag_gemm_fused": steps * L,
                              "flash_decode_paged_fused": steps * L,
                              "flash_decode_fused": 0},
           f"full width tp={tp}: serve launches {serve_launches} for "
           f"{steps} steps")
-    check(launches["flash_decode_fused"] == c_steps * L,
-          f"contiguous path: {launches['flash_decode_fused']} launches")
-    check(bool(torch.isfinite(lg_c).all()), "contiguous path: non-finite")
+    # one launch per card per call: one card, L calls a step, both widths
+    check(c_launches == [c_steps * L] * 2,
+          f"contiguous path: {c_launches} launches at tp={tp} and W=1 for "
+          f"{c_steps} steps each")
     toks = sum(len(r.out_tokens) for r in done)
 
     # teacher forcing: one 8-token chunk at tp=1 and at tp on the served
@@ -936,6 +1031,8 @@ def phase_full_width_ranks(params, tp=4):
                "serve_launches_per_step": {k: v / steps for k, v in
                                            serve_launches.items()},
                "contiguous_steps": c_steps,
+               "contiguous_launches": {"tp": c_launches[0],
+                                       "w1": c_launches[1]},
                "teacher_forced_max_abs_diff": diff,
                "teacher_forced_bf16_vs_f32_max_abs_diff": own,
                "teacher_forced_f32_max_abs_diff": d32.max().item(),
@@ -1009,50 +1106,139 @@ def profile_steps(params, cfg, state, steps=4, batch=8,
     return out
 
 
+def gemm_host_us(gen, iters=500, reps=5):
+    """Host microseconds per call of the GEMM wrappers at batch 8 (wk
+    alone, the wq/wk/wv group) beside ``torch.matmul``'s, and of the
+    pieces of one call: the checks, one output's ``torch.empty``, the
+    stream lookup and the launch (plan lookup, pointer arrays, the C
+    call: the tensor maps' encoding and ``cudaLaunchKernel``). Each is
+    ``iters`` calls between two ``perf_counter`` reads, without
+    synchronising (fewer calls than the launch queue holds), the least
+    of ``reps`` such runs: the host clock's spread is one-sided."""
+    from repro_torch.kernels import matmul as kmm
+    a = torch.randn((8, 4096), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ws = [(torch.randn((4096, n), generator=gen, device="cuda") / 64).to(
+        torch.bfloat16) for n in (4096, 1024, 1024)]
+    cs = [torch.empty((8, w.shape[1]), dtype=a.dtype, device="cuda")
+          for w in ws]
+    calls = {
+        "torch.matmul wk": lambda: torch.matmul(a, ws[1]),
+        "matmul wk": lambda: kmm.matmul(a, ws[1]),
+        "torch.matmul wq, wk, wv": lambda: [torch.matmul(a, w) for w in ws],
+        "matmul_group wq/wk/wv": lambda: kmm.matmul_group(a, ws),
+        "checks wq/wk/wv": lambda: kmm._check(a, ws, False, "matmul_group"),
+        "torch.empty (8, 4096)": lambda: torch.empty(
+            (8, 4096), dtype=a.dtype, device="cuda"),
+        "stream lookup": lambda: torch.cuda.current_stream(0).cuda_stream,
+        "launch wk": lambda: kmm._launch_stream(a, ws[1:2], cs[1:2], False),
+        "launch wq/wk/wv": lambda: kmm._launch_stream(a, ws, cs, False),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = 1e6 * best / iters
+    torch.cuda.synchronize()
+    print("[gemm host] us per call: " + "; ".join(
+        f"{n} {v:.1f}" for n, v in out.items()), flush=True)
+    return out
+
+
 def phase_timings(gen, lens, launches, per_step, errs):
     """Per-decode-step device times (CUDA-graph replays) of both kernels
     at the full-width shapes, beside the plain version, one library call
     and the bound; ``eager_ms`` keeps the eager time, host launch cost
-    included."""
+    included. The GEMM is timed per shape (one product a launch) and per
+    group (wq/wk/wv, wg/wu in one launch each, as the main path runs
+    them); its step total takes the groups."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (flash_decode_paged,
                                                   paged_decode_plain)
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels.matmul import (matmul, matmul_group,
+                                            matmul_plain)
     B = 8
-    rows = []
-    tot = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-               ops_t=0.0)
+    rows = {}
+
+    def time_row(name, a, ws, call, lib, plain, count, **extra):
+        """Graph-timed ``call(ws)`` (and eager, library, plain) with the
+        weights cycled through enough copies to overflow the 50 MB L2,
+        as the layers' distinct weights do on the main path."""
+        per = nbytes(*ws)
+        copies = min(32, max(2, int(-(-256e6 // per))))
+        sets = [ws] + [[torch.empty_like(w).copy_(w) for w in ws]
+                       for _ in range(copies - 1)]
+        cyc = itertools.cycle(sets)
+        t_e = time_ms(lambda: call(next(cyc)))
+        t_k = graph_ms(lambda: call(next(cyc)))
+        t_l = graph_ms(lambda: lib(next(cyc)))
+        t_p = (graph_ms(lambda: plain(next(cyc)), iters=5)
+               if plain is not None else None)
+        by = nbytes(a, *ws) + sum(B * (w.shape[0] if extra.get("trans_b")
+                                       else w.shape[1]) * a.element_size()
+                                  for w in ws)
+        flops = sum(2 * B * w.numel() for w in ws)
+        rows[name] = {"shape": name, "M": B, "K": a.shape[1],
+                      "dtype": str(a.dtype).replace("torch.", ""),
+                      "count_per_step": count, "ms": t_k, "eager_ms": t_e,
+                      "plain_ms": t_p, "library_ms": t_l, "bytes": by,
+                      "bound_ms": 1e3 * max(by / HBM_BYTES_PER_S,
+                                            flops / PEAK_OPS[a.dtype]),
+                      "ops_s": flops / PEAK_OPS[a.dtype], **extra}
+        del sets, cyc
+        torch.cuda.empty_cache()
+
     for name, K, N, dt, tb, count in gemm_cases():
         a, b0 = _gemm_operands(gen, B, K, N, dt, tb)
-        # rotate through enough weight copies to overflow the 50 MB L2,
-        # as the layers' distinct weights do on the main path
-        copies = max(2, int(-(-256e6 // nbytes(b0))))
-        bs_ = [b0] + [torch.empty_like(b0).copy_(b0) for _ in
-                      range(min(copies, 32) - 1)]
-        cyc = itertools.cycle(bs_)
-        t_e = time_ms(lambda: matmul(a, next(cyc), trans_b=tb))
-        t_k = graph_ms(lambda: matmul(a, next(cyc), trans_b=tb))
-        t_p = graph_ms(lambda: matmul_plain(a, next(cyc), tb), iters=5)
         if tb:
-            t_l = graph_ms(lambda: torch.matmul(a, next(cyc).T))
+            time_row(name, a, [b0], lambda w: matmul(a, w[0], trans_b=True),
+                     lambda w: torch.matmul(a, w[0].T),
+                     lambda w: matmul_plain(a, w[0], True), count, N=N,
+                     trans_b=True)
         else:
-            t_l = graph_ms(lambda: torch.matmul(a, next(cyc)))
-        by = nbytes(a, b0) + B * N * a.element_size()
-        ops_t = 2 * B * K * N / PEAK_OPS[dt]
-        rows.append({"shape": name, "M": B, "K": K, "N": N,
-                     "dtype": str(dt).replace("torch.", ""),
-                     "count_per_step": count, "ms": t_k, "eager_ms": t_e,
-                     "plain_ms": t_p,
-                     "library_ms": t_l,
-                     "bound_ms": 1e3 * max(by / HBM_BYTES_PER_S, ops_t)})
-        tot["ms"] += count * t_k
-        tot["eager_ms"] += count * t_e
-        tot["plain_ms"] += count * t_p
-        tot["library_ms"] += count * t_l
-        tot["bytes"] += count * by
-        tot["ops_t"] += count * ops_t
-        del bs_, cyc, a, b0
-        torch.cuda.empty_cache()
+            time_row(name, a, [b0], lambda w: matmul(a, w[0]),
+                     lambda w: torch.matmul(a, w[0]),
+                     lambda w: matmul_plain(a, w[0]), count, N=N)
+    shapes = {n: (K, N) for n, K, N, _, _, _ in gemm_cases()}
+    for gname, members in GEMM_GROUPS:
+        K = shapes[members[0]][0]
+        a = torch.randn((B, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ws = [(torch.randn((K, shapes[m][1]), generator=gen, device="cuda")
+               / K ** 0.5).to(torch.bfloat16) for m in members]
+        time_row(gname, a, ws, lambda w: matmul_group(a, w),
+                 lambda w: [torch.matmul(a, x) for x in w], None, 32,
+                 members=list(members))
+        rows[gname]["plain_ms"] = sum(rows[m]["plain_ms"] for m in members)
+    # the launch's latency floor: one 16 KB tile of B on one block, then
+    # one tile on every block of a full grid (K = 64, one strip a block)
+    from repro_torch.kernels import matmul as kmm, symm
+    per_sm = kmm._fn("gemm_blocks_per_sm",
+                     [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    floor = {}
+    for blocks in (1, symm.capacity("cuda:0", per_sm, kmm.KN_MMA, 1, 8)):
+        a, b0 = _gemm_operands(gen, B, 64, 128 * blocks, torch.bfloat16,
+                               False)
+        floor[blocks] = graph_ms(lambda: matmul(a, b0))
+    print("[gemm floor] ms per launch of one 16 KB tile a block: "
+          + ", ".join(f"{n} block(s) {t:.4f}" for n, t in floor.items()),
+          flush=True)
+
+    host = gemm_host_us(gen)
+
+    # the main path's step: the two groups, wo, wd and the unembed
+    step = ["wqkv", "wo", "wgu", "wd", "unembed"]
+    tot = {key: sum(rows[r]["count_per_step"] * rows[r][key] for r in step)
+           for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bytes",
+                       "ops_s")}
+    ungrouped_ms = sum(r["count_per_step"] * r["ms"] for n, r in
+                       rows.items() if n not in ("wqkv", "wgu"))
     gemm_bound_bytes = tot["bytes"] / HBM_BYTES_PER_S
     gemm = {"name": "matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/matmul.cu",
@@ -1061,13 +1247,17 @@ def phase_timings(gen, lens, launches, per_step, errs):
             "launches_per_step": per_step["matmul"],
             "max_abs_err": errs["gemm"],
             "ms": tot["ms"], "kernel_ms": tot["ms"],
+            "ungrouped_ms": ungrouped_ms,
             "eager_ms": tot["eager_ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": 1e3 * max(gemm_bound_bytes, tot["ops_t"]),
-            "bound_by": ("bytes" if gemm_bound_bytes >= tot["ops_t"]
+            "bound_ms": 1e3 * max(gemm_bound_bytes, tot["ops_s"]),
+            "bound_by": ("bytes" if gemm_bound_bytes >= tot["ops_s"]
                          else "operations"),
             "library_ms": tot["library_ms"],
+            "latency_floor_ms": {str(n): t for n, t in floor.items()},
+            "host_us_per_call": host,
             "unit": f"one decode step at batch 8 "
-                    f"({per_step['matmul']:g} launches)"}
+                    f"({per_step['matmul']:g} launches: per layer wq/wk/wv "
+                    f"grouped, wo, wg/wu grouped, wd; the unembed)"}
 
     # paged decode at the served lengths (prompt + 32 new tokens)
     bs, H, KVH, D = 16, 32, 8, 128
@@ -1117,7 +1307,7 @@ def phase_timings(gen, lens, launches, per_step, errs):
                            else "operations"),
               "unit": f"one decode step at batch 8, {per:g} launches, "
                       f"cur_len {lens}, gather width {gw}"}
-    return [gemm, decode], rows
+    return [gemm, decode], list(rows.values())
 
 
 def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
@@ -1268,6 +1458,18 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
         sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
         f"one decode step at batch {B} over {tp} virtual ranks, strided "
         f"cache S_max {S_max}, cur_len {lens}")
+
+    # the same cache on one rank (NORMAL mode), the same yardstick
+    args1 = ([q], [kc], [vc], [cl], scale)
+    t_k = graph_ms(lambda: kfd.flash_decode_fused(*args1), iters=50)
+    t_p = time_ms(lambda: kfd.fused_plain([kfd.strided_partial_plain(
+        q, kc, vc, cl, scale, None, 0, 1)], bf16), iters=5)
+    row("flash_decode_fused_w1", "src/repro_torch/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:321", t_k, t_p, t_l,
+        by - tp * nbytes(q) + nbytes(q),
+        sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
+        f"one decode step at batch {B} on one rank, contiguous cache "
+        f"S_max {S_max}, cur_len {lens}")
     return rows
 
 
@@ -1314,11 +1516,18 @@ def main():
                                   summary["launches_per_step"], errs)
     c_steps = summary_tp["contiguous_steps"]
     steps = summary_tp["decode_steps"]
+    errs["flash_decode_fused_w1"] = errs["flash_decode_fused"]
+    launches_tp = dict(summary_tp["launches"])
+    launches_tp["flash_decode_fused"] = summary_tp["contiguous_launches"][
+        "tp"]
+    launches_tp["flash_decode_fused_w1"] = summary_tp[
+        "contiguous_launches"]["w1"]
     kernels += phase_timings_ranks(
-        gen, lens_tp, summary_tp["launches"],
+        gen, lens_tp, launches_tp,
         {"ag_gemm_fused": steps + c_steps,
          "flash_decode_paged_fused": steps,
-         "flash_decode_fused": c_steps}, errs)
+         "flash_decode_fused": c_steps,
+         "flash_decode_fused_w1": c_steps}, errs)
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "

@@ -58,9 +58,21 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "stream.cuh"
 #include "symm.cuh"
 
 namespace {
+
+using stream::cp_async16;
+using stream::cp_async_arrive;
+using stream::from_f;
+using stream::load_f;
+using stream::mbar_arrive;
+using stream::mbar_arrive_tx;
+using stream::mbar_init;
+using stream::mbar_wait;
+using stream::tma_load_2d;
+using stream::to_f;
 
 constexpr int NCW = 8;                // consumer warps
 constexpr int NT = 32 * (NCW + 1);    // + one producer warp
@@ -68,18 +80,6 @@ constexpr int BK = 64;                // B rows per stage (16 KB tiles)
 constexpr int STAGES = 4;             // ring depth: 64 KB of B in flight
 constexpr int PUSHERS = 4;            // blocks that push the shards
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 // loads that bypass L1: inbox bytes are written by other SMs or cards
 __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ __nv_bfloat16 ld_cg(const __nv_bfloat16* p) {
@@ -94,84 +94,9 @@ struct Tile {
   static constexpr int VEC = 16 / (int)sizeof(T);   // per 16-byte copy
 };
 
-// ---- mbarriers and bulk copies (PTX)
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(b)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(b))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(b)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_addr(b)),
-      "r"(parity)
-      : "memory");
-}
-// One TMA copy of the (BK x BN) box at column x, row y of B's tensor map
-// into shared memory; completes on `bar` (out-of-bounds parts are zeros).
-__device__ __forceinline__ void tma_load_2d(void* smem, const CUtensorMap* map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(smem)),
-      "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar))
-      : "memory");
-}
-// 16-byte copy global -> shared (0 source bytes: the 16 bytes are zeroed)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(valid ? 16 : 0)
-               : "memory");
-}
-// `b` counts one more pending arrival now and receives it when this
-// thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint64_t* b) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_addr(b))
-               : "memory");
-}
 // the consumer warps' own barrier (the producer warp keeps streaming)
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NCW * 32) : "memory");
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void load_f(const T* p, float* f) {
-  if constexpr (N * sizeof(T) == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = to_f(t[j]);
-  } else if constexpr (N * sizeof(T) == 8) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = to_f(t[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) f[j] = to_f(p[j]);
-  }
+  stream::consumers_sync<NCW * 32>();
 }
 
 // B's tensor maps, one per product (VEC path), in the kernel's parameter
@@ -248,8 +173,7 @@ __device__ void producer(const Maps& maps, const Args& a,
   const int me = a.R.r[0];              // this card's inbox
   if constexpr (VEC) {                  // fetch the B maps' descriptors
     if (lane < a.n_prod)
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&maps.m[lane])
-                   : "memory");
+      stream::prefetch_map(&maps.m[lane]);
   }
   // lane s holds source s's A: in place, or in this card's inbox
   const T* src_a = nullptr;
@@ -470,7 +394,7 @@ ag_gemm_kernel(const __grid_constant__ Maps maps, Args a, symm::Peers P0) {
       mbar_init(&S.full[i], 2);        // B issued + A stored
       mbar_init(&S.empty[i], NCW);     // one arrival per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    stream::mbar_init_fence();
   }
   if (comm) symm::cache_tables(P, S.tab);
   __syncthreads();
@@ -569,39 +493,10 @@ int dispatch(int M, bool vec, const Maps* maps, const Args* a, int grid,
              : AG_BY_MT(launch, T, false, *maps, *a, grid, *P, s);
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 // B (rows x N, row-major) as a 2D tensor map with (BK x 256-byte) boxes.
 int encode_b(CUtensorMap* map, const void* b, int rows, int N, int dtype) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-    if (e != cudaSuccess) return (int)e;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t esz = dtype == 0 ? 4 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)N * esz};
-  const cuuint32_t box[2] = {(cuuint32_t)(256 / esz), (cuuint32_t)BK};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(b), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return stream::encode_2d(map, b, dtype, rows, N, N, dtype == 0 ? 64 : 128,
+                           BK, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace

@@ -28,8 +28,10 @@ as zeros.
 
 Counters (kernel launches; plain-version calls): ``<wrapper>.launches``
 and ``<wrapper>.plain_calls`` on each wrapper. A call counts one launch
-per device: the paged kernel is one launch in every mode
-(:func:`decode_plan` sizes its grid), the contiguous kernel a pair.
+per device: both kernels are one launch in every mode, with one design
+(``csrc/fd_common.cuh``) and a grid that :func:`decode_plan` sizes; they
+differ only in their walk (a block table, or the implicit tiles of a
+strided shard: ``StridedWalk`` in ``csrc/flash_decode.cu``).
 The fused calls take their epoch from device memory (``kernels.symm``),
 so they can be captured in a CUDA graph once a warm-up call has sized
 the mesh's buffers.
@@ -166,11 +168,11 @@ def _check_common(name, q, k, v, cur_len, mesh):
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """The paged kernel's grid (``csrc/flash_decode_paged.cu``): a unit
-    is (local rank, slot, KV head), an item one of its ``n_split``
-    splits. ``grid`` blocks walk the items (block i takes items i,
-    i + grid, ...) and, in FUSED mode, the units the same way for the
-    combine."""
+    """A decode kernel's grid (``csrc/fd_common.cuh``): a unit is (local
+    rank, slot, KV head), an item one of its ``n_split`` splits of the
+    unit's walk (table entries, or tiles of a strided shard). ``grid``
+    blocks walk the items (block i takes items i, i + grid, ...) and, in
+    FUSED mode, the units the same way for the combine."""
     n_local: int
     B: int
     KVH: int
@@ -202,18 +204,19 @@ class DecodePlan:
 
 
 SPLIT_MIN = 4         # table entries a split walks at least
-LIST_CAP = 512        # csrc/flash_decode_paged.cu LIST_CAP
+LIST_CAP = 512        # csrc/fd_common.cuh LIST_CAP
 
 
 def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
                 capacity: int | None = None) -> DecodePlan:
-    """Splits per unit and blocks of one paged launch. A unit walks its
-    slot's table row of ``C`` entries; it is split only while the card
-    has fewer than about two blocks per SM and every split still walks
-    ``SPLIT_MIN`` entries (at most 16 splits, and never more than
-    ``LIST_CAP`` entries per split). ``capacity`` (the blocks the card
-    holds at once) bounds the grid of a cooperative (FUSED) launch;
-    ``None`` launches one block per item."""
+    """Splits per unit and blocks of one decode launch. A unit walks its
+    slot's ``C`` table entries (or ``C`` tiles of its strided shard); it
+    is split only while the card has fewer than about two blocks per SM
+    and every split still walks ``SPLIT_MIN`` entries (at most 16
+    splits, and never more than ``LIST_CAP`` entries per split).
+    ``capacity`` (the blocks the card holds at once) bounds the grid of
+    a cooperative (FUSED) launch; ``None`` launches one block per
+    item."""
     units = n_local * B * KVH
     want = -(-2 * sm_count // max(units, 1))
     n_split = max(1, min(want, -(-C // SPLIT_MIN), 16), -(-C // LIST_CAP))
@@ -223,8 +226,8 @@ def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
 
 
 def split_range(c_lo: int, c_hi: int, n_split: int, sp: int) -> range:
-    """The table columns split ``sp`` walks of the reachable ``[c_lo,
-    c_hi)`` (the kernel's arithmetic)."""
+    """The table columns (or strided tiles) split ``sp`` walks of the
+    reachable ``[c_lo, c_hi)`` (the kernels' arithmetic)."""
     per = -(-(c_hi - c_lo) // n_split)
     lo = c_lo + sp * per
     return range(lo, min(c_hi, lo + per))
@@ -232,49 +235,38 @@ def split_range(c_lo: int, c_hi: int, n_split: int, sp: int) -> range:
 
 def rec_floats(g: int, D: int) -> int:
     """fp32 words of one unit's record (o, m, l) in an inbox slot,
-    padded to 16 bytes (csrc/flash_decode_paged.cu rec_floats)."""
+    padded to 16 bytes (csrc/fd_common.cuh rec_floats)."""
     return -(-(g * D + 2 * g) // 4) * 4
 
 
-def n_splits(B: int, KVH: int, C: int, device) -> int:
-    """Blocks per (slot, KV head) of the contiguous kernel's Part 1:
-    enough for about two per SM, at most C (its tiles) and 16."""
-    want = -(-2 * symm.sm_count(device) // max(B * KVH, 1))
-    return max(1, min(C, 16, want))
+TILE = 16             # csrc/fd_common.cuh TR: rows of a staged tile
 
 
-def _comm_chunks(B: int, H: int, groups, device) -> int:
-    """Blocks per rank of the contiguous kernel's communicating pass: at
-    most four per SM over the busiest device's ranks, at most one per
-    (slot, head) row."""
-    per_dev = max(len(r) for r in groups.values())
-    return max(1, min(B * H, 64, 4 * symm.sm_count(device) // per_dev))
-
-
-_TILE = 16                       # csrc/flash_decode.cu TILE
+_C_SYMBOLS = {True: ("flash_decode_paged", "fd_paged_launch",
+                     "fd_paged_blocks_per_sm"),
+              False: ("flash_decode", "fd_launch", "fd_blocks_per_sm")}
 
 
 def _lib(paged: bool):
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    sym = [ptr, ptr, ptr, i32, i32, ctypes.c_longlong, ctypes.c_longlong,
-           ptr]
-    if paged:
-        fn = _build.load("flash_decode_paged").fd_paged_launch
-        if fn.argtypes is None:
+    lib, name, _ = _C_SYMBOLS[paged]
+    fn = getattr(_build.load(lib), name)
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        sym = [ptr, ptr, ptr, i32, i32, ctypes.c_longlong,
+               ctypes.c_longlong, ptr]
+        if paged:
             fn.argtypes = ([ptr] * 5 + [i32, ptr, i32, ptr, ptr, ptr]
                            + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + sym)
-            fn.restype = ctypes.c_int
-    else:
-        fn = _build.load("flash_decode").fd_launch
-        if fn.argtypes is None:
-            fn.argtypes = ([ptr] * 4 + [ptr, i32, ptr, ptr] + [i32] * 6
-                           + [ctypes.c_float] + [i32] * 4 + sym)
-            fn.restype = ctypes.c_int
+        else:
+            fn.argtypes = ([ptr] * 4 + [ptr, i32, ptr, ptr, ptr]
+                           + [i32] * 8 + [ctypes.c_float] + [i32] * 3 + sym)
+        fn.restype = ctypes.c_int
     return fn
 
 
-def _per_sm_query():
-    fn = _build.load("flash_decode_paged").fd_paged_blocks_per_sm
+def _per_sm_query(paged: bool = True):
+    lib, _, name = _C_SYMBOLS[paged]
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -288,22 +280,26 @@ def _no_symm(W: int) -> tuple:
     return (None, None, None, W, 0, 0, 0)
 
 
-def _launch_paged(name, mode, q, k, v, cur_len, tables, scale, window,
-                  mesh=None):
-    """One launch of the paged kernel per device over its local ranks;
-    returns per-rank outputs ((n_local, ...) views): (B, H, D) in q's
-    dtype, or fp32 (B, H, D + 2) partials."""
+def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
+            tables=None):
+    """One launch per device over its local ranks, of the paged kernel
+    (``tables`` given: pool shards (n_loc, bs, KVH, D)) or the strided
+    one (shards (B, S_loc, KVH, D)); returns per-rank outputs
+    ((n_local, ...) views): (B, H, D) in q's dtype, or fp32 (B, H, D + 2)
+    partials."""
+    paged = tables is not None
     W = len(k)
     B, H, D = q[0].shape
-    n_loc, bs, KVH = k[0].shape[:3]
-    C = tables[0].shape[1]
+    KVH = k[0].shape[-2]
     g = H // KVH
+    # table entries, or tiles of a slot's shard rows
+    C = tables[0].shape[1] if paged else -(-k[0].shape[1] // TILE)
     groups = symm.rank_groups(k)
     call = None
     if mode == FUSED:               # records travel as LL lines: 8 B a word
         call = symm.communicator(mesh).call(
             B * KVH * rec_floats(g, D) * 8, 1)
-    fn = _lib(True)
+    fn = _lib(paged)
     dt = _DTYPES[q[0].dtype]
     outs: list = [None] * W
     for dev, ranks in groups.items():
@@ -311,7 +307,7 @@ def _launch_paged(name, mode, q, k, v, cur_len, tables, scale, window,
         if n_local > 8:
             raise ValueError(f"{name}: at most 8 ranks per device, got "
                              f"{n_local} on {dev}")
-        cap = (symm.capacity(dev, _per_sm_query(), D, g, dt)
+        cap = (symm.capacity(dev, _per_sm_query(paged), D, g, dt)
                if mode == FUSED else None)
         plan = decode_plan(B, KVH, n_local, C, symm.sm_count(dev), cap)
         split_rec = cnt = None
@@ -326,64 +322,21 @@ def _launch_paged(name, mode, q, k, v, cur_len, tables, scale, window,
                            device=dev))
         sym = (call.args(mesh.distinct.index(dev)) if call is not None
                else _no_symm(W))
+        per_rank = [symm.ptrs([x[r] for r in ranks])
+                    for x in (q, k, v, cur_len)]
+        scratch = (None if split_rec is None else split_rec.data_ptr(),
+                   None if cnt is None else cnt.data_ptr(), out.data_ptr())
+        if paged:
+            shape = (B, H, KVH, D, k[0].shape[1], k[0].shape[0], C)
+            head = (*per_rank, symm.ptrs([tables[r] for r in ranks]),
+                    tables[ranks[0]].stride(0))
+        else:
+            shape = (B, H, KVH, D, k[0].shape[1], C)
+            head = tuple(per_rank)
         with torch.cuda.device(dev):
-            rc = fn(symm.ptrs([q[r] for r in ranks]),
-                    symm.ptrs([k[r] for r in ranks]),
-                    symm.ptrs([v[r] for r in ranks]),
-                    symm.ptrs([cur_len[r] for r in ranks]),
-                    symm.ptrs([tables[r] for r in ranks]),
-                    tables[ranks[0]].stride(0), symm.ints(ranks), n_local,
-                    None if split_rec is None else split_rec.data_ptr(),
-                    None if cnt is None else cnt.data_ptr(),
-                    out.data_ptr(), B, H, KVH, D, bs, n_loc, C,
+            rc = fn(*head, symm.ints(ranks), n_local, *scratch, *shape,
                     plan.n_split, plan.grid, float(scale),
                     -1 if window is None else int(window), dt, mode, *sym,
-                    torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(rc, name)
-        for i, r in enumerate(ranks):
-            outs[r] = out[i]
-    return outs
-
-
-def _launch_strided(name, mode, q, k, v, cur_len, scale, window,
-                    mesh=None):
-    """The contiguous (strided) kernel's launch pair per device over its
-    local ranks; outputs as :func:`_launch_paged`."""
-    W = len(k)
-    B, H, D = q[0].shape
-    KVH = k[0].shape[-2]
-    S_loc = k[0].shape[1]
-    groups = symm.rank_groups(k)
-    chunks, call = 0, None
-    if mode == FUSED:
-        comm = symm.communicator(mesh)
-        chunks = _comm_chunks(B, H, groups, k[0].device)
-        call = comm.call(B * H * (D + 2) * 4, chunks)
-    fn = _lib(False)
-    outs: list = [None] * W
-    for dev, ranks in groups.items():
-        n_local = len(ranks)
-        if n_local > 8:
-            raise ValueError(f"{name}: at most 8 ranks per device, got "
-                             f"{n_local} on {dev}")
-        n_split = n_splits(B * n_local, KVH, -(-S_loc // _TILE), dev)
-        part = torch.empty((n_local, B, n_split, H, D + 2),
-                           dtype=torch.float32, device=dev)
-        out = (torch.empty((n_local, B, H, D + 2), dtype=torch.float32,
-                           device=dev) if mode == PARTIAL else
-               torch.empty((n_local, B, H, D), dtype=q[0].dtype,
-                           device=dev))
-        sym = (call.args(mesh.distinct.index(dev)) if call is not None
-               else _no_symm(W))
-        with torch.cuda.device(dev):
-            rc = fn(symm.ptrs([q[r] for r in ranks]),
-                    symm.ptrs([k[r] for r in ranks]),
-                    symm.ptrs([v[r] for r in ranks]),
-                    symm.ptrs([cur_len[r] for r in ranks]),
-                    symm.ints(ranks), n_local, part.data_ptr(),
-                    out.data_ptr(), B, H, KVH, D, S_loc, n_split,
-                    float(scale), -1 if window is None else int(window),
-                    _DTYPES[q[0].dtype], mode, chunks, *sym,
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check(rc, name)
         for i, r in enumerate(ranks):
@@ -441,8 +394,8 @@ def flash_decode_paged(q, k_pool, v_pool, cur_len, tables, scale,
                                   window)
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    out = _launch_paged(name, NORMAL, [q], [k_pool], [v_pool], [cur_len],
-                        [tables], scale, window)[0]
+    out = _launch(name, NORMAL, [q], [k_pool], [v_pool], [cur_len], scale,
+                  window, tables=[tables])[0]
     flash_decode_paged.launches += 1
     return out
 
@@ -471,8 +424,8 @@ def flash_decode_paged_partial(q, k_pools, v_pools, cur_len, tables, scale,
                                     cur_len[r], tables[r], scale, window,
                                     base=r * n_loc)
                 for r in range(len(k_pools))]
-    raw = _launch_paged(name, PARTIAL, q, k_pools, v_pools, cur_len,
-                        tables, scale, window)
+    raw = _launch(name, PARTIAL, q, k_pools, v_pools, cur_len, scale,
+                  window, tables=tables)
     flash_decode_paged_partial.launches += len(symm.rank_groups(k_pools))
     return [_split(x) for x in raw]
 
@@ -492,8 +445,8 @@ def flash_decode_paged_fused(q, k_pools, v_pools, cur_len, tables, scale,
             [paged_partial_plain(q[r], k_pools[r], v_pools[r], cur_len[r],
                                  tables[r], scale, window, base=r * n_loc)
              for r in range(len(k_pools))], q[0].dtype)
-    out = _launch_paged(name, FUSED, q, k_pools, v_pools, cur_len, tables,
-                        scale, window, mesh=mesh)
+    out = _launch(name, FUSED, q, k_pools, v_pools, cur_len, scale, window,
+                  mesh=mesh, tables=tables)
     flash_decode_paged_fused.launches += len(symm.rank_groups(k_pools))
     return out
 
@@ -523,8 +476,8 @@ def flash_decode_partial(q, k_shards, v_shards, cur_len, scale,
         return [strided_partial_plain(q[r], k_shards[r], v_shards[r],
                                       cur_len[r], scale, window, r, W)
                 for r in range(W)]
-    raw = _launch_strided(name, PARTIAL, q, k_shards, v_shards, cur_len,
-                          scale, window)
+    raw = _launch(name, PARTIAL, q, k_shards, v_shards, cur_len, scale,
+                  window)
     flash_decode_partial.launches += len(symm.rank_groups(k_shards))
     return [_split(x) for x in raw]
 
@@ -545,8 +498,8 @@ def flash_decode_fused(q, k_shards, v_shards, cur_len, scale,
             [strided_partial_plain(q[r], k_shards[r], v_shards[r],
                                    cur_len[r], scale, window, r, W)
              for r in range(W)], q[0].dtype)
-    out = _launch_strided(name, NORMAL if W == 1 else FUSED, q, k_shards,
-                          v_shards, cur_len, scale, window, mesh=mesh)
+    out = _launch(name, NORMAL if W == 1 else FUSED, q, k_shards,
+                  v_shards, cur_len, scale, window, mesh=mesh)
     flash_decode_fused.launches += len(symm.rank_groups(k_shards))
     return out
 

@@ -1,25 +1,36 @@
 """GEMM: ``C = A @ B`` with an fp32 accumulator (port of the Pallas
 ``repro.kernels.matmul.matmul``).
 
-:func:`matmul` is what the model calls for every decode projection
-(q/k/v/o, the MLP, the unembed). For CUDA tensors it launches the
-hand-written kernel in ``csrc/matmul.cu``; for CPU tensors it runs
-:func:`matmul_plain`. There is no fallback between the two: a CUDA
-tensor the kernel cannot take raises.
+:func:`matmul` is what the model calls for the decode projections and
+the unembed; :func:`matmul_group` computes several products of one A in
+one launch (wq/wk/wv, wg/wu). For CUDA tensors they launch the
+hand-written kernels in ``csrc/matmul.cu``: the streaming kernel
+``gemm_stream`` (a persistent grid sized by :func:`gemm_plan`) for
+operands TMA can take, the general ``mm_kernel`` for other shapes and
+pointers; for CPU tensors they run :func:`matmul_plain`. There is no
+fallback between the two: a CUDA tensor the kernels cannot take raises.
 
-Counters: ``matmul.launches`` counts kernel launches and
-``matmul.plain_calls`` counts plain-version calls, so a run can show
-which one its main path went through.
+Counters, shared by both wrappers (one kernel): ``matmul.launches``
+counts kernel launches and ``matmul.plain_calls`` plain-version calls (a
+group counts one of either), so a run can show which one its main path
+went through.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Callable
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, symm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KN_MMA, KN_FMA, TRANS = 0, 1, 2    # csrc/matmul.cu Path
+MAX_GROUP = 4                      # csrc/matmul.cu MAXP
+TILE_BYTES = 16384                 # csrc/matmul.cu TILE_B: B per stage
+MIN_CHUNK_TILES = 8                # K tiles a chunk streams at least
+SPAN_SLACK = 1 / 2                 # gemm_plan: fewer chunks within this
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -30,15 +41,223 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ bf).to(a.dtype)
 
 
-def _lib():
-    lib = _build.load("matmul")
-    fn = lib.mm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One product's share of ``gemm_stream``'s persistent grid
+    (``csrc/matmul.cu``): ``n_strips`` strips of ``bn`` output columns,
+    K in ``tiles`` tiles of ``kt``, each strip split into ``n_kc``
+    chunks; an item is (strip, chunk), chunk fastest, and chunk ``kc``
+    covers tiles ``chunk_tiles(kc)``. A strip of several chunks sums
+    their partials in chunk order."""
+    M: int
+    bn: int
+    kt: int
+    n_strips: int
+    tiles: int
+    n_kc: int
+
+    @property
+    def items(self) -> int:
+        return self.n_strips * self.n_kc
+
+    def chunk_tiles(self, kc: int) -> range:
+        return range(kc * self.tiles // self.n_kc,
+                     (kc + 1) * self.tiles // self.n_kc)
+
+    @property
+    def work_floats(self) -> int:
+        """fp32 partials of the product's split strips."""
+        return 0 if self.n_kc == 1 else \
+            self.n_strips * self.n_kc * self.M * self.bn
+
+
+def geometry(path: int, itemsize: int) -> tuple[int, int]:
+    """(bn, kt) of a path (``csrc/matmul.cu`` ``Geo``): output columns of
+    a strip and K elements of a tile; a tile is 16 KB of B. B (K, N):
+    strips of 256 bytes of B's rows; B (N, K) (TRANS): strips of table
+    rows, tiles of 256 K elements."""
+    if path == TRANS:
+        return TILE_BYTES // (256 * itemsize), 256
+    return 256 // itemsize, TILE_BYTES // 256
+
+
+def gemm_plan(M: int, N: int, K: int, itemsize: int, capacity: int,
+              path: int | None = None) -> GemmPlan:
+    """One product's strips and K chunks for ``path`` (default: KN_MMA
+    for bf16, KN_FMA for fp32; TRANS for B given as (N, K)), see
+    :func:`geometry`. The chunks per strip are those that finish the
+    product's tiles soonest on ``capacity`` blocks, every block taking
+    items in turn, at least ``MIN_CHUNK_TILES`` tiles a chunk; since
+    each chunk leaves a partial and the strip a fold, the fewest chunks
+    within ``SPAN_SLACK`` of the soonest. The chunking, and with it every
+    bit of C, depends only on the product's shape and the card, never on
+    the group it is launched in."""
+    if path is None:
+        path = KN_MMA if itemsize == 2 else KN_FMA
+    bn, kt = geometry(path, itemsize)
+    n_strips = -(-N // bn)
+    tiles = -(-K // kt)
+    span = {n_kc: -(-n_strips * n_kc // capacity) * -(-tiles // n_kc)
+            for n_kc in range(1, max(1, tiles // MIN_CHUNK_TILES) + 1)}
+    soonest = min(span.values())
+    n_kc = min(n for n, t in span.items() if t <= soonest * (1 + SPAN_SLACK))
+    return GemmPlan(M, bn, kt, n_strips, tiles, n_kc)
+
+
+def _path(M: int, dtype, trans_b: bool) -> tuple[int, int]:
+    """(path, rows of an A tile) of ``gemm_stream``: bf16 B (K, N) on the
+    tensor cores, in tiles of 8 batch rows or 16; fp32 B (K, N) and B
+    (N, K) on fp32 FMA, in tiles of 8."""
+    if trans_b:
+        return TRANS, 8
+    if dtype == torch.bfloat16:
+        return KN_MMA, 8 if M <= 8 else 16
+    return KN_FMA, 8
+
+
+_FNS: dict = {}
+
+
+def _fn(name: str, argtypes):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("matmul"), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
+
+
+def _launch_general(a, b, c, trans_b):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _fn("mm_launch", [ptr, ptr, ptr] + [i32] * 5 + [ptr])
+    M, K = a.shape
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, c.shape[1], K,
+            int(trans_b), _DTYPES[a.dtype],
+            torch.cuda.current_stream(a.get_device()).cuda_stream)
+    _build.check(rc, "matmul")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Launch:
+    """A ``gemm_stream`` launch of one set of shapes, all but the
+    pointers of A, B and C and the stream: ``args``, the plan as
+    ``gemm_launch`` takes it after those pointers (widths, chunks,
+    dtype, path, A tile rows, grid, workspace, counters), and the
+    launch's own split-K workspace and strip counters behind them.
+    Launches of one set of shapes share these buffers; stream order
+    keeps them apart."""
+    fn: Callable[..., int]
+    args: tuple
+    bufs: tuple
+
+
+_LAUNCHES: dict = {}
+
+
+def _plan_launch(a, Ns, trans_b) -> _Launch:
+    """The launch for ``a``'s shape, dtype and device against products
+    of widths ``Ns``. Planned at the first call of these shapes, which
+    allocates the launch's buffers: make it outside a CUDA graph
+    capture (a warm-up call)."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"matmul: first call of shapes {tuple(a.shape)} x {Ns} inside "
+            f"a CUDA graph capture; warm up these shapes before capturing")
+    M, K = a.shape
+    path, mt = _path(M, a.dtype, trans_b)
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    per_sm = _fn("gemm_blocks_per_sm", [i32] * 3 + [ctypes.POINTER(i32)])
+    cap = symm.capacity(a.device, per_sm, path, _DTYPES[a.dtype], mt)
+    plans = [gemm_plan(M, N, K, a.element_size(), cap,
+                       TRANS if trans_b else None) for N in Ns]
+    split = [p for p in plans if p.n_kc > 1]
+    work = cnt = None
+    if split:
+        work = torch.empty(sum(p.work_floats for p in split),
+                           dtype=torch.float32, device=a.device)
+        cnt = torch.zeros(sum(p.n_strips for p in split), dtype=torch.int32,
+                          device=a.device)
+    fn = _fn("gemm_launch", [ptr, ptr, ptr] + [i32] * 3 + [ptr, ptr]
+             + [i32] * 4 + [ptr, ptr, ptr])
+    args = (symm.ints(Ns), symm.ints([p.n_kc for p in plans]),
+            _DTYPES[a.dtype], path, mt, min(sum(p.items for p in plans), cap),
+            None if work is None else work.data_ptr(),
+            None if cnt is None else cnt.data_ptr())
+    return _Launch(fn, args, (work, cnt))
+
+
+def _launch_stream(a, bs, cs, trans_b):
+    """One ``gemm_stream`` launch for the products ``a @ bs[p]`` into
+    ``cs[p]``."""
+    M, K = a.shape
+    Ns = tuple(c.shape[1] for c in cs)
+    key = (a.get_device(), a.dtype, M, K, trans_b, Ns)
+    lp = _LAUNCHES.get(key)
+    if lp is None:
+        lp = _LAUNCHES[key] = _plan_launch(a, Ns, trans_b)
+    rc = lp.fn(a.data_ptr(), symm.ptrs(bs), symm.ptrs(cs), len(bs), M, K,
+               *lp.args, torch.cuda.current_stream(key[0]).cuda_stream)
+    _build.check(rc, "matmul")
+
+
+def _check(a, bs, trans_b, name) -> tuple[bool, bool]:
+    """Shapes, devices and dtypes of ``a @ b`` for every b. Returns
+    (whether all operands are CPU tensors, whether the streaming kernel
+    takes them: rows of whole 16-byte words, 16-byte aligned
+    pointers)."""
+    if a.dim() != 2:
+        raise ValueError(f"{name} takes 2-D operands, got a "
+                         f"{tuple(a.shape)}")
+    K = a.shape[1]
+    cpu = not a.is_cuda
+    card = a.get_device()        # -1 on the CPU
+    s = a.element_size()
+    tma = (K * s) % 16 == 0 and a.data_ptr() % 16 == 0
+    for b in bs:
+        if b.dim() != 2 or (b.shape[1] if trans_b else b.shape[0]) != K:
+            raise ValueError(f"{name}: a {tuple(a.shape)} @ b "
+                             f"{tuple(b.shape)} (trans_b={trans_b})")
+        if b.get_device() != card:
+            raise ValueError(f"{name} operands on {a.device} and "
+                             f"{b.device}: all must be CPU tensors or on "
+                             f"one CUDA device")
+        if cpu:
+            continue
+        if b.dtype != a.dtype or a.dtype not in _DTYPES:
+            raise TypeError(f"{name} kernel takes f32 x f32 or bf16 x "
+                            f"bf16, got {a.dtype} x {b.dtype}")
+        if not b.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous row-major "
+                             f"operands")
+        tma = tma and b.data_ptr() % 16 == 0 and (
+            trans_b or (b.shape[1] * s) % 16 == 0)
+    if not cpu and not a.is_contiguous():
+        raise ValueError(f"{name} kernel needs contiguous row-major operands")
+    return cpu, tma
+
+
+def _run(a, bs, trans_b, tma):
+    """The CUDA products ``a @ b`` for every b: one ``gemm_stream`` launch
+    when TMA takes every operand, else one general launch per product.
+    Counts the launches."""
+    M, K = a.shape
+    cs = [torch.empty((M, b.shape[0] if trans_b else b.shape[1]),
+                      dtype=a.dtype, device=a.device) for b in bs]
+    live = [(b, c) for b, c in zip(bs, cs) if c.numel()]
+    if not live:
+        return cs
+    if K == 0:
+        return [c.zero_() for c in cs]
+    if tma:
+        _launch_stream(a, [b for b, _ in live], [c for _, c in live],
+                       trans_b)
+        matmul.launches += 1
+    else:
+        for b, c in live:
+            _launch_general(a, b, c, trans_b)
+            matmul.launches += 1
+    return cs
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -46,36 +265,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     """``a`` (M, K) @ ``b`` (K, N) -> (M, N) in ``a``'s dtype; with
     ``trans_b``, ``b`` is given as (N, K) and read transposed. Any M, N,
     K; f32 x f32 or bf16 x bf16."""
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"matmul takes 2-D operands, got {tuple(a.shape)}"
-                         f" @ {tuple(b.shape)}")
-    M, K = a.shape
-    N, Kb = (b.shape if trans_b else (b.shape[1], b.shape[0]))
-    if Kb != K:
-        raise ValueError(f"inner dims differ: a {tuple(a.shape)}, b "
-                         f"{tuple(b.shape)} (trans_b={trans_b})")
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    cpu, tma = _check(a, [b], trans_b, "matmul")
+    if cpu:
         matmul.plain_calls += 1
         return matmul_plain(a, b, trans_b)
-    if a.device != b.device or a.device.type != "cuda":
-        raise ValueError(f"matmul operands on {a.device} and {b.device}: "
-                         f"both must be CPU tensors or on one CUDA device")
-    if a.dtype != b.dtype or a.dtype not in _DTYPES:
-        raise TypeError(f"matmul kernel takes f32 x f32 or bf16 x bf16, "
-                        f"got {a.dtype} x {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul kernel needs contiguous row-major operands")
-    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    if M == 0 or N == 0:
-        return c
-    if K == 0:
-        return c.zero_()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _lib()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-                int(trans_b), _DTYPES[a.dtype], stream)
-    _build.check(rc, "matmul")
-    matmul.launches += 1
-    return c
+    return _run(a, [b], trans_b, tma)[0]
+
+
+def matmul_group(a: torch.Tensor, bs) -> list[torch.Tensor]:
+    """``[a @ b for b in bs]`` for ``a`` (M, K) and each ``b`` (K, N_i),
+    in one launch (at most ``MAX_GROUP`` products). Each product's
+    chunking depends only on its own shape, so its output is
+    bit-identical to :func:`matmul`'s."""
+    bs = list(bs)
+    if not 1 <= len(bs) <= MAX_GROUP:
+        raise ValueError(f"matmul_group takes 1 to {MAX_GROUP} products, "
+                         f"got {len(bs)}")
+    cpu, tma = _check(a, bs, False, "matmul_group")
+    if cpu:
+        matmul.plain_calls += 1
+        return [matmul_plain(a, b) for b in bs]
+    return _run(a, bs, False, tma)
 
 
 matmul.launches = 0

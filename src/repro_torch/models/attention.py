@@ -14,7 +14,7 @@ from repro_torch.core import flash_decode as fd
 from repro_torch.core import patterns
 from repro_torch.distributed import context as dctx
 from repro_torch.kernels.flash_decode import flash_decode_paged
-from repro_torch.models.layers import apply_rope, dense
+from repro_torch.models.layers import apply_rope, dense, dense_group
 from repro_torch.models.module import Param
 
 
@@ -29,12 +29,14 @@ def attn_spec(cfg):
 
 
 def _qkv(params, x, cur_len, cfg):
-    """q (B, H, hd), k/v (B, KVH, hd) of this step, RoPE at cur_len - 1."""
+    """q (B, H, hd), k/v (B, KVH, hd) of this step, RoPE at cur_len - 1;
+    the three projections are one grouped GEMM call."""
     B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, params["wq"]).reshape(B, 1, H, hd)
-    k = dense(x, params["wk"]).reshape(B, 1, KVH, hd)
-    v = dense(x, params["wv"]).reshape(B, 1, KVH, hd)
+    q, k, v = dense_group(x, [params["wq"], params["wk"], params["wv"]])
+    q = q.reshape(B, 1, H, hd)
+    k = k.reshape(B, 1, KVH, hd)
+    v = v.reshape(B, 1, KVH, hd)
     pos = (cur_len - 1).reshape(-1, 1)
     if cfg.rope_theta:
         q = apply_rope(q, pos, cfg.rope_theta)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.matmul import matmul
+from repro_torch.kernels.matmul import matmul, matmul_group
 from repro_torch.models.module import Param
 
 
@@ -80,3 +80,12 @@ def dense(x, w):
     lead = x.shape[:-1]
     y = matmul(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
     return y.reshape(*lead, w.shape[1])
+
+
+def dense_group(x, ws):
+    """``[dense(x, w) for w in ws]`` in one GEMM launch (the products
+    that share ``x``: wq/wk/wv, wg/wu); each output equals ``dense``'s
+    bit for bit."""
+    lead = x.shape[:-1]
+    ys = matmul_group(x.reshape(-1, x.shape[-1]), [w.to(x.dtype) for w in ws])
+    return [y.reshape(*lead, w.shape[1]) for y, w in zip(ys, ws)]

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import dense, dense_group
 from repro_torch.models.module import Param
 
 
@@ -33,9 +33,11 @@ def _act(cfg, g):
 
 
 def apply_mlp_decode(params, x, cfg):
-    """x: (B, 1, d) -> (B, 1, d); every projection is a GEMM-kernel call."""
+    """x: (B, 1, d) -> (B, 1, d); every projection is a GEMM-kernel call
+    (the gate and up projections one grouped call)."""
     if cfg.act in ("swiglu", "geglu"):
-        h = _act(cfg, dense(x, params["wg"])) * dense(x, params["wu"])
+        g, u = dense_group(x, [params["wg"], params["wu"]])
+        h = _act(cfg, g) * u
     else:
         h = _act(cfg, dense(x, params["wu"]))
     return dense(h, params["wd"])

@@ -47,6 +47,50 @@ def test_matmul_kernel_matches_plain(cuda, M, K, N, dtype, trans_b):
         assert ((got - want).abs() <= 1e-2 * want.abs() + 1e-4 * scale).all()
 
 
+def _gemm_tol_ok(got, want, dt):
+    """The GEMM's tolerance: fp32 sums in another order (1e-4 of the
+    largest |C|); bf16 one ulp of an fp32 sum (rtol 1e-2) plus 1e-4 of
+    the largest |C| for sums near zero."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max()
+    if dt == torch.float32:
+        return bool((got - want).abs().max() <= 1e-4 * scale)
+    return bool(((got - want).abs() <= 1e-2 * want.abs()
+                 + 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16])
+@pytest.mark.parametrize("K,Ns", [(4096, (4096, 1024, 1024)),
+                                  (4096, (14336, 14336)),
+                                  (136, (1000, 64, 8))])
+def test_matmul_group_is_bit_equal_to_single_calls(cuda, M, K, Ns):
+    """wq/wk/wv and wg/wu in one launch: each output bit-equal to the
+    product launched alone, and within the GEMM's tolerance of the plain
+    version."""
+    from repro_torch.kernels.matmul import matmul, matmul_group, matmul_plain
+    g = torch.Generator(device=cuda).manual_seed(M * K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    bs = [(torch.randn((K, N), generator=g, device=cuda) / K ** 0.5)
+          .to(torch.bfloat16) for N in Ns]
+    n0 = matmul.launches
+    got = matmul_group(a, bs)
+    assert matmul.launches == n0 + 1
+    for c, b in zip(got, bs):
+        assert torch.equal(c, matmul(a, b))
+        assert _gemm_tol_ok(c, matmul_plain(a, b), torch.bfloat16)
+
+
+def test_unembed_streams_the_transposed_fp32_table(cuda):
+    """The fp32 unembed's shape: x (8, 4096) against the (128256, 4096)
+    table read transposed."""
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((8, 4096), generator=g, device=cuda)
+    b = torch.randn((128256, 4096), generator=g, device=cuda) * 0.02
+    got = matmul(a, b, trans_b=True)
+    assert _gemm_tol_ok(got, matmul_plain(a, b, True), torch.float32)
+
+
 @pytest.mark.parametrize("D,H,KVH", [(32, 4, 1), (64, 8, 2), (128, 32, 8)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
@@ -262,6 +306,52 @@ def test_strided_fused_kernel_matches_plain_on_virtual_ranks(cuda, W, dtype,
                                                              window):
     for epoch in range(3):
         _strided_case(["cuda:0"] * W, getattr(torch, dtype), window, epoch)
+
+
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("S_max", [96, 600])
+def test_strided_kernel_is_one_launch_per_card_per_call(cuda, W, S_max):
+    """NORMAL (W = 1), FUSED and PARTIAL: the wrapper counts one launch
+    per card per call, and the profiler's device trace shows one
+    ``fd_strided`` kernel; shards of S_max / W rows need not be whole
+    tiles (600 / 4 = 150)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_decode as kfd
+    B, H, KVH, D = 4, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(S_max + W)
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    ks = [torch.randn((B, S_max // W, KVH, D), generator=g, device=cuda)
+          for _ in range(W)]
+    vs = [torch.randn((B, S_max // W, KVH, D), generator=g, device=cuda)
+          for _ in range(W)]
+    cur = torch.tensor([1, W + 1, 50, S_max], dtype=torch.int32,
+                       device=cuda)
+    args = ([q] * W, ks, vs, [cur] * W, D ** -0.5)
+    mesh = _mesh(["cuda:0"] * W)
+    want = kfd.fused_plain([kfd.strided_partial_plain(
+        q, ks[r], vs[r], cur, D ** -0.5, None, r, W) for r in range(W)],
+        torch.float32)[0]
+    for wrapper, call in (
+            (kfd.flash_decode_fused,
+             lambda: kfd.flash_decode_fused(*args, mesh=mesh)),
+            (kfd.flash_decode_partial,
+             lambda: kfd.flash_decode_partial(*args))):
+        call()                              # buffers sized
+        torch.cuda.synchronize()
+        n0 = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   or "fd_strided" in e.key]
+        assert sum(c for k, c in kernels if "::fd_strided<" in k) == 1, \
+            kernels
+        if wrapper is kfd.flash_decode_fused:
+            for o in out:
+                assert torch.equal(o, out[0])
+                assert (o - want).abs().max() <= 1e-5
 
 
 def test_fused_kernels_share_one_communicator_call_after_call(cuda):

@@ -17,7 +17,8 @@ from repro.kernels.matmul import matmul as pallas_matmul  # noqa: E402
 from repro_torch.core import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode_paged, paged_decode_plain)
-from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
+from repro_torch.kernels.matmul import (  # noqa: E402
+    matmul, matmul_group, matmul_plain)
 
 torch.set_num_threads(2)
 
@@ -76,6 +77,28 @@ def test_matmul_cpu_uses_plain_version_and_counts():
         matmul(a, torch.randn(7, 5))
     with pytest.raises(ValueError):
         matmul(a[0], b)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16])
+@pytest.mark.parametrize("Ns", [(48, 16, 16), (40, 40), (77,)])
+def test_matmul_group_cpu_matches_ref_per_product_and_counts(M, Ns):
+    """The grouped call on CPU tensors: each product equals the jnp
+    oracle's, and the group counts one plain call and no launch."""
+    K = 32
+    a = _normal(10 + M, (M, K))
+    bs = [_normal(20 + i, (K, N)) for i, N in enumerate(Ns)]
+    l0, p0 = matmul.launches, matmul.plain_calls
+    got = matmul_group(torch.from_numpy(a), [torch.from_numpy(b)
+                                             for b in bs])
+    assert (matmul.launches, matmul.plain_calls) == (l0, p0 + 1)
+    assert [tuple(g.shape) for g in got] == [(M, N) for N in Ns]
+    for g, b in zip(got, bs):
+        want = np.asarray(ref.matmul_ref(jnp.asarray(a), jnp.asarray(b)))
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        matmul_group(torch.from_numpy(a), [torch.zeros(K + 1, 4)])
+    with pytest.raises(ValueError):
+        matmul_group(torch.from_numpy(a), [])
 
 
 # ------------------------------------------------------ paged decode

@@ -5,7 +5,13 @@ grid (units of (local rank, slot, KV head), split over the table walk)
 and ``kernels.ag_gemm.ag_gemm_plan`` the fused AG+GEMM's persistent grid
 (products x column strips x K chunks). The CUDA kernels walk exactly
 these assignments; here every output is checked to be covered once and
-every cooperative grid to fit the capacity it was given.
+every cooperative grid to fit the capacity it was given. ``kernels.
+matmul.gemm_plan`` chunks the GEMM's strips. Where the walk itself is
+device code (the GEMM's item order, the strided decode's tile range),
+:func:`group_items` and :func:`strided_tiles` below mirror it: they
+check the plans against that arithmetic, and only the card checks
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``) hold the kernels to
+it.
 """
 import itertools
 
@@ -15,8 +21,32 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import ag_gemm as kag  # noqa: E402
 from repro_torch.kernels import flash_decode as kfd  # noqa: E402
+from repro_torch.kernels import matmul as kmm  # noqa: E402
 
 H100_SMS = 132
+
+
+def group_items(plans, grid: int, block: int) -> list[tuple[int, int, int]]:
+    """(product, strip, chunk) of the items ``block`` of a ``grid``-block
+    ``gemm_stream`` launch computes: the products' items in product
+    order, chunk fastest, block i taking items i, i + grid, ... (mirrors
+    ``item_at`` and the item loops of ``csrc/matmul.cu``)."""
+    flat = [(p, s, kc) for p, pl in enumerate(plans)
+            for s in range(pl.n_strips) for kc in range(pl.n_kc)]
+    return flat[block::grid]
+
+
+def strided_tiles(cl: int, rank: int, W: int, S_loc: int,
+                  window: int | None = None) -> tuple[int, int]:
+    """The tiles ``[c_lo, c_hi)`` of ``kfd.TILE`` local rows of one
+    slot's strided shard that hold a position ``cl - window <= j * W +
+    rank < cl`` (mirrors ``StridedWalk`` of ``csrc/flash_decode.cu``,
+    which then splits them as ``kfd.split_range`` does)."""
+    j_hi = min(S_loc, -(-(cl - rank) // W)) if cl > rank else 0
+    j_lo = 0
+    if window is not None and cl - window > rank:
+        j_lo = min(-(-(cl - window - rank) // W), j_hi)
+    return j_lo // kfd.TILE, -(-j_hi // kfd.TILE)
 
 
 @pytest.mark.parametrize("B,KVH,n_local,C", [
@@ -111,3 +141,108 @@ def test_ag_gemm_chunks_fill_the_card_at_the_wo_shape(capacity):
     assert plan.grid == plan.items <= capacity
     assert capacity - plan.items < plan.n_strips or \
         plan.n_kc == plan.tiles // kag.MIN_CHUNK_TILES
+
+
+# ------------------------------------------------------------ the GEMM
+_LLAMA_DECODE = [(4096, 4096, False), (4096, 1024, False),
+                 (4096, 14336, False), (14336, 4096, False),
+                 (4096, 128256, True)]                  # (K, N, trans_b)
+
+
+@pytest.mark.parametrize("K,N,trans_b", _LLAMA_DECODE + [
+    (136, 1000, False), (100, 77, True), (8, 8, False), (64, 1, True),
+    (14336, 77, False), (4104, 130, True)])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("capacity", [132, 264, 3])
+def test_gemm_plan_covers_every_column_strip_and_k_tile_once(
+        K, N, trans_b, itemsize, capacity):
+    path = kmm.TRANS if trans_b else None
+    plan = kmm.gemm_plan(8, N, K, itemsize, capacity, path)
+    # a stage is 16 KB of B: K rows of a strip of whole 256 bytes, or a
+    # strip of table rows x 256 K elements
+    assert plan.bn * plan.kt * itemsize == kmm.TILE_BYTES
+    assert plan.kt == 256 if trans_b else (plan.bn * itemsize) % 256 == 0
+    cols = [c for s in range(plan.n_strips)
+            for c in range(s * plan.bn, min(N, (s + 1) * plan.bn))]
+    assert cols == list(range(N))
+    assert plan.tiles == -(-K // plan.kt)
+    tiles = [t for kc in range(plan.n_kc) for t in plan.chunk_tiles(kc)]
+    assert tiles == list(range(plan.tiles))
+    assert all(len(plan.chunk_tiles(kc)) >= min(plan.tiles,
+                                                kmm.MIN_CHUNK_TILES)
+               for kc in range(plan.n_kc))
+    grid = min(plan.items, capacity)
+    items = [it for blk in range(grid)
+             for it in group_items([plan], grid, blk)]
+    assert len(items) == len(set(items)) == plan.items
+    assert set(items) == set(itertools.product(
+        [0], range(plan.n_strips), range(plan.n_kc)))
+
+
+@pytest.mark.parametrize("group", [
+    [(4096, 4096), (4096, 1024), (4096, 1024)],        # wq, wk, wv
+    [(4096, 14336), (4096, 14336)],                    # wg, wu
+    [(136, 1000), (136, 64), (136, 8)]])
+@pytest.mark.parametrize("capacity", [132, 264])
+def test_gemm_chunking_does_not_depend_on_the_group(group, capacity):
+    """A product launched in a group sums the same K chunks of the same
+    strips as the product launched alone: its output is bit-equal."""
+    plans = [kmm.gemm_plan(8, N, K, 2, capacity) for K, N in group]
+    grid = min(sum(p.items for p in plans), capacity)
+    items = [it for blk in range(grid)
+             for it in group_items(plans, grid, blk)]
+    assert len(items) == len(set(items)) == sum(p.items for p in plans)
+    for p, (K, N) in enumerate(group):
+        alone = kmm.gemm_plan(8, N, K, 2, capacity)
+        assert alone == plans[p]
+        mine = {(s, tuple(alone.chunk_tiles(kc)))
+                for q, s, kc in items if q == p}
+        want = {(s, tuple(alone.chunk_tiles(kc)))
+                for s in range(alone.n_strips) for kc in range(alone.n_kc)}
+        assert mine == want
+
+
+@pytest.mark.parametrize("capacity", [132, 264, 396])
+def test_gemm_plan_fills_the_card_at_the_wk_shape(capacity):
+    """wk/wv (4096 x 1024 bf16) is 8 strips of 256 bytes: its K is split
+    into chunks, and launched with wq as one group (one launch) its items
+    give every SM of the card work. Alone it takes fewer blocks than the
+    card holds: each chunk costs a partial and its strip a fold, and the
+    plan stops splitting within SPAN_SLACK of the shortest span."""
+    wq = kmm.gemm_plan(8, 4096, 4096, 2, capacity)
+    wk = kmm.gemm_plan(8, 1024, 4096, 2, capacity)
+    assert wk.n_strips == 8 and wk.n_kc > 1
+    assert all(len(wk.chunk_tiles(kc)) >= kmm.MIN_CHUNK_TILES
+               for kc in range(wk.n_kc))
+    assert min(wq.items + 2 * wk.items, capacity) >= H100_SMS
+
+
+# ------------------------------------- the contiguous (strided) decode
+@pytest.mark.parametrize("W,S_loc", [(1, 256), (4, 64), (4, 150), (2, 7),
+                                     (3, 33), (1, 600)])
+@pytest.mark.parametrize("window", [None, 20, 100])
+@pytest.mark.parametrize("capacity", [None, 64])
+def test_decode_plan_over_a_strided_shard(W, S_loc, window, capacity):
+    """Units of (rank, slot, KV head) once each; within a unit, the
+    splits walk every local tile that holds a position the slot attends
+    exactly once, and no other tile (S_loc need not be whole tiles)."""
+    B, KVH = 5, 2
+    C = -(-S_loc // kfd.TILE)
+    plan = kfd.decode_plan(B, KVH, W, C, H100_SMS, capacity)
+    want_units = set(itertools.product(range(W), range(B), range(KVH)))
+    units = [u for blk in range(plan.grid) for u in plan.units_of(blk)]
+    assert len(units) == len(set(units)) and set(units) == want_units
+    for cl in (0, 1, W, W + 1, 37, S_loc * W - 1, S_loc * W):
+        for rank in range(W):
+            c_lo, c_hi = strided_tiles(cl, rank, W, S_loc, window)
+            walked = [c for sp in range(plan.n_split)
+                      for c in kfd.split_range(c_lo, c_hi, plan.n_split, sp)]
+            attended = {j // kfd.TILE for j in range(S_loc)
+                        if j * W + rank < cl and (
+                            window is None or j * W + rank >= cl - window)}
+            assert len(walked) == len(set(walked))
+            assert all(0 <= c < C for c in walked)
+            if attended:
+                assert set(walked) == attended
+            else:       # a window narrower than W may leave a rank one
+                assert len(walked) <= 1     # tile of masked rows
