@@ -24,18 +24,26 @@ source, in parallel), then runs, failing on the first phase that fails:
    fused launch;
 4. the smoke llama3-8b (float32) served on the card and on the CPU:
    token-identical greedy streams, equal scheduling counters, per-step
-   logits under teacher forcing within tolerance;
+   logits under teacher forcing within tolerance; then K = 8 megaticks
+   (one CUDA-graph replay each), greedy and seeded temperature: streams
+   identical to the CPU's at K = 1, counters to its K = 8;
 8. the same smoke serve over 4 virtual ranks in every fusion mode:
-   streams and counters identical to tp=1;
+   streams and counters identical to tp=1, at K = 1 and K = 8;
 5. full-width llama3-8b (bf16, seeded random weights) served through
-   the engine, with both W=1 kernels' launch counters read around it;
-9. the same weights over 4 virtual ranks under ``pallas``: a short
-   serve and a few contiguous-cache decode steps (over the 4 ranks, then
-   on one) with every kernel's counters read around them, and
-   teacher-forced logits vs tp=1;
+   the engine at K = 1, at K = 8 (graph replays; then again on prompts
+   of the same lengths for the steady time, each replay timed with CUDA
+   events) and at K = 8 with the megatick loop run eagerly, with both
+   W=1 kernels' launch counters read around each serve (decode steps
+   from the engine's scan lengths and the graphs' warm-up steps); then
+   one K = 8 serve on two engines in lockstep, graph replays against
+   the eager loop: tokens, ``cur_len``, tables and KV bytes identical;
+9. the same weights over 4 virtual ranks under ``pallas``: short serves
+   at K = 1 and K = 8 and a few contiguous-cache decode steps (over the
+   4 ranks, then on one) with every kernel's counters read around them,
+   and teacher-forced logits vs tp=1 and across gather widths;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
-   floor, and the host's time per call of the GEMM wrappers beside
-   ``torch.matmul``'s) and
+   floor, the host's time per call of the GEMM wrappers beside
+   ``torch.matmul``'s, and the sampler's time per step) and
 10. W-rank kernel timings (and the contiguous decode at W = 1), both in
    CUDA-graph replays, each beside its bound, plain version and one
    PyTorch library call (phase 10 also times an empty cooperative
@@ -686,43 +694,82 @@ def phase_real_peers(gen):
 
 
 def _smoke_requests(rng, vocab):
-    """6 staggered requests sharing a 16-token prefix."""
+    """6 staggered requests sharing a 16-token prefix, with per-request
+    temperatures and top-k (greedy rows, top_k 1, 3 and V) for the
+    temperature sampler."""
     shared = [int(t) for t in rng.integers(1, vocab, 16)]
+    temps = (1.0, 0.7, 1.3, 0.0, 1.0, 0.9)
+    top_ks = (0, 20, 0, 0, vocab, 3)
     reqs = []
     for i in range(6):
         tail = [int(t) for t in rng.integers(1, vocab, 2 + i)]
-        reqs.append((shared + tail, 10, i))
+        reqs.append((shared + tail, 10, i, temps[i], top_ks[i]))
     return reqs
 
 
+def _serve_small(params, cfg, reqs, dev, K=1, sampler="greedy", ctx=None):
+    """Serve ``reqs`` on the smoke model; returns (streams, counters
+    (ticks, dispatches, mixed dispatches, preemptions, prefix hits),
+    the engine's metrics)."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine, Request
+    with dctx.use(ctx or dctx.DistContext()):
+        eng = Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                     block_size=8, n_blocks=8, decode_steps=K,
+                     sampler=sampler, seed=5, device=dev)
+    for rid, (prompt, max_new, at, temp, top_k) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                           temp=temp, top_k=top_k), at_tick=at)
+    done = eng.run()
+    m = eng.metrics(done)
+    return ({r.rid: r.out_tokens for r in done},
+            (m["ticks"], m["dispatches"], m["mixed_dispatches"],
+             m["preemptions"], m["prefix_hits"]), m)
+
+
 def phase_small_model():
+    """(4) the smoke llama3-8b (float32) served on the card and on the
+    CPU: at K = 1 greedy, token-identical streams and equal counters;
+    then K = 8 megaticks (CUDA-graph replays on the card), greedy and
+    seeded temperature: streams identical to the CPU's at K = 1,
+    counters equal to the CPU's at K = 8; per-step logits under teacher
+    forcing within tolerance."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.models import lm
-    from repro_torch.serving.engine import Engine, Request
     cfg = smoke_config(get_config("llama3-8b")).replace(
         dtype=torch.float32)
     p_cpu = lm.init_params(cfg, seed=0, device="cpu")
     p_gpu = copy.deepcopy(p_cpu).to("cuda")
     reqs = _smoke_requests(np.random.default_rng(0), cfg.vocab_size)
-    runs = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        eng = Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
-                     block_size=8, n_blocks=8, device=dev)
-        for rid, (prompt, max_new, at) in enumerate(reqs):
-            eng.submit(Request(rid=rid, prompt=prompt,
-                               max_new_tokens=max_new), at_tick=at)
-        done = eng.run()
-        runs[dev] = ({r.rid: r.out_tokens for r in done},
-                     (eng.tick_count, eng.dispatch_count, eng.preempt_count,
-                      eng.pool.prefix_hits))
+    runs = {dev: _serve_small(params, cfg, reqs, dev)
+            for dev, params in (("cuda", p_gpu), ("cpu", p_cpu))}
     check(len(runs["cuda"][0]) == len(reqs), "small model: not all finished")
     check(runs["cuda"][0] == runs["cpu"][0],
           f"small model streams differ: {runs}")
     check(runs["cuda"][1] == runs["cpu"][1],
           f"small model counters differ: {runs['cuda'][1]} vs "
           f"{runs['cpu'][1]}")
-    check(runs["cuda"][1][2] >= 1, "small model: no preemption happened")
-    check(runs["cuda"][1][3] >= 1, "small model: no prefix hit happened")
+    check(runs["cuda"][1][3] >= 1, "small model: no preemption happened")
+    check(runs["cuda"][1][4] >= 1, "small model: no prefix hit happened")
+    mega = {}
+    for sampler in ("greedy", "temperature"):
+        base = _serve_small(p_cpu, cfg, reqs, "cpu", sampler=sampler)
+        cpu8 = _serve_small(p_cpu, cfg, reqs, "cpu", 8, sampler)
+        gpu8 = _serve_small(p_gpu, cfg, reqs, "cuda", 8, sampler)
+        what = f"small model K=8 {sampler}"
+        check(cpu8[0] == base[0] and gpu8[0] == base[0],
+              f"{what}: streams differ from the CPU at K=1: card {gpu8[0]}, "
+              f"cpu {cpu8[0]}, K=1 {base[0]}")
+        check(gpu8[1] == cpu8[1], f"{what}: counters {gpu8[1]} != the "
+                                  f"CPU's {cpu8[1]}")
+        check(gpu8[1][2] >= 1, f"{what}: no mixed megatick: {gpu8[1]}")
+        m = gpu8[2]
+        check(m["graphs"] and m["graph_captures"] >= 1
+              and m["graph_replays"] == m["dispatches"],
+              f"{what}: not one graph replay per megatick: {m}")
+        mega[sampler] = gpu8
+    check(mega["temperature"][0] != runs["cuda"][0],
+          "small model: the temperature streams equal the greedy ones")
 
     # teacher forcing: the same tokens into both devices, logits compared
     # every step (both cast fp32 logits to bf16: one bf16 ulp, 2**-7
@@ -749,100 +796,245 @@ def phase_small_model():
                       f"{diff.max().item():.3e}")
             worst = max(worst, diff.max().item())
     print(f"[small] streams token-identical on cuda and cpu, counters "
-          f"(ticks, dispatches, preemptions, prefix hits) = "
-          f"{runs['cuda'][1]}; teacher-forced logits max |diff| "
-          f"{worst:.3e}", flush=True)
-    return cfg, p_gpu, reqs, runs["cuda"]
+          f"(ticks, dispatches, mixed, preemptions, prefix hits) = "
+          f"{runs['cuda'][1]}; K=8 megaticks (graph replays) greedy "
+          f"{mega['greedy'][1]} and temperature {mega['temperature'][1]}: "
+          f"streams identical to the CPU's K=1, counters to its K=8; "
+          f"teacher-forced logits max |diff| {worst:.3e}", flush=True)
+    return cfg, p_gpu, reqs, runs["cuda"], mega
 
 
-def phase_small_model_ranks(cfg, params, reqs, want, tp=4):
+def phase_small_model_ranks(cfg, params, reqs, want, mega, tp=4):
     """(8) the smoke model served over ``tp`` virtual ranks of cuda:0 in
     every fusion mode: greedy streams and counters equal to the tp=1
-    run on the card (itself equal to the CPU's)."""
+    run on the card (itself equal to the CPU's), at K = 1 and, greedy
+    and temperature, at K = 8 (graph replays)."""
     from repro_torch.distributed import context as dctx
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.serving.engine import Engine, Request
     mesh = make_mesh(tp, device="cuda")
     for mode in ("auto", "bsp", "ring", "pallas"):
-        with dctx.use(dctx.DistContext(mesh, mode)):
-            eng = Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
-                         block_size=8, n_blocks=8, device="cuda")
-        for rid, (prompt, max_new, at) in enumerate(reqs):
-            eng.submit(Request(rid=rid, prompt=prompt,
-                               max_new_tokens=max_new), at_tick=at)
-        done = eng.run()
-        got = ({r.rid: r.out_tokens for r in done},
-               (eng.tick_count, eng.dispatch_count, eng.preempt_count,
-                eng.pool.prefix_hits))
+        ctx = dctx.DistContext(mesh, mode)
+        got = _serve_small(params, cfg, reqs, "cuda", ctx=ctx)
         check(got[0] == want[0], f"small model tp={tp} {mode}: streams "
                                  f"differ from tp=1")
         check(got[1] == want[1], f"small model tp={tp} {mode}: counters "
                                  f"{got[1]} != tp=1's {want[1]}")
+        for sampler, ref in mega.items():
+            got = _serve_small(params, cfg, reqs, "cuda", 8, sampler, ctx)
+            what = f"small model tp={tp} {mode} K=8 {sampler}"
+            check(got[0] == ref[0], f"{what}: streams differ from tp=1")
+            check(got[1] == ref[1], f"{what}: counters {got[1]} != tp=1's "
+                                    f"{ref[1]}")
+            check(got[2]["graphs"] and got[2]["graph_replays"]
+                  == got[2]["dispatches"], f"{what}: {got[2]}")
     print(f"[small tp={tp}] auto, bsp, ring, pallas: streams and counters "
-          f"identical to tp=1 on the card and to the CPU", flush=True)
+          f"identical to tp=1 on the card and to the CPU, at K=1 and at "
+          f"K=8 (greedy, temperature; graph replays)", flush=True)
+
+
+def _full_requests(cfg, plens, seed, max_new, stagger):
+    """Requests of the given prompt lengths, tokens drawn from ``seed``:
+    two seeds give two sets that the engine schedules alike."""
+    rng = np.random.default_rng(seed)
+    return [([int(t) for t in rng.integers(1, cfg.vocab_size, n)], max_new,
+             stagger * i) for i, n in enumerate(plens)]
+
+
+def _drive_timed(eng, reqs):
+    """Submit ``reqs`` and tick to the end, timing every tick on the host
+    clock and every graph replay with CUDA events. Returns (finished
+    requests, wall s, [(tick s, (path, S) or None, replay ms)])."""
+    from repro_torch.serving.engine import Request
+    for rid, (prompt, max_new, at) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new),
+                   at_tick=eng.tick_count + at)
+    events, keys = [], []
+    orig_replay = torch.cuda.CUDAGraph.replay
+    runner = eng._runner
+
+    def replay(graph):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        orig_replay(graph)
+        b.record()
+        events.append((a, b))
+    if runner is not None:
+        orig_run = runner.run
+
+        def run(path, S, gw, **arrays):
+            keys.append((path, S))
+            return orig_run(path, S, gw, **arrays)
+        runner.run = run
+    torch.cuda.CUDAGraph.replay = replay
+    ticks, done = [], []
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    try:
+        while eng.queue or eng.active:
+            n_ev, n_key = len(events), len(keys)
+            t0 = time.perf_counter()
+            done += eng.tick()
+            ticks.append((time.perf_counter() - t0,
+                          keys[n_key] if len(keys) > n_key else None,
+                          events[n_ev:]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    finally:
+        torch.cuda.CUDAGraph.replay = orig_replay
+        if runner is not None:
+            del runner.run
+    return done, wall, [(t, k, sum(a.elapsed_time(b) for a, b in ev))
+                        for t, k, ev in ticks]
+
+
+def serve_cell(params, cfg, K, reqs_a, reqs_b=None, *, batch, max_len,
+               ctx=None, graphs=True, label=""):
+    """Serve ``reqs_a`` through the engine at megatick length ``K`` with
+    every kernel wrapper's counters set to 0 just before and read just
+    after (launches, plain calls, decode steps from the engine's scan
+    lengths plus the graphs' warm-up steps); then, when ``reqs_b`` (the
+    same lengths, other tokens: the same scheduling, so the graphs of
+    the first serve replay) is given, serve it again for the steady
+    time. ``graphs=False`` runs the megatick loop eagerly (timing only).
+    Returns the summary and the first serve's finished requests."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import launch_counted
+    with dctx.use(ctx or dctx.DistContext()):
+        eng = Engine(params, cfg, batch=batch, max_len=max_len,
+                     block_size=16, prefill_chunk=8, decode_steps=K,
+                     device="cuda")
+    if eng._runner is not None:
+        eng._runner.use_graphs = graphs
+    fns = launch_counted()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _counted(fns)
+
+    def warm():
+        return 0 if eng._runner is None else eng._runner.warmup_steps
+    s0, w0 = eng.scan_steps, warm()
+    done, wall, ticks = _drive_timed(eng, reqs_a)
+    steps = eng.scan_steps - s0 + warm() - w0
+    launches = {f.__name__: f.launches for f in fns}
+    plain = {f.__name__: f.plain_calls for f in fns}
+    peak = torch.cuda.max_memory_allocated()
+    m = eng.metrics(done)
+    toks = sum(len(r.out_tokens) for r in done)
+    out = {"K": K, "graphs": m["graphs"], "requests": len(done),
+           "new_tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+           "ms_per_token": 1e3 * wall / max(toks, 1),
+           "decode_steps": steps, "warmup_steps": warm() - w0,
+           "mean_decode_step_ms": 1e3 * wall / max(steps, 1),
+           "ticks": m["ticks"], "dispatches": m["dispatches"],
+           "mixed_dispatches": m["mixed_dispatches"],
+           "peak_mem_bytes": peak, "launches": launches,
+           "plain_calls": plain,
+           "graph_count": m.get("graph_count", 0),
+           "graph_captures": m.get("graph_captures", 0),
+           "graph_capture_s": m.get("graph_capture_s", 0.0),
+           "graph_replays": m.get("graph_replays", 0),
+           "p50_ttft_s": m["p50_ttft_s"], "p50_tpot_s": m["p50_tpot_s"]}
+    if reqs_b is not None:
+        c0 = m.get("graph_captures", 0)
+        done_b, wall_b, ticks_b = _drive_timed(eng, reqs_b)
+        toks_b = sum(len(r.out_tokens) for r in done_b)
+        dev_ms = sum(t[2] for t in ticks_b)
+        # the steady megatick: a pure one of the full length K
+        steady = [t for t in ticks_b if t[1] == ("pure", K)]
+        out.update({
+            "steady_wall_s": wall_b, "steady_tokens_per_s": toks_b / wall_b,
+            "steady_ms_per_token": 1e3 * wall_b / max(toks_b, 1),
+            "steady_captures": eng.metrics(done_b)["graph_captures"] - c0,
+            "steady_replay_device_ms": dev_ms,
+            "steady_busy_share": dev_ms / (1e3 * wall_b),
+            "pure_megaticks": len(steady),
+            "pure_megatick_wall_ms": (1e3 * sum(t[0] for t in steady)
+                                      / max(len(steady), 1)),
+            "pure_megatick_device_ms": (sum(t[2] for t in steady)
+                                        / max(len(steady), 1))})
+        out["pure_megatick_busy_share"] = (
+            out["pure_megatick_device_ms"] / out["pure_megatick_wall_ms"]
+            if steady else 0.0)
+    print(f"[serve {label} K={K}{'' if graphs else ' eager'}] {toks} tokens "
+          f"in {wall:.2f} s: {toks / wall:.2f} tok/s, "
+          f"{out['ms_per_token']:.2f} ms/token, {steps} steps "
+          f"({out['mean_decode_step_ms']:.2f} ms/step), peak "
+          f"{peak / 1e9:.2f} GB, {out['graph_captures']} graphs captured "
+          f"in {out['graph_capture_s']:.2f} s"
+          + (f"; steady: {out['steady_tokens_per_s']:.2f} tok/s, "
+             f"{out['steady_ms_per_token']:.2f} ms/token, busy share "
+             f"{out['steady_busy_share']:.3f} (pure K-step megatick "
+             f"{out['pure_megatick_device_ms']:.2f} ms device in "
+             f"{out['pure_megatick_wall_ms']:.2f} ms wall: "
+             f"{out['pure_megatick_busy_share']:.3f})"
+             if reqs_b is not None else ""), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return out, done
+
+
+def _check_serve(cell, done, cfg, n, max_new, per_step, what):
+    """The serve finished every request with in-vocabulary tokens, went
+    through the kernels (no plain-version call) and launched each
+    ``per_step[name]`` times a decode step."""
+    check(len(done) == n, f"{what}: {len(done)} of {n} finished")
+    for r in done:
+        check(len(r.out_tokens) == max_new and all(
+            0 <= t < cfg.vocab_size for t in r.out_tokens),
+            f"{what}: request {r.rid} tokens {r.out_tokens}")
+    check(all(v == 0 for v in cell["plain_calls"].values()),
+          f"{what}: plain-version calls {cell['plain_calls']}")
+    steps = cell["decode_steps"]
+    check(steps > 0, f"{what}: no decode step ran")
+    want = {name: steps * k for name, k in per_step.items()}
+    got = {name: cell["launches"][name] for name in per_step}
+    check(got == want, f"{what}: launches {got} != {want} "
+                       f"({steps} steps)")
+    others = {k: v for k, v in cell["launches"].items()
+              if k not in per_step and v}
+    check(not others, f"{what}: other kernels launched {others}")
+    if cell["K"] > 1 and cell["graphs"]:
+        check(cell["graph_replays"] == cell["dispatches"]
+              and cell["graph_captures"] >= 1,
+              f"{what}: not one graph replay per megatick: {cell}")
 
 
 def phase_full_width():
+    """(5) full-width llama3-8b (bf16, seeded random weights) served at
+    K = 1 (eager, one dispatch a tick) and at K = 8 (one CUDA-graph
+    replay a megatick; then the same lengths again with the graphs
+    reused, for the steady time), and at K = 8 with the loop run
+    eagerly; the launches of both W = 1 kernels counted around each
+    serve."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import flash_decode_paged
-    from repro_torch.kernels.matmul import matmul
     from repro_torch.models import lm
-    from repro_torch.serving.engine import Engine, Request
     cfg = get_config("llama3-8b")
     t0 = time.time()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    eng = Engine(params, cfg, batch=8, max_len=512, block_size=16,
-                 prefill_chunk=8, device="cuda")
-    rng = np.random.default_rng(0)
-    plens = [int(n) for n in rng.integers(32, 129, 8)]
-    for rid, n in enumerate(plens):
-        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=32),
-                   at_tick=2 * rid)
-    torch.cuda.reset_peak_memory_stats()
-    for fn in (matmul, flash_decode_paged):
-        fn.launches = 0
-        fn.plain_calls = 0
-    # count decode steps (one per token position of the batch) by
-    # wrapping the step function the engine and decode_chunk call
-    step_fn, steps_run = lm.decode_step, [0]
-
-    def counted_step(*args, **kwargs):
-        steps_run[0] += 1
-        return step_fn(*args, **kwargs)
-    lm.decode_step = counted_step
-    torch.cuda.synchronize()
-    t0 = time.time()
-    try:
-        done = eng.run()
-        torch.cuda.synchronize()
-    finally:
-        lm.decode_step = step_fn
-    wall = time.time() - t0
-    steps = steps_run[0]
-    counts = {"matmul": (matmul.launches, matmul.plain_calls),
-              "flash_decode_paged": (flash_decode_paged.launches,
-                                     flash_decode_paged.plain_calls)}
-    peak = torch.cuda.max_memory_allocated()
-    check(len(done) == 8, f"full width: {len(done)} of 8 finished")
-    for r in done:
-        check(len(r.out_tokens) == 32, f"request {r.rid}: "
-                                       f"{len(r.out_tokens)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
-              f"request {r.rid}: token id outside the vocabulary")
-    for name, (launches, plain) in counts.items():
-        check(launches > 0, f"{name}: no kernel launch on the main path")
-        check(plain == 0, f"{name}: {plain} plain-version calls on the "
-                          f"main path")
-    check(steps > 0, "full width: no decode step ran")
-    # per layer: wq/wk/wv grouped, wo, wg/wu grouped, wd; the unembed
-    check(counts["matmul"][0] == steps * (4 * cfg.n_layers + 1)
-          and counts["flash_decode_paged"][0] == steps * cfg.n_layers,
-          f"launches {counts} != (129, 32) per step x {steps} steps")
-    toks = sum(len(r.out_tokens) for r in done)
-    m = eng.metrics(done)
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    reqs_a = _full_requests(cfg, plens, 1, 32, 2)
+    reqs_b = _full_requests(cfg, plens, 2, 32, 2)
+    kw = dict(batch=8, max_len=512, label="W=1")
+    per_step = {"matmul": 4 * cfg.n_layers + 1,
+                "flash_decode_paged": cfg.n_layers}
+    cells = {}
+    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
+    _check_serve(cells["k1"], done1, cfg, 8, 32, per_step, "full width K=1")
+    cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
+    _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "full width K=8")
+    cells["k8_eager"], _ = serve_cell(params, cfg, 8, reqs_a, graphs=False,
+                                      **kw)
+    s1 = {r.rid: r.out_tokens for r in done1}
+    s8 = {r.rid: r.out_tokens for r in done8}
+    same = sum(s1[r] == s8[r] for r in s1)
+    cells["k8"]["streams_identical_to_k1"] = same
+    print(f"[full] K=8 streams identical to K=1 for {same} of {len(s1)} "
+          f"requests (bf16: other gather-width buckets, other decode "
+          f"plans; reported, not required)", flush=True)
     # the logits themselves: one teacher-forced step on the served model
     with torch.inference_mode():
         st = lm.init_paged_decode_state(params, cfg, 8, 64, 16, 8)
@@ -854,24 +1046,76 @@ def phase_full_width():
         check(bool(torch.isfinite(lg).all()), "full width: non-finite "
                                               "logits")
         profile = profile_steps(params, cfg, st)
-    summary = {"requests": len(done), "new_tokens": toks,
-               "prompt_tokens": sum(plens), "wall_s": wall,
-               "tokens_per_s": toks / wall, "decode_steps": steps,
-               "mean_decode_step_ms": 1e3 * wall / max(steps, 1),
-               "ticks": m["ticks"], "dispatches": m["dispatches"],
-               "peak_mem_bytes": peak, "init_s": init_s,
-               "launches": {k: v[0] for k, v in counts.items()},
-               "launches_per_step": {k: v[0] / steps
-                                     for k, v in counts.items()},
-               "p50_ttft_s": m["p50_ttft_s"], "p50_tpot_s": m["p50_tpot_s"],
-               "profile": profile}
-    print(f"[full] llama3-8b bf16 served {toks} tokens in {wall:.2f} s: "
-          f"{toks / wall:.2f} tok/s, {steps} decode steps, "
-          f"{1e3 * wall / max(steps, 1):.2f} ms/step, peak "
-          f"{peak / 1e9:.2f} GB, launches {summary['launches']}",
-          flush=True)
+    summary = {"init_s": init_s, "prompt_tokens": sum(plens), **cells,
+               "launches": cells["k8"]["launches"],
+               "launches_k1": cells["k1"]["launches"],
+               "launches_per_step": per_step, "profile": profile}
     lens = [n + 32 for n in plens]
     return params, summary, lens
+
+
+def phase_graph_vs_eager(params, cfg=None, K=8):
+    """(5b) one full-width serve at K = 8 on two engines in lockstep, one
+    replaying CUDA graphs and one running the same megatick loop
+    eagerly: after every tick the emitted tokens, ``cur_len``, the block
+    tables and the KV pools' bytes must be identical (the mixed and the
+    pure megaticks both run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine, Request
+    cfg = cfg or get_config("llama3-8b")
+    engs = [Engine(params, cfg, batch=4, max_len=128, block_size=16,
+                   prefill_chunk=8, decode_steps=K, device="cuda")
+            for _ in range(2)]
+    engs[1]._runner.use_graphs = False
+    rng = np.random.default_rng(3)
+    for rid, n in enumerate((9, 14, 20, 5)):
+        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+        for eng in engs:
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=12), at_tick=rid)
+    paths, n = set(), 0
+    done = [[], []]
+    while any(e.queue or e.active for e in engs):
+        keys = []
+        orig = engs[0]._runner.run
+
+        def run(path, S, gw, **arrays):
+            keys.append(path)
+            return orig(path, S, gw, **arrays)
+        engs[0]._runner.run = run
+        try:
+            for d, eng in zip(done, engs):
+                d += eng.tick()
+        finally:
+            del engs[0]._runner.run
+        paths.update(keys)
+        streams = [{r.rid: list(r.out_tokens)
+                    for r in list(e.active.values()) + d}
+                   for e, d in zip(engs, done)]
+        check(streams[0] == streams[1], f"graph vs eager: tokens differ "
+                                        f"at tick {engs[0].tick_count}")
+        sa, sb = (e.pool.state for e in engs)
+        check(torch.equal(sa["cur_len"], sb["cur_len"])
+              and torch.equal(sa["block_tables"], sb["block_tables"]),
+              f"graph vs eager: cur_len or tables differ at tick "
+              f"{engs[0].tick_count}")
+        for key in ("k", "v"):
+            check(torch.equal(sa["caches"][key].view(torch.int16),
+                              sb["caches"][key].view(torch.int16)),
+                  f"graph vs eager: the {key} pool differs at tick "
+                  f"{engs[0].tick_count}")
+        n += 1
+    check(paths == {"pure", "mixed"}, f"graph vs eager: paths {paths}")
+    m = engs[0].metrics(done[0])
+    check(m["graph_replays"] == m["dispatches"] and
+          engs[1].metrics(done[1])["graph_replays"] == 0,
+          "graph vs eager: the engines did not take their routes")
+    print(f"[graph vs eager] full width K={K}: {n} megaticks (pure and "
+          f"mixed, {m['graph_count']} graphs) bit-identical to the eager "
+          f"loop: tokens, cur_len, tables, KV pool bytes", flush=True)
+    del engs
+    torch.cuda.empty_cache()
+    return n
 
 
 def _counted(fns):
@@ -881,7 +1125,7 @@ def _counted(fns):
         fn.plain_calls = 0
 
 
-def _teacher_forced(params, cfg, tok, ctx):
+def _teacher_forced(params, cfg, tok, ctx, gather_width=None):
     """Logits of one chunk of ``tok`` (4 slots x 8 tokens) from a fresh
     paged state whose tables reach blocks of every rank; ``ctx`` None
     is one rank."""
@@ -894,111 +1138,75 @@ def _teacher_forced(params, cfg, tok, ctx):
         for t in bt if isinstance(bt, list) else [bt]:
             t.copy_(tables)
         lg, _ = lm.decode_chunk(params, tok, torch.full(
-            (4,), 8, device="cuda"), st, cfg)
+            (4,), 8, device="cuda"), st, cfg, gather_width=gather_width)
     return lg.float()
 
 
 def phase_full_width_ranks(params, tp=4):
     """(9) full-width llama3-8b (bf16) over ``tp`` virtual ranks of
-    cuda:0 under ``pallas``: a short serve through the engine (paged
-    pool, fused paged decode + fused AG+GEMM) and a few steps of the
-    contiguous-cache ``lm.decode_step`` (fused strided decode), with
-    every kernel's counters zeroed just before and read just after;
-    then one teacher-forced chunk against the tp=1 logits."""
+    cuda:0 under ``pallas``: a short serve through the engine at K = 1
+    (paged pool, fused paged decode + fused AG+GEMM) and a few steps of
+    the contiguous-cache ``lm.decode_step`` (fused strided decode), with
+    every kernel's counters zeroed just before and read just after; the
+    same serve at K = 8 (graph replays) counted the same way, then
+    again for the steady time; then teacher-forced chunks against the
+    tp=1 logits and across gather widths."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import context as dctx
     from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels.ag_gemm import ag_gemm_fused
-    from repro_torch.kernels.matmul import matmul
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm
-    from repro_torch.serving.engine import Engine, Request
     cfg = get_config("llama3-8b")
     L = cfg.n_layers
     ctx = dctx.DistContext(make_mesh(tp, device="cuda"), "pallas")
-    with dctx.use(ctx):
-        eng = Engine(params, cfg, batch=4, max_len=256, block_size=16,
-                     prefill_chunk=8, device="cuda")
-    rng = np.random.default_rng(1)
-    plens = [int(n) for n in rng.integers(16, 49, 4)]
-    for rid, n in enumerate(plens):
-        prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=16),
-                   at_tick=rid)
-    fused = (ag_gemm_fused, kfd.flash_decode_paged_fused,
-             kfd.flash_decode_fused)
-    others = (kfd.flash_decode_paged, kfd.flash_decode_paged_partial,
-              kfd.flash_decode_partial)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _counted((matmul, *fused, *others))
-    step_fn, steps_run = lm.decode_step, [0]
-
-    def counted_step(*args, **kwargs):
-        steps_run[0] += 1
-        return step_fn(*args, **kwargs)
-    lm.decode_step = counted_step
-    t0 = time.time()
-    try:
-        done = eng.run()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        steps = steps_run[0]
-        serve_launches = {f.__name__: f.launches for f in (matmul, *fused)}
-        # the contiguous-cache path: 4 steps over a strided cache on the
-        # tp ranks, then 4 on one rank (the kernel's NORMAL mode)
-        c_steps = 4
-        c_launches = []
-        for c_ctx in (ctx, dctx.DistContext()):
-            n0 = kfd.flash_decode_fused.launches
-            with dctx.use(c_ctx), torch.inference_mode():
-                st = lm.init_decode_state(params, cfg, 4, 256)
-                tok = torch.randint(1, cfg.vocab_size, (4, 1),
-                                    device="cuda")
-                for _ in range(c_steps):
-                    lg_c, _ = step_fn(params, tok, st, cfg)
-                    tok = lg_c[:, 0].argmax(-1, keepdim=True)
-                torch.cuda.synchronize()
-            check(bool(torch.isfinite(lg_c).all()),
-                  "contiguous path: non-finite logits")
-            c_launches.append(kfd.flash_decode_fused.launches - n0)
-    finally:
-        lm.decode_step = step_fn
-    launches = {f.__name__: f.launches for f in (matmul, *fused, *others)}
-    plain = {f.__name__: f.plain_calls for f in (matmul, *fused, *others)}
-    peak = torch.cuda.max_memory_allocated()
-    check(len(done) == 4, f"full width tp={tp}: {len(done)} of 4 finished")
-    for r in done:
-        check(len(r.out_tokens) == 16 and all(
-            0 <= t < cfg.vocab_size for t in r.out_tokens),
-            f"full width tp={tp}: request {r.rid} tokens {r.out_tokens}")
-    check(all(n == 0 for n in plain.values()),
-          f"full width tp={tp}: plain-version calls {plain}")
-    check(all(launches[f.__name__] > 0 for f in (matmul, *fused)),
-          f"full width tp={tp}: a kernel was not launched: {launches}")
-    check(all(launches[f.__name__] == 0 for f in others),
-          f"full width tp={tp} pallas went through another mode's "
-          f"kernels: {launches}")
-    check(serve_launches == {"matmul": steps * (3 * L + 1),
-                             "ag_gemm_fused": steps * L,
-                             "flash_decode_paged_fused": steps * L,
-                             "flash_decode_fused": 0},
-          f"full width tp={tp}: serve launches {serve_launches} for "
-          f"{steps} steps")
+    plens = [int(n) for n in np.random.default_rng(1).integers(16, 49, 4)]
+    reqs_a = _full_requests(cfg, plens, 3, 16, 1)
+    reqs_b = _full_requests(cfg, plens, 4, 16, 1)
+    kw = dict(batch=4, max_len=256, ctx=ctx, label=f"tp={tp} pallas")
+    per_step = {"matmul": 3 * L + 1, "ag_gemm_fused": L,
+                "flash_decode_paged_fused": L}
+    cells = {}
+    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
+    _check_serve(cells["k1"], done1, cfg, 4, 16, per_step,
+                 f"full width tp={tp} K=1")
+    # the contiguous-cache path: 4 steps over a strided cache on the tp
+    # ranks, then 4 on one rank (the kernel's NORMAL mode)
+    c_steps = 4
+    c_launches = []
+    for c_ctx in (ctx, dctx.DistContext()):
+        n0 = kfd.flash_decode_fused.launches
+        with dctx.use(c_ctx), torch.inference_mode():
+            st = lm.init_decode_state(params, cfg, 4, 256)
+            tok = torch.randint(1, cfg.vocab_size, (4, 1), device="cuda")
+            for _ in range(c_steps):
+                lg_c, _ = lm.decode_step(params, tok, st, cfg)
+                tok = lg_c[:, 0].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+        check(bool(torch.isfinite(lg_c).all()),
+              "contiguous path: non-finite logits")
+        c_launches.append(kfd.flash_decode_fused.launches - n0)
+        del st
     # one launch per card per call: one card, L calls a step, both widths
     check(c_launches == [c_steps * L] * 2,
           f"contiguous path: {c_launches} launches at tp={tp} and W=1 for "
           f"{c_steps} steps each")
-    toks = sum(len(r.out_tokens) for r in done)
+    cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
+    _check_serve(cells["k8"], done8, cfg, 4, 16, per_step,
+                 f"full width tp={tp} K=8")
+    s1 = {r.rid: r.out_tokens for r in done1}
+    same = sum(s1[r.rid] == r.out_tokens for r in done8)
+    cells["k8"]["streams_identical_to_k1"] = same
 
     # teacher forcing: one 8-token chunk at tp=1 and at tp on the served
-    # bf16 weights and on the same weights unrounded (float32)
+    # bf16 weights and on the same weights unrounded (float32), and at
+    # tp=1 over one table column (the narrowest gather width) and all 8
     cfg32 = cfg.replace(dtype=torch.float32)
     p32 = lm.init_params(cfg32, seed=0, device="cuda")
     tok = torch.randint(1, cfg.vocab_size, (4, 8), device="cuda")
     out = {(dt, W): _teacher_forced(p, c, tok, ctx if W > 1 else None)
            for dt, p, c in ((16, params, cfg), (32, p32, cfg32))
            for W in (1, tp)}
+    narrow = _teacher_forced(params, cfg, tok, None, gather_width=1)
     with dctx.use(ctx), torch.inference_mode():
         st = lm.init_paged_decode_state(params, cfg, 4, 32, 16, 8)
         for t in st["block_tables"]:
@@ -1015,35 +1223,35 @@ def phase_full_width_ranks(params, tp=4):
           f"float32 tp={tp} vs tp=1 logits: max |diff| "
           f"{d32.max().item():.3e}")
     # bf16: the residual stream rounds at other places on each of the 32
-    # layers; the tp path must stay within the bf16 model's own distance
-    # from its unrounded (float32) weights
+    # layers; the tp path, and another gather width (another decode
+    # plan, as K = 8 and K = 1 may pick), must stay within the bf16
+    # model's own distance from its unrounded (float32) weights
     diff = (out[16, tp] - out[16, 1]).abs().max().item()
+    d_gw = (narrow - out[16, 1]).abs().max().item()
     own = (out[16, 1] - out[32, 1]).abs().max().item()
     check(diff <= own, f"bf16 tp={tp} vs tp=1 logits: max |diff| "
                        f"{diff:.3e} > the bf16 model's own error {own:.3e}")
+    check(d_gw <= own, f"bf16 gather width 1 vs 8 logits: max |diff| "
+                       f"{d_gw:.3e} > the bf16 model's own error {own:.3e}")
     ref = out[16, 1].abs().max().item()
-    summary = {"tp": tp, "fusion_mode": "pallas", "requests": len(done),
-               "new_tokens": toks, "prompt_tokens": sum(plens),
-               "wall_s": wall, "tokens_per_s": toks / wall,
-               "decode_steps": steps,
-               "mean_decode_step_ms": 1e3 * wall / max(steps, 1),
-               "peak_mem_bytes": peak, "launches": launches,
-               "serve_launches_per_step": {k: v / steps for k, v in
-                                           serve_launches.items()},
+    summary = {"tp": tp, "fusion_mode": "pallas", "prompt_tokens":
+               sum(plens), **cells,
+               "launches": cells["k8"]["launches"],
+               "launches_k1": cells["k1"]["launches"],
+               "serve_launches_per_step": per_step,
                "contiguous_steps": c_steps,
                "contiguous_launches": {"tp": c_launches[0],
                                        "w1": c_launches[1]},
                "teacher_forced_max_abs_diff": diff,
+               "teacher_forced_gather_width_max_abs_diff": d_gw,
                "teacher_forced_bf16_vs_f32_max_abs_diff": own,
                "teacher_forced_f32_max_abs_diff": d32.max().item(),
                "teacher_forced_max_abs_logit": ref, "profile": profile}
-    print(f"[full tp={tp}] llama3-8b bf16 pallas served {toks} tokens in "
-          f"{wall:.2f} s: {toks / wall:.2f} tok/s, {steps} decode steps, "
-          f"{1e3 * wall / max(steps, 1):.2f} ms/step, peak "
-          f"{peak / 1e9:.2f} GB, launches {launches}; teacher-forced "
-          f"logits vs tp=1 max |diff| {diff:.3e} bf16 (bf16 vs float32 "
-          f"weights {own:.3e}, max |logit| {ref:.3e}), "
-          f"{d32.max().item():.3e} float32", flush=True)
+    print(f"[full tp={tp}] K=8 streams identical to K=1 for {same} of 4; "
+          f"teacher-forced logits vs tp=1 max |diff| {diff:.3e} bf16, "
+          f"gather width 1 vs 8 {d_gw:.3e} (bf16 vs float32 weights "
+          f"{own:.3e}, max |logit| {ref:.3e}), {d32.max().item():.3e} "
+          f"float32", flush=True)
     return summary, [n + 16 for n in plens]
 
 
@@ -1473,6 +1681,33 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     return rows
 
 
+def sampler_ms(gen, B=8, V=128256):
+    """Device ms of one sampling step at the full-width serve's shapes
+    (batch 8, vocab 128256, bf16 logits), in CUDA-graph replays: greedy,
+    and the seeded temperature sampler (plain PyTorch ops: the threefry
+    keys and bits, the float32 Gumbel logs, the per-row top-k sort)
+    with no truncation and with top_k 50 on half the rows."""
+    from repro_torch.serving import sampler as sl
+    logits = torch.randn((B, 1, V), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    key = sl.prng_key(0, "cuda")
+    rids = torch.arange(B, dtype=torch.int32, device="cuda")
+    steps = torch.full((B,), 17, dtype=torch.int32, device="cuda")
+    temps = torch.full((B,), 0.8, dtype=torch.float32, device="cuda")
+    topks = torch.tensor([0, 50] * (B // 2), dtype=torch.int32,
+                         device="cuda")
+    out = {"batch": B, "vocab": V,
+           "greedy_ms": graph_ms(lambda: sl.greedy(logits), iters=50),
+           "temperature_ms": graph_ms(lambda: sl.sample_batch(
+               logits, key, rids, steps, temps, topks), iters=20),
+           "temperature_eager_ms": time_ms(lambda: sl.sample_batch(
+               logits, key, rids, steps, temps, topks), iters=20)}
+    print(f"[sampler] ms per step at batch {B} x vocab {V}: greedy "
+          f"{out['greedy_ms']:.4f}, temperature {out['temperature_ms']:.4f} "
+          f"(eager {out['temperature_eager_ms']:.4f})", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a "
@@ -1509,13 +1744,15 @@ def main():
         return
     phase_small_model_ranks(*phase_small_model())
     params, summary, lens = phase_full_width()
+    summary["graph_vs_eager_megaticks"] = phase_graph_vs_eager(params)
     summary_tp, lens_tp = phase_full_width_ranks(params)
     del params
     torch.cuda.empty_cache()
     kernels, rows = phase_timings(gen, lens, summary["launches"],
                                   summary["launches_per_step"], errs)
+    sampler = sampler_ms(gen)
     c_steps = summary_tp["contiguous_steps"]
-    steps = summary_tp["decode_steps"]
+    steps = summary_tp["k8"]["decode_steps"]
     errs["flash_decode_fused_w1"] = errs["flash_decode_fused"]
     launches_tp = dict(summary_tp["launches"])
     launches_tp["flash_decode_fused"] = summary_tp["contiguous_launches"][
@@ -1524,7 +1761,7 @@ def main():
         "contiguous_launches"]["w1"]
     kernels += phase_timings_ranks(
         gen, lens_tp, launches_tp,
-        {"ag_gemm_fused": steps + c_steps,
+        {"ag_gemm_fused": steps,
          "flash_decode_paged_fused": steps,
          "flash_decode_fused": c_steps,
          "flash_decode_fused_w1": c_steps}, errs)
@@ -1536,7 +1773,7 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_s": build_s, "serve": summary,
                    "serve_tp": summary_tp, "kernels": kernels,
-                   "gemm_shapes": rows}, f, indent=1)
+                   "sampler": sampler, "gemm_shapes": rows}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

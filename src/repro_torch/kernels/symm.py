@@ -7,8 +7,10 @@ it holds an inbox (two parities of W source slots) and a flag array (W
 sources x ``n_chunk`` words) on the rank's device, plus, on every
 distinct device, the device arrays of the W inbox and flag base
 addresses that the kernels index. Buffers grow on demand and are never
-shrunk; growing waits for every device of the mesh first, since a peer
-may still be writing into the old buffers.
+shrunk; growing waits for every device of the mesh first (the new
+buffers' zeros must land before a peer writes into them). Superseded
+buffers stay alive with the communicator: a CUDA graph captured before
+a growth keeps their pointers and replays into them.
 
 The epoch lives in device memory: each distinct device holds one 64-bit
 word (``Communicator.state``), the epoch in its high half and a count of
@@ -23,11 +25,11 @@ travel as LL lines that carry their own epoch, and a recycled buffer
 could hold lines of another mesh's epochs.
 
 :func:`counters` hands the kernels a per-device array of arrival
-counters that every kernel leaves at zero (split and split-K folds), and
+counters that every kernel leaves at zero (split and split-K folds),
+also kept alive when a larger array supersedes them, and
 :func:`sm_count` / :func:`capacity` give the sizes the launch plans
 take. Buffers are sized before a call is captured into a CUDA graph (a
-warm-up call does it): growing inside a capture would tie them to the
-graph's memory pool.
+warm-up call does it): growing inside a capture raises.
 """
 from __future__ import annotations
 
@@ -71,6 +73,8 @@ class Communicator:
         self.inbox: list[torch.Tensor] = []
         self.flags: list[torch.Tensor] = []
         self.tables: list[tuple[torch.Tensor, ...]] = []
+        # superseded (inbox, flags, tables), alive for captured graphs
+        self.retired: list[tuple[list, ...]] = []
         # per distinct device: the 64-bit word (count, epoch) as two
         # int32 halves, advanced by the kernels
         self.state = [torch.zeros(2, dtype=torch.int32, device=d)
@@ -87,8 +91,11 @@ class Communicator:
                                                f"cuda:{b}")
 
     def _grow(self, half: int, n_chunk: int):
+        _no_capture("the symmetric buffers")
         for d in self.mesh.distinct:
             torch.cuda.synchronize(d)
+        if self.inbox:
+            self.retired.append((self.inbox, self.flags, self.tables))
         W = self.mesh.size
         self.half, self.n_chunk = half, n_chunk
         # zeros: LL lines (csrc/symm.cuh) carry their epoch, and a
@@ -129,19 +136,30 @@ def communicator(mesh) -> Communicator:
     return mesh.symm
 
 
+def _no_capture(what: str):
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what} cannot grow inside a CUDA graph capture; make a "
+            f"warm-up call of the same shapes before capturing")
+
+
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
+_RETIRED_COUNTERS: list[torch.Tensor] = []   # alive for captured graphs
 _SM_COUNT: dict[int, int] = {}
 _PER_SM: dict[tuple, int] = {}
 
 
 def counters(device, n: int) -> torch.Tensor:
     """``n`` (or more) uint32 arrival counters on ``device``, zero; the
-    kernels leave them at zero. Grown on demand (a grown array is fresh
-    zeros; stream order keeps the old one alive for launches in
-    flight)."""
+    kernels leave them at zero. Grown on demand: a grown array is fresh
+    zeros, and the one it supersedes stays alive for the graphs that
+    captured it."""
     device = torch.device(device)
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        _no_capture("the arrival counters")
+        if buf is not None:
+            _RETIRED_COUNTERS.append(buf)
         buf = torch.zeros(max(n, 1024, 0 if buf is None else
                               2 * buf.numel()),
                           dtype=torch.int32, device=device)

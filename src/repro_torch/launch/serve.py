@@ -6,6 +6,8 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
       --smoke --device cpu --requests 4 --batch 2 --max-new 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --tp 4 --fusion-mode pallas          # 4 virtual ranks on one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --decode-steps 8 --sampler temperature --temp 0.8 --top-k 50
 
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``
@@ -50,8 +52,12 @@ def main(argv=None):
     p.add_argument("--prefill-chunk", type=int, default=8,
                    help="prompt tokens consumed per slot per tick")
     p.add_argument("--decode-steps", type=int, default=1,
-                   help="decode megatick length K (only 1 is ported)")
-    p.add_argument("--megatick-token-budget", type=int, default=None)
+                   help="decode megatick length K: one dispatch (one "
+                        "CUDA-graph replay on one card) runs K decode "
+                        "steps with sampling on the device")
+    p.add_argument("--megatick-token-budget", type=int, default=None,
+                   help="per-slot token quota of a mixed megatick "
+                        "(default max(decode-steps, prefill-chunk))")
     p.add_argument("--stagger", type=int, default=0,
                    help="admit request i no earlier than tick i*STAGGER "
                         "(0 = all at once)")
@@ -69,9 +75,10 @@ def main(argv=None):
                    choices=("fcfs", "priority", "slo"))
     p.add_argument("--deadline-ms", type=float, default=None)
     p.add_argument("--temp", type=float, default=1.0,
-                   help="temperature sampler only (a later slice)")
+                   help="sampling temperature (temperature sampler)")
     p.add_argument("--top-k", type=int, default=0,
-                   help="temperature sampler only (a later slice)")
+                   help="top-k truncation, 0 = full vocab (temperature "
+                        "sampler)")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--kv-blocks", type=int, default=None)
     p.add_argument("--paged-gather", default="bounded",
@@ -86,8 +93,6 @@ def main(argv=None):
 
     if args.ckpt_dir:
         _later("--ckpt-dir", "training/checkpoint")
-    if args.decode_steps != 1 or args.megatick_token_budget is not None:
-        _later("--decode-steps > 1", "megatick")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -101,8 +106,10 @@ def main(argv=None):
     with dctx.use(ctx):
         eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
                      prefill_chunk=args.prefill_chunk, sampler=args.sampler,
-                     block_size=args.block_size, n_blocks=args.kv_blocks,
-                     scheduler=args.scheduler,
+                     seed=args.seed, block_size=args.block_size,
+                     n_blocks=args.kv_blocks, scheduler=args.scheduler,
+                     decode_steps=args.decode_steps,
+                     megatick_token_budget=args.megatick_token_budget,
                      bounded_gather=args.paged_gather == "bounded",
                      device=mesh.devices[0])
     rng = np.random.default_rng(args.seed + 1)
@@ -111,6 +118,7 @@ def main(argv=None):
         prompt = [int(t) for t in rng.integers(1, cfg.vocab_size, plen)]
         eng.submit(Request(rid=i, prompt=prompt,
                            max_new_tokens=args.max_new,
+                           temp=args.temp, top_k=args.top_k,
                            deadline_ms=args.deadline_ms),
                    at_tick=i * args.stagger)
     t0 = time.time()

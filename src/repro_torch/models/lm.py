@@ -317,3 +317,60 @@ def decode_chunk(params, tokens, counts, state, cfg,
                                 bounded=bounded)
         logits = torch.where(act[:, None, None], lg.float(), logits)
     return logits, state
+
+
+def decode_multi(params, token, state, cfg, *, steps: int, budgets,
+                 sample_fn, gather_width: int | None = None,
+                 bounded: bool = True):
+    """K-step decode megatick: ``steps`` autoregressive
+    :func:`decode_step` calls with in-loop sampling, each step's sampled
+    token fed to the next without leaving the device (a Python loop;
+    captured in a CUDA graph it is one replay).
+
+    token: (B, 1) int32, each slot's last token; budgets: (B,) int32,
+    how many of the steps each slot runs (a slot past its budget is
+    frozen byte-identically, like an inactive slot of
+    :func:`decode_step`); sample_fn: ``(logits (B, 1, V), j) -> (B, 1)
+    int32``, the sampler of step ``j``. Returns (tokens (B, steps)
+    int32, state); row b is valid up to ``budgets[b]`` tokens, later
+    entries repeat its last valid one. ``gather_width`` must cover every
+    block the whole megatick writes."""
+    tok, out = token, []
+    for j in range(steps):
+        act = budgets > j
+        logits, state = decode_step(params, tok, state, cfg, active=act,
+                                    gather_width=gather_width,
+                                    bounded=bounded)
+        tok = torch.where(act[:, None], sample_fn(logits, j), tok)
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1), state
+
+
+def decode_mixed(params, tokens, token0, prefill_lens, emit_from, totals,
+                 state, cfg, *, steps: int, sample_fn,
+                 gather_width: int | None = None, bounded: bool = True):
+    """Mixed prefill+decode megatick: ``steps`` :func:`decode_step` calls
+    in which slot b's step j consumes prompt token ``tokens[b, j]``
+    while ``j < prefill_lens[b]``, then the carry token (the previously
+    sampled one; ``token0`` seeds it), and is frozen from
+    ``totals[b]`` on. Sampling feeds the carry on steps ``emit_from[b]
+    <= j < totals[b]`` (the engine sets ``emit_from`` to the step that
+    consumes the last prompt token, so the first output token rides its
+    logits, or to ``totals`` for a slot still mid-prompt).
+
+    tokens: (B, S) int32 prompt tokens, left-aligned; token0: (B, 1)
+    int32; prefill_lens, emit_from, totals: (B,) int32. Returns (out
+    (B, steps) int32, state); row b's emitted tokens are
+    ``out[b, emit_from[b]:totals[b]]``."""
+    tok, out = token0, []
+    for j in range(steps):
+        act = totals > j
+        inp = torch.where((prefill_lens > j)[:, None], tokens[:, j:j + 1],
+                          tok)
+        logits, state = decode_step(params, inp, state, cfg, active=act,
+                                    gather_width=gather_width,
+                                    bounded=bounded)
+        emit = (emit_from <= j) & act
+        tok = torch.where(emit[:, None], sample_fn(logits, j), tok)
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1), state

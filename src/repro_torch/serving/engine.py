@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over paged KV (port of
-``repro.serving.engine``, single-step path).
+``repro.serving.engine``).
 
-Scheduling per tick, as in the JAX engine with ``decode_steps=1``:
+Scheduling per tick, as in the JAX engine. With ``decode_steps=1``:
 
 1. admit queued requests whose arrival tick has passed, in the policy's
    order, while the pool has a free slot AND blocks for the prompt plus
@@ -14,8 +14,21 @@ Scheduling per tick, as in the JAX engine with ``decode_steps=1``:
    the policy's victim is preempted (its generated tokens fold into an
    effective prompt; resuming is a prefix hit);
 3. one dispatch — ``lm.decode_step`` (all counts <= 1) or
-   ``lm.decode_chunk`` — then greedy sampling on the card and ONE
-   readback of the (B, 1) token ids; finished requests retire.
+   ``lm.decode_chunk`` — then sampling on the card and ONE readback of
+   the (B, 1) token ids; finished requests retire.
+
+With ``decode_steps=K > 1`` every tick with an active slot is a
+megatick: K decode steps with the sampler inside the loop
+(``lm.decode_multi``), or, while any slot is prefilling, the mixed
+program in which prompt chunks ride the same loop (``lm.decode_mixed``);
+one readback of the (B, S) ids per megatick. On the card, when every
+rank is on one card, a megatick is one CUDA-graph replay
+(``serving.graphs``). Preemption and sliding-window reclaim happen at
+megatick boundaries; streams stay token-identical to K = 1.
+
+Sampling is greedy or the seeded temperature/top-k sampler, whose keys
+fold (seed, request id, token index) with JAX's threefry
+(``serving.sampler``), so a stream does not depend on scheduling.
 
 Everything on the card runs under ``torch.inference_mode()``. The decode
 state (KV pools, ``cur_len``, block table) is updated in place.
@@ -26,9 +39,10 @@ dispatch under it: over the W ranks of its mesh the pool is sharded on
 the block dim and the decode step goes through the fusion mode's
 patterns (``core.patterns``); nothing in the scheduling changes.
 
-Not in this slice (each raises ``NotImplementedError``): megaticks
-(``decode_steps > 1``), the seeded temperature sampler, the robustness
-plane (fault plans, watchdog, degraded ladder, drain, snapshot/restore).
+Not in this slice: the robustness plane. Fault plans, the watchdog, the
+degraded ladder, drain and snapshot/restore raise
+``NotImplementedError``, and a failed dispatch is not retried: the state
+is written in place, so there is no old state to retry from.
 """
 from __future__ import annotations
 
@@ -43,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
 from repro_torch.models import lm
 from repro_torch.serving import sampler as sampler_lib
+from repro_torch.serving.graphs import MIXED, PURE, MegatickRunner
 from repro_torch.serving.kv_cache import CachePool, pow2_bucket
 from repro_torch.serving.metrics import latency_summary
 from repro_torch.serving.scheduler import SchedulerPolicy, get_scheduler
@@ -51,7 +66,7 @@ from repro_torch.serving.scheduler import SchedulerPolicy, get_scheduler
 def _later(what: str, slice_name: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet ({slice_name} "
-        f"slice); this slice serves decode_steps=1 with greedy sampling")
+        f"slice)")
 
 
 @dataclasses.dataclass
@@ -60,6 +75,8 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 16
     arrival_tick: int = 0            # earliest tick it may be admitted
+    temp: float = 1.0                # per-request sampling temperature
+    top_k: int = 0                   # per-request top-k (0 = full vocab)
     priority: int = 0                # higher = sooner ("priority" policy)
     deadline_ms: float | None = None  # TTFT target ("slo" policy)
     out_tokens: list = dataclasses.field(default_factory=list)
@@ -106,29 +123,38 @@ class Engine:
     ``prefill_chunk`` is the most prompt tokens a slot consumes per
     tick; ``block_size``/``n_blocks`` size the paged pool;
     ``scheduler`` is "fcfs", "priority", "slo" or a policy instance.
+    ``sampler`` is "greedy" or "temperature" (``Request.temp`` /
+    ``Request.top_k``, keys from ``seed``; ``temp=0`` is greedy).
+    ``decode_steps`` is the megatick length K; ``megatick_token_budget``
+    the per-slot token quota M of a mixed megatick (default
+    ``max(K, prefill_chunk)``, at least K).
     ``bounded_gather`` (W > 1): paged attention walks each slot's table
     (default) or scores the masked whole pool shard (the CPU oracle).
     """
 
     def __init__(self, params, cfg, *, batch: int = 8, max_len: int = 512,
                  prefill_chunk: int = 8, sampler: str = "greedy",
-                 block_size: int = 16,
+                 seed: int = 0, block_size: int = 16,
                  n_blocks: int | None = None,
                  scheduler: str | SchedulerPolicy = "fcfs",
-                 decode_steps: int = 1, fault_plan=None, watchdog=None,
+                 decode_steps: int = 1,
+                 megatick_token_budget: int | None = None,
+                 fault_plan=None, watchdog=None,
                  degraded=None, bounded_gather: bool = True,
                  device="cuda"):
-        if sampler == "temperature":
-            raise _later("sampler='temperature' (bit-exact threefry)",
-                         "sampler")
-        if sampler != "greedy":
+        if sampler not in ("greedy", "temperature"):
             raise ValueError(f"unknown sampler {sampler!r}: "
                              f"expected 'greedy' or 'temperature'")
         if decode_steps < 1:
             raise ValueError(f"decode_steps must be >= 1, "
                              f"got {decode_steps}")
-        if decode_steps > 1:
-            raise _later("decode_steps > 1 (megaticks)", "megatick")
+        if (megatick_token_budget is not None
+                and megatick_token_budget < decode_steps):
+            raise ValueError(
+                f"megatick_token_budget {megatick_token_budget} < "
+                f"decode_steps {decode_steps}: the per-slot quota must "
+                f"at least cover a full decode megatick, or the 1/K "
+                f"dispatch bound cannot hold")
         if fault_plan is not None or watchdog is not None or degraded:
             raise _later("the robustness plane (fault_plan / watchdog / "
                          "degraded)", "robustness")
@@ -155,7 +181,25 @@ class Engine:
         self.active: dict[int, Request] = {}   # slot -> request
         self.pool = CachePool(params, cfg, batch, max_len,
                               block_size=block_size, n_blocks=n_blocks)
-        self.decode_steps = 1
+        self.sampler = sampler
+        self.seed = int(seed)
+        self._base_key = sampler_lib.prng_key(seed, params.device)
+        self.decode_steps = int(decode_steps)
+        self.megatick_tokens = (int(megatick_token_budget)
+                                if megatick_token_budget is not None
+                                else max(self.decode_steps,
+                                         self.prefill_chunk))
+        # a megatick is one CUDA-graph replay when every rank is on one
+        # card; over distinct cards (and on the CPU) the loop runs eagerly
+        one_card = mesh is None or len(mesh.distinct) == 1
+        self._runner = None
+        if self.decode_steps > 1:
+            self._runner = MegatickRunner(
+                self.step_params, self.pool.state, cfg, batch=batch,
+                width=self.megatick_tokens, sampler=sampler,
+                key=self._base_key, bounded=self.bounded_gather,
+                device=params.device,
+                graphs=self.device.type == "cuda" and one_card)
         self.tick_count = 0
         self.dispatch_count = 0     # ticks that actually ran a decode step
         self.preempt_count = 0
@@ -163,6 +207,12 @@ class Engine:
         self.blocks_freed_on_abort = 0
         self.decode_dispatch_count = 0   # dispatches with no slot prefilling
         self.decode_token_count = 0      # tokens those dispatches produced
+        # mixed megaticks: dispatches carrying prompt chunks, the prompt
+        # tokens they consumed and the decode tokens they emitted
+        self.mixed_dispatch_count = 0
+        self.mixed_prompt_token_count = 0
+        self.mixed_decode_token_count = 0
+        self.scan_steps = 0              # decode steps the dispatches ran
         self.error_count = 0             # slots retired finish_reason=error
         self._seq = 0
 
@@ -305,14 +355,27 @@ class Engine:
         self.policy.on_tick_end(self.queue, self.active, self.tick_count)
         return finished
 
+    @property
+    def eff_decode_steps(self) -> int:
+        """The megatick length in force (the degraded ladder that would
+        lower it belongs to the robustness slice)."""
+        return self.decode_steps
+
     def _tick(self) -> list[Request]:
         self._admit()
         self.tick_count += 1
         if not self.active:
             return []
+        if self.eff_decode_steps > 1:
+            # a batch with prefill in flight runs the mixed program,
+            # a pure-decode batch the K-step one
+            if any(r.prefilling for r in self.active.values()):
+                return self._megatick_mixed()
+            return self._megatick()
         C = self.prefill_chunk
         tok = np.zeros((self.batch, C), np.int32)
         cnt = np.zeros((self.batch,), np.int32)
+        emit = np.zeros((self.batch,), bool)
         any_prefill = False
         for slot, req in self.active.items():
             want = (min(C, len(req.eff_prompt) - req.consumed)
@@ -325,10 +388,12 @@ class Engine:
                 any_prefill = True
                 tok[slot, :n] = req.eff_prompt[req.consumed:req.consumed + n]
                 cnt[slot] = n
+                emit[slot] = req.consumed + n >= len(req.eff_prompt)
             else:
                 tok[slot, 0] = (req.out_tokens[-1] if req.out_tokens
                                 else req.eff_prompt[-1])
                 cnt[slot] = 1
+                emit[slot] = True
 
         cmax = int(cnt.max(initial=0))
         if cmax == 0:
@@ -344,6 +409,7 @@ class Engine:
         dev = self.device
         with torch.inference_mode():
             if cmax <= 1:
+                self.scan_steps += 1
                 logits, _ = lm.decode_step(
                     self.step_params, torch.from_numpy(tok[:, :1]).to(dev),
                     self.pool.state, self.cfg,
@@ -351,11 +417,12 @@ class Engine:
                     gather_width=gw, bounded=self.bounded_gather)
             else:
                 cw = pow2_bucket(cmax, C)
+                self.scan_steps += cw
                 logits, _ = lm.decode_chunk(
                     self.step_params, torch.from_numpy(tok[:, :cw]).to(dev),
                     torch.from_numpy(cnt).to(dev), self.pool.state,
                     self.cfg, gather_width=gw, bounded=self.bounded_gather)
-            nxt = self._next_tokens(logits)
+            nxt = self._next_tokens(logits, emit)
 
         finished = []
         now = time.time()
@@ -392,9 +459,224 @@ class Engine:
                 self._retire(slot, req, now, finished)
         return finished
 
-    def _next_tokens(self, logits):
-        """Greedy ids for every slot, sampled on the card."""
-        ids = sampler_lib.greedy(logits)
+    def _megatick(self) -> list[Request]:
+        """One K-step decode megatick (``lm.decode_multi``); runs only
+        when every active slot decodes. Each slot's step budget is
+        clamped by its remaining ``max_new_tokens``, its ``max_len``
+        headroom and the blocks ``CachePool.reserve`` can back for the
+        whole megatick; a slot past its budget is frozen in the loop.
+        Sampling stays on the card: (B, S) ids come back."""
+        K = self.eff_decode_steps
+        tok = np.zeros((self.batch, 1), np.int32)
+        budgets = np.zeros((self.batch,), np.int32)
+        rids = np.zeros((self.batch,), np.int32)
+        steps0 = np.zeros((self.batch,), np.int32)
+        temps = np.zeros((self.batch,), np.float32)
+        topks = np.zeros((self.batch,), np.int32)
+        for slot, req in self.active.items():
+            want = min(K, req.max_new_tokens - len(req.out_tokens),
+                       self.max_len - 1 - int(self.pool.lengths[slot]))
+            budgets[slot] = self.pool.reserve(slot, want)
+            tok[slot, 0] = (req.out_tokens[-1] if req.out_tokens
+                            else req.eff_prompt[-1])
+            rids[slot] = req.rid
+            steps0[slot] = len(req.out_tokens)
+            temps[slot] = req.temp
+            topks[slot] = req.top_k
+        kmax = int(budgets.max(initial=0))
+        if kmax == 0:
+            # every slot stalled on blocks at the megatick boundary
+            self._preempt_one()
+            return []
+        self.pool.sync()
+        # gather width AFTER the reserve() loop: it must cover every
+        # block the whole megatick writes
+        gw = self.pool.gather_width()
+        # scan length bucketed to a power of two (at most K): graphs stay
+        # bounded at log2(K) + 1 lengths per gather width
+        kb = pow2_bucket(kmax, K)
+        self.dispatch_count += 1
+        self.decode_dispatch_count += 1
+        self.scan_steps += kb
+        out = self._runner.run(PURE, kb, gw, tok=tok, budgets=budgets,
+                               rids=rids, steps0=steps0, temps=temps,
+                               topks=topks)
+
+        finished = []
+        now = time.time()
+        for slot, req in list(self.active.items()):
+            n = int(budgets[slot])
+            if n == 0:
+                continue
+            row = out[slot, :n]
+            bad = np.nonzero((row < 0) | (row >= self.cfg.vocab_size))[0]
+            if bad.size:
+                # NaN/Inf guard: keep the tokens sampled before the first
+                # out-of-vocab id, advance the host length only that far
+                # (the prefix registry never serves poisoned KV), and
+                # retire THIS slot as an error
+                good = int(bad[0])
+                self.pool.advance(slot, good)
+                req.out_tokens.extend(int(t) for t in row[:good])
+                self.decode_token_count += good
+                self._retire_error(
+                    slot, req, now, finished,
+                    f"non-finite logits: sampled token id "
+                    f"{int(row[good])}")
+                continue
+            self.pool.advance(slot, n)
+            req.out_tokens.extend(int(t) for t in row)
+            self.decode_token_count += n
+            if self.cfg.sliding_window is not None:
+                self.pool.reclaim_out_of_window(slot,
+                                                self.cfg.sliding_window)
+            cache_full = int(self.pool.lengths[slot]) + 1 >= self.max_len
+            if (len(req.out_tokens) >= req.max_new_tokens
+                    or cache_full):
+                self._retire(slot, req, now, finished)
+        return finished
+
+    def _megatick_mixed(self) -> list[Request]:
+        """One mixed prefill+decode megatick (``lm.decode_mixed``): runs
+        when any slot of a K-step engine is mid-prompt. Each slot gets a
+        quota of ``megatick_tokens`` (M) steps: a prefilling slot
+        consumes ``p = min(M, remaining prompt)`` prompt tokens and, if
+        that completes its prompt, samples its first token at the step
+        that consumed the last one and piggybacks up to ``min(M - p, K,
+        remaining max_new - 1, headroom)`` decode steps; a decoding slot
+        runs its usual ``min(K, remaining max_new, headroom)``. One
+        ``reserve`` per slot backs every write; a short reservation
+        shrinks the prefill span first. If every reservation is 0, the
+        policy's victim is preempted."""
+        K = self.eff_decode_steps
+        M = self.megatick_tokens
+        toks = np.zeros((self.batch, M), np.int32)
+        tok0 = np.zeros((self.batch, 1), np.int32)
+        pl = np.zeros((self.batch,), np.int32)     # prefill role steps
+        e0 = np.zeros((self.batch,), np.int32)     # first emitting step
+        tot = np.zeros((self.batch,), np.int32)    # total active steps
+        rids = np.zeros((self.batch,), np.int32)
+        steps0 = np.zeros((self.batch,), np.int32)
+        temps = np.zeros((self.batch,), np.float32)
+        topks = np.zeros((self.batch,), np.int32)
+        for slot, req in self.active.items():
+            headroom = self.max_len - 1 - int(self.pool.lengths[slot])
+            rem_new = req.max_new_tokens - len(req.out_tokens)
+            if req.prefilling:
+                rem_p = len(req.eff_prompt) - req.consumed
+                p_want = min(M, rem_p)
+                # decode steps ride along only when the prompt completes
+                # here; the first sampled token is written when it is
+                # consumed, so the span is remaining max_new minus one
+                d_want = (max(0, min(M - p_want, K, rem_new - 1,
+                                     headroom - p_want))
+                          if p_want == rem_p else 0)
+            else:
+                rem_p = 0
+                p_want = 0
+                d_want = min(K, rem_new, headroom)
+            n = self.pool.reserve(slot, p_want + d_want)
+            p = min(n, p_want)
+            tot[slot] = n
+            pl[slot] = p
+            # emission starts at the step consuming the last prompt token
+            # (or at 0 for a decoding slot); a slot whose prompt does not
+            # complete this megatick never emits (e0 == n)
+            e0[slot] = max(p - 1, 0) if p == rem_p else n
+            toks[slot, :p] = req.eff_prompt[req.consumed:req.consumed + p]
+            tok0[slot, 0] = (req.out_tokens[-1] if req.out_tokens
+                             else req.eff_prompt[-1])
+            rids[slot] = req.rid
+            steps0[slot] = len(req.out_tokens)
+            temps[slot] = req.temp
+            topks[slot] = req.top_k
+        nmax = int(tot.max(initial=0))
+        if nmax == 0:
+            self._preempt_one()
+            return []
+        self.pool.sync()
+        gw = self.pool.gather_width()
+        # scan length bucketed to a power of two, capped at the quota M
+        S = pow2_bucket(nmax, M)
+        self.dispatch_count += 1
+        self.mixed_dispatch_count += 1
+        self.mixed_prompt_token_count += int(pl.sum())
+        self.scan_steps += S
+        out = self._runner.run(MIXED, S, gw, tok=tok0, toks=toks, pl=pl,
+                               e0=e0, tot=tot, rids=rids, steps0=steps0,
+                               temps=temps, topks=topks)
+
+        finished = []
+        now = time.time()
+        for slot, req in list(self.active.items()):
+            n = int(tot[slot])
+            if n == 0:
+                continue
+            p = int(pl[slot])
+            first_emit = int(e0[slot])
+            emitted = n - first_emit
+            span = out[slot, first_emit:n] if emitted > 0 \
+                else out[slot, :0]
+            bad = np.nonzero((span < 0)
+                             | (span >= self.cfg.vocab_size))[0]
+            if bad.size:
+                # NaN/Inf guard: prompt writes are clean; of the sampled
+                # span keep the ids before the first bad one
+                good = int(bad[0])
+                self.pool.advance(slot, min(n, p + good))
+                req.consumed += p
+                req.out_tokens.extend(int(t) for t in span[:good])
+                self.mixed_decode_token_count += good
+                self._retire_error(
+                    slot, req, now, finished,
+                    f"non-finite logits: sampled token id "
+                    f"{int(span[good])}")
+                continue
+            self.pool.advance(slot, n)
+            if p:
+                req.consumed += p
+                self.pool.register_prompt_chunks(slot, req.eff_prompt)
+            if self.cfg.sliding_window is not None:
+                self.pool.reclaim_out_of_window(slot,
+                                                self.cfg.sliding_window)
+            if emitted > 0:
+                first = not req.out_tokens
+                req.out_tokens.extend(int(t) for t in span)
+                self.mixed_decode_token_count += emitted
+                if first:
+                    req.first_token_t = now
+            cache_full = int(self.pool.lengths[slot]) + 1 >= self.max_len
+            if req.prefilling and not cache_full:
+                continue
+            if (len(req.out_tokens) >= req.max_new_tokens
+                    or cache_full):
+                self._retire(slot, req, now, finished)
+        return finished
+
+    def _next_tokens(self, logits, emit):
+        """Each emitting slot's next token, sampled on the card: greedy,
+        or the seeded sampler with keys folded from (seed, rid, token
+        index), so the ids do not depend on the batch."""
+        if self.sampler == "greedy":
+            ids = sampler_lib.greedy(logits)
+        else:
+            rids = np.zeros((self.batch,), np.int32)
+            steps = np.zeros((self.batch,), np.int32)
+            temps = np.zeros((self.batch,), np.float32)
+            topks = np.zeros((self.batch,), np.int32)
+            for slot, req in self.active.items():
+                if not emit[slot]:
+                    continue
+                rids[slot] = req.rid
+                steps[slot] = len(req.out_tokens)
+                temps[slot] = req.temp
+                topks[slot] = req.top_k
+            dev = self.device
+            ids = sampler_lib.sample_batch(
+                logits, self._base_key, torch.from_numpy(rids).to(dev),
+                torch.from_numpy(steps).to(dev),
+                torch.from_numpy(temps).to(dev),
+                torch.from_numpy(topks).to(dev))
         # (B, 1) ids drive the host-side scheduling; the logits stay put
         return ids.cpu().numpy()  # the once-per-dispatch readback
 
@@ -434,6 +716,18 @@ class Engine:
             "tokens_per_dispatch": round(
                 self.decode_token_count
                 / max(self.decode_dispatch_count, 1), 2),
+            "mixed_dispatches": self.mixed_dispatch_count,
+            "mixed_prompt_tokens": self.mixed_prompt_token_count,
+            "mixed_decode_tokens": self.mixed_decode_token_count,
+            # pure + mixed megaticks per decode token: <= 1/K at steady
+            # state, prefill in flight or not
+            "decode_dispatches_per_token": round(
+                (self.decode_dispatch_count + self.mixed_dispatch_count)
+                / max(self.decode_token_count
+                      + self.mixed_decode_token_count, 1), 4),
+            "scan_steps": self.scan_steps,
+            **(self._runner.metrics() if self._runner is not None
+               else {"graphs": False}),
             "scheduler": self.policy.name,
             "preemptions": self.preempt_count,
             "cancellations": self.cancel_count,

@@ -692,3 +692,155 @@ def test_decode_step_makes_no_host_sync(cuda, tp, mode, paged):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(lg).all())
+
+
+# ------------------------------------------------------------- megaticks
+def _smoke_cuda():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=2, dtype=torch.float32)
+    return cfg, lm.init_params(cfg, seed=0, device="cuda")
+
+
+def _lockstep(engines, reqs, between=None):
+    """Submit ``reqs`` to every engine and tick them in lockstep; after
+    every tick the emitted tokens, ``cur_len``, block tables and KV pool
+    bytes must be identical across the engines. ``between(tick)`` runs
+    after each tick. Returns the finished requests of the first."""
+    from repro_torch.serving.engine import Request
+    for eng in engines:
+        for rid, (prompt, max_new, at, temp, top_k) in enumerate(reqs):
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=max_new, temp=temp,
+                               top_k=top_k), at_tick=at)
+    done = [[] for _ in engines]
+
+    def flat(x):
+        return x if isinstance(x, list) else [x]
+    while any(e.queue or e.active for e in engines):
+        for d, eng in zip(done, engines):
+            d += eng.tick()
+        streams = [{r.rid: list(r.out_tokens)
+                    for r in list(e.active.values()) + d}
+                   for e, d in zip(engines, done)]
+        states = [e.pool.state for e in engines]
+        for st, s in zip(states[1:], streams[1:]):
+            assert s == streams[0]
+            for key in ("cur_len", "block_tables"):
+                for a, b in zip(flat(states[0][key]), flat(st[key])):
+                    assert torch.equal(a, b), key
+            for key in ("k", "v"):
+                for a, b in zip(flat(states[0]["caches"][key]),
+                                flat(st["caches"][key])):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), key
+        if between is not None:
+            between(engines[0].tick_count)
+    return done[0]
+
+
+_MEGA_REQS = [([1, 2, 3, 4, 5, 6, 7], 9, 0, 1.0, 0), ([3, 4], 11, 0, 0.7, 5),
+              ([5, 6, 9, 11, 13, 2, 8, 8, 1, 4, 6], 6, 1, 0.0, 0),
+              ([9, 8, 7], 10, 3, 1.3, 512)]
+
+
+@pytest.mark.parametrize("tp", [1, 4])
+@pytest.mark.parametrize("sampler", ["greedy", "temperature"])
+def test_megatick_graph_replay_matches_eager_loop(cuda, tp, sampler):
+    """A K = 4 engine replaying one CUDA graph per megatick against the
+    same engine running the megatick loop eagerly, in lockstep: tokens,
+    ``cur_len``, tables and KV pool bytes identical after every tick,
+    pure and mixed megaticks, at W = 1 and on 4 virtual ranks under
+    ``pallas``. Launches are counted per replay: every decode step the
+    two engines ran (scan lengths + the graphs' warm-up steps) launched
+    the GEMM 4 times a layer + once for the unembed (3 + 1 over ranks
+    under ``pallas``, where ``wo`` is the AG+GEMM)."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import Engine
+    cfg, params = _smoke_cuda()
+    mesh = make_mesh(tp, device="cuda") if tp > 1 else None
+    with dctx.use(dctx.DistContext(mesh, "pallas")):
+        engs = [Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                       block_size=8, decode_steps=4, sampler=sampler,
+                       device="cuda") for _ in range(2)]
+    engs[1]._runner.use_graphs = False
+    n0 = matmul.launches
+    done = _lockstep(engs, _MEGA_REQS)
+    launched = matmul.launches - n0
+    assert len(done) == len(_MEGA_REQS)
+    m = engs[0].metrics(done)
+    assert m["graphs"] and m["graph_replays"] == m["dispatches"]
+    assert m["mixed_dispatches"] > 0 and m["decode_dispatches"] > 0
+    assert not engs[1].metrics([])["graph_replays"]
+    # both engines ran the same steps; the graph engine also its warm-ups
+    steps = 2 * engs[0].scan_steps + m["graph_warmup_steps"]
+    per_step = (4 if tp == 1 else 3) * cfg.n_layers + 1
+    assert engs[1].scan_steps == engs[0].scan_steps
+    assert launched == steps * per_step
+
+
+def test_graph_captured_before_symm_growth_still_replays(cuda):
+    """Graphs captured on 4 virtual ranks, then the symmetric buffers and
+    the arrival counters grow (the old ones stay alive): the old graphs
+    replay into the old buffers and stay identical to the eager loop,
+    which takes the new ones. Growing inside a capture raises."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels import symm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import Engine
+    cfg, params = _smoke_cuda()
+    mesh = make_mesh(4, device="cuda")
+    with dctx.use(dctx.DistContext(mesh, "pallas")):
+        engs = [Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                       block_size=8, decode_steps=4, device="cuda")
+                for _ in range(2)]
+    engs[1]._runner.use_graphs = False
+    grown = []
+
+    def grow(tick):
+        if tick == 2:
+            comm = symm.communicator(mesh)
+            comm.call(4 * comm.half, 4 * comm.n_chunk)
+            symm.counters("cuda:0", 8 * symm.counters("cuda:0", 1).numel())
+            grown.append(len(comm.retired))
+    _lockstep(engs, _MEGA_REQS, between=grow)
+    assert grown and grown[0] >= 1
+    assert engs[0].metrics([])["graph_replays"] > engs[0].metrics(
+        [])["graph_captures"]
+    graph = torch.cuda.CUDAGraph()
+    x = torch.zeros(1, device=cuda)
+    err = ""
+    with torch.cuda.graph(graph):
+        x += 1
+        try:
+            symm.counters("cuda:0", 8 * symm.counters("cuda:0", 1).numel())
+        except RuntimeError as e:
+            err = str(e)
+    assert "cannot grow inside a CUDA graph capture" in err
+
+
+def test_graph_count_within_bucket_bound(cuda):
+    """A serve with ragged lengths at K = 8: one graph per (path, S, gw)
+    key, captured once each, and no more keys than 2 paths x (log2 K +
+    1) scan lengths x (log2 max_blocks + 1) gather widths."""
+    import math
+    from repro_torch.serving.engine import Engine, Request
+    cfg, params = _smoke_cuda()
+    K = 8
+    eng = Engine(params, cfg, batch=4, max_len=128, prefill_chunk=8,
+                 block_size=8, decode_steps=K, device="cuda")
+    rng = np.random.default_rng(0)
+    for rid, (n, new) in enumerate(((5, 40), (30, 9), (61, 20), (2, 3),
+                                    (17, 50), (9, 1))):
+        eng.submit(Request(rid=rid, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, n)], max_new_tokens=new), at_tick=rid)
+    done = eng.run()
+    m = eng.metrics(done)
+    assert len(done) == 6
+    bound = 2 * (int(math.log2(K)) + 1) * (
+        int(math.log2(eng.pool.max_blocks)) + 1)
+    assert m["graph_count"] == m["graph_captures"] <= bound
+    assert m["graph_replays"] == m["dispatches"] > m["graph_count"]
