@@ -41,6 +41,20 @@ source, in parallel), then runs, failing on the first phase that fails:
    at K = 1 and K = 8 and a few contiguous-cache decode steps (over the
    4 ranks, then on one) with every kernel's counters read around them,
    and teacher-forced logits vs tp=1 and across gather widths;
+11. the robustness plane: (a), right after phase 8, phase 4's smoke
+   serve at K = 8 under a fault plan (a dispatch failing twice, a slow
+   tick, a pool spike that preempts between pure-megatick graph
+   replays, a poisoned slot), drained, snapshotted and restored into a
+   fresh engine, greedy and temperature: on the card, on the CPU and
+   over 4 virtual ranks under ``pallas``, streams and counters
+   identical, the resumed requests as the uninterrupted run's; (b),
+   after phase 9, full-width llama3-8b through the SSE server
+   (``repro_torch.launch.server``, built by its CLI with a chaos plan)
+   driven by the port's client: a poisoned stream, a hang-up, a
+   preemption between replays, ``/admin/drain`` into a checkpoint,
+   ``/readyz`` 503, and a second server with ``--resume`` finishing the
+   drained requests as prefix hits (the kernels' counters read around
+   the serve);
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -53,7 +67,8 @@ source, in parallel), then runs, failing on the first phase that fails:
 more cards) then runs phase 7's checks and wall times with one rank per
 card beside virtual ranks, and stops; ``--verbose`` prints the
 compiler's ``ptxas -v`` report. Prints one ``{"kernels": [...]}``
-line, the ``nvidia-smi`` name/power line, and as its last line
+line, the total seconds, the ``nvidia-smi`` name/power line, and as
+its last line
 ``{"ok": true, "device": {...}}``. Longer per-shape tables go to
 ``OUT_DIR/chip_smoke.json``. Exits non-zero, printing no result,
 without a GPU or outside a checkout of the repo.
@@ -65,6 +80,7 @@ import ctypes
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -832,6 +848,179 @@ def phase_small_model_ranks(cfg, params, reqs, want, mega, tp=4):
           f"K=8 (greedy, temperature; graph replays)", flush=True)
 
 
+# phase 11a: the fault plan on the smoke serve of phase 4 at K = 8 (its
+# engine geometry; ticks from the CPU run of the same plan): a dispatch
+# that fails twice then succeeds, a slow tick, every free block seized at
+# a pure megatick (all three slots stall at block boundaries: a
+# preemption between graph replays), one poisoned slot; snapshot after
+# ROBUST_SNAP_AFTER ticks
+ROBUST_PLAN = (("dispatch", 2, {"count": 2}), ("slow", 3, {"delay_s": 0.05}),
+               ("pool", 4, {"blocks": 8, "hold_ticks": 1}),
+               ("tokens", 6, {"slot": 1}))
+ROBUST_SNAP_AFTER = 6
+ROBUST_KEYS = ("ticks", "dispatches", "mixed_dispatches", "preemptions",
+               "prefix_hits", "faults_injected", "dispatch_retries",
+               "dispatch_failures", "errors", "drained_requests",
+               "kv_blocks_seized", "cancellations")
+
+
+def _robust_serve(params, cfg, reqs, dev, ckpt_dir=None, sampler="greedy",
+                  ctx=None):
+    """Serve ``reqs`` on the smoke model at K = 8 under ROBUST_PLAN; with
+    ``ckpt_dir``, drain and snapshot after ROBUST_SNAP_AFTER ticks and
+    finish in a fresh engine restored from the snapshot. Returns the
+    streams ({rid: (tokens, finish reason)}), the plan engine's counters,
+    whether each preemption came at a pure-megatick boundary, and, with
+    a snapshot, the resumed rids, their prefix hits and the seconds and
+    bytes of the snapshot and the restore."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    plan = FaultPlan([FaultSpec(site, t, **kw) for site, t, kw in ROBUST_PLAN])
+    kw = dict(batch=3, max_len=64, prefill_chunk=4, block_size=8,
+              n_blocks=8, decode_steps=8, sampler=sampler, seed=5,
+              device=dev)
+    with dctx.use(ctx or dctx.DistContext()):
+        eng = Engine(params, cfg, fault_plan=plan, **kw)
+        fresh = Engine(params, cfg, **kw) if ckpt_dir else None
+    reqs_ = [Request(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                     temp=temp, top_k=top_k)
+             for rid, (prompt, max_new, _, temp, top_k) in enumerate(reqs)]
+    for r, (_, _, at, _, _) in zip(reqs_, reqs):
+        eng.submit(r, at_tick=at)
+    pure = []
+    preempt = eng._preempt_one
+
+    def record_preempt():
+        pure.append(not any(r.prefilling for r in eng.active.values()))
+        preempt()
+    eng._preempt_one = record_preempt
+    try:
+        while (eng.queue or eng.active) and not (
+                ckpt_dir and eng.tick_count >= ROBUST_SNAP_AFTER):
+            eng.tick()
+    finally:
+        del eng._preempt_one        # no engine <-> closure cycle
+    m = eng.metrics([])
+    out = {"counters": {k: m[k] for k in ROBUST_KEYS},
+           "slow_ticks": m["slow_ticks"], "graphs": m["graphs"],
+           "graph_capture_ticks": m["graph_capture_ticks"],
+           "pure_preempts": pure}
+    if ckpt_dir:
+        ckpt = Checkpointer(ckpt_dir)
+        t0 = time.perf_counter()
+        step = eng.snapshot(ckpt, block=True)
+        out["snapshot_s"] = time.perf_counter() - t0
+        out["counters"] = {k: eng.metrics([])[k] for k in ROBUST_KEYS}
+        t0 = time.perf_counter()
+        restored = fresh.restore(Checkpointer(ckpt_dir), step)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = os.path.getsize(os.path.join(
+            ckpt_dir, f"step_{step:08d}", "shard_0.npz"))
+        hits0 = fresh.pool.prefix_hits
+        fresh.run()
+        out["resumed"] = sorted(r.rid for r in restored)
+        out["resumed_prefix_hits"] = fresh.pool.prefix_hits - hits0
+        out["resumed_graphs"] = fresh.metrics([])["graphs"]
+        by_rid = {r.rid: r for r in restored}
+        reqs_ = [by_rid.get(r.rid, r) for r in reqs_]
+    out["streams"] = {r.rid: (list(r.out_tokens), r.finish_reason)
+                      for r in reqs_}
+    return out
+
+
+def _robust_tp(params, cfg, reqs, ckpt_dir, sampler, ctx):
+    """``_robust_serve`` over the ranks of ``ctx`` with the kernels'
+    counters zeroed just before and read just after: the fused paged
+    decode and the AG+GEMM must have launched, no plain version run."""
+    from repro_torch.serving.graphs import launch_counted
+    fns = launch_counted()
+    _counted(fns)
+    out = _robust_serve(params, cfg, reqs, "cuda", ckpt_dir, sampler, ctx)
+    out["launches"] = {f.__name__: f.launches for f in fns if f.launches}
+    plain = {f.__name__: f.plain_calls for f in fns if f.plain_calls}
+    check(all(out["launches"].get(k, 0) > 0 for k in (
+        "matmul", "ag_gemm_fused", "flash_decode_paged_fused"))
+          and not plain, f"robustness tp: launches {out['launches']}, "
+                         f"plain calls {plain}")
+    return out
+
+
+def phase_robust_small(cfg, params, reqs, tp=4):
+    """(11a) phase 4's smoke serve at K = 8 under ROBUST_PLAN, drained,
+    snapshotted and restored into a fresh engine, greedy and seeded
+    temperature, on the card (graph replays) and on the CPU, and over
+    ``tp`` virtual ranks under ``pallas``: streams, finish reasons and
+    counters (but the clock's ``slow_ticks``) equal to the CPU's; a
+    preemption at a pure-megatick boundary; exactly one error stream;
+    two retried dispatch attempts; the resumed requests finish as the
+    same plan's uninterrupted run does, as prefix hits."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    p_cpu = copy.deepcopy(params).to("cpu")
+    root = os.path.join(ROOT, "build", "chip_smoke_robust")
+    shutil.rmtree(root, ignore_errors=True)
+    ctx = dctx.DistContext(make_mesh(tp, device="cuda"), "pallas")
+    out = {}
+    for sampler in ("greedy", "temperature"):
+        runs = {"cpu": _robust_serve(p_cpu, cfg, reqs, "cpu",
+                                     os.path.join(root, f"{sampler}_cpu"),
+                                     sampler),
+                "cuda": _robust_serve(params, cfg, reqs, "cuda",
+                                      os.path.join(root, f"{sampler}_cuda"),
+                                      sampler),
+                "tp": _robust_tp(params, cfg, reqs,
+                                 os.path.join(root, f"{sampler}_tp"),
+                                 sampler, ctx)}
+        whole = _robust_serve(p_cpu, cfg, reqs, "cpu", sampler=sampler)
+        what = f"robustness {sampler}"
+        gpu = runs["cuda"]
+        for name, ref in (("the CPU", runs["cpu"]), ("tp=1", gpu)):
+            got = gpu if ref is runs["cpu"] else runs["tp"]
+            check(got["streams"] == ref["streams"],
+                  f"{what}: streams differ from {name}'s: {got['streams']} "
+                  f"vs {ref['streams']}")
+            check(got["counters"] == ref["counters"],
+                  f"{what}: counters {got['counters']} != {name}'s "
+                  f"{ref['counters']}")
+        check(gpu["graphs"] and runs["tp"]["graphs"]
+              and gpu["resumed_graphs"], f"{what}: not graph replays")
+        c = gpu["counters"]
+        check(c["preemptions"] >= 1 and any(gpu["pure_preempts"]),
+              f"{what}: no preemption at a pure-megatick boundary: "
+              f"{gpu['pure_preempts']}")
+        errors = [rid for rid, (_, why) in gpu["streams"].items()
+                  if why == "error"]
+        check(len(errors) == 1 and c["errors"] == 1,
+              f"{what}: error streams {errors}")
+        check(c["dispatch_retries"] == 2 and c["dispatch_failures"] == 0,
+              f"{what}: retries {c}")
+        check(c["faults_injected"] == len(ROBUST_PLAN),
+              f"{what}: {c['faults_injected']} faults fired")
+        check(gpu["resumed"] and gpu["resumed_prefix_hits"] >= 1,
+              f"{what}: resumed {gpu['resumed']}, prefix hits "
+              f"{gpu['resumed_prefix_hits']}")
+        check(gpu["streams"] == whole["streams"],
+              f"{what}: the resumed run differs from the uninterrupted "
+              f"one: {gpu['streams']} vs {whole['streams']}")
+        out[sampler] = {k: v for k, v in gpu.items() if k != "streams"}
+        print(f"[robust {sampler}] K=8 smoke serve under {len(ROBUST_PLAN)} "
+              f"faults: streams and counters identical on cuda, cpu and "
+              f"tp={tp} pallas ({c}); preemption at a pure megatick "
+              f"{gpu['pure_preempts']}; 1 error stream; {len(gpu['resumed'])}"
+              f" requests resumed as {gpu['resumed_prefix_hits']} prefix "
+              f"hits, identical to the uninterrupted run; snapshot "
+              f"{gpu['snapshot_bytes']} bytes in {gpu['snapshot_s']:.3f} s, "
+              f"restore {gpu['restore_s']:.3f} s; graph capture ticks "
+              f"{gpu['graph_capture_ticks']}, slow ticks {gpu['slow_ticks']}; "
+              f"tp={tp} launches {runs['tp']['launches']}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def _full_requests(cfg, plens, seed, max_new, stagger):
     """Requests of the given prompt lengths, tokens drawn from ``seed``:
     two seeds give two sets that the engine schedules alike."""
@@ -1253,6 +1442,306 @@ def phase_full_width_ranks(params, tp=4):
           f"{own:.3e}, max |logit| {ref:.3e}), {d32.max().item():.3e} "
           f"float32", flush=True)
     return summary, [n + 16 for n in plens]
+
+
+def phase_server(smi):
+    """(11b) llama3-8b at full width (bf16, phase 5's seeded weights and
+    geometry: batch 8, max_len 512, block 16, K = 8) behind
+    ``repro_torch.launch.server.Server``, built by its ``build_engine``
+    with a ``--chaos-plan`` file, on an ephemeral port, driven by the
+    port's client: phase 5's 8 prompts, 32 new tokens each, streamed.
+    The shortest goes first alone, the other 7 once its first token is
+    out; the plan fails tick 2's dispatch twice, slows tick 3, poisons
+    slot 0 (the first request, decoding alone) the tick after its first
+    token, and seizes every free block 4 ticks later for 6 ticks (the
+    slots stall at block boundaries: a preemption between graph
+    replays); one stream hangs up after its first token. Once the
+    preemption and the hang-up have happened, ``/admin/drain``
+    checkpoints the rest into ``build/``, ``/readyz`` answers 503, and a
+    second server built with ``--resume`` finishes the drained requests
+    as prefix hits. Streams against a fault-free engine are counted, not
+    required (bf16: other schedules, other rounding)."""
+    import asyncio
+    from repro_torch.configs import get_config
+    from repro_torch.launch import server as server_mod
+    from repro_torch.serving import client as cl
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    cfg = get_config("llama3-8b")
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    prompts = sorted(([int(t) for t in np.random.default_rng(1).integers(
+        1, cfg.vocab_size, n)] for n in plens), key=len)
+    max_new, M = 32, 8
+    first_tick = -(-len(prompts[0]) // M)   # its prompt's last mixed tick
+    root = os.path.join(ROOT, "build", "chip_smoke_server")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ckpt_dir = os.path.join(root, "ckpt")
+    plan = FaultPlan([
+        FaultSpec("dispatch", 2, count=2),
+        FaultSpec("slow", 3, delay_s=0.05),
+        FaultSpec("tokens", first_tick + 1, slot=0),
+        FaultSpec("pool", first_tick + 4, blocks=8 * 512 // 16,
+                  hold_ticks=6)])
+    with open(os.path.join(root, "plan.json"), "w") as f:
+        f.write(plan.to_json())
+    flags = ["--arch", "llama3-8b", "--device", "cuda", "--batch", "8",
+             "--max-len", "512", "--block-size", "16", "--prefill-chunk",
+             "8", "--decode-steps", "8", "--seed", "0",
+             "--checkpoint-dir", ckpt_dir]
+    parse = server_mod.make_parser().parse_args
+    part_s, t_part = {}, time.perf_counter()   # seconds of each part
+
+    def part(name):
+        nonlocal t_part
+        part_s[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+    engine = server_mod.build_engine(parse(
+        flags + ["--chaos-plan", os.path.join(root, "plan.json")]))
+    snap = {}
+    snapshot = engine.snapshot
+
+    def timed_snapshot(ckpt, step=None, block=True):
+        t0 = time.perf_counter()
+        step = snapshot(ckpt, step, block)
+        snap["s"] = time.perf_counter() - t0
+        snap["bytes"] = os.path.getsize(os.path.join(
+            ckpt_dir, f"step_{step:08d}", "shard_0.npz"))
+        return step
+    engine.snapshot = timed_snapshot
+    ticks = []          # (seconds, captured a graph) of each served tick
+    tick1 = engine.tick
+
+    def timed_tick1():
+        c0 = engine._runner.captures
+        t0 = time.perf_counter()
+        try:
+            return tick1()
+        finally:
+            ticks.append((time.perf_counter() - t0,
+                          engine._runner.captures > c0))
+    engine.tick = timed_tick1
+
+    async def poll(host, port, pred, timeout_s=300.0):
+        t_end = time.monotonic() + timeout_s
+        while time.monotonic() < t_end:
+            m = await cl.metrics(host, port)
+            if pred(m):
+                return m
+            await asyncio.sleep(0.05)
+        raise RuntimeError(f"server: timed out waiting; metrics {m}")
+
+    async def serve():
+        srv = server_mod.Server(engine, port=0, ckpt_dir=ckpt_dir,
+                                drain_grace_s=0.0)
+        await srv.start()
+        host, port = srv.host, srv.port
+        try:
+            first = asyncio.Event()
+
+            def on_first(ev):
+                if ((ev.get("choices") or [{}])[0].get("delta")
+                        or {}).get("token_ids"):
+                    first.set()
+            t0 = time.perf_counter()
+            tasks = [asyncio.create_task(cl.complete(
+                host, port, prompts[0], max_new_tokens=max_new,
+                on_event=on_first))]
+            await first.wait()
+            tasks += [asyncio.create_task(cl.complete(
+                host, port, p, max_new_tokens=max_new,
+                hangup_after_tokens=1 if i == 0 else None))
+                for i, p in enumerate(prompts[1:])]
+            await poll(host, port, lambda m: m.get("preemptions", 0) >= 1
+                       and m.get("cancellations", 0) >= 1)
+            status, body = await cl.request_json(host, port, "POST",
+                                                 "/admin/drain")
+            check(status == 200 and body["draining"], f"drain: {body}")
+            outs = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+            wall = time.perf_counter() - t0
+            status, ready = await cl.request_json(host, port, "GET",
+                                                  "/readyz")
+            m = await cl.metrics(host, port)
+            return outs, wall, status, ready, m
+        finally:
+            await srv.stop()
+
+    from repro_torch.serving.graphs import launch_counted
+    fns = launch_counted()
+    _counted(fns)
+    try:
+        outs, wall, ready_status, ready, m1 = asyncio.run(serve())
+    finally:
+        del engine.snapshot, engine.tick   # no engine <-> closure cycles
+    launches = {f.__name__: f.launches for f in fns if f.launches}
+    plain = {f.__name__: f.plain_calls for f in fns if f.plain_calls}
+    check(launches.get("matmul", 0) > 0
+          and launches.get("flash_decode_paged", 0) > 0 and not plain,
+          f"server: kernels not on the path: launches {launches}, "
+          f"plain calls {plain}")
+    check(ready_status == 503 and not ready["ready"] and ready["draining"],
+          f"server: /readyz {ready_status} {ready} after the drain")
+    poisoned = [o for o in outs if o.error and "non-finite" in o.error]
+    drained = [o for o in outs if o.error and "checkpoint" in o.error]
+    hung_up = [o for o in outs[1:2] if o.finish_reason is None
+               and o.error is None]
+    finished = [o for o in outs if o.finish_reason == "length"]
+    check(len(poisoned) == 1 and outs[0] is poisoned[0],
+          f"server: poisoned streams {[o.error for o in poisoned]}")
+    check(len(hung_up) == 1 and m1["cancellations"] >= 1,
+          f"server: the hang-up did not cancel: {m1['cancellations']}")
+    outcomes = [(o.status, o.error, o.finish_reason) for o in outs]
+    check(len(poisoned) + len(drained) + len(hung_up) + len(finished) == 8,
+          f"server: a stream did not end: {outcomes}")
+    check(drained and m1["drained_requests"] >= 1,
+          f"server: nothing was drained: {m1['drained_requests']}, "
+          f"{outcomes}")
+    check(m1["dispatch_retries"] == 2 and m1["preemptions"] >= 1
+          and m1["graphs"] and m1["graph_replays"] == m1["dispatches"],
+          f"server: retries, preemptions or graph replays: {m1}")
+    streamed = sum(len(o.token_ids) for o in outs)
+    del engine
+    torch.cuda.empty_cache()
+    part("serve")
+
+    # the second server: --resume restores the snapshot in build_engine
+    from repro_torch.serving import engine as engine_mod
+    restore = engine_mod.Engine.restore
+    timing = {}
+
+    def timed_restore(self, ckpt, step=None):
+        t0 = time.perf_counter()
+        out = restore(self, ckpt, step)
+        torch.cuda.synchronize()
+        timing["restore_s"] = time.perf_counter() - t0
+        timing["t_restored"] = time.perf_counter()
+        return out
+    engine_mod.Engine.restore = timed_restore
+    try:
+        engine2 = server_mod.build_engine(parse(flags + ["--resume"]))
+    finally:
+        engine_mod.Engine.restore = restore
+    resumed = list(engine2.queue)
+    check(len(resumed) == len(drained), f"server: {len(resumed)} requests "
+                                        f"restored, {len(drained)} drained")
+    done0 = {r.rid: len(r.out_tokens) for r in resumed}
+    tick = engine2.tick
+
+    def timed_tick():
+        out = tick()
+        if "first_token_s" not in timing and any(
+                len(r.out_tokens) > done0[r.rid] for r in resumed):
+            timing["first_token_s"] = time.perf_counter() - timing[
+                "t_restored"]
+        return out
+    engine2.tick = timed_tick
+
+    async def resume():
+        srv = server_mod.Server(engine2, port=0)
+        await srv.start()
+        try:
+            t0 = time.perf_counter()
+            m = await poll(srv.host, srv.port,
+                           lambda m: m.get("requests", 0) >= len(resumed))
+            return m, time.perf_counter() - t0
+        finally:
+            await srv.stop()
+    try:
+        m2, wall2 = asyncio.run(resume())
+    finally:
+        del engine2.tick
+    check(all(r.done and r.finish_reason == "length"
+              and len(r.out_tokens) == max_new and r.reused_tokens > 0
+              for r in resumed) and m2["prefix_hits"] >= len(resumed),
+          f"server: resumed requests "
+          f"{[(r.rid, r.finish_reason, r.reused_tokens) for r in resumed]},"
+          f" prefix hits {m2['prefix_hits']}")
+    resumed_tokens = sum(len(r.out_tokens) - done0[r.rid] for r in resumed)
+    part("resume")
+
+    # a fault-free engine on the same weights: how many streams match
+    ref = Engine(engine2.params, engine2.cfg, batch=8, max_len=512,
+                 block_size=16, prefill_chunk=8, decode_steps=8,
+                 device="cuda")
+    want = [Request(rid=i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in want:
+        ref.submit(r)
+    ref.run()
+    by_prompt = {tuple(r.prompt): r.out_tokens for r in want}
+    ends = [(tuple(p), o.token_ids) for p, o in zip(prompts, outs)
+            if o.finish_reason == "length"]
+    ends += [(tuple(r.prompt), r.out_tokens) for r in resumed]
+    same = sum(by_prompt[p] == toks for p, toks in ends)
+    part("fault-free reference")
+    # the degraded ladder's rung 1 (K halved): the same prompts again on
+    # the warm engine, each tick timed; the first one at K = 4 captures
+    # new (path, S, gw) graphs
+    from repro_torch.serving.faults import DegradedModeController
+    ref.degraded = DegradedModeController(recover_after=10 ** 6)
+    ref.degraded.level = 1
+    for i, prompt in enumerate(prompts):
+        ref.submit(Request(rid=100 + i, prompt=list(prompt),
+                           max_new_tokens=max_new))
+    ladder = []
+    while ref.queue or ref.active:
+        c0 = ref._runner.captures
+        t0 = time.perf_counter()
+        ref.tick()
+        ladder.append((time.perf_counter() - t0, ref._runner.captures - c0))
+    capture_ticks = [t for t, c in ladder if c]
+    steady = sorted(t for t, c in ladder if not c)
+    rung1 = {"first_tick_s": ladder[0][0], "capture_ticks": len(capture_ticks),
+             "capture_tick_s": capture_ticks,
+             "median_other_tick_s": steady[len(steady) // 2] if steady
+             else None}
+    part("ladder rung 1")
+    del engine2, ref
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"streams": 8, "poisoned": len(poisoned), "drained": len(drained),
+           "hung_up": len(hung_up), "finished_before_drain": len(finished),
+           "streamed_tokens": streamed, "serve_wall_s": wall,
+           "tokens_per_s": streamed / wall,
+           "dispatch_retries": m1["dispatch_retries"],
+           "preemptions": m1["preemptions"],
+           "faults_injected": m1["faults_injected"],
+           "slow_ticks": m1["slow_ticks"],
+           "graph_capture_ticks": m1["graph_capture_ticks"],
+           "graph_captures": m1["graph_captures"],
+           "snapshot_bytes": snap["bytes"], "snapshot_s": snap["s"],
+           "restore_s": timing["restore_s"],
+           "first_token_after_resume_s": timing["first_token_s"],
+           "resumed": len(resumed), "resumed_prefix_hits": m2["prefix_hits"],
+           "resumed_tokens": resumed_tokens, "resume_wall_s": wall2,
+           "resume_graph_capture_ticks": m2["graph_capture_ticks"],
+           "streams_ended": len(ends),
+           "streams_identical_to_fault_free": same, "launches": launches,
+           "ladder_rung1": rung1, "ticks": len(ticks),
+           "capture_ticks_s": sum(t for t, c in ticks if c),
+           "other_ticks_s": sum(t for t, c in ticks if not c),
+           "part_s": part_s, "device": smi}
+    print(f"[server] full width K=8 through the SSE server: 8 streams "
+          f"ended ({len(finished)} length, 1 poisoned, 1 hung up, "
+          f"{len(drained)} drained into a checkpoint), {streamed} tokens "
+          f"in {wall:.2f} s ({streamed / wall:.2f} tok/s), retries "
+          f"{m1['dispatch_retries']}, preemptions {m1['preemptions']}, "
+          f"graph capture ticks {m1['graph_capture_ticks']} "
+          f"({out['capture_ticks_s']:.2f} s; {len(ticks)} ticks, the others "
+          f"{out['other_ticks_s']:.2f} s), launches "
+          f"{launches}; /readyz 503; "
+          f"snapshot {snap['bytes']} bytes in {snap['s']:.3f} s, restore "
+          f"{timing['restore_s']:.3f} s, first token after resume "
+          f"{timing['first_token_s']:.3f} s; {len(resumed)} resumed as "
+          f"{m2['prefix_hits']} prefix hits ({resumed_tokens} tokens in "
+          f"{wall2:.2f} s); {same} of {len(ends)} finished streams equal a "
+          f"fault-free engine's (reported, not required); ladder rung 1 "
+          f"(K=4) on the warm engine: first tick {rung1['first_tick_s']:.3f}"
+          f" s, {rung1['capture_ticks']} capture ticks, other ticks "
+          f"median {rung1['median_other_tick_s'] or 0:.3f} s; parts "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items())
+          + f" | {smi}",
+          flush=True)
+    return out
 
 
 def profile_steps(params, cfg, state, steps=4, batch=8,
@@ -1716,6 +2205,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
 
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
@@ -1729,11 +2219,20 @@ def main():
             print(f"--- {name}\n{log}", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"gemm": phase_gemm(gen), "decode": phase_decode(gen),
-            "ag_gemm_fused": phase_ag_gemm(gen),
-            "flash_decode_paged_fused": phase_paged_ranks(gen),
-            "flash_decode_fused": phase_strided(gen)}
-    phase_graph_replays(gen)
+    phase_s = {"build": build_s}    # seconds of each phase, in order
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_s[name] = time.time() - t0
+        return out
+    errs = {"gemm": timed("2 gemm", phase_gemm, gen),
+            "decode": timed("3 decode", phase_decode, gen),
+            "ag_gemm_fused": timed("7a ag_gemm", phase_ag_gemm, gen),
+            "flash_decode_paged_fused": timed(
+                "7b paged ranks", phase_paged_ranks, gen),
+            "flash_decode_fused": timed("7c strided", phase_strided, gen)}
+    timed("7d graph replays", phase_graph_replays, gen)
     if "--kernels-only" in sys.argv:
         return
     if "--peers" in sys.argv:
@@ -1742,15 +2241,21 @@ def main():
             json.dump({"device": smi, "count": torch.cuda.device_count(),
                        "rows": phase_real_peers(gen)}, f, indent=1)
         return
-    phase_small_model_ranks(*phase_small_model())
-    params, summary, lens = phase_full_width()
-    summary["graph_vs_eager_megaticks"] = phase_graph_vs_eager(params)
-    summary_tp, lens_tp = phase_full_width_ranks(params)
+    small = timed("4 small", phase_small_model)
+    timed("8 small ranks", phase_small_model_ranks, *small)
+    robust = timed("11a robust small", phase_robust_small, *small[:3])
+    params, summary, lens = timed("5 full width", phase_full_width)
+    summary["graph_vs_eager_megaticks"] = timed(
+        "5b graph vs eager", phase_graph_vs_eager, params)
+    summary_tp, lens_tp = timed("9 full width ranks",
+                                phase_full_width_ranks, params)
     del params
     torch.cuda.empty_cache()
-    kernels, rows = phase_timings(gen, lens, summary["launches"],
-                                  summary["launches_per_step"], errs)
-    sampler = sampler_ms(gen)
+    server = timed("11b server", phase_server, smi)
+    kernels, rows = timed("6 timings", phase_timings, gen, lens,
+                          summary["launches"], summary["launches_per_step"],
+                          errs)
+    sampler = timed("6b sampler", sampler_ms, gen)
     c_steps = summary_tp["contiguous_steps"]
     steps = summary_tp["k8"]["decode_steps"]
     errs["flash_decode_fused_w1"] = errs["flash_decode_fused"]
@@ -1759,12 +2264,12 @@ def main():
         "tp"]
     launches_tp["flash_decode_fused_w1"] = summary_tp[
         "contiguous_launches"]["w1"]
-    kernels += phase_timings_ranks(
-        gen, lens_tp, launches_tp,
-        {"ag_gemm_fused": steps,
-         "flash_decode_paged_fused": steps,
-         "flash_decode_fused": c_steps,
-         "flash_decode_fused_w1": c_steps}, errs)
+    kernels += timed("10 timings ranks", phase_timings_ranks,
+                     gen, lens_tp, launches_tp,
+                     {"ag_gemm_fused": steps,
+                      "flash_decode_paged_fused": steps,
+                      "flash_decode_fused": c_steps,
+                      "flash_decode_fused_w1": c_steps}, errs)
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -1773,7 +2278,13 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_s": build_s, "serve": summary,
                    "serve_tp": summary_tp, "kernels": kernels,
-                   "sampler": sampler, "gemm_shapes": rows}, f, indent=1)
+                   "sampler": sampler, "gemm_shapes": rows,
+                   "robust_small": robust, "server": server,
+                   "phase_s": phase_s, "total_s": time.time() - t_start},
+                  f, indent=1)
+    print("[phases] " + ", ".join(f"{k} {v:.1f} s"
+                                  for k, v in phase_s.items()), flush=True)
+    print(f"[total] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,9 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``
 is given) and ``--devices`` (one device per rank, comma-separated;
-default: all ``--tp`` ranks on ``--device``). Flags whose feature
-belongs to a later slice of the port raise ``NotImplementedError`` when
-set away from their default.
+default: all ``--tp`` ranks on ``--device``). ``--ckpt-dir`` serves the
+parameters of the latest checkpoint there (keys ``params%%...``, as the
+JAX package's trainer writes them) instead of seeded random ones.
 """
 from __future__ import annotations
 
@@ -24,7 +24,9 @@ import time
 
 import numpy as np
 
+from repro_torch.checkpoint.checkpointer import SEP, Checkpointer, unflatten
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import context as dctx
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
@@ -32,9 +34,15 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.metrics import percentile
 
 
-def _later(flag: str, slice_name: str):
-    raise NotImplementedError(f"{flag} is not ported yet ({slice_name} "
-                              f"slice of the port)")
+def load_params(ckpt_dir: str, cfg, device):
+    """The :class:`~repro_torch.models.lm.LM` held under ``params`` in the
+    latest checkpoint of ``ckpt_dir``, and the checkpoint's manifest.
+    bf16 leaves widen to float32 exactly on the way through numpy."""
+    flat, manifest = Checkpointer(ckpt_dir).read(None)
+    prefix = "params" + SEP
+    tree = unflatten({k[len(prefix):]: v.float().numpy()
+                      for k, v in flat.items() if k.startswith(prefix)})
+    return params_from_numpy(tree, cfg, device=device), manifest
 
 
 def main(argv=None):
@@ -91,9 +99,6 @@ def main(argv=None):
     p.add_argument("--metrics-file", default=None)
     args = p.parse_args(argv)
 
-    if args.ckpt_dir:
-        _later("--ckpt-dir", "training/checkpoint")
-
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -102,7 +107,12 @@ def main(argv=None):
 
     mesh = make_mesh(args.tp, args.devices, args.device)
     ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
-    params = lm.init_params(cfg, seed=args.seed, device=mesh.devices[0])
+    if args.ckpt_dir:
+        params, manifest = load_params(args.ckpt_dir, cfg, mesh.devices[0])
+        print(f"[serve] restored step {manifest['step']}")
+    else:
+        params = lm.init_params(cfg, seed=args.seed,
+                                device=mesh.devices[0])
     with dctx.use(ctx):
         eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
                      prefill_chunk=args.prefill_chunk, sampler=args.sampler,

@@ -39,10 +39,48 @@ dispatch under it: over the W ranks of its mesh the pool is sharded on
 the block dim and the decode step goes through the fusion mode's
 patterns (``core.patterns``); nothing in the scheduling changes.
 
-Not in this slice: the robustness plane. Fault plans, the watchdog, the
-degraded ladder, drain and snapshot/restore raise
-``NotImplementedError``, and a failed dispatch is not retried: the state
-is written in place, so there is no old state to retry from.
+ROBUSTNESS, as in the JAX engine: a seeded ``serving.faults.FaultPlan``
+keyed by (tick, site) injects faults, and the engine recovers:
+
+* ``dispatch``: an injected transient failure trips BEFORE anything is
+  launched (before the eager step, the graph replay, or a graph's
+  warm-up and capture). The state is written in place, so only a
+  dispatch that launched nothing can be retried: the bounded retry
+  (``DISPATCH_ATTEMPTS``, deterministic backoff) wraps the trip alone
+  and catches only ``TransientDispatchError``. Any other exception
+  raised by a dispatch (a CUDA error is sticky on the context) leaves
+  the engine at once, with ``dispatch_retries`` unchanged.
+* ``tokens``: one slot's read-back ids are overwritten with an
+  out-of-vocab id (the signature of NaN/Inf logits); the guard retires
+  that slot with ``finish_reason="error"`` through ``CachePool.abort``,
+  and only its clean history enters the prefix cache.
+* ``pool``: free blocks are seized for a few ticks (preemption absorbs
+  the spike); ``slow``: the tick sleeps.
+
+A monotonic-clock ``StragglerWatchdog`` times every tick, readback
+included, so it covers the device work. A tick that captured a CUDA
+graph (about a second, against ~0.1 s for a steady megatick) is not fed
+to it; it counts as ``graph_capture_ticks``. An optional
+``DegradedModeController`` (``degraded=True``) steps the engine down
+under sustained adverse ticks (slow, retried, or poisoned) and back up
+after sustained clean ones: level 1 halves K (new graph keys are
+captured on first use); level 2 runs K = 1, and on the CPU also sets
+``bounded_gather=False`` as JAX does, while on the card the gather mode
+stays (the masked path is the CPU oracle and raises on the card at
+W > 1; at W = 1 the flag changes nothing); level 3 also sheds intake
+(``shedding``). Every level is token-identical.
+
+``drain()`` parks every active request through the preemption path;
+``snapshot()`` drains and saves the decode state through the port's
+``checkpoint.Checkpointer`` with the queue and the pool's bookkeeping in
+the manifest; ``restore()`` copies a snapshot IN PLACE into this
+engine's existing state tensors (captured graphs hold their addresses,
+so they replay on correctly) and re-queues the requests, which resume
+as prefix hits.
+
+The paths that write state tensors (ticks, cancel, drain, restore) run
+under ``torch.inference_mode()`` on tensors made outside it, so any
+thread may drive the engine (the server ticks on an executor thread).
 """
 from __future__ import annotations
 
@@ -55,19 +93,20 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed.fault_tolerance import StragglerWatchdog
 from repro_torch.models import lm
 from repro_torch.serving import sampler as sampler_lib
+from repro_torch.serving.faults import (DISPATCH_ATTEMPTS,
+                                        DegradedModeController,
+                                        DispatchFailedError, FaultPlan,
+                                        TransientDispatchError, backoff_s)
 from repro_torch.serving.graphs import MIXED, PURE, MegatickRunner
 from repro_torch.serving.kv_cache import CachePool, pow2_bucket
 from repro_torch.serving.metrics import latency_summary
 from repro_torch.serving.scheduler import SchedulerPolicy, get_scheduler
 
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet ({slice_name} "
-        f"slice)")
-
+# the engine's deterministic retry backoff (the JAX engine's defaults)
+RETRY_BACKOFF_S, RETRY_BACKOFF_CAP_S = 0.02, 0.5
 
 @dataclasses.dataclass
 class Request:
@@ -130,6 +169,8 @@ class Engine:
     ``max(K, prefill_chunk)``, at least K).
     ``bounded_gather`` (W > 1): paged attention walks each slot's table
     (default) or scores the masked whole pool shard (the CPU oracle).
+    ``fault_plan``, ``watchdog`` and ``degraded`` are the robustness
+    plane (module docstring).
     """
 
     def __init__(self, params, cfg, *, batch: int = 8, max_len: int = 512,
@@ -139,9 +180,10 @@ class Engine:
                  scheduler: str | SchedulerPolicy = "fcfs",
                  decode_steps: int = 1,
                  megatick_token_budget: int | None = None,
-                 fault_plan=None, watchdog=None,
-                 degraded=None, bounded_gather: bool = True,
-                 device="cuda"):
+                 fault_plan: FaultPlan | None = None,
+                 watchdog: StragglerWatchdog | None = None,
+                 degraded: DegradedModeController | bool | None = None,
+                 bounded_gather: bool = True, device="cuda"):
         if sampler not in ("greedy", "temperature"):
             raise ValueError(f"unknown sampler {sampler!r}: "
                              f"expected 'greedy' or 'temperature'")
@@ -155,9 +197,6 @@ class Engine:
                 f"decode_steps {decode_steps}: the per-slot quota must "
                 f"at least cover a full decode megatick, or the 1/K "
                 f"dispatch bound cannot hold")
-        if fault_plan is not None or watchdog is not None or degraded:
-            raise _later("the robustness plane (fault_plan / watchdog / "
-                         "degraded)", "robustness")
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params live on {params.device}, engine "
@@ -213,8 +252,24 @@ class Engine:
         self.mixed_prompt_token_count = 0
         self.mixed_decode_token_count = 0
         self.scan_steps = 0              # decode steps the dispatches ran
-        self.error_count = 0             # slots retired finish_reason=error
         self._seq = 0
+        # -------- robustness plane
+        # faults: keyed by (tick, site); ticks are 1-based, a spec with
+        # tick=t fires during the t-th tick()
+        self.faults = fault_plan
+        self.watchdog = (watchdog if watchdog is not None
+                         else StragglerWatchdog())
+        if degraded is True:
+            degraded = DegradedModeController()
+        self.degraded = degraded or None
+        self._cfg_bounded = self.bounded_gather  # configured gather mode
+        self._spike_until = None    # tick the seized pool blocks return
+        self.dispatch_retry_count = 0    # retried dispatches
+        self.dispatch_failure_count = 0  # retry budgets exhausted
+        self.error_count = 0             # slots retired finish_reason=error
+        self.slow_tick_count = 0         # watchdog-flagged ticks
+        self.drain_count = 0             # requests parked by drain()
+        self.graph_capture_ticks = 0     # ticks that captured a graph
 
     # ------------------------------------------------------------- queueing
     def submit(self, req: Request, at_tick: int | None = None):
@@ -297,6 +352,7 @@ class Engine:
         self.preempt_count += 1
         self.queue.appendleft(victim)
 
+    @torch.inference_mode()
     def cancel(self, rid: int) -> bool:
         """Abort request ``rid`` between ticks. Returns True when it was
         found queued or active."""
@@ -347,23 +403,117 @@ class Engine:
         self.error_count += 1
         finished.append(req)
 
-    # ----------------------------------------------------------- scheduling
-    def tick(self) -> list[Request]:
-        """One scheduler step. Returns requests that finished this tick."""
-        with dctx.use(self.ctx):
-            finished = self._tick()
-        self.policy.on_tick_end(self.queue, self.active, self.tick_count)
-        return finished
-
+    # ------------------------------------------------------- fault plane
     @property
     def eff_decode_steps(self) -> int:
-        """The megatick length in force (the degraded ladder that would
-        lower it belongs to the robustness slice)."""
-        return self.decode_steps
+        """Megatick length after the degraded ladder: level 1 halves K,
+        level >= 2 runs the single-step path."""
+        if self.degraded is None or self.degraded.level == 0:
+            return self.decode_steps
+        if self.degraded.level == 1:
+            return max(self.decode_steps // 2, 1)
+        return 1
+
+    @property
+    def shedding(self) -> bool:
+        """Level 3: the front end should refuse new intake (429)."""
+        return self.degraded is not None and self.degraded.level >= 3
+
+    def _poll_fault(self, site: str):
+        """The (tick, site)-keyed injection lookup; None when no plan is
+        armed or the key already fired."""
+        if self.faults is None:
+            return None
+        return self.faults.poll(site, self.tick_count)
+
+    def _apply_faults(self):
+        """Tick-boundary faults: pool-exhaustion spikes (seize free
+        blocks now, release them when the hold expires) and slow ticks.
+        Dispatch and token faults apply at their own sites."""
+        if self._spike_until is not None \
+                and self.tick_count >= self._spike_until:
+            self.pool.release_seized()
+            self._spike_until = None
+        if self.faults is None:
+            return
+        spec = self.faults.poll("pool", self.tick_count)
+        if spec is not None:
+            self.pool.seize_blocks(spec.blocks)
+            self._spike_until = self.tick_count + max(spec.hold_ticks, 1)
+        spec = self.faults.poll("slow", self.tick_count)
+        if spec is not None:
+            time.sleep(spec.delay_s)
+
+    def _dispatch_gate(self, what: str):
+        """The bounded retry of one dispatch, run BEFORE it launches
+        anything: an injected transient fault trips here and is retried
+        with deterministic backoff; once ``DISPATCH_ATTEMPTS`` attempts
+        have failed the tick raises ``DispatchFailedError``. The
+        dispatch itself is never retried (it writes the state in place),
+        so an exception it raises propagates unretried."""
+        fault = self._poll_fault("dispatch")
+        if fault is None:
+            return
+        for attempt in range(DISPATCH_ATTEMPTS):
+            if attempt:
+                self.dispatch_retry_count += 1
+                time.sleep(backoff_s(attempt, RETRY_BACKOFF_S,
+                                     RETRY_BACKOFF_CAP_S))
+            try:
+                fault.trip()
+                return
+            except TransientDispatchError as err:
+                last_err = err
+        self.dispatch_failure_count += 1
+        raise DispatchFailedError(
+            f"{what} failed after {DISPATCH_ATTEMPTS} attempts at tick "
+            f"{self.tick_count}") from last_err
+
+    def _poison(self, ids: np.ndarray) -> np.ndarray:
+        """The ``tokens`` fault: one slot's read-back ids become -1."""
+        spec = self._poll_fault("tokens")
+        if spec is not None:
+            ids = ids.copy()
+            ids[spec.slot % self.batch, :] = -1
+        return ids
+
+    # ----------------------------------------------------------- scheduling
+    @torch.inference_mode()
+    def tick(self) -> list[Request]:
+        """One scheduler step. Returns requests that finished this tick.
+
+        Around the dispatch path: the watchdog on the monotonic clock
+        (the readback is inside the tick, so the time covers the device
+        work; a tick that captured a graph is counted, not timed) and
+        the degraded ladder, fed whether the tick was slow, retried a
+        dispatch or retired a poisoned slot."""
+        r0, e0 = self.dispatch_retry_count, self.error_count
+        c0 = self._runner.captures if self._runner is not None else 0
+        t0 = time.monotonic()
+        with dctx.use(self.ctx):
+            finished = self._tick()
+        if self._runner is not None and self._runner.captures > c0:
+            self.graph_capture_ticks += 1
+            slow = False
+        else:
+            slow = self.watchdog.timed(self.tick_count, t0)
+        if slow:
+            self.slow_tick_count += 1
+        if self.degraded is not None:
+            adverse = (slow or self.dispatch_retry_count > r0
+                       or self.error_count > e0)
+            lvl = self.degraded.observe(adverse)
+            # rung 2's masked gather is the CPU oracle only: on the card
+            # the gather mode stays (K = 1 is the rung there)
+            self.bounded_gather = self._cfg_bounded and (
+                lvl < 2 or self.device.type == "cuda")
+        self.policy.on_tick_end(self.queue, self.active, self.tick_count)
+        return finished
 
     def _tick(self) -> list[Request]:
         self._admit()
         self.tick_count += 1
+        self._apply_faults()
         if not self.active:
             return []
         if self.eff_decode_steps > 1:
@@ -406,23 +556,23 @@ class Engine:
         self.dispatch_count += 1
         if not any_prefill:
             self.decode_dispatch_count += 1
+        self._dispatch_gate("dispatch")
         dev = self.device
-        with torch.inference_mode():
-            if cmax <= 1:
-                self.scan_steps += 1
-                logits, _ = lm.decode_step(
-                    self.step_params, torch.from_numpy(tok[:, :1]).to(dev),
-                    self.pool.state, self.cfg,
-                    active=torch.from_numpy(cnt > 0).to(dev),
-                    gather_width=gw, bounded=self.bounded_gather)
-            else:
-                cw = pow2_bucket(cmax, C)
-                self.scan_steps += cw
-                logits, _ = lm.decode_chunk(
-                    self.step_params, torch.from_numpy(tok[:, :cw]).to(dev),
-                    torch.from_numpy(cnt).to(dev), self.pool.state,
-                    self.cfg, gather_width=gw, bounded=self.bounded_gather)
-            nxt = self._next_tokens(logits, emit)
+        if cmax <= 1:
+            self.scan_steps += 1
+            logits, _ = lm.decode_step(
+                self.step_params, torch.from_numpy(tok[:, :1]).to(dev),
+                self.pool.state, self.cfg,
+                active=torch.from_numpy(cnt > 0).to(dev),
+                gather_width=gw, bounded=self.bounded_gather)
+        else:
+            cw = pow2_bucket(cmax, C)
+            self.scan_steps += cw
+            logits, _ = lm.decode_chunk(
+                self.step_params, torch.from_numpy(tok[:, :cw]).to(dev),
+                torch.from_numpy(cnt).to(dev), self.pool.state,
+                self.cfg, gather_width=gw, bounded=self.bounded_gather)
+        nxt = self._poison(self._next_tokens(logits, emit))
 
         finished = []
         now = time.time()
@@ -497,10 +647,11 @@ class Engine:
         kb = pow2_bucket(kmax, K)
         self.dispatch_count += 1
         self.decode_dispatch_count += 1
+        self._dispatch_gate("megatick dispatch")
         self.scan_steps += kb
-        out = self._runner.run(PURE, kb, gw, tok=tok, budgets=budgets,
-                               rids=rids, steps0=steps0, temps=temps,
-                               topks=topks)
+        out = self._poison(self._runner.run(
+            PURE, kb, gw, tok=tok, budgets=budgets, rids=rids,
+            steps0=steps0, temps=temps, topks=topks))
 
         finished = []
         now = time.time()
@@ -601,10 +752,11 @@ class Engine:
         self.dispatch_count += 1
         self.mixed_dispatch_count += 1
         self.mixed_prompt_token_count += int(pl.sum())
+        self._dispatch_gate("mixed megatick dispatch")
         self.scan_steps += S
-        out = self._runner.run(MIXED, S, gw, tok=tok0, toks=toks, pl=pl,
-                               e0=e0, tot=tot, rids=rids, steps0=steps0,
-                               temps=temps, topks=topks)
+        out = self._poison(self._runner.run(
+            MIXED, S, gw, tok=tok0, toks=toks, pl=pl, e0=e0, tot=tot,
+            rids=rids, steps0=steps0, temps=temps, topks=topks))
 
         finished = []
         now = time.time()
@@ -691,14 +843,96 @@ class Engine:
         return finished
 
     # --------------------------------------------- drain / snapshot / restore
-    def drain(self):
-        raise _later("drain()", "robustness")
+    @torch.inference_mode()
+    def drain(self) -> list[Request]:
+        """Park every active request at a clean boundary through the
+        preemption path (generated tokens fold into the effective
+        prompt, written chunks register as prefix blocks, private blocks
+        free), ahead of the never-started ones in slot order; seized
+        fault blocks return. Returns the queue."""
+        if self._spike_until is not None:
+            self.pool.release_seized()
+            self._spike_until = None
+        parked = []
+        for slot in sorted(self.active):
+            req = self.active[slot]
+            req.eff_prompt = list(req.prompt) + list(req.out_tokens)
+            self.pool.preempt(slot, req.eff_prompt)
+            req.slot = -1
+            req.consumed = 0
+            req.reused_tokens = 0
+            parked.append(req)
+        self.active.clear()
+        for req in reversed(parked):
+            self.queue.appendleft(req)
+        self.drain_count += len(parked)
+        return list(self.queue)
 
-    def snapshot(self, ckpt, step=None, block=True):
-        raise _later("snapshot()", "robustness")
+    def _req_payload(self, req: Request) -> dict:
+        return {"rid": req.rid, "prompt": list(req.prompt),
+                "max_new_tokens": req.max_new_tokens,
+                "temp": req.temp, "top_k": req.top_k,
+                "priority": req.priority, "deadline_ms": req.deadline_ms,
+                "out_tokens": list(req.out_tokens),
+                "preemptions": req.preemptions, "seq": req.seq,
+                "submitted_t": req.submitted_t,
+                "first_token_t": req.first_token_t}
 
-    def restore(self, ckpt, step=None):
-        raise _later("restore()", "robustness")
+    def snapshot(self, ckpt, step: int | None = None,
+                 block: bool = True) -> int:
+        """Drain, then save the decode state (KV pools, ``cur_len``,
+        tables) through ``ckpt`` (a ``checkpoint.Checkpointer``: bf16
+        leaves exactly, as their bits), with the queued requests, the
+        pool's bookkeeping, the sampler and the seed in the manifest's
+        ``extra["serving"]``. Returns the step written."""
+        self.drain()
+        step = self.tick_count if step is None else step
+        extra = {"serving": {
+            "sampler": self.sampler, "seed": self.seed,
+            "requests": [self._req_payload(r) for r in self.queue],
+            "pool": self.pool.snapshot_meta(),
+        }}
+        ckpt.save(step, self.pool.state, extra=extra, block=block)
+        return step
+
+    @torch.inference_mode()
+    def restore(self, ckpt, step: int | None = None) -> list[Request]:
+        """Load a :meth:`snapshot` into THIS engine (same pool geometry,
+        sampler and seed; a different (sampler, seed) would change every
+        resumed stream). Every check (identity, geometry, each leaf's
+        shape and dtype) runs before anything is written. The state is
+        copied into the existing tensors in place, never rebound: graphs
+        captured before the restore replay on it. Returns the re-queued
+        requests, which resume as prefix hits."""
+        manifest = ckpt.manifest(step)
+        meta = manifest["extra"]["serving"]
+        if (meta["sampler"], meta["seed"]) != (self.sampler, self.seed):
+            raise ValueError(
+                f"snapshot sampler/seed ({meta['sampler']!r}, "
+                f"{meta['seed']}) != engine ({self.sampler!r}, "
+                f"{self.seed}): restored streams would diverge")
+        self.pool.check_geometry(meta["pool"]["geometry"])
+        ckpt.restore(manifest["step"], self.pool.state)
+        self.pool.restore_meta(meta["pool"])
+        self.queue.clear()
+        restored = []
+        for d in meta["requests"]:
+            r = Request(rid=d["rid"], prompt=list(d["prompt"]),
+                        max_new_tokens=d["max_new_tokens"],
+                        temp=d["temp"], top_k=d["top_k"],
+                        priority=d["priority"],
+                        deadline_ms=d["deadline_ms"])
+            r.out_tokens = list(d["out_tokens"])
+            r.eff_prompt = list(r.prompt) + list(r.out_tokens)
+            r.preemptions = d["preemptions"]
+            r.seq = d["seq"]
+            r.submitted_t = d["submitted_t"]
+            r.first_token_t = d["first_token_t"]
+            r.arrival_tick = 0          # admissible immediately
+            self.queue.append(r)
+            restored.append(r)
+        self._seq = max([r.seq for r in restored], default=-1) + 1
+        return restored
 
     # -------------------------------------------------------------- metrics
     def metrics(self, done: list[Request]) -> dict:
@@ -732,7 +966,19 @@ class Engine:
             "preemptions": self.preempt_count,
             "cancellations": self.cancel_count,
             "blocks_freed_on_abort": self.blocks_freed_on_abort,
+            # the robustness counters, keyed as in the JAX engine
+            "faults_injected": (self.faults.injected
+                                if self.faults is not None else 0),
+            "dispatch_retries": self.dispatch_retry_count,
+            "dispatch_failures": self.dispatch_failure_count,
             "errors": self.error_count,
+            "slow_ticks": self.slow_tick_count,
+            "degraded_mode": (self.degraded.level
+                              if self.degraded is not None else 0),
+            "degraded_transitions": (self.degraded.transitions
+                                     if self.degraded is not None else 0),
+            "drained_requests": self.drain_count,
+            "graph_capture_ticks": self.graph_capture_ticks,
             **latency_summary(ttfts, "ttft"),
             **latency_summary(tpots, "tpot"),
             **self.pool.metrics(),

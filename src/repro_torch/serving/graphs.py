@@ -24,7 +24,8 @@ into a ``torch.cuda.CUDAGraph`` and replayed from then on:
 * all graphs share one memory pool; replays are serialised on the
   current stream, and each output is copied to the host before the
   next replay;
-* a capture that fails raises; it never falls back to the eager loop.
+* a capture that fails raises; it never falls back to the eager loop;
+  no garbage collection runs during a capture.
 
 Over ranks on distinct cards, and on the CPU, the same programs run
 eagerly (a graph across cards is later work).
@@ -36,6 +37,7 @@ replay.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -159,8 +161,17 @@ class MegatickRunner:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = self._program(path, S, gw)
+            # no garbage collection inside the capture: a collected
+            # CUDAGraph's destructor is a CUDA call that would invalidate
+            # it (this process may hold unreachable graphs in cycles)
+            collect = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    out = self._program(path, S, gw)
+            finally:
+                if collect:
+                    gc.enable()
         launches = [(fn, fn.launches - n0)
                     for fn, n0 in zip(counted, before) if fn.launches != n0]
         for fn, n in launches:            # recorded, not launched

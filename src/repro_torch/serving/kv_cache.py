@@ -14,8 +14,9 @@ The host bookkeeping is the JAX package's, unchanged (numpy): refcounted
 blocks, prefix caching under chained ``(parent_block, chunk_tokens)``
 keys with an LRU of resident ref-0 blocks, copy-on-write of registered
 or shared blocks, preemption/abort (register the written chunks, drop
-every reference), and sliding-window reclaim that leaves ``-1`` holes
-the paged attention skips. The device half differs only in being in
+every reference), sliding-window reclaim that leaves ``-1`` holes the
+paged attention skips, the fault plane's block seizure, and the
+snapshot/restore of all of it as JSON. The device half differs only in being in
 place: ``sync()`` copies the host table into the state's table tensor
 (one per device over a mesh), and copy-on-write clones a block inside
 the existing pools (across ranks when the two blocks live on different
@@ -111,6 +112,8 @@ class CachePool:
         self.preempted_slots = 0
         self.aborted_slots = 0
         self.blocks_reclaimed = 0
+        self._seized: list[int] = []   # fault injection: held-back blocks
+        self.blocks_seized = 0         # cumulative seize count
 
     # ----------------------------------------------------------- block layer
     def _pop_block(self) -> int | None:
@@ -365,6 +368,76 @@ class CachePool:
             self._dirty = True
         return freed
 
+    # ---------------------------------------------------- fault injection
+    def seize_blocks(self, n: int) -> int:
+        """Fault injection: pull up to ``n`` blocks out of the FREE list
+        so they back nothing until :meth:`release_seized` (a
+        deterministic pool-exhaustion spike; residents and referenced
+        blocks are never seized). Returns how many were taken."""
+        taken = []
+        while self._free and len(taken) < n:
+            taken.append(self._free.pop())
+        self._seized.extend(taken)
+        self.blocks_seized += len(taken)
+        return len(taken)
+
+    def release_seized(self) -> int:
+        """Return every seized block to the free list (spike over)."""
+        n = len(self._seized)
+        self._free.extend(reversed(self._seized))
+        self._seized = []
+        return n
+
+    # ------------------------------------------------- snapshot / restore
+    def snapshot_meta(self) -> dict:
+        """The JSON-able host bookkeeping (the device state travels
+        through the checkpointer): tables, lengths, refcounts, the
+        free-list order, the LRU order and the prefix-chain registry
+        (``_index``/``_children`` derive from ``_key_of``)."""
+        return {
+            "geometry": {"batch": self.batch, "max_len": self.max_len,
+                         "block_size": self.block_size,
+                         "n_blocks": self.n_blocks},
+            "tables": self.tables.tolist(),
+            "lengths": self.lengths.tolist(),
+            "active": self.active.tolist(),
+            "ref": self.ref.tolist(),
+            "free": list(self._free),
+            "lru": list(self._lru.keys()),
+            "key_of": [[b, key[0], list(key[1])]
+                       for b, key in self._key_of.items()],
+        }
+
+    def check_geometry(self, g: dict):
+        """Raise unless :meth:`snapshot_meta`'s ``geometry`` is this
+        pool's (block ids are geometry-relative)."""
+        mine = {"batch": self.batch, "max_len": self.max_len,
+                "block_size": self.block_size, "n_blocks": self.n_blocks}
+        if g != mine:
+            raise ValueError(
+                f"pool geometry mismatch: snapshot {g} vs engine {mine}")
+
+    def restore_meta(self, meta: dict):
+        """Rebuild the host bookkeeping from :meth:`snapshot_meta`. The
+        geometry must match; the device table follows at the next
+        :meth:`sync`."""
+        self.check_geometry(meta["geometry"])
+        self.tables = np.asarray(meta["tables"], np.int32)
+        self.lengths = np.asarray(meta["lengths"], np.int32)
+        self.active = np.asarray(meta["active"], bool)
+        self.ref = np.asarray(meta["ref"], np.int32)
+        self._free = [int(b) for b in meta["free"]]
+        self._lru = OrderedDict((int(b), True) for b in meta["lru"])
+        self._seized = []
+        self._key_of = {int(b): (int(parent), tuple(toks))
+                        for b, parent, toks in meta["key_of"]}
+        self._index = {key: b for b, key in self._key_of.items()}
+        self._children = {}
+        for b, (parent, _) in self._key_of.items():
+            if parent >= 0:
+                self._children.setdefault(parent, set()).add(b)
+        self._dirty = True
+
     def advance(self, slot: int, n: int):
         """Record that `slot` consumed n tokens this tick (host mirror;
         the device cur_len advanced inside the decode step)."""
@@ -411,4 +484,5 @@ class CachePool:
             "block_evictions": self.evictions,
             "kv_blocks_reclaimed": self.blocks_reclaimed,
             "kv_slots_aborted": self.aborted_slots,
+            "kv_blocks_seized": self.blocks_seized,
         }

@@ -21,12 +21,12 @@ is the JAX engine's:
 
 Everything is vectorised over the batch with no host sync, so the
 engine's megatick runs the sampler inside a CUDA graph. The Gumbel
-noise's ``log`` is Cephes' single-precision polynomial written in
-separately rounded float32 ops (:func:`log_f32`): the CPU and the card
-give the same bits, and XLA's CPU ``log`` the same but for one ulp in
-about 0.1% of inputs, so a Gumbel value lies within 2 ulps of JAX's at
-the scale of max(|g|, 1). A sampled id can differ from JAX's only where
-two candidates tie within that.
+noise's ``log`` is Cephes' single-precision polynomial with its
+multiply-adds fused as XLA's CPU ``log`` fuses them (:func:`log_f32`),
+each fused multiply-add computed in float64 and rounded once to
+float32: the CPU and the card give the same bits, and they are XLA's
+(every float32 in [0.5, 1) and tests/test_torch_sampler.py's range), so
+the Gumbel noise, and the sampled ids, are JAX's.
 """
 from __future__ import annotations
 
@@ -96,18 +96,38 @@ def uniform(keys: torch.Tensor, shape) -> torch.Tensor:
     return torch.clamp_min(f * (1.0 - _TINY) + _TINY, _TINY)
 
 
+def _f32(v: float) -> float:
+    """``v`` rounded to the nearest float32 (held as a Python float)."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
 # Cephes logf: log(1 + x) ~ x - x^2 / 2 + x^3 P(x) on [sqrt(1/2) - 1,
-# sqrt(2) - 1], and ln 2 = Q2 - Q1 split for the exponent's term
-_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
-          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
-          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
-_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+# sqrt(2) - 1], and ln 2 = Q2 - Q1 split for the exponent's term; the
+# constants as float32 values
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add, in two
+    kernels: the float64 product of two float32 values is exact (a
+    float32 ``a`` widens inside the multiply, as ``b`` or ``a`` is
+    float64), and the float64 sum is rounded to float32 as it is
+    written."""
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    return torch.add(a * b, c, out=out)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
-    """Natural log of positive normal float32 ``x`` (Cephes' polynomial),
-    every product and sum rounded to float32 on its own, so the CPU and
-    the card agree bit for bit."""
+    """Natural log of positive normal float32 ``x``: Cephes' polynomial
+    as XLA's CPU ``log`` evaluates it, with every multiply-add of the
+    polynomial, and the product ``y * t^3`` with the exponent's ``e *
+    Q1`` term, fused (found by search over every float32 in [0.5, 1));
+    the other products and sums round to float32 on their own. The CPU
+    and the card agree bit for bit."""
     bits = x.view(torch.int32)
     m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
     small = m < 0.707106781186547524
@@ -115,12 +135,13 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     t = (m - 1.0) + torch.where(small, m, 0.0)
     t2 = t * t
     t3 = t2 * t
+    td, t3d = t.double(), t3.double()   # widened once for every product
     p = _LOG_P
-    y = (t * p[0] + p[1]) * t + p[2]
-    y1 = (t * p[3] + p[4]) * t + p[5]
-    y2 = (t * p[6] + p[7]) * t + p[8]
-    y = ((y * t3 + y1) * t3 + y2) * t3
-    y = y + e * _LOG_Q1
+    y = _fma(_fma(td, p[0], p[1]), td, p[2])
+    y1 = _fma(_fma(td, p[3], p[4]), td, p[5])
+    y2 = _fma(_fma(td, p[6], p[7]), td, p[8])
+    y = _fma(_fma(y, t3d, y1), t3d, y2)
+    y = _fma(y, t3d, e * _LOG_Q1)
     t = (t - t2 * 0.5) + y
     return t + e * _LOG_Q2
 

@@ -844,3 +844,140 @@ def test_graph_count_within_bucket_bound(cuda):
         int(math.log2(eng.pool.max_blocks)) + 1)
     assert m["graph_count"] == m["graph_captures"] <= bound
     assert m["graph_replays"] == m["dispatches"] > m["graph_count"]
+
+
+_P8 = [5, 6, 7, 8, 9, 10, 11, 12]
+# (sliding window, n_blocks, requests): preemption at a pure-megatick
+# boundary with window reclaim in a pool of 2 blocks (and re-admission
+# as a prefix hit); in 3 blocks also copy-on-write of a shared block
+_PRESSURE = {
+    "two_blocks": (8, 2, [([1, 2, 3], 14, 0, 1.0, 0), (_P8, 12, 0, 1.0, 0),
+                          (_P8, 9, 4, 1.0, 0)]),
+    "three_blocks": (12, 3, [(_P8, 14, 0, 1.0, 0),
+                             ([9, 8, 7, 6, 5], 12, 0, 1.0, 0),
+                             (_P8, 10, 3, 1.0, 0)]),
+}
+
+
+def _pressure_engines(case, n=2, **kw):
+    from repro_torch.serving.engine import Engine
+    cfg, params = _smoke_cuda()
+    window, n_blocks, reqs = _PRESSURE[case]
+    cfg = cfg.replace(sliding_window=window)
+    engs = [Engine(params, cfg, batch=2, max_len=64, prefill_chunk=4,
+                   block_size=8, n_blocks=n_blocks, decode_steps=4,
+                   device="cuda", **kw) for _ in range(n)]
+    return engs, reqs
+
+
+@pytest.mark.parametrize("case", sorted(_PRESSURE))
+def test_graph_replay_through_preemption_reclaim_and_cow(cuda, case):
+    """K = 4 graph replays against the eager loop in lockstep under block
+    pressure and a sliding window: a pure megatick stalls and preempts,
+    the victim comes back as a prefix hit, blocks roll out of the window
+    (and, in 3 blocks, a shared block is copied on write), with tokens,
+    cur_len, tables and KV bytes identical after every tick."""
+    engs, reqs = _pressure_engines(case)
+    engs[1]._runner.use_graphs = False
+    pure_preempts = []
+    orig = engs[0]._preempt_one
+
+    def preempt():
+        pure_preempts.append(not any(r.prefilling
+                                     for r in engs[0].active.values()))
+        orig()
+    engs[0]._preempt_one = preempt
+    try:
+        done = _lockstep(engs, reqs)
+    finally:
+        del engs[0]._preempt_one      # no engine <-> closure cycle
+    assert len(done) == len(reqs)
+    m = engs[0].metrics(done)
+    assert m["graphs"] and m["graph_replays"] == m["dispatches"]
+    assert any(pure_preempts) and m["preemptions"] >= 1
+    assert m["prefix_hits"] >= 1 and m["kv_blocks_reclaimed"] >= 1
+    if case == "three_blocks":
+        assert m["cow_copies"] >= 1
+
+
+def test_retried_dispatch_leaves_the_state_byte_identical(cuda):
+    """Injected transient dispatch faults (two failed attempts each) at a
+    capture tick and at replay ticks, against a fault-free engine in
+    lockstep: every retry trips before anything is launched, so tokens,
+    cur_len, tables and KV bytes stay identical after every tick."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    # tick 1 captures its graph, ticks 4 and 9 replay graphs of ticks 3
+    # and 8 (as the same engine schedules them on the CPU)
+    (clean,), reqs = _pressure_engines("three_blocks", n=1)
+    plan = FaultPlan([FaultSpec("dispatch", t, count=2) for t in (1, 4, 9)])
+    faulty, _ = _pressure_engines("three_blocks", n=1, fault_plan=plan)
+    done = _lockstep([clean, faulty[0]], reqs)
+    assert len(done) == len(reqs)
+    m = faulty[0].metrics([])
+    assert m["dispatch_retries"] == 6 and m["dispatch_failures"] == 0
+    assert m["graph_replays"] == m["dispatches"]
+    assert m["graph_capture_ticks"] >= 1
+
+
+def test_restore_into_an_engine_holding_graphs(cuda, tmp_path):
+    """A snapshot restored into an engine that already captured and
+    replayed graphs (restore writes the state in place, the graphs keep
+    their addresses) replays on identically to a fresh engine."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serving.engine import Request
+    engs, reqs = _pressure_engines("three_blocks", n=3)
+    src, warm, fresh = engs
+    _lockstep([warm], [(p[::-1], n, at, t, k) for p, n, at, t, k in reqs])
+    keys = set(warm._runner.graphs)
+    assert keys and warm._runner.replays > 0
+    for rid, (prompt, max_new, _, _, _) in enumerate(reqs):
+        src.submit(Request(rid=rid, prompt=list(prompt),
+                           max_new_tokens=max_new))
+    for _ in range(3):
+        src.tick()
+    step = src.snapshot(Checkpointer(str(tmp_path)))
+    for eng in (warm, fresh):
+        assert eng.restore(Checkpointer(str(tmp_path)), step)
+    used = []
+    run = warm._runner.run
+
+    def record(path, S, gw, **arrays):
+        used.append((path, S, gw))
+        return run(path, S, gw, **arrays)
+    warm._runner.run = record
+    try:
+        done = _lockstep([warm, fresh], [])
+    finally:
+        del warm._runner.run
+    assert len(done) == len(reqs)
+    assert set(used) & keys            # graphs captured before the restore
+
+
+def test_non_transient_dispatch_error_propagates(cuda):
+    """An exception raised inside a graph replay (as a real CUDA error
+    would be) leaves the tick at once: the injected transient fault of
+    the same tick was retried before the replay, the error itself never
+    is, and no DispatchFailedError replaces it."""
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    (eng,), reqs = _pressure_engines(
+        "three_blocks", n=1,
+        fault_plan=FaultPlan([FaultSpec("dispatch", 4, count=1)]))
+    from repro_torch.serving.engine import Request
+    for rid, (prompt, max_new, _, _, _) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=list(prompt),
+                           max_new_tokens=max_new))
+    for _ in range(3):
+        eng.tick()
+    assert ("pure", 4, 2) in eng._runner.graphs   # tick 4 replays it
+
+    def boom(graph):
+        raise RuntimeError("simulated CUDA error")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(torch.cuda.CUDAGraph, "replay", boom)
+    try:
+        with pytest.raises(RuntimeError, match="simulated CUDA error"):
+            eng.tick()
+    finally:
+        mp.undo()
+    m = eng.metrics([])
+    assert (m["dispatch_retries"], m["dispatch_failures"]) == (1, 0)

@@ -176,12 +176,17 @@ def test_cache_pool_bookkeeping_matches_jax(models):
 
 
 def test_engine_rejects_later_slices(models):
+    """What the port does not serve yet raises (a model family other
+    than dense attn_mlp), and a request without a prompt is refused. The
+    robustness plane, once a later slice, is live (tests/
+    test_torch_faults.py): drain() on an idle engine parks nothing."""
+    from repro_torch.models import lm
     _, _, tc, tp = models
     with pytest.raises(NotImplementedError):
-        Engine(tp, tc, device="cpu", fault_plan=object())
+        lm.init_params(smoke_config(get_config("olmoe-1b-7b")),
+                       device="cpu")
     eng = Engine(tp, tc, device="cpu", batch=2, max_len=32)
-    with pytest.raises(NotImplementedError):
-        eng.drain()
+    assert eng.drain() == []
     with pytest.raises(ValueError):
         eng.submit(Request(rid=0, prompt=[]))
 
@@ -216,11 +221,19 @@ def _imports(path):
             yield node.module
 
 
+# the robustness plane and the front end: modules the scan must reach
+_PLANE = ("serving/faults.py", "serving/client.py",
+          "distributed/fault_tolerance.py", "checkpoint/checkpointer.py",
+          "launch/server.py", "launch/serve.py", "serving/engine.py")
+
+
 @pytest.mark.parametrize("root", ["src/repro_torch", "chip_smoke.py"])
 def test_port_never_imports_jax_or_repro(root):
     paths = ([REPO / root] if root.endswith(".py")
              else sorted((REPO / root).rglob("*.py")))
     assert paths
+    if root == "src/repro_torch":
+        assert {PORT / m for m in _PLANE} <= set(paths)
     for path in paths:
         for mod in _imports(path):
             top = mod.split(".")[0]
