@@ -55,6 +55,20 @@ source, in parallel), then runs, failing on the first phase that fails:
    ``/readyz`` 503, and a second server with ``--resume`` finishing the
    drained requests as prefix hits (the kernels' counters read around
    the serve);
+12. the training path, after phase 9's weights are freed: (a) the GEMM
+   kernel vs its plain version at the shapes of a full-width training
+   step (the seven projections and the fp32 unembed at M = 2048,
+   forward, dA by both routes, dB), each timed beside its plain
+   version and ``torch.matmul``; (b) the float32 smoke model trained 4
+   steps on the card and on the CPU from the same parameters (first
+   gradients leaf by leaf, losses, grad norms, parameters), every leaf
+   with a gradient, the GEMM's counters, and a checkpoint after step 2
+   resumed to step 4 against the uninterrupted run; (c) llama3-8b at
+   full width with 4 of its 32 layers (fp32 AdamW state does not fit
+   one card at full depth), 6 steps of 2 x 1024 tokens through
+   ``repro_torch.launch.train``: losses finite and falling, GEMM
+   launches per step, peak memory, ms per step, tokens/s, executed
+   TFLOP/s, and one profiled step for the GEMM's device time;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -2170,6 +2184,431 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     return rows
 
 
+# ------------------------------------------------------ phase 12: training
+# the full-width training run (12c): llama3-8b at full width, depth cut
+# to TRAIN_LAYERS (fp32 AdamW state is 16 B a parameter: 32 layers would
+# need ~128 GB), batch 2 x 1024 tokens of SyntheticLM(seed=0)
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-3           # warmup = TRAIN_STEPS: lr(t) = TRAIN_LR * t / 6
+PROJ = (("wq", "wqkv"), ("wk", "wqkv"), ("wv", "wqkv"), ("wo", None),
+        ("wg", "wgu"), ("wu", "wgu"), ("wd", None))
+
+
+def train_products(cfg, M):
+    """Every GEMM product of one training step of ``cfg`` over M tokens:
+    (name, kind, M, K, N, dtype, trans_b, count a step). Per layer each
+    projection runs forward twice (remat recomputes the layer in the
+    backward), then its dA and dB; the unembed
+    (fp32, the (vocab, d) table read transposed) forward, dA and dB
+    once."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    shapes = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d),
+              "wg": (d, f), "wu": (d, f), "wd": (f, d)}
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    for name, _ in PROJ:
+        K, N = shapes[name]
+        out += [(name, "fwd", M, K, N, bf, False, 2 * L),
+                (name, "dA", M, N, K, bf, False, L),
+                (name, "dB", K, M, N, bf, False, L)]
+    return out + [("unembed", "fwd", M, d, V, f32, True, 1),
+                  ("unembed", "dA", M, V, d, f32, False, 1),
+                  ("unembed", "dB", V, M, d, f32, False, 1)]
+
+
+def train_launches_per_step(cfg):
+    """GEMM launches of one training step: per layer 4 forward launches
+    (wq/wk/wv and wg/wu grouped) twice, the dA of every projection (7)
+    and one dB launch per call (4: the groups' dB is one grouped
+    launch); the unembed's 3."""
+    return cfg.n_layers * (2 * 4 + 7 + 4) + 3
+
+
+def _product_bound(M, K, N, dt):
+    """(seconds, bound_by) of one product on the H100: its operations
+    over the peak of its type, or each operand read once and C written
+    once over the memory rate, whichever is longer."""
+    ops_s = 2 * M * N * K / PEAK_OPS[dt]
+    by_s = (M * K + K * N + M * N) * torch.tensor([], dtype=dt) \
+        .element_size() / HBM_BYTES_PER_S
+    return max(ops_s, by_s), "operations" if ops_s >= by_s else "bytes"
+
+
+def phase_train_gemm(gen, cfg, M):
+    """(12a) the GEMM kernel vs its plain version at the shapes of a
+    full-width training step: the seven projections (bf16) and the fp32
+    unembed, forward and both gradient products (dA by both routes),
+    phase 2's tolerances; the wq/wk/wv group at M bit-equal to its
+    single calls. Times each product (CUDA events: kernel, plain version,
+    one ``torch.matmul``). Returns per (name, kind) the times and the
+    worst error."""
+    from repro_torch.kernels import matmul as kmm
+    shapes = {n: (K, N) for n, kind, _, K, N, _, _, _ in
+              train_products(cfg, M) if kind == "fwd"}
+    rows, worst = {}, 0.0
+
+    def timed(fn, big):
+        return time_ms(fn, iters=2 if big else 5, warmup=1)
+    for name, (K, N) in shapes.items():
+        unembed = name == "unembed"
+        dt = torch.float32 if unembed else torch.bfloat16
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        b = (torch.randn((N, K) if unembed else (K, N), generator=gen,
+                         device="cuda") / K ** 0.5).to(dt)
+        dc = (torch.randn((M, N), generator=gen, device="cuda")
+              / N ** 0.5).to(dt)
+        at = a.t().contiguous()
+        dct = dc.t().contiguous() if unembed else None
+        cases = {"fwd": (lambda: kmm.matmul(a, b, trans_b=unembed),
+                         lambda: kmm.matmul_plain(a, b, unembed),
+                         (lambda: a @ b.t()) if unembed
+                         else (lambda: a @ b))}
+        if unembed:
+            cases["dA"] = (lambda: kmm.matmul(dc, b),
+                           lambda: kmm.matmul_plain(dc, b),
+                           lambda: dc @ b)
+            cases["dB"] = (lambda: kmm.matmul(dct, a),
+                           lambda: kmm.matmul_plain(dct, a),
+                           lambda: dc.t() @ a)
+        else:
+            # dA = dC @ B^T: B^T made contiguous (the backward's
+            # route, matmul._grad_a) or B read transposed (TRANS)
+            cases["dA_copy"] = (lambda: kmm._grad_a(dc, b, False),
+                                lambda: kmm.matmul_plain(dc, b, True),
+                                lambda: dc @ b.t())
+            cases["dA_trans"] = (lambda: kmm.matmul(dc, b, trans_b=True),
+                                 lambda: kmm.matmul_plain(dc, b, True),
+                                 lambda: dc @ b.t())
+            cases["dB"] = (lambda: kmm.matmul(at, dc),
+                           lambda: kmm.matmul_plain(at, dc),
+                           lambda: a.t() @ dc)
+        for kind, (kern, plain, lib) in cases.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = _gemm_err(got, want, dt, f"train GEMM {name} {kind} "
+                                           f"{tuple(got.shape)}")
+            worst = max(worst, err)
+            del got, want
+            rows[(name, kind)] = {
+                "shape": [M, K, N], "max_abs_err": err,
+                "ms": timed(kern, unembed), "plain_ms": timed(plain, unembed),
+                "library_ms": timed(lib, unembed)}
+        del a, b, dc, at, dct
+        torch.cuda.empty_cache()
+    # a group at M = 2048: each product's M chunks are its own plan
+    K = shapes["wq"][0]
+    a = torch.randn((M, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    bs = [(torch.randn((K, shapes[n][1]), generator=gen, device="cuda")
+           / K ** 0.5).to(torch.bfloat16) for n in ("wq", "wk", "wv")]
+    for c, b in zip(kmm.matmul_group(a, bs), bs):
+        check(torch.equal(c, kmm.matmul(a, b)), "train GEMM group "
+              "wq/wk/wv differs from its single calls")
+    print("[train gemm] " + "; ".join(
+        f"{n} {k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
+        f"torch.matmul {r['library_ms']:.3f})"
+        for (n, k), r in rows.items()), flush=True)
+    print(f"[train gemm] {len(rows)} products at training shapes match the "
+          f"plain version (max |err| {worst:.3e}); the wq/wk/wv group "
+          f"at M={M} bit-equal to single calls", flush=True)
+    return rows, worst
+
+
+def _cpu_copy(params, cfg, dev):
+    """A trainable copy of ``params`` on ``dev``."""
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_map
+    return lm.from_tree(cfg, tree_map(lambda _, t: t.detach().to(dev, copy=True),
+                                      lm.param_tree(params)),
+                        trainable=True)
+
+
+def _param_diff(p, q):
+    """(max |p - q| over every leaf, whether every leaf is bit-equal)."""
+    diff, same = 0.0, True
+    for (n, x), (_, y) in zip(p.named_parameters(), q.named_parameters()):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        diff = max(diff, (x - y).abs().max().item())
+        same = same and torch.equal(x, y)
+    return diff, same
+
+
+def phase_train_small(tmp):
+    """(12b) the float32 smoke model trained 4 steps on the card and on
+    the CPU from the same parameters on the same batches (lr 1e-4). The
+    first step's gradients leaf by leaf within 1e-3 of each leaf's
+    largest |entry| (the logits are bf16 on both, ``lm.logits_fn``: an
+    fp32 sum in another order can put a logit on the other side of a
+    bf16 rounding boundary, and the one-ulp step spreads through the
+    backward, as between the port and JAX on the CPU); after it every
+    trainable leaf has a nonzero gradient on the card. Losses within
+    1e-4 relative, grad norms within 1e-2 relative and the parameters
+    within 4 x the sum of the lrs: the smoke init's layer weights (std
+    0.5, the stacked fan-in) make later gradients sensitive, and AdamW's
+    normalised update moves an entry by ~lr whatever its gradient's size,
+    so an entry whose gradient is near zero can step either way (the
+    count of entries more than 1e-6 apart is printed). On the card the
+    GEMM launched and its plain version never ran. Then a checkpoint
+    after step 2 resumed to step 4 (``--resume``) equals the
+    uninterrupted run within 1e-6 (bit-equality reported)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(dtype=torch.float32)
+    argv = ["--arch", "llama3-8b", "--smoke", "--steps", "4", "--batch",
+            "2", "--seq", "32", "--log-every", "1", "--lr", "1e-4",
+            "--warmup", "4"]
+    init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    p_card = _cpu_copy(init, cfg, "cuda")
+    resume_init = _cpu_copy(init, cfg, "cuda")
+    grads0 = {}
+
+    def first_grads(step, params, metrics):
+        if step == 0:
+            grads0[params.device.type] = {
+                n: p.grad.detach().cpu().clone()
+                for n, p in params.named_parameters() if p.grad is not None}
+    cpu = tr.train(cfg, tr.parse_args(argv + ["--device", "cpu"]),
+                   params=init, on_step=first_grads)
+    ckpt = os.path.join(tmp, "train_small")
+    n0, p0 = matmul.launches, matmul.plain_calls
+    card = tr.train(cfg, tr.parse_args(argv + [
+        "--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every", "2"]),
+        params=p_card, on_step=first_grads)
+    launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+    check(launched > 0 and plain == 0, f"train small: {launched} GEMM "
+          f"launches and {plain} plain calls on the card")
+    names = [n for n, _ in card["params"].named_parameters()]
+    g_card, g_cpu = grads0["cuda"], grads0["cpu"]
+    missing = [n for n in names if n not in g_card
+               or not bool(g_card[n].abs().max() > 0)]
+    check(not missing, f"train small: leaves without a gradient after "
+                       f"step 1 on the card: {missing}")
+    g_err = max(((g_card[n] - g_cpu[n]).abs().max()
+                 / g_cpu[n].abs().max()).item() for n in names)
+    check(g_err <= 1e-3, f"train small: step-1 gradients card vs CPU "
+                         f"{g_err:.3e} of a leaf's largest entry")
+    lc = [m["loss"] for m in cpu["log"]]
+    lg = [m["loss"] for m in card["log"]]
+    gc_ = [m["grad_norm"] for m in cpu["log"]]
+    gg = [m["grad_norm"] for m in card["log"]]
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0), f"train small: card "
+          f"losses {lg} vs CPU {lc}")
+    check(np.allclose(gg, gc_, rtol=1e-2, atol=0), f"train small: card "
+          f"grad norms {gg} vs CPU {gc_}")
+    lr_sum = sum(1e-4 * t / 4 for t in range(1, 5))
+    pdiff, _ = _param_diff(card["params"], cpu["params"])
+    far = sum(int(((x.detach().cpu() - y.detach()).abs() > 1e-6).sum())
+              for (_, x), (_, y) in zip(card["params"].named_parameters(),
+                                        cpu["params"].named_parameters()))
+    check(pdiff <= 4 * lr_sum, f"train small: card vs CPU parameters "
+          f"{pdiff:.3e} apart (bound {4 * lr_sum:.3e})")
+    # save after step 2 + --resume = the uninterrupted run
+    rdir = os.path.join(tmp, "train_small_resume")
+    os.makedirs(rdir)
+    shutil.copytree(os.path.join(ckpt, "step_00000002"),
+                    os.path.join(rdir, "step_00000002"))
+    res = tr.train(cfg, tr.parse_args(argv + [
+        "--device", "cuda", "--ckpt-dir", rdir, "--resume"]),
+        params=resume_init)
+    lr_ = [m["loss"] for m in res["log"]]
+    rdiff, bitwise = _param_diff(res["params"], card["params"])
+    check(res["start_step"] == 2 and np.allclose(lr_, lg[2:], rtol=1e-6),
+          f"train small: resumed losses {lr_} vs {lg[2:]}")
+    check(rdiff <= 1e-6, f"train small: resumed parameters {rdiff:.3e} "
+          f"from the uninterrupted run's")
+    out = {"step1_grad_err": g_err, "cpu_losses": lc, "card_losses": lg,
+           "cpu_grad_norms": gc_,
+           "card_grad_norms": gg, "param_max_diff": pdiff,
+           "params_more_than_1e-6_apart": far, "gemm_launches": launched,
+           "resume_losses": lr_, "resume_param_max_diff": rdiff,
+           "resume_bitwise": bitwise}
+    print(f"[train small] float32 smoke, 4 steps: step-1 gradients card "
+          f"vs CPU within {g_err:.3e} of a leaf's largest entry; card losses "
+          f"{lg} vs CPU {lc}; grad norms {gg} vs {gc_}; parameters max |diff| "
+          f"{pdiff:.3e} ({far} entries > 1e-6); every leaf had a gradient "
+          f"after step 1; {launched} GEMM launches, 0 plain calls; resume "
+          f"after step 2 {'bit-equal to' if bitwise else 'within'} the "
+          f"uninterrupted run (max |diff| {rdiff:.3e})", flush=True)
+    return out
+
+
+def phase_train_full(gem_rows):
+    """(12c) llama3-8b at full width, depth cut to TRAIN_LAYERS, bf16
+    compute with fp32 masters and AdamW, remat full: TRAIN_STEPS steps
+    of 2 x 1024 tokens through ``launch.train.train`` with warmup = the
+    steps. Checks the losses finite and the last below the first, the
+    GEMM launches of every step, no plain call, and peak memory below 80
+    GB; then one more step under the profiler for the GEMM's device
+    time. Returns the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import adamw
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    args = tr.parse_args([
+        "--arch", "llama3-8b", "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+        str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+        "--device", "cuda"])
+    per_step = train_launches_per_step(cfg)
+    counts = []
+
+    def count(step, params, metrics):
+        counts.append(matmul.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    t0 = time.time()
+    res = tr.train(cfg, args, on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches, plain = matmul.launches, matmul.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train full width: losses {losses}")
+    deltas = np.diff([0] + counts).tolist()
+    check(plain == 0 and deltas == [per_step] * TRAIN_STEPS,
+          f"train full width: GEMM launches per step {deltas} (want "
+          f"{per_step}), {plain} plain calls")
+    check(peak_gb < 80, f"train full width: peak {peak_gb:.1f} GB")
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    step_s = float(np.mean(steps_s[1:]))
+    prods = train_products(cfg, M)
+    gemm_flops = sum(2 * m * k * n * c for _, _, m, k, n, _, _, c in prods)
+    H, S, hd = cfg.n_heads, TRAIN_SEQ, cfg.hd
+    # QK^T and PV (dense fp32 attention) forward twice (remat) and their
+    # backward (two products each)
+    attn_flops = cfg.n_layers * (2 + 2) * 2 * (2 * TRAIN_BATCH * H * S * S
+                                              * hd)
+    flops = gemm_flops + attn_flops
+    # one more step under the profiler: the GEMM's device time
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR)
+    step_fn = steps_lib.make_train_step(cfg, opt_cfg)
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0).batch_at(TRAIN_STEPS), "cuda")
+    params, opt = res["params"], res["opt"]
+    del res
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    prof_wall = time.time() - t1
+    kern = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        # kernels only: the autograd Functions' and ops' CPU ranges
+        # repeat their kernels' device time
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern.append((dev_us, ev.key, ev.count))
+    kern.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kern) / 1e3
+    gemm_ms = sum(k[0] for k in kern if port_kernel("gemm_stream", k[1])
+                  or port_kernel("mm_kernel", k[1])) / 1e3
+    gemm_calls = sum(k[2] for k in kern if port_kernel("gemm_stream", k[1])
+                     or port_kernel("mm_kernel", k[1]))
+    del params, opt, batch, step_fn
+    # per-step sums of 12a's per-product times (dA by the backward's
+    # route, B^T made contiguous)
+
+    def per_step_ms(key):
+        tot = 0.0
+        for name, kind, _, _, _, _, _, c in prods:
+            k = kind if name == "unembed" or kind != "dA" else "dA_copy"
+            tot += c * gem_rows[(name, k)][key]
+        return tot
+    bound_s = sum(c * _product_bound(m, k, n, dt)[0]
+                  for _, _, m, k, n, dt, _, c in prods)
+    ops_s = sum(c * 2 * m * k * n / PEAK_OPS[dt]
+                for _, _, m, k, n, dt, _, c in prods)
+    bytes_s = sum(c * (m * k + k * n + m * n) * (4 if dt == torch.float32
+                                                   else 2) / HBM_BYTES_PER_S
+                  for _, _, m, k, n, dt, _, c in prods)
+    out = {"config": f"llama3-8b full width, {cfg.n_layers} of 32 layers, "
+                     f"bf16 compute, fp32 masters, remat full",
+           "params": n_params, "tokens_per_step": M,
+           "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+           "step_s": steps_s, "ms_per_step": 1e3 * step_s,
+           "tokens_per_s": M / step_s, "run_s": run_s,
+           "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
+           "tflops_per_s": flops / step_s / 1e12,
+           "peak_share": flops / step_s / PEAK_OPS[torch.bfloat16],
+           "peak_gb": peak_gb, "gemm_launches": launches,
+           "gemm_launches_per_step": per_step,
+           "profiled_step": {"wall_ms": 1e3 * prof_wall,
+                             "device_ms": dev_ms, "gemm_ms": gemm_ms,
+                             "gemm_calls": gemm_calls,
+                             "top_kernels": [
+                                 {"name": k[1][:80], "ms": k[0] / 1e3,
+                                  "calls": k[2]} for k in kern[:10]]},
+           "gemm_ms_per_step_12a": per_step_ms("ms"),
+           "plain_ms_per_step": per_step_ms("plain_ms"),
+           "library_ms_per_step": per_step_ms("library_ms"),
+           "bound_ms_per_step": 1e3 * bound_s,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+    print(f"[train full] {out['config']}: {n_params / 1e9:.3f} B "
+          f"parameters; losses {[round(x, 4) for x in losses]}; "
+          f"{out['ms_per_step']:.1f} ms per step after step 0 "
+          f"({out['tokens_per_s']:.0f} tokens/s), "
+          f"{out['tflops_per_s']:.1f} TFLOP/s executed "
+          f"({100 * out['peak_share']:.1f}% of 989 TF); peak "
+          f"{peak_gb:.2f} GB; {per_step} GEMM launches a step; profiled "
+          f"step: wall {1e3 * prof_wall:.1f} ms, device {dev_ms:.1f} ms, "
+          f"GEMM {gemm_ms:.1f} ms in {gemm_calls} launches; torch.matmul "
+          f"at the same shapes {out['library_ms_per_step']:.1f} ms a "
+          f"step, bound {out['bound_ms_per_step']:.1f} ms", flush=True)
+    print("[train full] top kernels of the profiled step: " + "; ".join(
+        f"{k['name'][:50]} {k['ms']:.1f} ms x {k['calls']}"
+        for k in out["profiled_step"]["top_kernels"][:6]), flush=True)
+    return out
+
+
+def phase_train(gen):
+    """(12) the training path: 12a, 12b, 12c; frees what it made."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    tmp = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    rows, worst = phase_train_gemm(gen, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    small = phase_train_small(tmp)
+    full = phase_train_full(rows)
+    shutil.rmtree(tmp, ignore_errors=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel = {"name": "matmul_train", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": full["gemm_launches"],
+              "launches_per_step": full["gemm_launches_per_step"],
+              "max_abs_err": worst,
+              "ms": full["profiled_step"]["gemm_ms"],
+              "kernel_ms_12a": full["gemm_ms_per_step_12a"],
+              "plain_ms": full["plain_ms_per_step"],
+              "bound_ms": full["bound_ms_per_step"],
+              "bound_by": full["bound_by"],
+              "library_ms": full["library_ms_per_step"],
+              "unit": f"one training step of {full['config']}, "
+                      f"{full['tokens_per_step']} tokens"}
+    return {"gemm": {f"{n} {k}": r for (n, k), r in rows.items()},
+            "small": small, "full": full}, kernel
+
+
 def sampler_ms(gen, B=8, V=128256):
     """Device ms of one sampling step at the full-width serve's shapes
     (batch 8, vocab 128256, bf16 logits), in CUDA-graph replays: greedy,
@@ -2251,6 +2690,7 @@ def main():
                                 phase_full_width_ranks, params)
     del params
     torch.cuda.empty_cache()
+    train, train_kernel = timed("12 training", phase_train, gen)
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -2270,6 +2710,7 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
+    kernels.append(train_kernel)
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -2280,6 +2721,7 @@ def main():
                    "serve_tp": summary_tp, "kernels": kernels,
                    "sampler": sampler, "gemm_shapes": rows,
                    "robust_small": robust, "server": server,
+                   "train": train,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

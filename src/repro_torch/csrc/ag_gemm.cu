@@ -312,8 +312,7 @@ __device__ void consumer(const Args& a, const Smem<T, MT>& S) {
               acc[m][cc] = fmaf(av, b[cc], acc[m][cc]);
           }
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&S.empty[slot]);
+        stream::release_stage(&S.empty[slot]);
         ++cnt;
       }
       // every warp leaves its sums; then each element is summed over

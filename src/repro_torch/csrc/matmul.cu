@@ -54,7 +54,11 @@
 //     (32, 64) tiles of B through shared memory with the next tile
 //     prefetched into registers.
 // Any M: an item loops over M tiles of MT rows, streaming its B tiles
-// once per M tile. wgmma tiles for prefill-sized M are later work.
+// once per M tile. Where the M tiles alone fill the grid (training
+// shapes: M 2048 tokens, or 4096-128256 in a weight gradient), the plan
+// splits M instead of K: an item is (product, strip, M chunk), its
+// output written straight into C, with no split-K workspace (kernels/
+// matmul.py `gemm_plan`). wgmma tiles for such M are later work.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +70,6 @@ namespace {
 
 using stream::from_f;
 using stream::load_f;
-using stream::mbar_arrive;
 using stream::mbar_arrive_tx;
 using stream::mbar_init;
 using stream::mbar_wait;
@@ -213,29 +216,33 @@ struct alignas(64) GemmMaps {
 
 struct GemmArgs {
   void* C[MAXP];
-  int N[MAXP], n_kc[MAXP];
+  int N[MAXP], n_kc[MAXP], n_mc[MAXP];
   int item0[MAXP + 1];      // product p's items: [item0[p], item0[p + 1])
   long long work_off[MAXP]; // its partials, in floats into work
   int cnt_off[MAXP];        // its strips' counters
-  int n_prod, M, K, tiles;
+  int n_prod, M, K, tiles, m_tiles;
   float* work;              // (strips, n_kc, M, BN) fp32 per product
   unsigned* cnt;            // counters, zero at entry and left at zero
 };
 
 struct Item {
-  int prod, strip, kc, t0, t1;
+  int prod, strip, kc, t0, t1, mt0, mt1;
 };
 
-// Item i: (product, strip, K chunk) and the chunk's tiles [t0, t1).
-// (Walking strips fastest instead, so that neighbouring blocks read
-// neighbouring pieces of the same B rows, timed the same on the H100.)
+// Item i: (product, strip, M chunk, K chunk), K chunk fastest, then the
+// M chunk; the chunk's K tiles [t0, t1) and M tiles [mt0, mt1). A plan
+// splits K or M, never both. (Walking strips fastest instead, so that
+// neighbouring blocks read neighbouring pieces of the same B rows, timed
+// the same on the H100.)
 __device__ __forceinline__ Item item_at(const GemmArgs& g, int i) {
   int p = 0;
   while (p + 1 < g.n_prod && i >= g.item0[p + 1]) ++p;
-  const int local = i - g.item0[p], nkc = g.n_kc[p];
-  const int kc = local % nkc;
-  return {p, local / nkc, kc, (int)((long long)kc * g.tiles / nkc),
-          (int)((long long)(kc + 1) * g.tiles / nkc)};
+  const int local = i - g.item0[p], nkc = g.n_kc[p], nmc = g.n_mc[p];
+  const int kc = local % nkc, mc = local / nkc % nmc;
+  return {p, local / nkc / nmc, kc, (int)((long long)kc * g.tiles / nkc),
+          (int)((long long)(kc + 1) * g.tiles / nkc),
+          (int)((long long)mc * g.m_tiles / nmc),
+          (int)((long long)(mc + 1) * g.m_tiles / nmc)};
 }
 
 template <int PATH, typename T, int MT>
@@ -251,7 +258,7 @@ __device__ void producer(const GemmMaps& maps, const GemmArgs& g,
   for (int i = blockIdx.x; i < g.item0[g.n_prod]; i += gridDim.x) {
     const Item it = item_at(g, i);
     const int n0 = it.strip * G::BN;
-    for (int m0 = 0; m0 < g.M; m0 += MT) {
+    for (int m0 = it.mt0 * MT; m0 < it.mt1 * MT; m0 += MT) {
       for (int t = it.t0; t < it.t1; ++t, ++cnt) {
         const int slot = cnt % STAGES;
         mbar_wait(&empty[slot], ((cnt / STAGES) & 1) ^ 1);
@@ -377,7 +384,7 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
                                  (size_t)it.strip * nkc * g.M * BNS;
     const Out<T, BNS> out{static_cast<T*>(g.C[it.prod]), part, g.M, N, n0,
                           it.kc};
-    for (int m0 = 0; m0 < g.M; m0 += MT) {
+    for (int m0 = it.mt0 * MT; m0 < it.mt1 * MT; m0 += MT) {
       if constexpr (PATH == KN_MMA) {
         // warp w: columns 16w..16w+15. ldmatrix: lane -> matrix j = lane
         // / 8 (j & 1: columns +8, j >> 1: K rows +8), row lane % 8
@@ -407,8 +414,7 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
                        lds32(row + (swz(m, 2 * ks + 1) << 4)));
             }
           }
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[slot]);
+          stream::release_stage(&empty[slot]);
         }
         // d[u]: C^T rows (columns of C) 16w + gq (+8), cols (rows of C)
         // m0 + 8u + 2tq (+1)
@@ -442,8 +448,7 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
               for (int c = 0; c < CPL; ++c) acc[m][c] = fmaf(av, b[c], acc[m][c]);
             }
           }
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[slot]);
+          stream::release_stage(&empty[slot]);
         }
         // every warp leaves its sums; then each element is summed over
         // the warps in warp order
@@ -496,8 +501,7 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
               for (int c = 0; c < CPL; ++c)
                 acc[r][m] = fmaf(bv[r][c], av[c], acc[r][m]);
           }
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[slot]);
+          stream::release_stage(&empty[slot]);
         }
 #pragma unroll
         for (int r = 0; r < RPW; ++r)
@@ -660,18 +664,20 @@ extern "C" int gemm_blocks_per_sm(int path, int dtype, int mt, int* out) {
 // 2 (TRANS); c[p]: (M, N[p]); all contiguous row-major, one dtype (0 =
 // float32, 1 = bfloat16), 16-byte aligned, rows whole 16-byte words.
 // path: 0 KN_MMA (bf16), 1 KN_FMA (fp32), 2 TRANS; mt: rows of an A tile
-// (8, or 16 for KN_MMA). n_kc[p]: K chunks per strip of product p (kernels/
-// matmul.py gemm_plan); grid: blocks (at most what the card holds,
+// (8, or 16 for KN_MMA). n_kc[p], n_mc[p]: K chunks and M chunks per
+// strip of product p, one of them 1 (kernels/matmul.py gemm_plan); grid: blocks (at most what the card holds,
 // gemm_blocks_per_sm). work: fp32 partials, per product with n_kc > 1
 // in product order strips * n_kc * M * BN floats; cnt: one uint32 counter
 // per strip of every product, zero at entry and left at zero. Returns
 // the launch's cudaError_t (0 = launched).
 extern "C" int gemm_launch(const void* a, const void* const* b,
                            void* const* c, int n_prod, int M, int K,
-                           const int* N, const int* n_kc, int dtype,
+                           const int* N, const int* n_kc, const int* n_mc,
+                           int dtype,
                            int path, int mt, int grid, void* work, void* cnt,
                            void* stream) {
   if (n_prod <= 0 || n_prod > MAXP || M <= 0 || K <= 0 || grid <= 0 ||
+      mt <= 0 ||
       (dtype != 0 && dtype != 1) || path < 0 || path > 2 ||
       (path == KN_MMA && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -693,13 +699,15 @@ extern "C" int gemm_launch(const void* a, const void* const* b,
   g.M = M;
   g.K = K;
   g.tiles = (K + kt - 1) / kt;
+  g.m_tiles = (M + mt - 1) / mt;
   g.work = static_cast<float*>(work);
   g.cnt = static_cast<unsigned*>(cnt);
   long long work_off = 0;
   int cnt_off = 0;
   for (int p = 0; p < n_prod; ++p) {
     const int strips = (N[p] + bn - 1) / bn;
-    if (N[p] <= 0 || n_kc[p] <= 0 || n_kc[p] > g.tiles ||
+    if (N[p] <= 0 || n_kc[p] <= 0 || n_kc[p] > g.tiles || n_mc[p] <= 0 ||
+        n_mc[p] > g.m_tiles || (n_kc[p] > 1 && n_mc[p] > 1) ||
         (!trans && ((size_t)N[p] * esz) % 16) ||
         reinterpret_cast<uintptr_t>(b[p]) % 16 ||
         (n_kc[p] > 1 && (work == nullptr || cnt == nullptr)))
@@ -707,7 +715,8 @@ extern "C" int gemm_launch(const void* a, const void* const* b,
     g.C[p] = c[p];
     g.N[p] = N[p];
     g.n_kc[p] = n_kc[p];
-    g.item0[p + 1] = g.item0[p] + strips * n_kc[p];
+    g.n_mc[p] = n_mc[p];
+    g.item0[p + 1] = g.item0[p] + strips * n_mc[p] * n_kc[p];
     g.work_off[p] = work_off;
     g.cnt_off[p] = cnt_off;
     if (n_kc[p] > 1) {

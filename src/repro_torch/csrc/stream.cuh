@@ -62,6 +62,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
                    smem_addr(b))
                : "memory");
 }
+// Hands a ring stage back to its producer once this warp has read it:
+// every lane orders its generic-proxy reads of the stage before the
+// async-proxy (TMA) writes that refill it (fence.proxy.async; without
+// it a refill on the H100 overwrote A rows a warp was still reading,
+// once a consumer's arithmetic was scheduled past its arrive), then
+// lane 0 arrives on the stage's `empty` barrier for the warp.
+__device__ __forceinline__ void release_stage(uint64_t* empty) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
+}
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(b)),

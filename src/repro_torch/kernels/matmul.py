@@ -10,10 +10,17 @@ operands TMA can take, the general ``mm_kernel`` for other shapes and
 pointers; for CPU tensors they run :func:`matmul_plain`. There is no
 fallback between the two: a CUDA tensor the kernels cannot take raises.
 
+Gradients: where autograd records (an input requires grad and grad
+mode is on), both wrappers run as ``torch.autograd.Function``s whose
+backward is the same kernel (``dA = dC @ B^T``, ``dB = A^T @ dC``), on
+the card and, through the plain version, on the CPU alike. Otherwise
+(``torch.no_grad``, ``torch.inference_mode``: the engine and its CUDA
+graphs) they launch the forward product alone and save nothing.
+
 Counters, shared by both wrappers (one kernel): ``matmul.launches``
 counts kernel launches and ``matmul.plain_calls`` plain-version calls (a
-group counts one of either), so a run can show which one its main path
-went through.
+group counts one of either), backward products included, so a run can
+show which one its main path went through.
 """
 from __future__ import annotations
 
@@ -45,28 +52,42 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
 class GemmPlan:
     """One product's share of ``gemm_stream``'s persistent grid
     (``csrc/matmul.cu``): ``n_strips`` strips of ``bn`` output columns,
-    K in ``tiles`` tiles of ``kt``, each strip split into ``n_kc``
-    chunks; an item is (strip, chunk), chunk fastest, and chunk ``kc``
-    covers tiles ``chunk_tiles(kc)``. A strip of several chunks sums
-    their partials in chunk order."""
+    K in ``tiles`` tiles of ``kt``, M in ``m_tiles`` tiles of ``mt``
+    rows; each strip split into ``n_mc`` M chunks or ``n_kc`` K chunks
+    (one of the two is 1). An item is (strip, M chunk, K chunk), K chunk
+    fastest; K chunk ``kc`` covers tiles ``chunk_tiles(kc)``, M chunk
+    ``mc`` the M tiles ``m_chunk(mc)``. A strip of several K chunks sums
+    their partials in chunk order; an M chunk writes its rows of C."""
     M: int
     bn: int
     kt: int
     n_strips: int
     tiles: int
     n_kc: int
+    mt: int
+    n_mc: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.M // self.mt)
 
     @property
     def items(self) -> int:
-        return self.n_strips * self.n_kc
+        return self.n_strips * self.n_mc * self.n_kc
 
     def chunk_tiles(self, kc: int) -> range:
         return range(kc * self.tiles // self.n_kc,
                      (kc + 1) * self.tiles // self.n_kc)
 
+    def m_chunk(self, mc: int) -> range:
+        return range(mc * self.m_tiles // self.n_mc,
+                     (mc + 1) * self.m_tiles // self.n_mc)
+
     @property
     def work_floats(self) -> int:
-        """fp32 partials of the product's split strips."""
+        """fp32 partials of the product's split strips: the split-K
+        workspace, held with the launch (``_LAUNCHES``) for the life of
+        the process."""
         return 0 if self.n_kc == 1 else \
             self.n_strips * self.n_kc * self.M * self.bn
 
@@ -81,38 +102,52 @@ def geometry(path: int, itemsize: int) -> tuple[int, int]:
     return 256 // itemsize, TILE_BYTES // 256
 
 
+def m_tile(path: int, M: int) -> int:
+    """Rows of an A tile of ``gemm_stream`` (``csrc/matmul.cu`` ``MT``):
+    bf16 B (K, N) on the tensor cores in tiles of 8 batch rows or 16;
+    fp32 B (K, N) and B (N, K) on fp32 FMA in tiles of 8."""
+    return 16 if path == KN_MMA and M > 8 else 8
+
+
 def gemm_plan(M: int, N: int, K: int, itemsize: int, capacity: int,
               path: int | None = None) -> GemmPlan:
-    """One product's strips and K chunks for ``path`` (default: KN_MMA
+    """One product's strips and chunks for ``path`` (default: KN_MMA
     for bf16, KN_FMA for fp32; TRANS for B given as (N, K)), see
-    :func:`geometry`. The chunks per strip are those that finish the
-    product's tiles soonest on ``capacity`` blocks, every block taking
-    items in turn, at least ``MIN_CHUNK_TILES`` tiles a chunk; since
-    each chunk leaves a partial and the strip a fold, the fewest chunks
-    within ``SPAN_SLACK`` of the soonest. The chunking, and with it every
-    bit of C, depends only on the product's shape and the card, never on
-    the group it is launched in."""
+    :func:`geometry`. Where the strips' M tiles alone fill the
+    ``capacity`` blocks (training shapes), M is split: the fewest M
+    chunks that finish the product soonest, every block taking items in
+    turn, and no K split, so no split-K workspace. Otherwise (decode: M
+    is the batch) K is split: the chunks per strip are those that finish
+    the product's tiles soonest, at least ``MIN_CHUNK_TILES`` tiles a
+    chunk; since each chunk leaves a partial and the strip a fold, the
+    fewest chunks within ``SPAN_SLACK`` of the soonest. The chunking,
+    and with it every bit of C, depends only on the product's shape and
+    the card, never on the group it is launched in."""
     if path is None:
         path = KN_MMA if itemsize == 2 else KN_FMA
     bn, kt = geometry(path, itemsize)
+    mt = m_tile(path, M)
     n_strips = -(-N // bn)
     tiles = -(-K // kt)
+    m_tiles = -(-M // mt)
+    if n_strips * m_tiles >= capacity:
+        span = {n_mc: -(-n_strips * n_mc // capacity) * -(-m_tiles // n_mc)
+                for n_mc in range(1, m_tiles + 1)}
+        soonest = min(span.values())
+        n_mc = min(n for n, t in span.items() if t == soonest)
+        return GemmPlan(M, bn, kt, n_strips, tiles, 1, mt, n_mc)
     span = {n_kc: -(-n_strips * n_kc // capacity) * -(-tiles // n_kc)
             for n_kc in range(1, max(1, tiles // MIN_CHUNK_TILES) + 1)}
     soonest = min(span.values())
     n_kc = min(n for n, t in span.items() if t <= soonest * (1 + SPAN_SLACK))
-    return GemmPlan(M, bn, kt, n_strips, tiles, n_kc)
+    return GemmPlan(M, bn, kt, n_strips, tiles, n_kc, mt, 1)
 
 
 def _path(M: int, dtype, trans_b: bool) -> tuple[int, int]:
-    """(path, rows of an A tile) of ``gemm_stream``: bf16 B (K, N) on the
-    tensor cores, in tiles of 8 batch rows or 16; fp32 B (K, N) and B
-    (N, K) on fp32 FMA, in tiles of 8."""
-    if trans_b:
-        return TRANS, 8
-    if dtype == torch.bfloat16:
-        return KN_MMA, 8 if M <= 8 else 16
-    return KN_FMA, 8
+    """(path, rows of an A tile) of ``gemm_stream`` (:func:`m_tile`)."""
+    path = TRANS if trans_b else KN_MMA if dtype == torch.bfloat16 \
+        else KN_FMA
+    return path, m_tile(path, M)
 
 
 _FNS: dict = {}
@@ -178,9 +213,10 @@ def _plan_launch(a, Ns, trans_b) -> _Launch:
                            dtype=torch.float32, device=a.device)
         cnt = torch.zeros(sum(p.n_strips for p in split), dtype=torch.int32,
                           device=a.device)
-    fn = _fn("gemm_launch", [ptr, ptr, ptr] + [i32] * 3 + [ptr, ptr]
+    fn = _fn("gemm_launch", [ptr, ptr, ptr] + [i32] * 3 + [ptr] * 3
              + [i32] * 4 + [ptr, ptr, ptr])
     args = (symm.ints(Ns), symm.ints([p.n_kc for p in plans]),
+            symm.ints([p.n_mc for p in plans]),
             _DTYPES[a.dtype], path, mt, min(sum(p.items for p in plans), cap),
             None if work is None else work.data_ptr(),
             None if cnt is None else cnt.data_ptr())
@@ -260,11 +296,9 @@ def _run(a, bs, trans_b, tma):
     return cs
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *,
-           trans_b: bool = False) -> torch.Tensor:
-    """``a`` (M, K) @ ``b`` (K, N) -> (M, N) in ``a``'s dtype; with
-    ``trans_b``, ``b`` is given as (N, K) and read transposed. Any M, N,
-    K; f32 x f32 or bf16 x bf16."""
+def _product(a, b, trans_b=False):
+    """The product alone: the kernel for CUDA tensors, the plain version
+    for CPU tensors; records nothing for autograd."""
     cpu, tma = _check(a, [b], trans_b, "matmul")
     if cpu:
         matmul.plain_calls += 1
@@ -272,20 +306,107 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return _run(a, [b], trans_b, tma)[0]
 
 
-def matmul_group(a: torch.Tensor, bs) -> list[torch.Tensor]:
-    """``[a @ b for b in bs]`` for ``a`` (M, K) and each ``b`` (K, N_i),
-    in one launch (at most ``MAX_GROUP`` products). Each product's
-    chunking depends only on its own shape, so its output is
-    bit-identical to :func:`matmul`'s."""
-    bs = list(bs)
-    if not 1 <= len(bs) <= MAX_GROUP:
-        raise ValueError(f"matmul_group takes 1 to {MAX_GROUP} products, "
-                         f"got {len(bs)}")
+def _products(a, bs):
+    """:func:`_product` for every b of a group, in one launch."""
     cpu, tma = _check(a, bs, False, "matmul_group")
     if cpu:
         matmul.plain_calls += 1
         return [matmul_plain(a, b) for b in bs]
     return _run(a, bs, False, tma)
+
+
+def _grad_a(dc, b, trans_b):
+    """dA of ``a @ b`` (``b`` (K, N)) or of ``a @ b.T`` (``trans_b``, ``b``
+    (N, K)) for the output gradient ``dc``. For ``b`` (K, N), B^T is made
+    contiguous so the product runs on its own path (the tensor cores for
+    bf16): reading B transposed instead (the TRANS path, fp32 FMA) ran
+    3.7-4.7x slower at the training shapes (chip_smoke.py phase 12a,
+    PERF.md)."""
+    if trans_b:
+        return _product(dc, b)
+    return _product(dc, b.t().contiguous())
+
+
+class _Matmul(torch.autograd.Function):
+    """:func:`matmul` with its gradient: dA = dC @ B^T (:func:`_grad_a`),
+    dB = A^T @ dC (dB = dC^T @ A for ``trans_b``), each one product of
+    the same kernel."""
+
+    @staticmethod
+    def forward(ctx, a, b, trans_b):
+        ctx.save_for_backward(a, b)
+        ctx.trans_b = trans_b
+        return _product(a, b, trans_b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _grad_a(dc, b, ctx.trans_b)
+        if ctx.needs_input_grad[1]:
+            db = _product(dc.t().contiguous(), a) if ctx.trans_b \
+                else _product(a.t().contiguous(), dc)
+        return da, db, None
+
+
+class _MatmulGroup(torch.autograd.Function):
+    """:func:`matmul_group` with its gradient: every dB_p = A^T @ dC_p in
+    one grouped launch; dA = sum_p dC_p @ B_p^T, the terms summed in fp32
+    in product order (so the sum does not depend on scheduling), cast
+    to A's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, *bs):
+        ctx.save_for_backward(a, *bs)
+        return tuple(_products(a, list(bs)))
+
+    @staticmethod
+    def backward(ctx, *dcs):
+        a, *bs = ctx.saved_tensors
+        dcs = [dc.contiguous() for dc in dcs]
+        da = None
+        if ctx.needs_input_grad[0]:
+            for dc, b in zip(dcs, bs):
+                term = _grad_a(dc, b, False).float()
+                da = term if da is None else da + term
+            da = da.to(a.dtype)
+        dbs = [None] * len(bs)
+        if any(ctx.needs_input_grad[1:]):
+            dbs = [db if need else None for db, need in zip(
+                _products(a.t().contiguous(), dcs), ctx.needs_input_grad[1:])]
+        return (da, *dbs)
+
+
+def _records(*ts) -> bool:
+    """Whether autograd records a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           trans_b: bool = False) -> torch.Tensor:
+    """``a`` (M, K) @ ``b`` (K, N) -> (M, N) in ``a``'s dtype; with
+    ``trans_b``, ``b`` is given as (N, K) and read transposed. Any M, N,
+    K; f32 x f32 or bf16 x bf16. Differentiable (module docstring)."""
+    if _records(a, b):
+        return _Matmul.apply(a, b, trans_b)
+    return _product(a, b, trans_b)
+
+
+def matmul_group(a: torch.Tensor, bs) -> list[torch.Tensor]:
+    """``[a @ b for b in bs]`` for ``a`` (M, K) and each ``b`` (K, N_i),
+    in one launch (at most ``MAX_GROUP`` products). Each product's
+    chunking depends only on its own shape, so its output is
+    bit-identical to :func:`matmul`'s. Differentiable (module
+    docstring)."""
+    bs = list(bs)
+    if not 1 <= len(bs) <= MAX_GROUP:
+        raise ValueError(f"matmul_group takes 1 to {MAX_GROUP} products, "
+                         f"got {len(bs)}")
+    if _records(a, *bs):
+        return list(_MatmulGroup.apply(a, *bs))
+    return _products(a, bs)
 
 
 matmul.launches = 0

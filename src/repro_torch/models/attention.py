@@ -1,6 +1,8 @@
-"""GQA attention, decode step (port of the decode half of
-``repro.models.attention``): the paged pool and the contiguous strided
-cache, on one rank or over the W ranks of the ambient mesh.
+"""GQA attention (port of ``repro.models.attention``): the train/prefill
+path at W = 1 (:func:`apply_attn` over the dense or the blockwise
+attention, in fp32 plain PyTorch as JAX computes it outside Pallas), and
+the decode step over the paged pool and the contiguous strided cache, on
+one rank or over the W ranks of the ambient mesh.
 
 Values in the decode step: ``params``, ``x``, ``cur_len``, ``active``
 and ``block_tables`` are lists with one entry per distinct device of the
@@ -17,6 +19,8 @@ from repro_torch.kernels.flash_decode import flash_decode_paged
 from repro_torch.models.layers import apply_rope, dense, dense_group
 from repro_torch.models.module import Param
 
+NEG_INF = torch.finfo(torch.float32).min
+
 
 def attn_spec(cfg):
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -26,6 +30,125 @@ def attn_spec(cfg):
         "wv": Param((d, KVH * hd), init="scaled", axes=("embed", "kv_heads")),
         "wo": Param((H * hd, d), init="scaled", axes=("heads", "embed")),
     }
+
+
+def _mask_bias(q_pos, kv_pos, *, causal, window, prefix_len):
+    """(q, kv) additive fp32 bias (0 or NEG_INF)."""
+    ok = torch.ones((q_pos.shape[-1], kv_pos.shape[-1]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        c = q_pos[:, None] >= kv_pos[None, :]
+        if prefix_len is not None:
+            c = c | (kv_pos[None, :] < prefix_len)
+        ok = ok & c
+    if window is not None:
+        ok = ok & (kv_pos[None, :] > q_pos[:, None] - window)
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def dense_attention(q, k, v, *, scale, causal=True, window=None,
+                    prefix_len=None):
+    """Oracle / small-sequence path. q, k, v: (B, S, H, D) (kv
+    repeated); the S x S scores in fp32."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    bias = _mask_bias(pos, pos, causal=causal, window=window,
+                      prefix_len=prefix_len)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s + bias, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o.to(q.dtype)
+
+
+def _divisor_chunk(S: int, want: int) -> int:
+    """The largest divisor of S that is <= want (vlm prefixes make S
+    odd-sized)."""
+    c = min(want, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def blockwise_attention(q, k, v, *, scale, causal=True, window=None,
+                        prefix_len=None, chunk_q=512, chunk_kv=1024):
+    """Flash-style blockwise attention in plain PyTorch (no S x S
+    buffer): a loop over q chunks, an inner loop over kv chunks carrying
+    the online-softmax state, with JAX's ``isfinite`` guards. Chunk pairs
+    that are fully masked are skipped (JAX skips them with ``lax.cond``);
+    the test is on Python ints, so nothing waits for the device."""
+    B, S, H, D = q.shape
+    cq, ck = _divisor_chunk(S, chunk_q), _divisor_chunk(S, chunk_kv)
+
+    def kv_needed(qi, ki):
+        q_lo, q_hi = qi * cq, qi * cq + cq - 1
+        k_lo, k_hi = ki * ck, ki * ck + ck - 1
+        need = True
+        if causal:
+            need = k_lo <= q_hi or (prefix_len is not None
+                                    and k_lo < prefix_len)
+        if window is not None:
+            need = need and k_hi > q_lo - window
+        return need
+
+    outs = []
+    for qi in range(S // cq):
+        qf = q[:, qi * cq:(qi + 1) * cq].float()
+        q_pos = qi * cq + torch.arange(cq, device=q.device)
+        acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, cq), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        for ki in range(S // ck):
+            if not kv_needed(qi, ki):
+                continue
+            kv_pos = ki * ck + torch.arange(ck, device=q.device)
+            bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
+                              prefix_len=prefix_len)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf,
+                             k[:, ki * ck:(ki + 1) * ck].float()) * scale
+            s = s + bias
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, v[:, ki * ck:(ki + 1) * ck].float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))     # (B, cq, H, D)
+    return torch.cat(outs, dim=1)
+
+
+def apply_attn(params, x, cfg, *, positions=None, dense_threshold=2048):
+    """Train/prefill attention at W = 1. x: (B, S, d_model). wq/wk/wv
+    are one grouped GEMM call, wo one call; the KV heads are repeated up
+    to the query heads (GQA) before the fp32 attention."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = dense_group(x, [params["wq"], params["wk"], params["wv"]])
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KVH, hd)
+    v = v.reshape(B, S, KVH, hd)
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    rep = H // KVH
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / (hd ** 0.5)
+    prefix = cfg.num_prefix_tokens if cfg.prefix_lm else None
+    if S <= dense_threshold:
+        o = dense_attention(q, k, v, scale=scale, causal=cfg.causal,
+                            window=cfg.sliding_window, prefix_len=prefix)
+    else:
+        o = blockwise_attention(q, k, v, scale=scale, causal=cfg.causal,
+                                window=cfg.sliding_window, prefix_len=prefix,
+                                chunk_q=cfg.attn_chunk_q,
+                                chunk_kv=cfg.attn_chunk_kv)
+    return dense(o.reshape(B, S, H * hd), params["wo"])
 
 
 def _qkv(params, x, cur_len, cfg):

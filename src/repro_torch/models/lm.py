@@ -1,14 +1,20 @@
-"""Top-level LM and its decode entry points (port of
-``repro.models.lm``).
+"""Top-level LM: the training forward and loss, and the decode entry
+points (port of ``repro.models.lm``).
 
 :class:`LM` is an ``nn.Module`` holding the parameter tree keyed like the
 JAX tree (``embed.table``, ``backbone.layers.attn.wq``, ``ln_f.scale``,
 ``head.table``); it indexes like the JAX dict (``params["backbone"]``),
-so the functional decode code reads either. Storage dtypes: weight
-matrices and the input embedding in ``cfg.dtype`` (what JAX's per-call
-``.astype(x.dtype)`` computes with), norm scales and the output head in
-fp32 (JAX's unembed promotes a bf16 ``x`` against the fp32 head table,
-so the logits are an fp32 product).
+so the functional code reads either. It comes in two forms:
+
+* serving (the default): frozen, weight matrices and the input
+  embedding stored in ``cfg.dtype`` (what JAX's per-call
+  ``.astype(x.dtype)`` computes with), norm scales and the output head
+  in fp32 (JAX's unembed promotes a bf16 ``x`` against the fp32 head
+  table, so the logits are an fp32 product);
+* trainable (``trainable=True``): every leaf an fp32 master
+  (``cfg.param_dtype``) with ``requires_grad``, as JAX trains; the
+  forward casts each weight to ``cfg.dtype`` per call, so gradients
+  land in fp32 on the masters.
 
 Decode state is a dict ``{"caches": {"k", "v"}, "cur_len"}`` (plus
 ``"block_tables"`` when paged) as in JAX, but the entry points update it
@@ -60,11 +66,16 @@ def storage_dtype(path: str, cfg) -> torch.dtype:
     return cfg.dtype
 
 
-def _module(tree: dict) -> nn.Module:
+def _dtype(path: str, cfg, trainable: bool) -> torch.dtype:
+    return cfg.param_dtype if trainable else storage_dtype(path, cfg)
+
+
+def _module(tree: dict, trainable: bool) -> nn.Module:
     if all(isinstance(v, dict) for v in tree.values()):
-        return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+        return nn.ModuleDict({k: _module(v, trainable)
+                              for k, v in tree.items()})
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                  for k, v in tree.items()})
     raise TypeError(f"mixed subtree {sorted(tree)}: a level holds either "
                     f"sub-dicts or tensors")
@@ -73,11 +84,11 @@ def _module(tree: dict) -> nn.Module:
 class LM(nn.Module):
     """Parameter tree of a decoder LM, keyed like the JAX tree."""
 
-    def __init__(self, cfg, tree: dict):
+    def __init__(self, cfg, tree: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         for k, v in tree.items():
-            self.add_module(k, _module(v))
+            self.add_module(k, _module(v, trainable))
 
     def __getitem__(self, key: str):
         return self._modules[key]
@@ -87,10 +98,10 @@ class LM(nn.Module):
         return self["embed"]["table"].device
 
 
-def from_tree(cfg, tree: dict) -> LM:
+def from_tree(cfg, tree: dict, trainable: bool = False) -> LM:
     """Build an :class:`LM` from a nested dict of tensors, checking it
     against :func:`lm_spec` key for key and shape for shape, and casting
-    every leaf to its storage dtype."""
+    every leaf to its storage dtype (``trainable``: an fp32 master)."""
     spec = dict(tree_items(lm_spec(cfg)))
     got = dict(tree_items(tree))
     if set(spec) != set(got):
@@ -107,18 +118,34 @@ def from_tree(cfg, tree: dict) -> LM:
         for k, v in t.items():
             path = f"{prefix}.{k}" if prefix else k
             out[k] = build(v, path) if isinstance(v, dict) \
-                else v.to(storage_dtype(path, cfg))
+                else v.to(_dtype(path, cfg, trainable))
         return out
-    return LM(cfg, build(tree))
+    return LM(cfg, build(tree), trainable)
 
 
-def init_params(cfg, *, seed: int = 0, device="cuda") -> LM:
+def init_params(cfg, *, seed: int = 0, device="cuda",
+                trainable: bool = False) -> LM:
     """Seeded random init from :func:`lm_spec` (a ``torch.Generator`` on
-    ``device``; no weights are read from anywhere)."""
+    ``device``; no weights are read from anywhere); ``trainable`` gives
+    fp32 masters that require grad."""
     dev = resolve_device(device)
     tree = init_tree(lm_spec(cfg), seed=seed, device=dev,
-                     cast=lambda path, x: x.to(storage_dtype(path, cfg)))
-    return LM(cfg, tree)
+                     cast=lambda path, x: x.to(_dtype(path, cfg, trainable)))
+    return LM(cfg, tree, trainable)
+
+
+def param_tree(params: LM) -> dict:
+    """The parameters of ``params`` as a nested dict keyed like the JAX
+    tree, holding the module's own tensors (what the optimizer and the
+    checkpointer take)."""
+    tree: dict = {}
+    for name, t in params.named_parameters():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+    return tree
 
 
 def logits_fn(params, x, cfg):
@@ -127,6 +154,53 @@ def logits_fn(params, x, cfg):
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["head"]["table"])
     return apply_unembed({"table": table}, x, dtype=torch.bfloat16)
+
+
+# ---------------------------------------------------------- train / prefill
+def embed_inputs(params, batch, cfg):
+    """batch: dict with 'tokens' (B, S). Returns (x (B, S, d) in
+    ``cfg.dtype``, positions (1, S), label_offset 0). The gather runs in
+    the table's dtype and casts after it, as in JAX."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} frontend is not ported yet "
+            f"(other-families slice of the port)")
+    tokens = batch["tokens"]
+    x = apply_embed(params["embed"], tokens, torch.float32).to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return x, positions, 0
+
+
+def forward(params, batch, cfg):
+    """Full forward: returns (logits (B, S, V) bf16, aux_loss)."""
+    x, positions, _ = embed_inputs(params, batch, cfg)
+    x, aux = transformer.forward(params["backbone"], x, cfg,
+                                 positions=positions)
+    x = apply_norm(params["ln_f"], x, cfg.norm)
+    return logits_fn(params, x, cfg), aux
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Mean token cross-entropy in fp32 with z-loss; labels -100 (any
+    negative) and mask entries <= 0 are ignored."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * lse.square()
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask > 0)
+    ce = torch.where(valid, ce, 0.0)
+    return ce.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
+    """(loss, {"ce", "aux"}) of one batch ({"tokens", "labels"} (B, S))."""
+    logits, aux = forward(params, batch, cfg)
+    loss = cross_entropy(logits, batch["labels"])
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def replicate(params, mesh) -> list:

@@ -1,4 +1,4 @@
-"""Feed-forward blocks, decode path (port of ``repro.models.mlp``)."""
+"""Feed-forward blocks (port of ``repro.models.mlp``)."""
 from __future__ import annotations
 
 import torch
@@ -32,12 +32,16 @@ def _act(cfg, g):
     raise ValueError(cfg.act)
 
 
-def apply_mlp_decode(params, x, cfg):
-    """x: (B, 1, d) -> (B, 1, d); every projection is a GEMM-kernel call
-    (the gate and up projections one grouped call)."""
+def apply_mlp(params, x, cfg):
+    """x: (..., d) -> (..., d); every projection is a GEMM-kernel call
+    (the gate and up projections one grouped call). At W = 1 the
+    train/prefill and the decode blocks are the same."""
     if cfg.act in ("swiglu", "geglu"):
         g, u = dense_group(x, [params["wg"], params["wu"]])
         h = _act(cfg, g) * u
     else:
         h = _act(cfg, dense(x, params["wu"]))
     return dense(h, params["wd"])
+
+
+apply_mlp_decode = apply_mlp

@@ -1,14 +1,16 @@
-"""Layer stack, ``attn_mlp`` decode path (port of
-``repro.models.transformer``).
+"""Layer stack, ``attn_mlp`` (port of ``repro.models.transformer``):
+the full-sequence forward (train/prefill) and the decode step.
 
 Parameters keep the JAX scan layout: every layer leaf is stacked with a
-leading ``n_layers`` dim (``stack_spec``); decode walks the layers in a
-Python loop, indexing the stacked leaves. The other blocks (``attn_moe``,
-``mamba_hybrid``, ``rwkv``) belong to a later slice of the port.
+leading ``n_layers`` dim (``stack_spec``); both paths walk the layers in
+a Python loop, indexing the stacked leaves. The other blocks
+(``attn_moe``, ``mamba_hybrid``, ``rwkv``) belong to a later slice of
+the port.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mlp
 from repro_torch.models.layers import apply_norm, norm_spec
@@ -21,6 +23,20 @@ def require_attn_mlp(cfg):
             f"block {cfg.block!r} ({cfg.name}) is not ported yet: the first "
             f"slice of the port covers attn_mlp only; MoE, Mamba2/zamba2 "
             f"and RWKV6 come with the other-families slice")
+
+
+def _ckpt(fn, cfg):
+    """Per-layer remat: ``remat_policy="full"`` recomputes the whole
+    layer in the backward (``torch.utils.checkpoint``, non-reentrant);
+    ``cfg.remat=False`` keeps every activation. The JAX package's
+    ``"dots"`` policy (save the matmul outputs) is not ported yet."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' is not ported yet: use 'full' or "
+            "remat=False")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def layer_spec(cfg):
@@ -76,6 +92,27 @@ def _layer(tree, li):
     return {k: v[li] for k, v in tree.items()}
 
 
+def _attn_mlp_layer(p, x, cfg, positions):
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    x = x + attention.apply_attn(p["attn"], h, cfg, positions=positions)
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp.apply_mlp(p["mlp"], h, cfg)
+
+
+def forward(params, x, cfg, *, positions=None):
+    """x: (B, S, d) embedded input. Returns (x, aux_loss); the aux loss
+    of a dense stack is 0.0."""
+    require_attn_mlp(cfg)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    layers = params["layers"]
+    body = _ckpt(_attn_mlp_layer, cfg)
+    for li in range(cfg.n_layers):
+        lp = {k: _layer(layers[k], li) for k in ("ln1", "attn", "ln2", "mlp")}
+        x = body(lp, x, cfg, positions)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def decode(params, x, caches, cur_len, cfg, active, block_tables,
            bounded: bool = True):
     """One-token step through every layer. params, x (B, 1, d), cur_len
@@ -95,6 +132,6 @@ def decode(params, x, caches, cur_len, cfg, active, block_tables,
                                        bounded)
         x = [xd + yd for xd, yd in zip(x, y)]
         h = [apply_norm(p["ln2"], xd, cfg.norm) for p, xd in zip(lp, x)]
-        x = [xd + mlp.apply_mlp_decode(p["mlp"], hd, cfg)
+        x = [xd + mlp.apply_mlp(p["mlp"], hd, cfg)
              for p, xd, hd in zip(lp, x, h)]
     return x

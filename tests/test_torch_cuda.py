@@ -981,3 +981,143 @@ def test_non_transient_dispatch_error_propagates(cuda):
         mp.undo()
     m = eng.metrics([])
     assert (m["dispatch_retries"], m["dispatch_failures"]) == (1, 0)
+
+
+# ------------------------------------------------------ the training path
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (2048, 4096, 1024, "bfloat16"),       # wk at training M
+    (2048, 14336, 4096, "bfloat16"),      # wd
+    (14336, 2048, 4096, "bfloat16"),      # wd's dB
+    (4096, 2048, 1000, "float32"),        # an fp32 dB, ragged N
+    (3000, 520, 256, "bfloat16"),         # M chunks of uneven length
+])
+def test_matmul_splits_m_at_training_shapes(cuda, M, K, N, dtype):
+    """Where the M tiles fill the grid the kernel splits M (no split-K
+    workspace) and matches the plain version; a group of such products
+    is bit-equal to its single calls."""
+    from repro_torch.kernels import matmul as kmm
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=g, device=cuda).to(dt)
+    bs = [(torch.randn((K, n), generator=g, device=cuda) / K ** 0.5).to(dt)
+          for n in (N, N // 2)]
+    got = kmm.matmul(a, bs[0])
+    assert _gemm_tol_ok(got, kmm.matmul_plain(a, bs[0]), dt)
+    for c, b in zip(kmm.matmul_group(a, bs), bs):
+        assert torch.equal(c, kmm.matmul(a, b))
+    key = next(k for k in kmm._LAUNCHES if k[2] == M and k[3] == K
+               and k[5] == (N,))
+    assert kmm._LAUNCHES[key].bufs == (None, None)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_backward_on_the_card_matches_plain_autograd(cuda, dtype):
+    """The GEMM's autograd Functions on CUDA tensors launch the kernel
+    for the forward and both gradient products, and match autograd
+    through the plain version (single, trans_b, and a group)."""
+    from repro_torch.kernels import matmul as kmm
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dt)
+    M, K, Ns = 96, 256, (128, 64, 64)
+    for trans_b in (False, True):
+        a, b = rnd(M, K).requires_grad_(), (
+            rnd(Ns[0], K) if trans_b else rnd(K, Ns[0])).requires_grad_()
+        dc = rnd(M, Ns[0])
+        n0, p0 = kmm.matmul.launches, kmm.matmul.plain_calls
+        kmm.matmul(a, b, trans_b=trans_b).backward(dc)
+        assert kmm.matmul.launches == n0 + 3
+        assert kmm.matmul.plain_calls == p0
+        a2, b2 = a.detach().requires_grad_(), b.detach().requires_grad_()
+        kmm.matmul_plain(a2, b2, trans_b).backward(dc)
+        assert _gemm_tol_ok(a.grad, a2.grad, dt)
+        assert _gemm_tol_ok(b.grad, b2.grad, dt)
+    a = rnd(M, K).requires_grad_()
+    bs = [rnd(K, n).requires_grad_() for n in Ns]
+    dcs = [rnd(M, n) for n in Ns]
+    n0 = kmm.matmul.launches
+    torch.autograd.backward(kmm.matmul_group(a, bs), dcs)
+    assert kmm.matmul.launches == n0 + 1 + len(Ns) + 1
+    a2 = a.detach().requires_grad_()
+    b2 = [b.detach().requires_grad_() for b in bs]
+    torch.autograd.backward([kmm.matmul_plain(a2, b) for b in b2], dcs)
+    # dA sums three products: bf16 rounds each term before the sum
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    assert ((a.grad.float() - a2.grad.float()).abs().max()
+            <= tol * a2.grad.float().abs().max())
+    for b, w in zip(bs, b2):
+        assert _gemm_tol_ok(b.grad, w.grad, dt)
+
+
+def _smoke_train(device, params, tmp=None, steps=2, resume=False,
+                 on_step=None):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import train as tr
+    cfg = smoke_config(get_config("llama3-8b")).replace(dtype=torch.float32)
+    argv = ["--arch", "llama3-8b", "--smoke", "--steps", str(steps),
+            "--batch", "2", "--seq", "16", "--log-every", "1", "--lr",
+            "1e-4", "--warmup", str(steps), "--device", device]
+    if tmp is not None:
+        argv += ["--ckpt-dir", str(tmp), "--ckpt-every", "2"]
+    if resume:
+        argv += ["--resume"]
+    return tr.train(cfg, tr.parse_args(argv), params=params,
+                    on_step=on_step)
+
+
+def _smoke_params(device):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_map
+    cfg = smoke_config(get_config("llama3-8b")).replace(dtype=torch.float32)
+    cpu = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    return cpu, lm.from_tree(cfg, tree_map(
+        lambda _, t: t.detach().to(device, copy=True), lm.param_tree(cpu)),
+        trainable=True)
+
+
+def test_training_step_on_the_card_matches_the_cpu(cuda):
+    """The float32 smoke model's first step: every leaf's gradient within
+    1e-3 of its largest entry of the CPU's (the bf16 logits of
+    ``lm.logits_fn`` move by one ulp where an fp32 sum in another order
+    crosses a rounding boundary), and nonzero; the projections went
+    through the kernel (launches rose, no plain call)."""
+    from repro_torch.kernels import matmul as kmm
+    cpu_p, card_p = _smoke_params(cuda)
+    grads = {}
+
+    def keep(step, params, metrics):
+        grads[params.device.type] = {n: p.grad.detach().cpu().clone()
+                                     for n, p in params.named_parameters()}
+    want = _smoke_train("cpu", cpu_p, steps=1, on_step=keep)
+    n0, p0 = kmm.matmul.launches, kmm.matmul.plain_calls
+    got = _smoke_train("cuda", card_p, steps=1, on_step=keep)
+    assert kmm.matmul.launches > n0 and kmm.matmul.plain_calls == p0
+    np.testing.assert_allclose(got["log"][0]["loss"], want["log"][0]["loss"],
+                               rtol=1e-5)
+    for n, g in grads["cpu"].items():
+        gc = grads["cuda"][n]
+        assert gc.abs().max() > 0, n
+        assert (gc - g).abs().max() <= 1e-3 * g.abs().max(), n
+
+
+def test_training_resume_on_the_card_equals_the_uninterrupted_run(
+        cuda, tmp_path):
+    import shutil
+    _, p1 = _smoke_params(cuda)
+    _, p2 = _smoke_params(cuda)
+    full = _smoke_train("cuda", p1, tmp_path / "a", steps=4)
+    os_dir = tmp_path / "b"
+    os_dir.mkdir()
+    shutil.copytree(tmp_path / "a" / "step_00000002",
+                    os_dir / "step_00000002")
+    res = _smoke_train("cuda", p2, os_dir, steps=4, resume=True)
+    assert res["start_step"] == 2
+    np.testing.assert_allclose([m["loss"] for m in res["log"]],
+                               [m["loss"] for m in full["log"][2:]],
+                               rtol=1e-6)
+    for (n, x), (_, y) in zip(res["params"].named_parameters(),
+                              full["params"].named_parameters()):
+        assert (x - y).abs().max() <= 1e-6 * y.abs().max(), n

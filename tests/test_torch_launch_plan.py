@@ -26,14 +26,22 @@ from repro_torch.kernels import matmul as kmm  # noqa: E402
 H100_SMS = 132
 
 
-def group_items(plans, grid: int, block: int) -> list[tuple[int, int, int]]:
-    """(product, strip, chunk) of the items ``block`` of a ``grid``-block
-    ``gemm_stream`` launch computes: the products' items in product
-    order, chunk fastest, block i taking items i, i + grid, ... (mirrors
-    ``item_at`` and the item loops of ``csrc/matmul.cu``)."""
-    flat = [(p, s, kc) for p, pl in enumerate(plans)
-            for s in range(pl.n_strips) for kc in range(pl.n_kc)]
-    return flat[block::grid]
+def launch_items(plans, with_m: bool = False) -> list[tuple]:
+    """(product, strip, K chunk) -- with ``with_m``, (product, strip, M
+    chunk, K chunk) -- of a ``gemm_stream`` launch's items in item order:
+    the products' items in product order, K chunk fastest, then the M
+    chunk (mirrors ``item_at`` of ``csrc/matmul.cu``)."""
+    return [(p, s, mc, kc) if with_m else (p, s, kc)
+            for p, pl in enumerate(plans) for s in range(pl.n_strips)
+            for mc in range(pl.n_mc) for kc in range(pl.n_kc)]
+
+
+def group_items(plans, grid: int, block: int,
+                with_m: bool = False) -> list[tuple]:
+    """The items ``block`` of a ``grid``-block launch computes: block i
+    takes items i, i + grid, ... (mirrors the item loops of
+    ``csrc/matmul.cu``)."""
+    return launch_items(plans, with_m)[block::grid]
 
 
 def strided_tiles(cl: int, rank: int, W: int, S_loc: int,
@@ -246,3 +254,72 @@ def test_decode_plan_over_a_strided_shard(W, S_loc, window, capacity):
                 assert set(walked) == attended
             else:       # a window narrower than W may leave a rank one
                 assert len(walked) <= 1     # tile of masked rows
+
+
+# ------------------------------------------ the GEMM at training shapes
+_LLAMA_TRAIN = [   # (M, K, N, itemsize, trans_b) of one training step
+    (2048, 4096, 4096, 2, False), (2048, 4096, 1024, 2, False),
+    (2048, 4096, 14336, 2, False), (2048, 14336, 4096, 2, False),
+    (2048, 4096, 128256, 4, True),                       # fp32 unembed
+    (4096, 2048, 4096, 2, False), (4096, 2048, 14336, 2, False),  # dB
+    (14336, 2048, 4096, 2, False),
+    (2048, 128256, 4096, 4, False), (128256, 2048, 4096, 4, False)]
+
+
+@pytest.mark.parametrize("M,K,N,itemsize,trans_b", _LLAMA_TRAIN)
+@pytest.mark.parametrize("capacity", [132, 264])
+def test_gemm_plan_splits_m_not_k_at_training_shapes(M, K, N, itemsize,
+                                                     trans_b, capacity):
+    """Where the strips' M tiles alone fill the grid, the plan splits M
+    and never K: every (strip, M tile, K tile) is computed by exactly one
+    item, and the launch holds no split-K workspace (at M = 2048 a K
+    split of wd would have held ~268 MB for the life of the process)."""
+    path = kmm.TRANS if trans_b else None
+    plan = kmm.gemm_plan(M, N, K, itemsize, capacity, path)
+    assert plan.n_kc == 1 and plan.n_mc >= 1
+    assert plan.n_strips * plan.m_tiles >= capacity
+    assert plan.work_floats == 0
+    assert plan.mt == (16 if itemsize == 2 and not trans_b else 8)
+    m_tiles = [t for mc in range(plan.n_mc) for t in plan.m_chunk(mc)]
+    assert m_tiles == list(range(plan.m_tiles))
+    assert all(len(plan.m_chunk(mc)) > 0 for mc in range(plan.n_mc))
+    # the M chunks fill the card within one chunk of every strip
+    assert plan.items >= capacity - plan.n_strips
+    grid = min(plan.items, capacity)
+    flat = launch_items([plan], with_m=True)
+    items = [it for blk in range(grid) for it in flat[blk::grid]]
+    assert len(items) == len(set(items)) == plan.items
+    assert set(items) == set(itertools.product(
+        [0], range(plan.n_strips), range(plan.n_mc), [0]))
+    # the fewest M chunks that finish soonest: one fewer takes longer
+    def span(n):
+        return -(-plan.n_strips * n // capacity) * -(-plan.m_tiles // n)
+    assert all(span(n) > span(plan.n_mc) for n in range(1, plan.n_mc))
+
+
+@pytest.mark.parametrize("capacity", [132, 264])
+def test_gemm_workspace_stays_at_decode_shapes(capacity):
+    """At the decode shapes (M = batch) the plan is the K split it was:
+    the workspace is the split strips' fp32 partials, a few MB."""
+    for M in (1, 8, 16):
+        plans = [kmm.gemm_plan(M, N, K, 2, capacity) for K, N in
+                 ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))]
+        assert all(p.n_mc == 1 for p in plans)
+        assert any(p.n_kc > 1 for p in plans)
+        held = 4 * sum(p.work_floats for p in plans)      # bytes
+        assert held == sum(4 * p.n_strips * p.n_kc * M * p.bn
+                           for p in plans if p.n_kc > 1) < 16 * 2 ** 20
+
+
+def test_gemm_group_at_training_shapes_keeps_each_products_plan():
+    """wq/wk/wv at M = 2048 in one launch: each product's M chunks are
+    its plan alone, so its output is bit-equal to the single call."""
+    plans = [kmm.gemm_plan(2048, N, 4096, 2, 264) for N in (4096, 1024,
+                                                            1024)]
+    grid = min(sum(p.items for p in plans), 264)
+    flat = launch_items(plans, with_m=True)
+    items = [it for blk in range(grid) for it in flat[blk::grid]]
+    assert len(items) == len(set(items)) == sum(p.items for p in plans)
+    for p, plan in enumerate(plans):
+        assert {it[1:] for it in items if it[0] == p} == set(
+            itertools.product(range(plan.n_strips), range(plan.n_mc), [0]))
