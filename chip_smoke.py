@@ -69,6 +69,17 @@ source, in parallel), then runs, failing on the first phase that fails:
    ``repro_torch.launch.train``: losses finite and falling, GEMM
    launches per step, peak memory, ms per step, tokens/s, executed
    TFLOP/s, and one profiled step for the GEMM's device time;
+13. training over 4 virtual ranks of cuda:0, after phase 12: (a) the
+   train sites' sequence-parallel AG+GEMM (wq, wg) and GEMM+RS (wd) at
+   full-width training shapes in ``bsp`` and ``ring_bidir``, forward
+   and both gradients, vs one single-rank product (float32 and bf16),
+   each site's device ms and GEMM launches; (b) the float32 smoke model
+   at tp 4 on the card vs tp 4 on the CPU and tp 1 on the card (first
+   loss and every gradient leaf), and a tp 4 checkpoint resumed at tp
+   1 vs the uninterrupted run; (c) llama3-8b at full width, 4 of 32
+   layers, tp 4 under ``ring``, 4 steps of 2 x 1024 tokens: losses
+   finite, the first beside 12c's, GEMM launches per step, ms per step,
+   tokens/s, peak memory, and one profiled step (busy share, GEMM ms);
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -2474,6 +2485,7 @@ def phase_train_full(gem_rows):
     launches, plain = matmul.launches, matmul.plain_calls
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"] for m in res["log"]]
+    grad_norms = [m["grad_norm"] for m in res["log"]]
     steps_s = [m["s"] for m in res["log"]]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"train full width: losses {losses}")
@@ -2542,7 +2554,7 @@ def phase_train_full(gem_rows):
                      f"bf16 compute, fp32 masters, remat full",
            "params": n_params, "tokens_per_step": M,
            "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
-           "step_s": steps_s, "ms_per_step": 1e3 * step_s,
+           "grad_norms": grad_norms, "step_s": steps_s, "ms_per_step": 1e3 * step_s,
            "tokens_per_s": M / step_s, "run_s": run_s,
            "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
            "tflops_per_s": flops / step_s / 1e12,
@@ -2607,6 +2619,450 @@ def phase_train(gen):
                       f"{full['tokens_per_step']} tokens"}
     return {"gemm": {f"{n} {k}": r for (n, k), r in rows.items()},
             "small": small, "full": full}, kernel
+
+
+# --------------------------------------------- phase 13: training over W
+TP = 4                     # virtual ranks of cuda:0
+TP_STEPS = 4
+TP_MODE = "ring"           # the train sites' ring_bidir (core.patterns)
+# 13c against 12c at step 0, the same init and batch: the loss's absolute
+# gap and the gradient norm's relative gap, ~5x and ~1.5x what one H100
+# measured (9.7e-5 and 6.5e-3; PERF.md). Both runs are deterministic on
+# the card but for the embedding backward's atomics, so the gaps repeat.
+TP_LOSS_ATOL = 5e-4
+TP_GNORM_RTOL = 1e-2
+
+
+def tp_products(cfg, M, W):
+    """Every GEMM product of one training step of ``cfg`` over M tokens
+    (B = 2 sequences) at ``W`` ranks under ``ring``/``pallas`` (the
+    sites' ``ring_bidir``): (name, kind, M, K, N, dtype, trans_b, count a
+    step). An up site (wq/wk/wv/wg/wu) multiplies each half of every
+    rank's row block, M / (2W) rows, by the rank's N/W columns: 2W
+    products a rank, 2W^2 a site; a down site (wo/wd) multiplies M/W
+    rows of the rank's K/W columns by each N/2 half: 2W^2 too. Each runs
+    forward twice under remat and has a dA and a dB; the unembed is one
+    fp32 product a rank (the rows gathered, the rank's vocab shard)."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    up = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wg": (d, f),
+          "wu": (d, f)}
+    down = {"wo": (qd, d), "wd": (f, d)}
+    bf, f32 = torch.bfloat16, torch.float32
+    n = 2 * W * W * L
+    fwd = 2 * n if cfg.remat else n
+    out = []
+    for name, (K, N) in up.items():
+        m, Nr = M // (2 * W), N // W
+        out += [(name, "fwd", m, K, Nr, bf, False, fwd),
+                (name, "dA", m, Nr, K, bf, False, n),
+                (name, "dB", K, m, Nr, bf, False, n)]
+    for name, (K, N) in down.items():
+        m, Kr = M // W, K // W
+        out += [(name, "fwd", m, Kr, N // 2, bf, False, fwd),
+                (name, "dA", m, N // 2, Kr, bf, False, n),
+                (name, "dB", Kr, m, N // 2, bf, False, n)]
+    return out + [("unembed", "fwd", M, d, V // W, f32, True, W),
+                  ("unembed", "dA", M, V // W, d, f32, False, W),
+                  ("unembed", "dB", V // W, M, d, f32, False, W)]
+
+
+def _ranks_close(got, want, dt, what):
+    """13a's tolerance: float32, phase 12a's (1e-4 of the largest |C|;
+    fp32 sums in another order); bf16, the norm of the error within 1e-2
+    of the norm of the single product (a W-rank sum rounds each partial
+    product to bf16, 2**-8 relative, so single entries near a
+    cancellation move by more than 12a's per-entry bound). Returns the
+    max |err| (float32) or the relative norm of the error (bf16)."""
+    got, want = got.float(), want.float()
+    if dt == torch.float32:
+        return _gemm_err(got, want, dt, what)
+    err = ((got - want).norm() / want.norm()).item()
+    check(err <= 1e-2, f"{what}: relative error {err:.3e}")
+    return err
+
+
+def phase_tp_sites(gen, W=TP, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    """(13a) the train sites over W virtual ranks of cuda:0 at llama3-8b
+    training shapes (M = B x S rows, d 4096; wq N 4096, wg N 14336, wd K
+    14336): ``ag_gemm_m_sharded`` (wq, wg) and ``gemm_rs`` (wd) in
+    ``bsp`` and ``ring_bidir``, forward and both gradients (autograd
+    through the per-rank GEMM calls), against one single-rank product on
+    the same data (``_ranks_close``), in float32 and in bf16; then device
+    ms (CUDA events) and GEMM launches of one bf16 forward + backward
+    per site and mode. Returns (rows, the worst float32 max |err|, the
+    worst bf16 relative error)."""
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    d, f = 4096, 14336
+    sites = (("wq ag", "ag", d, 4096), ("wg ag", "ag", d, f),
+             ("wd rs", "rs", f, d))
+    rows, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+
+    def shards(x, dim):
+        n = x.shape[dim] // W
+        return [x.narrow(dim, r * n, n).contiguous().requires_grad_()
+                for r in range(W)]
+    for name, fn, K, N in sites:
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.randn((B, S, K), generator=gen, device="cuda").to(dt)
+            b = (torch.randn((K, N), generator=gen, device="cuda")
+                 / K ** 0.5).to(dt)
+            dy = torch.randn((B, S, N), generator=gen, device="cuda").to(dt)
+            # the single-rank product and its gradients (plain fp32 sums)
+            want = matmul_plain(a.reshape(-1, K), b).reshape(B, S, N)
+            d2 = dy.reshape(-1, N)
+            want_da = matmul_plain(d2, b, True).reshape(B, S, K)
+            want_db = matmul_plain(a.reshape(-1, K).t().contiguous(), d2)
+            if fn == "ag":      # rows of A, columns of B and C
+                dims, body = (1, 1, -1), cm.ag_gemm_m_sharded
+            else:               # columns of A, rows of B, rows of C
+                dims, body = (-1, 0, 1), cm.gemm_rs
+            for mode in ("bsp", "ring_bidir"):
+                a_s, b_s = shards(a, dims[0]), shards(b, dims[1])
+                dys = [t.detach() for t in shards(dy, dims[2])]
+
+                def run():
+                    for t in a_s + b_s:
+                        t.grad = None
+                    out = body(a_s, b_s, mode=mode)
+                    torch.autograd.backward(out, dys)
+                    return out
+                n0 = matmul.launches
+                out = run()
+                torch.cuda.synchronize()
+                launches = matmul.launches - n0
+                what = f"13a {name} {mode} {str(dt)[6:]}"
+                errs = [_ranks_close(torch.cat(out, dim=dims[2]), want, dt,
+                                     f"{what} forward"),
+                        _ranks_close(torch.cat([t.grad for t in a_s],
+                                               dim=dims[0]), want_da, dt,
+                                     f"{what} dA"),
+                        _ranks_close(torch.cat([t.grad for t in b_s],
+                                               dim=dims[1]), want_db, dt,
+                                     f"{what} dB")]
+                worst[dt] = max([worst[dt]] + errs)
+                if dt == torch.bfloat16:
+                    rows[f"{name} {mode}"] = {
+                        "launches": launches, "bf16_rel_err": max(errs),
+                        "ms": time_ms(run, iters=3, warmup=1)}
+                del out, a_s, b_s, dys
+            del a, b, dy, want, want_da, want_db, d2
+            torch.cuda.empty_cache()
+    print("[tp sites] W=4 virtual ranks, M = 2 x 1024, forward + both "
+          "gradients (bf16): " + "; ".join(
+              f"{k} {r['ms']:.2f} ms in {r['launches']} GEMM launches"
+              for k, r in rows.items()) + f"; within tolerance of the "
+          f"single-rank product (float32 max |err| "
+          f"{worst[torch.float32]:.3e}, bf16 relative "
+          f"{worst[torch.bfloat16]:.3e})", flush=True)
+    return rows, worst[torch.float32], worst[torch.bfloat16]
+
+
+def _tp_train_args(extra):
+    from repro_torch.launch import train as tr
+    return tr.parse_args(["--arch", "llama3-8b", "--smoke", "--steps", "4",
+                          "--batch", "2", "--seq", "32", "--log-every", "1",
+                          "--lr", "1e-4", "--warmup", "4", "--fusion-mode",
+                          TP_MODE] + extra)
+
+
+def phase_tp_small(tmp):
+    """(13b) the float32 smoke model at tp 4 on the card against tp 4 on
+    the CPU and tp 1 on the card, from the same parameters on the same
+    batches: the first step's loss within 1e-5 relative and every
+    gradient leaf (the per-rank blocks joined, the copies of a replicated
+    leaf summed) within 1e-3 of its largest |entry| (12b's tolerance: the
+    bf16 logits), the GEMM launched and its plain version never ran on
+    the card; then a checkpoint after step 2 at tp 4 resumed at tp 1 to
+    step 4: losses within 1e-4 relative of the uninterrupted tp 4 run
+    (12b's tolerance) and every parameter leaf within 1e-3 of the norm
+    of its four-step update (10x the 1.0e-4 one H100 measured; a run
+    that took no step stands at 1.0)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(dtype=torch.float32)
+    init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    grads = {}
+
+    def first_grads(key):
+        def keep(step, params, metrics):
+            if step != 0:
+                return
+            ranks = params if isinstance(params, list) else [params]
+            dims = lm.shard_dims(cfg, Mesh(["cpu"] * len(ranks)))
+            per = [dict(p.named_parameters()) for p in ranks]
+            grads[key] = {n: (per[0][n].grad.detach().cpu().clone()
+                              if d is None or len(ranks) == 1 else
+                              torch.cat([q[n].grad.detach().cpu()
+                                         for q in per], dim=d))
+                          for n, d in dims.items()}
+        return keep
+    tp = ["--tp", str(TP)]
+    cpu = tr.train(cfg, _tp_train_args(tp + ["--device", "cpu"]),
+                   params=_cpu_copy(init, cfg, "cpu"),
+                   on_step=first_grads("cpu4"))
+    one = tr.train(cfg, _tp_train_args(["--device", "cuda"]),
+                   params=_cpu_copy(init, cfg, "cuda"),
+                   on_step=first_grads("card1"))
+    ckpt = os.path.join(tmp, "tp_small")
+    n0, p0 = matmul.launches, matmul.plain_calls
+    card = tr.train(cfg, _tp_train_args(tp + [
+        "--device", "cuda", "--ckpt-dir", ckpt, "--ckpt-every", "2"]),
+        params=_cpu_copy(init, cfg, "cuda"), on_step=first_grads("card4"))
+    launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+    check(launched > 0 and plain == 0, f"tp small: {launched} GEMM "
+          f"launches and {plain} plain calls on the card")
+    l4 = [m["loss"] for m in card["log"]]
+    errs = {}
+    for other, run in (("cpu4", cpu), ("card1", one)):
+        lo = [m["loss"] for m in run["log"]]
+        check(np.isclose(l4[0], lo[0], rtol=1e-5, atol=0),
+              f"tp small: first loss {l4[0]} vs {other} {lo[0]}")
+        g_err = max(((grads["card4"][n] - g).abs().max()
+                     / g.abs().max()).item()
+                    for n, g in grads[other].items())
+        check(g_err <= 1e-3, f"tp small: step-1 gradients vs {other} "
+                             f"{g_err:.3e} of a leaf's largest entry")
+        errs[other] = {"losses": lo, "grad_err": g_err}
+    rdir = os.path.join(tmp, "tp_small_resume")
+    os.makedirs(rdir)
+    shutil.copytree(os.path.join(ckpt, "step_00000002"),
+                    os.path.join(rdir, "step_00000002"))
+    res = tr.train(cfg, _tp_train_args([
+        "--device", "cuda", "--ckpt-dir", rdir, "--resume"]),
+        params=_cpu_copy(init, cfg, "cuda"))
+    lr_ = [m["loss"] for m in res["log"]]
+    check(res["start_step"] == 2 and np.allclose(lr_, l4[2:], rtol=1e-4),
+          f"tp small: resumed at tp 1 losses {lr_} vs tp 4 {l4[2:]}")
+    full = lm.gather_params(card["params"], Mesh(["cuda"] * TP))
+    rdiff, _ = _param_diff(res["params"], full)
+    start = dict(init.named_parameters())
+    rel = max(((x.detach().cpu() - y.detach().cpu()).norm()
+               / (y.detach().cpu() - start[n]).norm()).item()
+              for (n, x), (_, y) in zip(res["params"].named_parameters(),
+                                        full.named_parameters()))
+    check(rel <= 1e-3, f"tp small: resumed parameters {rel:.3e} of the "
+                       f"update's norm from the uninterrupted run's")
+    out = {"card_tp4_losses": l4, "vs": errs, "gemm_launches": launched,
+           "resume_tp1_losses": lr_, "resume_param_max_diff": rdiff,
+           "resume_param_diff_over_update": rel}
+    print(f"[tp small] float32 smoke, tp 4 on the card: losses {l4}; "
+          f"first step vs tp 4 on the CPU: gradients within "
+          f"{errs['cpu4']['grad_err']:.3e} of a leaf's largest entry, vs "
+          f"tp 1 on the card {errs['card1']['grad_err']:.3e}; {launched} "
+          f"GEMM launches, 0 plain calls; checkpoint after step 2 resumed "
+          f"at tp 1: losses {lr_}, parameters {rdiff:.3e} from the "
+          f"uninterrupted run ({rel:.3e} of the update's norm)", flush=True)
+    return out
+
+
+def phase_tp_full(step0_loss, step0_gnorm):
+    """(13c) llama3-8b at full width, TRAIN_LAYERS of 32 layers (as 12c),
+    tp 4 virtual ranks, ``--fusion-mode ring``: TP_STEPS steps of 2 x
+    1024 tokens of SyntheticLM(seed=0) through ``launch.train.train``
+    (the same seeded init as 12c, sharded). Checks the losses finite;
+    the first within TP_LOSS_ATOL of 12c's first and the first gradient
+    norm within TP_GNORM_RTOL of 12c's first (the same parameters and
+    batch: bf16 sums round at other places over the ranks; the loss at
+    init sits near ln V whatever the layers compute, so the gradient
+    norm, which every leaf's gradient feeds, is the sharper check); the
+    GEMM launches of every step (``tp_products``), no plain call, peak
+    memory below 80 GB; then one more step under the profiler: device
+    busy share, GEMM ms and launches. Returns the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import adamw
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    args = tr.parse_args([
+        "--arch", "llama3-8b", "--steps", str(TP_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+        str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+        "--device", "cuda", "--tp", str(TP), "--fusion-mode", TP_MODE])
+    prods = tp_products(cfg, M, TP)
+    per_step = sum(p[-1] for p in prods)
+    counts = []
+
+    def count(step, params, metrics):
+        counts.append(matmul.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    t0 = time.time()
+    res = tr.train(cfg, args, on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches, plain = matmul.launches, matmul.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    check(all(np.isfinite(losses)), f"tp full width: losses {losses}")
+    gnorms = [m["grad_norm"] for m in res["log"]]
+    loss_gap = abs(losses[0] - step0_loss)
+    gnorm_gap = abs(gnorms[0] - step0_gnorm) / step0_gnorm
+    check(loss_gap <= TP_LOSS_ATOL, f"tp full width: first loss "
+          f"{losses[0]} vs 12c's {step0_loss}")
+    check(gnorm_gap <= TP_GNORM_RTOL, f"tp full width: first grad norm "
+          f"{gnorms[0]} vs 12c's {step0_gnorm} ({gnorm_gap:.3e} relative)")
+    deltas = np.diff([0] + counts).tolist()
+    check(plain == 0 and deltas == [per_step] * TP_STEPS,
+          f"tp full width: GEMM launches per step {deltas} (want "
+          f"{per_step}), {plain} plain calls")
+    check(peak_gb < 80, f"tp full width: peak {peak_gb:.1f} GB")
+    step_s = float(np.mean(steps_s[1:]))
+    # one more step under the profiler
+    dev0 = res["params"][0].device
+    ctx = dctx.DistContext(tr.build_mesh(args), TP_MODE)
+    step_fn = steps_lib.make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0).batch_at(TP_STEPS), dev0)
+    params, opt = res["params"], res["opt"]
+    del res
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            dctx.use(ctx):
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    prof_wall = time.time() - t1
+    kern = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern.append((dev_us, ev.key, ev.count))
+    kern.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kern) / 1e3
+    is_gemm = [port_kernel("gemm_stream", k[1])
+               or port_kernel("mm_kernel", k[1]) for k in kern]
+    gemm_ms = sum(k[0] for k, g in zip(kern, is_gemm) if g) / 1e3
+    gemm_calls = sum(k[2] for k, g in zip(kern, is_gemm) if g)
+    del params, opt, batch, step_fn
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = dev_ms / (1e3 * prof_wall)
+    out = {"config": f"llama3-8b full width, {cfg.n_layers} of 32 layers, "
+                     f"tp {TP} virtual ranks, fusion mode {TP_MODE}, bf16 "
+                     f"compute, fp32 masters, remat full",
+           "tokens_per_step": M, "steps": TP_STEPS, "losses": losses,
+           "grad_norms": gnorms, "step0_loss_12c": step0_loss,
+           "step0_grad_norm_12c": step0_gnorm, "step0_loss_gap": loss_gap,
+           "step0_grad_norm_gap": gnorm_gap, "step_s": steps_s,
+           "ms_per_step": 1e3 * step_s, "tokens_per_s": M / step_s,
+           "run_s": run_s, "peak_gb": peak_gb, "gemm_launches": launches,
+           "gemm_launches_per_step": per_step,
+           "device_ms_over_step_ms": dev_ms / (1e3 * step_s),
+           "profiled_step": {"wall_ms": 1e3 * prof_wall,
+                             "device_ms": dev_ms, "busy_share": busy,
+                             "gemm_ms": gemm_ms, "gemm_calls": gemm_calls,
+                             "top_kernels": [
+                                 {"name": k[1][:80], "ms": k[0] / 1e3,
+                                  "calls": k[2]} for k in kern[:10]]}}
+    print(f"[tp full] {out['config']}: losses "
+          f"{[round(x, 4) for x in losses]}; first loss {loss_gap:.3e} "
+          f"from 12c's {step0_loss:.6f}, first grad norm {gnorms[0]:.6f} "
+          f"vs 12c's {step0_gnorm:.6f} ({gnorm_gap:.3e} relative); "
+          f"{out['ms_per_step']:.1f} ms per step after step 0 "
+          f"({out['tokens_per_s']:.0f} tokens/s); peak {peak_gb:.2f} GB; "
+          f"{per_step} GEMM launches a step; profiled step: wall "
+          f"{1e3 * prof_wall:.1f} ms, device {dev_ms:.1f} ms (busy "
+          f"{busy:.3f}; {out['device_ms_over_step_ms']:.3f} of an "
+          f"unprofiled step), GEMM {gemm_ms:.1f} ms in {gemm_calls} "
+          f"launches", flush=True)
+    return out
+
+
+def tp_product_times(gen, prods):
+    """Every distinct product of ``prods`` on random operands: the
+    kernel held against its plain version (``_gemm_err``, the tolerance
+    of phases 2 and 12a), and the device ms (CUDA events) of the kernel,
+    its plain version and one ``torch.matmul``. Returns (times, the
+    worst max |err|)."""
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    times, worst = {}, 0.0
+    for _, _, m, k, n, dt, trans_b, _ in prods:
+        key = (m, k, n, dt, trans_b)
+        if key in times:
+            continue
+        a, b = _gemm_operands(gen, m, k, n, dt, trans_b)
+        got, want = matmul(a, b, trans_b=trans_b), matmul_plain(a, b, trans_b)
+        torch.cuda.synchronize()
+        worst = max(worst, _gemm_err(
+            got, want, dt, f"tp GEMM M={m} K={k} N={n} {str(dt)[6:]}"
+                           f"{' TRANS' if trans_b else ''}"))
+        del got, want
+        bt = b.t() if trans_b else b
+        times[key] = {
+            "ms": time_ms(lambda: matmul(a, b, trans_b=trans_b), iters=5,
+                          warmup=1),
+            "plain_ms": time_ms(lambda: matmul_plain(a, b, trans_b),
+                                iters=5, warmup=1),
+            "library_ms": time_ms(lambda: a @ bt, iters=5, warmup=1)}
+        del a, b, bt
+    torch.cuda.empty_cache()
+    print(f"[tp full] {len(times)} distinct products of the tp {TP} step "
+          f"match the plain version (max |err| {worst:.3e})", flush=True)
+    return times, worst
+
+
+def phase_train_tp(gen, step0_loss, step0_gnorm):
+    """(13) training over W ranks: 13a, 13b, 13c; frees what it made.
+    Returns (numbers, the kernels-line row of the GEMM at tp 4)."""
+    from repro_torch.configs import get_config
+    tmp = os.path.join(ROOT, "build", "chip_smoke_train_tp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    sites, worst, worst_bf16 = phase_tp_sites(gen)
+    small = phase_tp_small(tmp)
+    full = phase_tp_full(step0_loss, step0_gnorm)
+    shutil.rmtree(tmp, ignore_errors=True)
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    prods = tp_products(cfg, TRAIN_BATCH * TRAIN_SEQ, TP)
+    times, prod_err = tp_product_times(gen, prods)
+
+    def per_step(key):
+        return sum(c * times[(m, k, n, dt, tb)][key]
+                   for _, _, m, k, n, dt, tb, c in prods)
+    bound_s = sum(c * _product_bound(m, k, n, dt)[0]
+                  for _, _, m, k, n, dt, _, c in prods)
+    ops_s = sum(c * 2 * m * k * n / PEAK_OPS[dt]
+                for _, _, m, k, n, dt, _, c in prods)
+    bytes_s = sum(c * (m * k + k * n + m * n) * (4 if dt == torch.float32
+                                                   else 2) / HBM_BYTES_PER_S
+                  for _, _, m, k, n, dt, _, c in prods)
+    kernel = {"name": "matmul_train_tp4", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": full["gemm_launches"],
+              "launches_per_step": full["gemm_launches_per_step"],
+              "max_abs_err": max(worst, prod_err),
+              "bf16_rel_err": worst_bf16,
+              "ms": full["profiled_step"]["gemm_ms"],
+              "kernel_ms_products": per_step("ms"),
+              "plain_ms": per_step("plain_ms"),
+              "bound_ms": 1e3 * bound_s,
+              "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+              "library_ms": per_step("library_ms"),
+              "unit": f"one training step of {full['config']}, "
+                      f"{full['tokens_per_step']} tokens"}
+    print(f"[tp full] GEMM at tp {TP} a step: {kernel['ms']:.1f} ms "
+          f"(profiled), {kernel['kernel_ms_products']:.1f} ms as the sum "
+          f"of its products timed alone, plain {kernel['plain_ms']:.1f}, "
+          f"torch.matmul {kernel['library_ms']:.1f}, bound "
+          f"{kernel['bound_ms']:.1f} ms ({kernel['bound_by']})", flush=True)
+    return {"sites": sites, "small": small, "full": full}, kernel
 
 
 def sampler_ms(gen, B=8, V=128256):
@@ -2691,6 +3147,9 @@ def main():
     del params
     torch.cuda.empty_cache()
     train, train_kernel = timed("12 training", phase_train, gen)
+    train_tp, train_tp_kernel = timed(
+        "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
+        train["full"]["grad_norms"][0])
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -2710,7 +3169,7 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
-    kernels.append(train_kernel)
+    kernels += [train_kernel, train_tp_kernel]
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -2721,7 +3180,7 @@ def main():
                    "serve_tp": summary_tp, "kernels": kernels,
                    "sampler": sampler, "gemm_shapes": rows,
                    "robust_small": robust, "server": server,
-                   "train": train,
+                   "train": train, "train_tp": train_tp,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -24,6 +24,12 @@ checkpointer writes for a bf16 array) is read as bf16 bits too.
 :meth:`Checkpointer.restore` copies each leaf IN PLACE into the
 template's tensors (``copy_``), so tensors that something else holds by
 address (a captured CUDA graph) see the restored values.
+
+Sharded state (W ranks, each holding blocks of some leaves) is saved as
+the global arrays (:meth:`Checkpointer.save_sharded`: the blocks joined
+in rank order), so the file is the one a single rank or the JAX
+checkpointer writes; :meth:`Checkpointer.restore_sharded` reads it onto
+any number of ranks (JAX's elastic restore).
 """
 from __future__ import annotations
 
@@ -103,9 +109,26 @@ class Checkpointer:
              block: bool = False):
         """Snapshot ``tree`` to host memory, then write it (on a
         background thread unless ``block`` or ``async_save=False``)."""
+        self.save_sharded(step, [tree], {}, extra, block)
+
+    def save_sharded(self, step: int, trees: list, dims: dict,
+                     extra: dict | None = None, block: bool = False):
+        """:meth:`save` of the global tree of per-rank ``trees``: the leaf
+        at key k is joined from every rank's block along ``dims[k]``, or
+        taken from rank 0 where ``dims`` has no dim for it (a replicated
+        leaf). The join runs on the host."""
         self.wait()   # one in-flight save at a time
+        flats = [flatten(t) for t in trees]
+        joined = {}
+        for key, leaf in flats[0].items():
+            d = dims.get(key)
+            joined[key] = leaf if d is None else torch.cat(
+                [f[key].detach().cpu() for f in flats], dim=d)
+        self._save_flat(step, joined, extra, block)
+
+    def _save_flat(self, step, leaves: dict, extra, block):
         flat, dtypes = {}, {}
-        for key, leaf in flatten(tree).items():
+        for key, leaf in leaves.items():
             flat[key], dt = _to_host(leaf)
             if dt is not None:
                 dtypes[key] = dt
@@ -192,19 +215,40 @@ class Checkpointer:
         tensors in place; raises on a missing leaf or a shape or dtype
         mismatch before it writes anything. Returns (template,
         manifest)."""
-        flat, manifest = self.read(step)
-        leaves = flatten(template)
-        for key, dst in leaves.items():
-            if key not in flat:
-                raise KeyError(f"checkpoint missing leaf {key}")
-            got = flat[key]
-            if (tuple(got.shape), got.dtype) != (tuple(dst.shape),
-                                                 dst.dtype):
-                raise ValueError(
-                    f"checkpoint leaf {key}: {got.dtype} "
-                    f"{tuple(got.shape)} != template {dst.dtype} "
-                    f"{tuple(dst.shape)}")
-        with torch.no_grad():
-            for key, dst in leaves.items():
-                dst.copy_(flat[key])
+        (template,), manifest = self.restore_sharded(step, [template], {})
         return template, manifest
+
+    def restore_sharded(self, step: int | None, templates: list,
+                        dims: dict):
+        """:meth:`restore` onto W ranks: rank r's template takes block r
+        (of W) of the leaf at key k along ``dims[k]``, or the whole leaf
+        where ``dims`` has no dim for it. Any W whose blocks divide the
+        saved leaves reads any checkpoint. Returns (templates,
+        manifest)."""
+        flat, manifest = self.read(step)
+        W = len(templates)
+        plan = []
+        for r, template in enumerate(templates):
+            for key, dst in flatten(template).items():
+                if key not in flat:
+                    raise KeyError(f"checkpoint missing leaf {key}")
+                got, d = flat[key], dims.get(key)
+                if d is not None:
+                    if got.shape[d] % W:
+                        raise ValueError(
+                            f"checkpoint leaf {key}: dim {d} of "
+                            f"{tuple(got.shape)} does not split over {W} "
+                            f"ranks")
+                    n = got.shape[d] // W
+                    got = got.narrow(d, r * n, n)
+                if (tuple(got.shape), got.dtype) != (tuple(dst.shape),
+                                                     dst.dtype):
+                    raise ValueError(
+                        f"checkpoint leaf {key}: {got.dtype} "
+                        f"{tuple(got.shape)} != template {dst.dtype} "
+                        f"{tuple(dst.shape)}")
+                plan.append((dst, got))
+        with torch.no_grad():
+            for dst, got in plan:
+                dst.copy_(got)
+        return templates, manifest

@@ -15,6 +15,11 @@ Two kinds of values cross the distributed sites:
   block tables). Four virtual ranks on one card therefore hold one copy
   of the weights, not four.
 
+Training is the exception: there every value is per rank (parameter
+shards and each rank's own copy of a replicated leaf, sequence-sharded
+activations), so the same code runs on virtual and on real ranks
+(``models.lm.shard_params``).
+
 Model code reads the mesh and the fusion mode from :func:`current`;
 launchers install a :class:`DistContext` around their run with
 :func:`use`, as in the JAX package.

@@ -1,35 +1,56 @@
-"""Train / eval / serve step functions at W = 1 (port of
-``repro.launch.steps``).
+"""Train / eval / serve step functions (port of ``repro.launch.steps``).
 
 PyTorch runs eagerly, so a step is a plain function: the train step
 runs the forward and the loss, the backward (every projection's
 gradient through the GEMM kernel), and the AdamW update IN PLACE on the
 parameters and the optimizer state, which it returns for the caller's
-convenience. The JAX module's sharding trees and ``input_specs`` belong
-to its dry run and have no counterpart yet.
+convenience. Over the W ranks of the ambient mesh
+(``distributed.context``) the parameters are a list of per-rank LMs
+(``lm.shard_params``) and the optimizer state a list of per-rank states
+(:func:`init_opt_state`); one backward runs through every rank. The JAX
+module's sharding trees and ``input_specs`` belong to its dry run and
+have no counterpart yet.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.models import lm
 from repro_torch.models.module import tree_map
 from repro_torch.optim import adamw
 
 
+def init_opt_state(params):
+    """AdamW state of an LM, or one per rank of a per-rank list."""
+    states = [adamw.init_state(lm.param_tree(p))
+              for p in lm.as_ranks(params)]
+    return states if isinstance(params, list) else states[0]
+
+
+def _grads(tree):
+    return tree_map(lambda _, p: p.grad if p.grad is not None
+                    else torch.zeros_like(p), tree)
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
     def train_step(params, opt_state, batch):
-        """params: a trainable :class:`~repro_torch.models.lm.LM`;
-        opt_state: ``adamw.init_state(lm.param_tree(params))``; batch:
-        {"tokens", "labels"} (B, S) on the parameters' device. Leaves
-        this step's gradients on the parameters (``.grad``)."""
-        params.zero_grad(set_to_none=True)
+        """params: a trainable :class:`~repro_torch.models.lm.LM`, or a
+        list of per-rank ones over the ambient mesh; opt_state:
+        :func:`init_opt_state` of them; batch: {"tokens", "labels"} (B,
+        S), the whole batch (every rank reads it; data axis 1). Leaves
+        this step's gradients on the parameters (``.grad``; a replicated
+        leaf's copies hold the sum over the ranks)."""
+        ranks = lm.as_ranks(params)
+        for p in ranks:
+            p.zero_grad(set_to_none=True)
         loss, metrics = lm.loss_fn(params, batch, cfg)
         loss.backward()
-        tree = lm.param_tree(params)
-        grads = tree_map(lambda _, p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), tree)
-        om = adamw.apply_updates(tree, grads, opt_state, opt_cfg)
+        trees = [lm.param_tree(p) for p in ranks]
+        mesh = dctx.current().mesh
+        om = adamw.apply_updates_ranks(
+            trees, [_grads(t) for t in trees], lm.as_ranks(opt_state),
+            opt_cfg, {} if mesh is None else lm.shard_dims(cfg, mesh))
         return params, opt_state, {
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}, **om}
@@ -39,7 +60,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
 def make_eval_step(cfg):
     @torch.no_grad()
     def eval_step(params, batch):
-        """The full-sequence forward (prefill) and loss, no gradients."""
+        """The full-sequence forward (prefill) and loss, no gradients;
+        ``params`` as the train step takes them."""
         loss, metrics = lm.loss_fn(params, batch, cfg)
         return {"loss": loss, **metrics}
     return eval_step

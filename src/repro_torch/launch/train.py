@@ -1,28 +1,36 @@
-"""Training driver at W = 1 with fault tolerance (port of
-``repro.launch.train``).
+"""The trainer, with fault tolerance, on one rank or over W ranks
+(port of ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --device cpu --steps 4 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+      --smoke --device cpu --tp 2 --fusion-mode ring --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
-``cuda``; without a GPU the run raises unless ``--device cpu`` is
-given). The parameters are fp32 masters (``lm.init_params(...,
-trainable=True)``, seeded from ``--seed`` with a ``torch.Generator``,
-so not JAX's numbers); the data is ``SyntheticLM``, byte-identical to
-JAX's for the same seed and step. Checkpoints hold ``{"params",
-"opt"}`` with ``extra={"next_step": ...}`` in the JAX checkpointer's
-format, so ``--resume`` continues a run of either package in place.
-SIGTERM/SIGINT checkpoints and exits (``PreemptionGuard``), slow steps
-are flagged (``StragglerWatchdog``) and ``--heartbeat-file`` records
-liveness (``Heartbeat``).
+``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
+and ``--devices`` (one device per rank, comma-separated; default: all
+``--tp`` ranks on ``--device``, i.e. virtual ranks), as in
+``launch.serve``. ``--tp W`` trains what JAX trains on a ``(data=1,
+model=W)`` mesh: Megatron-style shards (``lm.shard_params``), the whole
+batch on every rank, the paper's sequence-parallel AG+GEMM and GEMM+RS
+at the projection sites in ``--fusion-mode`` (``core.patterns``); at
+W = 1 the mode has no effect, as in JAX. The parameters are fp32 masters
+(``lm.init_params(..., trainable=True)``, seeded from ``--seed`` with a
+``torch.Generator``, so not JAX's numbers; the same numbers at every
+W); the data is ``SyntheticLM``, byte-identical to JAX's for the same
+seed and step. Checkpoints hold the global ``{"params", "opt"}`` with
+``extra={"next_step": ...}`` in the JAX checkpointer's format, whatever
+W wrote them, so ``--resume`` continues a run of either package at any
+W (JAX's elastic restore). SIGTERM/SIGINT checkpoints and exits
+(``PreemptionGuard``), slow steps are flagged (``StragglerWatchdog``)
+and ``--heartbeat-file`` records liveness (``Heartbeat``).
 
-Only one rank: ``--tp`` > 1, ``--mesh production`` and ``--multi-pod``
-raise ``NotImplementedError`` (Megatron-style sharding and the train
-sites' AG+GEMM / GEMM+RS are later slices). ``--fusion-mode`` has no
-effect at W = 1, as in JAX; ``--grad-compress`` is parsed and unused, as
-in JAX's driver.
+``--mesh production`` and ``--multi-pod`` raise ``NotImplementedError``:
+they need one process per card (ROADMAP item 10d). ``--grad-compress``
+is parsed and unused, as in JAX's trainer (the port's mesh has no data
+axis to compress over).
 """
 from __future__ import annotations
 
@@ -30,14 +38,15 @@ import argparse
 import json
 import time
 
-from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.checkpoint.checkpointer import SEP, Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import SyntheticLM, shard_batch
-from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
 from repro_torch.distributed.fault_tolerance import (Heartbeat,
                                                      PreemptionGuard,
                                                      StragglerWatchdog)
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.optim import adamw, schedule
 
@@ -58,7 +67,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", default="host", choices=("host", "production"))
     p.add_argument("--multi-pod", action="store_true")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="ranks of the model axis")
+    p.add_argument("--devices", default=None,
+                   help="comma-separated device per rank (default: every "
+                        "rank on --device, i.e. virtual ranks)")
     p.add_argument("--fusion-mode", default="auto",
                    choices=("auto", "bsp", "ring", "pallas"))
     p.add_argument("--ckpt-dir", default=None)
@@ -72,24 +85,40 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _one_rank(args):
-    if args.tp > 1 or args.mesh == "production" or args.multi_pod:
+def build_mesh(args):
+    """The run's mesh (``--tp`` ranks on ``--devices`` or ``--device``)."""
+    if args.mesh == "production" or args.multi_pod:
         raise NotImplementedError(
-            "the port trains on one rank: --tp > 1, --mesh production and "
-            "--multi-pod need Megatron-style sharding (ROADMAP item 10b) "
-            "and the train sites' AG+GEMM / GEMM+RS (item 10c)")
+            "--mesh production and --multi-pod need one process per card "
+            "(ROADMAP item 10d); the port's mesh is --tp ranks driven by "
+            "one process")
+    return make_mesh(args.tp, args.devices, args.device)
+
+
+def _ckpt_dims(cfg, mesh) -> dict:
+    """The sharded dim of every checkpoint key (``params%%...``,
+    ``opt%%m%%...``, ``opt%%v%%...``) of a run over ``mesh``."""
+    dims = {}
+    for path, d in lm.shard_dims(cfg, mesh).items():
+        key = path.replace(".", SEP)
+        for prefix in ("params", f"opt{SEP}m", f"opt{SEP}v"):
+            dims[f"{prefix}{SEP}{key}"] = d
+    return dims
 
 
 def train(cfg, args, params=None, on_step=None) -> dict:
     """Train ``cfg`` as ``args`` (:func:`parse_args`) says, from
-    ``params`` (a trainable LM on ``args.device``; default: the seeded
-    init there). ``on_step(step, params, metrics)`` runs after every
-    step, the step's gradients still on the parameters. Returns {"log":
-    the logged steps ({"step", "loss", "grad_norm", "s": wall seconds
-    since the previous log}), "params": the trainable LM, "opt": the
-    optimizer state, "start_step": the first step run}."""
-    _one_rank(args)
-    dev = resolve_device(args.device)
+    ``params`` (a trainable LM; default: the seeded init; at ``--tp`` > 1
+    it is sharded, or given as per-rank LMs). ``on_step(step, params,
+    metrics)`` runs after every step, the step's gradients still on the
+    parameters. Returns {"log": the logged steps ({"step", "loss",
+    "grad_norm", "s": wall seconds since the previous log}), "params":
+    the trainable LM (at ``--tp`` > 1 the per-rank list), "opt": the
+    optimizer state (one per rank), "start_step": the first step run}."""
+    mesh = build_mesh(args)
+    dev = mesh.devices[0]
+    W = mesh.size
+    ctx = dctx.DistContext(mesh if W > 1 else None, args.fusion_mode)
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(args.lr, args.warmup, args.steps))
     guard = PreemptionGuard().install()
@@ -100,16 +129,22 @@ def train(cfg, args, params=None, on_step=None) -> dict:
 
     if params is None:
         params = lm.init_params(cfg, seed=args.seed, device=dev,
-                                trainable=True)
-    opt_state = adamw.init_state(lm.param_tree(params))
-    state = {"params": lm.param_tree(params), "opt": opt_state}
+                                trainable=True,
+                                mesh=mesh if W > 1 else None)
+    elif W > 1 and not isinstance(params, list):
+        params = lm.shard_params(params, mesh)
+    opt_state = steps_lib.init_opt_state(params)
+    states = [{"params": lm.param_tree(p), "opt": o} for p, o in
+              zip(lm.as_ranks(params), lm.as_ranks(opt_state))]
+    dims = _ckpt_dims(cfg, mesh)
 
     start_step = 0
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        _, manifest = ckpt.restore(None, state)     # in place
+        _, manifest = ckpt.restore_sharded(None, states, dims)  # in place
         start_step = manifest["extra"].get("next_step", 0)
-        print(f"[train] resumed at step {start_step}", flush=True)
+        print(f"[train] resumed at step {start_step} on {W} rank(s)",
+              flush=True)
 
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)
     metrics_log = []
@@ -117,7 +152,8 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     for step in range(start_step, args.steps):
         t0 = time.monotonic()
         batch = shard_batch(data.batch_at(step), dev)
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        with dctx.use(ctx):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if on_step is not None:
             on_step(step, params, metrics)
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -134,17 +170,20 @@ def train(cfg, args, params=None, on_step=None) -> dict:
         watchdog.timed(step, t0)
 
         if ckpt and ((step + 1) % args.ckpt_every == 0 or guard.preempted):
-            ckpt.save(step + 1, state, extra={"next_step": step + 1},
-                      block=guard.preempted)
+            ckpt.save_sharded(step + 1, states, dims,
+                              extra={"next_step": step + 1},
+                              block=guard.preempted)
         if guard.preempted:
             print(f"[train] preempted at step {step}; checkpoint saved, "
                   f"exiting cleanly", flush=True)
             break
 
     if ckpt:
-        if not guard.preempted:     # JAX saves here after a preemption too,
-            ckpt.save(args.steps, state,    # marking the skipped steps done
-                      extra={"next_step": args.steps}, block=True)
+        if not guard.preempted:
+            # JAX saves here after a preemption too, marking the skipped
+            # steps done
+            ckpt.save_sharded(args.steps, states, dims,
+                              extra={"next_step": args.steps}, block=True)
         ckpt.wait()
     if watchdog.slow_steps:
         print(f"[train] straggler summary: {watchdog.summary()}")
@@ -157,7 +196,7 @@ def train(cfg, args, params=None, on_step=None) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    _one_rank(args)
+    build_mesh(args)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)

@@ -1,8 +1,9 @@
 """GQA attention (port of ``repro.models.attention``): the train/prefill
-path at W = 1 (:func:`apply_attn` over the dense or the blockwise
-attention, in fp32 plain PyTorch as JAX computes it outside Pallas), and
-the decode step over the paged pool and the contiguous strided cache, on
-one rank or over the W ranks of the ambient mesh.
+path (:func:`apply_attn` over the dense or the blockwise attention, in
+fp32 plain PyTorch as JAX computes it outside Pallas, on one rank or
+over W ranks, each rank on its heads), and the decode step
+over the paged pool and the contiguous strided cache, on one rank or
+over the W ranks of the ambient mesh.
 
 Values in the decode step: ``params``, ``x``, ``cur_len``, ``active``
 and ``block_tables`` are lists with one entry per distinct device of the
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collective_matmul as cm
 from repro_torch.core import flash_decode as fd
 from repro_torch.core import patterns
 from repro_torch.distributed import context as dctx
@@ -120,35 +122,86 @@ def blockwise_attention(q, k, v, *, scale, causal=True, window=None,
     return torch.cat(outs, dim=1)
 
 
-def apply_attn(params, x, cfg, *, positions=None, dense_threshold=2048):
-    """Train/prefill attention at W = 1. x: (B, S, d_model). wq/wk/wv
-    are one grouped GEMM call, wo one call; the KV heads are repeated up
-    to the query heads (GQA) before the fp32 attention."""
-    B, S, _ = x.shape
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = dense_group(x, [params["wq"], params["wk"], params["wv"]])
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
-    if cfg.rope_theta:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    rep = H // KVH
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
-    scale = 1.0 / (hd ** 0.5)
+def _attention(q, k, v, cfg, S, dense_threshold):
+    scale = 1.0 / (cfg.hd ** 0.5)
     prefix = cfg.num_prefix_tokens if cfg.prefix_lm else None
     if S <= dense_threshold:
-        o = dense_attention(q, k, v, scale=scale, causal=cfg.causal,
-                            window=cfg.sliding_window, prefix_len=prefix)
-    else:
-        o = blockwise_attention(q, k, v, scale=scale, causal=cfg.causal,
-                                window=cfg.sliding_window, prefix_len=prefix,
-                                chunk_q=cfg.attn_chunk_q,
-                                chunk_kv=cfg.attn_chunk_kv)
-    return dense(o.reshape(B, S, H * hd), params["wo"])
+        return dense_attention(q, k, v, scale=scale, causal=cfg.causal,
+                               window=cfg.sliding_window, prefix_len=prefix)
+    return blockwise_attention(q, k, v, scale=scale, causal=cfg.causal,
+                               window=cfg.sliding_window, prefix_len=prefix,
+                               chunk_q=cfg.attn_chunk_q,
+                               chunk_kv=cfg.attn_chunk_kv)
+
+
+def apply_attn(params, x, cfg, *, positions=None, dense_threshold=2048):
+    """Train/prefill attention over the W ranks of the ambient mesh.
+    params: per rank {"wq", "wk", "wv" column shards, "wo" row shard};
+    x: per rank (B, S/W, d), the rank's rows, or (B, S, d) (every row,
+    when S does not divide by W); positions (1, S). wq, wk and wv share
+    the AG+GEMM site and wo is the GEMM+RS site (``core.patterns``, as
+    in JAX); each rank attends with its query heads over the whole
+    sequence, the KV heads repeated up to the query heads (GQA) before
+    the fp32 attention. One rank is W = 1 (wq/wk/wv one grouped GEMM
+    launch, wo one); a tensor ``params``/``x`` pair is that rank.
+
+    A rank's k/v columns hold the KV heads its query heads use when the
+    heads divide by W (KVH 8, W 4 at full width); otherwise (KVH 1 in
+    ``smoke_config``: the 32 k columns split mid-head) every rank
+    gathers the k/v columns first, as it does the q columns when the
+    query heads do not divide by W (then every rank computes every head
+    and keeps its columns of the output). Returns per rank the layout
+    of ``x``."""
+    if not isinstance(x, list):
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return apply_attn([params], [x], cfg, positions=positions,
+                          dense_threshold=dense_threshold)[0]
+    W = len(x)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = positions.shape[-1]
+    for name, n in (("wq", H * hd), ("wk", KVH * hd), ("wv", KVH * hd)):
+        if params[0][name].shape[-1] * W != n:
+            raise ValueError(
+                f"attention {name}: per-rank columns "
+                f"{params[0][name].shape[-1]} x {W} ranks != {n}; the "
+                f"train sites take column-sharded weights "
+                f"(lm.shard_params)")
+    q, k, v = patterns.project_up(
+        x, [[p[n] for p in params] for n in ("wq", "wk", "wv")],
+        seq_axis_sharded=x[0].shape[1] * W == S)
+    heads_local = H % W == 0
+    kv_local = heads_local and KVH % W == 0
+    if not heads_local:
+        q = cm.all_gather(q, gather_axis=-1)
+    if not kv_local:
+        k = cm.all_gather(k, gather_axis=-1)
+        v = cm.all_gather(v, gather_axis=-1)
+    hq, kvh = (H // W, KVH // W) if kv_local else (
+        H // W if heads_local else H, KVH)
+    rep = H // KVH
+    out = []
+    for r in range(W):
+        B = q[r].shape[0]
+        pos = positions.to(q[r].device)
+        qr = q[r].reshape(B, S, hq, hd)
+        kr = k[r].reshape(B, S, kvh, hd)
+        vr = v[r].reshape(B, S, kvh, hd)
+        if cfg.rope_theta:
+            qr = apply_rope(qr, pos, cfg.rope_theta)
+            kr = apply_rope(kr, pos, cfg.rope_theta)
+        kr = kr.repeat_interleave(rep, dim=2)
+        vr = vr.repeat_interleave(rep, dim=2)
+        if not kv_local and heads_local:        # the rank's query heads
+            kr = kr[:, :, r * hq:(r + 1) * hq]
+            vr = vr[:, :, r * hq:(r + 1) * hq]
+        o = _attention(qr, kr, vr, cfg, S, dense_threshold).reshape(
+            B, S, hq * hd)
+        if not heads_local:                     # the rank's columns
+            n = H * hd // W
+            o = o[..., r * n:(r + 1) * n]
+        out.append(o)
+    return patterns.project_down(out, [p["wo"] for p in params])
 
 
 def _qkv(params, x, cur_len, cfg):

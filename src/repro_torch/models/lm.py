@@ -16,6 +16,15 @@ so the functional code reads either. It comes in two forms:
   forward casts each weight to ``cfg.dtype`` per call, so gradients
   land in fp32 on the masters.
 
+Over the W ranks of the ambient mesh (``distributed.context``) the
+training forward and loss take a list of W :class:`LM` holding each
+rank's shards (:func:`shard_params`, Megatron-style by the sharding
+rules: attention heads, MLP columns and the vocab split over the ranks,
+the input table's columns too; norm scales copied to every rank) and
+run the paper's sequence-parallel AG+GEMM and GEMM+RS at the projection
+sites (``core.patterns``); the loss is vocab-parallel
+(:func:`cross_entropy_ranks`).
+
 Decode state is a dict ``{"caches": {"k", "v"}, "cur_len"}`` (plus
 ``"block_tables"`` when paged) as in JAX, but the entry points update it
 IN PLACE (KV caches, ``cur_len``) and return the same dict, where JAX
@@ -30,8 +39,10 @@ from typing import Any
 import torch
 from torch import nn
 
+from repro_torch.core import collective_matmul as cm
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import transformer
 from repro_torch.models.layers import (apply_embed, apply_norm, apply_unembed,
                                        embed_spec, norm_spec)
@@ -124,13 +135,47 @@ def from_tree(cfg, tree: dict, trainable: bool = False) -> LM:
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
-                trainable: bool = False) -> LM:
+                trainable: bool = False, mesh=None):
     """Seeded random init from :func:`lm_spec` (a ``torch.Generator`` on
     ``device``; no weights are read from anywhere); ``trainable`` gives
-    fp32 masters that require grad."""
-    dev = resolve_device(device)
+    fp32 masters that require grad. With a ``mesh`` of W > 1 ranks: the
+    same numbers, sharded (:func:`shard_params`), drawn on the first
+    rank's device."""
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     tree = init_tree(lm_spec(cfg), seed=seed, device=dev,
                      cast=lambda path, x: x.to(_dtype(path, cfg, trainable)))
+    params = LM(cfg, tree, trainable)
+    if mesh is None or mesh.size == 1:
+        return params
+    return shard_params(params, mesh)
+
+
+def shard_dims(cfg, mesh) -> dict:
+    """``{dotted path: the dim the model axis shards, or None}`` of every
+    parameter leaf for ``mesh`` (``sharding_rules.rules_for``)."""
+    return sr.shard_dims(lm_spec(cfg), sr.rules_for(cfg, mesh))
+
+
+def shard_params(params: LM, mesh) -> list:
+    """The per-rank :class:`LM` of ``params`` over ``mesh``: rank r on
+    ``mesh.devices[r]`` holds block r of every sharded leaf and its own
+    copy of every replicated one (also where ranks share a card, so the
+    same code runs on virtual and real ranks). Trainable stays
+    trainable."""
+    cfg = params.cfg
+    trainable = any(p.requires_grad for p in params.parameters())
+    trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
+                          sr.rules_for(cfg, mesh), devices=mesh.devices)
+    return [LM(cfg, t, trainable) for t in trees]
+
+
+def gather_params(shards: list, mesh) -> LM:
+    """The global :class:`LM` of per-rank ``shards`` (inverse of
+    :func:`shard_params`) on rank 0's device."""
+    cfg = shards[0].cfg
+    trainable = any(p.requires_grad for p in shards[0].parameters())
+    tree = sr.unshard_tree([param_tree(p) for p in shards], lm_spec(cfg),
+                           sr.rules_for(cfg, mesh))
     return LM(cfg, tree, trainable)
 
 
@@ -148,36 +193,93 @@ def param_tree(params: LM) -> dict:
     return tree
 
 
-def logits_fn(params, x, cfg):
+def _head(params, cfg):
+    return (params["embed"]["table"] if cfg.tie_embeddings
+            else params["head"]["table"])
+
+
+def logits_fn(params, x, cfg, *, seq_sharded: bool = True):
     """Unembed: fp32 product against the head (or tied embedding) table,
-    logits cast to bf16 as in JAX."""
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["head"]["table"])
-    return apply_unembed({"table": table}, x, dtype=torch.bfloat16)
+    logits cast to bf16 as in JAX. Over W ranks (``params`` and ``x``
+    per-rank lists) the sequence rows are gathered once (JAX's note: the
+    vocab stays sharded) and each rank multiplies its vocab shard:
+    per-rank logits (B, S, V/W), or (B, S, V) where the rules replicate
+    the head."""
+    if not isinstance(x, list):
+        return apply_unembed({"table": _head(params, cfg)}, x,
+                             dtype=torch.bfloat16)
+    if seq_sharded and len(x) > 1:
+        x = cm.all_gather(x, gather_axis=1)
+    return [apply_unembed({"table": _head(p, cfg)}, xr,
+                          dtype=torch.bfloat16) for p, xr in zip(params, x)]
 
 
 # ---------------------------------------------------------- train / prefill
+def as_ranks(params) -> list:
+    """The per-rank list of ``params``: one :class:`LM` is W = 1."""
+    return params if isinstance(params, list) else [params]
+
+
 def embed_inputs(params, batch, cfg):
-    """batch: dict with 'tokens' (B, S). Returns (x (B, S, d) in
-    ``cfg.dtype``, positions (1, S), label_offset 0). The gather runs in
-    the table's dtype and casts after it, as in JAX."""
+    """batch: dict with 'tokens' (B, S). Returns (x in ``cfg.dtype``,
+    positions (1, S), label_offset 0): x (B, S, d) for an :class:`LM`,
+    per-rank sequence shards for a per-rank list (:func:`_embed_ranks`).
+    The gather runs in the table's dtype and casts after it, as in
+    JAX."""
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} frontend is not ported yet "
             f"(other-families slice of the port)")
     tokens = batch["tokens"]
-    x = apply_embed(params["embed"], tokens, torch.float32).to(cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return x, positions, 0
+    ranks = as_ranks(params)
+    x = _embed_ranks(ranks, tokens, cfg)
+    positions = torch.arange(tokens.shape[1],
+                             device=ranks[0].device)[None, :]
+    return (x if isinstance(params, list) else x[0]), positions, 0
+
+
+def _embed_ranks(params, tokens, cfg):
+    """The embedding over W ranks: each rank gathers its columns of the
+    input table (``("in_vocab", "in_embed")``: columns over the model
+    axis) for every token, then each rank takes its rows of the sequence
+    from every rank's columns (all rows when S does not divide by W).
+    Gathered in fp32 and cast after, as in JAX."""
+    W, S = len(params), tokens.shape[1]
+    g = [apply_embed(p["embed"], tokens.to(p.device), torch.float32)
+         for p in params]
+
+    def rows(t, r):
+        return t if S % W else t.narrow(1, r * (S // W), S // W)
+    if g[0].shape[-1] == cfg.d_model:          # the rules replicate it
+        x = [rows(t, r) for r, t in enumerate(g)]
+    else:
+        x = [torch.cat([cm.to_device(rows(t, r), g[r].device) for t in g],
+                       dim=-1) for r in range(W)]
+    return [t.to(cfg.dtype) for t in x]
+
+
+def _forward(ranks, batch, cfg):
+    """Per-rank logits and the aux loss of the per-rank ``ranks``."""
+    W = dctx.current().model_axis_size
+    if len(ranks) != W:
+        raise ValueError(f"{len(ranks)} per-rank parameter trees for a "
+                         f"mesh of {W} ranks: run under dctx.use("
+                         f"DistContext(mesh, ...)) with lm.shard_params("
+                         f"params, mesh)")
+    x, positions, _ = embed_inputs(ranks, batch, cfg)
+    x, aux = transformer.forward([p["backbone"] for p in ranks], x, cfg,
+                                 positions=positions)
+    x = [apply_norm(p["ln_f"], xr, cfg.norm) for p, xr in zip(ranks, x)]
+    return logits_fn(ranks, x, cfg, seq_sharded=positions.shape[-1]
+                     % len(ranks) == 0), aux
 
 
 def forward(params, batch, cfg):
-    """Full forward: returns (logits (B, S, V) bf16, aux_loss)."""
-    x, positions, _ = embed_inputs(params, batch, cfg)
-    x, aux = transformer.forward(params["backbone"], x, cfg,
-                                 positions=positions)
-    x = apply_norm(params["ln_f"], x, cfg.norm)
-    return logits_fn(params, x, cfg), aux
+    """Full forward: returns (logits (B, S, V) bf16, aux_loss). Over W
+    ranks (``params`` a list of per-rank :class:`LM`): per-rank logits
+    (:func:`logits_fn`)."""
+    logits, aux = _forward(as_ranks(params), batch, cfg)
+    return (logits if isinstance(params, list) else logits[0]), aux
 
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
@@ -196,10 +298,51 @@ def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
     return ce.sum() / valid.sum().clamp_min(1)
 
 
+def cross_entropy_ranks(logits, labels, vocab_size: int, mask=None,
+                        z_loss: float = 1e-4):
+    """:func:`cross_entropy` of per-rank vocab shards (B, S, V/W), rank r
+    holding vocab entries [r V/W, (r+1) V/W): each rank's max and sum of
+    exponentials combined across the ranks into the global logsumexp,
+    the gold logit from the rank that owns the label, the z-loss on the
+    global lse. Logits replicated by the rules ((B, S, V) on every rank)
+    take rank 0's. Returns the loss on rank 0's device."""
+    dev = logits[0].device
+    if logits[0].shape[-1] == vocab_size:
+        return cross_entropy(logits[0], labels.to(dev), mask, z_loss)
+    lf = [x.float() for x in logits]
+    m = torch.stack([cm.to_device(x.amax(dim=-1), dev) for x in lf]).amax(
+        dim=0).detach()
+    sumexp = None
+    gold = None
+    lab = labels.long()
+    for r, x in enumerate(lf):
+        n = x.shape[-1]
+        se = (x - cm.to_device(m, x.device)[..., None]).exp().sum(dim=-1)
+        idx = lab.to(x.device).clamp_min(0) - r * n
+        own = (idx >= 0) & (idx < n)
+        g = torch.gather(x, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        g = torch.where(own, g, 0.0)
+        se, g = cm.to_device(se, dev), cm.to_device(g, dev)
+        sumexp = se if sumexp is None else sumexp + se
+        gold = g if gold is None else gold + g
+    lse = m + sumexp.log()
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * lse.square()
+    labels = labels.to(dev)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & (mask.to(dev) > 0)
+    ce = torch.where(valid, ce, 0.0)
+    return ce.sum() / valid.sum().clamp_min(1)
+
+
 def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
-    """(loss, {"ce", "aux"}) of one batch ({"tokens", "labels"} (B, S))."""
-    logits, aux = forward(params, batch, cfg)
-    loss = cross_entropy(logits, batch["labels"])
+    """(loss, {"ce", "aux"}) of one batch ({"tokens", "labels"} (B, S)).
+    Over W ranks (``params`` a list of per-rank :class:`LM`) the whole
+    batch goes to every rank and the loss lies on rank 0's device."""
+    logits, aux = _forward(as_ranks(params), batch, cfg)
+    loss = cross_entropy_ranks(logits, batch["labels"], cfg.vocab_size)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

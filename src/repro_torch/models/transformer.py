@@ -3,7 +3,9 @@ the full-sequence forward (train/prefill) and the decode step.
 
 Parameters keep the JAX scan layout: every layer leaf is stacked with a
 leading ``n_layers`` dim (``stack_spec``); both paths walk the layers in
-a Python loop, indexing the stacked leaves. The other blocks
+a Python loop, indexing the stacked leaves. Both take per-rank lists:
+the full-sequence forward per-rank parameter trees of shards
+(``lm.shard_params``) and per-rank sequence shards. The other blocks
 (``attn_moe``, ``mamba_hybrid``, ``rwkv``) belong to a later slice of
 the port.
 """
@@ -92,25 +94,35 @@ def _layer(tree, li):
     return {k: v[li] for k, v in tree.items()}
 
 
-def _attn_mlp_layer(p, x, cfg, positions):
-    h = apply_norm(p["ln1"], x, cfg.norm)
-    x = x + attention.apply_attn(p["attn"], h, cfg, positions=positions)
-    h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + mlp.apply_mlp(p["mlp"], h, cfg)
+def _attn_mlp_layer(p, x, cfg, positions, seq_sharded):
+    h = [apply_norm(pr["ln1"], xr, cfg.norm) for pr, xr in zip(p, x)]
+    a = attention.apply_attn([pr["attn"] for pr in p], h, cfg,
+                             positions=positions)
+    x = [xr + ar for xr, ar in zip(x, a)]
+    h = [apply_norm(pr["ln2"], xr, cfg.norm) for pr, xr in zip(p, x)]
+    m = mlp.apply_mlp_ranks([pr["mlp"] for pr in p], h, cfg,
+                            seq_sharded=seq_sharded)
+    return [xr + mr for xr, mr in zip(x, m)]
 
 
-def forward(params, x, cfg, *, positions=None):
-    """x: (B, S, d) embedded input. Returns (x, aux_loss); the aux loss
-    of a dense stack is 0.0."""
+_PARTS = ("ln1", "attn", "ln2", "mlp")
+
+
+def forward(params, x, cfg, *, positions):
+    """The full-sequence forward over the W ranks of the ambient mesh (W
+    = 1 included): ``params`` per-rank backbone trees, ``x`` per-rank
+    (B, S/W, d) sequence shards of the embedded input (rank r's rows;
+    (B, S, d) on every rank when S does not divide by W), ``positions``
+    (1, S). Returns (x per rank, aux_loss); the aux loss of a dense
+    stack is 0.0. Remat wraps each layer's body over every rank."""
     require_attn_mlp(cfg)
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    layers = params["layers"]
+    seq_sharded = positions.shape[-1] % len(x) == 0
     body = _ckpt(_attn_mlp_layer, cfg)
     for li in range(cfg.n_layers):
-        lp = {k: _layer(layers[k], li) for k in ("ln1", "attn", "ln2", "mlp")}
-        x = body(lp, x, cfg, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        lp = [{k: _layer(p["layers"][k], li) for k in _PARTS}
+              for p in params]
+        x = body(lp, x, cfg, positions, seq_sharded)
+    return x, torch.zeros((), dtype=torch.float32, device=x[0].device)
 
 
 def decode(params, x, caches, cur_len, cfg, active, block_tables,
@@ -123,8 +135,7 @@ def decode(params, x, caches, cur_len, cfg, active, block_tables,
     require_attn_mlp(cfg)
     layers = [p["layers"] for p in params]
     for li in range(cfg.n_layers):
-        lp = [{k: _layer(t[k], li) for k in ("ln1", "attn", "ln2", "mlp")}
-              for t in layers]
+        lp = [{k: _layer(t[k], li) for k in _PARTS} for t in layers]
         h = [apply_norm(p["ln1"], xd, cfg.norm) for p, xd in zip(lp, x)]
         cache = {k: [c[li] for c in v] for k, v in caches.items()}
         y = attention.decode_attn_step([p["attn"] for p in lp], h, cache,

@@ -11,6 +11,13 @@ corrections ``1 - b ** step`` in float32, and weight decay skipped for
 every leaf whose ``/``-joined path contains a ``no_decay`` substring
 (so ``backbone/layers/mlp/wu``, which contains ``"u"``, gets none, as in
 JAX).
+
+Over W ranks, :func:`apply_updates_ranks` takes per-rank trees of
+shards (``lm.shard_params``): the gradients of a replicated leaf's
+per-rank copies are summed across the ranks first, the global norm
+counts each sharded leaf's shards once and each replicated leaf once,
+and every rank then takes JAX's step on its shards with the one clip,
+so the copies of a replicated leaf stay bit-identical.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.collective_matmul import to_device
 from repro_torch.models.module import tree_items
 
 
@@ -66,14 +74,49 @@ def apply_updates(params: dict, grads: dict, state: dict,
     """One AdamW step, IN PLACE on ``params`` (a nested dict of fp32
     tensors, e.g. ``lm.param_tree``), ``state["m"]``, ``state["v"]`` and
     ``state["step"]``; ``grads`` is keyed like ``params``. Returns the
-    metrics {"grad_norm", "lr"} (float32 0-d tensors)."""
+    metrics {"grad_norm", "lr"} (float32 0-d tensors). One rank of
+    :func:`apply_updates_ranks`."""
+    return apply_updates_ranks([params], [grads], [state], cfg, {})
+
+
+@torch.no_grad()
+def apply_updates_ranks(params: list, grads: list, states: list,
+                        cfg: AdamWConfig, dims: dict) -> dict:
+    """:func:`apply_updates` over W ranks: ``params``, ``grads`` and
+    ``states`` hold one tree per rank; ``dims`` maps each leaf's dotted
+    path to the dim it is sharded on; a leaf it gives no dim is a copy
+    on every rank. The copies' gradients are summed across the ranks (in
+    rank order, on rank 0's device) and written back into every copy, IN
+    PLACE. The global norm sums the leaves' squares in sorted-key order
+    (:func:`global_norm` at W = 1). Returns rank 0's metrics."""
+    g_l = [dict(tree_items(g)) for g in grads]
+    dev0 = next(iter(g_l[0].values())).device
+    sq = []
+    for path, g0 in g_l[0].items():
+        if dims.get(path) is None:
+            tot = g0.float()
+            for g in g_l[1:]:
+                tot = tot + to_device(g[path], dev0).float()
+            if len(g_l) > 1:
+                for g in g_l:
+                    g[path].copy_(tot)
+            sq.append(tot.square().sum())
+        else:
+            sq.append(torch.stack([to_device(g[path].float().square().sum(),
+                                             dev0) for g in g_l]).sum())
+    gnorm = torch.stack(sq).sum().sqrt()
+    out = [_step(p, g, s, cfg, to_device(gnorm, s["step"].device))
+           for p, g, s in zip(params, g_l, states)]
+    return out[0]
+
+
+def _step(params: dict, g_l: dict, state: dict, cfg: AdamWConfig,
+          gnorm: torch.Tensor) -> dict:
     p_items = list(tree_items(params))
-    g_l = dict(tree_items(grads))
     m_l = dict(tree_items(state["m"]))
     v_l = dict(tree_items(state["v"]))
     state["step"] += 1
     step = state["step"]
-    gnorm = global_norm(grads)
     if cfg.grad_clip:
         clip = torch.clamp_max(cfg.grad_clip / gnorm.clamp_min(1e-9), 1.0)
     else:

@@ -219,12 +219,11 @@ def test_port_resume_equals_the_uninterrupted_run(tmp_path):
 
 
 def test_trainer_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="10b"):
-        ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="one rank"):
+    with pytest.raises(NotImplementedError, match="10d"):
         ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--mesh",
                            "production"])
     if torch.cuda.is_available():
         pytest.skip("the default device is present here")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ttrain.main(RUN + ["--steps", "1"])
+    for tp in ("1", "2"):       # W > 1 never runs quietly on the CPU
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.main(RUN + ["--steps", "1", "--tp", tp])
