@@ -80,6 +80,22 @@ source, in parallel), then runs, failing on the first phase that fails:
    layers, tp 4 under ``ring``, 4 steps of 2 x 1024 tokens: losses
    finite, the first beside 12c's, GEMM launches per step, ms per step,
    tokens/s, peak memory, and one profiled step (busy share, GEMM ms);
+14. the MoE family, after phase 13: (a) the GEMM's batched mode
+   (``matmul_batched``, one launch for all experts) vs its plain version
+   at olmoe-1b-7b's expert products (decode: E 64, M 1, 8, 16, both
+   projections, bf16 and f32; training: M 320, forward and both
+   gradients; ragged batches), each timed beside its plain version and
+   ``torch.bmm``; (b) the float32 olmoe-smoke served on the card and on
+   the CPU (K = 1 and K = 8, greedy and temperature; over 4 virtual
+   ranks under ``pallas``), streams and counters identical, and one
+   K = 8 replay under sync-debug "error"; (c) olmoe-1b-7b at full width
+   (16 layers, bf16, seeded weights, nothing cut) served with phase 5's
+   traffic at K = 1 and K = 8 (launches per step counted), finite
+   logits, graph vs eager in lockstep, a profiled step; (d) the smoke
+   model trained 3 steps on the card vs the CPU (loss with the aux,
+   every gradient leaf), then olmoe at full width with 4 of 16 layers,
+   4 steps of 2 x 1024 tokens: losses finite, launches, ms per step,
+   tokens/s, executed TFLOP/s, peak memory;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -483,19 +499,27 @@ def _strided_inputs(gen, dtype, W, B=8, H=32, KVH=8, D=128, S_max=512):
     return q, ks, vs, cur
 
 
-def _kernel_launches(fn, name):
+def _kernel_launches(fn, name, traces=3):
     """Launches of csrc kernel ``name`` (and of all the port's kernels)
-    in one ``fn()`` call, from the profiler's device trace."""
+    in one ``fn()`` call, from the profiler's device trace, and the
+    number of ``fn()`` calls made. A trace that holds no kernel of the
+    port at all lost its device records (on the H100 one such trace in
+    a run, of a call the wrapper counted: PERF.md §7): the call is traced
+    again, up to ``traces`` times; any trace with records counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()                  # buffers sized, lib loaded
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    return (sum(e.count for e in ev if port_kernel(name, e.key)),
-            sum(e.count for e in ev for k in PORT_KERNELS
-                if port_kernel(k, e.key)))
+    for t in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        port = sum(e.count for e in ev for k in PORT_KERNELS
+                   if port_kernel(k, e.key))
+        if port:
+            break
+    return (sum(e.count for e in ev if port_kernel(name, e.key)), port,
+            t + 2)
 
 
 def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
@@ -559,13 +583,14 @@ def phase_strided(gen, epochs=3, rank_sets=(["cuda:0"], ["cuda:0"] * 4)):
                 ("PARTIAL", kfd.flash_decode_partial,
                  lambda: kfd.flash_decode_partial(*args))):
             n0 = wrapper.launches
-            mine, port = _kernel_launches(call, "fd_strided")
-            counter = (wrapper.launches - n0) // 2    # warm-up + traced call
+            mine, port, calls = _kernel_launches(call, "fd_strided")
+            counter = (wrapper.launches - n0) / calls  # warm-up + traces
             check(counter == cards and mine == cards and port == cards,
                   f"strided W={W} {mode}: {counter} counted, {mine} "
-                  f"fd_strided and {port} port kernels traced per call; "
-                  f"want {cards}")
-            counted.append(f"W={W} {mode}")
+                  f"fd_strided and {port} port kernels traced per call "
+                  f"({calls - 1} traces); want {cards}")
+            counted.append(f"W={W} {mode}"
+                           + (f" ({calls - 1} traces)" if calls > 2 else ""))
     print(f"[strided] {n} fused + partial calls match the plain version "
           f"(max |err| {worst:.3e}); one launch per card per call, by the "
           f"counters and the profiler: {', '.join(counted)}", flush=True)
@@ -748,10 +773,11 @@ def _smoke_requests(rng, vocab):
     return reqs
 
 
-def _serve_small(params, cfg, reqs, dev, K=1, sampler="greedy", ctx=None):
+def _serve_small(params, cfg, reqs, dev, K=1, sampler="greedy", ctx=None,
+                 keep=None):
     """Serve ``reqs`` on the smoke model; returns (streams, counters
     (ticks, dispatches, mixed dispatches, preemptions, prefix hits),
-    the engine's metrics)."""
+    the engine's metrics). ``keep``: a list that receives the engine."""
     from repro_torch.distributed import context as dctx
     from repro_torch.serving.engine import Engine, Request
     with dctx.use(ctx or dctx.DistContext()):
@@ -763,6 +789,8 @@ def _serve_small(params, cfg, reqs, dev, K=1, sampler="greedy", ctx=None):
                            temp=temp, top_k=top_k), at_tick=at)
     done = eng.run()
     m = eng.metrics(done)
+    if keep is not None:
+        keep.append(eng)
     return ({r.rid: r.out_tokens for r in done},
             (m["ticks"], m["dispatches"], m["mixed_dispatches"],
              m["preemptions"], m["prefix_hits"]), m)
@@ -3065,6 +3093,610 @@ def phase_train_tp(gen, step0_loss, step0_gnorm):
     return {"sites": sites, "small": small, "full": full}, kernel
 
 
+# ------------------------------------------------ phase 14: the MoE path
+MOE_ARCH = "olmoe-1b-7b"
+# 14d: olmoe at full width, depth cut to MOE_TRAIN_LAYERS of 16 (fp32
+# AdamW state is 16 B a parameter: 6.9 B parameters would need ~110 GB),
+# batch 2 x 1024 tokens of SyntheticLM(seed=0)
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 4
+
+
+def moe_products(cfg, M, train=False):
+    """The expert products of one olmoe layer over M rows per expert, as
+    batched launches: (name, kind, E, M, K, N, count a layer). Decode:
+    wg and wu (d -> f) and wd (f -> d) once. Training (``train``): each
+    forward twice (remat), then dA (dC @ B^T) and dB (A^T @ dC)."""
+    E, d, f = cfg.moe_num_experts, cfg.d_model, cfg.d_ff
+    out = []
+    for name, K, N in (("wg", d, f), ("wu", d, f), ("wd", f, d)):
+        if not train:
+            out.append((name, "fwd", E, M, K, N, 1))
+            continue
+        out += [(name, "fwd", E, M, K, N, 2), (name, "dA", E, M, N, K, 1),
+                (name, "dB", E, K, M, N, 1)]
+    return out
+
+
+def moe_train_launches_per_step(cfg):
+    """GEMM launches of one olmoe training step (remat full): per layer 6
+    forward launches (wq/wk/wv grouped, wo, the fp32 router, the three
+    batched expert products) twice, then the backward's 14 (wq/wk/wv
+    dA 3 + dB 1, wo 2, the router 2, the experts' dA and dB 6); the
+    unembed's 3. Of them the batched mode's: 12 a layer."""
+    return cfg.n_layers * (2 * 6 + 14) + 3, cfg.n_layers * 12
+
+
+def phase_moe_gemm(gen, cfg):
+    """(14a) the GEMM's batched mode (``matmul_batched``) vs its plain
+    version at olmoe-1b-7b's expert products, phase 2's tolerances, one
+    launch each: decode (E 64, M = batch x C = 1, 8, 16 rows, both
+    projections, bf16 and f32), training (M = 2 x C = 320 rows: forward,
+    dA with B^T made contiguous, dB with A^T made contiguous), a ragged
+    batch and one only the general kernel takes. Times the served
+    decode products (M = 8, bf16) and the training ones in CUDA-graph
+    replays beside the plain version and one ``torch.bmm``. Returns
+    (rows, the worst error at the main path's shapes)."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.models import moe
+    rows, worst = {}, 0.0
+
+    def case(name, a, b, prep=None, lib=None, time_it=False, count=0):
+        """``a @ b`` batched; ``prep`` makes the operands from (a, b) as
+        the backward does (the transposed copy is timed with it)."""
+        prep = prep or (lambda x, y: (x, y))
+        dt = a.dtype
+        n0 = kmm.matmul_batched.launches
+        got = kmm.matmul_batched(*prep(a, b))
+        want = kmm.matmul_batched_plain(*prep(a, b))
+        torch.cuda.synchronize()
+        check(kmm.matmul_batched.launches == n0 + 1,
+              f"batched GEMM {name}: {kmm.matmul_batched.launches - n0} "
+              f"launches, not 1")
+        E, M, K = prep(a, b)[0].shape
+        N = got.shape[-1]
+        err = _gemm_err(got, want, dt, f"batched GEMM {name} E={E} M={M} "
+                                       f"K={K} N={N} {dt}")
+        del got, want
+        row = {"E": E, "M": M, "K": K, "N": N,
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err}
+        if time_it:
+            ops_ms = 1e3 * E * 2 * M * N * K / PEAK_OPS[dt]
+            bytes_ms = (1e3 * E * (M * K + K * N + M * N) * a.element_size()
+                        / HBM_BYTES_PER_S)
+            lib = lib or (lambda x, y: torch.bmm(x, y))
+            row.update({
+                "ms": graph_ms(lambda: kmm.matmul_batched(*prep(a, b))),
+                "plain_ms": graph_ms(lambda: kmm.matmul_batched_plain(
+                    *prep(a, b)), iters=5),
+                "library_ms": graph_ms(lambda: lib(a, b)),
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "count_per_layer": count})
+        rows[name] = row
+        return err
+
+    def operands(E, M, K, N, dt):
+        a = torch.randn((E, M, K), generator=gen, device="cuda").to(dt)
+        b = (torch.randn((E, K, N), generator=gen, device="cuda")
+             / K ** 0.5).to(dt)
+        return a, b
+    E = cfg.moe_num_experts
+    for name, _, _, _, K, N, _ in moe_products(cfg, 8):
+        if name == "wu":
+            continue                  # wg's shape
+        for dt in (torch.bfloat16, torch.float32):
+            for M in (1, 8, 16):
+                a, b = operands(E, M, K, N, dt)
+                main = dt == torch.bfloat16 and M == 8
+                err = case(f"decode {name} M={M} {dt}", a, b, time_it=main,
+                           count=2 if name == "wg" else 1)
+                if main:
+                    worst = max(worst, err)
+                del a, b
+    # training: the forward's A and B, the output gradient dC; M = the
+    # rows' capacity slots, B x C
+    Mt = TRAIN_BATCH * moe.capacity(cfg, TRAIN_SEQ)
+    for name, K, N in (("wg", cfg.d_model, cfg.d_ff),
+                       ("wd", cfg.d_ff, cfg.d_model)):
+        a, b = operands(E, Mt, K, N, torch.bfloat16)
+        dc = (torch.randn((E, Mt, N), generator=gen, device="cuda")
+              / N ** 0.5).to(torch.bfloat16)
+        count = 2 if name == "wg" else 1
+        case(f"train {name} fwd", a, b, time_it=True, count=2 * count)
+        case(f"train {name} dA", dc, b,
+             prep=lambda x, y: (x, y.transpose(1, 2).contiguous()),
+             lib=lambda x, y: torch.bmm(x, y.transpose(1, 2)),
+             time_it=True, count=count)
+        case(f"train {name} dB", a, dc,
+             prep=lambda x, y: (x.transpose(1, 2).contiguous(), y),
+             lib=lambda x, y: torch.bmm(x.transpose(1, 2), y),
+             time_it=True, count=count)
+        del a, b, dc
+    for dt in (torch.bfloat16, torch.float32):
+        a, b = operands(5, 20, 136, 1000, dt)        # ragged tiles
+        case(f"ragged tma {dt}", a, b)
+        a, b = operands(3, 5, 100, 77, dt)           # the general kernel
+        case(f"ragged general {dt}", a, b)
+    torch.cuda.empty_cache()
+    print("[moe gemm] " + "; ".join(
+        f"{n} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, torch.bmm "
+        f"{r['library_ms']:.3f}, bound {r['bound_ms']:.3f})"
+        for n, r in rows.items() if "ms" in r), flush=True)
+    print(f"[moe gemm] {len(rows)} batched products (E = {E}) match the "
+          f"plain version in one launch each (max |err| at the served "
+          f"shapes {worst:.3e})", flush=True)
+    return rows, worst
+
+
+def phase_moe_small(tp=4):
+    """(14b) olmoe-smoke (float32) served on the card and on the CPU,
+    phase 4's engine and requests: at K = 1 greedy, token-identical
+    streams and equal counters; at K = 8 (graph replays), greedy and
+    seeded temperature, streams identical to the CPU's K = 1 and
+    counters to its K = 8; the same serves over ``tp`` virtual ranks
+    under ``pallas`` identical to tp 1; the GEMM's plain version never
+    ran on the card; then one K = 8 megatick replayed under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the routing waits for
+    nothing)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config(MOE_ARCH)).replace(dtype=torch.float32)
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    reqs = _smoke_requests(np.random.default_rng(0), cfg.vocab_size)
+
+    def card(*args):
+        """A serve on the card, through the kernels only."""
+        q0, b0 = matmul.plain_calls, matmul_batched.launches
+        out = _serve_small(p_gpu, cfg, reqs, "cuda", *args)
+        check(matmul.plain_calls == q0 and matmul_batched.launches > b0,
+              f"moe small {args}: plain calls or no batched launch")
+        return out
+    runs = {"cuda": card(), "cpu": _serve_small(p_cpu, cfg, reqs, "cpu")}
+    check(len(runs["cuda"][0]) == len(reqs), "moe small: not all finished")
+    check(runs["cuda"][0] == runs["cpu"][0],
+          f"moe small streams differ: card {runs['cuda'][0]}, cpu "
+          f"{runs['cpu'][0]}")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          f"moe small counters differ: {runs['cuda'][1]} vs "
+          f"{runs['cpu'][1]}")
+    check(runs["cuda"][1][3] >= 1 and runs["cuda"][1][4] >= 1,
+          f"moe small: no preemption or no prefix hit: {runs['cuda'][1]}")
+    mega = {}
+    for sampler in ("greedy", "temperature"):
+        base = _serve_small(p_cpu, cfg, reqs, "cpu", sampler=sampler)
+        cpu8 = _serve_small(p_cpu, cfg, reqs, "cpu", 8, sampler)
+        gpu8 = card(8, sampler)
+        what = f"moe small K=8 {sampler}"
+        check(cpu8[0] == base[0] and gpu8[0] == base[0],
+              f"{what}: streams differ from the CPU at K=1")
+        check(gpu8[1] == cpu8[1], f"{what}: counters {gpu8[1]} != the "
+                                  f"CPU's {cpu8[1]}")
+        m = gpu8[2]
+        check(m["graphs"] and m["graph_replays"] == m["dispatches"],
+              f"{what}: not one graph replay per megatick: {m}")
+        mega[sampler] = gpu8
+    ctx = dctx.DistContext(make_mesh(tp, device="cuda"), "pallas")
+    got = card(1, "greedy", ctx)
+    check(got[0] == runs["cuda"][0] and got[1] == runs["cuda"][1],
+          f"moe small tp={tp}: K=1 differs from tp=1")
+    for sampler, ref in mega.items():
+        got = card(8, sampler, ctx)
+        check(got[0] == ref[0] and got[1] == ref[1],
+              f"moe small tp={tp} K=8 {sampler}: differs from tp=1")
+    # the routing inside a captured megatick: replayed once more (the
+    # served engine is done; the replay only advances its state) with
+    # every host sync an error
+    kept = []
+    _serve_small(p_gpu, cfg, reqs, "cuda", 8, "greedy", keep=kept)
+    eng, = kept
+    graphs = list(eng._runner.graphs.values())
+    check(graphs, "moe small: no graph captured")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphs[0][0].replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del eng, kept, graphs
+    print(f"[moe small] olmoe-smoke float32: streams token-identical on "
+          f"cuda and cpu, counters {runs['cuda'][1]}; K=8 (graph replays) "
+          f"greedy {mega['greedy'][1]} and temperature "
+          f"{mega['temperature'][1]}: streams as the CPU's K=1, counters "
+          f"as its K=8; tp={tp} pallas identical to tp=1; no plain "
+          f"GEMM call on the card; a K=8 replay under sync-debug 'error' "
+          f"ran", flush=True)
+    return {"counters": runs["cuda"][1],
+            "k8": {s: v[1] for s, v in mega.items()}}
+
+
+def _moe_kernel_row(rows, names, L):
+    """A kernel line's times and bound for ``L`` layers of 14a's
+    ``rows`` named by ``names``, each times its count a layer: the bound
+    sums each product's larger of its operations and bytes times, and
+    is said to be bound by whichever sum is larger."""
+    def per_step(field):
+        return L * sum(rows[n]["count_per_layer"] * rows[n][field]
+                       for n in names)
+    return {"ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": ("operations" if per_step("ops_ms")
+                         >= per_step("bytes_ms") else "bytes"),
+            "library_ms": per_step("library_ms")}
+
+
+def phase_moe_full(rows, worst):
+    """(14c) olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
+    top-8, bf16, seeded random weights, nothing cut) served through the
+    engine with phase 5's traffic at K = 1 and at K = 8 (graph replays;
+    then prompts of the same lengths again for the steady time), every
+    kernel's launches counted around each serve (6 GEMM launches a
+    layer, 3 of them batched, + the unembed; one paged decode a layer);
+    a teacher-forced chunk's logits finite; one K = 8 serve on two
+    engines in lockstep, graph replays against the eager loop (phase
+    5b's check); a profiled eager step. The batched GEMM's ms per step
+    from 14a's graph-timed decode products."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(MOE_ARCH)
+    t0 = time.time()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 1e9
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    reqs_a = _full_requests(cfg, plens, 1, 32, 2)
+    reqs_b = _full_requests(cfg, plens, 2, 32, 2)
+    kw = dict(batch=8, max_len=512, label="olmoe")
+    L = cfg.n_layers
+    per_step = {"matmul": 6 * L + 1, "matmul_batched": 3 * L,
+                "flash_decode_paged": L}
+    cells = {}
+    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
+    _check_serve(cells["k1"], done1, cfg, 8, 32, per_step, "olmoe K=1")
+    cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
+    _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "olmoe K=8")
+    s1 = {r.rid: r.out_tokens for r in done1}
+    s8 = {r.rid: r.out_tokens for r in done8}
+    same = sum(s1[r] == s8[r] for r in s1)
+    cells["k8"]["streams_identical_to_k1"] = same
+    lockstep = phase_graph_vs_eager(params, cfg)
+    with torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, 8, 64, 16, 8)
+        st["block_tables"].copy_(torch.arange(64, dtype=torch.int32)
+                                 .reshape(8, 8))
+        tok = torch.randint(1, cfg.vocab_size, (8, 8), device="cuda")
+        lg, _ = lm.decode_chunk(params, tok, torch.full(
+            (8,), 8, device="cuda"), st, cfg)
+        check(bool(torch.isfinite(lg).all()), "olmoe: non-finite logits")
+        profile = profile_steps(params, cfg, st, label="olmoe decode step")
+    del params, st, lg
+    torch.cuda.empty_cache()
+    names = ("decode wg M=8 torch.bfloat16", "decode wd M=8 torch.bfloat16")
+    kernel = {"name": "matmul_batched", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": cells["k8"]["launches"]["matmul_batched"],
+              "launches_per_step": per_step["matmul_batched"],
+              "max_abs_err": worst, **_moe_kernel_row(rows, names, L),
+              "unit": f"one olmoe-1b-7b decode step at batch 8 "
+                      f"({per_step['matmul_batched']} launches: wg, wu, "
+                      f"wd of 64 experts x 8 rows per layer), CUDA-graph "
+                      f"replays"}
+    out = {"config": "olmoe-1b-7b full width, 16 layers, bf16, nothing "
+                     "cut", "params": n_params, "weight_gb": weight_gb,
+           "init_s": init_s, "prompt_tokens": sum(plens), **cells,
+           "launches_per_step": per_step, "graph_vs_eager_megaticks":
+           lockstep, "profile": profile}
+    print(f"[moe full] {n_params / 1e9:.3f} B parameters, {weight_gb:.2f} "
+          f"GB of weights; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s; "
+          f"K=8 steady {cells['k8']['steady_tokens_per_s']:.2f} tok/s, "
+          f"{cells['k8']['steady_ms_per_token']:.2f} ms/token, busy "
+          f"{cells['k8']['steady_busy_share']:.3f}, peak "
+          f"{cells['k8']['peak_mem_bytes'] / 1e9:.2f} GB; launches a step "
+          f"{per_step}; K=8 streams identical to K=1 for {same} of 8 "
+          f"(reported); batched GEMM {kernel['ms']:.3f} ms a step (bound "
+          f"{kernel['bound_ms']:.3f}, plain {kernel['plain_ms']:.3f}, "
+          f"torch.bmm {kernel['library_ms']:.3f})", flush=True)
+    return out, kernel
+
+
+def phase_moe_train_small():
+    """(14d, first part) olmoe-smoke (float32) trained 3 steps on the card
+    and on the CPU from the same parameters on the same batches (lr
+    1e-4), phase 12b's tolerances where the model allows them: the first
+    loss (ce + 0.01 aux) within 1e-5 relative, its aux within 1e-5,
+    losses within 1e-4 and grad norms within 1e-2 relative; every
+    first-step gradient leaf (the router's included) nonzero on the card
+    and within max(1e-3, 2 x the CPU's own sensitivity) of the leaf's
+    largest |entry|. The sensitivity is measured here: the largest
+    first-step gradient gap on the CPU when every weight is scaled by
+    1 + one float32 ulp of seeded noise (what another summation order
+    does to a sum), over 3 draws; the smoke init's layer weights of std
+    0.5 make olmoe-smoke's ~2e-3, above 12b's 1e-3. Every routing
+    (experts chosen) is compared card vs CPU and the smallest top-k gap
+    reported. On the card the batched GEMM launched and no plain
+    version ran."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    from repro_torch.models import moe
+    cfg = smoke_config(get_config(MOE_ARCH)).replace(dtype=torch.float32)
+    argv = ["--arch", MOE_ARCH, "--smoke", "--steps", "3", "--batch", "2",
+            "--seq", "32", "--log-every", "1", "--lr", "1e-4", "--warmup",
+            "3"]
+    init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    p_card = _cpu_copy(init, cfg, "cuda")
+    grads0 = {}
+    # every routing of the runs: the experts chosen and the smallest gap
+    # between the K-th and (K+1)-th router probability (a gap below the
+    # two devices' rounding would let them choose differently)
+    routes = {"cpu": [], "cuda": []}
+    route = moe.route
+
+    def spy(x, router_w, cfg_):
+        r = route(x, router_w, cfg_)
+        probs = torch.softmax(x.detach().float() @ router_w.detach().float(),
+                              dim=-1)
+        top = probs.sort(dim=-1, descending=True).values
+        K = cfg_.moe_top_k
+        routes[x.device.type].append(
+            (r["expert_of_flat"].cpu(),
+             float((top[..., K - 1] - top[..., K]).min())))
+        return r
+
+    def first_grads(step, params, metrics):
+        if step == 0:
+            grads0[params.device.type] = {
+                n: p.grad.detach().cpu().clone()
+                for n, p in params.named_parameters() if p.grad is not None}
+    moe.route = spy
+    try:
+        cpu = tr.train(cfg, tr.parse_args(argv + ["--device", "cpu"]),
+                       params=init, on_step=first_grads)
+        n0, p0, b0 = (matmul.launches, matmul.plain_calls,
+                      matmul_batched.launches)
+        card = tr.train(cfg, tr.parse_args(argv + ["--device", "cuda"]),
+                        params=p_card, on_step=first_grads)
+    finally:
+        moe.route = route
+    same_routes = [bool(torch.equal(a[0], b[0]))
+                   for a, b in zip(routes["cpu"], routes["cuda"])]
+    min_gap = min(g for _, g in routes["cpu"])
+    launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+    batched = matmul_batched.launches - b0
+    check(launched > 0 and batched > 0 and plain == 0,
+          f"moe train small: {launched} GEMM launches ({batched} batched), "
+          f"{plain} plain calls on the card")
+    names = [n for n, _ in card["params"].named_parameters()]
+    g_card, g_cpu = grads0["cuda"], grads0["cpu"]
+    missing = [n for n in names if n not in g_card
+               or not bool(g_card[n].abs().max() > 0)]
+    check(not missing, f"moe train small: leaves without a gradient: "
+                       f"{missing}")
+    def gaps(g):
+        return {n: ((g[n] - g_cpu[n]).abs().max()
+                    / g_cpu[n].abs().max()).item() for n in names}
+    leaf_err = gaps(g_card)
+    g_err = max(leaf_err.values())
+    # the CPU's own first-step gradient under one float32 ulp of noise on
+    # every weight (step 0's batch)
+    batch0 = {k: torch.from_numpy(np.array(v)) for k, v in SyntheticLM(
+        cfg.vocab_size, 32, 2, seed=0).batch_at(0).items()}
+    sens = []
+    for seed in range(3):
+        noisy = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for t in noisy.parameters():
+                t.mul_(1 + (torch.rand(t.shape, generator=gen) - 0.5)
+                       * 2 ** -23)
+        loss, _ = lm.loss_fn(noisy, batch0, cfg)
+        loss.backward()
+        sens.append(max(gaps({n: t.grad for n, t in
+                              noisy.named_parameters()}).values()))
+    tol = max(1e-3, 2 * max(sens))
+    print(f"[moe train small] routings card = CPU: {sum(same_routes)} of "
+          f"{len(same_routes)} (first differing: "
+          f"{same_routes.index(False) if False in same_routes else None}); "
+          f"smallest top-k gap {min_gap:.3e}; the CPU's own step-1 "
+          f"gradient gap under one ulp of weight noise "
+          f"{[f'{x:.2e}' for x in sens]} -> bound {tol:.2e}; card vs CPU "
+          f"by leaf: " + ", ".join(f"{n} {e:.2e}" for n, e in sorted(
+              leaf_err.items(), key=lambda kv: -kv[1])), flush=True)
+    check(g_err <= tol, f"moe train small: step-1 gradients card vs CPU "
+                        f"{g_err:.3e} of a leaf's largest entry (bound "
+                        f"{tol:.3e})")
+    lc = [m["loss"] for m in cpu["log"]]
+    lg = [m["loss"] for m in card["log"]]
+    ac = [m["aux"] for m in cpu["log"]]
+    ag = [m["aux"] for m in card["log"]]
+    gc_ = [m["grad_norm"] for m in cpu["log"]]
+    gg = [m["grad_norm"] for m in card["log"]]
+    check(abs(lg[0] - lc[0]) <= 1e-5 * abs(lc[0])
+          and abs(ag[0] - ac[0]) <= 1e-5 * abs(ac[0]),
+          f"moe train small: first loss {lg[0]} (aux {ag[0]}) vs CPU "
+          f"{lc[0]} ({ac[0]})")
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0), f"moe train small: card "
+          f"losses {lg} vs CPU {lc}")
+    check(np.allclose(gg, gc_, rtol=1e-2, atol=0), f"moe train small: "
+          f"card grad norms {gg} vs CPU {gc_}")
+    out = {"step1_grad_err": g_err, "step1_grad_err_by_leaf": leaf_err,
+           "cpu_noise_grad_err": sens, "grad_bound": tol,
+           "routings_identical": sum(same_routes),
+           "routings": len(same_routes), "min_topk_gap": min_gap,
+           "cpu_losses": lc, "card_losses": lg,
+           "cpu_aux": ac, "card_aux": ag, "cpu_grad_norms": gc_,
+           "card_grad_norms": gg, "gemm_launches": launched,
+           "batched_launches": batched}
+    print(f"[moe train small] float32 olmoe-smoke, 3 steps: step-1 "
+          f"gradients card vs CPU within {g_err:.3e} of a leaf's largest "
+          f"entry (router included; bound {tol:.2e}); losses {lg} vs CPU {lc}; aux {ag} vs "
+          f"{ac}; grad norms {gg} vs {gc_}; {launched} GEMM launches "
+          f"({batched} batched), 0 plain calls", flush=True)
+    return out
+
+
+def moe_train_products(cfg, M):
+    """Every GEMM product of one olmoe training step over M tokens (B =
+    TRAIN_BATCH rows): (name, kind, E, M, K, N, dtype, count a step); the
+    expert products over their dense capacity slots (B x C rows an
+    expert), as the program runs them."""
+    from repro_torch.models import moe
+    d, V, L, E = cfg.d_model, cfg.vocab_size, cfg.n_layers, \
+        cfg.moe_num_experts
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    for name, K, N, dt in (("wq", d, qd, bf), ("wk", d, kvd, bf),
+                           ("wv", d, kvd, bf), ("wo", qd, d, bf),
+                           ("router", d, E, f32)):
+        out += [(name, "fwd", 1, M, K, N, dt, 2 * L),
+                (name, "dA", 1, M, N, K, dt, L),
+                (name, "dB", 1, K, M, N, dt, L)]
+    Me = TRAIN_BATCH * moe.capacity(cfg, M // TRAIN_BATCH)
+    out += [(n, k, E, m, kk, nn, bf, c * L) for n, k, _, m, kk, nn, c in
+            moe_products(cfg, Me, train=True)]
+    return out + [("unembed", "fwd", 1, M, d, V, f32, 1),
+                  ("unembed", "dA", 1, M, V, d, f32, 1),
+                  ("unembed", "dB", 1, V, M, d, f32, 1)]
+
+
+def phase_moe_train_full(rows, worst):
+    """(14d, second part) olmoe-1b-7b at full width with MOE_TRAIN_LAYERS
+    of its 16 layers, bf16 compute, fp32 masters, AdamW, remat full:
+    MOE_TRAIN_STEPS steps of 2 x 1024 tokens through
+    ``launch.train.train``. Checks the losses finite, the GEMM launches
+    of every step (and the batched mode's), no plain call, peak memory
+    below 80 GB. Executed FLOPs count every GEMM product as the program
+    runs it (the experts over their dense capacity slots, B x E x C
+    rows) and the dense attention's QK^T and PV with their gradients.
+    The batched GEMM's ms a step from 14a's graph-timed training
+    products."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    from repro_torch.launch import train as tr
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    args = tr.parse_args([
+        "--arch", MOE_ARCH, "--steps", str(MOE_TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+        str(MOE_TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+        "--device", "cuda"])
+    per_step, per_step_b = moe_train_launches_per_step(cfg)
+    counts = []
+
+    def count(step, params, metrics):
+        counts.append((matmul.launches, matmul_batched.launches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    matmul_batched.launches = matmul_batched.plain_calls = 0
+    t0 = time.time()
+    res = tr.train(cfg, args, on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches, plain = matmul.launches, matmul.plain_calls
+    batched = matmul_batched.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res["log"]]
+    aux = [m["aux"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    del res
+    check(all(np.isfinite(losses)) and all(np.isfinite(aux)),
+          f"moe train full: losses {losses}, aux {aux}")
+    deltas = np.diff([(0, 0)] + counts, axis=0).tolist()
+    check(plain == 0 and deltas == [[per_step, per_step_b]]
+          * MOE_TRAIN_STEPS, f"moe train full: GEMM launches (all, "
+          f"batched) per step {deltas} (want {per_step}, {per_step_b}), "
+          f"{plain} plain calls")
+    check(peak_gb < 80, f"moe train full: peak {peak_gb:.1f} GB")
+    step_s = float(np.mean(steps_s[1:]))
+    prods = moe_train_products(cfg, M)
+    gemm_flops = sum(2 * e * m * k * n * c
+                     for _, _, e, m, k, n, _, c in prods)
+    H, S, hd = cfg.n_heads, TRAIN_SEQ, cfg.hd
+    attn_flops = cfg.n_layers * (2 + 2) * 2 * (2 * TRAIN_BATCH * H * S * S
+                                              * hd)
+    flops = gemm_flops + attn_flops
+    L = cfg.n_layers
+    names = [f"train {n} {k}" for n in ("wg", "wd")
+             for k in ("fwd", "dA", "dB")]
+    kernel = {"name": "matmul_batched_train", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": batched, "launches_per_step": per_step_b,
+              "max_abs_err": max(rows[n]["max_abs_err"] for n in names),
+              **_moe_kernel_row(rows, names, L),
+              "unit": f"one olmoe-1b-7b training step ({L} layers, "
+                      f"{M} tokens): the expert products forward twice "
+                      f"(remat) and both gradients, {per_step_b} "
+                      f"launches, from 14a's graph-timed products"}
+    out = {"config": f"olmoe-1b-7b full width, {L} of 16 layers, bf16 "
+                     f"compute, fp32 masters, remat full",
+           "params": n_params, "tokens_per_step": M,
+           "steps": MOE_TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+           "aux": aux, "step_s": steps_s, "ms_per_step": 1e3 * step_s,
+           "tokens_per_s": M / step_s, "run_s": run_s,
+           "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
+           "tflops_per_s": flops / step_s / 1e12,
+           "peak_share": flops / step_s / PEAK_OPS[torch.bfloat16],
+           "peak_gb": peak_gb, "gemm_launches": launches,
+           "gemm_launches_per_step": per_step,
+           "batched_launches_per_step": per_step_b}
+    print(f"[moe train full] {out['config']}: {n_params / 1e9:.3f} B "
+          f"parameters; losses {[round(x, 4) for x in losses]}, aux "
+          f"{[round(x, 4) for x in aux]}; {out['ms_per_step']:.1f} ms per "
+          f"step after step 0 ({out['tokens_per_s']:.0f} tokens/s), "
+          f"{out['tflops_per_s']:.1f} TFLOP/s executed "
+          f"({100 * out['peak_share']:.1f}% of 989 TF); peak "
+          f"{peak_gb:.2f} GB; {per_step} GEMM launches a step "
+          f"({per_step_b} batched); batched GEMM {kernel['ms']:.1f} ms a "
+          f"step (plain {kernel['plain_ms']:.1f}, torch.bmm "
+          f"{kernel['library_ms']:.1f}, bound {kernel['bound_ms']:.1f})",
+          flush=True)
+    return out, kernel
+
+
+def phase_moe(gen):
+    """(14) the MoE path: 14a-14d, each sub-phase's seconds kept; frees
+    what it made."""
+    import gc
+    from repro_torch.configs import get_config
+    secs = {}
+
+    def sub(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        secs[name] = time.time() - t0
+        return out
+    rows, worst = sub("14a", phase_moe_gemm, gen, get_config(MOE_ARCH))
+    small = sub("14b", phase_moe_small)
+    full, kernel = sub("14c", phase_moe_full, rows, worst)
+    train_small = sub("14d small", phase_moe_train_small)
+    train_full, kernel_t = sub("14d full", phase_moe_train_full, rows,
+                               worst)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[moe] sub-phases: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in secs.items()),
+          flush=True)
+    return {"gemm": rows, "small": small, "full": full,
+            "train_small": train_small, "train_full": train_full,
+            "phase_s": secs}, [kernel, kernel_t]
+
+
 def sampler_ms(gen, B=8, V=128256):
     """Device ms of one sampling step at the full-width serve's shapes
     (batch 8, vocab 128256, bf16 logits), in CUDA-graph replays: greedy,
@@ -3150,6 +3782,7 @@ def main():
     train_tp, train_tp_kernel = timed(
         "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
         train["full"]["grad_norms"][0])
+    moe, moe_kernels = timed("14 moe", phase_moe, gen)
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -3169,7 +3802,7 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
-    kernels += [train_kernel, train_tp_kernel]
+    kernels += [train_kernel, train_tp_kernel] + moe_kernels
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -3180,7 +3813,7 @@ def main():
                    "serve_tp": summary_tp, "kernels": kernels,
                    "sampler": sampler, "gemm_shapes": rows,
                    "robust_small": robust, "server": server,
-                   "train": train, "train_tp": train_tp,
+                   "train": train, "train_tp": train_tp, "moe": moe,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
 
 A package of its own beside the JAX package: it imports ``torch`` and
-numpy, never JAX or ``repro``. Its first slice serves dense ``attn_mlp``
-models (llama3-8b at full width) through the continuous-batching
-paged-KV engine, with the decode projections and the paged attention on
-hand-written CUDA kernels (``repro_torch/csrc``).
+numpy, never JAX or ``repro``. It serves and trains the dense
+``attn_mlp`` models (llama3-8b at full width) and the MoE ``attn_moe``
+ones (olmoe-1b-7b, mixtral-8x22b; trained at one rank) through the
+continuous-batching paged-KV engine and the trainer, with the
+projections, the experts' batched products and the paged attention on
+hand-written CUDA kernels (``repro_torch/csrc``). The recurrent families
+and the vlm and audio frontends raise ``NotImplementedError``.
 """

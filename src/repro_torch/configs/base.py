@@ -2,9 +2,10 @@
 
 One :class:`ModelConfig` describes any of the 10 assigned architectures.
 The fields are the JAX package's, with ``dtype``/``param_dtype`` held as
-torch dtypes. The port's model code implements the ``attn_mlp`` block
-only; the other blocks raise ``NotImplementedError`` where the model is
-built (see ``models/transformer.py``).
+torch dtypes. The port's model code implements the ``attn_mlp`` and
+``attn_moe`` blocks; the others (``mamba_hybrid``, ``rwkv``) raise
+``NotImplementedError`` where the model is built (see
+``models/transformer.py``).
 """
 from __future__ import annotations
 

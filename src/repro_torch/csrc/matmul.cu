@@ -59,6 +59,12 @@
 // splits M instead of K: an item is (product, strip, M chunk), its
 // output written straight into C, with no split-K workspace (kernels/
 // matmul.py `gemm_plan`). wgmma tiles for such M are later work.
+// Batched (`matmul_batched`: the MoE layer's expert products, A (E, M, K)
+// @ B (E, K, N) -> C (E, M, N)): every tensor map is 3D, over E matrices,
+// so one descriptor serves all experts and a box never crosses into the
+// next expert; an item is (product, expert, strip, M chunk, K chunk), so
+// all E products are one launch (E = 1 is the plain GEMM). The general
+// kernel takes the expert from blockIdx.y.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,7 +80,7 @@ using stream::mbar_arrive_tx;
 using stream::mbar_init;
 using stream::mbar_wait;
 using stream::smem_addr;
-using stream::tma_load_2d;
+using stream::tma_load_3d;
 using stream::to_f;
 
 // ------------------------------------------------------------ mm_kernel
@@ -126,6 +132,9 @@ mm_kernel(const T* __restrict__ A, const T* __restrict__ B,
           T* __restrict__ C, int M, int N, int K) {
   __shared__ __align__(16) float Bs[BK][BN_PAD];
   __shared__ float As[BM][BK + 1];
+  A += (size_t)blockIdx.y * M * K;        // this block's expert
+  B += (size_t)blockIdx.y * K * N;
+  C += (size_t)blockIdx.y * M * N;
 
   const int n0 = blockIdx.x * BN;
   const int tm = threadIdx.x / 16;         // row of the M tile
@@ -207,8 +216,8 @@ struct Layout {
   }
 };
 
-// B's tensor map per product and A's, in the kernel's parameter space
-// (__grid_constant__), where the TMA unit reads them.
+// B's tensor map per product and A's (3D: E matrices), in the kernel's
+// parameter space (__grid_constant__), where the TMA unit reads them.
 struct alignas(64) GemmMaps {
   CUtensorMap b[MAXP];
   CUtensorMap a;
@@ -216,30 +225,33 @@ struct alignas(64) GemmMaps {
 
 struct GemmArgs {
   void* C[MAXP];
-  int N[MAXP], n_kc[MAXP], n_mc[MAXP];
+  int N[MAXP], strips[MAXP], n_kc[MAXP], n_mc[MAXP];
   int item0[MAXP + 1];      // product p's items: [item0[p], item0[p + 1])
   long long work_off[MAXP]; // its partials, in floats into work
   int cnt_off[MAXP];        // its strips' counters
   int n_prod, M, K, tiles, m_tiles;
-  float* work;              // (strips, n_kc, M, BN) fp32 per product
+  float* work;              // (E, strips, n_kc, M, BN) fp32 per product
   unsigned* cnt;            // counters, zero at entry and left at zero
 };
 
 struct Item {
-  int prod, strip, kc, t0, t1, mt0, mt1;
+  int prod, e, strip, kc, t0, t1, mt0, mt1;
 };
 
-// Item i: (product, strip, M chunk, K chunk), K chunk fastest, then the
-// M chunk; the chunk's K tiles [t0, t1) and M tiles [mt0, mt1). A plan
-// splits K or M, never both. (Walking strips fastest instead, so that
-// neighbouring blocks read neighbouring pieces of the same B rows, timed
-// the same on the H100.)
+// Item i: (product, expert, strip, M chunk, K chunk), K chunk fastest,
+// then the M chunk; the chunk's K tiles [t0, t1) and M tiles [mt0,
+// mt1). A plan splits K or M, never both. (Walking strips fastest
+// instead, so that neighbouring blocks read neighbouring pieces of the
+// same B rows, timed the same on the H100.)
 __device__ __forceinline__ Item item_at(const GemmArgs& g, int i) {
   int p = 0;
   while (p + 1 < g.n_prod && i >= g.item0[p + 1]) ++p;
-  const int local = i - g.item0[p], nkc = g.n_kc[p], nmc = g.n_mc[p];
+  const int nkc = g.n_kc[p], nmc = g.n_mc[p];
+  const int per_e = g.strips[p] * nmc * nkc;
+  const int local = (i - g.item0[p]) % per_e;
   const int kc = local % nkc, mc = local / nkc % nmc;
-  return {p, local / nkc / nmc, kc, (int)((long long)kc * g.tiles / nkc),
+  return {p, (i - g.item0[p]) / per_e, local / nkc / nmc, kc,
+          (int)((long long)kc * g.tiles / nkc),
           (int)((long long)(kc + 1) * g.tiles / nkc),
           (int)((long long)mc * g.m_tiles / nmc),
           (int)((long long)(mc + 1) * g.m_tiles / nmc)};
@@ -266,14 +278,14 @@ __device__ void producer(const GemmMaps& maps, const GemmArgs& g,
         mbar_arrive_tx(&full[slot], TILE_B + L::A_BYTES);
         const int k0 = t * G::KT;
         if constexpr (PATH == TRANS) {
-          tma_load_2d(st, &maps.b[it.prod], k0, n0, &full[slot]);   // rows
+          tma_load_3d(st, &maps.b[it.prod], k0, n0, it.e, &full[slot]);
         } else {
 #pragma unroll
           for (int j = 0; j < G::NBOX; ++j)
-            tma_load_2d(st + j * (TILE_B / G::NBOX), &maps.b[it.prod],
-                        n0 + j * G::BOX_C, k0, &full[slot]);
+            tma_load_3d(st + j * (TILE_B / G::NBOX), &maps.b[it.prod],
+                        n0 + j * G::BOX_C, k0, it.e, &full[slot]);
         }
-        tma_load_2d(st + TILE_B, &maps.a, k0, m0, &full[slot]);
+        tma_load_3d(st + TILE_B, &maps.a, k0, m0, it.e, &full[slot]);
       }
     }
   }
@@ -325,17 +337,19 @@ struct Out {
   }
 };
 
-// Strip `strip` of product `prod` in C: the sum of its n_kc partials in
-// chunk order, by the consumer threads; each thread keeps FOLD_MLP
-// elements' loads in flight at once.
+// Strip `gs` (expert gs / strips, strip gs % strips) of product `prod`
+// in C: the sum of its n_kc partials in chunk order, by the consumer
+// threads; each thread keeps FOLD_MLP elements' loads in flight at once.
 template <typename T, int BNS>
-__device__ void fold_strip(const GemmArgs& g, int prod, int strip) {
+__device__ void fold_strip(const GemmArgs& g, int prod, int gs) {
   constexpr int FOLD_MLP = 4;
-  const int nkc = g.n_kc[prod], N = g.N[prod], n0 = strip * BNS;
+  const int nkc = g.n_kc[prod], N = g.N[prod];
+  const int n0 = gs % g.strips[prod] * BNS;
   const int ncol = min(BNS, N - n0), total = g.M * ncol;
   const float* part = g.work + g.work_off[prod] +
-                      (size_t)strip * nkc * g.M * BNS;
-  T* C = static_cast<T*>(g.C[prod]);
+                      (size_t)gs * nkc * g.M * BNS;
+  T* C = static_cast<T*>(g.C[prod]) +
+         (size_t)(gs / g.strips[prod]) * g.M * N;
   for (int e0 = threadIdx.x; e0 < total; e0 += NCW * 32 * FOLD_MLP) {
     float v[FOLD_MLP];
     size_t at[FOLD_MLP];
@@ -372,18 +386,20 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const unsigned ring_s = smem_addr(ring);
   int* n_folds = misc;                 // [1] strips this block folds
-  int* folds = misc + 2;               // [FOLD_CAP][2] (product, strip)
+  int* folds = misc + 2;               // [FOLD_CAP][2] (product, E strip)
   if (tid == 0) *n_folds = 0;
   int cnt = 0;
   for (int i = blockIdx.x; i < g.item0[g.n_prod]; i += gridDim.x) {
     const Item it = item_at(g, i);
     const int nkc = g.n_kc[it.prod];
     const int N = g.N[it.prod], n0 = it.strip * BNS;
+    const int gs = it.e * g.strips[it.prod] + it.strip;   // strip of all E
     float* part = nkc == 1 ? nullptr
                            : g.work + g.work_off[it.prod] +
-                                 (size_t)it.strip * nkc * g.M * BNS;
-    const Out<T, BNS> out{static_cast<T*>(g.C[it.prod]), part, g.M, N, n0,
-                          it.kc};
+                                 (size_t)gs * nkc * g.M * BNS;
+    const Out<T, BNS> out{
+        static_cast<T*>(g.C[it.prod]) + (size_t)it.e * g.M * N, part, g.M,
+        N, n0, it.kc};
     for (int m0 = it.mt0 * MT; m0 < it.mt1 * MT; m0 += MT) {
       if constexpr (PATH == KN_MMA) {
         // warp w: columns 16w..16w+15. ldmatrix: lane -> matrix j = lane
@@ -517,13 +533,13 @@ __device__ void consumer(const GemmArgs& g, unsigned char* ring, float* red,
     // consumer's stores, ordered before it by the barrier)
     stream::consumers_sync<NCW * 32>();
     if (tid == 0) {
-      unsigned* ct = g.cnt + g.cnt_off[it.prod] + it.strip;
+      unsigned* ct = g.cnt + g.cnt_off[it.prod] + gs;
       __threadfence();
       if (atomicAdd(ct, 1u) == (unsigned)nkc - 1u) {
         *ct = 0u;
         const int n = (*n_folds)++;
         folds[2 * n] = it.prod;
-        folds[2 * n + 1] = it.strip;
+        folds[2 * n + 1] = gs;
       }
     }
     stream::consumers_sync<NCW * 32>();
@@ -622,12 +638,12 @@ void geometry(int path, int esz, int* bn, int* kt) {
 }
 
 template <typename T>
-void launch_general(const void* a, const void* b, void* c, int M, int N,
-                    int K, int trans_b, cudaStream_t stream) {
+void launch_general(const void* a, const void* b, void* c, int E, int M,
+                    int N, int K, int trans_b, cudaStream_t stream) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* C = static_cast<T*>(c);
-  const dim3 grid((N + BN - 1) / BN);
+  const dim3 grid((N + BN - 1) / BN, E);
   if (trans_b)
     mm_kernel<T, true><<<grid, NT, 0, stream>>>(A, B, C, M, N, K);
   else
@@ -636,18 +652,21 @@ void launch_general(const void* a, const void* b, void* c, int M, int N,
 
 }  // namespace
 
-// The general kernel (any shape, any alignment). dtype: 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 =
-// launched). Launches on `stream`; never synchronises, allocates nothing.
-extern "C" int mm_launch(const void* a, const void* b, void* c, int M,
-                         int N, int K, int trans_b, int dtype,
+// The general kernel (any shape, any alignment): C_e = A_e @ B_e for the
+// E (<= 65535) matrices of contiguous A (E, M, K), B (E, K, N) or (E,
+// N, K) with trans_b, C (E, M, N). dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError() after the launch (0 = launched). Launches
+// on `stream`; never synchronises, allocates nothing.
+extern "C" int mm_launch(const void* a, const void* b, void* c, int E,
+                         int M, int N, int K, int trans_b, int dtype,
                          void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (E <= 0 || E > 65535 || M <= 0 || N <= 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch_general<float>(a, b, c, M, N, K, trans_b, s);
+    launch_general<float>(a, b, c, E, M, N, K, trans_b, s);
   else if (dtype == 1)
-    launch_general<__nv_bfloat16>(a, b, c, M, N, K, trans_b, s);
+    launch_general<__nv_bfloat16>(a, b, c, E, M, N, K, trans_b, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -660,23 +679,26 @@ extern "C" int gemm_blocks_per_sm(int path, int dtype, int mt, int* out) {
 }
 
 // One launch of gemm_stream: C_p = A @ B_p for the n_prod (<= 4)
-// products of a group. a: (M, K); b[p]: (K, N[p]), or (N[p], K) for path
-// 2 (TRANS); c[p]: (M, N[p]); all contiguous row-major, one dtype (0 =
+// products of a group, each for the E matrices of a batch (E = 1: one
+// matrix). a: (E, M, K); b[p]: (E, K, N[p]), or (E, N[p], K) for path 2
+// (TRANS); c[p]: (E, M, N[p]); all contiguous row-major, one dtype (0 =
 // float32, 1 = bfloat16), 16-byte aligned, rows whole 16-byte words.
 // path: 0 KN_MMA (bf16), 1 KN_FMA (fp32), 2 TRANS; mt: rows of an A tile
 // (8, or 16 for KN_MMA). n_kc[p], n_mc[p]: K chunks and M chunks per
 // strip of product p, one of them 1 (kernels/matmul.py gemm_plan); grid: blocks (at most what the card holds,
 // gemm_blocks_per_sm). work: fp32 partials, per product with n_kc > 1
-// in product order strips * n_kc * M * BN floats; cnt: one uint32 counter
-// per strip of every product, zero at entry and left at zero. Returns
+// in product order E * strips * n_kc * M * BN floats; cnt: one uint32
+// counter per strip of every product and matrix, zero at entry and left
+// at zero. Returns
 // the launch's cudaError_t (0 = launched).
 extern "C" int gemm_launch(const void* a, const void* const* b,
-                           void* const* c, int n_prod, int M, int K,
+                           void* const* c, int n_prod, int E, int M, int K,
                            const int* N, const int* n_kc, const int* n_mc,
                            int dtype,
                            int path, int mt, int grid, void* work, void* cnt,
                            void* stream) {
-  if (n_prod <= 0 || n_prod > MAXP || M <= 0 || K <= 0 || grid <= 0 ||
+  if (n_prod <= 0 || n_prod > MAXP || E <= 0 || M <= 0 || K <= 0 ||
+      grid <= 0 ||
       mt <= 0 ||
       (dtype != 0 && dtype != 1) || path < 0 || path > 2 ||
       (path == KN_MMA && dtype != 1))
@@ -714,23 +736,26 @@ extern "C" int gemm_launch(const void* a, const void* const* b,
       return (int)cudaErrorInvalidValue;
     g.C[p] = c[p];
     g.N[p] = N[p];
+    g.strips[p] = strips;
     g.n_kc[p] = n_kc[p];
     g.n_mc[p] = n_mc[p];
-    g.item0[p + 1] = g.item0[p] + strips * n_mc[p] * n_kc[p];
+    g.item0[p + 1] = g.item0[p] + E * strips * n_mc[p] * n_kc[p];
     g.work_off[p] = work_off;
     g.cnt_off[p] = cnt_off;
     if (n_kc[p] > 1) {
-      work_off += (long long)strips * n_kc[p] * M * bn;
-      cnt_off += strips;
+      work_off += (long long)E * strips * n_kc[p] * M * bn;
+      cnt_off += E * strips;
     }
-    const int e = trans ? stream::encode_2d(&maps.b[p], b[p], dtype, N[p], K,
-                                            K, kt, bn, swz)
-                        : stream::encode_2d(&maps.b[p], b[p], dtype, K, N[p],
-                                            N[p], path == KN_MMA ? 64 : bn,
-                                            kt, swz);
+    const int e = trans ? stream::encode_3d(&maps.b[p], b[p], dtype, E, N[p],
+                                            K, K, kt, bn, swz)
+                        : stream::encode_3d(&maps.b[p], b[p], dtype, E, K,
+                                            N[p], N[p],
+                                            path == KN_MMA ? 64 : bn, kt,
+                                            swz);
     if (e != 0) return e;
   }
-  const int e = stream::encode_2d(&maps.a, a, dtype, M, K, K, kt, mt, swz);
+  const int e = stream::encode_3d(&maps.a, a, dtype, E, M, K, K, kt, mt,
+                                  swz);
   if (e != 0) return e;
   return by_path(path, dtype, mt, &maps, &g, grid,
                  static_cast<cudaStream_t>(stream), nullptr);

@@ -1,6 +1,6 @@
 // Pieces of the port's weight-streaming kernels (the GEMM, matmul.cu,
 // and the fused AG+GEMM, ag_gemm.cu): element conversions, mbarriers,
-// 2D TMA copies that complete on an mbarrier, 16-byte cp.async copies,
+// 2D and 3D TMA copies that complete on an mbarrier, 16-byte cp.async copies,
 // and the tensor maps the TMA unit reads.
 #pragma once
 #include <cuda.h>
@@ -101,6 +101,16 @@ __device__ __forceinline__ void tma_load_2d(void* smem, const CUtensorMap* map,
       "l"(map), "r"(x), "r"(y), "r"(smem_addr(bar))
       : "memory");
 }
+// The same for a 3D tensor map: element x, row y of matrix z.
+__device__ __forceinline__ void tma_load_3d(void* smem, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(smem)),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(smem_addr(bar))
+      : "memory");
+}
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
 }
@@ -135,13 +145,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// A row-major (rows x cols) matrix of float32 (dtype 0) or bfloat16
-// (dtype 1) with `ld` elements between rows, as a 2D tensor map with
-// (box_rows x box_cols) boxes. Returns a cudaError_t (0 = encoded).
-inline int encode_2d(CUtensorMap* map, const void* p, int dtype,
-                     long long rows, long long cols, long long ld,
-                     int box_cols, int box_rows,
-                     CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` (2 or 3) dims over float32 (dtype 0) or
+// bfloat16 (dtype 1): dims innermost first, strides in bytes of dims 1..,
+// boxes of `box` elements. Returns a cudaError_t (0 = encoded).
+inline int encode_tiled(CUtensorMap* map, const void* p, int dtype, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -153,18 +162,44 @@ inline int encode_2d(CUtensorMap* map, const void* p, int dtype,
       return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      (cuuint32_t)rank, const_cast<void*>(p), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A row-major (rows x cols) matrix with `ld` elements between rows, as a
+// 2D tensor map with (box_rows x box_cols) boxes.
+inline int encode_2d(CUtensorMap* map, const void* p, int dtype,
+                     long long rows, long long cols, long long ld,
+                     int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
   const cuuint64_t esz = dtype == 0 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * esz};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      2, const_cast<void*>(p), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_tiled(map, p, dtype, 2, dims, strides, box, swizzle);
+}
+
+// `mats` such matrices one after another (rows * ld elements apart), as
+// a 3D tensor map whose boxes are (box_rows x box_cols) of one matrix:
+// a box never reaches into the next matrix (its rows past `rows` are
+// zeros, as past the end of a 2D map).
+inline int encode_3d(CUtensorMap* map, const void* p, int dtype,
+                     long long mats, long long rows, long long cols,
+                     long long ld, int box_cols, int box_rows,
+                     CUtensorMapSwizzle swizzle) {
+  const cuuint64_t esz = dtype == 0 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * esz,
+                                 (cuuint64_t)(rows * ld) * esz};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  return encode_tiled(map, p, dtype, 3, dims, strides, box, swizzle);
 }
 
 }  // namespace stream

@@ -3,7 +3,9 @@
 
 :func:`matmul` is what the model calls for the decode projections and
 the unembed; :func:`matmul_group` computes several products of one A in
-one launch (wq/wk/wv, wg/wu). For CUDA tensors they launch the
+one launch (wq/wk/wv, wg/wu); :func:`matmul_batched` the E products of
+a batch (the MoE layer's experts) in one launch. For CUDA tensors they
+launch the
 hand-written kernels in ``csrc/matmul.cu``: the streaming kernel
 ``gemm_stream`` (a persistent grid sized by :func:`gemm_plan`) for
 operands TMA can take, the general ``mm_kernel`` for other shapes and
@@ -11,16 +13,17 @@ pointers; for CPU tensors they run :func:`matmul_plain`. There is no
 fallback between the two: a CUDA tensor the kernels cannot take raises.
 
 Gradients: where autograd records (an input requires grad and grad
-mode is on), both wrappers run as ``torch.autograd.Function``s whose
+mode is on), the wrappers run as ``torch.autograd.Function``s whose
 backward is the same kernel (``dA = dC @ B^T``, ``dB = A^T @ dC``), on
 the card and, through the plain version, on the CPU alike. Otherwise
 (``torch.no_grad``, ``torch.inference_mode``: the engine and its CUDA
 graphs) they launch the forward product alone and save nothing.
 
-Counters, shared by both wrappers (one kernel): ``matmul.launches``
+Counters, shared by the wrappers (one kernel): ``matmul.launches``
 counts kernel launches and ``matmul.plain_calls`` plain-version calls (a
-group counts one of either), backward products included, so a run can
-show which one its main path went through.
+group or a batch counts one of either), backward products included, so
+a run can show which one its main path went through; the batched mode
+also counts its own in ``matmul_batched.launches`` / ``plain_calls``.
 """
 from __future__ import annotations
 
@@ -48,6 +51,12 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor,
     return (a.float() @ bf).to(a.dtype)
 
 
+def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`matmul_batched`'s arithmetic in plain PyTorch: fp32
+    products, output in ``a``'s dtype."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """One product's share of ``gemm_stream``'s persistent grid
@@ -57,7 +66,9 @@ class GemmPlan:
     (one of the two is 1). An item is (strip, M chunk, K chunk), K chunk
     fastest; K chunk ``kc`` covers tiles ``chunk_tiles(kc)``, M chunk
     ``mc`` the M tiles ``m_chunk(mc)``. A strip of several K chunks sums
-    their partials in chunk order; an M chunk writes its rows of C."""
+    their partials in chunk order; an M chunk writes its rows of C. A
+    batch of ``E`` matrices repeats this for each: an item is (matrix,
+    strip, M chunk, K chunk)."""
     M: int
     bn: int
     kt: int
@@ -66,6 +77,7 @@ class GemmPlan:
     n_kc: int
     mt: int
     n_mc: int
+    E: int = 1
 
     @property
     def m_tiles(self) -> int:
@@ -73,7 +85,7 @@ class GemmPlan:
 
     @property
     def items(self) -> int:
-        return self.n_strips * self.n_mc * self.n_kc
+        return self.E * self.n_strips * self.n_mc * self.n_kc
 
     def chunk_tiles(self, kc: int) -> range:
         return range(kc * self.tiles // self.n_kc,
@@ -89,7 +101,7 @@ class GemmPlan:
         workspace, held with the launch (``_LAUNCHES``) for the life of
         the process."""
         return 0 if self.n_kc == 1 else \
-            self.n_strips * self.n_kc * self.M * self.bn
+            self.E * self.n_strips * self.n_kc * self.M * self.bn
 
 
 def geometry(path: int, itemsize: int) -> tuple[int, int]:
@@ -110,10 +122,11 @@ def m_tile(path: int, M: int) -> int:
 
 
 def gemm_plan(M: int, N: int, K: int, itemsize: int, capacity: int,
-              path: int | None = None) -> GemmPlan:
+              path: int | None = None, E: int = 1) -> GemmPlan:
     """One product's strips and chunks for ``path`` (default: KN_MMA
     for bf16, KN_FMA for fp32; TRANS for B given as (N, K)), see
-    :func:`geometry`. Where the strips' M tiles alone fill the
+    :func:`geometry`; for a batch of ``E`` products, the strips of all
+    E count together. Where the strips' M tiles alone fill the
     ``capacity`` blocks (training shapes), M is split: the fewest M
     chunks that finish the product soonest, every block taking items in
     turn, and no K split, so no split-K workspace. Otherwise (decode: M
@@ -121,26 +134,27 @@ def gemm_plan(M: int, N: int, K: int, itemsize: int, capacity: int,
     the product's tiles soonest, at least ``MIN_CHUNK_TILES`` tiles a
     chunk; since each chunk leaves a partial and the strip a fold, the
     fewest chunks within ``SPAN_SLACK`` of the soonest. The chunking,
-    and with it every bit of C, depends only on the product's shape and
-    the card, never on the group it is launched in."""
+    and with it every bit of C, depends only on the product's shape (E
+    included) and the card, never on the group it is launched in."""
     if path is None:
         path = KN_MMA if itemsize == 2 else KN_FMA
     bn, kt = geometry(path, itemsize)
     mt = m_tile(path, M)
     n_strips = -(-N // bn)
+    strips = E * n_strips
     tiles = -(-K // kt)
     m_tiles = -(-M // mt)
-    if n_strips * m_tiles >= capacity:
-        span = {n_mc: -(-n_strips * n_mc // capacity) * -(-m_tiles // n_mc)
+    if strips * m_tiles >= capacity:
+        span = {n_mc: -(-strips * n_mc // capacity) * -(-m_tiles // n_mc)
                 for n_mc in range(1, m_tiles + 1)}
         soonest = min(span.values())
         n_mc = min(n for n, t in span.items() if t == soonest)
-        return GemmPlan(M, bn, kt, n_strips, tiles, 1, mt, n_mc)
-    span = {n_kc: -(-n_strips * n_kc // capacity) * -(-tiles // n_kc)
+        return GemmPlan(M, bn, kt, n_strips, tiles, 1, mt, n_mc, E)
+    span = {n_kc: -(-strips * n_kc // capacity) * -(-tiles // n_kc)
             for n_kc in range(1, max(1, tiles // MIN_CHUNK_TILES) + 1)}
     soonest = min(span.values())
     n_kc = min(n for n, t in span.items() if t <= soonest * (1 + SPAN_SLACK))
-    return GemmPlan(M, bn, kt, n_strips, tiles, n_kc, mt, 1)
+    return GemmPlan(M, bn, kt, n_strips, tiles, n_kc, mt, 1, E)
 
 
 def _path(M: int, dtype, trans_b: bool) -> tuple[int, int]:
@@ -164,10 +178,12 @@ def _fn(name: str, argtypes):
 
 
 def _launch_general(a, b, c, trans_b):
+    """One ``mm_kernel`` launch: ``a`` (M, K) or a batch (E, M, K)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _fn("mm_launch", [ptr, ptr, ptr] + [i32] * 5 + [ptr])
-    M, K = a.shape
-    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, c.shape[1], K,
+    fn = _fn("mm_launch", [ptr, ptr, ptr] + [i32] * 6 + [ptr])
+    M, K = a.shape[-2:]
+    E = a.shape[0] if a.dim() == 3 else 1
+    rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), E, M, c.shape[-1], K,
             int(trans_b), _DTYPES[a.dtype],
             torch.cuda.current_stream(a.get_device()).cuda_stream)
     _build.check(rc, "matmul")
@@ -191,29 +207,30 @@ _LAUNCHES: dict = {}
 
 
 def _plan_launch(a, Ns, trans_b) -> _Launch:
-    """The launch for ``a``'s shape, dtype and device against products
-    of widths ``Ns``. Planned at the first call of these shapes, which
-    allocates the launch's buffers: make it outside a CUDA graph
-    capture (a warm-up call)."""
+    """The launch for ``a``'s shape ((M, K), or (E, M, K) for a batch),
+    dtype and device against products of widths ``Ns``. Planned at the
+    first call of these shapes, which allocates the launch's buffers:
+    make it outside a CUDA graph capture (a warm-up call)."""
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             f"matmul: first call of shapes {tuple(a.shape)} x {Ns} inside "
             f"a CUDA graph capture; warm up these shapes before capturing")
-    M, K = a.shape
+    M, K = a.shape[-2:]
+    E = a.shape[0] if a.dim() == 3 else 1
     path, mt = _path(M, a.dtype, trans_b)
     i32, ptr = ctypes.c_int, ctypes.c_void_p
     per_sm = _fn("gemm_blocks_per_sm", [i32] * 3 + [ctypes.POINTER(i32)])
     cap = symm.capacity(a.device, per_sm, path, _DTYPES[a.dtype], mt)
     plans = [gemm_plan(M, N, K, a.element_size(), cap,
-                       TRANS if trans_b else None) for N in Ns]
+                       TRANS if trans_b else None, E) for N in Ns]
     split = [p for p in plans if p.n_kc > 1]
     work = cnt = None
     if split:
         work = torch.empty(sum(p.work_floats for p in split),
                            dtype=torch.float32, device=a.device)
-        cnt = torch.zeros(sum(p.n_strips for p in split), dtype=torch.int32,
-                          device=a.device)
-    fn = _fn("gemm_launch", [ptr, ptr, ptr] + [i32] * 3 + [ptr] * 3
+        cnt = torch.zeros(sum(E * p.n_strips for p in split),
+                          dtype=torch.int32, device=a.device)
+    fn = _fn("gemm_launch", [ptr, ptr, ptr] + [i32] * 4 + [ptr] * 3
              + [i32] * 4 + [ptr, ptr, ptr])
     args = (symm.ints(Ns), symm.ints([p.n_kc for p in plans]),
             symm.ints([p.n_mc for p in plans]),
@@ -225,15 +242,17 @@ def _plan_launch(a, Ns, trans_b) -> _Launch:
 
 def _launch_stream(a, bs, cs, trans_b):
     """One ``gemm_stream`` launch for the products ``a @ bs[p]`` into
-    ``cs[p]``."""
-    M, K = a.shape
-    Ns = tuple(c.shape[1] for c in cs)
-    key = (a.get_device(), a.dtype, M, K, trans_b, Ns)
+    ``cs[p]`` (``a`` (M, K), or (E, M, K) with ``bs`` and ``cs``
+    batches of E matrices too)."""
+    M, K = a.shape[-2:]
+    E = a.shape[0] if a.dim() == 3 else 1
+    Ns = tuple(c.shape[-1] for c in cs)
+    key = (a.get_device(), a.dtype, M, K, trans_b, Ns, E)
     lp = _LAUNCHES.get(key)
     if lp is None:
         lp = _LAUNCHES[key] = _plan_launch(a, Ns, trans_b)
-    rc = lp.fn(a.data_ptr(), symm.ptrs(bs), symm.ptrs(cs), len(bs), M, K,
-               *lp.args, torch.cuda.current_stream(key[0]).cuda_stream)
+    rc = lp.fn(a.data_ptr(), symm.ptrs(bs), symm.ptrs(cs), len(bs), E, M,
+               K, *lp.args, torch.cuda.current_stream(key[0]).cuda_stream)
     _build.check(rc, "matmul")
 
 
@@ -409,5 +428,85 @@ def matmul_group(a: torch.Tensor, bs) -> list[torch.Tensor]:
     return _products(a, bs)
 
 
+def _check_batched(a, b) -> tuple[bool, bool]:
+    """:func:`_check` for ``a`` (E, M, K) @ ``b`` (E, K, N)."""
+    if a.dim() != 3 or b.dim() != 3 or b.shape[0] != a.shape[0] \
+            or b.shape[1] != a.shape[2]:
+        raise ValueError(f"matmul_batched: a {tuple(a.shape)} @ b "
+                         f"{tuple(b.shape)}")
+    if b.get_device() != a.get_device():
+        raise ValueError(f"matmul_batched operands on {a.device} and "
+                         f"{b.device}: both must be CPU tensors or on one "
+                         f"CUDA device")
+    if not a.is_cuda:
+        return True, False
+    if b.dtype != a.dtype or a.dtype not in _DTYPES:
+        raise TypeError(f"matmul_batched kernel takes f32 x f32 or bf16 x "
+                        f"bf16, got {a.dtype} x {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul_batched kernel needs contiguous operands")
+    s = a.element_size()
+    tma = ((a.shape[2] * s) % 16 == 0 and (b.shape[2] * s) % 16 == 0
+           and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    return False, tma
+
+
+def _product_batched(a, b):
+    """The E products alone, in one launch (the plain version for CPU
+    tensors); records nothing for autograd."""
+    cpu, tma = _check_batched(a, b)
+    if cpu:
+        matmul.plain_calls += 1
+        matmul_batched.plain_calls += 1
+        return matmul_batched_plain(a, b)
+    E, M, K = a.shape
+    c = torch.empty((E, M, b.shape[2]), dtype=a.dtype, device=a.device)
+    if c.numel() == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    if tma:
+        _launch_stream(a, [b], [c], False)
+    else:
+        _launch_general(a, b, c, False)
+    matmul.launches += 1
+    matmul_batched.launches += 1
+    return c
+
+
+class _MatmulBatched(torch.autograd.Function):
+    """:func:`matmul_batched` with its gradient, each one batched launch
+    of the same kernel: dA = dC @ B^T (B^T made contiguous, as
+    :func:`_grad_a`), dB = A^T @ dC."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product_batched(a, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _product_batched(dc, b.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            db = _product_batched(a.transpose(1, 2).contiguous(), dc)
+        return da, db
+
+
+def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` (E, M, K) @ ``b`` (E, K, N) -> (E, M, N) in ``a``'s dtype:
+    the E products of a batch (the MoE layer's experts) in ONE launch.
+    Any E, M, N, K; f32 x f32 or bf16 x bf16. Differentiable (module
+    docstring)."""
+    if _records(a, b):
+        return _MatmulBatched.apply(a, b)
+    return _product_batched(a, b)
+
+
 matmul.launches = 0
 matmul.plain_calls = 0
+matmul_batched.launches = 0
+matmul_batched.plain_calls = 0

@@ -8,6 +8,9 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
       --tp 4 --fusion-mode pallas          # 4 virtual ranks on one card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --decode-steps 8 --sampler temperature --temp 0.8 --top-k 50
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --smoke --device cpu --decode-steps 4   # MoE (any --tp: replicated
+                                              # experts)
 
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``

@@ -5,6 +5,8 @@
       --smoke --device cpu --steps 4 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --device cpu --tp 2 --fusion-mode ring --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+      --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
 
@@ -28,7 +30,10 @@ W (JAX's elastic restore). SIGTERM/SIGINT checkpoints and exits
 and ``--heartbeat-file`` records liveness (``Heartbeat``).
 
 ``--mesh production`` and ``--multi-pod`` raise ``NotImplementedError``:
-they need one process per card (ROADMAP item 10d). ``--grad-compress``
+they need one process per card (ROADMAP item 10d). So does ``--tp W >
+1`` for an MoE model (``attn_moe``, e.g. ``--arch olmoe-1b-7b``), before
+anything is allocated: expert-parallel training is a later slice; it
+trains at ``--tp 1``, its log lines carrying the aux loss. ``--grad-compress``
 is parsed and unused, as in JAX's trainer (the port's mesh has no data
 axis to compress over).
 """
@@ -47,7 +52,7 @@ from repro_torch.distributed.fault_tolerance import (Heartbeat,
                                                      StragglerWatchdog)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import lm
+from repro_torch.models import lm, transformer
 from repro_torch.optim import adamw, schedule
 
 
@@ -114,10 +119,12 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     parameters. Returns {"log": the logged steps ({"step", "loss",
     "grad_norm", "s": wall seconds since the previous log}), "params":
     the trainable LM (at ``--tp`` > 1 the per-rank list), "opt": the
-    optimizer state (one per rank), "start_step": the first step run}."""
+    optimizer state (one per rank), "start_step": the first step run};
+    an MoE model's log entries also carry "aux", its load-balance loss."""
     mesh = build_mesh(args)
     dev = mesh.devices[0]
     W = mesh.size
+    transformer.require_one_rank(cfg, W)
     ctx = dctx.DistContext(mesh if W > 1 else None, args.fusion_mode)
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(args.lr, args.warmup, args.steps))
@@ -161,10 +168,14 @@ def train(cfg, args, params=None, on_step=None) -> dict:
             gnorm = float(metrics["grad_norm"])
             dt = time.monotonic() - t_last
             t_last = time.monotonic()
-            print(f"[train] step {step:5d} loss {loss:.4f} gnorm "
+            entry = {"step": step, "loss": loss, "grad_norm": gnorm, "s": dt}
+            aux = ""
+            if cfg.block == "attn_moe":
+                entry["aux"] = float(metrics["aux"])
+                aux = f" aux {entry['aux']:.4f}"
+            print(f"[train] step {step:5d} loss {loss:.4f}{aux} gnorm "
                   f"{gnorm:.3f} ({dt:.2f}s)", flush=True)
-            metrics_log.append({"step": step, "loss": loss,
-                                "grad_norm": gnorm, "s": dt})
+            metrics_log.append(entry)
             if hb:
                 hb.beat(step, loss=loss)
         watchdog.timed(step, t0)

@@ -10,7 +10,8 @@ so the functional code reads either. It comes in two forms:
   embedding stored in ``cfg.dtype`` (what JAX's per-call
   ``.astype(x.dtype)`` computes with), norm scales and the output head
   in fp32 (JAX's unembed promotes a bf16 ``x`` against the fp32 head
-  table, so the logits are an fp32 product);
+  table, so the logits are an fp32 product), and the MoE router in fp32
+  (JAX routes in fp32);
 * trainable (``trainable=True``): every leaf an fp32 master
   (``cfg.param_dtype``) with ``requires_grad``, as JAX trains; the
   forward casts each weight to ``cfg.dtype`` per call, so gradients
@@ -50,7 +51,7 @@ from repro_torch.models.module import Param, init_tree, tree_items
 
 
 def lm_spec(cfg):
-    transformer.require_attn_mlp(cfg)
+    transformer.require_ported(cfg)
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} frontend is not ported yet "
@@ -68,9 +69,11 @@ def lm_spec(cfg):
 
 
 def storage_dtype(path: str, cfg) -> torch.dtype:
-    """How the port stores the leaf at dotted ``path``."""
+    """How the port stores the leaf at dotted ``path``. The MoE router
+    stays fp32: JAX routes with the fp32 master, and a bf16 router would
+    flip experts at near-ties."""
     leaf = path.rsplit(".", 1)[-1]
-    if path == "head.table" or leaf in ("scale", "bias"):
+    if path == "head.table" or leaf in ("scale", "bias", "router"):
         return torch.float32
     if path == "embed.table" and cfg.tie_embeddings:
         return torch.float32          # it is also the fp32 unembed table
@@ -161,8 +164,10 @@ def shard_params(params: LM, mesh) -> list:
     ``mesh.devices[r]`` holds block r of every sharded leaf and its own
     copy of every replicated one (also where ranks share a card, so the
     same code runs on virtual and real ranks). Trainable stays
-    trainable."""
+    trainable. ``attn_moe`` raises at W > 1 (expert parallelism is a
+    later slice; serving replicates, :func:`replicate`)."""
     cfg = params.cfg
+    transformer.require_one_rank(cfg, mesh.size)
     trainable = any(p.requires_grad for p in params.parameters())
     trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
                           sr.rules_for(cfg, mesh), devices=mesh.devices)
@@ -458,8 +463,8 @@ def reset_slot(state, slot: int):
 
 
 def reset_slot_paged(state, cfg, slot: int):
-    """Paged admission reset. An attn_mlp model has no recurrent state,
-    so only the position counter resets (stale pool blocks sit beyond
+    """Paged admission reset. An attn_mlp or attn_moe model has no
+    recurrent state, so only the position counter resets (stale pool blocks sit beyond
     cur_len and are masked)."""
     return set_slot_len(state, slot, 0)
 

@@ -53,8 +53,9 @@ def launch_counted() -> tuple:
     """The kernel wrappers that count their launches."""
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels.ag_gemm import ag_gemm_fused
-    from repro_torch.kernels.matmul import matmul
-    return (matmul, kfd.flash_decode_paged, kfd.flash_decode_paged_partial,
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    return (matmul, matmul_batched, kfd.flash_decode_paged,
+            kfd.flash_decode_paged_partial,
             kfd.flash_decode_paged_fused, kfd.flash_decode_partial,
             kfd.flash_decode_fused, ag_gemm_fused)
 

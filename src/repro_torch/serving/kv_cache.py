@@ -86,6 +86,12 @@ class CachePool:
             self.n_blocks = self.batch * self.max_blocks
         W = dctx.current().model_axis_size
         self.n_blocks += (-self.n_blocks) % W
+        # the JAX pool's flags: rwkv has no KV cache (the block pool is
+        # bookkeeping only there); prefix reuse seeds KV blocks only, and
+        # recurrent state (mamba) cannot be rebuilt from them, so only
+        # the attention families (attn_mlp, attn_moe) share prefixes
+        self._needs_blocks = self.cfg.block != "rwkv"
+        self._can_share = self.cfg.block in ("attn_mlp", "attn_moe")
         self.state = lm.init_paged_decode_state(
             self.params, self.cfg, self.batch, self.n_blocks, bs,
             self.max_blocks)
@@ -186,6 +192,8 @@ class CachePool:
     def admissible(self, prompt_len: int) -> bool:
         """Whether a prompt of this length can EVER be admitted: its
         prompt plus one generated token must fit the whole pool."""
+        if not self._needs_blocks:
+            return True
         return blocks_for(prompt_len + 1, self.block_size) <= self.n_blocks
 
     def hbm_fraction_vs_contiguous(self) -> float:
@@ -196,7 +204,7 @@ class CachePool:
     def _match_prefix(self, prompt) -> tuple[list[int], int]:
         """Longest chain of registered full-chunk blocks matching the
         prompt; reuse is capped at len(prompt)-1."""
-        if not prompt:
+        if not self._can_share or not prompt:
             return [], 0
         bs = self.block_size
         blocks, parent = [], -1
@@ -212,6 +220,8 @@ class CachePool:
     def register_prompt_chunks(self, slot: int, prompt):
         """Register the slot's fully-written full-prompt chunks as
         shareable prefix blocks (idempotent)."""
+        if not self._can_share:
+            return
         bs = self.block_size
         n_full = min(int(self.lengths[slot]), len(prompt)) // bs
         parent = -1
@@ -246,12 +256,13 @@ class CachePool:
         blocks, reuse = self._match_prefix(prompt)
         bs = self.block_size
         cow = 1 if (blocks and reuse < len(blocks) * bs) else 0
-        total = blocks_for(len(prompt) + 1, bs)
-        need = total - len(blocks) + cow
-        avail = (len(self._free) + len(self._lru)
-                 - sum(1 for b in blocks if b in self._lru))
-        if need > avail:
-            return None
+        if self._needs_blocks:
+            total = blocks_for(len(prompt) + 1, bs)
+            need = total - len(blocks) + cow
+            avail = (len(self._free) + len(self._lru)
+                     - sum(1 for b in blocks if b in self._lru))
+            if need > avail:
+                return None
         for b in blocks:
             self._ref_inc(b)
         self.tables[slot, :len(blocks)] = blocks
@@ -291,6 +302,8 @@ class CachePool:
         """Make the blocks covering the next ``n`` positions of ``slot``
         writable (allocate at chunk boundaries, copy-on-write shared
         blocks). Returns how many of the ``n`` can be written now."""
+        if not self._needs_blocks:
+            return n
         bs = self.block_size
         start = int(self.lengths[slot])
         ok = 0
@@ -354,6 +367,8 @@ class CachePool:
     def reclaim_out_of_window(self, slot: int, window: int) -> int:
         """Free the slot's blocks whose positions all rolled out of the
         attention window for good, leaving ``-1`` holes."""
+        if not self._needs_blocks:
+            return 0
         dead_chunks = (int(self.lengths[slot]) - window) // self.block_size
         freed = 0
         for c in range(min(dead_chunks, self.max_blocks)):

@@ -1199,3 +1199,101 @@ def test_training_step_at_tp4_on_the_card_matches_tp1(cuda):
         g4 = grads[4][n]
         assert g4.abs().max() > 0, n
         assert (g4 - g).abs().max() <= 1e-3 * g.abs().max(), n
+
+
+# ------------------------------------------------------------------ MoE
+@pytest.mark.parametrize("E,M,K,N", [
+    (64, 1, 2048, 1024), (64, 8, 2048, 1024), (64, 16, 1024, 2048),
+    (64, 320, 2048, 1024),          # olmoe's decode and training shapes
+    (8, 2, 128, 256), (4, 20, 136, 1000),
+    (3, 5, 100, 77)])               # rows not whole 16-byte words
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_batched_kernel_matches_plain(cuda, E, M, K, N, dtype):
+    """The E expert products in ONE launch, within the GEMM's tolerance
+    of the plain version; with autograd recording, dA and dB each one
+    batched launch too, against autograd through the plain version."""
+    from repro_torch.kernels import matmul as kmm
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(E * M + K + N)
+    a = torch.randn((E, M, K), generator=g, device=cuda).to(dt)
+    b = (torch.randn((E, K, N), generator=g, device=cuda) / K ** 0.5).to(dt)
+    n0, q0 = kmm.matmul.launches, kmm.matmul.plain_calls
+    got = kmm.matmul_batched(a, b)
+    assert kmm.matmul.launches == n0 + 1 and kmm.matmul.plain_calls == q0
+    assert _gemm_tol_ok(got, kmm.matmul_batched_plain(a, b), dt)
+    if M * K * N > 2048 * 1024 * 16:
+        return
+    dc = torch.randn((E, M, N), generator=g, device=cuda).to(dt)
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    kmm.matmul_batched(ta, tb).backward(dc)
+    assert kmm.matmul.launches == n0 + 4
+    assert _gemm_tol_ok(ta.grad, kmm.matmul_batched_plain(
+        dc, b.transpose(1, 2).contiguous()), dt)
+    assert _gemm_tol_ok(tb.grad, kmm.matmul_batched_plain(
+        a.transpose(1, 2).contiguous(), dc), dt)
+
+
+def _moe_smoke_cuda():
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("olmoe-1b-7b")).replace(
+        n_layers=2, dtype=torch.float32)
+    return cfg, lm.init_params(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.parametrize("tp", [1, 4])
+def test_moe_megatick_replay_matches_eager_and_makes_no_host_sync(cuda, tp):
+    """olmoe-smoke (float32) at K = 4: the graph engine against the eager
+    loop in lockstep (tokens, ``cur_len``, tables, KV bytes identical),
+    launches per step 6 a layer (wq/wk/wv, wo, the fp32 router, the
+    three batched expert products; wo is the AG+GEMM over 4 ranks under
+    ``pallas``) + 1; then every captured megatick replayed once more
+    under ``torch.cuda.set_sync_debug_mode("error")``: the routing (sort,
+    argsort, searchsorted, gathers) waits for nothing."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import Engine
+    cfg, params = _moe_smoke_cuda()
+    mesh = make_mesh(tp, device="cuda") if tp > 1 else None
+    with dctx.use(dctx.DistContext(mesh, "pallas")):
+        engs = [Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                       block_size=8, decode_steps=4, sampler="temperature",
+                       device="cuda") for _ in range(2)]
+    engs[1]._runner.use_graphs = False
+    n0, q0 = matmul.launches, matmul.plain_calls
+    done = _lockstep(engs, _MEGA_REQS)
+    assert len(done) == len(_MEGA_REQS) and matmul.plain_calls == q0
+    steps = 2 * engs[0].scan_steps + engs[0]._runner.warmup_steps
+    per_step = (6 if tp == 1 else 5) * cfg.n_layers + 1
+    assert matmul.launches - n0 == steps * per_step
+    graphs = list(engs[0]._runner.graphs.values())
+    assert graphs
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for graph, _, _ in graphs:
+            graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_moe_decode_step_makes_no_host_sync(cuda):
+    """One eager olmoe-smoke decode step under sync-debug "error"."""
+    from repro_torch.models import lm
+    cfg, params = _moe_smoke_cuda()
+    with torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, 4, 16, 8, 4)
+        st["block_tables"].copy_(
+            torch.arange(16, dtype=torch.int32).reshape(4, 4))
+        tok = torch.ones((4, 1), dtype=torch.int64, device=cuda)
+        act = torch.tensor([True, False, True, True], device=cuda)
+        lm.decode_step(params, tok, st, cfg, active=act)   # plans launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, _ = lm.decode_step(params, tok, st, cfg, active=act)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(lg).all())

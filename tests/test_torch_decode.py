@@ -188,6 +188,8 @@ def test_entry_points_refuse_cuda_without_a_gpu():
 
 
 def test_other_blocks_are_a_later_slice():
-    for arch in ("mixtral-8x22b", "rwkv6-3b", "zamba2-1.2b"):
+    """The recurrent families and the frontends are not ported yet (the
+    MoE family is: tests/test_torch_moe.py)."""
+    for arch in ("rwkv6-3b", "zamba2-1.2b", "paligemma-3b"):
         with pytest.raises(NotImplementedError):
             tlm.lm_spec(smoke_config(get_config(arch)))
