@@ -96,6 +96,25 @@ source, in parallel), then runs, failing on the first phase that fails:
    every gradient leaf), then olmoe at full width with 4 of 16 layers,
    4 steps of 2 x 1024 tokens: losses finite, launches, ms per step,
    tokens/s, executed TFLOP/s, peak memory;
+15. the recurrent families, after phase 14: (a) the paged decode at
+   zamba2's heads (hd 64, q_per_kv 1) vs its plain version at W = 1
+   and fused over 4 virtual ranks, and the GEMM at each model's decode
+   products (the new shapes, zamba2's in_proj N 8384, rwkv's fp32 LoRA
+   and its d_ff 8960, at M 1, 8 and 2048), each timed beside its plain
+   version and ``torch.matmul``; then for zamba2-1.2b and rwkv6-3b in
+   turn: (b) the float32 smoke model served on the card and on the CPU
+   (K = 1, K = 8 greedy and temperature, over 4 virtual ranks under
+   ``pallas``), streams and counters identical, teacher-forced decode
+   steps (paged; contiguous for the hybrid) card vs CPU, a snapshot and
+   restore mid-serve that resumes as the uninterrupted run; (c) the
+   model at full width (nothing cut) with phase 5's traffic, K = 1 on 4
+   requests and K = 8 on 8 plus the steady rerun, launches per step
+   exact (zamba2 101 GEMM + 6 paged decodes, rwkv 289 GEMM), graph vs
+   eager in lockstep down to every recurrent byte, a profiled step
+   split into GEMM, paged decode and the rest; (d) the smoke model
+   trained 3 steps card vs CPU, then the model at full width and depth
+   3 steps of 2 x 1024 tokens: losses finite, GEMM launches per step,
+   ms per step, tokens/s, peak memory;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -1300,8 +1319,9 @@ def phase_graph_vs_eager(params, cfg=None, K=8):
     """(5b) one full-width serve at K = 8 on two engines in lockstep, one
     replaying CUDA graphs and one running the same megatick loop
     eagerly: after every tick the emitted tokens, ``cur_len``, the block
-    tables and the KV pools' bytes must be identical (the mixed and the
-    pure megaticks both run)."""
+    tables and the bytes of every cache leaf (KV pools, recurrent state)
+    must be identical (the mixed and the pure megaticks both run)."""
+    from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import Engine, Request
     cfg = cfg or get_config("llama3-8b")
@@ -1341,10 +1361,11 @@ def phase_graph_vs_eager(params, cfg=None, K=8):
               and torch.equal(sa["block_tables"], sb["block_tables"]),
               f"graph vs eager: cur_len or tables differ at tick "
               f"{engs[0].tick_count}")
-        for key in ("k", "v"):
-            check(torch.equal(sa["caches"][key].view(torch.int16),
-                              sb["caches"][key].view(torch.int16)),
-                  f"graph vs eager: the {key} pool differs at tick "
+        ref = flatten(sb["caches"])
+        for key, leaf in flatten(sa["caches"]).items():
+            check(torch.equal(leaf.view(torch.uint8),
+                              ref[key].view(torch.uint8)),
+                  f"graph vs eager: cache leaf {key} differs at tick "
                   f"{engs[0].tick_count}")
         n += 1
     check(paths == {"pure", "mixed"}, f"graph vs eager: paths {paths}")
@@ -1352,9 +1373,10 @@ def phase_graph_vs_eager(params, cfg=None, K=8):
     check(m["graph_replays"] == m["dispatches"] and
           engs[1].metrics(done[1])["graph_replays"] == 0,
           "graph vs eager: the engines did not take their routes")
-    print(f"[graph vs eager] full width K={K}: {n} megaticks (pure and "
+    print(f"[graph vs eager] {cfg.name} K={K}: {n} megaticks (pure and "
           f"mixed, {m['graph_count']} graphs) bit-identical to the eager "
-          f"loop: tokens, cur_len, tables, KV pool bytes", flush=True)
+          f"loop: tokens, cur_len, tables, every cache leaf's bytes "
+          f"({', '.join(sorted(flatten(sa['caches'])))})", flush=True)
     del engs
     torch.cuda.empty_cache()
     return n
@@ -1901,6 +1923,81 @@ def gemm_host_us(gen, iters=500, reps=5):
     return out
 
 
+def paged_row(gen, lens, H, KVH, D, launches, per, err, B=8, bs=16,
+              name="flash_decode_paged"):
+    """The paged decode's kernel line for one decode step of ``per``
+    launches at the served lengths ``lens`` (bf16, B slots, H query and
+    KVH KV heads of D): graph-timed (and eager) beside its plain version,
+    SDPA over the gathered head-expanded view, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                                  paged_decode_plain)
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    gw = 1
+    while gw < -(-max(lens) // bs):
+        gw *= 2
+    q, kp, vp, full = _decode_inputs(gen, torch.bfloat16, B=B, H=H, KVH=KVH,
+                                     D=D, bs=bs, C=gw, n_blocks=B * 32)
+    tables = full[:, :gw]
+    scale = D ** -0.5
+    t_e = time_ms(lambda: flash_decode_paged(q, kp, vp, cl, tables, scale),
+                  iters=50)
+    t_k = graph_ms(lambda: flash_decode_paged(q, kp, vp, cl, tables, scale),
+                   iters=50)
+    t_p = graph_ms(lambda: paged_decode_plain(q, kp, vp, cl, tables, scale),
+                   iters=10)
+    # library yardstick: SDPA over the gathered, head-expanded view
+    idx = tables.long()
+    S = gw * bs
+    kv_k = kp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2)
+    kv_v = vp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2)
+    kk, vv = kv_k.transpose(1, 2).contiguous(), kv_v.transpose(1, 2) \
+        .contiguous()
+    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
+                                                                None, :]
+    qq = q[:, :, None, :]
+    t_l = graph_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, scale=scale), iters=50)
+    blocks_read = sum(-(-n // bs) for n in lens)
+    by = (blocks_read * bs * KVH * D * 2 * q.element_size()
+          + 2 * nbytes(q) + nbytes(cl) + B * -(-max(lens) // bs) * 4)
+    ops_t = sum(4 * n * H * D for n in lens) / PEAK_OPS[torch.bfloat16]
+    dec_bound = max(by / HBM_BYTES_PER_S, ops_t)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode_paged.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:272",
+            "launches": launches, "launches_per_step": per,
+            "max_abs_err": err,
+            "ms": per * t_k, "kernel_ms": per * t_k,
+            "eager_ms": per * t_e, "plain_ms": per * t_p,
+            "library_ms": per * t_l,
+            "bound_ms": 1e3 * per * dec_bound,
+            "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
+                         else "operations"),
+            "unit": f"one decode step at batch {B}, {per:g} launches, "
+                    f"H {H}, KVH {KVH}, hd {D}, cur_len {lens}, gather "
+                    f"width {gw}"}
+
+
+def cycled_ms(ws, call, lib, plain):
+    """Eager, graph-timed, library and plain ms of ``call(ws)``,
+    ``lib(ws)`` and ``plain(ws)`` (None: not timed), the weights ``ws``
+    cycled through enough copies to overflow the 50 MB L2, as the
+    layers' distinct weights do on the main path."""
+    per = nbytes(*ws)
+    copies = min(32, max(2, int(-(-256e6 // per))))
+    cyc = itertools.cycle([ws] + [[torch.empty_like(w).copy_(w) for w in ws]
+                                  for _ in range(copies - 1)])
+    out = (time_ms(lambda: call(next(cyc))),
+           graph_ms(lambda: call(next(cyc))),
+           graph_ms(lambda: lib(next(cyc))),
+           graph_ms(lambda: plain(next(cyc)), iters=5)
+           if plain is not None else None)
+    del cyc
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_timings(gen, lens, launches, per_step, errs):
     """Per-decode-step device times (CUDA-graph replays) of both kernels
     at the full-width shapes, beside the plain version, one library call
@@ -1908,28 +2005,13 @@ def phase_timings(gen, lens, launches, per_step, errs):
     included. The GEMM is timed per shape (one product a launch) and per
     group (wq/wk/wv, wg/wu in one launch each, as the main path runs
     them); its step total takes the groups."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode import (flash_decode_paged,
-                                                  paged_decode_plain)
     from repro_torch.kernels.matmul import (matmul, matmul_group,
                                             matmul_plain)
     B = 8
     rows = {}
 
     def time_row(name, a, ws, call, lib, plain, count, **extra):
-        """Graph-timed ``call(ws)`` (and eager, library, plain) with the
-        weights cycled through enough copies to overflow the 50 MB L2,
-        as the layers' distinct weights do on the main path."""
-        per = nbytes(*ws)
-        copies = min(32, max(2, int(-(-256e6 // per))))
-        sets = [ws] + [[torch.empty_like(w).copy_(w) for w in ws]
-                       for _ in range(copies - 1)]
-        cyc = itertools.cycle(sets)
-        t_e = time_ms(lambda: call(next(cyc)))
-        t_k = graph_ms(lambda: call(next(cyc)))
-        t_l = graph_ms(lambda: lib(next(cyc)))
-        t_p = (graph_ms(lambda: plain(next(cyc)), iters=5)
-               if plain is not None else None)
+        t_e, t_k, t_l, t_p = cycled_ms(ws, call, lib, plain)
         by = nbytes(a, *ws) + sum(B * (w.shape[0] if extra.get("trans_b")
                                        else w.shape[1]) * a.element_size()
                                   for w in ws)
@@ -1941,8 +2023,6 @@ def phase_timings(gen, lens, launches, per_step, errs):
                       "bound_ms": 1e3 * max(by / HBM_BYTES_PER_S,
                                             flops / PEAK_OPS[a.dtype]),
                       "ops_s": flops / PEAK_OPS[a.dtype], **extra}
-        del sets, cyc
-        torch.cuda.empty_cache()
 
     for name, K, N, dt, tb, count in gemm_cases():
         a, b0 = _gemm_operands(gen, B, K, N, dt, tb)
@@ -2009,54 +2089,8 @@ def phase_timings(gen, lens, launches, per_step, errs):
                     f"({per_step['matmul']:g} launches: per layer wq/wk/wv "
                     f"grouped, wo, wg/wu grouped, wd; the unembed)"}
 
-    # paged decode at the served lengths (prompt + 32 new tokens)
-    bs, H, KVH, D = 16, 32, 8, 128
-    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    gw = 1
-    while gw < -(-max(lens) // bs):
-        gw *= 2
-    q, kp, vp, full = _decode_inputs(gen, torch.bfloat16, B=B, H=H, KVH=KVH,
-                                     D=D, bs=bs, C=gw, n_blocks=B * 32)
-    tables = full[:, :gw]
-    scale = D ** -0.5
-    t_e = time_ms(lambda: flash_decode_paged(q, kp, vp, cl, tables, scale),
-                  iters=50)
-    t_k = graph_ms(lambda: flash_decode_paged(q, kp, vp, cl, tables, scale),
-                   iters=50)
-    t_p = graph_ms(lambda: paged_decode_plain(q, kp, vp, cl, tables, scale),
-                   iters=10)
-    # library yardstick: SDPA over the gathered, head-expanded view
-    idx = tables.long()
-    S = gw * bs
-    kv_k = kp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2)
-    kv_v = vp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2)
-    kk, vv = kv_k.transpose(1, 2).contiguous(), kv_v.transpose(1, 2) \
-        .contiguous()
-    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
-                                                                None, :]
-    qq = q[:, :, None, :]
-    t_l = graph_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, scale=scale), iters=50)
-    blocks_read = sum(-(-n // bs) for n in lens)
-    by = (blocks_read * bs * KVH * D * 2 * q.element_size()
-          + 2 * nbytes(q) + nbytes(cl) + B * -(-max(lens) // bs) * 4)
-    ops_t = sum(4 * n * H * D for n in lens) / PEAK_OPS[torch.bfloat16]
-    per = per_step["flash_decode_paged"]     # one launch per layer
-    dec_bound = max(by / HBM_BYTES_PER_S, ops_t)
-    decode = {"name": "flash_decode_paged", "route": "cuda",
-              "source": "src/repro_torch/csrc/flash_decode_paged.cu",
-              "replaces": "src/repro/kernels/flash_decode.py:272",
-              "launches": launches["flash_decode_paged"],
-              "launches_per_step": per_step["flash_decode_paged"],
-              "max_abs_err": errs["decode"],
-              "ms": per * t_k, "kernel_ms": per * t_k,
-              "eager_ms": per * t_e, "plain_ms": per * t_p,
-              "library_ms": per * t_l,
-              "bound_ms": 1e3 * per * dec_bound,
-              "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
-                           else "operations"),
-              "unit": f"one decode step at batch 8, {per:g} launches, "
-                      f"cur_len {lens}, gather width {gw}"}
+    decode = paged_row(gen, lens, 32, 8, 128, launches["flash_decode_paged"],
+                       per_step["flash_decode_paged"], errs["decode"])
     return [gemm, decode], list(rows.values())
 
 
@@ -3173,7 +3207,7 @@ def phase_moe_gemm(gen, cfg):
                 "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "count_per_layer": count})
+                "count": count})
         rows[name] = row
         return err
 
@@ -3316,14 +3350,14 @@ def phase_moe_small(tp=4):
             "k8": {s: v[1] for s, v in mega.items()}}
 
 
-def _moe_kernel_row(rows, names, L):
-    """A kernel line's times and bound for ``L`` layers of 14a's
-    ``rows`` named by ``names``, each times its count a layer: the bound
-    sums each product's larger of its operations and bytes times, and
-    is said to be bound by whichever sum is larger."""
+def _products_row(rows, names, L=1):
+    """A kernel line's times and bound for ``L`` layers of the timed
+    ``rows`` (14a's, 15a's) named by ``names``, each times its
+    ``count`` (a layer, or a step with L = 1): the bound sums each
+    product's larger of its operations and bytes times, and is said to
+    be bound by whichever sum is larger."""
     def per_step(field):
-        return L * sum(rows[n]["count_per_layer"] * rows[n][field]
-                       for n in names)
+        return L * sum(rows[n]["count"] * rows[n][field] for n in names)
     return {"ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
             "bound_ms": per_step("bound_ms"),
             "bound_by": ("operations" if per_step("ops_ms")
@@ -3386,7 +3420,7 @@ def phase_moe_full(rows, worst):
               "replaces": "src/repro/kernels/matmul.py:34",
               "launches": cells["k8"]["launches"]["matmul_batched"],
               "launches_per_step": per_step["matmul_batched"],
-              "max_abs_err": worst, **_moe_kernel_row(rows, names, L),
+              "max_abs_err": worst, **_products_row(rows, names, L),
               "unit": f"one olmoe-1b-7b decode step at batch 8 "
                       f"({per_step['matmul_batched']} launches: wg, wu, "
                       f"wd of 64 experts x 8 rows per layer), CUDA-graph "
@@ -3638,7 +3672,7 @@ def phase_moe_train_full(rows, worst):
               "replaces": "src/repro/kernels/matmul.py:34",
               "launches": batched, "launches_per_step": per_step_b,
               "max_abs_err": max(rows[n]["max_abs_err"] for n in names),
-              **_moe_kernel_row(rows, names, L),
+              **_products_row(rows, names, L),
               "unit": f"one olmoe-1b-7b training step ({L} layers, "
                       f"{M} tokens): the expert products forward twice "
                       f"(remat) and both gradients, {per_step_b} "
@@ -3695,6 +3729,600 @@ def phase_moe(gen):
     return {"gemm": rows, "small": small, "full": full,
             "train_small": train_small, "train_full": train_full,
             "phase_s": secs}, [kernel, kernel_t]
+
+
+# ------------------------------------------- (15) the recurrent families
+REC_ARCHS = ("zamba2-1.2b", "rwkv6-3b")
+REC_TRAIN_STEPS = 3
+HIDING_ZEROS = ("dt_bias", "conv_b", "w_lora_b")   # zero inits
+
+
+def _unhide(params, seed=1):
+    """Seeded nonzero values in the zero-init leaves that would hide a
+    path (Mamba2's dt_bias and conv_b, RWKV6's w_lora_b), in place."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.rsplit(".", 1)[-1] in HIDING_ZEROS:
+                p.copy_(0.3 * torch.randn(p.shape, generator=g))
+
+
+def rec_gemm_rows(cfg):
+    """The GEMM launches of one decode step of a recurrent model: (name,
+    K, the N of each product of the launch, dtype, trans_b, launches a
+    step, whether the shape is new: checked at M 1, 8 and 2048). zamba2:
+    in_proj and out_proj a Mamba2 layer, the shared block's wq/wk/wv,
+    wo, wg/wu, wd a group; rwkv: wr, wk, wv, wg, wo (one shape), the fp32
+    LoRA of the decay, ck and cv a block; the fp32 unembed."""
+    from repro_torch.models import mamba2, rwkv6
+    d, L = cfg.d_model, cfg.n_layers
+    bf, f32 = torch.bfloat16, torch.float32
+    unembed = ("unembed", d, [cfg.vocab_size], f32, True, 1, False)
+    if cfg.block == "rwkv":
+        r = rwkv6.LORA
+        return [("wr/wk/wv/wg/wo", d, [d], bf, False, 5 * L, False),
+                ("w_lora_a", d, [r], f32, False, L, True),
+                ("w_lora_b", r, [d], f32, False, L, True),
+                ("ck", d, [cfg.d_ff], bf, False, L, True),
+                ("cv", cfg.d_ff, [d], bf, False, L, True), unembed]
+    d_in, n, nh = mamba2.dims(cfg)
+    G = L // cfg.attn_every
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return [("in_proj", d, [2 * d_in + 2 * n + nh], bf, False, L, True),
+            ("out_proj", d_in, [d], bf, False, L, False),
+            ("wqkv", d, [qd, kvd, kvd], bf, False, G, False),
+            ("wo", qd, [d], bf, False, G, False),
+            ("wgu", d, [cfg.d_ff, cfg.d_ff], bf, False, G, False),
+            ("wd", cfg.d_ff, [d], bf, False, G, False), unembed]
+
+
+def phase_rec_gemm(gen, cfg, B=8):
+    """(15a) the GEMM vs its plain version at a recurrent model's decode
+    products (phase 2's tolerances, one launch each, a group bit-equal
+    to single calls), the new shapes (zamba2's in_proj N 8384, rwkv's
+    fp32 LoRA with K or N 64, its relu² channel mix d_ff 8960) at M 1, 8
+    and 2048, the rest at the served M = 8; then each launch timed at
+    M = 8 in CUDA-graph replays, the weights cycled through copies that
+    overflow the L2 as the layers' distinct weights do, beside the plain
+    version and ``torch.matmul``. Returns (rows, the worst error)."""
+    from repro_torch.kernels.matmul import (matmul, matmul_group,
+                                            matmul_plain)
+    rows, worst = {}, 0.0
+
+    def call(a, ws, tb):
+        return [matmul(a, ws[0], trans_b=True)] if tb else \
+            matmul_group(a, ws) if len(ws) > 1 else [matmul(a, ws[0])]
+
+    for name, K, Ns, dt, tb, count, new in rec_gemm_rows(cfg):
+        for M in ((1, 2048, B) if new else (B,)):     # timed at M = B
+            a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            ws = [(torch.randn((N, K) if tb else (K, N), generator=gen,
+                               device="cuda") / K ** 0.5).to(dt) for N in Ns]
+            n0 = matmul.launches
+            got = call(a, ws, tb)
+            torch.cuda.synchronize()
+            check(matmul.launches == n0 + 1, f"{cfg.name} GEMM {name} M={M}: "
+                  f"{matmul.launches - n0} launches, not 1")
+            for w, g in zip(ws, got):
+                err = _gemm_err(g, matmul_plain(a, w, tb), dt,
+                                f"{cfg.name} GEMM {name} M={M} K={K}")
+                worst = max(worst, err)
+                if len(ws) > 1:
+                    check(torch.equal(g, matmul(a, w)), f"{cfg.name} "
+                          f"{name}: the group differs from a single call")
+            del got
+        _, t_k, t_l, t_p = cycled_ms(
+            ws, lambda w: call(a, w, tb),
+            lambda w: [torch.matmul(a, x.T if tb else x) for x in w],
+            lambda w: [matmul_plain(a, x, tb) for x in w])
+        by = nbytes(a, *ws) + sum(B * N for N in Ns) * a.element_size()
+        flops = sum(2 * B * w.numel() for w in ws)
+        ops_ms, bytes_ms = 1e3 * flops / PEAK_OPS[dt], 1e3 * by / \
+            HBM_BYTES_PER_S
+        rows[name] = {
+            "K": K, "N": Ns, "M": B, "dtype": str(dt).replace("torch.", ""),
+            "trans_b": tb, "count": count, "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms)}
+        del a, ws
+    print(f"[rec gemm] {cfg.name}: " + "; ".join(
+        f"{n} {r['ms']:.4f} ms x{r['count']} (plain "
+        f"{r['plain_ms']:.3f}, torch.matmul {r['library_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f})" for n, r in rows.items())
+        + f"; max |err| {worst:.3e}", flush=True)
+    return rows, worst
+
+
+def phase_rec_decode(gen, W=4):
+    """(15a) the paged decode at zamba2's heads (hd 64, 32 query and 32
+    KV heads: q_per_kv 1) vs its plain version: at W = 1 (full table,
+    holes, a window, a gather slice) and the fused mode over ``W``
+    virtual ranks of cuda:0, outputs bit-identical across ranks."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels import flash_decode as kfd
+    H = KVH = 32
+    D, bs, C = 64, 16, 32
+    scale = D ** -0.5
+    worst, n = 0.0, 0
+    for dt in (torch.float32, torch.bfloat16):
+        q, kp, vp, full = _decode_inputs(gen, dt, H=H, KVH=KVH, D=D, bs=bs,
+                                         C=C)
+        cur = torch.tensor([1, bs, bs + 1, C * bs, 37, 200, 511, 130],
+                           dtype=torch.int32, device="cuda")
+        holes = full.clone()
+        holes[4, 0] = -1
+        for name, tables, window in (("full", full[:, :C], None),
+                                     ("holes", holes[:, :C], None),
+                                     ("window32", holes[:, :C], 32),
+                                     ("gather_slice", full[:, :C // 2],
+                                      None)):
+            cl = cur.clamp(max=tables.shape[1] * bs)
+            got = kfd.flash_decode_paged(q, kp, vp, cl, tables, scale,
+                                         window=window)
+            want = kfd.paged_decode_plain(q, kp, vp, cl, tables, scale,
+                                          window=window)
+            torch.cuda.synchronize()
+            worst = max(worst, _close(got, want, dt, f"hd64 paged {name} "
+                                                     f"{dt}"))
+            n += 1
+        mesh = Mesh(["cuda:0"] * W)
+        q, kps, vps, cur, tb = _paged_ranks_inputs(gen, dt, W, H=H, KVH=KVH,
+                                                   D=D)
+        n_loc = kps[0].shape[0]
+        got = kfd.flash_decode_paged_fused([q] * W, kps, vps, [cur] * W,
+                                           [tb] * W, scale, mesh=mesh)
+        want = kfd.fused_plain([kfd.paged_partial_plain(
+            q, kps[r], vps[r], cur, tb, scale, None, base=r * n_loc)
+            for r in range(W)], dt)[0]
+        torch.cuda.synchronize()
+        for r in range(W):
+            check(torch.equal(got[r], got[0]), f"hd64 fused {dt}: rank {r} "
+                                               f"differs from rank 0")
+        worst = max(worst, _close(got[0], want, dt, f"hd64 fused W={W} "
+                                                    f"{dt}"))
+        n += 1
+    print(f"[rec decode] paged decode at hd 64, q_per_kv 1: {n} cases (W = "
+          f"1 and the fused mode over {W} virtual ranks) match the plain "
+          f"version (max |err| {worst:.3e})", flush=True)
+    return worst
+
+
+def _rec_smoke(arch):
+    """(cfg, CPU params, card params) of ``arch``'s float32 smoke model,
+    its hiding zeros seeded nonzero."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config(arch)).replace(dtype=torch.float32)
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    _unhide(p_cpu)
+    return cfg, p_cpu, copy.deepcopy(p_cpu).to("cuda")
+
+
+def _rec_teacher_forced(cfg, p_cpu, p_gpu, paged, T=12):
+    """T teacher-forced decode steps on the card and on the CPU from the
+    same tokens, some slots inactive at some steps: logits within 1e-4
+    + one bf16 ulp, every recurrent leaf within 1e-4 of its largest
+    |entry| (the smoke init's state reaches ~1e3), inactive slots'
+    recurrent leaves unchanged. Returns the largest logit gap."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.models import lm
+    B, bs, nb, mb = 4, 8, 16, 4
+    states = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        if paged:
+            st = lm.init_paged_decode_state(params, cfg, B, nb, bs, mb)
+            st["block_tables"].copy_(torch.arange(nb, dtype=torch.int32)
+                                     .reshape(B, mb))
+        else:
+            st = lm.init_decode_state(params, cfg, B, 32)
+        states[dev] = (params, st)
+    toks = np.random.default_rng(1).integers(1, cfg.vocab_size, (B, T))
+    worst = 0.0
+    with torch.inference_mode():
+        for j in range(T):
+            act = np.array([True, j % 3 != 1, j != 4, True])
+            out = {}
+            for dev, (params, st) in states.items():
+                lg, _ = lm.decode_step(
+                    params, torch.from_numpy(toks[:, j:j + 1]).to(dev), st,
+                    cfg, active=torch.from_numpy(act).to(dev))
+                out[dev] = lg.float().cpu()
+            diff = (out["cuda"] - out["cpu"]).abs()
+            check(bool((diff <= 1e-4 + 2 ** -7 * out["cpu"].abs()).all()),
+                  f"{cfg.name} teacher-forced logits (paged {paged}) differ "
+                  f"at step {j}: {diff.max().item():.3e}")
+            worst = max(worst, diff.max().item())
+            ref = flatten(states["cpu"][1]["caches"])
+            for key, leaf in flatten(states["cuda"][1]["caches"]).items():
+                want, got = ref[key].float(), leaf.float().cpu()
+                err = (got - want).abs().max().item()
+                check(err <= 1e-4 * max(want.abs().max().item(), 1e-30),
+                      f"{cfg.name} step {j}: state {key} {err:.3e} apart")
+    return worst
+
+
+def phase_rec_small(arch, tp=4):
+    """(15b) a recurrent family's float32 smoke model served on the card
+    and on the CPU, phase 4's engine and requests: at K = 1 greedy,
+    streams token-identical and counters equal; at K = 8 (graph
+    replays), greedy and seeded temperature, streams as the CPU's K = 1
+    and counters as its K = 8; the same over ``tp`` virtual ranks under
+    ``pallas`` identical to tp 1 (the hybrid's shared attention through
+    the fused paged decode and the AG+GEMM); no plain GEMM call on the
+    card; teacher-forced decode steps card vs CPU over the paged state
+    (and the contiguous one for the hybrid: the strided decode kernel);
+    phase 11a's fault plan with a drain, snapshot and restore in mid
+    serve, on the card and on the CPU: streams and counters equal, and
+    equal to the uninterrupted run's; the resumed requests re-prefill
+    (no prefix hit)."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.graphs import launch_counted
+    cfg, p_cpu, p_gpu = _rec_smoke(arch)
+    reqs = _smoke_requests(np.random.default_rng(0), cfg.vocab_size)
+    fns = launch_counted()
+
+    def card(*args):
+        _counted(fns)
+        out = _serve_small(p_gpu, cfg, reqs, "cuda", *args)
+        check(matmul.plain_calls == 0 and matmul.launches > 0,
+              f"{cfg.name} small {args}: plain calls or no GEMM launch")
+        return out + ({f.__name__: f.launches for f in fns if f.launches},)
+    runs = {"cuda": card(), "cpu": _serve_small(p_cpu, cfg, reqs, "cpu")}
+    what = f"{cfg.name} small"
+    check(len(runs["cuda"][0]) == len(reqs), f"{what}: not all finished")
+    check(runs["cuda"][0] == runs["cpu"][0], f"{what}: streams differ: card "
+          f"{runs['cuda'][0]}, cpu {runs['cpu'][0]}")
+    check(runs["cuda"][1] == runs["cpu"][1], f"{what}: counters differ: "
+          f"{runs['cuda'][1]} vs {runs['cpu'][1]}")
+    check(runs["cuda"][1][4] == 0, f"{what}: a prefix hit")
+    mega = {}
+    for sampler in ("greedy", "temperature"):
+        base = _serve_small(p_cpu, cfg, reqs, "cpu", sampler=sampler)
+        cpu8 = _serve_small(p_cpu, cfg, reqs, "cpu", 8, sampler)
+        gpu8 = card(8, sampler)
+        w = f"{what} K=8 {sampler}"
+        check(cpu8[0] == base[0] and gpu8[0] == base[0],
+              f"{w}: streams differ from the CPU at K=1")
+        check(gpu8[1] == cpu8[1], f"{w}: counters {gpu8[1]} != the CPU's "
+                                  f"{cpu8[1]}")
+        check(gpu8[1][2] >= 1, f"{w}: no mixed megatick")
+        m = gpu8[2]
+        check(m["graphs"] and m["graph_replays"] == m["dispatches"],
+              f"{w}: not one graph replay per megatick: {m}")
+        mega[sampler] = gpu8
+    ctx = dctx.DistContext(make_mesh(tp, device="cuda"), "pallas")
+    ranks = card(8, "greedy", ctx)
+    check(ranks[0] == mega["greedy"][0] and ranks[1] == mega["greedy"][1],
+          f"{what} tp={tp} K=8: differs from tp=1")
+    if cfg.block == "mamba_hybrid":
+        check(ranks[3].get("flash_decode_paged_fused", 0) > 0
+              and ranks[3].get("ag_gemm_fused", 0) > 0,
+              f"{what} tp={tp}: fused kernels not launched: {ranks[3]}")
+    errs = [_rec_teacher_forced(cfg, p_cpu, p_gpu, True)]
+    if cfg.block == "mamba_hybrid":
+        _counted(fns)
+        errs.append(_rec_teacher_forced(cfg, p_cpu, p_gpu, False))
+        launched = {f.__name__: f.launches for f in fns if f.launches}
+        check(launched.get("flash_decode_fused", 0) > 0,
+              f"{what}: contiguous steps did not launch the strided "
+              f"decode: {launched}")
+    root = os.path.join(ROOT, "build", f"chip_smoke_{arch}")
+    shutil.rmtree(root, ignore_errors=True)
+    rob = {dev: _robust_serve(p, cfg, reqs, dev, os.path.join(root, dev))
+           for dev, p in (("cuda", p_gpu), ("cpu", p_cpu))}
+    whole = _robust_serve(p_gpu, cfg, reqs, "cuda")
+    shutil.rmtree(root, ignore_errors=True)
+    g = rob["cuda"]
+    check(g["streams"] == rob["cpu"]["streams"]
+          and g["counters"] == rob["cpu"]["counters"],
+          f"{what} restore: card {g['streams']} {g['counters']} vs CPU "
+          f"{rob['cpu']['streams']} {rob['cpu']['counters']}")
+    check(g["resumed"] and g["resumed_prefix_hits"] == 0 and g["graphs"],
+          f"{what} restore: resumed {g['resumed']}, prefix hits "
+          f"{g['resumed_prefix_hits']}")
+    check(g["streams"] == whole["streams"], f"{what} restore: the resumed "
+          f"run differs from the uninterrupted one: {g['streams']} vs "
+          f"{whole['streams']}")
+    print(f"[rec small] {cfg.name} float32: streams token-identical on cuda "
+          f"and cpu, counters {runs['cuda'][1]}; K=8 (graph replays) greedy "
+          f"{mega['greedy'][1]} and temperature {mega['temperature'][1]}: "
+          f"streams as the CPU's K=1; tp={tp} pallas identical to tp=1 "
+          f"(launches {ranks[3]}); teacher-forced logits max |diff| "
+          f"{max(errs):.3e}; {len(g['resumed'])} requests resumed after "
+          f"a snapshot ({g['snapshot_bytes']} bytes) by re-prefill, "
+          f"identical to the uninterrupted run", flush=True)
+    return {"counters": runs["cuda"][1],
+            "k8": {s: v[1] for s, v in mega.items()},
+            "tp_launches": ranks[3], "teacher_forced_err": max(errs),
+            "robust": {k: v for k, v in g.items() if k != "streams"}}
+
+
+def rec_per_step(cfg):
+    """Kernel launches of one full-width decode step (module contract)."""
+    if cfg.block == "rwkv":
+        return {"matmul": 9 * cfg.n_layers + 1}
+    groups = cfg.n_layers // cfg.attn_every
+    return {"matmul": 2 * cfg.n_layers + 4 * groups + 1,
+            "flash_decode_paged": groups}
+
+
+def phase_rec_full(arch, gen, rows, worst, dec_err):
+    """(15c) ``arch`` at full width (bf16, seeded weights, nothing cut)
+    through the engine with phase 5's traffic: K = 1 on 4 requests, K =
+    8 on all 8 (graph replays) and again on prompts of the same lengths
+    for the steady time, every kernel's launches counted around each
+    serve and exact per decode step (``rec_per_step``); a
+    teacher-forced chunk's logits finite; one K = 8 serve on two engines
+    in lockstep, graph replays against the eager loop, every recurrent
+    byte compared; a profiled eager step split into GEMM, paged decode
+    and the rest. Returns (summary, kernel lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    t0 = time.time()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 1e9
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    kw = dict(batch=8, max_len=512, label=arch)
+    per_step = rec_per_step(cfg)
+    cells = {}
+    cells["k1"], done1 = serve_cell(
+        params, cfg, 1, _full_requests(cfg, plens[:4], 1, 32, 2), **kw)
+    _check_serve(cells["k1"], done1, cfg, 4, 32, per_step, f"{arch} K=1")
+    cells["k8"], done8 = serve_cell(
+        params, cfg, 8, _full_requests(cfg, plens, 1, 32, 2),
+        _full_requests(cfg, plens, 2, 32, 2), **kw)
+    _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, f"{arch} K=8")
+    s1 = {r.rid: r.out_tokens for r in done1}
+    s8 = {r.rid: r.out_tokens for r in done8}
+    cells["k8"]["streams_identical_to_k1"] = sum(s1[r] == s8[r] for r in s1)
+    lockstep = phase_graph_vs_eager(params, cfg)
+    with torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, 8, 64, 16, 8)
+        st["block_tables"].copy_(torch.arange(64, dtype=torch.int32)
+                                 .reshape(8, 8))
+        tok = torch.randint(1, cfg.vocab_size, (8, 8), device="cuda")
+        lg, _ = lm.decode_chunk(params, tok, torch.full(
+            (8,), 8, device="cuda"), st, cfg)
+        check(bool(torch.isfinite(lg).all()), f"{arch}: non-finite logits")
+        profile = profile_steps(params, cfg, st, label=f"{arch} decode step")
+    del params, st, lg
+    torch.cuda.empty_cache()
+    pk = profile["port_kernels"]
+    gemm_ms = pk["gemm_stream"]["ms_per_step"] + pk["mm_kernel"][
+        "ms_per_step"]
+    profile["split_ms"] = {
+        "gemm": gemm_ms, "paged_decode": pk["fd_paged"]["ms_per_step"],
+        "rest": profile["device_ms_per_step"] - gemm_ms
+        - pk["fd_paged"]["ms_per_step"]}
+    kernels = [{"name": f"matmul_{arch}", "route": "cuda",
+                "source": "src/repro_torch/csrc/matmul.cu",
+                "replaces": "src/repro/kernels/matmul.py:34",
+                "launches": cells["k8"]["launches"]["matmul"],
+                "launches_per_step": per_step["matmul"],
+                "max_abs_err": worst, **_products_row(rows, list(rows)),
+                "unit": f"one {arch} decode step at batch 8 "
+                        f"({per_step['matmul']} launches), 15a's "
+                        f"graph-timed products"}]
+    if "flash_decode_paged" in per_step:
+        kernels.append(paged_row(
+            gen, [n + 32 for n in plens], cfg.n_heads, cfg.n_kv_heads,
+            cfg.hd, cells["k8"]["launches"]["flash_decode_paged"],
+            per_step["flash_decode_paged"], dec_err,
+            name=f"flash_decode_paged_{arch}"))
+    out = {"config": f"{arch} full width, {cfg.n_layers} layers, bf16, "
+                     f"nothing cut", "params": n_params,
+           "weight_gb": weight_gb, "init_s": init_s,
+           "prompt_tokens": sum(plens), **cells,
+           "launches_per_step": per_step,
+           "graph_vs_eager_megaticks": lockstep, "profile": profile}
+    k8 = cells["k8"]
+    print(f"[rec full] {arch}: {n_params / 1e9:.3f} B parameters, "
+          f"{weight_gb:.2f} GB; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s; "
+          f"K=8 steady {k8['steady_tokens_per_s']:.2f} tok/s, "
+          f"{k8['steady_ms_per_token']:.2f} ms/token, busy "
+          f"{k8['steady_busy_share']:.3f}, pure megatick "
+          f"{k8['pure_megatick_device_ms']:.2f} ms device, peak "
+          f"{k8['peak_mem_bytes'] / 1e9:.2f} GB; launches a step {per_step}; "
+          f"eager step split (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in profile["split_ms"].items())
+          + "; " + "; ".join(f"{k['name']} {k['ms']:.3f} ms a step (bound "
+                             f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}"
+                             f", library {k['library_ms']:.3f})"
+                             for k in kernels), flush=True)
+    return out, kernels
+
+
+def phase_rec_train_small(arch):
+    """(15d, first part) the float32 smoke model trained 3 steps on the
+    card and on the CPU from the same parameters on the same batches
+    (lr 1e-4), phase 12b's tolerances: the first loss within 1e-5
+    relative, losses within 1e-4, grad norms within 1e-2; every
+    first-step gradient leaf nonzero on the card and within max(1e-3, 2
+    x the CPU's own gap under one float32 ulp of weight noise, measured
+    here as in 14d) of the leaf's largest |entry|; the GEMM launched, no
+    plain call on the card."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config(arch)).replace(dtype=torch.float32)
+    argv = ["--arch", arch, "--smoke", "--steps", str(REC_TRAIN_STEPS),
+            "--batch", "2", "--seq", "32", "--log-every", "1", "--lr",
+            "1e-4", "--warmup", "3"]
+    init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    _unhide(init)
+    p_card = _cpu_copy(init, cfg, "cuda")
+    grads0 = {}
+
+    def first_grads(step, params, metrics):
+        if step == 0:
+            grads0[params.device.type] = {
+                n: p.grad.detach().cpu().clone()
+                for n, p in params.named_parameters() if p.grad is not None}
+    cpu = tr.train(cfg, tr.parse_args(argv + ["--device", "cpu"]),
+                   params=_cpu_copy(init, cfg, "cpu"), on_step=first_grads)
+    n0, p0 = matmul.launches, matmul.plain_calls
+    card = tr.train(cfg, tr.parse_args(argv + ["--device", "cuda"]),
+                    params=p_card, on_step=first_grads)
+    launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+    what = f"{arch} train small"
+    check(launched > 0 and plain == 0, f"{what}: {launched} GEMM launches, "
+                                       f"{plain} plain calls on the card")
+    names = [n for n, _ in card["params"].named_parameters()]
+    g_card, g_cpu = grads0["cuda"], grads0["cpu"]
+    missing = [n for n in names if n not in g_card
+               or not bool(g_card[n].abs().max() > 0)]
+    check(not missing, f"{what}: leaves without a gradient: {missing}")
+
+    def gaps(g):
+        return {n: ((g[n] - g_cpu[n]).abs().max()
+                    / g_cpu[n].abs().max()).item() for n in names}
+    g_err = max(gaps(g_card).values())
+    batch0 = {k: torch.from_numpy(np.array(v)) for k, v in SyntheticLM(
+        cfg.vocab_size, 32, 2, seed=0).batch_at(0).items()}
+    sens = []
+    for seed in range(3):
+        noisy = _cpu_copy(init, cfg, "cpu")
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for t in noisy.parameters():
+                t.mul_(1 + (torch.rand(t.shape, generator=gen) - 0.5)
+                       * 2 ** -23)
+        loss, _ = lm.loss_fn(noisy, batch0, cfg)
+        loss.backward()
+        sens.append(max(gaps({n: t.grad for n, t in
+                              noisy.named_parameters()}).values()))
+    tol = max(1e-3, 2 * max(sens))
+    check(g_err <= tol, f"{what}: step-1 gradients card vs CPU {g_err:.3e} "
+                        f"of a leaf's largest entry (bound {tol:.3e})")
+    lc = [m["loss"] for m in cpu["log"]]
+    lg = [m["loss"] for m in card["log"]]
+    gc_ = [m["grad_norm"] for m in cpu["log"]]
+    gg = [m["grad_norm"] for m in card["log"]]
+    check(abs(lg[0] - lc[0]) <= 1e-5 * abs(lc[0]),
+          f"{what}: first loss {lg[0]} vs CPU {lc[0]}")
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0), f"{what}: losses {lg} "
+                                                  f"vs CPU {lc}")
+    check(np.allclose(gg, gc_, rtol=1e-2, atol=0), f"{what}: grad norms "
+                                                   f"{gg} vs CPU {gc_}")
+    print(f"[rec train small] {arch} float32, {REC_TRAIN_STEPS} steps: "
+          f"step-1 gradients card vs CPU within {g_err:.3e} of a leaf's "
+          f"largest entry (bound {tol:.2e}; the CPU's own gap under one ulp "
+          f"of weight noise {[f'{x:.2e}' for x in sens]}); losses {lg} vs "
+          f"CPU {lc}; grad norms {gg} vs {gc_}; {launched} GEMM launches",
+          flush=True)
+    return {"step1_grad_err": g_err, "grad_bound": tol,
+            "cpu_noise_grad_err": sens, "cpu_losses": lc, "card_losses": lg,
+            "cpu_grad_norms": gc_, "card_grad_norms": gg,
+            "gemm_launches": launched}
+
+
+def rec_train_launches_per_step(cfg):
+    """GEMM launches of one training step at one rank (remat full: every
+    forward product twice, then dA and dB each): a Mamba2 layer 2 x 2 +
+    4, a shared-block call 19 (as a llama3-8b layer), an RWKV6 block
+    9 x 2 + 18; the unembed 3."""
+    if cfg.block == "rwkv":
+        return 36 * cfg.n_layers + 3
+    return 8 * cfg.n_layers + 19 * (cfg.n_layers // cfg.attn_every) + 3
+
+
+def phase_rec_train_full(arch):
+    """(15d, second part) ``arch`` at full width and full depth, bf16
+    compute, fp32 masters, AdamW, remat full: REC_TRAIN_STEPS steps of 2
+    x 1024 tokens through ``launch.train.train``. Checks the losses
+    finite, the GEMM launches of every step, no plain call, peak memory
+    below 80 GB; ms per step, tokens/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as tr
+    cfg = get_config(arch)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    args = tr.parse_args([
+        "--arch", arch, "--steps", str(REC_TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+        str(REC_TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+        "--device", "cuda"])
+    per_step = rec_train_launches_per_step(cfg)
+    counts = []
+
+    def count(step, params, metrics):
+        counts.append(matmul.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    t0 = time.time()
+    res = tr.train(cfg, args, on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    plain = matmul.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    n_params = sum(p.numel() for p in res["params"].parameters())
+    del res
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"{arch} train full: losses {losses}")
+    deltas = np.diff([0] + counts).tolist()
+    check(plain == 0 and deltas == [per_step] * REC_TRAIN_STEPS,
+          f"{arch} train full: GEMM launches per step {deltas} (want "
+          f"{per_step}), {plain} plain calls")
+    check(peak_gb < 80, f"{arch} train full: peak {peak_gb:.1f} GB")
+    step_s = float(np.mean(steps_s[1:]))
+    out = {"config": f"{arch} full width, all {cfg.n_layers} layers, bf16 "
+                     f"compute, fp32 masters, remat full",
+           "params": n_params, "tokens_per_step": M,
+           "steps": REC_TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+           "step_s": steps_s, "ms_per_step": 1e3 * step_s,
+           "tokens_per_s": M / step_s, "run_s": run_s, "peak_gb": peak_gb,
+           "gemm_launches_per_step": per_step}
+    print(f"[rec train full] {out['config']}: {n_params / 1e9:.3f} B "
+          f"parameters; losses {[round(x, 4) for x in losses]}; "
+          f"{out['ms_per_step']:.1f} ms per step after step 0 "
+          f"({out['tokens_per_s']:.0f} tokens/s); peak {peak_gb:.2f} GB; "
+          f"{per_step} GEMM launches a step", flush=True)
+    return out
+
+
+def phase_recurrent(gen):
+    """(15) the recurrent families: 15a-15d for zamba2-1.2b and
+    rwkv6-3b, each sub-phase's seconds kept; frees what it made."""
+    import gc
+    from repro_torch.configs import get_config
+    secs, out, kernels = {}, {}, []
+
+    def sub(name, fn, *args):
+        t0 = time.time()
+        res = fn(*args)
+        secs[name] = time.time() - t0
+        return res
+    dec_err = sub("15a decode", phase_rec_decode, gen)
+    for arch in REC_ARCHS:
+        tag = arch.split("-")[0]
+        rows, worst = sub(f"15a {tag}", phase_rec_gemm, gen,
+                          get_config(arch))
+        small = sub(f"15b {tag}", phase_rec_small, arch)
+        full, ks = sub(f"15c {tag}", phase_rec_full, arch, gen, rows, worst,
+                       dec_err)
+        train_small = sub(f"15d {tag} small", phase_rec_train_small, arch)
+        train_full = sub(f"15d {tag} full", phase_rec_train_full, arch)
+        out[arch] = {"gemm": rows, "small": small, "full": full,
+                     "train_small": train_small, "train_full": train_full}
+        kernels += ks
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = secs
+    print("[recurrent] sub-phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()), flush=True)
+    return out, kernels
 
 
 def sampler_ms(gen, B=8, V=128256):
@@ -3783,6 +4411,7 @@ def main():
         "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
         train["full"]["grad_norms"][0])
     moe, moe_kernels = timed("14 moe", phase_moe, gen)
+    rec, rec_kernels = timed("15 recurrent", phase_recurrent, gen)
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -3802,7 +4431,7 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
-    kernels += [train_kernel, train_tp_kernel] + moe_kernels
+    kernels += [train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -3814,6 +4443,7 @@ def main():
                    "sampler": sampler, "gemm_shapes": rows,
                    "robust_small": robust, "server": server,
                    "train": train, "train_tp": train_tp, "moe": moe,
+                   "recurrent": rec,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

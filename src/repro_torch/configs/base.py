@@ -2,10 +2,10 @@
 
 One :class:`ModelConfig` describes any of the 10 assigned architectures.
 The fields are the JAX package's, with ``dtype``/``param_dtype`` held as
-torch dtypes. The port's model code implements the ``attn_mlp`` and
-``attn_moe`` blocks; the others (``mamba_hybrid``, ``rwkv``) raise
-``NotImplementedError`` where the model is built (see
-``models/transformer.py``).
+torch dtypes. The port's model code implements every block
+(``attn_mlp``, ``attn_moe``, ``mamba_hybrid``, ``rwkv``; see
+``models/transformer.py``); the vlm and audio frontends raise
+``NotImplementedError`` where the model is built (``models/lm.py``).
 """
 from __future__ import annotations
 

@@ -11,6 +11,8 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --smoke --device cpu --decode-steps 4   # MoE (any --tp: replicated
                                               # experts)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --smoke --device cpu --tp 2 --fusion-mode pallas   # also rwkv6-3b
 
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``

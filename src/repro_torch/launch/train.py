@@ -7,6 +7,8 @@
       --smoke --device cpu --tp 2 --fusion-mode ring --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
       --smoke --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+      --smoke --device cpu --steps 3      # also rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
 
@@ -31,9 +33,10 @@ and ``--heartbeat-file`` records liveness (``Heartbeat``).
 
 ``--mesh production`` and ``--multi-pod`` raise ``NotImplementedError``:
 they need one process per card (ROADMAP item 10d). So does ``--tp W >
-1`` for an MoE model (``attn_moe``, e.g. ``--arch olmoe-1b-7b``), before
-anything is allocated: expert-parallel training is a later slice; it
-trains at ``--tp 1``, its log lines carrying the aux loss. ``--grad-compress``
+1``, before anything is allocated, for an MoE model (``attn_moe``, e.g.
+``--arch olmoe-1b-7b``: expert-parallel training is ROADMAP item 11b;
+it trains at ``--tp 1``, its log lines carrying the aux loss) and for
+the recurrent families (``mamba_hybrid``, ``rwkv``: item 11f). ``--grad-compress``
 is parsed and unused, as in JAX's trainer (the port's mesh has no data
 axis to compress over).
 """

@@ -89,3 +89,12 @@ def dense_group(x, ws):
     lead = x.shape[:-1]
     ys = matmul_group(x.reshape(-1, x.shape[-1]), [w.to(x.dtype) for w in ws])
     return [y.reshape(*lead, w.shape[1]) for y, w in zip(ys, ws)]
+
+
+# ---------------------------------------------------------- slot state
+def select_(active, old, new):
+    """``old[b] = new[b]`` for the slots of ``active`` (B,) bool, IN
+    PLACE (JAX's ``_sel_state``): the other slots keep their bytes, and
+    ``old`` keeps its address (captured graphs replay on it)."""
+    old.copy_(torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                          new, old))

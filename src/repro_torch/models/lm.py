@@ -10,8 +10,9 @@ so the functional code reads either. It comes in two forms:
   embedding stored in ``cfg.dtype`` (what JAX's per-call
   ``.astype(x.dtype)`` computes with), norm scales and the output head
   in fp32 (JAX's unembed promotes a bf16 ``x`` against the fp32 head
-  table, so the logits are an fp32 product), and the MoE router in fp32
-  (JAX routes in fp32);
+  table, so the logits are an fp32 product), and the leaves JAX reads
+  as fp32 masters in fp32 (:data:`FP32_LEAVES`: the MoE router, the
+  recurrent blocks' decay and norm parameters);
 * trainable (``trainable=True``): every leaf an fp32 master
   (``cfg.param_dtype``) with ``requires_grad``, as JAX trains; the
   forward casts each weight to ``cfg.dtype`` per call, so gradients
@@ -26,12 +27,14 @@ run the paper's sequence-parallel AG+GEMM and GEMM+RS at the projection
 sites (``core.patterns``); the loss is vocab-parallel
 (:func:`cross_entropy_ranks`).
 
-Decode state is a dict ``{"caches": {"k", "v"}, "cur_len"}`` (plus
-``"block_tables"`` when paged) as in JAX, but the entry points update it
-IN PLACE (KV caches, ``cur_len``) and return the same dict, where JAX
-returns new arrays. Over the W ranks of the ambient mesh
-(``distributed.context``) the caches are per-rank shard lists and the
-other leaves one copy per distinct device.
+Decode state is a dict ``{"caches", "cur_len"}`` (plus
+``"block_tables"`` when paged) as in JAX, ``caches`` the block's tree
+(``transformer``: KV, and per-slot recurrent state for the hybrid and
+rwkv), but the entry points update it IN PLACE (every cache leaf,
+``cur_len``) and return the same dict, where JAX returns new arrays.
+Over the W ranks of the ambient mesh (``distributed.context``) the KV
+leaves are per-rank shard lists and the other leaves (the recurrent
+state, ``cur_len``, the tables) one copy per distinct device.
 """
 from __future__ import annotations
 
@@ -65,15 +68,25 @@ def lm_spec(cfg):
         spec["head"] = {"table": Param((cfg.vocab_size, cfg.d_model),
                                        init="scaled",
                                        axes=("vocab", "embed"))}
+    if cfg.block == "rwkv":
+        spec["ln_in"] = norm_spec(cfg.d_model, "layernorm")
     return spec
 
 
+# leaves JAX reads as fp32 masters: norm scales and biases, the MoE
+# router (a bf16 router would flip experts at near-ties), Mamba2's A_log,
+# dt_bias, D and norm_scale, RWKV6's decay (w0 and its LoRA), bonus u
+# and GroupNorm scale
+FP32_LEAVES = ("scale", "bias", "router", "A_log", "dt_bias", "D",
+               "norm_scale", "w0", "w_lora_a", "w_lora_b", "u", "gn_scale")
+
+
 def storage_dtype(path: str, cfg) -> torch.dtype:
-    """How the port stores the leaf at dotted ``path``. The MoE router
-    stays fp32: JAX routes with the fp32 master, and a bf16 router would
-    flip experts at near-ties."""
+    """How the port stores the leaf at dotted ``path``: fp32 for
+    ``FP32_LEAVES`` and the output head, ``cfg.dtype`` (what JAX's
+    per-call ``.astype(x.dtype)`` computes with) otherwise."""
     leaf = path.rsplit(".", 1)[-1]
-    if path == "head.table" or leaf in ("scale", "bias", "router"):
+    if path == "head.table" or leaf in FP32_LEAVES:
         return torch.float32
     if path == "embed.table" and cfg.tie_embeddings:
         return torch.float32          # it is also the fp32 unembed table
@@ -91,8 +104,34 @@ def _module(tree: dict, trainable: bool) -> nn.Module:
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                  for k, v in tree.items()})
-    raise TypeError(f"mixed subtree {sorted(tree)}: a level holds either "
-                    f"sub-dicts or tensors")
+    return _Mixed(tree, trainable)
+
+
+class _Mixed(nn.Module):
+    """A level that holds sub-trees beside tensors (an RWKV6 layer: the
+    ``ln_t``/``ln_c`` norms beside its weights); it indexes and
+    iterates like a dict, as the ``ModuleDict``/``ParameterDict`` levels
+    do."""
+
+    def __init__(self, tree: dict, trainable: bool):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _module(v, trainable))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=trainable))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def items(self):
+        return [*self._parameters.items(), *self._modules.items()]
 
 
 class LM(nn.Module):
@@ -164,8 +203,9 @@ def shard_params(params: LM, mesh) -> list:
     ``mesh.devices[r]`` holds block r of every sharded leaf and its own
     copy of every replicated one (also where ranks share a card, so the
     same code runs on virtual and real ranks). Trainable stays
-    trainable. ``attn_moe`` raises at W > 1 (expert parallelism is a
-    later slice; serving replicates, :func:`replicate`)."""
+    trainable. ``attn_moe`` and the recurrent blocks raise at W > 1
+    (``transformer.require_one_rank``; serving replicates,
+    :func:`replicate`)."""
     cfg = params.cfg
     transformer.require_one_rank(cfg, mesh.size)
     trainable = any(p.requires_grad for p in params.parameters())
@@ -248,7 +288,8 @@ def _embed_ranks(params, tokens, cfg):
     input table (``("in_vocab", "in_embed")``: columns over the model
     axis) for every token, then each rank takes its rows of the sequence
     from every rank's columns (all rows when S does not divide by W).
-    Gathered in fp32 and cast after, as in JAX."""
+    Gathered in fp32 and cast after (rwkv's ``ln_in`` in between, at one
+    rank), as in JAX."""
     W, S = len(params), tokens.shape[1]
     g = [apply_embed(p["embed"], tokens.to(p.device), torch.float32)
          for p in params]
@@ -260,6 +301,9 @@ def _embed_ranks(params, tokens, cfg):
     else:
         x = [torch.cat([cm.to_device(rows(t, r), g[r].device) for t in g],
                        dim=-1) for r in range(W)]
+    if cfg.block == "rwkv":
+        x = [apply_norm(p["ln_in"], t, "layernorm")
+             for p, t in zip(params, x)]
     return [t.to(cfg.dtype) for t in x]
 
 
@@ -382,17 +426,49 @@ def _per_device(value):
     return value if isinstance(value, list) else [value]
 
 
+def _lists(trees: list):
+    """One tree of per-device lists from a list of per-device trees (None
+    stays None)."""
+    if trees[0] is None:
+        return None
+    return {k: _lists([t[k] for t in trees]) if isinstance(v, dict)
+            else [t[k] for t in trees] for k, v in trees[0].items()}
+
+
+def _leaves(tree):
+    """Every tensor of a state tree (lists of per-device copies
+    included)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in vals for t in _leaves(v)]
+
+
+def _mesh_caches(cfg, mesh, batch: int, kv_shard):
+    """The caches tree over ``mesh``: ``kv_shard(device)`` on every rank
+    (per-rank lists), the recurrent state once per distinct device."""
+    return transformer.assemble(
+        cfg, _lists([kv_shard(d) for d in mesh.devices]),
+        _lists([transformer.recurrent_state(cfg, batch, cfg.dtype, d)
+                for d in mesh.distinct]))
+
+
 def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
                             block_size: int, max_blocks: int):
-    """Paged decode state: KV pools (layers, n_blocks, block_size, KVH,
-    hd) in ``cfg.dtype``, per-slot ``cur_len`` (B,) int32 and
+    """Paged decode state: KV pools (kv_layers, n_blocks, block_size,
+    KVH, hd) and the per-slot recurrent state (layers, B, ...) of the
+    block (``transformer.init_paged_caches``) in ``cfg.dtype`` (fp32 SSM
+    and WKV states), per-slot ``cur_len`` (B,) int32 and
     ``block_tables`` (B, max_blocks) int32 (-1 = unallocated), on the
     parameters' device.
 
     Over the W ranks of the ambient mesh the pools are per-rank lists of
-    (layers, n_blocks / W, ...) shards (rank r holds global blocks
-    [r * n_blocks / W, (r + 1) * n_blocks / W)), and ``cur_len`` and
-    ``block_tables`` are lists with one copy per distinct device."""
+    (kv_layers, n_blocks / W, ...) shards (rank r holds global blocks
+    [r * n_blocks / W, (r + 1) * n_blocks / W)), and the recurrent
+    state, ``cur_len`` and ``block_tables`` are lists with one copy per
+    distinct device."""
     mesh = _mesh()
     devs = [params.device] if mesh is None else list(mesh.distinct)
     if mesh is None:
@@ -402,10 +478,9 @@ def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
         if n_blocks % mesh.size:
             raise ValueError(f"n_blocks={n_blocks} must divide by the "
                              f"{mesh.size} ranks (CachePool rounds up)")
-        shards = [transformer.init_paged_caches(
-            cfg, batch, n_blocks // mesh.size, block_size, cfg.dtype,
-            device=d) for d in mesh.devices]
-        caches = {k: [s[k] for s in shards] for k in ("k", "v")}
+        caches = _mesh_caches(
+            cfg, mesh, batch, lambda d: transformer.paged_kv(
+                cfg, n_blocks // mesh.size, block_size, cfg.dtype, d))
     state = {"caches": caches,
              "cur_len": [torch.zeros((batch,), dtype=torch.int32, device=d)
                          for d in devs],
@@ -419,11 +494,12 @@ def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
 
 
 def init_decode_state(params, cfg, batch: int, max_len: int):
-    """Contiguous decode state: per-layer caches (layers, B, S_max, KVH,
-    hd) in ``cfg.dtype`` and per-slot ``cur_len`` (B,) int32 -- each
-    slot advances independently. Over the W ranks of the ambient mesh the
-    caches are per-rank lists of strided shards (layers, B, S_max / W,
-    KVH, hd) (local slot j of rank r holds position j * W + r) and
+    """Contiguous decode state: per-layer KV caches (kv_layers, B, S_max,
+    KVH, hd) and the per-slot recurrent state in ``cfg.dtype``, and
+    per-slot ``cur_len`` (B,) int32 -- each slot advances independently.
+    Over the W ranks of the ambient mesh the KV caches are per-rank
+    lists of strided shards (kv_layers, B, S_max / W, KVH, hd) (local
+    slot j of rank r holds position j * W + r), the recurrent state and
     ``cur_len`` one copy per distinct device."""
     mesh = _mesh()
     if mesh is None:
@@ -431,10 +507,10 @@ def init_decode_state(params, cfg, batch: int, max_len: int):
                     cfg, batch, max_len, cfg.dtype, device=params.device),
                 "cur_len": torch.zeros((batch,), dtype=torch.int32,
                                        device=params.device)}
-    shards = [transformer.init_caches(cfg, batch, max_len, cfg.dtype,
-                                      device=d, W=mesh.size)
-              for d in mesh.devices]
-    return {"caches": {k: [s[k] for s in shards] for k in ("k", "v")},
+    return {"caches": _mesh_caches(cfg, mesh, batch,
+                                   lambda d: transformer.contiguous_kv(
+                                       cfg, batch, max_len, cfg.dtype, d,
+                                       W=mesh.size)),
             "cur_len": [torch.zeros((batch,), dtype=torch.int32, device=d)
                         for d in mesh.distinct]}
 
@@ -448,31 +524,45 @@ def set_slot_len(state, slot: int, n: int):
 
 def copy_cache_block(state, cfg, src: int, dst: int):
     """Device half of copy-on-write: clone pool block src -> dst across
-    all layers (and across ranks over a mesh), in place."""
+    all attention layers (and across ranks over a mesh), in place;
+    recurrent state is untouched."""
     transformer.copy_paged_block(cfg, state["caches"], src, dst)
     return state
 
 
+def _zero_slot(tree, slot: int):
+    for leaf in _leaves(tree):
+        leaf[:, slot] = 0
+
+
 def reset_slot(state, slot: int):
-    """Contiguous admission reset: zero one slot's caches and position,
-    in place."""
-    for leaf in state["caches"].values():
-        for shard in _per_device(leaf):
-            shard[:, slot] = 0
+    """Contiguous admission reset: zero one slot's caches (every leaf has
+    the slot at dim 1) and position, in place."""
+    _zero_slot(state["caches"], slot)
     return set_slot_len(state, slot, 0)
 
 
 def reset_slot_paged(state, cfg, slot: int):
-    """Paged admission reset. An attn_mlp or attn_moe model has no
-    recurrent state, so only the position counter resets (stale pool blocks sit beyond
-    cur_len and are masked)."""
+    """Paged admission reset: zero the slot's recurrent state (the
+    hybrid's and rwkv's leaves, slot at dim 1) and position, in place.
+    Paged KV blocks need no zeroing: stale block contents sit beyond
+    cur_len and are masked."""
+    _zero_slot(transformer.recurrent_part(cfg, state["caches"]), slot)
     return set_slot_len(state, slot, 0)
 
 
 def release_slot_paged(state, slot: int):
     """Preemption reset: zero the slot's position the moment its blocks
-    are freed, so it never points past blocks now owned by others."""
+    are freed, so it never points past blocks now owned by others (its
+    recurrent state resets at the next admission)."""
     return set_slot_len(state, slot, 0)
+
+
+def _device_lists(tree):
+    """``tree`` with every tensor leaf made a list of one (W = 1)."""
+    if isinstance(tree, dict):
+        return {k: _device_lists(v) for k, v in tree.items()}
+    return _per_device(tree)
 
 
 def decode_step(params, token, state, cfg, active=None,
@@ -508,11 +598,13 @@ def decode_step(params, token, state, cfg, active=None,
         c += a.to(torch.int32)            # includes the new token
     x = [apply_embed(p["embed"], token.to(c.device), torch.float32)
          .to(cfg.dtype) for p, c in zip(ps, cur_len)]
+    if cfg.block == "rwkv":
+        x = [apply_norm(p["ln_in"], xd, "layernorm") for p, xd in zip(ps, x)]
     bt = state.get("block_tables")
     btg = None if bt is None else [
         b if gather_width is None else b[:, :gather_width]
         for b in _per_device(bt)]
-    caches = {k: _per_device(v) for k, v in state["caches"].items()}
+    caches = _device_lists(state["caches"])
     x = transformer.decode([p["backbone"] for p in ps], x, caches, cur_len,
                            cfg, act, btg, bounded)
     h = apply_norm(ps[0]["ln_f"], x[0], cfg.norm)

@@ -31,7 +31,8 @@ fold (seed, request id, token index) with JAX's threefry
 (``serving.sampler``), so a stream does not depend on scheduling.
 
 Everything on the card runs under ``torch.inference_mode()``. The decode
-state (KV pools, ``cur_len``, block table) is updated in place.
+state (KV pools, the recurrent families' per-slot state, ``cur_len``,
+block table) is updated in place.
 
 The engine takes the ambient distribution context
 (``distributed.context.current()``) when it is built and runs every

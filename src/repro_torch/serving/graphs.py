@@ -14,9 +14,10 @@ into a ``torch.cuda.CUDAGraph`` and replayed from then on:
 
 * every per-megatick input lives in one static int32 device buffer
   (the temperatures as their float32 bits), filled by one host-to-device
-  copy before the replay; the decode state's tensors (KV pools,
-  ``cur_len``, block tables) are captured at their fixed addresses,
-  which the engine only ever writes in place;
+  copy before the replay; the decode state's tensors (KV pools, the
+  recurrent families' per-slot state, ``cur_len``, block tables) are
+  captured at their fixed addresses, which the engine only ever writes
+  in place;
 * before a key's capture, its program runs once for one step with every
   slot frozen: the state stays byte-identical, and every kernel's launch
   is planned (workspaces, symmetric buffers, counters) outside the

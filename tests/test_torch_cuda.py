@@ -706,9 +706,11 @@ def _smoke_cuda():
 
 def _lockstep(engines, reqs, between=None):
     """Submit ``reqs`` to every engine and tick them in lockstep; after
-    every tick the emitted tokens, ``cur_len``, block tables and KV pool
-    bytes must be identical across the engines. ``between(tick)`` runs
-    after each tick. Returns the finished requests of the first."""
+    every tick the emitted tokens, ``cur_len``, block tables and the
+    bytes of every cache leaf (KV pools, recurrent state) must be
+    identical across the engines. ``between(tick)`` runs after each
+    tick. Returns the finished requests of the first."""
+    from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.serving.engine import Request
     for eng in engines:
         for rid, (prompt, max_new, at, temp, top_k) in enumerate(reqs):
@@ -731,11 +733,10 @@ def _lockstep(engines, reqs, between=None):
             for key in ("cur_len", "block_tables"):
                 for a, b in zip(flat(states[0][key]), flat(st[key])):
                     assert torch.equal(a, b), key
-            for key in ("k", "v"):
-                for a, b in zip(flat(states[0]["caches"][key]),
-                                flat(st["caches"][key])):
-                    assert torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32)), key
+            ref = flatten(states[0]["caches"])
+            for key, leaf in flatten(st["caches"]).items():
+                assert torch.equal(ref[key].view(torch.uint8),
+                                   leaf.view(torch.uint8)), key
         if between is not None:
             between(engines[0].tick_count)
     return done[0]
@@ -1297,3 +1298,56 @@ def test_moe_decode_step_makes_no_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(lg).all())
+
+
+# --------------------------------------------------- recurrent families
+def _recurrent_smoke_cuda(arch):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config(arch)).replace(dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():      # the zero inits that would hide a path
+        for name, p in params.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("dt_bias", "conv_b", "w_lora_b"):
+                p.copy_(0.3 * torch.randn(p.shape, generator=g,
+                                          device="cuda"))
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch,tp", [("zamba2-1.2b", 1), ("zamba2-1.2b", 4),
+                                     ("rwkv6-3b", 1)])
+def test_recurrent_megatick_replay_matches_eager_loop(cuda, arch, tp):
+    """zamba2-smoke and rwkv6-smoke (float32) at K = 4, seeded
+    temperature: the graph engine against the eager loop in lockstep,
+    every recurrent-state byte (conv, ssm; x_prev_t, x_prev_c, S)
+    identical after every tick besides tokens, ``cur_len``, tables and
+    KV; the hybrid's shared attention on 4 virtual ranks under
+    ``pallas``. GEMM launches per step: zamba2 2 a Mamba2 layer + 4 a
+    shared-block call (3 over ranks, where ``wo`` is the AG+GEMM) + 1;
+    rwkv 9 a block + 1."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import Engine
+    cfg, params = _recurrent_smoke_cuda(arch)
+    mesh = make_mesh(tp, device="cuda") if tp > 1 else None
+    with dctx.use(dctx.DistContext(mesh, "pallas")):
+        engs = [Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                       block_size=8, decode_steps=4, sampler="temperature",
+                       device="cuda") for _ in range(2)]
+    engs[1]._runner.use_graphs = False
+    n0, q0 = matmul.launches, matmul.plain_calls
+    done = _lockstep(engs, _MEGA_REQS)
+    assert len(done) == len(_MEGA_REQS) and matmul.plain_calls == q0
+    m = engs[0].metrics(done)
+    assert m["graphs"] and m["graph_replays"] == m["dispatches"]
+    assert m["mixed_dispatches"] > 0 and m["decode_dispatches"] > 0
+    steps = 2 * engs[0].scan_steps + m["graph_warmup_steps"]
+    if cfg.block == "rwkv":
+        per_step = 9 * cfg.n_layers + 1
+    else:
+        groups = cfg.n_layers // cfg.attn_every
+        per_step = 2 * cfg.n_layers + (4 if tp == 1 else 3) * groups + 1
+    assert matmul.launches - n0 == steps * per_step
+

@@ -188,8 +188,16 @@ def test_entry_points_refuse_cuda_without_a_gpu():
 
 
 def test_other_blocks_are_a_later_slice():
-    """The recurrent families and the frontends are not ported yet (the
-    MoE family is: tests/test_torch_moe.py)."""
-    for arch in ("rwkv6-3b", "zamba2-1.2b", "paligemma-3b"):
+    """The vlm and audio frontends are not ported yet; the recurrent
+    families are (tests/test_torch_recurrent_*.py): their specs build
+    with JAX's keys and shapes, as the MoE family's does
+    (tests/test_torch_moe.py)."""
+    for arch in ("paligemma-3b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError):
             tlm.lm_spec(smoke_config(get_config(arch)))
+    for arch in ("rwkv6-3b", "zamba2-1.2b"):
+        want = {k: v.shape for k, v in tree_items(jlm.lm_spec(
+            jax_smoke(jax_get_config(arch))))}
+        got = {k: v.shape for k, v in tree_items(tlm.lm_spec(
+            smoke_config(get_config(arch))))}
+        assert got == want, arch

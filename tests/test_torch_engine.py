@@ -176,15 +176,16 @@ def test_cache_pool_bookkeeping_matches_jax(models):
 
 
 def test_engine_rejects_later_slices(models):
-    """What the port does not serve yet raises (a model family other
-    than attn_mlp and attn_moe: the recurrent rwkv6), and a request
-    without a prompt is refused. The robustness plane, once a later
-    slice, is live (tests/test_torch_faults.py): drain() on an idle
-    engine parks nothing."""
+    """What the port does not serve yet raises (a model with a frontend:
+    the vlm paligemma-3b), and a request without a prompt is refused.
+    The robustness plane, once a later slice, is live
+    (tests/test_torch_faults.py): drain() on an idle engine parks
+    nothing."""
     from repro_torch.models import lm
     _, _, tc, tp = models
     with pytest.raises(NotImplementedError):
-        lm.init_params(smoke_config(get_config("rwkv6-3b")), device="cpu")
+        lm.init_params(smoke_config(get_config("paligemma-3b")),
+                       device="cpu")
     eng = Engine(tp, tc, device="cpu", batch=2, max_len=32)
     assert eng.drain() == []
     with pytest.raises(ValueError):
