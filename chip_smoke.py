@@ -115,6 +115,25 @@ source, in parallel), then runs, failing on the first phase that fails:
    trained 3 steps card vs CPU, then the model at full width and depth
    3 steps of 2 x 1024 tokens: losses finite, GEMM launches per step,
    ms per step, tokens/s, peak memory;
+16. the vlm and audio frontends, after phase 15: (a) both decode
+   kernels at paligemma's heads (8 query heads per KV head of 256, two
+   units of 4 heads) vs their plain versions, bf16 and f32: the paged
+   decode at W = 1 and fused over 4 virtual ranks, the contiguous one at
+   W = 1 and fused; the GEMM at paligemma's decode products (wq/wk/wv
+   2048 -> 2048/256/256, wg/wu 2048 -> 16384, wd, the tied fp32 unembed
+   N 257216) timed beside its plain version and ``torch.matmul``; (b)
+   the float32 paligemma-smoke served on the card and on the CPU (K = 1,
+   K = 8, over 4 virtual ranks under ``pallas``), streams and counters
+   identical; hubert-smoke refused by the engine; both smoke models
+   trained 3 steps with patches / frames through ``launch.steps``, card
+   vs CPU and tp 4 vs tp 1; (c) paligemma-3b at full width (nothing
+   cut) with phase 5's traffic at K = 1 (4 requests) and K = 8 (+ the
+   steady rerun), launches exact a step (73 GEMM + 18 paged decodes),
+   finite logits, contiguous-cache decode steps (18 contiguous decodes a
+   step); (d) paligemma-3b (2 x (1024 tokens + 256 patches)) and
+   hubert-xlarge (2 x 1024 frames) trained 3 steps at full width and
+   depth: losses finite, GEMM launches per step exact, ms per step,
+   tokens/s, peak memory, and every product of the step timed;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -2399,6 +2418,17 @@ def _cpu_copy(params, cfg, dev):
                         trainable=True)
 
 
+def _ulp_noise(params, cfg, seed):
+    """A CPU copy of ``params`` with every entry scaled by 1 + u, u
+    uniform within one float32 ulp (2**-24 either way)."""
+    noisy = _cpu_copy(params, cfg, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for t in noisy.parameters():
+            t.mul_(1 + (torch.rand(t.shape, generator=gen) - 0.5) * 2 ** -23)
+    return noisy
+
+
 def _param_diff(p, q):
     """(max |p - q| over every leaf, whether every leaf is bit-equal)."""
     diff, same = 0.0, True
@@ -3529,12 +3559,7 @@ def phase_moe_train_small():
         cfg.vocab_size, 32, 2, seed=0).batch_at(0).items()}
     sens = []
     for seed in range(3):
-        noisy = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for t in noisy.parameters():
-                t.mul_(1 + (torch.rand(t.shape, generator=gen) - 0.5)
-                       * 2 ** -23)
+        noisy = _ulp_noise(init, cfg, seed)
         loss, _ = lm.loss_fn(noisy, batch0, cfg)
         loss.backward()
         sens.append(max(gaps({n: t.grad for n, t in
@@ -3776,7 +3801,7 @@ def rec_gemm_rows(cfg):
             ("wd", cfg.d_ff, [d], bf, False, G, False), unembed]
 
 
-def phase_rec_gemm(gen, cfg, B=8):
+def phase_rec_gemm(gen, cfg, B=8, gemm_rows=None):
     """(15a) the GEMM vs its plain version at a recurrent model's decode
     products (phase 2's tolerances, one launch each, a group bit-equal
     to single calls), the new shapes (zamba2's in_proj N 8384, rwkv's
@@ -3793,7 +3818,8 @@ def phase_rec_gemm(gen, cfg, B=8):
         return [matmul(a, ws[0], trans_b=True)] if tb else \
             matmul_group(a, ws) if len(ws) > 1 else [matmul(a, ws[0])]
 
-    for name, K, Ns, dt, tb, count, new in rec_gemm_rows(cfg):
+    for name, K, Ns, dt, tb, count, new in (gemm_rows
+                                            or rec_gemm_rows(cfg)):
         for M in ((1, 2048, B) if new else (B,)):     # timed at M = B
             a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
             ws = [(torch.randn((N, K) if tb else (K, N), generator=gen,
@@ -4190,12 +4216,7 @@ def phase_rec_train_small(arch):
         cfg.vocab_size, 32, 2, seed=0).batch_at(0).items()}
     sens = []
     for seed in range(3):
-        noisy = _cpu_copy(init, cfg, "cpu")
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for t in noisy.parameters():
-                t.mul_(1 + (torch.rand(t.shape, generator=gen) - 0.5)
-                       * 2 ** -23)
+        noisy = _ulp_noise(init, cfg, seed)
         loss, _ = lm.loss_fn(noisy, batch0, cfg)
         loss.backward()
         sens.append(max(gaps({n: t.grad for n, t in
@@ -4325,6 +4346,601 @@ def phase_recurrent(gen):
     return out, kernels
 
 
+# ------------------------------------------- (16) the vlm and audio frontends
+FRONT_ARCHS = ("paligemma-3b", "hubert-xlarge")
+FRONT_STEPS = 3
+
+
+def front_gemm_rows(cfg):
+    """paligemma-3b's GEMM launches of one decode step, in
+    ``rec_gemm_rows``' form: wq/wk/wv (2048 -> 2048, 256, 256) one
+    group, wo, wg/wu (2048 -> 16384 x 2) one group, wd a layer; the tied
+    fp32 unembed (2048 -> 257216, the table read transposed)."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    bf = torch.bfloat16
+    return [("wqkv", d, [qd, kvd, kvd], bf, False, L, True),
+            ("wo", qd, [d], bf, False, L, False),
+            ("wgu", d, [f, f], bf, False, L, True),
+            ("wd", f, [d], bf, False, L, False),
+            ("unembed", d, [cfg.vocab_size], torch.float32, True, 1, True)]
+
+
+def front_train_launches(cfg):
+    """GEMM launches of one training step at one rank on a batch with
+    patches or frames (remat full): per layer the 4 forward launches
+    (wq/wk/wv and the MLP's up projections grouped) twice, the dA of
+    every projection (7 with a gate, 6 without), 4 dB launches; the
+    unembed's 3; the frontend projection's forward and dB (its input
+    needs no gradient)."""
+    glu = cfg.act in ("swiglu", "geglu")
+    return cfg.n_layers * (2 * 4 + (7 if glu else 6) + 4) + 3 + 2
+
+
+def front_train_products(cfg, B, S):
+    """Every GEMM product of one training step over B sequences of S
+    tokens (+ the vlm's patches): (name, kind, M, K, N, dtype, trans_b,
+    count a step), as ``train_products`` lists them, the MLP's products
+    by the config's activation, the unembed against the fp32 table
+    (tied or head), and the frontend projection's forward and dB."""
+    P = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    M = B * (S + P)
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    shapes = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd), "wo": (qd, d),
+              "wg": (d, f), "wu": (d, f), "wd": (f, d)}
+    if cfg.act not in ("swiglu", "geglu"):
+        del shapes["wg"]
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    for name, (K, N) in shapes.items():
+        out += [(name, "fwd", M, K, N, bf, False, 2 * L),
+                (name, "dA", M, N, K, bf, False, L),
+                (name, "dB", K, M, N, bf, False, L)]
+    Mf = B * (P or S)
+    return out + [("unembed", "fwd", M, d, V, f32, True, 1),
+                  ("unembed", "dA", M, V, d, f32, False, 1),
+                  ("unembed", "dB", V, M, d, f32, False, 1),
+                  ("frontend", "fwd", Mf, cfg.frontend_dim, d, bf, False, 1),
+                  ("frontend", "dB", cfg.frontend_dim, Mf, d, bf, False, 1)]
+
+
+def phase_front_products(gen, cfg, B, S):
+    """(16d) the GEMM kernel vs its plain version at every product of a
+    full-width training step of ``cfg`` (``front_train_products``: the
+    frontend projections among them), phase 2's tolerances, each timed
+    with CUDA events (kernel, plain version, one ``torch.matmul``).
+    Returns (rows keyed "name kind" with ``count``, the worst error)."""
+    from repro_torch.kernels import matmul as kmm
+    rows, worst = {}, 0.0
+    for name, kind, M, K, N, dt, tb, count in front_train_products(cfg, B,
+                                                                   S):
+        a = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        b = (torch.randn((N, K) if tb else (K, N), generator=gen,
+                         device="cuda") / K ** 0.5).to(dt)
+        got, want = kmm.matmul(a, b, trans_b=tb), kmm.matmul_plain(a, b, tb)
+        torch.cuda.synchronize()
+        err = _gemm_err(got, want, dt, f"{cfg.name} train GEMM {name} "
+                                       f"{kind} {(M, K, N)}")
+        worst = max(worst, err)
+        del got, want
+        big = M * K * N > 1e12
+        ops_s = 2 * M * N * K / PEAK_OPS[dt]
+        by_s = (M * K + K * N + M * N) * a.element_size() / HBM_BYTES_PER_S
+        rows[f"{name} {kind}"] = {
+            "shape": [M, K, N], "dtype": str(dt).replace("torch.", ""),
+            "count": count, "max_abs_err": err,
+            "ms": time_ms(lambda: kmm.matmul(a, b, trans_b=tb),
+                          iters=2 if big else 5, warmup=1),
+            "plain_ms": time_ms(lambda: kmm.matmul_plain(a, b, tb),
+                                iters=2 if big else 5, warmup=1),
+            "library_ms": time_ms(lambda: a @ (b.t() if tb else b),
+                                  iters=2 if big else 5, warmup=1),
+            "bound_ms": 1e3 * max(ops_s, by_s), "ops_ms": 1e3 * ops_s,
+            "bytes_ms": 1e3 * by_s}
+        del a, b
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase_front_decode(gen, W=4):
+    """(16a) both decode kernels at paligemma's heads (8 query heads per
+    KV head of 256: two units of 4 heads, ``heads_per_unit``) vs their
+    plain versions, phase 2's tolerances, bf16 and fp32: the paged decode
+    at W = 1 (full table, holes, a window, a gather slice) and fused over
+    ``W`` virtual ranks of cuda:0; the contiguous decode at W = 1
+    (NORMAL) and fused over ``W`` ranks (a window, shards that are not
+    whole tiles); fused outputs bit-identical across ranks. Returns the
+    worst errors (paged, contiguous)."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels import flash_decode as kfd
+    H, KVH, D, bs, C = 8, 1, 256, 16, 32
+    scale = D ** -0.5
+    worst = {"paged": 0.0, "strided": 0.0}
+    n = 0
+    mesh = Mesh(["cuda:0"] * W)
+    check(kfd.heads_per_unit(H // KVH, D) == 4, "hd 256: not 4 heads a unit")
+    for dt in (torch.float32, torch.bfloat16):
+        q, kp, vp, full = _decode_inputs(gen, dt, H=H, KVH=KVH, D=D, bs=bs,
+                                         C=C)
+        cur = torch.tensor([1, bs, bs + 1, C * bs, 37, 200, 511, 130],
+                           dtype=torch.int32, device="cuda")
+        holes = full.clone()
+        holes[4, 0] = -1
+        for name, tables, window in (("full", full[:, :C], None),
+                                     ("holes", holes[:, :C], None),
+                                     ("window32", holes[:, :C], 32),
+                                     ("gather_slice", full[:, :C // 2],
+                                      None)):
+            cl = cur.clamp(max=tables.shape[1] * bs)
+            got = kfd.flash_decode_paged(q, kp, vp, cl, tables, scale,
+                                         window=window)
+            want = kfd.paged_decode_plain(q, kp, vp, cl, tables, scale,
+                                          window=window)
+            torch.cuda.synchronize()
+            worst["paged"] = max(worst["paged"], _close(
+                got, want, dt, f"hd256 paged {name} {dt}"))
+            n += 1
+        q, kps, vps, cur, tb = _paged_ranks_inputs(gen, dt, W, H=H, KVH=KVH,
+                                                   D=D)
+        n_loc = kps[0].shape[0]
+        for _ in range(2):                 # both inbox parities
+            got = kfd.flash_decode_paged_fused(
+                [q] * W, kps, vps, [cur] * W, [tb] * W, scale, mesh=mesh)
+            want = kfd.fused_plain([kfd.paged_partial_plain(
+                q, kps[r], vps[r], cur, tb, scale, None, base=r * n_loc)
+                for r in range(W)], dt)[0]
+            torch.cuda.synchronize()
+            for r in range(W):
+                check(torch.equal(got[r], got[0]), f"hd256 paged fused "
+                                                   f"{dt}: rank {r} differs")
+            worst["paged"] = max(worst["paged"], _close(
+                got[0], want, dt, f"hd256 paged fused W={W} {dt}"))
+            n += 1
+        for w_, window in ((1, None), (W, None), (W, 100)):
+            q, ks, vs, cur = _strided_inputs(gen, dt, w_, H=H, KVH=KVH, D=D,
+                                             S_max=600 if w_ > 1 else 512)
+            got = kfd.flash_decode_fused([q] * w_, ks, vs, [cur] * w_, scale,
+                                         window=window, mesh=mesh if w_ > 1
+                                         else None)
+            want = kfd.fused_plain([kfd.strided_partial_plain(
+                q, ks[r], vs[r], cur, scale, window, r, w_)
+                for r in range(w_)], dt)[0]
+            torch.cuda.synchronize()
+            for r in range(w_):
+                check(torch.equal(got[r], got[0]), f"hd256 strided {dt}: "
+                                                   f"rank {r} differs")
+            worst["strided"] = max(worst["strided"], _close(
+                got[0], want, dt, f"hd256 strided W={w_} window {window} "
+                                  f"{dt}"))
+            n += 1
+    print(f"[front decode] paged and contiguous decode at hd 256, q_per_kv "
+          f"8 (two units of 4 heads): {n} cases (W = 1 and fused over {W} "
+          f"virtual ranks) match the plain versions (max |err| paged "
+          f"{worst['paged']:.3e}, contiguous {worst['strided']:.3e})",
+          flush=True)
+    return worst
+
+
+def strided_row(gen, lens, H, KVH, D, launches, per, err, B=8, S_max=256,
+                name="flash_decode_fused"):
+    """The contiguous decode's kernel line at W = 1 (NORMAL) for one
+    decode step of ``per`` launches at the served lengths ``lens`` (bf16,
+    a cache of ``S_max`` positions): graph-timed beside its plain version,
+    SDPA over the head-expanded cache, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as kfd
+    bf16 = torch.bfloat16
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(bf16)
+    kc = torch.randn((B, S_max, KVH, D), generator=gen, device="cuda").to(
+        bf16)
+    vc = torch.randn((B, S_max, KVH, D), generator=gen, device="cuda").to(
+        bf16)
+    scale = D ** -0.5
+    t_k = graph_ms(lambda: kfd.flash_decode_fused([q], [kc], [vc], [cl],
+                                                  scale), iters=50)
+    t_p = time_ms(lambda: kfd.fused_plain([kfd.strided_partial_plain(
+        q, kc, vc, cl, scale, None, 0, 1)], bf16), iters=5)
+    kg = kc.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vg = vc.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    mask = (torch.arange(S_max, device="cuda")[None] < cl[:, None])[
+        :, None, None, :]
+    t_l = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale), iters=50)
+    by = sum(lens) * KVH * D * 2 * 2 + 2 * nbytes(q) + nbytes(cl)
+    ops_t = sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:321",
+            "launches": launches, "launches_per_step": per,
+            "max_abs_err": err, "ms": per * t_k, "plain_ms": per * t_p,
+            "library_ms": per * t_l,
+            "bound_ms": 1e3 * per * max(by / HBM_BYTES_PER_S, ops_t),
+            "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
+                         else "operations"),
+            "unit": f"one contiguous-cache decode step at batch {B} on one "
+                    f"rank, {per:g} launches, H {H}, KVH {KVH}, hd {D}, "
+                    f"S_max {S_max}, cur_len {lens}"}
+
+
+def _front_smoke(arch):
+    """(cfg, trainable CPU init) of ``arch``'s float32 smoke model."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config(arch)).replace(dtype=torch.float32)
+    return cfg, lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+
+
+def _front_train(init, cfg, dev, mesh=None, steps=FRONT_STEPS):
+    """``steps`` steps of ``launch.steps``' train step on
+    ``synthetic_batch(cfg, 2, 32, seed=step)`` (patches or frames),
+    AdamW lr 1e-4, from a copy of ``init`` on ``dev`` (sharded over
+    ``mesh`` under ``TP_MODE``): (losses, grad norms, the first step's
+    gradients of the global leaves: sharded blocks joined, a replicated
+    leaf's summed copies taken once, None where the loss reads nothing)
+    and the GEMM's launches and plain calls."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    params = _cpu_copy(init, cfg, dev)
+    if mesh is not None:
+        params = lm.shard_params(params, mesh)
+    ctx = dctx.DistContext(mesh, TP_MODE) if mesh is not None \
+        else dctx.DistContext()
+    step = st.make_train_step(cfg, adamw.AdamWConfig(lr=1e-4))
+    opt = st.init_opt_state(params)
+    losses, gnorms, g0 = [], [], None
+    n0, p0 = matmul.launches, matmul.plain_calls
+    for i in range(steps):
+        batch = st.synthetic_batch(cfg, 2, 32, seed=i, device=dev)
+        with dctx.use(ctx):
+            params, opt, met = step(params, opt, batch)
+        losses.append(met["loss"].item())
+        gnorms.append(met["grad_norm"].item())
+        if i:
+            continue
+        ranks = lm.as_ranks(params)
+        dims = ({} if mesh is None else lm.shard_dims(cfg, mesh))
+        per = [dict(p.named_parameters()) for p in ranks]
+        g0 = {}
+        for n, t in per[0].items():
+            d = dims.get(n)
+            g0[n] = (None if t.grad is None else
+                     t.grad.detach().cpu().clone() if d is None else
+                     torch.cat([q[n].grad.detach().cpu() for q in per],
+                               dim=d))
+    return losses, gnorms, g0, matmul.launches - n0, matmul.plain_calls - p0
+
+
+def _grads_apart(g, want):
+    """The largest gap of a gradient leaf over the leaf's largest |entry|;
+    leaves without a gradient must be so in both."""
+    worst = 0.0
+    for n, w in want.items():
+        check((g[n] is None) == (w is None), f"gradient of {n}: present in "
+                                             f"one run only")
+        if w is not None:
+            worst = max(worst, ((g[n] - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def phase_front_small(tp=4):
+    """(16b) the float32 smoke models on the card against the CPU:
+    paligemma-smoke served (phase 4's engine and requests) at K = 1 and K
+    = 8 (graph replays) and at K = 8 over ``tp`` virtual ranks under
+    ``pallas`` (the fused paged decode and AG+GEMM), greedy: streams
+    token-identical and counters equal to the CPU's, no plain GEMM call
+    on the card; hubert-smoke refused by the engine; both trained
+    FRONT_STEPS steps through ``launch.steps``' train step on batches
+    with patches or frames, card vs CPU and tp ``tp`` vs tp 1 on the
+    card, phase 12b's and 13b's tolerances: the first loss within 1e-5
+    relative, losses 1e-4 (card vs CPU), every first-step gradient leaf
+    within 1e-3 of its largest |entry| and grad norms within 1e-2, each
+    of the last two or 2x the CPU's own gap under one float32 ulp of
+    weight noise (two noisy CPU runs, 14d's and 15d's bound) if that is
+    larger: hubert-smoke's second grad norm moves by more than 1% on the
+    CPU alone under such noise, as AdamW's normalised update moves the
+    entries whose gradient is near zero either way."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    cfg, init = _front_smoke("paligemma-3b")
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    reqs = _smoke_requests(np.random.default_rng(0), cfg.vocab_size)
+    mesh = make_mesh(tp, device="cuda")
+    serve = {}
+    for K in (1, 8):
+        cpu = _serve_small(p_cpu, cfg, reqs, "cpu", K)
+        n0, pl0 = matmul.launches, matmul.plain_calls
+        card = _serve_small(p_gpu, cfg, reqs, "cuda", K)
+        check(matmul.plain_calls == pl0 and matmul.launches > n0,
+              f"paligemma small K={K}: plain calls or no GEMM launch")
+        check(len(card[0]) == len(reqs) and card[0] == cpu[0]
+              and card[1] == cpu[1], f"paligemma small K={K}: card "
+              f"{card[0]} {card[1]} vs CPU {cpu[0]} {cpu[1]}")
+        serve[K] = card
+    ranks = _serve_small(p_gpu, cfg, reqs, "cuda", 8, "greedy",
+                         dctx.DistContext(mesh, "pallas"))
+    check(ranks[0] == serve[8][0] and ranks[1] == serve[8][1],
+          f"paligemma small tp={tp} K=8 differs from tp=1")
+    hub, hub_init = _front_smoke("hubert-xlarge")
+    try:
+        Engine(lm.init_params(hub, seed=0, device="cuda"), hub,
+               device="cuda")
+        refused = False
+    except ValueError as e:
+        refused = "encoder-only" in str(e)
+    check(refused, "hubert: the engine did not refuse an encoder")
+    train = {}
+    for arch, (c, p0) in (("paligemma-3b", (cfg, init)),
+                          ("hubert-xlarge", (hub, hub_init))):
+        cpu = _front_train(p0, c, "cpu")
+        noise = [_front_train(_ulp_noise(p0, c, seed), c, "cpu")
+                 for seed in (0, 1)]
+        g_tol = max(1e-3, 2 * max(_grads_apart(n[2], cpu[2])
+                                  for n in noise))
+        n_tol = max(1e-2, 2 * max(abs(a / b - 1) for n in noise
+                                  for a, b in zip(n[1], cpu[1])))
+        card = _front_train(p0, c, "cuda")
+        card_tp = _front_train(p0, c, "cuda", mesh)
+        what = f"{arch} train small"
+        check(card[3] > 0 and card[4] == 0 and card_tp[4] == 0,
+              f"{what}: {card[3]} GEMM launches, plain calls {card[4]} / "
+              f"{card_tp[4]} on the card")
+        check(abs(card[0][0] - cpu[0][0]) <= 1e-5 * abs(cpu[0][0])
+              and np.allclose(card[0], cpu[0], rtol=1e-4, atol=0)
+              and np.allclose(card[1], cpu[1], rtol=n_tol, atol=0),
+              f"{what}: card losses {card[0]} gnorms {card[1]} vs CPU "
+              f"{cpu[0]} {cpu[1]} (grad-norm bound {n_tol:.3e})")
+        check(abs(card_tp[0][0] - card[0][0]) <= 1e-5 * abs(card[0][0]),
+              f"{what}: tp {tp} first loss {card_tp[0][0]} vs tp 1 "
+              f"{card[0][0]}")
+        g_cpu, g_tp = _grads_apart(card[2], cpu[2]), \
+            _grads_apart(card_tp[2], card[2])
+        check(g_cpu <= g_tol and g_tp <= g_tol, f"{what}: step-1 "
+              f"gradients card vs CPU {g_cpu:.3e}, tp {tp} vs tp 1 "
+              f"{g_tp:.3e} (bound {g_tol:.3e})")
+        train[arch] = {"cpu_losses": cpu[0], "card_losses": card[0],
+                       f"card_tp{tp}_losses": card_tp[0],
+                       "cpu_grad_norms": cpu[1], "card_grad_norms": card[1],
+                       "grad_err_vs_cpu": g_cpu, "grad_err_tp_vs_1": g_tp,
+                       "grad_bound": g_tol, "grad_norm_bound": n_tol,
+                       "gemm_launches": card[3]}
+    print(f"[front small] paligemma-smoke float32 served on the card as on "
+          f"the CPU at K=1 {serve[1][1]} and K=8 {serve[8][1]} (graph "
+          f"replays), tp={tp} pallas as tp=1; hubert refused by the engine; "
+          f"trained {FRONT_STEPS} steps with patches / frames: " + "; ".join(
+              f"{a} card losses {[round(x, 5) for x in t['card_losses']]}, "
+              f"grad norms {[round(x, 4) for x in t['card_grad_norms']]} vs "
+              f"CPU {[round(x, 4) for x in t['cpu_grad_norms']]} (bound "
+              f"{t['grad_norm_bound']:.2e}), step-1 gradients vs CPU "
+              f"{t['grad_err_vs_cpu']:.2e}, tp {tp} vs 1 "
+              f"{t['grad_err_tp_vs_1']:.2e} (bound {t['grad_bound']:.2e})"
+              for a, t in train.items()), flush=True)
+    return {"serve_counters": {K: v[1] for K, v in serve.items()},
+            "train": train}
+
+
+def phase_front_serve(gen, rows, worst, dec_err):
+    """(16c) paligemma-3b at full width (18 layers, d 2048, 8/1 heads of
+    256, d_ff 16384 geglu, tied vocab 257216; bf16 layers and the fp32
+    tied table, seeded weights, nothing cut) through the engine with
+    phase 5's traffic: K = 1 on 4 requests, K = 8 on all 8 (graph
+    replays) and again on prompts of the same lengths for the steady
+    time, launches exact a decode step (73 GEMM, 18 paged decodes);
+    teacher-forced paged logits finite; decode steps over the contiguous
+    cache (18 contiguous decodes a step, finite logits). Returns
+    (summary, kernel lines 1p, 2p, 3p)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import launch_counted
+    cfg = get_config("paligemma-3b")
+    t0 = time.time()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in params.parameters()) / 1e9
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    kw = dict(batch=8, max_len=512, label="paligemma")
+    L = cfg.n_layers
+    per_step = {"matmul": 4 * L + 1, "flash_decode_paged": L}
+    cells = {}
+    cells["k1"], done1 = serve_cell(
+        params, cfg, 1, _full_requests(cfg, plens[:4], 1, 32, 2), **kw)
+    _check_serve(cells["k1"], done1, cfg, 4, 32, per_step, "paligemma K=1")
+    cells["k8"], done8 = serve_cell(
+        params, cfg, 8, _full_requests(cfg, plens, 1, 32, 2),
+        _full_requests(cfg, plens, 2, 32, 2), **kw)
+    _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "paligemma K=8")
+    s1 = {r.rid: r.out_tokens for r in done1}
+    s8 = {r.rid: r.out_tokens for r in done8}
+    cells["k8"]["streams_identical_to_k1"] = sum(s1[r] == s8[r] for r in s1)
+    fns = launch_counted()
+    with torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, 8, 64, 16, 8)
+        st["block_tables"].copy_(torch.arange(64, dtype=torch.int32)
+                                 .reshape(8, 8))
+        tok = torch.randint(1, cfg.vocab_size, (8, 8), device="cuda")
+        lg, _ = lm.decode_chunk(params, tok, torch.full(
+            (8,), 8, device="cuda"), st, cfg)
+        check(bool(torch.isfinite(lg).all()), "paligemma: non-finite "
+                                              "paged logits")
+        del st
+        cst = lm.init_decode_state(params, cfg, 8, 256)
+        T = 4
+        torch.cuda.synchronize()
+        _counted(fns)
+        for j in range(T):
+            lg, _ = lm.decode_step(params, tok[:, j:j + 1], cst, cfg)
+        torch.cuda.synchronize()
+        contiguous = {f.__name__: f.launches for f in fns if f.launches}
+        check(bool(torch.isfinite(lg).all()), "paligemma: non-finite "
+                                              "contiguous logits")
+    check(contiguous == {"matmul": T * per_step["matmul"],
+                         "flash_decode_fused": T * L}, f"paligemma "
+          f"contiguous decode: launches {contiguous} in {T} steps")
+    del params, cst, lg
+    torch.cuda.empty_cache()
+    lens = [n + 32 for n in plens]
+    kernels = [
+        {"name": "matmul_paligemma", "route": "cuda",
+         "source": "src/repro_torch/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:34",
+         "launches": cells["k8"]["launches"]["matmul"],
+         "launches_per_step": per_step["matmul"], "max_abs_err": worst,
+         **_products_row(rows, list(rows)),
+         "unit": f"one paligemma-3b decode step at batch 8 "
+                 f"({per_step['matmul']} launches), 16a's graph-timed "
+                 f"products"},
+        paged_row(gen, lens, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                  cells["k8"]["launches"]["flash_decode_paged"], L,
+                  dec_err["paged"], name="flash_decode_paged_paligemma"),
+        strided_row(gen, lens, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                    contiguous["flash_decode_fused"], L, dec_err["strided"],
+                    name="flash_decode_fused_paligemma")]
+    k8 = cells["k8"]
+    out = {"config": "paligemma-3b full width, 18 layers, bf16 layers and "
+                     "the fp32 tied table, nothing cut", "params": n_params,
+           "weight_gb": weight_gb, "init_s": init_s,
+           "prompt_tokens": sum(plens), **cells,
+           "launches_per_step": per_step,
+           "contiguous_launches": contiguous, "contiguous_steps": T}
+    print(f"[front serve] paligemma-3b: {n_params / 1e9:.3f} B parameters, "
+          f"{weight_gb:.2f} GB; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s;"
+          f" K=8 steady {k8['steady_tokens_per_s']:.2f} tok/s, "
+          f"{k8['steady_ms_per_token']:.2f} ms/token, busy "
+          f"{k8['steady_busy_share']:.3f}, pure megatick "
+          f"{k8['pure_megatick_device_ms']:.2f} ms device, peak "
+          f"{k8['peak_mem_bytes'] / 1e9:.2f} GB, {k8['graph_captures']} "
+          f"graphs; launches a step {per_step}, contiguous {contiguous} in "
+          f"{T} steps; " + "; ".join(
+              f"{k['name']} {k['ms']:.3f} ms a step (bound "
+              f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
+              f"{k['library_ms']:.3f})" for k in kernels), flush=True)
+    return out, kernels
+
+
+def phase_front_train(gen, arch, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    """(16d) ``arch`` at full width and depth, bf16 compute, fp32 masters,
+    AdamW (lr TRAIN_LR, warmup FRONT_STEPS), remat full: FRONT_STEPS
+    steps of ``launch.steps``' train step on ``synthetic_batch`` batches
+    of B x S tokens (paligemma: + 256 patches a sequence) or frames.
+    Checks the losses finite, the GEMM launches of every step
+    (``front_train_launches``), no plain call, peak memory below 80 GB;
+    ms per step, tokens/s, peak. Then every product of the step timed
+    (``phase_front_products``) for the kernel line. Returns (summary,
+    kernel line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import steps as st
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, schedule
+    cfg = get_config(arch)
+    per_step = front_train_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = lm.init_params(cfg, seed=0, device="cuda", trainable=True)
+    opt = st.init_opt_state(params)
+    step = st.make_train_step(cfg, adamw.AdamWConfig(
+        lr=schedule.warmup_cosine(TRAIN_LR, FRONT_STEPS, FRONT_STEPS)))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    matmul.launches = matmul.plain_calls = 0
+    losses, step_s, counts = [], [], []
+    for i in range(FRONT_STEPS):
+        batch = st.synthetic_batch(cfg, B, S, seed=i, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        params, opt, met = step(params, opt, batch)
+        losses.append(met["loss"].item())
+        step_s.append(time.time() - t1)
+        counts.append(matmul.launches)
+    plain = matmul.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, met, batch, step
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"{arch} train full: losses {losses}")
+    deltas = np.diff([0] + counts).tolist()
+    check(plain == 0 and deltas == [per_step] * FRONT_STEPS,
+          f"{arch} train full: GEMM launches per step {deltas} (want "
+          f"{per_step}), {plain} plain calls")
+    check(peak_gb < 80, f"{arch} train full: peak {peak_gb:.1f} GB")
+    rows, worst = phase_front_products(gen, cfg, B, S)
+    P = cfg.num_prefix_tokens if cfg.family == "vlm" else 0
+    tokens = B * (S + P)
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    tag = arch.split("-")[0]
+    kernel = {"name": f"matmul_{tag}_train", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": counts[-1], "launches_per_step": per_step,
+              "max_abs_err": worst, **_products_row(rows, list(rows)),
+              "unit": f"one {arch} training step at one rank ({tokens} "
+                      f"rows, {per_step} launches): every product x its "
+                      f"count, each timed alone (CUDA events)"}
+    out = {"config": f"{arch} full width, all {cfg.n_layers} layers, bf16 "
+                     f"compute, fp32 masters, remat full",
+           "params": n_params, "init_s": init_s, "batch": B, "seq": S,
+           "rows_per_step": tokens, "steps": FRONT_STEPS, "lr": TRAIN_LR,
+           "losses": losses, "step_s": step_s, "ms_per_step": ms,
+           "tokens_per_s": B * S / (ms / 1e3), "peak_gb": peak_gb,
+           "gemm_launches_per_step": per_step, "products": rows}
+    print(f"[front train] {out['config']}: {n_params / 1e9:.3f} B "
+          f"parameters; losses {[round(x, 4) for x in losses]}; "
+          f"{ms:.1f} ms per step after step 0 ({out['tokens_per_s']:.0f} "
+          f"tokens/s of {B} x {S}{f' + {P} patches' if P else ''}); peak "
+          f"{peak_gb:.2f} GB; {per_step} GEMM launches a step; GEMM "
+          f"{kernel['ms']:.1f} ms a step by product (bound "
+          f"{kernel['bound_ms']:.1f}, plain {kernel['plain_ms']:.1f}, "
+          f"torch.matmul {kernel['library_ms']:.1f})", flush=True)
+    return out, kernel
+
+
+def phase_frontends(gen):
+    """(16) the vlm and audio frontends: 16a-16d, each sub-phase's
+    seconds kept; frees what it made."""
+    import gc
+    from repro_torch.configs import get_config
+    secs = {}
+
+    def sub(name, fn, *args):
+        t0 = time.time()
+        res = fn(*args)
+        secs[name] = time.time() - t0
+        return res
+    dec_err = sub("16a decode", phase_front_decode, gen)
+    cfg = get_config("paligemma-3b")
+    rows, worst = sub("16a gemm", phase_rec_gemm, gen, cfg, 8,
+                      front_gemm_rows(cfg))
+    small = sub("16b small", phase_front_small)
+    full, kernels = sub("16c serve", phase_front_serve, gen, rows, worst,
+                        dec_err)
+    out = {"gemm": rows, "decode_err": dec_err, "small": small,
+           "serve": full}
+    for arch in FRONT_ARCHS:
+        out[f"train_{arch}"], k = sub(f"16d {arch.split('-')[0]}",
+                                      phase_front_train, gen, arch)
+        kernels.append(k)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = secs
+    print("[frontends] sub-phases: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()), flush=True)
+    return out, kernels
+
+
 def sampler_ms(gen, B=8, V=128256):
     """Device ms of one sampling step at the full-width serve's shapes
     (batch 8, vocab 128256, bf16 logits), in CUDA-graph replays: greedy,
@@ -4412,6 +5028,7 @@ def main():
         train["full"]["grad_norms"][0])
     moe, moe_kernels = timed("14 moe", phase_moe, gen)
     rec, rec_kernels = timed("15 recurrent", phase_recurrent, gen)
+    front, front_kernels = timed("16 frontends", phase_frontends, gen)
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -4431,7 +5048,8 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
-    kernels += [train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
+    kernels += ([train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
+                + front_kernels)
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -4443,7 +5061,7 @@ def main():
                    "sampler": sampler, "gemm_shapes": rows,
                    "robust_small": robust, "server": server,
                    "train": train, "train_tp": train_tp, "moe": moe,
-                   "recurrent": rec,
+                   "recurrent": rec, "frontends": front,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -4,8 +4,9 @@ One :class:`ModelConfig` describes any of the 10 assigned architectures.
 The fields are the JAX package's, with ``dtype``/``param_dtype`` held as
 torch dtypes. The port's model code implements every block
 (``attn_mlp``, ``attn_moe``, ``mamba_hybrid``, ``rwkv``; see
-``models/transformer.py``); the vlm and audio frontends raise
-``NotImplementedError`` where the model is built (``models/lm.py``).
+``models/transformer.py``) and the vlm and audio frontends (the patch
+or frame projection ``frontend_proj``, ``models/lm.py``); an encoder
+(``causal=False``: hubert) has no decode step (:attr:`has_decode`).
 """
 from __future__ import annotations
 

@@ -198,6 +198,19 @@ def all_gather(x, *, gather_axis: int = 0):
             for d in x]
 
 
+def all_reduce(x):
+    """The plain all-reduce: every rank sums every rank's tensor, in rank
+    order, so every rank's sum is the same (x per rank, one shape)."""
+    out = []
+    for d in x:
+        acc = None
+        for t in x:
+            t = to_device(t, d.device)
+            acc = t if acc is None else acc + t
+        out.append(acc)
+    return out
+
+
 def all_gather_ring(x, *, gather_axis: int = 0):
     """The standalone ring all-gather (the paper's §4.2.3): x per rank,
     block r of the gathered dim; returns per rank the whole tensor."""

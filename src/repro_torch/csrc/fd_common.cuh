@@ -4,9 +4,13 @@
 // only in where a unit's K/V rows lie and which positions those rows
 // hold -- the Walk each file defines -- and share everything else here.
 //
-// Both produce, per unit (local rank, slot, KV head), the unnormalised
-// fp32 record (o, m, l) of the g = H / KVH query heads and finish it in
-// one of three modes:
+// Both produce, per unit (local rank, slot, KV head, head group), the
+// unnormalised fp32 record (o, m, l) of the group's gu query heads and
+// finish it in one of three modes. A KV head's g = H / KVH query heads
+// form HG = g / gu groups of gu = heads_per_unit(g, D) heads, the largest
+// divisor of g with gu * D <= 1024 (so every head of a group lives in the
+// registers of one block: HG = 1 up to g * D = 1024; paligemma's D 256 at
+// g 8 runs as two units of 4 heads, each streaming the KV head's rows):
 //   NORMAL   W = 1: o / max(l, 1e-30) in q's dtype (a row with nothing to
 //            attend comes out as zeros);
 //   PARTIAL  the rank's partial (o, m, l), fp32 (n_local, B, H, D + 2):
@@ -23,12 +27,12 @@
 // one K/V read and (W > 1) one trip of the records between ranks. The
 // design cuts that chain:
 //   * One launch per call per card. A unit is (local rank, slot, KV
-//     head); `n_split` blocks share a unit only when its walk is long
-//     (kernels/flash_decode.py `decode_plan`).
+//     head, head group); `n_split` blocks share a unit only when its walk
+//     is long (kernels/flash_decode.py `decode_plan`).
 //   * K and V rows arrive as 16-byte cp.async copies into a ring of NST
 //     staged tiles of TR rows, NST - 1 in flight ahead of the one being
 //     scored.
-//   * All g query heads of the KV head live in registers and share each
+//   * The gu query heads of the unit live in registers and share each
 //     staged row. Each of the 8 warps takes every 8th row: a lane holds
 //     D / 32 elements of q, k and v; the scores of all its rows and heads
 //     are warp-shuffle dots over D, reduced together; each warp keeps its
@@ -102,6 +106,7 @@ struct Args {
   unsigned* cnt;           // (units,) arrival counters, left at 0
   int row_stride, n_local, n_loc, B, H, KVH, bs, C, n_split, window, mode;
   int S_loc, Wp;           // strided: shard rows per slot, ranks of layout
+  int gu, HG;              // query heads of a unit, units per KV head
   int rec;                 // floats per unit record, a multiple of 4
   float scale;
 };
@@ -116,6 +121,13 @@ struct TileRef {
 // Floats of a unit record: o (g, D), m (g), l (g), padded to 16 bytes.
 __host__ __device__ inline int rec_floats(int g, int D) {
   return (g * D + 2 * g + 3) / 4 * 4;
+}
+
+// Query heads of a unit: the largest divisor of g with gu * D <= 1024.
+__host__ __device__ inline int heads_per_unit(int g, int D) {
+  int gu = g;
+  while (gu > 1 && (gu * D > 1024 || g % gu != 0)) --gu;
+  return gu;
 }
 
 template <typename T, int D>
@@ -146,7 +158,10 @@ __device__ __forceinline__ void cp_async_wait_tile() {
 template <typename T, int N>
 __device__ __forceinline__ void load_f(const T* p, float* f) {
   constexpr int BYTES = N * (int)sizeof(T);
-  if constexpr (BYTES == 16) {
+  if constexpr (BYTES == 32) {
+    load_f<T, N / 2>(p, f);
+    load_f<T, N / 2>(p + N / 2, f + N / 2);
+  } else if constexpr (BYTES == 16) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
     const T* t = reinterpret_cast<const T*>(&u);
 #pragma unroll
@@ -170,10 +185,10 @@ __device__ __forceinline__ void load_f(const T* p, float* f) {
 template <typename T, int D>
 struct Smem {
   T* stage;      // [NST][2][TR][D]: stage, K or V, row, d
-  T* qs;         // [g][D] q of the unit's heads
+  T* qs;         // [gu][D] q of the unit's heads
   int* lc;       // [LIST_CAP] table column of an owned entry (paged)
   int* lb;       // [LIST_CAP] its block within the rank's shard (paged)
-  float* ws;     // [NW][g][D + 2]
+  float* ws;     // [NW][gu][D + 2]
   float* rec;    // [rec]
   void** tab;    // [2 * NT] the W inbox and flag bases (FUSED)
   int* misc;     // [NW + 2]: warp counts, last-split flag, epoch
@@ -214,7 +229,7 @@ __device__ __forceinline__ void fold_n(int n, Part part, float& o, float& m,
 }
 
 // Part 1 of item (unit u, split sp): the fp32 record (o, m, l) of the
-// unit's g query heads over the tiles of the split's walk, into S.rec.
+// unit's gu query heads over the tiles of the split's walk, into S.rec.
 // Returns (block-uniform) whether this block holds the unit's record
 // folded over every split, i.e. whether it finishes the unit. `P`
 // (FUSED, a block's first item): the launch's epoch (into S.misc[NW + 1],
@@ -229,9 +244,10 @@ __device__ bool part1(const Args& a, const Smem<T, D>& S, int u, int sp,
   constexpr int CPR = D * (int)sizeof(T) / 16;   // 16 B copies per row
   constexpr int VEC = 16 / (int)sizeof(T);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = a.H / a.KVH;
-  const int lr = u / (a.B * a.KVH);
-  const int b = (u / a.KVH) % a.B, h = u % a.KVH;
+  const int g = a.gu;                        // the unit's query heads
+  const int ups = a.KVH * a.HG;              // units per slot
+  const int lr = u / (a.B * ups);
+  const int b = (u / ups) % a.B, hu = u % ups, h = hu / a.HG;
   const T* kp = static_cast<const T*>(a.K.p[lr]);
   const T* vp = static_cast<const T*>(a.V.p[lr]);
   // scores in log2 units: the records keep m in them too (exp2f is one
@@ -239,8 +255,9 @@ __device__ bool part1(const Args& a, const Smem<T, D>& S, int u, int sp,
   const float sl2 = a.scale * 1.4426950408889634f;
 
   const int cl = static_cast<const int*>(a.CL.p[lr])[b];
+  // the group's heads: hu * g = h * (H / KVH) + (hu % HG) * g
   const T* qp = static_cast<const T*>(a.Q.p[lr]) +
-                ((size_t)b * a.H + (size_t)h * g) * D;
+                ((size_t)b * a.H + (size_t)hu * g) * D;
   const Walk walk(a, S.lc, S.lb, S.misc, lr, b, sp, cl);
 
   // stream the walk's K and V rows through NST staged tiles, NST - 1 in
@@ -433,19 +450,20 @@ __device__ bool part1(const Args& a, const Smem<T, D>& S, int u, int sp,
   return true;
 }
 
-// The body of a decode kernel. Grid: items = n_local * B * KVH * n_split,
-// walked by gridDim.x blocks (item = blockIdx.x + i * gridDim.x, unit =
+// The body of a decode kernel. Grid: items = n_local * B * KVH * HG *
+// n_split, walked by gridDim.x blocks (item = blockIdx.x + i * gridDim.x, unit =
 // item / n_split); FUSED then walks the units the same way for the
 // combine.
 template <class Walk, typename T, int D, int G>
 __device__ void run(const Args& a, const symm::Peers& P0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int g = a.H / a.KVH;
+  const int g = a.gu;
+  const int ups = a.KVH * a.HG;              // units per slot
   const Smem<T, D> S(smem_raw, g, a.rec);
   symm::Peers P = P0;
   const bool fused = a.mode == FUSED;
   const int tid = threadIdx.x;
-  const int units = a.n_local * a.B * a.KVH;
+  const int units = a.n_local * a.B * ups;
   const int items = units * a.n_split;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int u = it / a.n_split;
@@ -453,9 +471,9 @@ __device__ void run(const Args& a, const symm::Peers& P0) {
                               fused && it == (int)blockIdx.x ? &P
                                                              : nullptr))
       continue;
-    const int lr = u / (a.B * a.KVH), bh = u % (a.B * a.KVH);
-    const int b = bh / a.KVH, h = bh % a.KVH;
-    const size_t row0 = ((size_t)lr * a.B + b) * a.H + (size_t)h * g;
+    const int lr = u / (a.B * ups), bh = u % (a.B * ups);
+    const int b = bh / ups, hu = bh % ups;
+    const size_t row0 = ((size_t)lr * a.B + b) * a.H + (size_t)hu * g;
     if (a.mode == NORMAL) {
       T* o = static_cast<T*>(a.out) + row0 * D;
       for (int i = tid; i < g * D; i += NT)
@@ -498,11 +516,11 @@ __device__ void run(const Args& a, const symm::Peers& P0) {
   // each word read once its LL line carries this launch's epoch
   const int lines = a.rec / 2;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int lr = u / (a.B * a.KVH), bh = u % (a.B * a.KVH);
-    const int b = bh / a.KVH, h = bh % a.KVH;
+    const int lr = u / (a.B * ups), bh = u % (a.B * ups);
+    const int b = bh / ups, hu = bh % ups;
     const int rank = a.R.r[lr];
     T* o = static_cast<T*>(a.out) +
-           (((size_t)lr * a.B + b) * a.H + (size_t)h * g) * D;
+           (((size_t)lr * a.B + b) * a.H + (size_t)hu * g) * D;
     for (int i4 = tid; i4 < g * D / 4; i4 += NT) {
       const int gi = i4 * 4 / D;
       const int im = g * D + gi, il = g * D + g + gi;   // m and l words
@@ -572,17 +590,19 @@ __device__ void run(const Args& a, const symm::Peers& P0) {
 // ---- host side: the kernel for (T, D, g), its launch and occupancy.
 // `K` names the file's kernel: K::fn<T, D, G>() is its address.
 
-// The kernel for g query heads per KV head: G, the smallest power of two
+// The kernel for g query heads per unit: G, the smallest power of two
 // >= g (at most 1024 / D), and G's index.
 template <class K, typename T, int D>
 const void* kernel_for(int g, int* idx) {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "head dim");
   *idx = g <= 1 ? 0 : g <= 2 ? 1 : g <= 4 ? 2 : g <= 8 ? 3 : g <= 16 ? 4 : 5;
   switch (*idx) {
     case 0: return K::template fn<T, D, 1>();
     case 1: return K::template fn<T, D, 2>();
     case 2: return K::template fn<T, D, 4>();
-    case 3: return K::template fn<T, D, 8>();
+    case 3:
+      if constexpr (D <= 128) return K::template fn<T, D, 8>();
+      return nullptr;
     case 4:
       if constexpr (D <= 64) return K::template fn<T, D, 16>();
       return nullptr;
@@ -610,7 +630,7 @@ const void* ready_kernel(int g, size_t smem, int* err) {
 template <class K, typename T, int D>
 int launch_d(const Args& a, int grid, const symm::Peers& P,
              cudaStream_t stream) {
-  const int g = a.H / a.KVH;
+  const int g = a.gu;
   const size_t smem = smem_bytes<T, D>(g);
   int err = 0;
   const void* fn = ready_kernel<K, T, D>(g, smem, &err);
@@ -638,7 +658,7 @@ int occupancy_d(int g, int* out) {
 template <class K>
 int dispatch(int dtype, int D, const Args& a, int grid, const symm::Peers& P,
              cudaStream_t s, int* occ = nullptr) {
-  const int g = a.H / a.KVH;
+  const int g = a.gu;
 #define FD_BY_DIM(T)                                                      \
   switch (D) {                                                            \
     case 32: return occ ? occupancy_d<K, T, 32>(g, occ)                   \
@@ -647,6 +667,8 @@ int dispatch(int dtype, int D, const Args& a, int grid, const symm::Peers& P,
                         : launch_d<K, T, 64>(a, grid, P, s);              \
     case 128: return occ ? occupancy_d<K, T, 128>(g, occ)                 \
                          : launch_d<K, T, 128>(a, grid, P, s);            \
+    case 256: return occ ? occupancy_d<K, T, 256>(g, occ)                 \
+                         : launch_d<K, T, 256>(a, grid, P, s);            \
     default: return (int)cudaErrorInvalidValue;                           \
   }
   if (dtype == 0) { FD_BY_DIM(float) }
@@ -655,14 +677,17 @@ int dispatch(int dtype, int D, const Args& a, int grid, const symm::Peers& P,
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernel's resources for head dim D, g query heads per KV head and
-// dtype: the blocks of it that fit on one SM of the current device.
+// The kernel's resources for head dim D, g query heads per unit
+// (heads_per_unit) and dtype: the blocks of it that fit on one SM of the
+// current device.
 template <class K>
 int blocks_per_sm(int D, int g, int dtype, int* out) {
   if (g <= 0 || g * D > 1024) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.H = g;
   a.KVH = 1;
+  a.gu = g;
+  a.HG = 1;
   symm::Peers P = {};
   return dispatch<K>(dtype, D, a, 0, P, nullptr, out);
 }
@@ -696,7 +721,9 @@ inline bool common_args(Args& a, const void* const* q,
   a.n_split = n_split;
   a.window = window;
   a.mode = mode;
-  a.rec = rec_floats(H / KVH, D);
+  a.gu = heads_per_unit(H / KVH, D);
+  a.HG = H / KVH / a.gu;
+  a.rec = rec_floats(a.gu, D);
   a.scale = scale;
   return true;
 }
@@ -705,17 +732,17 @@ inline bool common_args(Args& a, const void* const* q,
 inline bool args_ok(int B, int H, int KVH, int D, int C, int n_split,
                     int n_local, int grid, int mode, void* split_rec,
                     void* cnt) {
-  return B > 0 && KVH > 0 && H % KVH == 0 && (H / KVH) * D <= 1024 &&
+  return B > 0 && KVH > 0 && H >= KVH && H % KVH == 0 && D > 0 &&
          C > 0 && n_split > 0 && n_local > 0 &&
          n_local <= symm::MAX_RANKS && grid > 0 && mode >= 0 && mode <= 2 &&
          (n_split == 1 || (split_rec != nullptr && cnt != nullptr));
 }
 
-// FUSED's symmetric-buffer checks: room for the W records of B * KVH
-// units as LL lines (8 bytes a word).
+// FUSED's symmetric-buffer checks: room for the W records of B * KVH *
+// HG units as LL lines (8 bytes a word).
 inline bool fused_ok(const symm::Peers& P, const Args& a, int n_local) {
   return P.W <= NT && P.W >= n_local && P.state != nullptr &&
-         P.slot_bytes >= (size_t)a.B * a.KVH * a.rec * 8 &&
+         P.slot_bytes >= (size_t)a.B * a.KVH * a.HG * a.rec * 8 &&
          P.slot_bytes % 16 == 0;
 }
 

@@ -12,7 +12,8 @@
 // It takes one scalar cur_len and asserts that blk divides S_loc.
 //
 // Here it is the paged decode's kernel (fd_common.cuh: units of (local
-// rank, slot, KV head), a 4-deep cp.async K/V ring, g heads in registers,
+// rank, slot, KV head, head group), a 4-deep cp.async K/V ring, a unit's
+// heads in registers,
 // exp2 softmax, split records folded by the last arrival, FUSED records
 // pushed as LL lines and folded in rank order, the epoch from the card's
 // word) with an implicit walk instead of a table: the shard

@@ -144,16 +144,17 @@ extern "C" int fd_paged_blocks_per_sm(int D, int g, int dtype, int* out) {
 // q's dtype, holding global blocks [rank * n_loc, (rank + 1) * n_loc);
 // q and the pools 16-byte aligned; cur_len (B,) int32; tables (B, >= C)
 // int32 with row stride row_stride. split_rec: fp32 scratch (n_local *
-// B * KVH * n_split, rec_floats) when n_split > 1; cnt: n_local * B * KVH
-// uint32 counters, zero at entry and left at zero. out: (n_local, B, H,
+// B * KVH * HG * n_split, rec_floats(gu, D)) when n_split > 1 (gu, HG:
+// fd_common.cuh heads_per_unit); cnt: n_local * B * KVH * HG uint32
+// counters, zero at entry and left at zero. out: (n_local, B, H,
 // D) in q's dtype for mode 0 (NORMAL, W = 1) and 2 (FUSED), fp32
 // (n_local, B, H, D + 2) for mode 1 (PARTIAL). `grid` blocks walk the
 // items (FUSED: at most what the card holds at once,
 // fd_paged_blocks_per_sm). FUSED only: the symmetric buffers' pointer
 // tables (device arrays of W entries), this card's epoch word, the mesh
 // size W (<= 256), flags per source (unused: the records travel as LL
-// lines), one source's slot bytes (>= B * KVH * rec_floats * 8) and the
-// inbox parity stride. window <= 0 means no sliding window. dtype: 0 =
+// lines), one source's slot bytes (>= B * KVH * HG * rec_floats(gu, D) *
+// 8) and the inbox parity stride. window <= 0 means no sliding window. dtype: 0 =
 // float32, 1 = bfloat16. Returns the first cudaError_t (0 = launched).
 extern "C" int fd_paged_launch(
     const void* const* q, const void* const* kp, const void* const* vp,

@@ -50,8 +50,8 @@ from repro_torch.kernels import _build, symm
 
 NEG = torch.finfo(torch.float32).min
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-_MAX_GD = 1024                   # csrc: g * D <= 1024 in both kernels
+_HEAD_DIMS = (32, 64, 128, 256)
+_MAX_GD = 1024                   # csrc: a unit's heads x D <= 1024
 NORMAL, PARTIAL, FUSED = 0, 1, 2  # csrc/fd_common.cuh Mode
 
 
@@ -156,49 +156,63 @@ def _check_common(name, q, k, v, cur_len, mesh):
                                                cur_len[r])):
             raise ValueError(f"{name}: q, caches and cur_len must be "
                              f"contiguous")
-    KVH = k[0].shape[-2]
-    if D not in _HEAD_DIMS or (H // KVH) * D > _MAX_GD:
-        raise ValueError(f"{name}: kernel built for head dims {_HEAD_DIMS} "
-                         f"with (H/KVH)*D <= {_MAX_GD}; got D={D}, "
-                         f"H={H}, KVH={KVH}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: kernel built for head dims {_HEAD_DIMS}"
+                         f"; got D={D}")
     if W > D:
         raise ValueError(f"{name}: at most D={D} ranks")
     return W
 
 
+def heads_per_unit(g: int, D: int) -> int:
+    """Query heads of a decode unit (``csrc/fd_common.cuh``
+    ``heads_per_unit``): the largest divisor of a KV head's ``g`` query
+    heads with ``heads * D <= 1024``, all of them in one block's
+    registers. A KV head's heads split into ``g // heads`` units, each
+    streaming the KV head's rows (paligemma's D 256 at g 8: two units of
+    4)."""
+    gu = g
+    while gu > 1 and (gu * D > _MAX_GD or g % gu):
+        gu -= 1
+    return gu
+
+
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """A decode kernel's grid (``csrc/fd_common.cuh``): a unit is (local
-    rank, slot, KV head), an item one of its ``n_split`` splits of the
-    unit's walk (table entries, or tiles of a strided shard). ``grid``
-    blocks walk the items (block i takes items i, i + grid, ...) and, in
-    FUSED mode, the units the same way for the combine."""
+    rank, slot, KV head, head group: ``groups`` of them per KV head,
+    :func:`heads_per_unit`), an item one of its ``n_split`` splits of
+    the unit's walk (table entries, or tiles of a strided shard).
+    ``grid`` blocks walk the items (block i takes items i, i + grid,
+    ...) and, in FUSED mode, the units the same way for the combine."""
     n_local: int
     B: int
     KVH: int
     n_split: int
     grid: int
+    groups: int = 1
 
     @property
     def units(self) -> int:
-        return self.n_local * self.B * self.KVH
+        return self.n_local * self.B * self.KVH * self.groups
 
     @property
     def items(self) -> int:
         return self.units * self.n_split
 
-    def unit(self, u: int) -> tuple[int, int, int]:
-        """(local rank, slot, KV head) of unit ``u``."""
-        return u // (self.B * self.KVH), u // self.KVH % self.B, \
-            u % self.KVH
+    def unit(self, u: int) -> tuple[int, int, int, int]:
+        """(local rank, slot, KV head, head group) of unit ``u``."""
+        ups = self.KVH * self.groups
+        return (u // (self.B * ups), u // ups % self.B,
+                u % ups // self.groups, u % self.groups)
 
-    def items_of(self, block: int) -> list[tuple[int, int, int, int]]:
-        """(local rank, slot, KV head, split) of the items ``block``
-        computes."""
+    def items_of(self, block: int) -> list[tuple[int, int, int, int, int]]:
+        """(local rank, slot, KV head, head group, split) of the items
+        ``block`` computes."""
         return [(*self.unit(i // self.n_split), i % self.n_split)
                 for i in range(block, self.items, self.grid)]
 
-    def units_of(self, block: int) -> list[tuple[int, int, int]]:
+    def units_of(self, block: int) -> list[tuple[int, int, int, int]]:
         """The units whose sources ``block`` combines (FUSED)."""
         return [self.unit(u) for u in range(block, self.units, self.grid)]
 
@@ -208,8 +222,9 @@ LIST_CAP = 512        # csrc/fd_common.cuh LIST_CAP
 
 
 def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
-                capacity: int | None = None) -> DecodePlan:
-    """Splits per unit and blocks of one decode launch. A unit walks its
+                capacity: int | None = None, groups: int = 1) -> DecodePlan:
+    """Splits per unit and blocks of one decode launch (``groups`` units
+    per KV head, :func:`heads_per_unit`). A unit walks its
     slot's ``C`` table entries (or ``C`` tiles of its strided shard); it
     is split only while the card has fewer than about two blocks per SM
     and every split still walks ``SPLIT_MIN`` entries (at most 16
@@ -217,12 +232,12 @@ def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
     ``capacity`` (the blocks the card holds at once) bounds the grid of
     a cooperative (FUSED) launch; ``None`` launches one block per
     item."""
-    units = n_local * B * KVH
+    units = n_local * B * KVH * groups
     want = -(-2 * sm_count // max(units, 1))
     n_split = max(1, min(want, -(-C // SPLIT_MIN), 16), -(-C // LIST_CAP))
     items = units * n_split
     grid = items if capacity is None else min(items, capacity)
-    return DecodePlan(n_local, B, KVH, n_split, grid)
+    return DecodePlan(n_local, B, KVH, n_split, grid, groups)
 
 
 def split_range(c_lo: int, c_hi: int, n_split: int, sp: int) -> range:
@@ -291,14 +306,15 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
     W = len(k)
     B, H, D = q[0].shape
     KVH = k[0].shape[-2]
-    g = H // KVH
+    gu = heads_per_unit(H // KVH, D)
+    n_groups = H // KVH // gu
+    rec = rec_floats(gu, D)
     # table entries, or tiles of a slot's shard rows
     C = tables[0].shape[1] if paged else -(-k[0].shape[1] // TILE)
     groups = symm.rank_groups(k)
     call = None
     if mode == FUSED:               # records travel as LL lines: 8 B a word
-        call = symm.communicator(mesh).call(
-            B * KVH * rec_floats(g, D) * 8, 1)
+        call = symm.communicator(mesh).call(B * KVH * n_groups * rec * 8, 1)
     fn = _lib(paged)
     dt = _DTYPES[q[0].dtype]
     outs: list = [None] * W
@@ -307,14 +323,14 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
         if n_local > 8:
             raise ValueError(f"{name}: at most 8 ranks per device, got "
                              f"{n_local} on {dev}")
-        cap = (symm.capacity(dev, _per_sm_query(paged), D, g, dt)
+        cap = (symm.capacity(dev, _per_sm_query(paged), D, gu, dt)
                if mode == FUSED else None)
-        plan = decode_plan(B, KVH, n_local, C, symm.sm_count(dev), cap)
+        plan = decode_plan(B, KVH, n_local, C, symm.sm_count(dev), cap,
+                           n_groups)
         split_rec = cnt = None
         if plan.n_split > 1:
-            split_rec = torch.empty(
-                (plan.items, rec_floats(g, D)), dtype=torch.float32,
-                device=dev)
+            split_rec = torch.empty((plan.items, rec), dtype=torch.float32,
+                                    device=dev)
             cnt = symm.counters(dev, plan.units)
         out = (torch.empty((n_local, B, H, D + 2), dtype=torch.float32,
                            device=dev) if mode == PARTIAL else

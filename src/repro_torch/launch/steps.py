@@ -7,12 +7,14 @@ parameters and the optimizer state, which it returns for the caller's
 convenience. Over the W ranks of the ambient mesh
 (``distributed.context``) the parameters are a list of per-rank LMs
 (``lm.shard_params``) and the optimizer state a list of per-rank states
-(:func:`init_opt_state`); one backward runs through every rank. The JAX
-module's sharding trees and ``input_specs`` belong to its dry run and
-have no counterpart yet.
+(:func:`init_opt_state`); one backward runs through every rank. A batch
+holds what JAX's ``input_specs`` name for the model's family
+(:func:`synthetic_batch`). The JAX module's sharding trees belong to its
+dry run and have no counterpart yet.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.distributed import context as dctx
@@ -29,8 +31,33 @@ def init_opt_state(params):
 
 
 def _grads(tree):
-    return tree_map(lambda _, p: p.grad if p.grad is not None
-                    else torch.zeros_like(p), tree)
+    return tree_map(lambda _, p: p.grad, tree)
+
+
+def synthetic_batch(cfg, batch: int, seq: int, seed: int = 0,
+                    device="cpu") -> dict:
+    """A seeded training batch holding what JAX's ``input_specs`` name
+    for ``cfg``'s family (``repro.launch.steps``): "tokens" and "labels"
+    (batch, seq) int32, plus "patches" (batch, num_prefix_tokens,
+    frontend_dim) for the vlm; "frames" (batch, seq, frontend_dim) and
+    "labels" for audio. The features are standard normal float32 (the
+    projection casts them to ``cfg.dtype``); tokens and labels are drawn
+    uniformly from the vocabulary (numpy's ``default_rng(seed)``)."""
+    r = np.random.default_rng(seed)
+
+    def ids():
+        return r.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+
+    def feats(n):
+        return r.standard_normal((batch, n, cfg.frontend_dim),
+                                 dtype=np.float32)
+    if cfg.family == "audio":
+        out = {"frames": feats(seq), "labels": ids()}
+    else:
+        out = {"tokens": ids(), "labels": ids()}
+        if cfg.family == "vlm":
+            out["patches"] = feats(cfg.num_prefix_tokens)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
@@ -38,7 +65,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         """params: a trainable :class:`~repro_torch.models.lm.LM`, or a
         list of per-rank ones over the ambient mesh; opt_state:
         :func:`init_opt_state` of them; batch: {"tokens", "labels"} (B,
-        S), the whole batch (every rank reads it; data axis 1). Leaves
+        S), with "patches" for a vlm, "frames" in place of "tokens" for
+        audio (:func:`synthetic_batch`), the whole batch (every rank
+        reads it; data axis 1). Leaves
         this step's gradients on the parameters (``.grad``; a replicated
         leaf's copies hold the sum over the ranks)."""
         ranks = lm.as_ranks(params)

@@ -9,6 +9,8 @@
       --smoke --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
       --smoke --device cpu --steps 3      # also rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
+      --smoke --device cpu --steps 3      # text only, as JAX's trainer
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
 
@@ -39,6 +41,14 @@ it trains at ``--tp 1``, its log lines carrying the aux loss) and for
 the recurrent families (``mamba_hybrid``, ``rwkv``: item 11f). ``--grad-compress``
 is parsed and unused, as in JAX's trainer (the port's mesh has no data
 axis to compress over).
+
+The data is token batches, so a vlm (paligemma-3b) trains on text
+alone, as JAX's trainer does (no "patches"; the prefix-LM mask still
+spans the first ``num_prefix_tokens`` positions, JAX's behaviour), and an
+audio model (hubert-xlarge) exits with a message: it reads a "frames"
+stream that no data source makes (JAX's trainer stops with ``KeyError:
+'frames'``). Both train through ``launch.steps.make_train_step`` on a
+batch with patches or frames (``steps.synthetic_batch``).
 """
 from __future__ import annotations
 
@@ -124,6 +134,13 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     the trainable LM (at ``--tp`` > 1 the per-rank list), "opt": the
     optimizer state (one per rank), "start_step": the first step run};
     an MoE model's log entries also carry "aux", its load-balance loss."""
+    if cfg.family == "audio":
+        raise SystemExit(
+            f"{cfg.name} is an audio model: it trains on a 'frames' stream "
+            f"(B, S, {cfg.frontend_dim}) that the trainer's data "
+            f"(SyntheticLM: tokens and labels) does not make; train it "
+            f"with launch.steps.make_train_step on a batch holding "
+            f"'frames' (steps.synthetic_batch)")
     mesh = build_mesh(args)
     dev = mesh.devices[0]
     W = mesh.size

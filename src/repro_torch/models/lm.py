@@ -22,7 +22,9 @@ Over the W ranks of the ambient mesh (``distributed.context``) the
 training forward and loss take a list of W :class:`LM` holding each
 rank's shards (:func:`shard_params`, Megatron-style by the sharding
 rules: attention heads, MLP columns and the vocab split over the ranks,
-the input table's columns too; norm scales copied to every rank) and
+the input table's columns too, or its rows where a config's overrides
+say so (paligemma's tied table); norm scales and ``frontend_proj``
+copied to every rank) and
 run the paper's sequence-parallel AG+GEMM and GEMM+RS at the projection
 sites (``core.patterns``); the loss is vocab-parallel
 (:func:`cross_entropy_ranks`).
@@ -49,16 +51,12 @@ from repro_torch.distributed import context as dctx
 from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import transformer
 from repro_torch.models.layers import (apply_embed, apply_norm, apply_unembed,
-                                       embed_spec, norm_spec)
+                                       dense, embed_spec, norm_spec)
 from repro_torch.models.module import Param, init_tree, tree_items
 
 
 def lm_spec(cfg):
     transformer.require_ported(cfg)
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-            f"(other-families slice of the port)")
     spec: dict[str, Any] = {
         "embed": embed_spec(cfg.vocab_size, cfg.d_model),
         "backbone": transformer.stack_spec(cfg),
@@ -68,6 +66,10 @@ def lm_spec(cfg):
         spec["head"] = {"table": Param((cfg.vocab_size, cfg.d_model),
                                        init="scaled",
                                        axes=("vocab", "embed"))}
+    if cfg.frontend_dim:
+        spec["frontend_proj"] = {
+            "kernel": Param((cfg.frontend_dim, cfg.d_model), init="scaled",
+                            axes=(None, "embed"))}
     if cfg.block == "rwkv":
         spec["ln_in"] = norm_spec(cfg.d_model, "layernorm")
     return spec
@@ -266,41 +268,87 @@ def as_ranks(params) -> list:
 
 
 def embed_inputs(params, batch, cfg):
-    """batch: dict with 'tokens' (B, S). Returns (x in ``cfg.dtype``,
-    positions (1, S), label_offset 0): x (B, S, d) for an :class:`LM`,
-    per-rank sequence shards for a per-rank list (:func:`_embed_ranks`).
-    The gather runs in the table's dtype and casts after it, as in
-    JAX."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-            f"(other-families slice of the port)")
-    tokens = batch["tokens"]
+    """batch: dict with 'tokens' (B, S) and/or 'patches'/'frames' (B, P,
+    frontend_dim). Returns (x in ``cfg.dtype``, positions (1, L),
+    label_offset): x (B, L, d) for an :class:`LM`, per-rank sequence
+    shards for a per-rank list (:func:`_embed_ranks`).
+
+    As in JAX: the audio family projects its frames (``frontend_proj``,
+    no token embedding); the vlm projects its patches when the batch has
+    them and puts them in front of the tokens' rows, whose labels then
+    start ``label_offset`` = P rows in (0 without patches). The
+    projections run on the GEMM kernel in ``cfg.dtype`` (fp32
+    accumulate); the token gather runs in the table's dtype, and the
+    concatenation casts after it."""
     ranks = as_ranks(params)
-    x = _embed_ranks(ranks, tokens, cfg)
-    positions = torch.arange(tokens.shape[1],
-                             device=ranks[0].device)[None, :]
-    return (x if isinstance(params, list) else x[0]), positions, 0
+    dev = ranks[0].device
+    front = None
+    if cfg.family == "audio":
+        front = batch["frames"]
+    elif cfg.family == "vlm" and "patches" in batch:
+        front = batch["patches"]
+    tokens = None if cfg.family == "audio" else batch["tokens"]
+    x = _embed_ranks(ranks, tokens, cfg, front)
+    L = (0 if front is None else front.shape[1]) + \
+        (0 if tokens is None else tokens.shape[1])
+    prefix = L - tokens.shape[1] if tokens is not None else 0
+    positions = torch.arange(L, device=dev)[None, :]
+    return (x if isinstance(params, list) else x[0]), positions, prefix
 
 
-def _embed_ranks(params, tokens, cfg):
-    """The embedding over W ranks: each rank gathers its columns of the
-    input table (``("in_vocab", "in_embed")``: columns over the model
-    axis) for every token, then each rank takes its rows of the sequence
-    from every rank's columns (all rows when S does not divide by W).
-    Gathered in fp32 and cast after (rwkv's ``ln_in`` in between, at one
-    rank), as in JAX."""
-    W, S = len(params), tokens.shape[1]
-    g = [apply_embed(p["embed"], tokens.to(p.device), torch.float32)
-         for p in params]
+def _frontend(p, front, cfg):
+    """The patches' or frames' projection on one rank's ``frontend_proj``
+    (replicated by the rules): (B, P, fd) @ (fd, d) in ``cfg.dtype``."""
+    return dense(front.to(p.device, cfg.dtype),
+                 p["frontend_proj"]["kernel"].to(cfg.dtype))
 
-    def rows(t, r):
-        return t if S % W else t.narrow(1, r * (S // W), S // W)
-    if g[0].shape[-1] == cfg.d_model:          # the rules replicate it
-        x = [rows(t, r) for r, t in enumerate(g)]
-    else:
-        x = [torch.cat([cm.to_device(rows(t, r), g[r].device) for t in g],
-                       dim=-1) for r in range(W)]
+
+def _gather(p, tokens, cfg, r: int):
+    """One rank's fp32 gather of its part of the input table: every
+    token's columns when the rules shard the table's columns (or every
+    row and column when they replicate it); when they shard its rows
+    (paligemma's ``in_vocab`` -> model), the tokens in the rank's row
+    range and zeros for the others, XLA's masked gather."""
+    table = p["embed"]["table"]
+    ids = tokens.to(p.device).long()
+    n = table.shape[0]
+    if n == cfg.vocab_size:
+        return apply_embed(p["embed"], ids, torch.float32)
+    idx = ids - r * n
+    own = (idx >= 0) & (idx < n)
+    g = table[idx.clamp(0, n - 1)].to(torch.float32)
+    return torch.where(own[..., None], g, 0.0)
+
+
+def _embed_ranks(params, tokens, cfg, front=None):
+    """The embedding over W ranks, as JAX's sharding computes it. The
+    input table comes in one of three layouts: replicated, its columns
+    sharded (``("in_vocab", "in_embed")``: columns over the model axis;
+    each rank gathers its columns for every token, and the ranks'
+    columns are all-gathered), or its rows sharded
+    (paligemma's overrides: each rank gathers the tokens of its row
+    range, zeros elsewhere, and the W partials are summed across the
+    ranks in rank order in fp32, JAX's masked gather and all-reduce).
+    The frontend projection (``front``: patches or frames, on every rank)
+    goes in front of the tokens' rows before the sequence split, so each
+    rank's rows are rows of the whole sequence (all rows when it does
+    not divide by W). fp32 until the cast to ``cfg.dtype`` (rwkv's
+    ``ln_in`` in between, at one rank), as in JAX."""
+    W = len(params)
+    fr = [None if front is None else _frontend(p, front, cfg).float()
+          for p in params]
+    g = [None if tokens is None else _gather(p, tokens, cfg, r)
+         for r, p in enumerate(params)]
+    if tokens is not None and W > 1:
+        if params[0]["embed"]["table"].shape[0] != cfg.vocab_size:
+            g = cm.all_reduce(g)                # row shards: the psum
+        elif g[0].shape[-1] != cfg.d_model:     # column shards
+            g = cm.all_gather(g, gather_axis=-1)
+    x = [t if f is None else f if t is None else torch.cat([f, t], dim=1)
+         for f, t in zip(fr, g)]
+    S = x[0].shape[1]
+    if S % W == 0:
+        x = [t.narrow(1, r * (S // W), S // W) for r, t in enumerate(x)]
     if cfg.block == "rwkv":
         x = [apply_norm(p["ln_in"], t, "layernorm")
              for p, t in zip(params, x)]
@@ -324,7 +372,8 @@ def _forward(ranks, batch, cfg):
 
 
 def forward(params, batch, cfg):
-    """Full forward: returns (logits (B, S, V) bf16, aux_loss). Over W
+    """Full forward: returns (logits (B, L, V) bf16, aux_loss), L the
+    rows of :func:`embed_inputs` (the vlm's patches and tokens). Over W
     ranks (``params`` a list of per-rank :class:`LM`): per-rank logits
     (:func:`logits_fn`)."""
     logits, aux = _forward(as_ranks(params), batch, cfg)
@@ -387,11 +436,20 @@ def cross_entropy_ranks(logits, labels, vocab_size: int, mask=None,
 
 
 def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
-    """(loss, {"ce", "aux"}) of one batch ({"tokens", "labels"} (B, S)).
-    Over W ranks (``params`` a list of per-rank :class:`LM`) the whole
-    batch goes to every rank and the loss lies on rank 0's device."""
+    """(loss, {"ce", "aux"}) of one batch ({"tokens", "labels"} (B, S),
+    plus "patches" (vlm) or "frames" in place of "tokens" (audio)). The
+    vlm's patch rows take no loss: their labels are -100, put in front
+    of the batch's (JAX's pad). Over W ranks (``params`` a list of
+    per-rank :class:`LM`) the whole batch goes to every rank and the
+    loss lies on rank 0's device."""
     logits, aux = _forward(as_ranks(params), batch, cfg)
-    loss = cross_entropy_ranks(logits, batch["labels"], cfg.vocab_size)
+    labels = batch["labels"]
+    pad = logits[0].shape[1] - labels.shape[1]
+    if pad:
+        labels = torch.cat([torch.full((labels.shape[0], pad), -100,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    loss = cross_entropy_ranks(logits, labels, cfg.vocab_size)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

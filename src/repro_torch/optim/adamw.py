@@ -18,6 +18,11 @@ per-rank copies are summed across the ranks first, the global norm
 counts each sharded leaf's shards once and each replicated leaf once,
 and every rank then takes JAX's step on its shards with the one clip,
 so the copies of a replicated leaf stay bit-identical.
+
+A gradient leaf may be ``None``: a parameter the loss never reads (an
+audio model's input table: JAX's ``value_and_grad`` gives it zeros)
+takes a zero gradient, so its moments and its weight decay move as in
+JAX.
 """
 from __future__ import annotations
 
@@ -73,7 +78,8 @@ def apply_updates(params: dict, grads: dict, state: dict,
                   cfg: AdamWConfig) -> dict:
     """One AdamW step, IN PLACE on ``params`` (a nested dict of fp32
     tensors, e.g. ``lm.param_tree``), ``state["m"]``, ``state["v"]`` and
-    ``state["step"]``; ``grads`` is keyed like ``params``. Returns the
+    ``state["step"]``; ``grads`` is keyed like ``params`` (``None`` for
+    a leaf with no gradient: zeros). Returns the
     metrics {"grad_norm", "lr"} (float32 0-d tensors). One rank of
     :func:`apply_updates_ranks`."""
     return apply_updates_ranks([params], [grads], [state], cfg, {})
@@ -89,7 +95,9 @@ def apply_updates_ranks(params: list, grads: list, states: list,
     rank order, on rank 0's device) and written back into every copy, IN
     PLACE. The global norm sums the leaves' squares in sorted-key order
     (:func:`global_norm` at W = 1). Returns rank 0's metrics."""
-    g_l = [dict(tree_items(g)) for g in grads]
+    g_l = [{k: torch.zeros_like(p, dtype=torch.float32) if g is None else g
+            for (k, g), (_, p) in zip(tree_items(gt), tree_items(pt))}
+           for gt, pt in zip(grads, params)]
     dev0 = next(iter(g_l[0].values())).device
     sq = []
     for path, g0 in g_l[0].items():

@@ -106,8 +106,6 @@ from repro_torch.serving.kv_cache import CachePool, pow2_bucket
 from repro_torch.serving.metrics import latency_summary
 from repro_torch.serving.scheduler import SchedulerPolicy, get_scheduler
 
-# the engine's deterministic retry backoff (the JAX engine's defaults)
-RETRY_BACKOFF_S, RETRY_BACKOFF_CAP_S = 0.02, 0.5
 
 @dataclasses.dataclass
 class Request:
@@ -171,7 +169,10 @@ class Engine:
     ``bounded_gather`` (W > 1): paged attention walks each slot's table
     (default) or scores the masked whole pool shard (the CPU oracle).
     ``fault_plan``, ``watchdog`` and ``degraded`` are the robustness
-    plane (module docstring).
+    plane (module docstring); ``retry_backoff_s`` and
+    ``retry_backoff_cap_s`` set the retry's deterministic backoff, as
+    the JAX engine's do. A config without a decode step
+    (``cfg.has_decode``: an encoder such as hubert-xlarge) is refused.
     """
 
     def __init__(self, params, cfg, *, batch: int = 8, max_len: int = 512,
@@ -184,7 +185,12 @@ class Engine:
                  fault_plan: FaultPlan | None = None,
                  watchdog: StragglerWatchdog | None = None,
                  degraded: DegradedModeController | bool | None = None,
-                 bounded_gather: bool = True, device="cuda"):
+                 bounded_gather: bool = True, device="cuda",
+                 retry_backoff_s: float = 0.02,
+                 retry_backoff_cap_s: float = 0.5):
+        if not cfg.has_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode "
+                             f"serving")
         if sampler not in ("greedy", "temperature"):
             raise ValueError(f"unknown sampler {sampler!r}: "
                              f"expected 'greedy' or 'temperature'")
@@ -265,6 +271,10 @@ class Engine:
         self.degraded = degraded or None
         self._cfg_bounded = self.bounded_gather  # configured gather mode
         self._spike_until = None    # tick the seized pool blocks return
+        # the retry's deterministic backoff: retry_backoff_s * 2 **
+        # (attempt - 1), capped (faults.backoff_s)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_backoff_cap_s = float(retry_backoff_cap_s)
         self.dispatch_retry_count = 0    # retried dispatches
         self.dispatch_failure_count = 0  # retry budgets exhausted
         self.error_count = 0             # slots retired finish_reason=error
@@ -458,8 +468,8 @@ class Engine:
         for attempt in range(DISPATCH_ATTEMPTS):
             if attempt:
                 self.dispatch_retry_count += 1
-                time.sleep(backoff_s(attempt, RETRY_BACKOFF_S,
-                                     RETRY_BACKOFF_CAP_S))
+                time.sleep(backoff_s(attempt, self.retry_backoff_s,
+                                     self.retry_backoff_cap_s))
             try:
                 fault.trip()
                 return

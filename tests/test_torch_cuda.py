@@ -91,7 +91,8 @@ def test_unembed_streams_the_transposed_fp32_table(cuda):
     assert _gemm_tol_ok(got, matmul_plain(a, b, True), torch.float32)
 
 
-@pytest.mark.parametrize("D,H,KVH", [(32, 4, 1), (64, 8, 2), (128, 32, 8)])
+@pytest.mark.parametrize("D,H,KVH", [(32, 4, 1), (64, 8, 2), (128, 32, 8),
+                                     (256, 8, 1)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("window", [None, 9])
@@ -117,6 +118,37 @@ def test_paged_decode_kernel_matches_plain(cuda, D, H, KVH, dtype, tol,
                               window=window).float()
     assert flash_decode_paged.launches == n0 + 1
     assert (got - want).abs().max() <= tol
+
+
+@pytest.mark.parametrize("M,K,Ns,dtype,trans_b", [
+    (512, 1152, (2048,), "bfloat16", False),   # paligemma's patches
+    (2048, 512, (1280,), "bfloat16", False),   # hubert's frames
+    (8, 2048, (2048, 256, 256), "bfloat16", False),   # paligemma wq/wk/wv
+    (8, 2048, (16384, 16384), "bfloat16", False),     # its wg/wu
+    (8, 16384, (2048,), "bfloat16", False),           # its wd
+    (8, 2048, (257216,), "float32", True),    # its tied fp32 unembed
+    (2048, 1280, (504,), "float32", True),    # hubert's head, N 504
+    (2048, 2048, (16384,), "bfloat16", False),        # training wg
+])
+def test_matmul_at_the_frontend_shapes(cuda, M, K, Ns, dtype, trans_b):
+    """The GEMM at the vlm and audio models' shapes (the frontend
+    projections, paligemma's decode products and hubert's 504-row head)
+    against its plain version, one launch a call, a group bit-equal to
+    single calls."""
+    from repro_torch.kernels.matmul import matmul, matmul_group, matmul_plain
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(dt)
+    ws = [(torch.randn((N, K) if trans_b else (K, N), generator=g,
+                       device=cuda) / K ** 0.5).to(dt) for N in Ns]
+    n0 = matmul.launches
+    got = ([matmul(a, ws[0], trans_b=True)] if trans_b else
+           matmul_group(a, ws) if len(ws) > 1 else [matmul(a, ws[0])])
+    assert matmul.launches == n0 + 1
+    for w, c in zip(ws, got):
+        assert _gemm_tol_ok(c, matmul_plain(a, w, trans_b), dt)
+        if len(ws) > 1:
+            assert torch.equal(c, matmul(a, w))
 
 
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
@@ -223,6 +255,8 @@ def test_ag_gemm_kernel_matches_plain_on_virtual_ranks(cuda, W, M, k, N,
 
 def _paged_case(devices, dt, window, seed, B=5, H=8, KVH=2, D=64, bs=8,
                 n_blocks=32, C=6):
+    """The fused and partial paged decodes over ``devices`` (one rank
+    each) against the plain versions."""
     from repro_torch.kernels import flash_decode as kfd
     W = len(devices)
     g = torch.Generator().manual_seed(seed)
@@ -271,6 +305,8 @@ def test_paged_fused_kernel_matches_plain_on_virtual_ranks(cuda, W, dtype,
 
 def _strided_case(devices, dt, window, seed, B=4, H=8, KVH=2, D=64,
                   S_max=96):
+    """The fused and partial strided decodes over ``devices`` (one rank
+    each; W = 1 is NORMAL) against the plain versions."""
     from repro_torch.kernels import flash_decode as kfd
     W = len(devices)
     g = torch.Generator().manual_seed(seed)
@@ -309,13 +345,54 @@ def test_strided_fused_kernel_matches_plain_on_virtual_ranks(cuda, W, dtype,
 
 
 @pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_decodes_match_plain(cuda, W, dtype):
+    """paligemma's heads (8 query heads per KV head of 256: two units of
+    4 heads each, ``kernels.flash_decode.heads_per_unit``): the paged
+    decode (W = 1; fused and partial over W virtual ranks) and the
+    strided one, each over three calls in a row, against the plain
+    versions at phase 2's tolerances."""
+    from repro_torch.kernels import flash_decode as kfd
+    dt = getattr(torch, dtype)
+    devices = ["cuda:0"] * W
+    for epoch in range(3):
+        if W > 1:
+            _paged_case(devices, dt, None if epoch else 9, epoch, H=8,
+                        KVH=1, D=256)
+        _strided_case(devices, dt, None if epoch else 20, epoch, H=8, KVH=1,
+                      D=256, S_max=96 * W)
+    assert kfd.heads_per_unit(8, 256) == 4
+
+
+def _traced_launches(call, name, traces=3):
+    """(launches of csrc kernel ``name`` in one traced ``call()``, calls
+    made). A trace holding no kernel of the port at all lost its device
+    records (seen on the H100 once in a run, of a call the wrapper
+    counted): the call is traced again, up to ``traces`` times, as
+    ``chip_smoke.py``'s ``_kernel_launches`` does."""
+    from torch.profiler import ProfilerActivity, profile
+    port = ("::gemm_stream<", "::mm_kernel<", "::fd_paged<",
+            "::fd_strided<", "::ag_gemm_kernel<")
+    for t in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        # device events only: a host-side range of the same name would
+        # count the launch twice
+        kernels = [(e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(p in k for k, _ in kernels for p in port):
+            break
+    return sum(c for k, c in kernels if f"::{name}<" in k), t + 1, out
+
+
+@pytest.mark.parametrize("W", [1, 4])
 @pytest.mark.parametrize("S_max", [96, 600])
 def test_strided_kernel_is_one_launch_per_card_per_call(cuda, W, S_max):
     """NORMAL (W = 1), FUSED and PARTIAL: the wrapper counts one launch
     per card per call, and the profiler's device trace shows one
     ``fd_strided`` kernel; shards of S_max / W rows need not be whole
     tiles (600 / 4 = 150)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_decode as kfd
     B, H, KVH, D = 4, 8, 2, 64
     g = torch.Generator(device=cuda).manual_seed(S_max + W)
@@ -339,16 +416,9 @@ def test_strided_kernel_is_one_launch_per_card_per_call(cuda, W, S_max):
         call()                              # buffers sized
         torch.cuda.synchronize()
         n0 = wrapper.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = call()
-            torch.cuda.synchronize()
-        assert wrapper.launches == n0 + 1
-        # device events only: a host-side range of the same name would
-        # count the launch twice
-        kernels = [(e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert sum(c for k, c in kernels if "::fd_strided<" in k) == 1, \
-            kernels
+        launched, calls, out = _traced_launches(call, "fd_strided")
+        assert wrapper.launches == n0 + calls
+        assert launched == 1
         if wrapper is kfd.flash_decode_fused:
             for o in out:
                 assert torch.equal(o, out[0])

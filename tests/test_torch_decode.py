@@ -188,16 +188,24 @@ def test_entry_points_refuse_cuda_without_a_gpu():
 
 
 def test_other_blocks_are_a_later_slice():
-    """The vlm and audio frontends are not ported yet; the recurrent
-    families are (tests/test_torch_recurrent_*.py): their specs build
-    with JAX's keys and shapes, as the MoE family's does
-    (tests/test_torch_moe.py)."""
-    for arch in ("paligemma-3b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError):
-            tlm.lm_spec(smoke_config(get_config(arch)))
-    for arch in ("rwkv6-3b", "zamba2-1.2b"):
+    """Every family builds now: the recurrent ones
+    (tests/test_torch_recurrent_*.py) and the vlm and audio frontends
+    (tests/test_torch_frontends*.py), their specs with JAX's keys and
+    shapes, as the MoE family's (tests/test_torch_moe.py). The encoder
+    (hubert) has no decode step, and the ``"dots"`` remat policy is still
+    a later slice: it raises."""
+    for arch in ("rwkv6-3b", "zamba2-1.2b", "paligemma-3b",
+                 "hubert-xlarge"):
         want = {k: v.shape for k, v in tree_items(jlm.lm_spec(
             jax_smoke(jax_get_config(arch))))}
         got = {k: v.shape for k, v in tree_items(tlm.lm_spec(
             smoke_config(get_config(arch))))}
         assert got == want, arch
+    assert not smoke_config(get_config("hubert-xlarge")).has_decode
+    tc = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=1, remat=True, remat_policy="dots")
+    params = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
+    with pytest.raises(NotImplementedError, match="dots"):
+        tlm.loss_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+                             "labels": torch.zeros((1, 4),
+                                                   dtype=torch.int32)}, tc)

@@ -176,20 +176,55 @@ def test_cache_pool_bookkeeping_matches_jax(models):
 
 
 def test_engine_rejects_later_slices(models):
-    """What the port does not serve yet raises (a model with a frontend:
-    the vlm paligemma-3b), and a request without a prompt is refused.
-    The robustness plane, once a later slice, is live
-    (tests/test_torch_faults.py): drain() on an idle engine parks
-    nothing."""
+    """What the engine cannot serve raises: an encoder without a decode
+    step (hubert-xlarge, JAX's "encoder-only" message), and a request
+    without a prompt. The vlm paligemma-3b, once a later slice, builds
+    and serves text (tests/test_torch_frontends_serve_train.py); the
+    robustness plane too (tests/test_torch_faults.py): drain() on an
+    idle engine parks nothing."""
     from repro_torch.models import lm
     _, _, tc, tp = models
-    with pytest.raises(NotImplementedError):
-        lm.init_params(smoke_config(get_config("paligemma-3b")),
-                       device="cpu")
+    hub = smoke_config(get_config("hubert-xlarge"))
+    with pytest.raises(ValueError, match="encoder-only"):
+        Engine(lm.init_params(hub, device="cpu"), hub, device="cpu")
+    pali = smoke_config(get_config("paligemma-3b"))
+    assert Engine(lm.init_params(pali, device="cpu"), pali, device="cpu",
+                  batch=2, max_len=32).drain() == []
     eng = Engine(tp, tc, device="cpu", batch=2, max_len=32)
     assert eng.drain() == []
     with pytest.raises(ValueError):
         eng.submit(Request(rid=0, prompt=[]))
+
+
+def test_engine_takes_the_retry_backoff_arguments(models, monkeypatch):
+    """``Engine(retry_backoff_s=, retry_backoff_cap_s=)`` as JAX's engine
+    takes them: a dispatch fault that trips twice is retried after
+    ``backoff_s(1, base, cap)`` = base and ``backoff_s(2, base, cap)`` =
+    cap (< 2 x base) seconds, as the JAX engine sleeps under the same
+    plan."""
+    base, cap = 0.001, 0.0015
+    from repro.serving import engine as jengine
+    from repro.serving import faults as jfaults
+    from repro_torch.serving import engine as tengine
+    from repro_torch.serving import faults as tfaults
+    jc, jp, tc, tp = models
+    slept = {}
+    for name, mod, fmod, eng_cls, req_cls, params, cfg in (
+            ("jax", jengine, jfaults, JEngine, JRequest, jp, jc),
+            ("port", tengine, tfaults, Engine, Request, tp, tc)):
+        naps = slept.setdefault(name, [])
+        monkeypatch.setattr(mod.time, "sleep", naps.append)
+        kw = {} if name == "jax" else {"device": "cpu"}
+        eng = eng_cls(params, cfg, batch=2, max_len=32,
+                      fault_plan=fmod.FaultPlan([fmod.FaultSpec(
+                          "dispatch", 1, count=2)]),
+                      retry_backoff_s=base, retry_backoff_cap_s=cap, **kw)
+        assert (eng.retry_backoff_s, eng.retry_backoff_cap_s) == (base, cap)
+        eng.submit(req_cls(rid=0, prompt=[1, 2, 3], max_new_tokens=2))
+        eng.run()
+        assert eng.dispatch_retry_count == 2
+    assert slept["port"] == slept["jax"] == [base, cap] == [
+        tfaults.backoff_s(a, base, cap) for a in (1, 2)]
 
 
 def test_engine_cancel_frees_blocks(models):

@@ -1,7 +1,8 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
 ``kernels.flash_decode.decode_plan`` sizes the paged flash decode's
-grid (units of (local rank, slot, KV head), split over the table walk)
+grid (units of (local rank, slot, KV head, head group), split over the
+table walk)
 and ``kernels.ag_gemm.ag_gemm_plan`` the fused AG+GEMM's persistent grid
 (products x column strips x K chunks). The CUDA kernels walk exactly
 these assignments; here every output is checked to be covered once and
@@ -66,9 +67,10 @@ def strided_tiles(cl: int, rank: int, W: int, S_loc: int,
     (7, 3, 8, 33),
 ])
 @pytest.mark.parametrize("capacity", [None, 64, 528])
+@pytest.mark.parametrize("groups", [1, 2])
 def test_decode_plan_covers_every_slot_head_once(B, KVH, n_local, C,
-                                                 capacity):
-    plan = kfd.decode_plan(B, KVH, n_local, C, H100_SMS, capacity)
+                                                 capacity, groups):
+    plan = kfd.decode_plan(B, KVH, n_local, C, H100_SMS, capacity, groups)
     assert plan.n_split >= 1
     assert -(-C // plan.n_split) <= kfd.LIST_CAP
     if capacity is not None:
@@ -76,7 +78,7 @@ def test_decode_plan_covers_every_slot_head_once(B, KVH, n_local, C,
     else:
         assert plan.grid == plan.items
     want_units = set(itertools.product(range(n_local), range(B),
-                                       range(KVH)))
+                                       range(KVH), range(groups)))
     items = [it for blk in range(plan.grid) for it in plan.items_of(blk)]
     assert len(items) == len(set(items)) == plan.items
     assert set(items) == {(*u, sp) for u in want_units
@@ -96,10 +98,43 @@ def test_splits_walk_every_reachable_entry_once(c_lo, c_hi, n_split):
 
 
 @pytest.mark.parametrize("g,D", [(1, 32), (4, 32), (4, 128), (8, 128),
-                                 (3, 64), (32, 32)])
+                                 (3, 64), (32, 32), (4, 256), (1, 256)])
 def test_decode_record_is_whole_16_byte_words(g, D):
     n = kfd.rec_floats(g, D)
     assert n % 4 == 0 and g * D + 2 * g <= n < g * D + 2 * g + 4
+
+
+@pytest.mark.parametrize("g,D,want", [
+    (4, 128, 4), (8, 128, 8), (32, 32, 32), (1, 64, 1),   # one unit
+    (8, 256, 4),           # paligemma: two units of 4 heads
+    (1, 256, 1), (2, 256, 2), (6, 256, 3), (16, 128, 8), (5, 256, 1)])
+def test_heads_per_unit_is_the_largest_divisor_that_fits(g, D, want):
+    """A unit holds every head it computes in one block's registers
+    (heads x D <= 1024); a KV head's heads split evenly into units."""
+    gu = kfd.heads_per_unit(g, D)
+    assert gu == want
+    assert gu * D <= 1024 and g % gu == 0
+    assert not any(g % h == 0 and h * D <= 1024 for h in range(gu + 1, g + 1))
+
+
+@pytest.mark.parametrize("B,n_local,C", [(8, 1, 32), (8, 4, 8), (1, 1, 600)])
+@pytest.mark.parametrize("capacity", [None, 132])
+def test_decode_plan_at_head_dim_256(B, n_local, C, capacity):
+    """paligemma's heads (8 query heads per KV head of 256): every (rank,
+    slot, head group) once, and the groups' heads covering the KV head's
+    8 heads once."""
+    g, D = 8, 256
+    gu = kfd.heads_per_unit(g, D)
+    plan = kfd.decode_plan(B, 1, n_local, C, H100_SMS, capacity, g // gu)
+    units = [u for blk in range(plan.grid) for u in plan.units_of(blk)]
+    assert sorted(units) == sorted(itertools.product(
+        range(n_local), range(B), range(1), range(2)))
+    heads = sorted(hg * gu + i for hg in range(plan.groups)
+                   for i in range(gu))
+    assert heads == list(range(g))
+    assert -(-C // plan.n_split) <= kfd.LIST_CAP
+    if capacity is not None:
+        assert plan.grid <= capacity
 
 
 @pytest.mark.parametrize("M,N,k,W,itemsize", [
@@ -237,7 +272,8 @@ def test_decode_plan_over_a_strided_shard(W, S_loc, window, capacity):
     B, KVH = 5, 2
     C = -(-S_loc // kfd.TILE)
     plan = kfd.decode_plan(B, KVH, W, C, H100_SMS, capacity)
-    want_units = set(itertools.product(range(W), range(B), range(KVH)))
+    want_units = set(itertools.product(range(W), range(B), range(KVH),
+                                       range(1)))
     units = [u for blk in range(plan.grid) for u in plan.units_of(blk)]
     assert len(units) == len(set(units)) and set(units) == want_units
     for cl in (0, 1, W, W + 1, 37, S_loc * W - 1, S_loc * W):

@@ -318,6 +318,12 @@ def test_remat_dots_and_other_families_raise():
     tokens, labels = _batch(tc.vocab_size)
     with pytest.raises(NotImplementedError, match="dots"):
         tlm.loss_fn(tp, {"tokens": _t(tokens), "labels": _t(labels)}, tc)
-    with pytest.raises(NotImplementedError, match="frontend"):
+    # the frontends are ported (tests/test_torch_frontends.py): a vlm
+    # batch without patches embeds its tokens alone (label offset 0), as
+    # in JAX; an audio batch must hold frames (JAX's KeyError too)
+    x, pos, prefix = tlm.embed_inputs(tp, {"tokens": _t(tokens)},
+                                      tc.replace(family="vlm"))
+    assert prefix == 0 and x.shape[1] == pos.shape[1] == tokens.shape[1]
+    with pytest.raises(KeyError, match="frames"):
         tlm.embed_inputs(tp, {"tokens": _t(tokens)},
-                         tc.replace(family="vlm"))
+                         tc.replace(family="audio"))
