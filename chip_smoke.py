@@ -134,6 +134,23 @@ source, in parallel), then runs, failing on the first phase that fails:
    hubert-xlarge (2 x 1024 frames) trained 3 steps at full width and
    depth: losses finite, GEMM launches per step exact, ms per step,
    tokens/s, peak memory, and every product of the step timed;
+17. the ``"dots"`` remat policy and training every family over W ranks,
+   after phase 16: (a) the float32 llama3-8b smoke model one step under
+   ``"full"`` and ``"dots"`` on the card and on the CPU (losses and
+   every gradient leaf across policies and devices; the forward's and
+   the backward's GEMM launches by the counter and the profiler: under
+   ``"dots"`` no layer forward product comes back), then 12c's
+   configuration 3 steps under each policy (the config's
+   ``remat_policy``): ms per step, peak memory, launches, one profiled
+   step's GEMM ms, and the ``"dots"`` step's products timed; (b) the
+   float32 smoke models of olmoe, mixtral, zamba2 and rwkv6 trained 3
+   steps over 4 virtual ranks under ``ring`` vs tp 4 on the CPU and tp
+   1 on the card, and zamba2's tp 4 checkpoint resumed at tp 1; (c)
+   olmoe-1b-7b (4 of 16 layers), zamba2-1.2b (all 38) and rwkv6-3b (12
+   of 32) at full width over 4 virtual ranks, 3 steps of 2 x 1024
+   tokens: losses finite, launches exact, ms per step, tokens/s, peak
+   memory, every product of the step timed beside its plain version
+   and ``torch.matmul``/``torch.bmm`` with its bound;
 6. W=1 kernel timings (the GEMM per shape and per group, its latency
    floor, the host's time per call of the GEMM wrappers beside
    ``torch.matmul``'s, and the sampler's time per step) and
@@ -4941,6 +4958,647 @@ def phase_frontends(gen):
     return out, kernels
 
 
+# ------------------------------- phase 17: "dots" and every family at tp W
+TP_FAMILIES = ("olmoe-1b-7b", "mixtral-8x22b", "zamba2-1.2b", "rwkv6-3b")
+TP_FAM_STEPS = 3
+# 17c: the full-width models over TP virtual ranks, depth cut to fit 80
+# GB where it must: olmoe as 14d (fp32 AdamW state, 16 B a parameter);
+# rwkv6-3b's time mix is replicated on every rank (~2.8 GB of masters and
+# state a block at tp 4), so 12 of its 32 blocks
+TP_FAM_FULL = (("olmoe-1b-7b", 4), ("zamba2-1.2b", None), ("rwkv6-3b", 12))
+
+
+class ProductLog:
+    """Records every GEMM call the wrappers make on the card while it is
+    on (the shapes of ``kernels.matmul._run`` and ``_product_batched``):
+    (kind, A's shape, the B shapes, trans_b, dtype) -> launches
+    (``counts``) and calls (``calls``; a group the general kernel takes
+    is one launch a product)."""
+
+    def __init__(self):
+        from repro_torch.kernels import matmul as kmm
+        self.kmm, self.counts, self.calls = kmm, {}, {}
+        self._run, self._batched = kmm._run, kmm._product_batched
+
+    def __enter__(self):
+        def run(a, bs, trans_b, tma):
+            key = ("2d", tuple(a.shape), tuple(tuple(b.shape) for b in bs),
+                   trans_b, a.dtype)
+            n = 1 if tma else sum(1 for b in bs if b.numel())
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.counts[key] = self.counts.get(key, 0) + n
+            return self._run(a, bs, trans_b, tma)
+
+        def batched(a, b):
+            if a.is_cuda:
+                key = ("bmm", tuple(a.shape), (tuple(b.shape),), False,
+                       a.dtype)
+                self.calls[key] = self.calls.get(key, 0) + 1
+                self.counts[key] = self.counts.get(key, 0) + 1
+            return self._batched(a, b)
+        self.kmm._run, self.kmm._product_batched = run, batched
+        return self
+
+    def __exit__(self, *exc):
+        self.kmm._run, self.kmm._product_batched = self._run, self._batched
+
+
+def _log_operands(gen, key):
+    kind, ash, bshs, trans_b, dt = key
+    a = (torch.randn(ash, generator=gen, device="cuda") / 4).to(dt)
+    bs = [(torch.randn(s, generator=gen, device="cuda") / 4).to(dt)
+          for s in bshs]
+    return a, bs
+
+
+def _log_bound(key):
+    """(ops seconds, bytes seconds) of one launch of ``key``."""
+    kind, ash, bshs, trans_b, dt = key
+    E = ash[0] if kind == "bmm" else 1
+    M, K = ash[-2:]
+    ops = by = 0.0
+    for s in bshs:
+        N = s[-2] if trans_b else s[-1]
+        ops += 2 * E * M * N * K / PEAK_OPS[dt]
+        by += E * (K * N + M * N) * torch.tensor([], dtype=dt) \
+            .element_size() / HBM_BYTES_PER_S
+    by += E * M * K * torch.tensor([], dtype=dt).element_size() \
+        / HBM_BYTES_PER_S
+    return ops, by
+
+
+def log_times(gen, log, per, what):
+    """The products of ``log`` (a ProductLog over ``per`` steps): each
+    distinct call on random operands held against its plain version
+    (phase 2's tolerances) and timed (CUDA events) beside its plain
+    version and one PyTorch call (``torch.matmul`` a product,
+    ``torch.bmm`` a batch). Returns a kernel line's per-step fields (ms,
+    plain_ms, library_ms, bound_ms, bound_by; launches a step,
+    max_abs_err, distinct calls)."""
+    from repro_torch.kernels.matmul import (matmul, matmul_batched,
+                                            matmul_batched_plain,
+                                            matmul_group, matmul_plain)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    ops_s = bytes_s = bound_s = 0.0
+    worst, launches = 0.0, 0
+    with torch.no_grad():
+        for key, n in log.calls.items():
+            check(n % per == 0 and log.counts[key] % per == 0,
+                  f"{what}: {n} calls of {key} over {per} steps")
+            c = n // per
+            launches += log.counts[key] // per
+            kind, _, _, trans_b, dt = key
+            a, bs = _log_operands(gen, key)
+            if kind == "bmm":
+                def kern():
+                    return [matmul_batched(a, bs[0])]
+
+                def plain():
+                    return [matmul_batched_plain(a, bs[0])]
+
+                def lib():
+                    return [torch.bmm(a, bs[0])]
+            else:
+                def kern():
+                    return (matmul_group(a, bs) if len(bs) > 1
+                            else [matmul(a, bs[0], trans_b=trans_b)])
+
+                def plain():
+                    return [matmul_plain(a, b, trans_b) for b in bs]
+
+                def lib():
+                    return [a @ (b.t() if trans_b else b) for b in bs]
+            for got, want in zip(kern(), plain()):
+                worst = max(worst, _gemm_err(
+                    got.reshape(-1, got.shape[-1]),
+                    want.reshape(-1, want.shape[-1]), dt,
+                    f"{what} {kind} {tuple(a.shape)} x "
+                    f"{[tuple(b.shape) for b in bs]}"))
+            for field, fn in (("ms", kern), ("plain_ms", plain),
+                              ("library_ms", lib)):
+                tot[field] += c * time_ms(fn, iters=5, warmup=1)
+            o, b = _log_bound(key)
+            ops_s += c * o
+            bytes_s += c * b
+            bound_s += c * max(o, b)
+            del a, bs
+    torch.cuda.empty_cache()
+    return {**tot, "bound_ms": 1e3 * bound_s,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "launches_per_step": launches, "max_abs_err": worst,
+            "distinct": len(log.calls)}
+
+
+def _profiled_gemm(step_fn, params, opt, batch):
+    """One more train step under the profiler: (wall ms, device ms, the
+    GEMM kernels' device ms, their launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.time() - t0)
+    dev = gemm = 0.0
+    calls = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev += us / 1e3
+        if port_kernel("gemm_stream", ev.key) or port_kernel("mm_kernel",
+                                                             ev.key):
+            gemm += us / 1e3
+            calls += ev.count
+    return wall, dev, gemm, calls
+
+
+def _gemm_kernels_in(fn):
+    """(the GEMM kernels the profiler saw during ``fn()``, the wrappers'
+    launch count over it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.matmul import matmul
+    torch.cuda.synchronize()
+    n0 = matmul.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = sum(ev.count for ev in prof.key_averages()
+               if port_kernel("gemm_stream", ev.key)
+               or port_kernel("mm_kernel", ev.key))
+    return seen, matmul.launches - n0
+
+
+def phase_dots_small():
+    """(17a, first part) the float32 llama3-8b smoke model (remat on) one
+    step under ``"full"`` and ``"dots"``, on the card and on the CPU from
+    the same parameters and batch: the loss within 1e-5 relative and
+    every gradient leaf within 1e-3 of its largest |entry| (12b's
+    tolerances), ``"dots"`` against ``"full"`` and the card against the
+    CPU; the GEMM launches of the forward and of the backward, by the
+    wrappers' counter and by the profiler (which can drop a record, so
+    it is reported, and checked only to count fewer under ``"dots"``):
+    the forward's the same under both policies, the backward's under
+    ``"dots"`` fewer by every layer's forward products (all the
+    forward's but the unembed's), none of which come back."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    base = smoke_config(get_config("llama3-8b")).replace(
+        dtype=torch.float32, remat=True)
+    init = lm.init_params(base, seed=0, device="cpu", trainable=True)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in SyntheticLM(
+        base.vocab_size, 32, 2, seed=0).batch_at(0).items()}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        for pol in ("full", "dots"):
+            cfg = base.replace(remat_policy=pol)
+            p = _cpu_copy(init, cfg, dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            out = {}
+            if dev == "cuda":
+                def fwd():
+                    out["loss"] = lm.loss_fn(p, b, cfg)[0]
+                out["fwd"] = _gemm_kernels_in(fwd)
+                out["bwd"] = _gemm_kernels_in(out["loss"].backward)
+            else:
+                out["loss"] = lm.loss_fn(p, b, cfg)[0]
+                out["loss"].backward()
+            res[(dev, pol)] = (out["loss"].item(), {
+                n: t.grad.detach().cpu() for n, t in p.named_parameters()},
+                out.get("fwd", (0, 0)), out.get("bwd", (0, 0)))
+    errs = {}
+    for a, b in ((("cuda", "dots"), ("cuda", "full")),
+                 (("cuda", "dots"), ("cpu", "dots")),
+                 (("cuda", "full"), ("cpu", "full")),
+                 (("cpu", "dots"), ("cpu", "full"))):
+        la, ga = res[a][:2]
+        lb, gb = res[b][:2]
+        g_err = max(((ga[n] - g).abs().max() / g.abs().max()).item()
+                    for n, g in gb.items())
+        tag = f"{'/'.join(a)} vs {'/'.join(b)}"
+        check(abs(la - lb) <= 1e-5 * abs(lb) and g_err <= 1e-3,
+              f"dots small: {tag}: loss {la} vs {lb}, gradients "
+              f"{g_err:.3e} of a leaf's largest entry")
+        errs[tag] = {"loss_rel": abs(la - lb) / abs(lb), "grad_err": g_err}
+    # (profiler, counter) launches of the forward and the backward
+    (pf_full, f_full), (pb_full, b_full) = res[("cuda", "full")][2:]
+    (pf_dots, f_dots), (pb_dots, b_dots) = res[("cuda", "dots")][2:]
+    check(f_full == f_dots and b_full - b_dots == f_dots - 1
+          and pb_dots < pb_full, f"dots small: GEMM launches forward "
+          f"{f_full}/{f_dots}, backward full {b_full} vs dots {b_dots} "
+          f"(want {f_dots - 1} fewer; profiler {pb_full} vs {pb_dots})")
+    out = {"vs": errs, "launches": {"full": [f_full, b_full],
+                                    "dots": [f_dots, b_dots]},
+           "profiler": {"full": [pf_full, pb_full],
+                        "dots": [pf_dots, pb_dots]}}
+    print(f"[dots small] float32 llama3-8b smoke, one step: GEMM launches "
+          f"forward {f_dots}, backward full {b_full} / dots {b_dots} (the "
+          f"{f_dots - 1} layer forward products not relaunched); the "
+          f"profiler's kernels: forward {pf_full}/{pf_dots}, backward "
+          f"{pb_full}/{pb_dots}; " + "; ".join(
+              f"{k}: loss {v['loss_rel']:.1e}, grads {v['grad_err']:.2e}"
+              for k, v in errs.items()), flush=True)
+    return out
+
+
+def _train_counted(cfg, argv, what, per_step=None, log=None):
+    """``launch.train.train`` of ``cfg`` with ``argv`` on the card,
+    every step's GEMM launches (all, batched) counted: checks the losses
+    finite, no plain call, equal launches every step (``per_step`` when
+    given) and the peak below 80 GB. Returns (the run's numbers, the
+    trained params, opt state)."""
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    counts = []
+
+    def count(step, params, metrics):
+        counts.append((matmul.launches, matmul_batched.launches))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    matmul_batched.launches = 0
+    t0 = time.time()
+    if log is None:
+        res = tr.train(cfg, tr.parse_args(argv), on_step=count)
+    else:
+        with log:
+            res = tr.train(cfg, tr.parse_args(argv), on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    deltas = np.diff([(0, 0)] + counts, axis=0).tolist()
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    check(matmul.plain_calls == 0 and all(d == deltas[0] for d in deltas)
+          and (per_step is None or deltas[0][0] == per_step),
+          f"{what}: GEMM launches (all, batched) per step {deltas} (want "
+          f"{per_step}), {matmul.plain_calls} plain calls")
+    check(peak_gb < 80, f"{what}: peak {peak_gb:.1f} GB")
+    n_params = sum(p.numel() for q in lm.as_ranks(res["params"])
+                   for p in q.parameters())
+    step_s = float(np.mean(steps_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"params_per_rank_sum": n_params, "losses": losses,
+           "step_s": steps_s, "ms_per_step": 1e3 * step_s,
+           "tokens_per_s": tokens / step_s, "run_s": run_s,
+           "peak_gb": peak_gb, "gemm_launches_per_step": deltas[0][0],
+           "batched_launches_per_step": deltas[0][1],
+           "aux": [m["aux"] for m in res["log"] if "aux" in m]}
+    return out, res
+
+
+def phase_dots_full(gen):
+    """(17a, second part) 12c's configuration (llama3-8b at full width, 4
+    of 32 layers, 2 x 1024 tokens, lr 1e-3) TP_FAM_STEPS steps under
+    ``"full"`` and under ``"dots"`` (the config's ``remat_policy``, as
+    JAX's perf harness reaches it), each from the same seeded init:
+    losses finite and equal to 1e-3 relative between the policies (the
+    same function; bf16 rounding aside), GEMM launches per step exact
+    (``"full"``: 12c's 19 a layer + 3; ``"dots"``: 15 a layer + 3, no
+    forward product relaunched), ms per step, peak memory (the run's,
+    and one forward and backward's alone, where the saved outputs
+    show), and one profiled step's GEMM device ms; the ``"dots"`` step's products timed
+    (``log_times``) for the kernel line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    L = TRAIN_LAYERS
+    argv = ["--arch", "llama3-8b", "--steps", str(TP_FAM_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+            str(TP_FAM_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+            "--device", "cuda"]
+    batch = shard_batch(SyntheticLM(get_config("llama3-8b").vocab_size,
+                                    TRAIN_SEQ, TRAIN_BATCH, seed=0)
+                        .batch_at(TP_FAM_STEPS), "cuda")
+    out, logs = {}, {}
+    for pol, per_step in (("full", L * 19 + 3), ("dots", L * 15 + 3)):
+        cfg = get_config("llama3-8b").replace(n_layers=L, remat=True,
+                                              remat_policy=pol)
+        logs[pol] = ProductLog() if pol == "dots" else None
+        run, res = _train_counted(cfg, argv, f"dots full {pol}", per_step,
+                                  logs[pol])
+        # the forward and backward alone (no optimizer step, the
+        # gradients freed first): the activations' peak, remat's share
+        params = res["params"]
+        params.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        lm.loss_fn(params, batch, cfg)[0].backward()
+        torch.cuda.synchronize()
+        run["fwd_bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["fwd_bwd_peak_over_base_gb"] = run["fwd_bwd_peak_gb"] - base_gb
+        step_fn = steps_lib.make_train_step(cfg, adamw.AdamWConfig(
+            lr=TRAIN_LR))
+        wall, dev, gemm, calls = _profiled_gemm(step_fn, params,
+                                                res["opt"], batch)
+        run["profiled_step"] = {"wall_ms": wall, "device_ms": dev,
+                                "gemm_ms": gemm, "gemm_calls": calls}
+        out[pol] = run
+        del res, step_fn, params
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    lf, ld = out["full"]["losses"], out["dots"]["losses"]
+    check(np.allclose(ld, lf, rtol=1e-3, atol=0), f"dots full: losses dots "
+          f"{ld} vs full {lf}")
+    times = log_times(gen, logs["dots"], TP_FAM_STEPS, "dots full")
+    check(times["launches_per_step"] == L * 15 + 3, f"dots full: logged "
+          f"{times['launches_per_step']} launches a step")
+    for pol in ("full", "dots"):
+        r = out[pol]
+        print(f"[dots full] llama3-8b, {L} of 32 layers, remat {pol}: "
+              f"losses {[round(x, 4) for x in r['losses']]}; "
+              f"{r['ms_per_step']:.1f} ms per step after step 0 "
+              f"({r['tokens_per_s']:.0f} tokens/s); peak "
+              f"{r['peak_gb']:.2f} GB (forward + backward alone "
+              f"{r['fwd_bwd_peak_gb']:.2f} GB, "
+              f"{r['fwd_bwd_peak_over_base_gb']:.2f} above the parameters "
+              f"and optimizer state); {r['gemm_launches_per_step']} GEMM "
+              f"launches a step; profiled step: wall "
+              f"{r['profiled_step']['wall_ms']:.1f} ms, device "
+              f"{r['profiled_step']['device_ms']:.1f} ms, GEMM "
+              f"{r['profiled_step']['gemm_ms']:.1f} ms", flush=True)
+    kernel = {"name": "matmul_train_dots", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": TP_FAM_STEPS * times["launches_per_step"],
+              **{k: times[k] for k in ("launches_per_step", "max_abs_err",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+              "ms": out["dots"]["profiled_step"]["gemm_ms"],
+              "kernel_ms_products": times["ms"],
+              "unit": f"one training step of llama3-8b full width, {L} of "
+                      f"32 layers, remat dots, "
+                      f"{TRAIN_BATCH * TRAIN_SEQ} tokens"}
+    print(f"[dots full] GEMM under dots a step: {kernel['ms']:.1f} ms "
+          f"(profiled), {times['ms']:.1f} ms as its products timed alone, "
+          f"plain {times['plain_ms']:.1f}, torch.matmul "
+          f"{times['library_ms']:.1f}, bound {times['bound_ms']:.1f} ms",
+          flush=True)
+    return out, kernel
+
+
+def tp_family_launches(cfg, W):
+    """GEMM launches of one training step (remat full) over W > 1 ranks
+    under ``ring`` (the sites' ``ring_bidir``: an up or down site is
+    2 W^2 products, each a launch). Forward twice, then dA and dB of
+    every forward launch. Attention 4 sites, an MLP 3; a Mamba2 layer
+    in_proj and out_proj (2 sites); an MoE layer's router one product a
+    rank and its experts 3 batched launches a rank; an RWKV6 block's
+    time mix 7 products a rank (replicated), its ck one product a rank
+    (the sequence already whole), cv one site; the unembed 3 a rank.
+    Returns (all, batched)."""
+    site = 2 * W * W
+    if cfg.block == "attn_moe":
+        layer, batched = 4 * (4 * site + W) + 4 * 3 * W, 4 * 3 * W
+        return cfg.n_layers * layer + 3 * W, cfg.n_layers * batched
+    if cfg.block == "mamba_hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        return (cfg.n_layers * 4 * 2 * site + groups * 4 * 7 * site
+                + 3 * W), 0
+    return cfg.n_layers * 4 * (8 * W + site) + 3 * W, 0
+
+
+def phase_tp_families_small(tmp):
+    """(17b) the float32 smoke models of olmoe, mixtral, zamba2 and
+    rwkv6 (recurrent zero inits seeded nonzero) trained TP_FAM_STEPS
+    steps over TP virtual ranks of cuda:0 under ``ring``, against tp TP
+    on the CPU and tp 1 on the card from the same parameters and batches
+    (lr 1e-4): the first loss within 1e-5 relative, losses within 1e-4,
+    grad norms within 1e-2 (12b's, 13b's); every first-step gradient
+    leaf (blocks joined, copies summed) within max(1e-3, 2 x the CPU's
+    own gap under one float32 ulp of weight noise, 14d's and 15d's
+    bound) of its largest |entry|; the GEMM launched (the batched mode
+    for the MoE), no plain call on the card. zamba2's tp TP checkpoint
+    after step 2 resumed at tp 1: the last loss within 1e-4 and every
+    parameter leaf within 1e-2 of the norm of its three-step update
+    (the CPU tests' bound across W) from the uninterrupted run's."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels.matmul import matmul, matmul_batched
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    out = {}
+    for arch in TP_FAMILIES:
+        cfg = smoke_config(get_config(arch)).replace(dtype=torch.float32)
+        argv = ["--arch", arch, "--smoke", "--steps", str(TP_FAM_STEPS),
+                "--batch", "2", "--seq", "32", "--log-every", "1", "--lr",
+                "1e-4", "--warmup", "3", "--fusion-mode", TP_MODE]
+        init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+        _unhide(init)
+        grads = {}
+
+        def first_grads(key):
+            def keep(step, params, metrics):
+                if step:
+                    return
+                # after the step every copy of a replicated leaf holds
+                # the copies' summed gradient (apply_updates_ranks)
+                ranks = lm.as_ranks(params)
+                dims = lm.shard_dims(cfg, Mesh(["cpu"] * len(ranks)))
+                per = [dict(p.named_parameters()) for p in ranks]
+                grads[key] = {n: (per[0][n].grad.detach().cpu().clone()
+                                  if d is None else
+                                  torch.cat([q[n].grad.detach().cpu()
+                                             for q in per], dim=d))
+                              for n, d in dims.items()}
+            return keep
+        tp = ["--tp", str(TP)]
+        ck = os.path.join(tmp, arch)
+        runs = {"cpu4": tr.train(cfg, tr.parse_args(argv + tp + [
+                    "--device", "cpu"]), params=_cpu_copy(init, cfg, "cpu"),
+                    on_step=first_grads("cpu4")),
+                "card1": tr.train(cfg, tr.parse_args(argv + [
+                    "--device", "cuda"]), params=_cpu_copy(init, cfg, "cuda"),
+                    on_step=first_grads("card1"))}
+        n0, p0, b0 = (matmul.launches, matmul.plain_calls,
+                      matmul_batched.launches)
+        card = tr.train(cfg, tr.parse_args(argv + tp + [
+            "--device", "cuda", "--ckpt-dir", ck, "--ckpt-every", "2"]),
+            params=_cpu_copy(init, cfg, "cuda"), on_step=first_grads("card4"))
+        launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+        batched = matmul_batched.launches - b0
+        check(launched > 0 and plain == 0 and (batched > 0) == (
+            cfg.block == "attn_moe"), f"{arch} tp small: {launched} GEMM "
+            f"launches ({batched} batched), {plain} plain calls on the card")
+        batch0 = {k: torch.from_numpy(np.array(v)) for k, v in SyntheticLM(
+            cfg.vocab_size, 32, 2, seed=0).batch_at(0).items()}
+        g_cpu1 = None
+        sens = []
+        for seed in [None, 0, 1, 2]:
+            p = _cpu_copy(init, cfg, "cpu") if seed is None \
+                else _ulp_noise(init, cfg, seed)
+            loss, _ = lm.loss_fn(p, batch0, cfg)
+            loss.backward()
+            g = {n: t.grad for n, t in p.named_parameters()}
+            if seed is None:
+                g_cpu1 = g
+                continue
+            sens.append(max(((g[n] - g_cpu1[n]).abs().max()
+                             / g_cpu1[n].abs().max()).item() for n in g))
+        tol = max(1e-3, 2 * max(sens))
+        l4 = [m["loss"] for m in card["log"]]
+        gn4 = [m["grad_norm"] for m in card["log"]]
+        errs = {}
+        for other in ("cpu4", "card1"):
+            lo = [m["loss"] for m in runs[other]["log"]]
+            gno = [m["grad_norm"] for m in runs[other]["log"]]
+            g_err = max(((grads["card4"][n] - g).abs().max()
+                         / g.abs().max()).item()
+                        for n, g in grads[other].items())
+            check(abs(l4[0] - lo[0]) <= 1e-5 * abs(lo[0])
+                  and np.allclose(l4, lo, rtol=1e-4, atol=0)
+                  and np.allclose(gn4, gno, rtol=1e-2, atol=0),
+                  f"{arch} tp small: losses {l4} vs {other} {lo}, grad "
+                  f"norms {gn4} vs {gno}")
+            check(g_err <= tol, f"{arch} tp small: step-1 gradients vs "
+                                f"{other} {g_err:.3e} of a leaf's largest "
+                                f"entry (bound {tol:.3e})")
+            errs[other] = {"losses": lo, "grad_err": g_err}
+        out[arch] = {"card_tp4_losses": l4, "vs": errs, "grad_bound": tol,
+                     "cpu_noise_grad_err": sens, "gemm_launches": launched,
+                     "batched_launches": batched}
+        if arch.startswith("zamba2"):
+            rdir = os.path.join(tmp, arch + "_resume")
+            os.makedirs(rdir)
+            shutil.copytree(os.path.join(ck, "step_00000002"),
+                            os.path.join(rdir, "step_00000002"))
+            res = tr.train(cfg, tr.parse_args(argv + [
+                "--device", "cuda", "--ckpt-dir", rdir, "--resume"]),
+                params=_cpu_copy(init, cfg, "cuda"))
+            lr_ = [m["loss"] for m in res["log"]]
+            full = lm.gather_params(card["params"], Mesh(["cuda"] * TP))
+            start = dict(init.named_parameters())
+            rel = max(((x.detach().cpu() - y.detach().cpu()).norm()
+                       / (y.detach().cpu() - start[n]).norm()).item()
+                      for (n, x), (_, y) in zip(
+                          res["params"].named_parameters(),
+                          full.named_parameters()))
+            check(res["start_step"] == 2
+                  and np.allclose(lr_, l4[2:], rtol=1e-4) and rel <= 1e-2,
+                  f"{arch} tp small: resumed at tp 1 losses {lr_} vs tp "
+                  f"{TP} {l4[2:]}; parameters {rel:.3e} of the update")
+            out[arch].update(resume_tp1_losses=lr_,
+                             resume_param_diff_over_update=rel)
+        print(f"[tp families small] {arch} float32, tp {TP} on the card: "
+              f"losses {l4}; step-1 gradients vs tp {TP} on the CPU "
+              f"{errs['cpu4']['grad_err']:.3e}, vs tp 1 on the card "
+              f"{errs['card1']['grad_err']:.3e} of a leaf's largest entry "
+              f"(bound {tol:.2e}); {launched} GEMM launches ({batched} "
+              f"batched)" + (f"; tp {TP} checkpoint resumed at tp 1: losses "
+                             f"{out[arch]['resume_tp1_losses']}, parameters "
+                             f"{out[arch]['resume_param_diff_over_update']:.2e}"
+                             f" of the update" if arch.startswith("zamba2")
+                             else ""), flush=True)
+    return out
+
+
+def phase_tp_families_full(gen):
+    """(17c) olmoe-1b-7b (4 of 16 layers), zamba2-1.2b (all 38) and
+    rwkv6-3b (12 of 32 blocks) at full width over TP virtual ranks of
+    cuda:0 under ``ring``, bf16 compute, fp32 masters, AdamW, remat
+    full: TP_FAM_STEPS steps of 2 x 1024 tokens through
+    ``launch.train.train``: losses finite, GEMM (and batched) launches
+    per step exact (``tp_family_launches``), no plain call, peak below 80
+    GB, ms per step, tokens/s; every product of the step timed beside its
+    plain version and ``torch.matmul``/``torch.bmm`` with its bound
+    (``log_times``). Returns (numbers, kernel lines)."""
+    from repro_torch.configs import get_config
+    out, kernels = {}, []
+    for arch, layers in TP_FAM_FULL:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        per_step, per_b = tp_family_launches(cfg, TP)
+        argv = ["--arch", arch, "--steps", str(TP_FAM_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+                str(TP_FAM_STEPS), "--lr", str(TRAIN_LR), "--log-every",
+                "1", "--device", "cuda", "--tp", str(TP), "--fusion-mode",
+                TP_MODE]
+        log = ProductLog()
+        run, res = _train_counted(cfg, argv, f"{arch} tp full", per_step,
+                                  log)
+        del res
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(run["batched_launches_per_step"] == per_b, f"{arch} tp full: "
+              f"{run['batched_launches_per_step']} batched launches a step "
+              f"(want {per_b})")
+        times = log_times(gen, log, TP_FAM_STEPS, f"{arch} tp full")
+        check(times["launches_per_step"] == per_step, f"{arch} tp full: "
+              f"logged {times['launches_per_step']} launches a step")
+        tag = arch.split("-")[0]
+        run["config"] = (f"{arch} full width, {cfg.n_layers} of "
+                         f"{get_config(arch).n_layers} layers, tp {TP} "
+                         f"{TP_MODE}, bf16 compute, fp32 masters, remat full")
+        run["products"] = times
+        out[arch] = run
+        kernels.append({
+            "name": f"matmul_train_tp{TP}_{tag}", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:34",
+            "launches": TP_FAM_STEPS * per_step, "launches_per_step":
+            per_step, "batched_launches_per_step": per_b,
+            **{k: times[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err")},
+            "unit": f"one training step of {run['config']}, "
+                    f"{TRAIN_BATCH * TRAIN_SEQ} tokens: its "
+                    f"{times['distinct']} distinct products timed alone"})
+        print(f"[tp families full] {run['config']}: losses "
+              f"{[round(x, 4) for x in run['losses']]}"
+              + (f", aux {[round(x, 4) for x in run['aux']]}" if run["aux"]
+                 else "") + f"; {run['ms_per_step']:.1f} ms per step after "
+              f"step 0 ({run['tokens_per_s']:.0f} tokens/s); peak "
+              f"{run['peak_gb']:.2f} GB; {per_step} GEMM launches a step "
+              f"({per_b} batched); its products alone {times['ms']:.1f} ms "
+              f"(plain {times['plain_ms']:.1f}, library "
+              f"{times['library_ms']:.1f}, bound {times['bound_ms']:.1f} "
+              f"{times['bound_by']})", flush=True)
+    return out, kernels
+
+
+def phase_dots_and_tp_families(gen):
+    """(17) 17a-17c, each sub-phase's seconds kept; frees what it made.
+    Returns (numbers, kernel lines: PERF.md's rows 1t-dots, 1e-tp,
+    1z-tp, 1r-tp)."""
+    import gc
+    secs = {}
+    tmp = os.path.join(ROOT, "build", "chip_smoke_tp_families")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+
+    def sub(name, fn, *args):
+        t0 = time.time()
+        res = fn(*args)
+        secs[name] = time.time() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+    small = sub("17a small", phase_dots_small)
+    dots, dots_kernel = sub("17a full", phase_dots_full, gen)
+    fam_small = sub("17b", phase_tp_families_small, tmp)
+    fam_full, fam_kernels = sub("17c", phase_tp_families_full, gen)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print("[phase 17] " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                   secs.items()), flush=True)
+    return {"dots_small": small, "dots_full": dots,
+            "tp_small": fam_small, "tp_full": fam_full,
+            "phase_s": secs}, [dots_kernel] + fam_kernels
+
+
 def sampler_ms(gen, B=8, V=128256):
     """Device ms of one sampling step at the full-width serve's shapes
     (batch 8, vocab 128256, bf16 logits), in CUDA-graph replays: greedy,
@@ -5029,6 +5687,8 @@ def main():
     moe, moe_kernels = timed("14 moe", phase_moe, gen)
     rec, rec_kernels = timed("15 recurrent", phase_recurrent, gen)
     front, front_kernels = timed("16 frontends", phase_frontends, gen)
+    fam, fam_kernels = timed("17 dots + tp families",
+                             phase_dots_and_tp_families, gen)
     server = timed("11b server", phase_server, smi)
     kernels, rows = timed("6 timings", phase_timings, gen, lens,
                           summary["launches"], summary["launches_per_step"],
@@ -5062,6 +5722,8 @@ def main():
                    "robust_small": robust, "server": server,
                    "train": train, "train_tp": train_tp, "moe": moe,
                    "recurrent": rec, "frontends": front,
+                   "dots_tp_families": fam,
+                   "dots_tp_family_kernels": fam_kernels,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

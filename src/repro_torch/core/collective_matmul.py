@@ -211,6 +211,45 @@ def all_reduce(x):
     return out
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter`'s sums, with its gradient: every rank's
+    part receives the all-gather of the output blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, axis, *parts):
+        W = len(parts)
+        m = parts[0].shape[axis] // W
+        ctx.axis = axis
+        out = []
+        for r, d in enumerate(p.device for p in parts):
+            acc = None
+            for p in parts:                       # rank order
+                blk = to_device(p.narrow(axis, r * m, m), d).float()
+                acc = blk if acc is None else acc + blk
+            out.append(acc)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *all_gather([g.contiguous() for g in grads],
+                                  gather_axis=ctx.axis))
+
+
+def reduce_scatter(parts, *, scatter_axis: int):
+    """The plain reduce-scatter of per-rank partial tensors (one shape):
+    rank r receives block r of ``scatter_axis`` summed over every rank's
+    part in fp32, in rank order, so the sums do not depend on the
+    schedule. Its gradient is the all-gather of the blocks' gradients.
+    The MoE layer's combine over ranks (``models.moe``), which no GEMM
+    carries."""
+    W = len(parts)
+    _check(parts[0].shape[scatter_axis] % W == 0,
+           f"reduce_scatter: dim {scatter_axis} of {tuple(parts[0].shape)} "
+           f"must divide by W={W}")
+    axis = scatter_axis % parts[0].dim()
+    return list(_ReduceScatter.apply(axis, *parts))
+
+
 def all_gather_ring(x, *, gather_axis: int = 0):
     """The standalone ring all-gather (the paper's §4.2.3): x per rank,
     block r of the gathered dim; returns per rank the whole tensor."""

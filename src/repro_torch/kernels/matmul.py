@@ -13,11 +13,15 @@ pointers; for CPU tensors they run :func:`matmul_plain`. There is no
 fallback between the two: a CUDA tensor the kernels cannot take raises.
 
 Gradients: where autograd records (an input requires grad and grad
-mode is on), the wrappers run as ``torch.autograd.Function``s whose
-backward is the same kernel (``dA = dC @ B^T``, ``dB = A^T @ dC``), on
-the card and, through the plain version, on the CPU alike. Otherwise
-(``torch.no_grad``, ``torch.inference_mode``: the engine and its CUDA
-graphs) they launch the forward product alone and save nothing.
+mode is on), the wrappers call custom operators
+(``torch.ops.repro_torch.matmul``, ``matmul_group``,
+``matmul_batched``: :data:`DOT_OPS`) whose backward is the same kernel
+(``dA = dC @ B^T``, ``dB = A^T @ dC``), on the card and, through the
+plain version, on the CPU alike. Being dispatched operators, a selective
+checkpoint sees them and can save their outputs (the "dots" remat
+policy). Otherwise (``torch.no_grad``, ``torch.inference_mode``: the
+engine and its CUDA graphs) they launch the forward product alone,
+directly, and save nothing.
 
 Counters, shared by the wrappers (one kernel): ``matmul.launches``
 counts kernel launches and ``matmul.plain_calls`` plain-version calls (a
@@ -346,56 +350,83 @@ def _grad_a(dc, b, trans_b):
     return _product(dc, b.t().contiguous())
 
 
-class _Matmul(torch.autograd.Function):
-    """:func:`matmul` with its gradient: dA = dC @ B^T (:func:`_grad_a`),
-    dB = A^T @ dC (dB = dC^T @ A for ``trans_b``), each one product of
-    the same kernel."""
-
-    @staticmethod
-    def forward(ctx, a, b, trans_b):
-        ctx.save_for_backward(a, b)
-        ctx.trans_b = trans_b
-        return _product(a, b, trans_b)
-
-    @staticmethod
-    def backward(ctx, dc):
-        a, b = ctx.saved_tensors
-        dc = dc.contiguous()
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = _grad_a(dc, b, ctx.trans_b)
-        if ctx.needs_input_grad[1]:
-            db = _product(dc.t().contiguous(), a) if ctx.trans_b \
-                else _product(a.t().contiguous(), dc)
-        return da, db, None
+def _matmul_backward(ctx, dc):
+    """dA = dC @ B^T (:func:`_grad_a`), dB = A^T @ dC (dB = dC^T @ A for
+    ``trans_b``), each one product of the same kernel."""
+    a, b = ctx.saved_tensors
+    dc = dc.contiguous()
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        da = _grad_a(dc, b, ctx.trans_b)
+    if ctx.needs_input_grad[1]:
+        db = _product(dc.t().contiguous(), a) if ctx.trans_b \
+            else _product(a.t().contiguous(), dc)
+    return da, db, None
 
 
-class _MatmulGroup(torch.autograd.Function):
-    """:func:`matmul_group` with its gradient: every dB_p = A^T @ dC_p in
-    one grouped launch; dA = sum_p dC_p @ B_p^T, the terms summed in fp32
-    in product order (so the sum does not depend on scheduling), cast
-    to A's dtype."""
+def _group_backward(ctx, dcs):
+    """Every dB_p = A^T @ dC_p in one grouped launch; dA = sum_p dC_p @
+    B_p^T, the terms summed in fp32 in product order (so the sum does not
+    depend on scheduling), cast to A's dtype."""
+    a, *bs = ctx.saved_tensors
+    dcs = [dc.contiguous() for dc in dcs]
+    need_a, need_b = ctx.needs_input_grad
+    da = None
+    if need_a:
+        for dc, b in zip(dcs, bs):
+            term = _grad_a(dc, b, False).float()
+            da = term if da is None else da + term
+        da = da.to(a.dtype)
+    dbs = [None] * len(bs)
+    if any(need_b):
+        dbs = [db if need else None for db, need in zip(
+            _products(a.t().contiguous(), dcs), need_b)]
+    return da, dbs
 
-    @staticmethod
-    def forward(ctx, a, *bs):
-        ctx.save_for_backward(a, *bs)
-        return tuple(_products(a, list(bs)))
 
-    @staticmethod
-    def backward(ctx, *dcs):
-        a, *bs = ctx.saved_tensors
-        dcs = [dc.contiguous() for dc in dcs]
-        da = None
-        if ctx.needs_input_grad[0]:
-            for dc, b in zip(dcs, bs):
-                term = _grad_a(dc, b, False).float()
-                da = term if da is None else da + term
-            da = da.to(a.dtype)
-        dbs = [None] * len(bs)
-        if any(ctx.needs_input_grad[1:]):
-            dbs = [db if need else None for db, need in zip(
-                _products(a.t().contiguous(), dcs), ctx.needs_input_grad[1:])]
-        return (da, *dbs)
+def _batched_backward(ctx, dc):
+    """dA = dC @ B^T (B^T made contiguous, as :func:`_grad_a`), dB = A^T
+    @ dC, each one batched launch of the same kernel."""
+    a, b = ctx.saved_tensors
+    dc = dc.contiguous()
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        da = _product_batched(dc, b.transpose(1, 2).contiguous())
+    if ctx.needs_input_grad[1]:
+        db = _product_batched(a.transpose(1, 2).contiguous(), dc)
+    return da, db
+
+
+def _save_inputs(ctx, inputs, output):
+    a, b, *rest = inputs
+    ctx.save_for_backward(a, *(b if isinstance(b, list) else [b]))
+    ctx.trans_b = bool(rest and rest[0])
+
+
+@torch.library.custom_op("repro_torch::matmul", mutates_args=())
+def _matmul_op(a: torch.Tensor, b: torch.Tensor,
+               trans_b: bool) -> torch.Tensor:
+    return _product(a, b, trans_b)
+
+
+@torch.library.custom_op("repro_torch::matmul_group", mutates_args=())
+def _group_op(a: torch.Tensor, bs: list[torch.Tensor]) -> list[torch.Tensor]:
+    return _products(a, bs)
+
+
+@torch.library.custom_op("repro_torch::matmul_batched", mutates_args=())
+def _batched_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _product_batched(a, b)
+
+
+_matmul_op.register_autograd(_matmul_backward, setup_context=_save_inputs)
+_group_op.register_autograd(_group_backward, setup_context=_save_inputs)
+_batched_op.register_autograd(_batched_backward, setup_context=_save_inputs)
+# the recording route's products, which a selective checkpoint can name
+# (``models.transformer``'s "dots" remat policy saves their outputs)
+DOT_OPS = (torch.ops.repro_torch.matmul.default,
+           torch.ops.repro_torch.matmul_group.default,
+           torch.ops.repro_torch.matmul_batched.default)
 
 
 def _records(*ts) -> bool:
@@ -409,7 +440,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     ``trans_b``, ``b`` is given as (N, K) and read transposed. Any M, N,
     K; f32 x f32 or bf16 x bf16. Differentiable (module docstring)."""
     if _records(a, b):
-        return _Matmul.apply(a, b, trans_b)
+        return _matmul_op(a, b, trans_b)
     return _product(a, b, trans_b)
 
 
@@ -424,7 +455,7 @@ def matmul_group(a: torch.Tensor, bs) -> list[torch.Tensor]:
         raise ValueError(f"matmul_group takes 1 to {MAX_GROUP} products, "
                          f"got {len(bs)}")
     if _records(a, *bs):
-        return list(_MatmulGroup.apply(a, *bs))
+        return list(_group_op(a, bs))
     return _products(a, bs)
 
 
@@ -474,35 +505,13 @@ def _product_batched(a, b):
     return c
 
 
-class _MatmulBatched(torch.autograd.Function):
-    """:func:`matmul_batched` with its gradient, each one batched launch
-    of the same kernel: dA = dC @ B^T (B^T made contiguous, as
-    :func:`_grad_a`), dB = A^T @ dC."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return _product_batched(a, b)
-
-    @staticmethod
-    def backward(ctx, dc):
-        a, b = ctx.saved_tensors
-        dc = dc.contiguous()
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = _product_batched(dc, b.transpose(1, 2).contiguous())
-        if ctx.needs_input_grad[1]:
-            db = _product_batched(a.transpose(1, 2).contiguous(), dc)
-        return da, db
-
-
 def matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a`` (E, M, K) @ ``b`` (E, K, N) -> (E, M, N) in ``a``'s dtype:
     the E products of a batch (the MoE layer's experts) in ONE launch.
     Any E, M, N, K; f32 x f32 or bf16 x bf16. Differentiable (module
     docstring)."""
     if _records(a, b):
-        return _MatmulBatched.apply(a, b)
+        return _batched_op(a, b)
     return _product_batched(a, b)
 
 

@@ -6,9 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --device cpu --tp 2 --fusion-mode ring --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
-      --smoke --device cpu --steps 3
+      --smoke --device cpu --tp 2 --steps 3   # also mixtral-8x22b
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
-      --smoke --device cpu --steps 3      # also rwkv6-3b
+      --smoke --device cpu --tp 2 --steps 3   # also rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
       --smoke --device cpu --steps 3      # text only, as JAX's trainer
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
@@ -33,12 +33,15 @@ W (JAX's elastic restore). SIGTERM/SIGINT checkpoints and exits
 (``PreemptionGuard``), slow steps are flagged (``StragglerWatchdog``)
 and ``--heartbeat-file`` records liveness (``Heartbeat``).
 
-``--mesh production`` and ``--multi-pod`` raise ``NotImplementedError``:
-they need one process per card (ROADMAP item 10d). So does ``--tp W >
-1``, before anything is allocated, for an MoE model (``attn_moe``, e.g.
-``--arch olmoe-1b-7b``: expert-parallel training is ROADMAP item 11b;
-it trains at ``--tp 1``, its log lines carrying the aux loss) and for
-the recurrent families (``mamba_hybrid``, ``rwkv``: item 11f). ``--grad-compress``
+``--tp W`` trains every family JAX trains: the dense blocks, MoE
+(``attn_moe``, e.g. ``--arch olmoe-1b-7b``: the experts over the ranks
+as JAX's rules place them, the log lines carrying the aux loss) and the
+recurrent ones (``mamba_hybrid``, ``rwkv``: their scans on the gathered
+sequence). The remat policy comes from the config, as in JAX's trainer
+(``cfg.replace(remat=True, remat_policy="dots")`` reaches ``"dots"``;
+there is no flag). ``--mesh production`` and ``--multi-pod`` raise
+``NotImplementedError``: they need one process per card (ROADMAP item
+10d). ``--grad-compress``
 is parsed and unused, as in JAX's trainer (the port's mesh has no data
 axis to compress over).
 
@@ -65,7 +68,7 @@ from repro_torch.distributed.fault_tolerance import (Heartbeat,
                                                      StragglerWatchdog)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import lm, transformer
+from repro_torch.models import lm
 from repro_torch.optim import adamw, schedule
 
 
@@ -144,7 +147,6 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     mesh = build_mesh(args)
     dev = mesh.devices[0]
     W = mesh.size
-    transformer.require_one_rank(cfg, W)
     ctx = dctx.DistContext(mesh if W > 1 else None, args.fusion_mode)
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(args.lr, args.warmup, args.steps))

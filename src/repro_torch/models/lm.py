@@ -205,11 +205,10 @@ def shard_params(params: LM, mesh) -> list:
     ``mesh.devices[r]`` holds block r of every sharded leaf and its own
     copy of every replicated one (also where ranks share a card, so the
     same code runs on virtual and real ranks). Trainable stays
-    trainable. ``attn_moe`` and the recurrent blocks raise at W > 1
-    (``transformer.require_one_rank``; serving replicates,
+    trainable. Every block: the expert, ``ssm_inner`` and ``mlp`` dims
+    split as the rules say (serving replicates instead,
     :func:`replicate`)."""
     cfg = params.cfg
-    transformer.require_one_rank(cfg, mesh.size)
     trainable = any(p.requires_grad for p in params.parameters())
     trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
                           sr.rules_for(cfg, mesh), devices=mesh.devices)
@@ -333,7 +332,7 @@ def _embed_ranks(params, tokens, cfg, front=None):
     goes in front of the tokens' rows before the sequence split, so each
     rank's rows are rows of the whole sequence (all rows when it does
     not divide by W). fp32 until the cast to ``cfg.dtype`` (rwkv's
-    ``ln_in`` in between, at one rank), as in JAX."""
+    ``ln_in`` in between, on each rank's rows), as in JAX."""
     W = len(params)
     fr = [None if front is None else _frontend(p, front, cfg).float()
           for p in params]

@@ -8,7 +8,8 @@ recurrence with a rolling conv state, written IN PLACE into the slot
 state (inactive slots keep theirs byte-identical).
 
 The in and out projections go through the GEMM kernel
-(``layers.dense``); the scan and the recurrence are plain PyTorch ops,
+(``layers.dense``; over W ranks the paper's AG+GEMM and GEMM+RS sites,
+:func:`apply_mamba_ranks`); the scan and the recurrence are plain PyTorch ops,
 as JAX leaves them to XLA. ``A_log``, ``dt_bias``, ``D`` and
 ``norm_scale`` are read as fp32 masters (``lm.storage_dtype``).
 """
@@ -17,6 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective_matmul as cm
+from repro_torch.core import patterns
 from repro_torch.models.layers import dense, select_
 from repro_torch.models.module import Param
 
@@ -129,22 +132,68 @@ def _gate_norm(y, z, params, dtype):
     return (y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"]).to(dtype)
 
 
-def apply_mamba(params, x, cfg, chunk: int = 64):
-    """Train/prefill. x: (B, L, d) -> (B, L, d); L divides by ``chunk``
-    (or is shorter)."""
+def _mix(params, zxbcdt, cfg, dtype, chunk):
+    """The block between its projections: the causal conv, the chunked
+    SSD scan and the gated RMSNorm of the whole in-projection output
+    ``zxbcdt`` (B, L, 2 d_in + 2n + nh). Returns y (B, L, d_in) in
+    ``dtype``."""
     d_in, n, nh = dims(cfg)
-    z, xs, Bm, Cm, dt = _split(cfg, dense(x, params["in_proj"]))
+    z, xs, Bm, Cm, dt = _split(cfg, zxbcdt)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    conv = F.silu(_dconv(conv_in, params["conv_w"].to(x.dtype),
-                         params["conv_b"].to(x.dtype)))
+    conv = F.silu(_dconv(conv_in, params["conv_w"].to(dtype),
+                         params["conv_b"].to(dtype)))
     xs, Bm, Cm = torch.split(conv, [d_in, n, n], dim=-1)
     dt = softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
     xh = xs.reshape(*xs.shape[:-1], nh, HEAD).float()
     y, _ = ssd_chunked(xh, dt, A, Bm.float(), Cm.float(), chunk)
     y = y + xh * params["D"].float()[:, None]
-    y = _gate_norm(y.reshape(*xs.shape[:-1], d_in), z, params, x.dtype)
+    return _gate_norm(y.reshape(*xs.shape[:-1], d_in), z, params, dtype)
+
+
+def apply_mamba(params, x, cfg, chunk: int = 64):
+    """Train/prefill. x: (B, L, d) -> (B, L, d); L divides by ``chunk``
+    (or is shorter)."""
+    y = _mix(params, dense(x, params["in_proj"]), cfg, x.dtype, chunk)
     return dense(y, params["out_proj"])
+
+
+def apply_mamba_ranks(params, x, cfg, *, seq_sharded: bool,
+                      chunk: int = 64):
+    """Train/prefill over the W ranks of the ambient mesh (W = 1 is
+    :func:`apply_mamba`). params: per rank the layer's shards by JAX's
+    rules: ``in_proj`` column block r of the fused ``[z | x | B | C |
+    dt]`` dim (``ssm_inner``; replicated where that width does not
+    divide by W), ``out_proj`` row block r (whole heads when the heads
+    divide by W), the rest replicated; x: per rank (B, L/W, d), the
+    rank's rows (``seq_sharded``), or (B, L, d).
+
+    The in-projection is the AG+GEMM site (``patterns.project_up``); its
+    column blocks, which cut through z and x, are all-gathered, and
+    every rank runs the conv, the scan and the gated norm over the whole
+    sequence and width (the scan is batch-local and needs the gathered
+    sequence; the norm spans all of d_in); each rank multiplies its
+    columns of y by its rows of ``out_proj`` at the GEMM+RS site
+    (``patterns.project_down``). Returns per rank the layout of ``x``."""
+    W = len(x)
+    if W == 1:
+        return [apply_mamba(params[0], x[0], cfg, chunk)]
+    d_in, n, nh = dims(cfg)
+    (zx,) = patterns.project_up(x, [[p["in_proj"] for p in params]],
+                                seq_axis_sharded=seq_sharded)
+    if zx[0].shape[-1] != 2 * d_in + 2 * n + nh:
+        zx = cm.all_gather(zx, gather_axis=-1)
+    y = [_mix(p, zr, cfg, xr.dtype, chunk)
+         for p, zr, xr in zip(params, zx, x)]
+    k = params[0]["out_proj"].shape[0]
+    if k == d_in:               # replicated: every rank its rows
+        out = [dense(yr, p["out_proj"]) for p, yr in zip(params, y)]
+        m = x[0].shape[1]
+        return [o.narrow(1, r * m, m) if seq_sharded else o
+                for r, o in enumerate(out)]
+    return patterns.project_down(
+        [yr[..., r * k:(r + 1) * k].contiguous() for r, yr in enumerate(y)],
+        [p["out_proj"] for p in params])
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16, device="cpu"):

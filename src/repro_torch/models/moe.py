@@ -12,6 +12,10 @@ Sort-based capacity routing, as in JAX:
    experts' (E, B*C, D) rows against their stacked weights);
 4. gather-combine with gate weights.
 
+Over W ranks (training, :func:`apply_moe_ranks`) each rank runs its
+share of the experts, as JAX's sharding rules place them, on the
+gathered sequence, and the partial combines are reduce-scattered.
+
 The Switch aux load-balance loss is returned alongside. No op here
 syncs with the host (no ``nonzero``, boolean-mask indexing, ``unique``
 or ``.item()``): the routing replays inside a megatick's CUDA graph.
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective_matmul as cm
 from repro_torch.kernels.matmul import matmul_batched
 from repro_torch.models.layers import dense
 from repro_torch.models.module import Param
@@ -103,35 +108,92 @@ def route(x, router_w, cfg):
                 kept_flat=kept_flat, gate=gate, aux=aux, C=C)
 
 
-def apply_moe(params, x, cfg):
-    """x: (B, T, D) -> (out (B, T, D), aux_loss scalar). The expert
-    weights are cast to ``x``'s dtype per call, as in JAX (a no-op for
-    the serving storage)."""
+def _combine_share(params, x, r, cfg, lo: int):
+    """The combine of the experts ``params`` holds (its ``wg`` (e, d, f)
+    are experts [lo, lo + e) of the E, each with its ``f`` columns of
+    d_ff) over ``x`` (B, T, D) routed by ``r``: (B, T, D) fp32, each
+    (t, k) choice's expert output weighted by its gate (cast to the
+    activation dtype first, as JAX does) and summed over k in fp32;
+    choices whose expert lies outside the share add nothing."""
     B, T, D = x.shape
     E, K = cfg.moe_num_experts, cfg.moe_top_k
-    r = route(x, params["router"], cfg)
     C = r["C"]
+    e = params["wg"].shape[0]
 
-    # dispatch: (B, E, C, D), invalid slots zeroed; then the experts'
-    # rows (E, B*C, D)
-    xe = torch.take_along_dim(x, r["token_of_slot"].reshape(B, E * C, 1),
-                              dim=1).reshape(B, E, C, D)
-    xe = torch.where(r["slot_valid"][..., None], xe, 0.0)
-    xe = xe.transpose(0, 1).reshape(E, B * C, D).contiguous()
+    # dispatch: (B, e, C, D), invalid slots zeroed; then the experts'
+    # rows (e, B*C, D)
+    tos = r["token_of_slot"][:, lo:lo + e]
+    xe = torch.take_along_dim(x, tos.reshape(B, e * C, 1),
+                              dim=1).reshape(B, e, C, D)
+    xe = torch.where(r["slot_valid"][:, lo:lo + e, :, None], xe, 0.0)
+    xe = xe.transpose(0, 1).reshape(e, B * C, D).contiguous()
 
     dt = x.dtype
     g = matmul_batched(xe, params["wg"].to(dt))
     u = matmul_batched(xe, params["wu"].to(dt))
     h = F.silu(g) * u
-    ye = matmul_batched(h, params["wd"].to(dt))              # (E, B*C, D)
-    ye = ye.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    ye = matmul_batched(h, params["wd"].to(dt))              # (e, B*C, D)
+    ye = ye.reshape(e, B, C, D).transpose(0, 1).reshape(B, e * C, D)
 
     # combine: gather each (t, k)'s expert output, weight by its gate
-    # (cast to the activation dtype first, as JAX does), sum in fp32
-    lin = r["expert_of_flat"] * C + r["slot_of_flat"].clamp_max(C - 1)
+    eof, kept = r["expert_of_flat"], r["kept_flat"]
+    if e < E:
+        eof = eof - lo
+        kept = kept & (eof >= 0) & (eof < e)
+        eof = eof.clamp(0, e - 1)
+    lin = eof * C + r["slot_of_flat"].clamp_max(C - 1)
     vals = torch.take_along_dim(ye, lin[..., None], dim=1)  # (B, T*K, D)
-    vals = torch.where(r["kept_flat"][..., None], vals, 0.0)
+    vals = torch.where(kept[..., None], vals, 0.0)
     vals = vals.reshape(B, T, K, D)
     gate = r["gate"].to(dt).float()
-    out = (vals.float() * gate[..., None]).sum(dim=2)
-    return out.to(dt), r["aux"]
+    return (vals.float() * gate[..., None]).sum(dim=2)
+
+
+def apply_moe(params, x, cfg):
+    """x: (B, T, D) -> (out (B, T, D), aux_loss scalar), every expert on
+    this rank. The expert weights are cast to ``x``'s dtype per call, as
+    in JAX (a no-op for the serving storage)."""
+    r = route(x, params["router"], cfg)
+    return _combine_share(params, x, r, cfg, 0).to(x.dtype), r["aux"]
+
+
+def apply_moe_ranks(params, x, cfg, *, seq_sharded: bool):
+    """The train/prefill layer over the W ranks of the ambient mesh (W =
+    1 is :func:`apply_moe`). params: per rank the layer's shards by
+    JAX's rules (``experts`` over ``model``: rank r holds experts [r E/W,
+    (r+1) E/W); mixtral's overrides: every expert, its d_ff / W columns;
+    E % W != 0: every expert whole, the recorded degradation); x: per
+    rank (B, T/W, D), the rank's rows (``seq_sharded``), or (B, T, D).
+
+    Routing groups are batch rows (capacity over a row's T*K choices),
+    so every rank first gathers the rows' whole sequences and routes them
+    identically on its replicated router; it runs its share of the three
+    expert products (one batched launch each), weights its partial
+    combine by the gates, and the partials are reduce-scattered in fp32,
+    in rank order, to the ranks' rows (``cm.reduce_scatter``; summed on
+    every rank when T does not divide by W). Where the experts are
+    replicated each rank computes the whole layer and keeps its rows.
+    Returns (per rank the layout of ``x``, the aux loss: rank 0's, so it
+    counts once)."""
+    W = len(x)
+    if W == 1:
+        y, aux = apply_moe(params[0], x[0], cfg)
+        return [y], aux
+    xf = cm.all_gather(x, gather_axis=1) if seq_sharded else x
+    E, f = cfg.moe_num_experts, cfg.d_ff
+    whole = tuple(params[0]["wg"].shape[::2]) == (E, f)
+    parts, aux = [], None
+    for rank, (p, xr) in enumerate(zip(params, xf)):
+        rt = route(xr, p["router"], cfg)
+        aux = rt["aux"] if aux is None else aux
+        parts.append(_combine_share(p, xr, rt, cfg,
+                                    rank * p["wg"].shape[0] % E))
+    dt = x[0].dtype
+    if whole:
+        if seq_sharded:
+            m = x[0].shape[1]
+            parts = [t.narrow(1, r * m, m) for r, t in enumerate(parts)]
+        return [t.to(dt) for t in parts], aux
+    out = (cm.reduce_scatter(parts, scatter_axis=1) if seq_sharded
+           else cm.all_reduce(parts))
+    return [t.to(dt) for t in out], aux

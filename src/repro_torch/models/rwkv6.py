@@ -12,7 +12,9 @@ chunks of CHUNK steps, a Python loop carrying the state across chunks).
 Decode runs the recurrence itself (:func:`wkv_step`), which is what the
 chunked form computes at one step (JAX decodes through it at L = 1), and
 writes the slot state IN PLACE. Every projection, the fp32 LoRA of the
-decay included, goes through the GEMM kernel (``layers.dense``).
+decay included, goes through the GEMM kernel (``layers.dense``); over W
+ranks the channel mix runs at the paper's sites
+(:func:`apply_rwkv_block_ranks`).
 ``w0``, ``w_lora_a``, ``w_lora_b``, ``u`` and ``gn_scale`` are read as
 fp32 masters (``lm.storage_dtype``).
 """
@@ -21,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective_matmul as cm
+from repro_torch.core import patterns
 from repro_torch.models.layers import apply_norm, dense, norm_spec, select_
 from repro_torch.models.module import Param
 
@@ -173,6 +177,50 @@ def apply_rwkv_block(params, x, cfg):
                                                   "layernorm"), cfg)
     return x + apply_rwkv_channelmix(params, apply_norm(params["ln_c"], x,
                                                         "layernorm"), cfg)
+
+
+def apply_rwkv_block_ranks(params, x, cfg, *, seq_sharded: bool):
+    """Train/prefill block over the W ranks of the ambient mesh (W = 1
+    is :func:`apply_rwkv_block`). params: per rank the block's shards
+    by JAX's rules: the channel mix's ``ck`` column block and ``cv`` row
+    block (``mlp``), everything else replicated (the time mix's weights
+    are ``("embed", None)``/``(None, "embed")``: ``embed`` maps to the
+    data axis); x: per rank (B, L/W, d), the rank's rows
+    (``seq_sharded``), or (B, L, d).
+
+    Every rank gathers the sequence once and runs the time mix on all
+    of it (the token shift at a shard's edge needs the previous rank's
+    last row, and the WKV scan runs the whole sequence); the channel
+    mix's token-shifted input, already whole on every rank, goes
+    through ``ck`` at the up site without a second gather
+    (``patterns.project_up``, every row), relu², and ``cv`` at the
+    GEMM+RS site (``patterns.project_down``) to the ranks' rows. A
+    replicated channel mix (d_ff % W != 0) runs whole on every rank.
+    Returns per rank the layout of ``x``."""
+    W = len(x)
+    if W == 1:
+        return [apply_rwkv_block(params[0], x[0], cfg)]
+    xf = cm.all_gather(x, gather_axis=1) if seq_sharded else x
+    y = [xr + apply_rwkv_timemix(p, apply_norm(p["ln_t"], xr, "layernorm"),
+                                 cfg) for p, xr in zip(params, xf)]
+    xk = []
+    for p, yr in zip(params, y):
+        c = apply_norm(p["ln_c"], yr, "layernorm")
+        xk.append(_mix(c, _shift(c), p["mu_ck"].to(c.dtype)))
+    m = x[0].shape[1]
+    if seq_sharded:
+        y = [yr.narrow(1, r * m, m) for r, yr in enumerate(y)]
+    if params[0]["ck"].shape[1] == cfg.d_ff:     # replicated
+        cv = [dense(torch.square(F.relu(dense(k, p["ck"]))), p["cv"])
+              for p, k in zip(params, xk)]
+        if seq_sharded:
+            cv = [t.narrow(1, r * m, m) for r, t in enumerate(cv)]
+    else:
+        (k,) = patterns.project_up(xk, [[p["ck"] for p in params]],
+                                   seq_axis_sharded=False)
+        cv = patterns.project_down([torch.square(F.relu(t)) for t in k],
+                                   [p["cv"] for p in params])
+    return [a + b for a, b in zip(y, cv)]
 
 
 def init_rwkv_state(cfg, batch: int, dtype=torch.bfloat16, device="cpu"):

@@ -12,8 +12,12 @@ layers, each group followed by the ONE shared attention+MLP block
 ``n_layers % attn_every`` Mamba2 layers; ``rwkv`` stacks RWKV6 blocks.
 
 The full-sequence forward takes per-rank lists (per-rank parameter
-trees of shards, ``lm.shard_params``, and per-rank sequence shards);
-``attn_moe`` and the recurrent blocks run it at one rank. The decode
+trees of shards, ``lm.shard_params``, and per-rank sequence shards), for
+every block: the dense block at the paper's sequence-parallel sites, the
+MoE layer with its experts over the ranks (``moe.apply_moe_ranks``), the
+Mamba2 and RWKV6 blocks on the gathered sequence
+(``mamba2.apply_mamba_ranks``, ``rwkv6.apply_rwkv_block_ranks``), the
+hybrid's shared attention block as the dense one. The decode
 step runs over W ranks: attention on the W-rank KV pool, the FFN and
 the recurrent layers once per distinct device on replicated weights.
 
@@ -27,9 +31,13 @@ PLACE; inactive slots keep theirs byte-identical.
 """
 from __future__ import annotations
 
-import torch
-from torch.utils.checkpoint import checkpoint
+import functools
 
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.kernels.matmul import DOT_OPS as DOT_KERNELS
 from repro_torch.models import attention, mamba2, mlp, moe, rwkv6
 from repro_torch.models.layers import apply_norm, norm_spec
 from repro_torch.models.module import stack_layer_specs
@@ -46,34 +54,34 @@ def require_ported(cfg):
             f"covers {', '.join(PORTED_BLOCKS)}")
 
 
-def require_one_rank(cfg, W: int):
-    """Raise for a block whose full-sequence forward (training) runs at
-    one rank only."""
-    if W <= 1:
-        return
-    if cfg.block == "attn_moe":
-        raise NotImplementedError(
-            f"{cfg.name}: training attn_moe over {W} ranks (expert "
-            f"parallelism: JAX's experts/expert_mlp rules) is not ported "
-            f"yet (ROADMAP queue 1, item 11b); train it at --tp 1")
-    if cfg.block in RECURRENT_BLOCKS:
-        raise NotImplementedError(
-            f"{cfg.name}: training {cfg.block} over {W} ranks (JAX's "
-            f"ssm_inner/conv_width rules) is not ported yet (ROADMAP "
-            f"queue 1, item 11f); train it at --tp 1")
+# what the "dots" policy saves: JAX's ``checkpoint_dots`` saves every
+# ``dot_general`` output; here the GEMM kernel's recording route and the
+# plain products the training attention and the scans run (``einsum``
+# lowers to ``bmm``)
+DOT_OPS = frozenset(DOT_KERNELS + (torch.ops.aten.mm.default,
+                                   torch.ops.aten.bmm.default,
+                                   torch.ops.aten.addmm.default,
+                                   torch.ops.aten.baddbmm.default))
+
+
+def _dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _ckpt(fn, cfg):
-    """Per-layer remat: ``remat_policy="full"`` recomputes the whole
-    layer in the backward (``torch.utils.checkpoint``, non-reentrant);
-    ``cfg.remat=False`` keeps every activation. The JAX package's
-    ``"dots"`` policy (save the matmul outputs) is not ported yet."""
+    """Per-layer remat (``torch.utils.checkpoint``, non-reentrant):
+    ``remat_policy="full"`` recomputes the whole layer in the backward;
+    ``"dots"`` (JAX's ``checkpoint_dots``) saves the output of every
+    product in the layer (:data:`DOT_OPS`, a selective checkpoint) and
+    recomputes only the elementwise chains, so the backward relaunches
+    no forward product; ``cfg.remat=False`` keeps every activation."""
     if not cfg.remat:
         return fn
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported yet: use 'full' or "
-            "remat=False")
+        ctx = functools.partial(create_selective_checkpoint_contexts, _dots)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=ctx)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -229,21 +237,23 @@ def _attn_mlp_layer(p, x, cfg, positions, seq_sharded):
     x = [xr + ar for xr, ar in zip(x, a)]
     h = [apply_norm(pr["ln2"], xr, cfg.norm) for pr, xr in zip(p, x)]
     if "moe" in p[0]:
-        (y, aux), = [moe.apply_moe(pr["moe"], hr, cfg)
-                     for pr, hr in zip(p, h)]       # one rank
-        return [x[0] + y], aux
+        y, aux = moe.apply_moe_ranks([pr["moe"] for pr in p], h, cfg,
+                                     seq_sharded=seq_sharded)
+        return [xr + yr for xr, yr in zip(x, y)], aux
     m = mlp.apply_mlp_ranks([pr["mlp"] for pr in p], h, cfg,
                             seq_sharded=seq_sharded)
     return [xr + mr for xr, mr in zip(x, m)], None
 
 
-def _mamba_layer(p, x, cfg):
-    return x + mamba2.apply_mamba(p["mamba"], apply_norm(p["ln1"], x,
-                                                         cfg.norm), cfg)
+def _mamba_layer(p, x, cfg, seq_sharded):
+    h = [apply_norm(pr["ln1"], xr, cfg.norm) for pr, xr in zip(p, x)]
+    m = mamba2.apply_mamba_ranks([pr["mamba"] for pr in p], h, cfg,
+                                 seq_sharded=seq_sharded)
+    return [xr + mr for xr, mr in zip(x, m)]
 
 
-def _rwkv_layer(p, x, cfg):
-    return rwkv6.apply_rwkv_block(p, x, cfg)
+def _rwkv_layer(p, x, cfg, seq_sharded):
+    return rwkv6.apply_rwkv_block_ranks(p, x, cfg, seq_sharded=seq_sharded)
 
 
 def _parts(cfg):
@@ -251,43 +261,43 @@ def _parts(cfg):
             "moe" if cfg.block == "attn_moe" else "mlp")
 
 
-def _forward_recurrent(params, x, cfg, positions):
-    """The hybrid's and rwkv's full-sequence forward at one rank. Remat
-    wraps each Mamba2 layer, each shared-block call and each RWKV6
-    block."""
-    (p,), (x,) = params, x
-    layers = p["layers"]
+def _forward_recurrent(params, x, cfg, positions, seq_sharded):
+    """The hybrid's and rwkv's full-sequence forward over the ranks.
+    Remat wraps each Mamba2 layer, each shared-block call (the dense
+    W-rank block) and each RWKV6 block."""
+    layers = [p["layers"] for p in params]
     if cfg.block == "rwkv":
         body = _ckpt(_rwkv_layer, cfg)
         for li in range(cfg.n_layers):
-            x = body(_layer(layers, li), x, cfg)
-        return [x]
+            x = body([_layer(t, li) for t in layers], x, cfg, seq_sharded)
+        return x
     every = _every(cfg)
     n_groups = cfg.n_layers // every
     body = _ckpt(_mamba_layer, cfg)
     shared = _ckpt(_attn_mlp_layer, cfg)
     for li in range(cfg.n_layers):
-        x = body(_layer(layers, li), x, cfg)
+        x = body([_layer(t, li) for t in layers], x, cfg, seq_sharded)
         if (li + 1) % every == 0 and li < n_groups * every:
-            (x,), _ = shared([p["shared_attn"]], [x], cfg, positions, True)
-    return [x]
+            x, _ = shared([p["shared_attn"] for p in params], x, cfg,
+                          positions, seq_sharded)
+    return x
 
 
 def forward(params, x, cfg, *, positions):
     """The full-sequence forward over the W ranks of the ambient mesh (W
-    = 1 included; ``attn_moe`` and the recurrent blocks at W = 1 only):
-    ``params`` per-rank backbone trees, ``x`` per-rank (B, S/W, d)
-    sequence shards of the embedded input (rank r's rows; (B, S, d) on
-    every rank when S does not divide by W), ``positions`` (1, S).
-    Returns (x per rank, aux_loss): the sum of the layers' MoE aux
-    losses, 0.0 for the other blocks. Remat wraps each layer's body over
-    every rank."""
+    = 1 included), every block: ``params`` per-rank backbone trees,
+    ``x`` per-rank (B, S/W, d) sequence shards of the embedded input
+    (rank r's rows; (B, S, d) on every rank when S does not divide by
+    W), ``positions`` (1, S). Returns (x per rank, aux_loss): the sum of
+    the layers' MoE aux losses (each counted once, not once a rank), 0.0
+    for the other blocks. Remat wraps each layer's body over every
+    rank."""
     require_ported(cfg)
-    require_one_rank(cfg, len(x))
     total = torch.zeros((), dtype=torch.float32, device=x[0].device)
-    if cfg.block in RECURRENT_BLOCKS:
-        return _forward_recurrent(params, x, cfg, positions), total
     seq_sharded = positions.shape[-1] % len(x) == 0
+    if cfg.block in RECURRENT_BLOCKS:
+        return _forward_recurrent(params, x, cfg, positions,
+                                  seq_sharded), total
     body = _ckpt(_attn_mlp_layer, cfg)
     for li in range(cfg.n_layers):
         lp = [{k: _layer(p["layers"][k], li) for k in _parts(cfg)}

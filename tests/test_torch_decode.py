@@ -192,8 +192,9 @@ def test_other_blocks_are_a_later_slice():
     (tests/test_torch_recurrent_*.py) and the vlm and audio frontends
     (tests/test_torch_frontends*.py), their specs with JAX's keys and
     shapes, as the MoE family's (tests/test_torch_moe.py). The encoder
-    (hubert) has no decode step, and the ``"dots"`` remat policy is still
-    a later slice: it raises."""
+    (hubert) has no decode step. The ``"dots"`` remat policy trains:
+    the loss and its gradients equal ``"full"``'s bit for bit
+    (tests/test_torch_remat_dots.py)."""
     for arch in ("rwkv6-3b", "zamba2-1.2b", "paligemma-3b",
                  "hubert-xlarge"):
         want = {k: v.shape for k, v in tree_items(jlm.lm_spec(
@@ -202,10 +203,14 @@ def test_other_blocks_are_a_later_slice():
             smoke_config(get_config(arch))))}
         assert got == want, arch
     assert not smoke_config(get_config("hubert-xlarge")).has_decode
-    tc = smoke_config(get_config("llama3-8b")).replace(
-        n_layers=1, remat=True, remat_policy="dots")
-    params = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.loss_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                             "labels": torch.zeros((1, 4),
-                                                   dtype=torch.int32)}, tc)
+    batch = {"tokens": torch.arange(4, dtype=torch.int32)[None],
+             "labels": torch.arange(1, 5, dtype=torch.int32)[None]}
+    out = {}
+    for policy in ("full", "dots"):
+        tc = smoke_config(get_config("llama3-8b")).replace(
+            n_layers=1, remat=True, remat_policy=policy)
+        params = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
+        loss, _ = tlm.loss_fn(params, batch, tc)
+        loss.backward()
+        out[policy] = [loss.detach()] + [t.grad for t in params.parameters()]
+    assert all(torch.equal(a, b) for a, b in zip(out["full"], out["dots"]))

@@ -193,23 +193,32 @@ def test_port_resumes_a_jax_moe_checkpoint(tmp_path, float32_trainers):
 
 
 def test_moe_training_over_ranks_raises_before_allocating(monkeypatch):
-    """``--tp W > 1`` with attn_moe raises NotImplementedError naming the
-    ROADMAP item, before any parameter is drawn; sharding an MoE model
-    raises too, while serving replicates it."""
+    """``--tp W > 1`` trains attn_moe now (the experts over the ranks:
+    tests/test_torch_multirank_train_families.py); what still raises
+    NotImplementedError before any parameter is drawn is a production
+    mesh (one process per card, ROADMAP item 10d). Sharding splits the
+    experts and gathers back to the same tree; serving replicates."""
     drawn = []
     monkeypatch.setattr(tlm, "init_params",
                         lambda *a, **k: drawn.append(1))
     for tp in ("2", "4"):
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match="10d"):
             ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--tp",
-                               tp])
+                               tp, "--mesh", "production"])
     assert not drawn
     monkeypatch.undo()
+    log = ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--tp",
+                             "2"])
+    assert np.isfinite(log[0]["loss"]) and log[0]["aux"] > 0
     _, tc = _cfgs()
     params = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
     mesh = make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="expert"):
-        tlm.shard_params(params, mesh)
+    shards = tlm.shard_params(params, mesh)
+    assert tuple(shards[0]["backbone"]["layers"]["moe"]["wg"].shape) == \
+        (2, 4, 128, 256)                       # 4 of the 8 experts
+    back = tlm.gather_params(shards, mesh)
+    assert all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                 params.parameters()))
     assert len(tlm.replicate(params, mesh)) == 1    # one distinct device
 
 

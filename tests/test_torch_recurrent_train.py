@@ -192,23 +192,35 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, arch, float32_trainers):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_over_ranks_raises_before_allocating(arch, monkeypatch):
-    """``--tp W > 1`` raises NotImplementedError naming ROADMAP item 11f
-    before any parameter is drawn; sharding raises too, while serving
-    replicates."""
+    """``--tp W > 1`` trains the recurrent families now
+    (tests/test_torch_multirank_train_families.py); what still raises
+    NotImplementedError before any parameter is drawn is a production
+    mesh (one process per card, ROADMAP item 10d). Sharding splits the
+    ``ssm_inner``/``mlp`` dims and gathers back to the same tree;
+    serving replicates."""
     drawn = []
     monkeypatch.setattr(tlm, "init_params",
                         lambda *a, **k: drawn.append(1))
     for tp in ("2", "4"):
-        with pytest.raises(NotImplementedError, match="11f"):
+        with pytest.raises(NotImplementedError, match="10d"):
             ttrain.main(_run(arch) + ["--steps", "1", "--device", "cpu",
-                                      "--tp", tp])
+                                      "--tp", tp, "--multi-pod"])
     assert not drawn
     monkeypatch.undo()
+    log = ttrain.main(_run(arch) + ["--steps", "1", "--device", "cpu",
+                                    "--tp", "2"])
+    assert np.isfinite(log[0]["loss"])
     tc = smoke_config(get_config(arch))
     params = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
     mesh = make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="11f"):
-        tlm.shard_params(params, mesh)
+    shards = tlm.shard_params(params, mesh)
+    layers = shards[0]["backbone"]["layers"]
+    half = (layers["mamba"]["in_proj"].shape[-1] * 2
+            if arch.startswith("zamba") else layers["ck"].shape[-1] * 2)
+    assert half == (548 if arch.startswith("zamba") else tc.d_ff)
+    back = tlm.gather_params(shards, mesh)
+    assert all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                 params.parameters()))
     assert len(tlm.replicate(params, mesh)) == 1    # one distinct device
 
 

@@ -313,11 +313,20 @@ def test_cross_entropy_matches_jax_with_mask_and_ignored_labels():
 
 
 def test_remat_dots_and_other_families_raise():
+    """``remat_policy="dots"`` trains (its checks against JAX and
+    ``"full"``: tests/test_torch_remat_dots.py): the loss and every
+    gradient as ``"full"``'s, bit for bit. The frontends' inputs keep
+    JAX's rules, an audio batch without frames raising."""
     jc, tc = _cfgs(remat=True, remat_policy="dots")
-    tp = tlm.init_params(tc, seed=0, device="cpu", trainable=True)
     tokens, labels = _batch(tc.vocab_size)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.loss_fn(tp, {"tokens": _t(tokens), "labels": _t(labels)}, tc)
+    batch = {"tokens": _t(tokens), "labels": _t(labels)}
+    out = []
+    for cfg in (tc, tc.replace(remat_policy="full")):
+        tp = tlm.init_params(cfg, seed=0, device="cpu", trainable=True)
+        loss, _ = tlm.loss_fn(tp, batch, cfg)
+        loss.backward()
+        out.append([loss.detach()] + [t.grad for t in tp.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*out))
     # the frontends are ported (tests/test_torch_frontends.py): a vlm
     # batch without patches embeds its tokens alone (label offset 0), as
     # in JAX; an audio batch must hold frames (JAX's KeyError too)
