@@ -157,9 +157,21 @@ source, in parallel), then runs, failing on the first phase that fails:
 10. W-rank kernel timings (and the contiguous decode at W = 1), both in
    CUDA-graph replays, each beside its bound, plain version and one
    PyTorch library call (phase 10 also times an empty cooperative
-   launch of the paged decode's grid, its latency floor).
+   launch of the paged decode's grid, its latency floor);
+18. then the port's dry run (``repro_torch.launch.dryrun``:
+   each step traced on fake CPU tensors at the phase's own depth) beside
+   the numbers phases 5, 12c, 13c, 14d, 16d and 17a stored: per-rank
+   peak vs ``max_memory_allocated`` (within 15% at one rank a card),
+   FLOPs vs the executed count (12c, 14d: within 2%), the bound vs the
+   measured ms; then the three-taxes model's fixed costs on the card
+   (an empty kernel's launch, a ``bsp`` barrier at no bytes over 4
+   virtual ranks) beside ``core.taxes.H100``'s, and a 2 GB copy's rate.
 
-``--kernels-only`` stops after phases 1-3 and 7; ``--peers`` (two or
+Every bound is ``repro_torch.roofline.hw.bound_s`` (the data sheet's
+peaks and memory rate); ``--bounds-against FILE`` prints each kernel
+line's bound beside the same line's in an earlier run's
+``chip_smoke.json`` and fails where they differ in 3 significant
+digits. ``--kernels-only`` stops after phases 1-3 and 7; ``--peers`` (two or
 more cards) then runs phase 7's checks and wall times with one rank per
 card beside virtual ranks, and stops; ``--verbose`` prints the
 compiler's ``ptxas -v`` report. Prints one ``{"kernels": [...]}``
@@ -186,8 +198,30 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")   # git-ignored run outputs
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _hw():
+    """``repro_torch.roofline.hw``: the card's data sheet and its bound
+    (imported where used: ``main`` puts ``src`` on the path)."""
+    from repro_torch.roofline import hw
+    return hw
+
+
+def bound(ops, bytes_, dtype=None):
+    """(seconds, "bytes" or "operations"): the least time the card takes
+    for ``ops`` operations of ``dtype`` (or a list of (ops, dtype)) that
+    move ``bytes_`` bytes (``roofline.hw.bound_s``)."""
+    return _hw().bound_s(ops, bytes_, dtype)
+
+
+def ops_s(ops, dtype) -> float:
+    """Seconds of ``ops`` operations at the card's peak for ``dtype``."""
+    return ops / _hw().H100.peak(dtype)
+
+
+def bytes_s(n) -> float:
+    """Seconds to move ``n`` bytes at the card's memory rate."""
+    return n / _hw().H100.hbm_bw
 
 
 def check(cond, msg):
@@ -1997,8 +2031,8 @@ def paged_row(gen, lens, H, KVH, D, launches, per, err, B=8, bs=16,
     blocks_read = sum(-(-n // bs) for n in lens)
     by = (blocks_read * bs * KVH * D * 2 * q.element_size()
           + 2 * nbytes(q) + nbytes(cl) + B * -(-max(lens) // bs) * 4)
-    ops_t = sum(4 * n * H * D for n in lens) / PEAK_OPS[torch.bfloat16]
-    dec_bound = max(by / HBM_BYTES_PER_S, ops_t)
+    dec_bound, dec_by = bound(sum(4 * n * H * D for n in lens), by,
+                              torch.bfloat16)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode_paged.cu",
             "replaces": "src/repro/kernels/flash_decode.py:272",
@@ -2007,9 +2041,7 @@ def paged_row(gen, lens, H, KVH, D, launches, per, err, B=8, bs=16,
             "ms": per * t_k, "kernel_ms": per * t_k,
             "eager_ms": per * t_e, "plain_ms": per * t_p,
             "library_ms": per * t_l,
-            "bound_ms": 1e3 * per * dec_bound,
-            "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
-                         else "operations"),
+            "bound_ms": 1e3 * per * dec_bound, "bound_by": dec_by,
             "unit": f"one decode step at batch {B}, {per:g} launches, "
                     f"H {H}, KVH {KVH}, hd {D}, cur_len {lens}, gather "
                     f"width {gw}"}
@@ -2056,9 +2088,9 @@ def phase_timings(gen, lens, launches, per_step, errs):
                       "dtype": str(a.dtype).replace("torch.", ""),
                       "count_per_step": count, "ms": t_k, "eager_ms": t_e,
                       "plain_ms": t_p, "library_ms": t_l, "bytes": by,
-                      "bound_ms": 1e3 * max(by / HBM_BYTES_PER_S,
-                                            flops / PEAK_OPS[a.dtype]),
-                      "ops_s": flops / PEAK_OPS[a.dtype], **extra}
+                      "flops": flops,
+                      "bound_ms": 1e3 * bound(flops, by, a.dtype)[0],
+                      "ops_s": ops_s(flops, a.dtype), **extra}
 
     for name, K, N, dt, tb, count in gemm_cases():
         a, b0 = _gemm_operands(gen, B, K, N, dt, tb)
@@ -2105,7 +2137,9 @@ def phase_timings(gen, lens, launches, per_step, errs):
                        "ops_s")}
     ungrouped_ms = sum(r["count_per_step"] * r["ms"] for n, r in
                        rows.items() if n not in ("wqkv", "wgu"))
-    gemm_bound_bytes = tot["bytes"] / HBM_BYTES_PER_S
+    gemm_bound, gemm_by = bound(
+        [(rows[r]["count_per_step"] * rows[r]["flops"], rows[r]["dtype"])
+         for r in step], tot["bytes"])
     gemm = {"name": "matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/matmul.cu",
             "replaces": "src/repro/kernels/matmul.py:34",
@@ -2115,9 +2149,7 @@ def phase_timings(gen, lens, launches, per_step, errs):
             "ms": tot["ms"], "kernel_ms": tot["ms"],
             "ungrouped_ms": ungrouped_ms,
             "eager_ms": tot["eager_ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": 1e3 * max(gemm_bound_bytes, tot["ops_s"]),
-            "bound_by": ("bytes" if gemm_bound_bytes >= tot["ops_s"]
-                         else "operations"),
+            "bound_ms": 1e3 * gemm_bound, "bound_by": gemm_by,
             "library_ms": tot["library_ms"],
             "latency_floor_ms": {str(n): t for n, t in floor.items()},
             "host_us_per_call": host,
@@ -2150,18 +2182,16 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     bf16 = torch.bfloat16
     rows = []
 
-    def row(name, source, replaces, call_ms, plain_ms, lib_ms, by, ops_t,
+    def row(name, source, replaces, call_ms, plain_ms, lib_ms, by, ops,
             unit, **extra):
         per = launches[name] / steps[name]
-        bound = max(by / HBM_BYTES_PER_S, ops_t)
+        b, b_by = bound(ops, by, bf16)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "launches_per_step": per,
                      "max_abs_err": errs[name], "ms": per * call_ms,
                      "call_ms": call_ms, "plain_ms": per * plain_ms,
-                     "bound_ms": 1e3 * per * bound,
-                     "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
-                                  else "operations"),
+                     "bound_ms": 1e3 * per * b, "bound_by": b_by,
                      "library_ms": per * lib_ms, "unit": unit, **extra})
 
     # fused AG+GEMM at the wo shape
@@ -2183,7 +2213,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     by = nbytes(*shards) + nbytes(b0) + tp * M * N * 2
     row("ag_gemm_fused", "src/repro_torch/csrc/ag_gemm.cu",
         "src/repro/kernels/ag_gemm.py:114", t_k, t_p, t_l, by,
-        tp * 2 * M * K * N / PEAK_OPS[bf16],
+        tp * 2 * M * K * N,
         f"one decode step at batch {B} over {tp} virtual ranks "
         f"(wo: {M}x{K} . {K}x{N} bf16 per layer)")
     del bw, cyc
@@ -2236,7 +2266,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     row("flash_decode_paged_fused", "src/repro_torch/csrc/"
         "flash_decode_paged.cu", "src/repro/kernels/flash_decode.py:272",
         t_k, t_p, t_l, by,
-        sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
+        sum(4 * n * H * D for n in lens),
         f"one decode step at batch {B} over {tp} virtual ranks, cur_len "
         f"{lens}, gather width {gw}",
         grid=plan.grid, n_split=plan.n_split,
@@ -2275,7 +2305,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
           + tp * nbytes(q))
     row("flash_decode_fused", "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:321", t_k, t_p, t_l, by,
-        sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
+        sum(4 * n * H * D for n in lens),
         f"one decode step at batch {B} over {tp} virtual ranks, strided "
         f"cache S_max {S_max}, cur_len {lens}")
 
@@ -2287,7 +2317,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     row("flash_decode_fused_w1", "src/repro_torch/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:321", t_k, t_p, t_l,
         by - tp * nbytes(q) + nbytes(q),
-        sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16],
+        sum(4 * n * H * D for n in lens),
         f"one decode step at batch {B} on one rank, contiguous cache "
         f"S_max {S_max}, cur_len {lens}")
     return rows
@@ -2340,10 +2370,8 @@ def _product_bound(M, K, N, dt):
     """(seconds, bound_by) of one product on the H100: its operations
     over the peak of its type, or each operand read once and C written
     once over the memory rate, whichever is longer."""
-    ops_s = 2 * M * N * K / PEAK_OPS[dt]
-    by_s = (M * K + K * N + M * N) * torch.tensor([], dtype=dt) \
-        .element_size() / HBM_BYTES_PER_S
-    return max(ops_s, by_s), "operations" if ops_s >= by_s else "bytes"
+    return bound(2 * M * N * K, (M * K + K * N + M * N)
+                 * torch.tensor([], dtype=dt).element_size(), dt)
 
 
 def phase_train_gemm(gen, cfg, M):
@@ -2654,11 +2682,11 @@ def phase_train_full(gem_rows):
         return tot
     bound_s = sum(c * _product_bound(m, k, n, dt)[0]
                   for _, _, m, k, n, dt, _, c in prods)
-    ops_s = sum(c * 2 * m * k * n / PEAK_OPS[dt]
-                for _, _, m, k, n, dt, _, c in prods)
-    bytes_s = sum(c * (m * k + k * n + m * n) * (4 if dt == torch.float32
-                                                   else 2) / HBM_BYTES_PER_S
-                  for _, _, m, k, n, dt, _, c in prods)
+    ops_tot = sum(c * ops_s(2 * m * k * n, dt)
+                    for _, _, m, k, n, dt, _, c in prods)
+    by_tot = sum(c * bytes_s((m * k + k * n + m * n)
+                                  * (4 if dt == torch.float32 else 2))
+                      for _, _, m, k, n, dt, _, c in prods)
     out = {"config": f"llama3-8b full width, {cfg.n_layers} of 32 layers, "
                      f"bf16 compute, fp32 masters, remat full",
            "params": n_params, "tokens_per_step": M,
@@ -2667,7 +2695,7 @@ def phase_train_full(gem_rows):
            "tokens_per_s": M / step_s, "run_s": run_s,
            "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
            "tflops_per_s": flops / step_s / 1e12,
-           "peak_share": flops / step_s / PEAK_OPS[torch.bfloat16],
+           "peak_share": ops_s(flops, torch.bfloat16) / step_s,
            "peak_gb": peak_gb, "gemm_launches": launches,
            "gemm_launches_per_step": per_step,
            "profiled_step": {"wall_ms": 1e3 * prof_wall,
@@ -2680,7 +2708,7 @@ def phase_train_full(gem_rows):
            "plain_ms_per_step": per_step_ms("plain_ms"),
            "library_ms_per_step": per_step_ms("library_ms"),
            "bound_ms_per_step": 1e3 * bound_s,
-           "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+           "bound_by": "operations" if ops_tot >= by_tot else "bytes"}
     print(f"[train full] {out['config']}: {n_params / 1e9:.3f} B "
           f"parameters; losses {[round(x, 4) for x in losses]}; "
           f"{out['ms_per_step']:.1f} ms per step after step 0 "
@@ -3146,11 +3174,11 @@ def phase_train_tp(gen, step0_loss, step0_gnorm):
                    for _, _, m, k, n, dt, tb, c in prods)
     bound_s = sum(c * _product_bound(m, k, n, dt)[0]
                   for _, _, m, k, n, dt, _, c in prods)
-    ops_s = sum(c * 2 * m * k * n / PEAK_OPS[dt]
-                for _, _, m, k, n, dt, _, c in prods)
-    bytes_s = sum(c * (m * k + k * n + m * n) * (4 if dt == torch.float32
-                                                   else 2) / HBM_BYTES_PER_S
-                  for _, _, m, k, n, dt, _, c in prods)
+    ops_tot = sum(c * ops_s(2 * m * k * n, dt)
+                    for _, _, m, k, n, dt, _, c in prods)
+    by_tot = sum(c * bytes_s((m * k + k * n + m * n)
+                                  * (4 if dt == torch.float32 else 2))
+                      for _, _, m, k, n, dt, _, c in prods)
     kernel = {"name": "matmul_train_tp4", "route": "cuda",
               "source": "src/repro_torch/csrc/matmul.cu",
               "replaces": "src/repro/kernels/matmul.py:34",
@@ -3162,7 +3190,7 @@ def phase_train_tp(gen, step0_loss, step0_gnorm):
               "kernel_ms_products": per_step("ms"),
               "plain_ms": per_step("plain_ms"),
               "bound_ms": 1e3 * bound_s,
-              "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+              "bound_by": "operations" if ops_tot >= by_tot else "bytes",
               "library_ms": per_step("library_ms"),
               "unit": f"one training step of {full['config']}, "
                       f"{full['tokens_per_step']} tokens"}
@@ -3242,9 +3270,10 @@ def phase_moe_gemm(gen, cfg):
         row = {"E": E, "M": M, "K": K, "N": N,
                "dtype": str(dt).replace("torch.", ""), "max_abs_err": err}
         if time_it:
-            ops_ms = 1e3 * E * 2 * M * N * K / PEAK_OPS[dt]
-            bytes_ms = (1e3 * E * (M * K + K * N + M * N) * a.element_size()
-                        / HBM_BYTES_PER_S)
+            flops = E * 2 * M * N * K
+            by = E * (M * K + K * N + M * N) * a.element_size()
+            ops_ms, bytes_ms = 1e3 * ops_s(flops, dt), 1e3 * bytes_s(by)
+            b_s, b_by = bound(flops, by, dt)
             lib = lib or (lambda x, y: torch.bmm(x, y))
             row.update({
                 "ms": graph_ms(lambda: kmm.matmul_batched(*prep(a, b))),
@@ -3252,8 +3281,7 @@ def phase_moe_gemm(gen, cfg):
                     *prep(a, b)), iters=5),
                 "library_ms": graph_ms(lambda: lib(a, b)),
                 "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-                "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "bound_ms": 1e3 * b_s, "bound_by": b_by,
                 "count": count})
         rows[name] = row
         return err
@@ -3727,7 +3755,7 @@ def phase_moe_train_full(rows, worst):
            "tokens_per_s": M / step_s, "run_s": run_s,
            "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
            "tflops_per_s": flops / step_s / 1e12,
-           "peak_share": flops / step_s / PEAK_OPS[torch.bfloat16],
+           "peak_share": ops_s(flops, torch.bfloat16) / step_s,
            "peak_gb": peak_gb, "gemm_launches": launches,
            "gemm_launches_per_step": per_step,
            "batched_launches_per_step": per_step_b}
@@ -3860,13 +3888,12 @@ def phase_rec_gemm(gen, cfg, B=8, gemm_rows=None):
             lambda w: [matmul_plain(a, x, tb) for x in w])
         by = nbytes(a, *ws) + sum(B * N for N in Ns) * a.element_size()
         flops = sum(2 * B * w.numel() for w in ws)
-        ops_ms, bytes_ms = 1e3 * flops / PEAK_OPS[dt], 1e3 * by / \
-            HBM_BYTES_PER_S
+        ops_ms, bytes_ms = 1e3 * ops_s(flops, dt), 1e3 * bytes_s(by)
         rows[name] = {
             "K": K, "N": Ns, "M": B, "dtype": str(dt).replace("torch.", ""),
             "trans_b": tb, "count": count, "ms": t_k, "plain_ms": t_p,
             "library_ms": t_l, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-            "bound_ms": max(ops_ms, bytes_ms)}
+            "bound_ms": 1e3 * bound(flops, by, dt)[0]}
         del a, ws
     print(f"[rec gemm] {cfg.name}: " + "; ".join(
         f"{n} {r['ms']:.4f} ms x{r['count']} (plain "
@@ -4442,8 +4469,7 @@ def phase_front_products(gen, cfg, B, S):
         worst = max(worst, err)
         del got, want
         big = M * K * N > 1e12
-        ops_s = 2 * M * N * K / PEAK_OPS[dt]
-        by_s = (M * K + K * N + M * N) * a.element_size() / HBM_BYTES_PER_S
+        flops, by = 2 * M * N * K, (M * K + K * N + M * N) * a.element_size()
         rows[f"{name} {kind}"] = {
             "shape": [M, K, N], "dtype": str(dt).replace("torch.", ""),
             "count": count, "max_abs_err": err,
@@ -4453,8 +4479,8 @@ def phase_front_products(gen, cfg, B, S):
                                 iters=2 if big else 5, warmup=1),
             "library_ms": time_ms(lambda: a @ (b.t() if tb else b),
                                   iters=2 if big else 5, warmup=1),
-            "bound_ms": 1e3 * max(ops_s, by_s), "ops_ms": 1e3 * ops_s,
-            "bytes_ms": 1e3 * by_s}
+            "bound_ms": 1e3 * bound(flops, by, dt)[0],
+            "ops_ms": 1e3 * ops_s(flops, dt), "bytes_ms": 1e3 * bytes_s(by)}
         del a, b
         torch.cuda.empty_cache()
     return rows, worst
@@ -4566,16 +4592,14 @@ def strided_row(gen, lens, H, KVH, D, launches, per, err, B=8, S_max=256,
     t_l = graph_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale), iters=50)
     by = sum(lens) * KVH * D * 2 * 2 + 2 * nbytes(q) + nbytes(cl)
-    ops_t = sum(4 * n * H * D for n in lens) / PEAK_OPS[bf16]
+    b_s, b_by = bound(sum(4 * n * H * D for n in lens), by, bf16)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode.py:321",
             "launches": launches, "launches_per_step": per,
             "max_abs_err": err, "ms": per * t_k, "plain_ms": per * t_p,
             "library_ms": per * t_l,
-            "bound_ms": 1e3 * per * max(by / HBM_BYTES_PER_S, ops_t),
-            "bound_by": ("bytes" if by / HBM_BYTES_PER_S >= ops_t
-                         else "operations"),
+            "bound_ms": 1e3 * per * b_s, "bound_by": b_by,
             "unit": f"one contiguous-cache decode step at batch {B} on one "
                     f"rank, {per:g} launches, H {H}, KVH {KVH}, hd {D}, "
                     f"S_max {S_max}, cur_len {lens}"}
@@ -5012,19 +5036,17 @@ def _log_operands(gen, key):
 
 
 def _log_bound(key):
-    """(ops seconds, bytes seconds) of one launch of ``key``."""
+    """(operations, bytes, dtype) of one launch of ``key``."""
     kind, ash, bshs, trans_b, dt = key
     E = ash[0] if kind == "bmm" else 1
     M, K = ash[-2:]
-    ops = by = 0.0
+    size = torch.tensor([], dtype=dt).element_size()
+    ops, by = 0, E * M * K * size
     for s in bshs:
         N = s[-2] if trans_b else s[-1]
-        ops += 2 * E * M * N * K / PEAK_OPS[dt]
-        by += E * (K * N + M * N) * torch.tensor([], dtype=dt) \
-            .element_size() / HBM_BYTES_PER_S
-    by += E * M * K * torch.tensor([], dtype=dt).element_size() \
-        / HBM_BYTES_PER_S
-    return ops, by
+        ops += 2 * E * M * N * K
+        by += E * (K * N + M * N) * size
+    return ops, by, dt
 
 
 def log_times(gen, log, per, what):
@@ -5039,7 +5061,7 @@ def log_times(gen, log, per, what):
                                             matmul_batched_plain,
                                             matmul_group, matmul_plain)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    ops_s = bytes_s = bound_s = 0.0
+    ops_tot = by_tot = bound_sum = 0.0
     worst, launches = 0.0, 0
     with torch.no_grad():
         for key, n in log.calls.items():
@@ -5077,14 +5099,14 @@ def log_times(gen, log, per, what):
             for field, fn in (("ms", kern), ("plain_ms", plain),
                               ("library_ms", lib)):
                 tot[field] += c * time_ms(fn, iters=5, warmup=1)
-            o, b = _log_bound(key)
-            ops_s += c * o
-            bytes_s += c * b
-            bound_s += c * max(o, b)
+            ops, by, _ = _log_bound(key)
+            ops_tot += c * ops_s(ops, dt)
+            by_tot += c * bytes_s(by)
+            bound_sum += c * bound(ops, by, dt)[0]
             del a, bs
     torch.cuda.empty_cache()
-    return {**tot, "bound_ms": 1e3 * bound_s,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+    return {**tot, "bound_ms": 1e3 * bound_sum,
+            "bound_by": "operations" if ops_tot >= by_tot else "bytes",
             "launches_per_step": launches, "max_abs_err": worst,
             "distinct": len(log.calls)}
 
@@ -5626,6 +5648,178 @@ def sampler_ms(gen, B=8, V=128256):
     return out
 
 
+# ------------------------------------- phase 18: the dry run vs the card
+PRED_PEAK_RTOL = 0.15       # predicted per-rank peak vs max_memory_allocated
+PRED_FLOPS_RTOL = 0.02      # traced FLOPs vs the phase's executed count
+
+
+def launch_costs(iters=2000, reps=5):
+    """The card's fixed costs for the three-taxes model
+    (``core.taxes.HW``): an empty kernel's launch as the host issues it
+    back to back (wall time per launch over ``iters`` launches, the least
+    of ``reps`` runs) and its device time in a CUDA graph; and one
+    global barrier of the port's ``bsp`` schedule at a site with no
+    bytes, over 4 virtual ranks (``cm.all_gather`` of one element a rank:
+    its host loop and copies; no straggler wait across distinct cards)."""
+    from repro_torch.core import collective_matmul as cm
+    from repro_torch.kernels import _build
+    empty = _build.load("flash_decode_paged").symm_empty_launch
+    empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(empty(1, 32, stream), "symm_empty_launch")
+
+    def per_call_s(fn, n):
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best / n
+    x = [torch.zeros((1, 1), dtype=torch.bfloat16, device="cuda")
+         for _ in range(4)]
+    out = {"kernel_launch_s": per_call_s(launch, iters),
+           "empty_kernel_device_s": 1e-3 * graph_ms(launch, iters=50),
+           "barrier_skew_s": per_call_s(lambda: cm.all_gather(x), iters // 4)}
+    # a 2 GB device-to-device copy: bytes read and written over the time
+    src = torch.empty(2 * 10**9, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    t = time_ms(lambda: dst.copy_(src), iters=5, warmup=2)
+    out["copy_2gb_ms"] = t
+    out["copy_bytes_per_s"] = 2 * src.numel() / (t / 1e3)
+    out["hbm_bytes_per_s_datasheet"] = _hw().H100.hbm_bw
+    del src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us):
+    """(18) the port's dry run (``launch.dryrun``: the step traced on fake
+    CPU tensors, at the phase's own depth) beside what earlier phases
+    measured on the card, reusing their stored numbers: 12c (llama3-8b,
+    4 layers, ``"full"``; 17a's ``"dots"``), 13c (tp 4 virtual ranks
+    under ``ring``), 14d (olmoe-1b-7b, 4 layers), 16d (paligemma-3b,
+    hubert-xlarge) and phase 5's K = 1 serve (a decode step at batch 8
+    over a cache of 512). Per-rank peak vs ``max_memory_allocated``
+    (within PRED_PEAK_RTOL where one rank per card), FLOPs vs the phase's
+    executed count (12c, 14d: PRED_FLOPS_RTOL), and the bound vs the
+    measured ms (the step's share of its bound). Then the three-taxes
+    model's fixed costs measured (``launch_costs``) beside
+    ``core.taxes.H100``'s, the GEMM wrapper's fixed host cost from phase
+    6 and a 2 GB copy's rate beside the data sheet's."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core import taxes
+    from repro_torch.launch import dryrun
+    train_sh = ShapeConfig("train_2x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
+    llama4 = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    front_sh = ShapeConfig("train_2x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
+    k8 = serve["k8"]
+    cases = [
+        ("12c", llama4, train_sh, 1, "auto", train["full"], True),
+        ("17a dots", llama4.replace(remat_policy="dots"), train_sh, 1,
+         "auto", fam["dots_full"]["dots"], False),
+        ("13c", llama4, train_sh, TP, TP_MODE, train_tp["full"], False),
+        ("14d", get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS),
+         train_sh, 1, "auto", moe["train_full"], True),
+        ("16d paligemma-3b", get_config("paligemma-3b"), front_sh, 1,
+         "auto", front["train_paligemma-3b"], False),
+        ("16d hubert-xlarge", get_config("hubert-xlarge"), front_sh, 1,
+         "auto", front["train_hubert-xlarge"], False),
+        ("5 serve", get_config("llama3-8b"),
+         ShapeConfig("decode_8x512", 512, 8, "decode"), 1, "auto",
+         {"peak_gb": serve["k1"]["peak_mem_bytes"] / 1e9,
+          "ms_per_step": k8["pure_megatick_device_ms"] / k8["K"]}, False),
+    ]
+    rows = []
+    for name, cfg, shape, tp, mode, card, flops_checked in cases:
+        t0 = time.time()
+        rec = dryrun.run_cell_cfg(cfg, shape, tp, mode, virtual=tp > 1,
+                                  direct=True)
+        check(rec["status"] == "ok", f"dry run {name}: {rec}")
+        pred_gb = rec["memory"]["peak_bytes"] / 1e9
+        # the bound on the analytic memory term (``bound_s_star``): the
+        # traced bytes count every unfused op's operands
+        bound_ms = 1e3 * rec["roofline"]["bound_s_star"]
+        row = {"case": name, "tp": tp, "fusion_mode": mode,
+               "trace_s": time.time() - t0,
+               "pred_peak_gb": pred_gb, "card_peak_gb": card["peak_gb"],
+               "peak_rel": pred_gb / card["peak_gb"] - 1,
+               "pred_flops": rec["cost"]["flops_all_ranks"],
+               "card_flops": card.get("flops_per_step"),
+               "bound_ms": bound_ms,
+               "dominant": rec["roofline"]["dominant_star"],
+               "bound_counted_ms": 1e3 * rec["roofline"]["bound_s"],
+               "card_ms": card["ms_per_step"],
+               "share_of_bound": bound_ms / card["ms_per_step"]}
+        if row["card_flops"]:
+            row["flops_rel"] = row["pred_flops"] / row["card_flops"] - 1
+        rows.append(row)
+        where = "" if tp == 1 else " on one card"
+        print(f"[dryrun vs card] {name} (tp {tp}{where}): "
+              f"peak predicted {pred_gb:.2f} GB, card {card['peak_gb']:.2f}"
+              f" ({100 * row['peak_rel']:+.1f}%); FLOPs predicted "
+              f"{row['pred_flops']:.4e}"
+              + (f", executed {row['card_flops']:.4e} "
+                 f"({100 * row['flops_rel']:+.2f}%)" if row['card_flops']
+                 else "")
+              + f"; bound* {bound_ms:.2f} ms ({row['dominant']}), card "
+              f"{row['card_ms']:.2f} ms (the bound "
+              f"{100 * row['share_of_bound']:.1f}% of it); traced in "
+              f"{row['trace_s']:.1f} s", flush=True)
+        if tp == 1:
+            check(abs(row["peak_rel"]) <= PRED_PEAK_RTOL,
+                  f"dry run {name}: peak {pred_gb:.2f} GB predicted, "
+                  f"{card['peak_gb']:.2f} on the card")
+        if flops_checked:
+            check(abs(row["flops_rel"]) <= PRED_FLOPS_RTOL,
+                  f"dry run {name}: FLOPs {row['pred_flops']:.4e} "
+                  f"predicted, {row['card_flops']:.4e} executed")
+    costs = launch_costs()
+    hw = taxes.H100
+    costs.update({"gemm_host_us_per_call": host_us["matmul wk"],
+                  "gemm_launch_us_per_call": host_us["launch wk"],
+                  "hw_kernel_launch_s": hw.kernel_launch,
+                  "hw_barrier_skew_s": hw.barrier_skew, "device": smi})
+    print(f"[taxes] {smi}: kernel launch {1e6 * costs['kernel_launch_s']:.2f}"
+          f" us (core.taxes.H100 {1e6 * hw.kernel_launch:.2f}; the empty "
+          f"kernel's device time {1e6 * costs['empty_kernel_device_s']:.2f} "
+          f"us; the GEMM wrapper's call {costs['gemm_host_us_per_call']:.1f}"
+          f" us, its launch {costs['gemm_launch_us_per_call']:.1f}); bsp "
+          f"barrier at no bytes over 4 virtual ranks "
+          f"{1e6 * costs['barrier_skew_s']:.2f} us (core.taxes.H100 "
+          f"{1e6 * hw.barrier_skew:.2f}); 2 GB copy {costs['copy_2gb_ms']:.3f}"
+          f" ms: {costs['copy_bytes_per_s'] / 1e12:.3f} TB/s read + write "
+          f"(data sheet {costs['hbm_bytes_per_s_datasheet'] / 1e12:.2f})",
+          flush=True)
+    return {"cases": rows, "taxes": costs}
+
+
+def check_bounds(kernels, path):
+    """Print every kernel line's bound beside the same line's in the
+    ``chip_smoke.json`` at ``path`` (an earlier run's) and fail where the
+    two differ in their first 3 significant digits."""
+    with open(path) as f:
+        prev = {k["name"]: k for k in json.load(f)["kernels"]}
+    for k in kernels:
+        p = prev.get(k["name"])
+        if p is None:
+            print(f"[bounds] {k['name']}: {k['bound_ms']:.6g} ms (not in "
+                  f"{path})", flush=True)
+            continue
+        same = f"{k['bound_ms']:.3g}" == f"{p['bound_ms']:.3g}"
+        print(f"[bounds] {k['name']}: {k['bound_ms']:.6g} ms ({k['bound_by']}"
+              f"), {path}: {p['bound_ms']:.6g} ms ({p['bound_by']})"
+              f"{'' if same else ' DIFFERENT'}", flush=True)
+        check(same and k["bound_by"] == p["bound_by"],
+              f"bound of {k['name']} moved: {k['bound_ms']} vs "
+              f"{p['bound_ms']}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a "
@@ -5710,6 +5904,11 @@ def main():
                       "flash_decode_fused_w1": c_steps}, errs)
     kernels += ([train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
                 + front_kernels)
+    dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
+                moe, front, fam, summary, kernels[0]["host_us_per_call"])
+    if "--bounds-against" in sys.argv:
+        check_bounds(kernels, sys.argv[sys.argv.index("--bounds-against")
+                                       + 1])
     for k in kernels:
         print(f"[time] {k['name']}: {k['ms']:.3f} ms per step (bound "
               f"{k['bound_ms']:.3f}, plain {k['plain_ms']:.3f}, library "
@@ -5724,6 +5923,7 @@ def main():
                    "recurrent": rec, "frontends": front,
                    "dots_tp_families": fam,
                    "dots_tp_family_kernels": fam_kernels,
+                   "dryrun_vs_card": dry,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -23,12 +23,66 @@ Values are per-rank lists. Per-rank GEMMs go through the GEMM kernel
 (``kernels.matmul``; its plain version for CPU tensors), so autograd
 records every step of a ring (the kernel's own backward); rank-to-rank
 moves are copies onto the receiving rank's device.
+
+While a dry run records (:func:`recording`; ``launch.dryrun``), every
+collective here and in ``core.flash_decode`` reports itself as JAX's HLO
+names it (``all-gather``, ``reduce-scatter``, ``all-reduce``,
+``collective-permute``: one per ring step), with its size and group; a
+collective that autograd records reports its backward's dual too
+(all-gather and reduce-scatter swap). With no recorder installed a
+report returns at once.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from repro_torch.kernels.matmul import matmul
+
+# ------------------------------------------------------------- recording
+_RECORDER = None
+_DUAL = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+         "all-reduce": "all-reduce",
+         "collective-permute": "collective-permute"}
+
+
+@contextlib.contextmanager
+def recording(sink):
+    """Report every collective to ``sink(op, size, group)`` inside the
+    block (``size``: bytes of the op's whole operand, JAX's R). Refused
+    under a CUDA graph capture: a dry run traces on the CPU."""
+    global _RECORDER
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("collective recording under a CUDA graph capture")
+    prev, _RECORDER = _RECORDER, sink
+    try:
+        yield sink
+    finally:
+        _RECORDER = prev
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def record(op: str, size: int, group: int, n: int = 1, out=None):
+    """Report ``n`` collectives ``op`` of ``size`` bytes over ``group``
+    ranks to the installed recorder (nothing without one, or at one
+    rank); where autograd records ``out``, its backward reports the dual
+    op as the gradient passes."""
+    sink = _RECORDER
+    if sink is None or group < 2:
+        return
+    for _ in range(n):
+        sink(op, size, group)
+    if out is not None and out.requires_grad:
+        dual = _DUAL[op]
+
+        def backward_hook(grad):
+            for _ in range(n):
+                sink(dual, size, group)
+        out.register_hook(backward_hook)
 
 
 def _mm(a, b):
@@ -54,6 +108,7 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
         return to_device(x, devs[r])
 
     if mode == "bsp":
+        record("all-gather", W * nbytes(a_shards[0]), W, out=a_shards[0])
         out = []
         for r in range(W):
             a_full = torch.empty((*a_shards[r].shape[:-1], W * k),
@@ -64,6 +119,8 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
         return out
 
     if mode == "ring":
+        record("collective-permute", nbytes(a_shards[0]), W, n=W - 1,
+               out=a_shards[0])
         cur, acc = list(a_shards), [None] * W
         for t in range(W):
             for r in range(W):
@@ -78,6 +135,8 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
         h = k // 2
         cur_r = [a[..., :h].contiguous() for a in a_shards]
         cur_l = [a[..., h:].contiguous() for a in a_shards]
+        for half in (cur_r[0], cur_l[0]):
+            record("collective-permute", nbytes(half), W, n=W - 1, out=half)
         acc = [None] * W
         for t in range(W):
             for r in range(W):
@@ -103,10 +162,13 @@ def ag_gemm_m_sharded(a_shards, b, *, mode: str = "ring"):
     m = a_shards[0].shape[mdim]
 
     if mode == "bsp":
+        record("all-gather", W * nbytes(a_shards[0]), W, out=a_shards[0])
         return [_mm(torch.cat([to_device(a, devs[r]) for a in a_shards],
                               dim=mdim), b[r]) for r in range(W)]
 
     if mode == "ring":
+        record("collective-permute", nbytes(a_shards[0]), W, n=W - 1,
+               out=a_shards[0])
         cur = list(a_shards)
         blocks = [[None] * W for _ in range(W)]
         for t in range(W):
@@ -120,6 +182,8 @@ def ag_gemm_m_sharded(a_shards, b, *, mode: str = "ring"):
         h = m // 2
         cur_r = [a.narrow(mdim, 0, h) for a in a_shards]
         cur_l = [a.narrow(mdim, h, m - h) for a in a_shards]
+        for half in (cur_r[0], cur_l[0]):
+            record("collective-permute", nbytes(half), W, n=W - 1, out=half)
         top = [[None] * W for _ in range(W)]     # rows [s*m, s*m + h)
         bot = [[None] * W for _ in range(W)]     # rows [s*m + h, (s+1)*m)
         for t in range(W):
@@ -152,6 +216,7 @@ def gemm_rs(a, b, *, mode: str = "ring"):
 
     if mode == "bsp":
         partial = [_mm(a[r], b[r]) for r in range(W)]
+        record("reduce-scatter", nbytes(partial[0]), W, out=partial[0])
         out = []
         for r in range(W):
             acc = None
@@ -165,6 +230,8 @@ def gemm_rs(a, b, *, mode: str = "ring"):
         acc = None
         for t in range(W):
             part = [_mm(a_block(r, (r - t - 1) % W), b[r]) for r in range(W)]
+            if acc is not None:
+                record("collective-permute", nbytes(acc[0]), W, out=acc[0])
             acc = part if acc is None else [
                 to_device(acc[(r - 1) % W], devs[r]) + part[r]
                 for r in range(W)]
@@ -181,6 +248,8 @@ def gemm_rs(a, b, *, mode: str = "ring"):
             if acc_r is None:
                 acc_r, acc_l = pr, pl
             else:
+                for blk in (acc_r[0], acc_l[0]):
+                    record("collective-permute", nbytes(blk), W, out=blk)
                 acc_r = [to_device(acc_r[(r - 1) % W], devs[r]) + pr[r]
                          for r in range(W)]
                 acc_l = [to_device(acc_l[(r + 1) % W], devs[r]) + pl[r]
@@ -194,6 +263,7 @@ def all_gather(x, *, gather_axis: int = 0):
     """The plain all-gather (every rank copies every block at once): x
     per rank, block r of the gathered dim; returns per rank the whole
     tensor."""
+    record("all-gather", nbytes(*x), len(x), out=x[0])
     return [torch.cat([to_device(t, d.device) for t in x], dim=gather_axis)
             for d in x]
 
@@ -201,6 +271,7 @@ def all_gather(x, *, gather_axis: int = 0):
 def all_reduce(x):
     """The plain all-reduce: every rank sums every rank's tensor, in rank
     order, so every rank's sum is the same (x per rank, one shape)."""
+    record("all-reduce", nbytes(x[0]), len(x), out=x[0])
     out = []
     for d in x:
         acc = None
@@ -247,6 +318,8 @@ def reduce_scatter(parts, *, scatter_axis: int):
            f"reduce_scatter: dim {scatter_axis} of {tuple(parts[0].shape)} "
            f"must divide by W={W}")
     axis = scatter_axis % parts[0].dim()
+    # its backward is all_gather, which reports itself
+    record("reduce-scatter", nbytes(parts[0]), W)
     return list(_ReduceScatter.apply(axis, *parts))
 
 
@@ -255,6 +328,7 @@ def all_gather_ring(x, *, gather_axis: int = 0):
     block r of the gathered dim; returns per rank the whole tensor."""
     W = len(x)
     devs = [t.device for t in x]
+    record("collective-permute", nbytes(x[0]), W, n=W - 1, out=x[0])
     blocks = [[None] * W for _ in range(W)]
     cur = list(x)
     for t in range(W):

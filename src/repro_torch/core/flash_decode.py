@@ -36,6 +36,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.collective_matmul import nbytes, record
+
 NEG = torch.finfo(torch.float32).min
 
 
@@ -89,9 +91,20 @@ def _to(x, dev):
 
 
 # ------------------------------------------------------- combine schedules
+def _record(op, partials, n=1, scale=1):
+    record(op, scale * nbytes(*partials[0]), len(partials), n=n)
+
+
+def _record_push(B, H, D, W):
+    """The fused kernels' push of every rank's fp32 partial (o, m, l) to
+    every rank: an all-gather of the W partials."""
+    record("all-gather", W * B * H * (D + 2) * 4, W)
+
+
 def combine_bsp(partials):
     """Paper baseline: every rank gathers every partial, then folds them
     in rank order."""
+    _record("all-gather", partials, scale=len(partials))
     out = []
     for r, own in enumerate(partials):
         dev = own[0].device
@@ -106,6 +119,7 @@ def combine_ring(partials):
     """Fine-grained: each of W - 1 steps folds the partial that arrived
     from the left neighbour while passing it on."""
     W = len(partials)
+    _record("collective-permute", partials, n=W - 1)
     cur, acc = list(partials), list(partials)
     for _ in range(1, W):
         cur = [_to(cur[(r - 1) % W], acc[r][0].device) for r in range(W)]
@@ -122,6 +136,8 @@ def combine_rs_ag(partials):
     if H % W:
         return combine_ring(partials)
     h = H // W
+    _record("reduce-scatter", partials)
+    _record("all-gather", partials)
 
     def hblk(p, s):
         return tuple(t[:, s * h:(s + 1) * h] for t in p)
@@ -167,8 +183,10 @@ def decode_attention(q, k_shards, v_shards, cur_len, *, scale,
     partial, the push and the combine into that kernel, and one rank
     always takes the kernel's single-source path."""
     from repro_torch.kernels import flash_decode as kfd
-    B = q[0].shape[0]
+    B, H, D = q[0].shape
     cl = [lens(c, B, k.device) for c, k in zip(cur_len, k_shards)]
+    if mode == "pallas":
+        _record_push(B, H, D, len(k_shards))
     if mode == "pallas" or len(k_shards) == 1:
         return kfd.flash_decode_fused(q, k_shards, v_shards, cl, scale,
                                       window=window, mesh=mesh)
@@ -346,6 +364,7 @@ def decode_paged_attention_fused(q, k_new, v_new, k_pools, v_pools, cur_len,
                         owner_base=r * n_loc, n_owned=n_loc)
     if bounded:
         if mode == "pallas":
+            _record_push(B, *q[0].shape[1:], W)
             out = kfd.flash_decode_paged_fused(
                 q, k_pools, v_pools, cur_len, tables, scale, window=window,
                 mesh=mesh)

@@ -124,6 +124,7 @@ def project_k_sharded(x, w):
         lead = x[0].shape[:-1]
         shards = [x[r].reshape(-1, K)[:, r * k:(r + 1) * k].contiguous()
                   for r in range(W)]
+        cm.record("all-gather", W * cm.nbytes(shards[0]), W)
         out = ag_gemm_fused(shards, [wr.to(xr.dtype) for wr, xr in
                                      zip(w, x)], mesh)
         return [o.reshape(*lead, o.shape[-1]) for o in out]

@@ -272,7 +272,8 @@ def _check(a, bs, trans_b, name) -> tuple[bool, bool]:
     cpu = not a.is_cuda
     card = a.get_device()        # -1 on the CPU
     s = a.element_size()
-    tma = (K * s) % 16 == 0 and a.data_ptr() % 16 == 0
+    # a CPU tensor (a fake one too: launch.dryrun) has no pointer to test
+    tma = not cpu and (K * s) % 16 == 0 and a.data_ptr() % 16 == 0
     for b in bs:
         if b.dim() != 2 or (b.shape[1] if trans_b else b.shape[0]) != K:
             raise ValueError(f"{name}: a {tuple(a.shape)} @ b "
@@ -417,6 +418,22 @@ def _group_op(a: torch.Tensor, bs: list[torch.Tensor]) -> list[torch.Tensor]:
 @torch.library.custom_op("repro_torch::matmul_batched", mutates_args=())
 def _batched_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _product_batched(a, b)
+
+
+# the operators' shapes for fake tensors (launch.dryrun traces on them)
+@_matmul_op.register_fake
+def _matmul_fake(a, b, trans_b):
+    return a.new_empty((a.shape[0], b.shape[0] if trans_b else b.shape[1]))
+
+
+@_group_op.register_fake
+def _group_fake(a, bs):
+    return [a.new_empty((a.shape[0], b.shape[1])) for b in bs]
+
+
+@_batched_op.register_fake
+def _batched_fake(a, b):
+    return a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
 
 
 _matmul_op.register_autograd(_matmul_backward, setup_context=_save_inputs)

@@ -9,8 +9,12 @@ convenience. Over the W ranks of the ambient mesh
 (``lm.shard_params``) and the optimizer state a list of per-rank states
 (:func:`init_opt_state`); one backward runs through every rank. A batch
 holds what JAX's ``input_specs`` name for the model's family
-(:func:`synthetic_batch`). The JAX module's sharding trees belong to its
-dry run and have no counterpart yet.
+(:func:`synthetic_batch`). :func:`input_specs`,
+:func:`decode_state_specs` and :func:`param_specs` are JAX's
+ShapeDtypeStruct stand-ins as meta tensors (shape and dtype, no
+storage), which ``launch.dryrun`` makes fake tensors of; the JAX
+module's sharding trees belong to its data x model meshes, which the
+port does not build.
 """
 from __future__ import annotations
 
@@ -21,6 +25,52 @@ from repro_torch.distributed import context as dctx
 from repro_torch.models import lm
 from repro_torch.models.module import tree_map
 from repro_torch.optim import adamw
+
+
+# ------------------------------------------------------------- input specs
+def _spec(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell, JAX's
+    shapes and dtypes: train/prefill {"tokens", "labels"} (B, S) int32,
+    plus "patches" (B, P, frontend_dim) bf16 for the vlm, "frames" (B, S,
+    frontend_dim) bf16 in place of "tokens" for audio; decode one new
+    token (B, 1) against a cache of ``seq_len`` ("state")."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            return {"frames": _spec((B, S, cfg.frontend_dim),
+                                    torch.bfloat16),
+                    "labels": _spec((B, S), i32)}
+        out = {"tokens": _spec((B, S), i32), "labels": _spec((B, S), i32)}
+        if cfg.family == "vlm":
+            out["patches"] = _spec((B, cfg.num_prefix_tokens,
+                                    cfg.frontend_dim), torch.bfloat16)
+        return out
+    return {"token": _spec((B, 1), i32),
+            "state": decode_state_specs(cfg, B, S)}
+
+
+def decode_state_specs(cfg, batch: int, max_len: int) -> dict:
+    """The contiguous decode state at one rank ({"caches", "cur_len"}, as
+    ``lm.init_decode_state`` makes it), as meta tensors."""
+    from repro_torch.models import transformer
+    return {"caches": transformer.init_caches(cfg, batch, max_len,
+                                              cfg.dtype, device="meta"),
+            "cur_len": _spec((batch,), torch.int32)}
+
+
+def param_specs(cfg, trainable: bool = True) -> dict:
+    """The parameter tree as meta tensors of the dtypes the port stores:
+    fp32 masters (``trainable``, JAX's ``param_dtype``) or the serving
+    storage (``lm.storage_dtype``)."""
+    from repro_torch.models.module import tree_map
+    return tree_map(lambda path, p: _spec(
+        p.shape, cfg.param_dtype if trainable
+        else lm.storage_dtype(path, cfg)), lm.lm_spec(cfg))
 
 
 def init_opt_state(params):
