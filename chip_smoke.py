@@ -41,6 +41,16 @@ source, in parallel), then runs, failing on the first phase that fails:
    at K = 1 and K = 8 and a few contiguous-cache decode steps (over the
    4 ranks, then on one) with every kernel's counters read around them,
    and teacher-forced logits vs tp=1 and across gather widths;
+19. three taxes, static vs card, on the same weights: (a) the port's
+   lint (``repro_torch.analysis``) over ``src/repro_torch`` and this
+   file, in-process: no finding, the justified suppressions, each
+   budgeted function's proven (dispatches, readbacks) per call and per
+   graph key; (b) phase 5's traffic served at K = 8 (pure and mixed
+   megaticks), at K = 1 (temperature sampler) and at K = 8 over 4
+   virtual ranks under ``pallas``, every call of ``_megatick``,
+   ``_megatick_mixed`` and ``_tick`` counted on the card (graph replays
+   and program calls; synchronising calls under
+   ``set_sync_debug_mode("warn")``) and held to the static budget;
 11. the robustness plane: (a), right after phase 8, phase 4's smoke
    serve at K = 8 under a fault plan (a dispatch failing twice, a slow
    tick, a pool spike that preempts between pure-megatick graph
@@ -5799,6 +5809,209 @@ def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us):
     return {"cases": rows, "taxes": costs}
 
 
+# ------------------------------------------------------------ phase 19
+TAX_FNS = ("_megatick", "_megatick_mixed", "_tick")
+SYNC_WARNING = "synchronizing CUDA operation"   # set_sync_debug_mode("warn")
+
+
+def taxes_static():
+    """(19a) the port's lint (``repro_torch.analysis``) run in-process
+    over the port's tree (``src/repro_torch``, this file): no finding,
+    the justified suppressions, and each budgeted function's proven
+    (dispatches, readbacks) per call and per graph key."""
+    from repro_torch.analysis import analyze_paths
+    from repro_torch.analysis.callgraph import build_project
+    from repro_torch.analysis.core import iter_python_files
+    from repro_torch.analysis.rules import proven_budgets
+    roots = [os.path.join(ROOT, "src", "repro_torch"), __file__]
+    t0 = time.time()
+    findings, suppressed, nfiles = analyze_paths(roots)
+    check(not findings, "torchlint findings:\n"
+          + "\n".join(f.render() for f in findings))
+    proven = proven_budgets(build_project(list(iter_python_files(roots))))
+    inventory = [(f.rule, os.path.relpath(f.path, ROOT), f.line)
+                 for f in suppressed]
+    print(f"[taxes static] {nfiles} files in {time.time() - t0:.1f} s: 0 "
+          f"findings, {len(inventory)} justified suppressions: "
+          + ", ".join(f"{r} {p}:{n}" for r, p, n in inventory), flush=True)
+    for name, b in sorted(proven.items()):
+        print(f"[taxes static] {name}: per call {b['per_call']} (budget "
+              f"{b['budget']}), per graph key {b['fill']} (budget "
+              f"{b['fill_budget']})", flush=True)
+    return {"files": nfiles, "suppressed": inventory,
+            "proven": {k: {f: list(v) for f, v in b.items()}
+                       for k, b in proven.items()}}
+
+
+def count_taxes(eng, drive):
+    """Run ``drive()`` with every call of ``eng``'s :data:`TAX_FNS`
+    counted: the dispatches (graph replays, and program calls -- the
+    ``lm.decode_*`` steps and the samplers -- made outside a capture;
+    a program called inside another is not counted) and the
+    synchronising CUDA operations (``torch.cuda.set_sync_debug_mode(
+    "warn")``'s warnings) the call made, nested calls included, and
+    whether it captured a graph. Returns ([(fn, captured, dispatches,
+    syncs)], ``drive()``'s result)."""
+    import warnings
+
+    from repro_torch.models import lm
+    from repro_torch.serving import sampler
+    runner = eng._runner
+    state = {"calls": 0, "depth": 0}
+
+    def program(fn):
+        def counted(*args, **kwargs):
+            if state["depth"] == 0 \
+                    and not torch.cuda.is_current_stream_capturing():
+                state["calls"] += 1
+            state["depth"] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                state["depth"] -= 1
+        return counted
+
+    def graph_count(attr):
+        return 0 if runner is None else getattr(runner, attr)
+
+    records, log = [], []
+
+    def tick_fn(name):
+        orig = getattr(eng, name)
+
+        def counted(*args, **kwargs):
+            d0, c0, s0 = (state["calls"] + graph_count("replays"),
+                          graph_count("captures"), len(log))
+            out = orig(*args, **kwargs)
+            records.append((
+                name, graph_count("captures") > c0,
+                state["calls"] + graph_count("replays") - d0,
+                sum(SYNC_WARNING in str(w.message) for w in log[s0:])))
+            return out
+        return counted
+
+    progs = [(lm, n) for n in ("decode_step", "decode_chunk",
+                               "decode_multi", "decode_mixed")]
+    progs += [(sampler, n) for n in ("greedy", "sample_batch")]
+    saved = [(m, n, getattr(m, n)) for m, n in progs]
+    for m, n, fn in saved:
+        setattr(m, n, program(fn))
+    for name in TAX_FNS:
+        setattr(eng, name, tick_fn(name))
+    prev = torch.cuda.get_sync_debug_mode()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log = caught
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = drive()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+        for name in TAX_FNS:
+            delattr(eng, name)
+    return records, out
+
+
+def taxes_card(params, cfg, reqs, K, sampler, ctx=None):
+    """Serve ``reqs`` (llama3-8b, batch 8, max_len 512, block 16, chunk 8)
+    at megatick length ``K`` under :func:`count_taxes`; returns the
+    records and the finished requests."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine, Request
+    with dctx.use(ctx or dctx.DistContext()):
+        eng = Engine(params, cfg, batch=8, max_len=512, block_size=16,
+                     prefill_chunk=8, decode_steps=K, sampler=sampler,
+                     device="cuda")
+    for rid, (prompt, max_new, at) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new),
+                   at_tick=at)
+
+    def drive():
+        done = []
+        while eng.queue or eng.active:
+            done += eng.tick()
+        torch.cuda.synchronize()
+        return done
+    with torch.inference_mode():
+        records, done = count_taxes(eng, drive)
+    del eng
+    torch.cuda.empty_cache()
+    return records, done
+
+
+def phase_taxes(params, smi, tp=4):
+    """(19) three taxes, static vs card: (a) :func:`taxes_static`; (b)
+    phase 5's weights and traffic (8 requests of 32-128 prompt tokens,
+    32 new each, admitted 2 ticks apart) served at K = 8 (pure and mixed
+    megaticks, graph replays), at K = 1 with the temperature sampler
+    (every host input of ``_tick`` and ``_next_tokens``) and at K = 8
+    over ``tp`` virtual ranks under ``pallas`` (the fused kernels, whose
+    first capture grows the symmetric buffers), each call of ``_megatick``,
+    ``_megatick_mixed`` and ``_tick`` counted (:func:`count_taxes`).
+    Fails where a call shows more than the static proof allows: on a
+    call that captured no graph its per-call budget, on one that
+    captured, the per-call budget plus the per-key one."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    static = taxes_static()
+    proven = static["proven"]
+    cfg = get_config("llama3-8b")
+    plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
+    reqs = _full_requests(cfg, plens, 5, 32, 2)
+    cells = {}
+    for label, K, sampler, ctx in (
+            ("K=8", 8, "greedy", None), ("K=1", 1, "temperature", None),
+            (f"tp={tp} K=8", 8, "greedy",
+             dctx.DistContext(make_mesh(tp, device="cuda"), "pallas"))):
+        t0 = time.time()
+        records, done = taxes_card(params, cfg, reqs, K, sampler, ctx)
+        check(len(done) == len(reqs) and all(
+            len(r.out_tokens) == 32
+            and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+            for r in done), f"taxes {label}: not every stream finished")
+        rows = {}
+        for fn in TAX_FNS:
+            per_call = tuple(proven[f"serving/engine.py::{fn}"]["per_call"])
+            fill = tuple(proven[f"serving/engine.py::{fn}"]["fill"])
+            row = {"static_per_call": per_call, "static_fill": fill}
+            for kind, captured in (("steady", False), ("capture", True)):
+                got = [(d, n) for name, c, d, n in records
+                       if name == fn and c == captured]
+                limit = per_call if not captured else tuple(
+                    a + b for a, b in zip(per_call, fill))
+                most = (max((d for d, _ in got), default=0),
+                        max((n for _, n in got), default=0))
+                row[kind] = {"calls": len(got), "max_dispatches": most[0],
+                             "max_syncs": most[1], "limit": limit}
+                check(most[0] <= limit[0] and most[1] <= limit[1],
+                      f"taxes {label}: {fn} {kind} calls showed "
+                      f"{most} (dispatches, syncs) on the card, above the "
+                      f"static {limit}: the proof is unsound")
+            rows[fn] = row
+            print(f"[taxes card] {label} {fn}: {row['steady']['calls']} "
+                  f"calls, most {row['steady']['max_dispatches']} "
+                  f"dispatches and {row['steady']['max_syncs']} syncs a "
+                  f"call (static {per_call}); {row['capture']['calls']} "
+                  f"capturing, most {row['capture']['max_dispatches']} and "
+                  f"{row['capture']['max_syncs']} (static "
+                  f"{row['capture']['limit']}) | {smi}", flush=True)
+        check(rows["_tick"]["steady"]["calls"] > 0,
+              f"taxes {label}: no _tick call")
+        if K > 1:
+            for fn in ("_megatick", "_megatick_mixed"):
+                check(rows[fn]["steady"]["calls"] > 0
+                      and rows[fn]["steady"]["max_dispatches"] == 1,
+                      f"taxes {label}: {fn} did not replay a graph: "
+                      f"{rows[fn]}")
+        cells[label] = {"rows": rows, "s": time.time() - t0}
+    return {"static": static, "card": cells, "device": smi}
+
+
 def check_bounds(kernels, path):
     """Print every kernel line's bound beside the same line's in the
     ``chip_smoke.json`` at ``path`` (an earlier run's) and fail where the
@@ -5872,6 +6085,7 @@ def main():
         "5b graph vs eager", phase_graph_vs_eager, params)
     summary_tp, lens_tp = timed("9 full width ranks",
                                 phase_full_width_ranks, params)
+    taxes = timed("19 three taxes", phase_taxes, params, smi)
     del params
     torch.cuda.empty_cache()
     train, train_kernel = timed("12 training", phase_train, gen)
@@ -5923,7 +6137,7 @@ def main():
                    "recurrent": rec, "frontends": front,
                    "dots_tp_families": fam,
                    "dots_tp_family_kernels": fam_kernels,
-                   "dryrun_vs_card": dry,
+                   "dryrun_vs_card": dry, "taxes": taxes,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

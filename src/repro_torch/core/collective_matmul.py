@@ -38,6 +38,7 @@ import contextlib
 
 import torch
 
+from repro_torch.device import capturing
 from repro_torch.kernels.matmul import matmul
 
 # ------------------------------------------------------------- recording
@@ -53,7 +54,7 @@ def recording(sink):
     block (``size``: bytes of the op's whole operand, JAX's R). Refused
     under a CUDA graph capture: a dry run traces on the CPU."""
     global _RECORDER
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    if capturing():
         raise RuntimeError("collective recording under a CUDA graph capture")
     prev, _RECORDER = _RECORDER, sink
     try:

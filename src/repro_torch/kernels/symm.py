@@ -106,8 +106,7 @@ class Communicator:
                       for d in self.mesh.devices]
         ib = [t.data_ptr() for t in self.inbox]
         fl = [t.data_ptr() for t in self.flags]
-        self.tables = [(torch.tensor(ib, dtype=torch.int64, device=d),
-                        torch.tensor(fl, dtype=torch.int64, device=d), st)
+        self.tables = [(_upload(ib, d), _upload(fl, d), st)
                        for d, st in zip(self.mesh.distinct, self.state)]
 
     def epoch(self, i: int = 0) -> int:
@@ -134,6 +133,14 @@ def communicator(mesh) -> Communicator:
     if mesh.symm is None:
         mesh.symm = Communicator(mesh)
     return mesh.symm
+
+
+def _upload(values, device) -> torch.Tensor:
+    """An int64 device array of ``values``, copied from pinned memory
+    with ``non_blocking=True`` (a pageable copy would synchronize; the
+    caching host allocator keeps the pinned block until its copy ran)."""
+    return torch.tensor(values, dtype=torch.int64).pin_memory().to(
+        device, non_blocking=True)
 
 
 def _no_capture(what: str):

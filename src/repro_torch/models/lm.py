@@ -573,9 +573,11 @@ def init_decode_state(params, cfg, batch: int, max_len: int):
 
 
 def set_slot_len(state, slot: int, n: int):
-    """Set one slot's position counter, in place."""
+    """Set one slot's position counter, in place (``fill_``: a Python
+    int stored with ``cl[slot] = n`` would go up as a CPU scalar through
+    a synchronising copy)."""
     for cl in _per_device(state["cur_len"]):
-        cl[slot] = n
+        cl[slot].fill_(n)
     return state
 
 
@@ -589,7 +591,7 @@ def copy_cache_block(state, cfg, src: int, dst: int):
 
 def _zero_slot(tree, slot: int):
     for leaf in _leaves(tree):
-        leaf[:, slot] = 0
+        leaf[:, slot].zero_()
 
 
 def reset_slot(state, slot: int):

@@ -246,6 +246,23 @@ class Engine:
                 key=self._base_key, bounded=self.bounded_gather,
                 device=params.device,
                 graphs=self.device.type == "cuda" and one_card)
+        # the single-step tick's host inputs go up through pinned host
+        # buffers with non_blocking=True (:meth:`_upload`): no
+        # synchronize. Each tick writes them before its one readback,
+        # which synchronizes the stream, so a copy has landed before the
+        # next tick writes its buffer again
+        B, C = batch, self.prefill_chunk
+        pin = self.device.type == "cuda"
+        shapes = {"tok": ((B, C), torch.int32), "cnt": ((B,), torch.int32),
+                  "active": ((B,), torch.bool), "rids": ((B,), torch.int32),
+                  "steps": ((B,), torch.int32),
+                  "temps": ((B,), torch.float32),
+                  "topks": ((B,), torch.int32)}
+        self._host_in = {k: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                         for k, (shape, dt) in shapes.items()}
+        self._host_np = {k: t.numpy() for k, t in self._host_in.items()}
+        self._dev_in = {k: torch.zeros(shape, dtype=dt, device=self.device)
+                        for k, (shape, dt) in shapes.items()}
         self.tick_count = 0
         self.dispatch_count = 0     # ticks that actually ran a decode step
         self.preempt_count = 0
@@ -480,6 +497,15 @@ class Engine:
             f"{what} failed after {DISPATCH_ATTEMPTS} attempts at tick "
             f"{self.tick_count}") from last_err
 
+    def _upload(self, name: str, array: np.ndarray) -> torch.Tensor:
+        """``array`` in the device buffer ``name``, copied from its pinned
+        host buffer with ``non_blocking=True`` (plain copies on the
+        CPU)."""
+        self._host_np[name][...] = array
+        dev = self._dev_in[name]
+        dev.copy_(self._host_in[name], non_blocking=True)
+        return dev
+
     def _poison(self, ids: np.ndarray) -> np.ndarray:
         """The ``tokens`` fault: one slot's read-back ids become -1."""
         spec = self._poll_fault("tokens")
@@ -560,7 +586,6 @@ class Engine:
         if cmax == 0:
             self._preempt_one()
             return []
-        self.pool.sync()
         # gather width AFTER the writable() loop: this tick's allocations
         # are in the table, so the slice covers every position touched
         gw = self.pool.gather_width()
@@ -568,21 +593,23 @@ class Engine:
         if not any_prefill:
             self.decode_dispatch_count += 1
         self._dispatch_gate("dispatch")
-        dev = self.device
+        # the table goes up after the gate: every copy is followed by
+        # this tick's readback (CachePool.sync)
+        self.pool.sync()
+        tok_d = self._upload("tok", tok)
         if cmax <= 1:
             self.scan_steps += 1
             logits, _ = lm.decode_step(
-                self.step_params, torch.from_numpy(tok[:, :1]).to(dev),
-                self.pool.state, self.cfg,
-                active=torch.from_numpy(cnt > 0).to(dev),
+                self.step_params, tok_d[:, :1], self.pool.state, self.cfg,
+                active=self._upload("active", cnt > 0),
                 gather_width=gw, bounded=self.bounded_gather)
         else:
             cw = pow2_bucket(cmax, C)
             self.scan_steps += cw
             logits, _ = lm.decode_chunk(
-                self.step_params, torch.from_numpy(tok[:, :cw]).to(dev),
-                torch.from_numpy(cnt).to(dev), self.pool.state,
-                self.cfg, gather_width=gw, bounded=self.bounded_gather)
+                self.step_params, tok_d[:, :cw], self._upload("cnt", cnt),
+                self.pool.state, self.cfg, gather_width=gw,
+                bounded=self.bounded_gather)
         nxt = self._poison(self._next_tokens(logits, emit))
 
         finished = []
@@ -649,7 +676,6 @@ class Engine:
             # every slot stalled on blocks at the megatick boundary
             self._preempt_one()
             return []
-        self.pool.sync()
         # gather width AFTER the reserve() loop: it must cover every
         # block the whole megatick writes
         gw = self.pool.gather_width()
@@ -659,6 +685,7 @@ class Engine:
         self.dispatch_count += 1
         self.decode_dispatch_count += 1
         self._dispatch_gate("megatick dispatch")
+        self.pool.sync()
         self.scan_steps += kb
         out = self._poison(self._runner.run(
             PURE, kb, gw, tok=tok, budgets=budgets, rids=rids,
@@ -756,7 +783,6 @@ class Engine:
         if nmax == 0:
             self._preempt_one()
             return []
-        self.pool.sync()
         gw = self.pool.gather_width()
         # scan length bucketed to a power of two, capped at the quota M
         S = pow2_bucket(nmax, M)
@@ -764,6 +790,7 @@ class Engine:
         self.mixed_dispatch_count += 1
         self.mixed_prompt_token_count += int(pl.sum())
         self._dispatch_gate("mixed megatick dispatch")
+        self.pool.sync()
         self.scan_steps += S
         out = self._poison(self._runner.run(
             MIXED, S, gw, tok=tok0, toks=toks, pl=pl, e0=e0, tot=tot,
@@ -834,14 +861,13 @@ class Engine:
                 steps[slot] = len(req.out_tokens)
                 temps[slot] = req.temp
                 topks[slot] = req.top_k
-            dev = self.device
             ids = sampler_lib.sample_batch(
-                logits, self._base_key, torch.from_numpy(rids).to(dev),
-                torch.from_numpy(steps).to(dev),
-                torch.from_numpy(temps).to(dev),
-                torch.from_numpy(topks).to(dev))
-        # (B, 1) ids drive the host-side scheduling; the logits stay put
-        return ids.cpu().numpy()  # the once-per-dispatch readback
+                logits, self._base_key, self._upload("rids", rids),
+                self._upload("steps", steps), self._upload("temps", temps),
+                self._upload("topks", topks))
+        # torchlint: ignore[TAX001] single-step ticks need the sampled
+        # (B, 1) ids on the host for scheduling; the logits stay put
+        return ids.cpu().numpy()
 
     def run(self, max_ticks: int = 10_000) -> list[Request]:
         """Run until all submitted requests finish (or ``max_ticks``

@@ -108,6 +108,15 @@ class CachePool:
         self._index: dict[tuple, int] = {}    # chain key -> block
         self._children: dict[int, set] = {}   # block -> registered children
         self._dirty = True
+        # sync()'s staging buffer, pinned on the card: the table goes up
+        # with non_blocking=True and does not synchronize. Only sync()
+        # writes it, and the engine runs sync() right before a dispatch
+        # whose readback synchronizes the stream, so the previous copy
+        # out of it has landed before it is written again
+        self._stage = torch.zeros(
+            self.tables.shape, dtype=torch.int32,
+            pin_memory=self.params.device.type == "cuda")
+        self._stage_np = self._stage.numpy()
         # counters
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
@@ -459,13 +468,14 @@ class CachePool:
         self.lengths[slot] += n
 
     def sync(self):
-        """Copy the host block table into the state's table tensor, in
-        place (no-op when unchanged)."""
+        """Copy the host block table into the state's table tensors (one
+        per rank), in place (no-op when unchanged), through the pinned
+        staging buffer with ``non_blocking=True``: no synchronize."""
         if self._dirty:
-            host = torch.from_numpy(self.tables)
+            self._stage_np[...] = self.tables
             tables = self.state["block_tables"]
             for t in tables if isinstance(tables, list) else [tables]:
-                t.copy_(host)
+                t.copy_(self._stage, non_blocking=True)
             self._dirty = False
 
     # --------------------------------------------------------------- metrics

@@ -765,6 +765,40 @@ def test_decode_step_makes_no_host_sync(cuda, tp, mode, paged):
     assert bool(torch.isfinite(lg).all())
 
 
+@pytest.mark.parametrize("tp", [1, 4])
+def test_admission_and_buffer_growth_make_no_host_sync(cuda, tp):
+    """What ``chip_smoke.py`` phase 19 found and the lint cannot see: an
+    admission (``lm.reset_slot_paged`` stored a Python int into the
+    card's ``cur_len``) and a growth of the symmetric buffers (the
+    warm-up before a tp 4 capture uploaded its pointer tables from
+    pageable memory) each synchronised. Under
+    ``set_sync_debug_mode("error")`` neither may now."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels import symm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=2, dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    mesh = make_mesh(tp, device="cuda") if tp > 1 else None
+    with dctx.use(dctx.DistContext(mesh, "pallas")), torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, 4, 16, 8, 4)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lm.reset_slot_paged(st, cfg, 1)
+            lm.set_slot_len(st, 2, 5)
+            lm.release_slot_paged(st, 3)
+            if mesh is not None:
+                symm.communicator(mesh).call(4096, 8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cl = st["cur_len"]
+        for c in cl if isinstance(cl, list) else [cl]:
+            assert c.tolist() == [0, 0, 5, 0]
+
+
 # ------------------------------------------------------------- megaticks
 def _smoke_cuda():
     from repro_torch.configs import get_config, smoke_config
