@@ -47,10 +47,23 @@ source, in parallel), then runs, failing on the first phase that fails:
    budgeted function's proven (dispatches, readbacks) per call and per
    graph key; (b) phase 5's traffic served at K = 8 (pure and mixed
    megaticks), at K = 1 (temperature sampler) and at K = 8 over 4
-   virtual ranks under ``pallas``, every call of ``_megatick``,
+   virtual ranks under ``pallas``, replicated and on per-rank weight
+   shards, every call of ``_megatick``,
    ``_megatick_mixed`` and ``_tick`` counted on the card (graph replays
    and program calls; synchronising calls under
    ``set_sync_debug_mode("warn")``) and held to the static budget;
+20. decode over weight shards (JAX's serve step on ``param_shardings``),
+   on the same weights cut by ``lm.shard_params`` over 4 virtual ranks
+   (each rank's GB: 1/4 of the sharded leaves): phase 9's traffic at
+   K = 8 (graph replays) under ``pallas`` (row-parallel weights
+   all-gathered into the fused AG+GEMM) and ``auto`` (partial products
+   summed in fp32), launches exact a step, first tokens against phase
+   9's, steady tok/s, device ms and peak beside phase 9's, a profiled
+   ``pallas`` step; teacher-forced logits vs tp 1 (bf16, and float32
+   at 2 layers within one bf16 ulp); ``steps.jitted_serve_step``'s
+   function over the contiguous state vs tp 1. Phases 14c, 15c and 16c
+   each shard their model the same way for one teacher-forced chunk
+   (launches exact, logits vs tp 1);
 11. the robustness plane: (a), right after phase 8, phase 4's smoke
    serve at K = 8 under a fault plan (a dispatch failing twice, a slow
    tick, a pool spike that preempts between pure-megatick graph
@@ -170,7 +183,7 @@ source, in parallel), then runs, failing on the first phase that fails:
    launch of the paged decode's grid, its latency floor);
 18. then the port's dry run (``repro_torch.launch.dryrun``:
    each step traced on fake CPU tensors at the phase's own depth) beside
-   the numbers phases 5, 12c, 13c, 14d, 16d and 17a stored: per-rank
+   the numbers phases 5, 12c, 13c, 14d, 16d, 17a and 20 stored: per-rank
    peak vs ``max_memory_allocated`` (within 15% at one rank a card),
    FLOPs vs the executed count (12c, 14d: within 2%), the bound vs the
    measured ms; then the three-taxes model's fixed costs on the card
@@ -1590,7 +1603,8 @@ def phase_full_width_ranks(params, tp=4):
                "teacher_forced_gather_width_max_abs_diff": d_gw,
                "teacher_forced_bf16_vs_f32_max_abs_diff": own,
                "teacher_forced_f32_max_abs_diff": d32.max().item(),
-               "teacher_forced_max_abs_logit": ref, "profile": profile}
+               "teacher_forced_max_abs_logit": ref, "profile": profile,
+               "streams_k8": {r.rid: r.out_tokens for r in done8}}
     print(f"[full tp={tp}] K=8 streams identical to K=1 for {same} of 4; "
           f"teacher-forced logits vs tp=1 max |diff| {diff:.3e} bf16, "
           f"gather width 1 vs 8 {d_gw:.3e} (bf16 vs float32 weights "
@@ -3497,7 +3511,9 @@ def phase_moe_full(rows, worst):
             (8,), 8, device="cuda"), st, cfg)
         check(bool(torch.isfinite(lg).all()), "olmoe: non-finite logits")
         profile = profile_steps(params, cfg, st, label="olmoe decode step")
-    del params, st, lg
+    del st, lg
+    sharded = sharded_steps(params, cfg, MOE_ARCH)
+    del params
     torch.cuda.empty_cache()
     names = ("decode wg M=8 torch.bfloat16", "decode wd M=8 torch.bfloat16")
     kernel = {"name": "matmul_batched", "route": "cuda",
@@ -3514,7 +3530,7 @@ def phase_moe_full(rows, worst):
                      "cut", "params": n_params, "weight_gb": weight_gb,
            "init_s": init_s, "prompt_tokens": sum(plens), **cells,
            "launches_per_step": per_step, "graph_vs_eager_megaticks":
-           lockstep, "profile": profile}
+           lockstep, "profile": profile, "sharded": sharded}
     print(f"[moe full] {n_params / 1e9:.3f} B parameters, {weight_gb:.2f} "
           f"GB of weights; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s; "
           f"K=8 steady {cells['k8']['steady_tokens_per_s']:.2f} tok/s, "
@@ -4172,7 +4188,9 @@ def phase_rec_full(arch, gen, rows, worst, dec_err):
             (8,), 8, device="cuda"), st, cfg)
         check(bool(torch.isfinite(lg).all()), f"{arch}: non-finite logits")
         profile = profile_steps(params, cfg, st, label=f"{arch} decode step")
-    del params, st, lg
+    del st, lg
+    sharded = sharded_steps(params, cfg, arch)
+    del params
     torch.cuda.empty_cache()
     pk = profile["port_kernels"]
     gemm_ms = pk["gemm_stream"]["ms_per_step"] + pk["mm_kernel"][
@@ -4201,7 +4219,8 @@ def phase_rec_full(arch, gen, rows, worst, dec_err):
            "weight_gb": weight_gb, "init_s": init_s,
            "prompt_tokens": sum(plens), **cells,
            "launches_per_step": per_step,
-           "graph_vs_eager_megaticks": lockstep, "profile": profile}
+           "graph_vs_eager_megaticks": lockstep, "profile": profile,
+           "sharded": sharded}
     k8 = cells["k8"]
     print(f"[rec full] {arch}: {n_params / 1e9:.3f} B parameters, "
           f"{weight_gb:.2f} GB; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s; "
@@ -4840,7 +4859,9 @@ def phase_front_serve(gen, rows, worst, dec_err):
     check(contiguous == {"matmul": T * per_step["matmul"],
                          "flash_decode_fused": T * L}, f"paligemma "
           f"contiguous decode: launches {contiguous} in {T} steps")
-    del params, cst, lg
+    del cst, lg
+    sharded = sharded_steps(params, cfg, "paligemma-3b")
+    del params
     torch.cuda.empty_cache()
     lens = [n + 32 for n in plens]
     kernels = [
@@ -4865,7 +4886,8 @@ def phase_front_serve(gen, rows, worst, dec_err):
            "weight_gb": weight_gb, "init_s": init_s,
            "prompt_tokens": sum(plens), **cells,
            "launches_per_step": per_step,
-           "contiguous_launches": contiguous, "contiguous_steps": T}
+           "contiguous_launches": contiguous, "contiguous_steps": T,
+           "sharded": sharded}
     print(f"[front serve] paligemma-3b: {n_params / 1e9:.3f} B parameters, "
           f"{weight_gb:.2f} GB; K=1 {cells['k1']['tokens_per_s']:.2f} tok/s;"
           f" K=8 steady {k8['steady_tokens_per_s']:.2f} tok/s, "
@@ -5708,14 +5730,18 @@ def launch_costs(iters=2000, reps=5):
     return out
 
 
-def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us):
+def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us,
+                 sharded):
     """(18) the port's dry run (``launch.dryrun``: the step traced on fake
     CPU tensors, at the phase's own depth) beside what earlier phases
     measured on the card, reusing their stored numbers: 12c (llama3-8b,
     4 layers, ``"full"``; 17a's ``"dots"``), 13c (tp 4 virtual ranks
     under ``ring``), 14d (olmoe-1b-7b, 4 layers), 16d (paligemma-3b,
-    hubert-xlarge) and phase 5's K = 1 serve (a decode step at batch 8
-    over a cache of 512). Per-rank peak vs ``max_memory_allocated``
+    hubert-xlarge), phase 5's K = 1 serve (a decode step at batch 8
+    over a cache of 512) and phase 20's serve on shards (a decode step at
+    batch 4 over a cache of 256 on 4 virtual ranks under ``pallas``, the
+    card's peak less the replicated weights resident beside it). Per-rank
+    peak vs ``max_memory_allocated``
     (within PRED_PEAK_RTOL where one rank per card), FLOPs vs the phase's
     executed count (12c, 14d: PRED_FLOPS_RTOL), and the bound vs the
     measured ms (the step's share of its bound). Then the three-taxes
@@ -5744,6 +5770,12 @@ def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us):
          ShapeConfig("decode_8x512", 512, 8, "decode"), 1, "auto",
          {"peak_gb": serve["k1"]["peak_mem_bytes"] / 1e9,
           "ms_per_step": k8["pure_megatick_device_ms"] / k8["K"]}, False),
+        ("20 serve on shards", get_config("llama3-8b"),
+         ShapeConfig("decode_4x256", 256, 4, "decode"), SHARD_TP, "pallas",
+         {"peak_gb": sharded["cells"]["pallas"]["peak_mem_bytes"] / 1e9
+          - sharded["whole_gb"],
+          "ms_per_step": sharded["cells"]["pallas"][
+              "pure_megatick_device_ms"] / 8}, False),
     ]
     rows = []
     for name, cfg, shape, tp, mode, card, flops_checked in cases:
@@ -5807,6 +5839,545 @@ def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us):
           f"(data sheet {costs['hbm_bytes_per_s_datasheet'] / 1e12:.2f})",
           flush=True)
     return {"cases": rows, "taxes": costs}
+
+
+# ------------------------------------------- phase 20: sharded weights
+SHARD_TP = 4                # virtual ranks of cuda:0 holding the shards
+
+
+def sharded_per_step(cfg, mode="pallas", tp=SHARD_TP):
+    """Kernel launches of one decode step over ``tp`` ranks on one card
+    on per-rank shards (``lm.shard_params``; paged pool): column-parallel
+    groups one GEMM a rank (q/k/v, the gate and up projections, the
+    Mamba2 in_proj, RWKV6's ck, the unembed over its vocab shard); under
+    ``pallas`` each row-parallel weight (wo, wd, out_proj) one fused
+    AG+GEMM on the card, under ``auto`` one partial GEMM a rank; the
+    MoE router once a card, its experts one batched launch a product a
+    rank; RWKV6's time mix once a card (7 products), its cv one partial
+    GEMM a rank; attention one paged decode a card a call (fused under
+    ``pallas``, partial under ``auto``)."""
+    L = cfg.n_layers
+    row = {"pallas": 0, "auto": tp}[mode]
+    attn = "flash_decode_paged_fused" if mode == "pallas" else \
+        "flash_decode_paged_partial"
+    if cfg.block == "rwkv":
+        return {"matmul": L * (7 + 2 * tp) + tp}
+    if cfg.block == "mamba_hybrid":
+        calls = L // cfg.attn_every
+        out = {"matmul": L * (tp + row) + calls * (2 * tp + 2 * row) + tp,
+               attn: calls}
+        n_ag = L + 2 * calls
+    elif cfg.block == "attn_moe":
+        out = {"matmul": L * (tp + row + 1 + 3 * tp) + tp,
+               "matmul_batched": 3 * tp * L, attn: L}
+        n_ag = L
+    else:
+        out = {"matmul": L * (2 * tp + 2 * row) + tp, attn: L}
+        n_ag = 2 * L
+    if mode == "pallas":
+        out["ag_gemm_fused"] = n_ag
+    return out
+
+
+def _resident_gb(ranks):
+    """GB of the distinct tensors ``ranks`` (LMs) hold (a replicated leaf
+    that ranks on one card share counts once)."""
+    seen, n = set(), 0
+    for p in ranks:
+        for t in p.parameters():
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+    return n / 1e9
+
+
+def _shard(params, tp=SHARD_TP):
+    """(mesh, per-rank shards of ``params``, their bytes): every rank
+    must hold 1/tp of each leaf the rules shard and the whole of each
+    they replicate, no more."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_items
+    mesh = make_mesh(tp, device="cuda")
+    t0 = time.time()
+    shards = lm.shard_params(params, mesh)
+    torch.cuda.synchronize()
+    dims = lm.shard_dims(params.cfg, mesh)
+    leaves = dict(tree_items(lm.param_tree(params)))
+    nb = {k: t.numel() * t.element_size() for k, t in leaves.items()}
+    rep = sum(n for k, n in nb.items() if dims[k] is None)
+    want = sum(n // tp if dims[k] is not None else n for k, n in nb.items())
+    mem = {"shard_s": time.time() - t0, "whole_gb": _resident_gb([params]),
+           "sharded_leaves_gb": (sum(nb.values()) - rep) / 1e9,
+           "replicated_leaves_gb": rep / 1e9, "rank_gb_expected": want / 1e9,
+           "rank_gb": [_resident_gb([s]) for s in shards],
+           "card_gb": _resident_gb(shards)}
+    check(all(abs(g - want / 1e9) < 1e-9 for g in mem["rank_gb"]),
+          f"shards: {mem['rank_gb']} GB a rank, expected {want / 1e9:.6f} "
+          f"(1/{tp} of the sharded leaves + the replicated ones)")
+    return mesh, shards, mem
+
+
+def sharded_steps(params, cfg, label, tp=SHARD_TP):
+    """(20, other families) a full-width model whose phase loaded
+    ``params`` (bf16, seed 0) sharded over ``tp`` virtual ranks (each
+    rank's resident GB, 1/tp of the sharded leaves); one teacher-forced
+    chunk (4 slots x 8 tokens over the paged pool, every rank's blocks)
+    under ``pallas`` on the shards with every kernel's launches counted
+    around it, exact per decode step (:func:`sharded_per_step`); its
+    logits against tp 1 on ``params`` within the bf16 model's own error
+    (tp 1 against the same numbers unrounded in float32, phase 9's
+    bound; with random weights that bound is wide), and the tight check:
+    the model at full width in float32, cut to 2 layers (zamba2: one
+    group of ``attn_every``, so its shared block runs), on its shards
+    under ``pallas`` and ``auto`` against tp 1 within one bf16 ulp
+    (:func:`_f32_cut`)."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import launch_counted
+    mesh, shards, mem = _shard(params, tp)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    tok = torch.randint(1, cfg.vocab_size, (4, 8), device="cuda",
+                        generator=g)
+    fns = launch_counted()
+    torch.cuda.synchronize()
+    _counted(fns)
+    t0 = time.time()
+    lg_s = _teacher_forced(shards, cfg, tok, dctx.DistContext(mesh,
+                                                              "pallas"))
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / 8
+    launches = {f.__name__: f.launches for f in fns if f.launches}
+    plain = {f.__name__: f.plain_calls for f in fns if f.plain_calls}
+    want = {k: 8 * v for k, v in sharded_per_step(cfg, "pallas", tp).items()}
+    check(launches == want and not plain,
+          f"{label} shards: launches {launches} != {want} in 8 steps "
+          f"(plain calls {plain})")
+    del shards
+    torch.cuda.empty_cache()
+    lg_1 = _teacher_forced(params, cfg, tok, None)
+    cfg32 = cfg.replace(dtype=torch.float32)
+    p32 = lm.init_params(cfg32, seed=0, device="cuda")
+    lg_32 = _teacher_forced(p32, cfg32, tok, None)
+    del p32
+    torch.cuda.empty_cache()
+    diff = (lg_s - lg_1).abs().max().item()
+    own = (lg_1 - lg_32).abs().max().item()
+    top = (lg_s.argmax(-1) == lg_1.argmax(-1)).float().mean().item()
+    top_own = (lg_32.argmax(-1) == lg_1.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(lg_s).all()), f"{label} shards: non-finite")
+    check(diff <= own, f"{label} shards tp={tp} vs tp=1 logits: max |diff| "
+                       f"{diff:.3e} > the bf16 model's own error {own:.3e}")
+    layers = cfg.attn_every if cfg.block == "mamba_hybrid" else 2
+    f32 = _f32_cut(cfg.name, tp, layers)
+    out = {**mem, "tp": tp, "fusion_mode": "pallas", "launches_8_steps":
+           launches, "eager_step_s": step_s, "max_abs_diff_vs_tp1": diff,
+           "f32_cut": f32,
+           "bf16_vs_f32_max_abs_diff": own, "argmax_agree": top,
+           "argmax_agree_bf16_vs_f32": top_own,
+           "max_abs_logit": lg_1.abs().max().item()}
+    print(f"[sharded {label}] tp={tp} pallas: {mem['whole_gb']:.3f} GB "
+          f"whole, a rank " + ", ".join(f"{x:.3f}" for x in mem["rank_gb"])
+          + f" GB (card {mem['card_gb']:.3f}); launches a step "
+          f"{sharded_per_step(cfg, 'pallas', tp)}; teacher-forced logits "
+          f"vs tp=1 max |diff| {diff:.3e} (bf16 vs float32 weights "
+          f"{own:.3e}, max |logit| {out['max_abs_logit']:.3e}), argmax "
+          f"agree {top:.3f} (bf16 vs float32 weights {top_own:.3f}); "
+          f"float32 at {layers} layers vs tp=1 max |diff| " + ", ".join(
+              f"{m} {v:.3e}" for m, v in f32["max_abs_diff"].items())
+          + " (one bf16 ulp)", flush=True)
+    return out
+
+
+def _serve_streams(params, cfg, ctx, reqs):
+    """Greedy streams of ``reqs`` served through the engine at K = 8
+    (paged pool, batch 4; graph replays on one card) under ``ctx``
+    (None: one rank): {rid: tokens}; no stream may end in error."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine, Request
+    with dctx.use(ctx or dctx.DistContext()):
+        eng = Engine(params, cfg, batch=4, max_len=256, block_size=16,
+                     prefill_chunk=8, decode_steps=8, device="cuda")
+    for rid, (prompt, max_new, at) in enumerate(reqs):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=max_new),
+                   at_tick=at)
+    done = []
+    while eng.queue or eng.active:
+        done += eng.tick()
+    check(len(done) == len(reqs)
+          and all(r.finish_reason != "error" for r in done),
+          f"{cfg.name} float32 streams: {len(done)} of {len(reqs)} done, "
+          f"{[r.finish_reason for r in done]}")
+    return {r.rid: r.out_tokens for r in done}
+
+
+def _f32_cut(arch, tp=SHARD_TP, layers=2, streams=False):
+    """``arch`` at full width, cut to ``layers`` layers, in float32
+    (seeded): one teacher-forced chunk (4 slots x 8 tokens) on its
+    shards under ``pallas`` and ``auto`` against tp 1 within one bf16
+    ulp (2**-7 relative; 1e-4), phase 9's float32 bound: a wrong block
+    offset, gather or dropped partial sum shows far above it. With
+    ``streams``: 4 requests' greedy streams (16 new tokens each) served
+    through the engine at K = 8 on the shards in both modes must be
+    token-identical to tp 1's. Returns the max |diff| per mode (and the
+    streams)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.models import lm
+    cfg = get_config(arch).replace(n_layers=layers, dtype=torch.float32)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(22)
+    tok = torch.randint(1, cfg.vocab_size, (4, 8), device="cuda",
+                        generator=g)
+    p32 = lm.init_params(cfg, seed=0, device="cuda")
+    want = _teacher_forced(p32, cfg, tok, None)
+    mesh, shards, _ = _shard(p32, tp)
+    out = {"layers": layers, "max_abs_diff": {}}
+    for mode in ("pallas", "auto"):
+        got = _teacher_forced(shards, cfg, tok, dctx.DistContext(mesh, mode))
+        d = (got - want).abs()
+        out["max_abs_diff"][mode] = d.max().item()
+        check(bool((d <= 1e-4 + 2 ** -7 * want.abs()).all()),
+              f"{arch} float32 {layers} layers shards {mode} vs tp=1: max "
+              f"|diff| {out['max_abs_diff'][mode]:.3e}")
+    if streams:
+        plens = [int(n) for n in np.random.default_rng(2).integers(16, 49,
+                                                                   4)]
+        reqs = _full_requests(cfg, plens, 5, 16, 1)
+        ref = _serve_streams(p32, cfg, None, reqs)
+        out["streams_tp1"] = ref
+        for mode in ("pallas", "auto"):
+            got = _serve_streams(shards, cfg, dctx.DistContext(mesh, mode),
+                                 reqs)
+            check(got == ref, f"{arch} float32 {layers} layers: streams "
+                              f"on shards under {mode} {got} != tp=1's "
+                              f"{ref}")
+        out["streams_identical"] = len(ref)
+    del p32, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gemm_io_bytes(a, ws, out_dtype):
+    """Bytes one GEMM launch moves: ``a`` read once, each of ``ws`` read
+    once, each output (M x N_i in ``out_dtype``) written once."""
+    M = a.shape[0]
+    return nbytes(a, *ws) + sum(M * w.shape[-1] for w in ws) * \
+        torch.empty((), dtype=out_dtype).element_size()
+
+
+def shard_kernel_rows(params, shards, cfg, launches, steps, tp=SHARD_TP,
+                      B=4):
+    """(20) the GEMM (#1) and the fused AG+GEMM (#4) as they run on
+    llama3-8b's weight shards under ``pallas``: one decode step of
+    phase 20's serve (batch 4) over the real shards of every layer (no
+    weight read twice a step, as on the main path): a layer's wq/wk/wv
+    and wg/wu column blocks one launch each a rank, the unembed over
+    each rank's fp32 vocab shard (``trans_b``); a layer's wo and wd
+    (gathered whole, phase 5's copy: the same numbers) one fused
+    AG+GEMM each on the K-slices of the ranks' inputs. Each graph-timed
+    (the whole step's launches in one graph), beside the plain versions
+    (eager), one ``torch.matmul`` a product, the bound from the bytes
+    the launches read and write, and layer 0's products held to their
+    plain versions (``_gemm_err``: bf16 within one ulp, fp32 within
+    1e-4 of the largest |C|); the gather of the row blocks (``torch.cat``, which
+    ``core.patterns`` runs in front of #4) timed the same way.
+    ``launches``/``steps``: the main path's counts (phase 20's
+    ``pallas`` cell)."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
+    from repro_torch.kernels.matmul import (matmul, matmul_group,
+                                            matmul_plain)
+    L, d = cfg.n_layers, cfg.d_model
+    bf16 = torch.bfloat16
+    mesh = Mesh(["cuda:0"] * tp)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    a = torch.randn((B, d), generator=g, device="cuda").to(bf16)
+    h = torch.randn((B, cfg.d_ff), generator=g, device="cuda").to(bf16)
+    af = a.float()
+    lay = [s["backbone"]["layers"] for s in shards]
+    cols = [([x["attn"][n][li] for n in ("wq", "wk", "wv")],
+             [x["mlp"][n][li] for n in ("wg", "wu")])
+            for li in range(L) for x in lay]
+    heads = [s["head"]["table"] for s in shards]
+
+    def gemm_step(one, unembed):
+        for qkv, gu in cols:
+            one(qkv)
+            one(gu)
+        for t in heads:
+            unembed(t)
+
+    def lib_one(ws):
+        return [torch.matmul(a, w) for w in ws]
+    t_k = graph_ms(lambda: gemm_step(lambda ws: matmul_group(a, ws),
+                                     lambda t: matmul(af, t, trans_b=True)),
+                   iters=1)
+    t_l = graph_ms(lambda: gemm_step(lib_one,
+                                     lambda t: torch.matmul(af, t.T)),
+                   iters=1)
+    t_p = time_ms(lambda: gemm_step(
+        lambda ws: [matmul_plain(a, w) for w in ws],
+        lambda t: matmul_plain(af, t, True)), iters=2, warmup=1)
+    err = max([_gemm_err(x, matmul_plain(a, w), bf16,
+                         f"matmul on shards {tuple(w.shape)}")
+               for ws in cols[0] for x, w in zip(matmul_group(a, ws), ws)]
+              + [_gemm_err(matmul(af, heads[0], trans_b=True),
+                           matmul_plain(af, heads[0], True), torch.float32,
+                           "matmul on the head's vocab shard")])
+    by = sum(_gemm_io_bytes(a, ws, bf16) for c in cols for ws in c) + \
+        sum(nbytes(af, t) + B * t.shape[0] * 4 for t in heads)
+    ops = [(sum(2 * B * w.numel() for c in cols for ws in c for w in ws),
+            bf16), (sum(2 * B * t.numel() for t in heads), torch.float32)]
+    b_s, b_by = bound(ops, by)
+    gemm = {"name": "matmul_shards", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:34",
+            "launches": launches["matmul"],
+            "launches_per_step": launches["matmul"] / steps,
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": 1e3 * b_s, "bound_by": b_by, "bytes": by,
+            "library_ms": t_l,
+            "unit": f"one decode step at batch {B} on llama3-8b's shards "
+                    f"over {tp} ranks ({len(cols) * 2 + len(heads)} "
+                    f"launches: per layer and rank wq/wk/wv and wg/wu "
+                    f"column blocks grouped; the unembed's vocab shard a "
+                    f"rank)"}
+    # the row-parallel site: wo and wd whole (what the gather makes)
+    whole = params["backbone"]["layers"]
+    rows = [(a, whole["attn"]["wo"][li]) for li in range(L)] + \
+        [(h, whole["mlp"]["wd"][li]) for li in range(L)]
+    sl = [[x[:, r * (x.shape[1] // tp):(r + 1) * (x.shape[1] // tp)]
+           .contiguous() for r in range(tp)] for x in (a, h)]
+
+    def k_slices(x):
+        return sl[0] if x is a else sl[1]
+    t_k = graph_ms(lambda: [ag_gemm_fused(k_slices(x), [w] * tp, mesh)
+                            for x, w in rows], iters=1)
+    t_l = graph_ms(lambda: [torch.matmul(x, w) for x, w in rows], iters=1)
+    t_p = time_ms(lambda: [ag_gemm_plain(k_slices(x), [w] * tp)
+                           for x, w in rows], iters=2, warmup=1)
+    err = max(_gemm_err(u, v, bf16, f"ag_gemm_fused {tuple(w.shape)}")
+              for x, w in (rows[0], rows[L]) for u, v in
+              zip(ag_gemm_fused(k_slices(x), [w] * tp, mesh),
+                  ag_gemm_plain(k_slices(x), [w] * tp)))
+    by = sum(nbytes(x, w) + tp * B * w.shape[1] * 2 for x, w in rows)
+    b_s, b_by = bound(sum(tp * 2 * B * w.numel() for _, w in rows), by,
+                      bf16)
+    blocks = [[x["attn"]["wo"][li] for x in lay] for li in range(L)] + \
+        [[x["mlp"]["wd"][li] for x in lay] for li in range(L)]
+    t_gather = graph_ms(lambda: [torch.cat(w, dim=0) for w in blocks],
+                        iters=1)
+    ag = {"name": "ag_gemm_fused_shards", "route": "cuda",
+          "source": "src/repro_torch/csrc/ag_gemm.cu",
+          "replaces": "src/repro/kernels/ag_gemm.py:114",
+          "launches": launches["ag_gemm_fused"],
+          "launches_per_step": launches["ag_gemm_fused"] / steps,
+          "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+          "bound_ms": 1e3 * b_s, "bound_by": b_by, "bytes": by,
+          "library_ms": t_l, "gather_ms": t_gather,
+          "gather_bytes": sum(nbytes(*w) for w in blocks),
+          "unit": f"one decode step at batch {B} over {tp} ranks: per "
+                  f"layer wo ({B}x{d} . {d}x{d}) and wd ({B}x{cfg.d_ff} . "
+                  f"{cfg.d_ff}x{d}) gathered whole from their row blocks "
+                  f"(the gather: gather_ms)"}
+    for k in (gemm, ag):
+        print(f"[sharded kernels] {k['name']}: {k['ms']:.3f} ms a step "
+              f"(bound {k['bound_ms']:.3f} {k['bound_by']}, "
+              f"{k['bytes'] / 1e9:.3f} GB; plain {k['plain_ms']:.3f}, "
+              f"torch.matmul {k['library_ms']:.3f}; max |err| "
+              f"{k['max_abs_err']:.3e})", flush=True)
+    print(f"[sharded kernels] the row blocks' gather: {t_gather:.3f} ms a "
+          f"step ({ag['gather_bytes'] / 1e9:.3f} GB)", flush=True)
+    return [gemm, ag]
+
+
+def phase_sharded(params, tp9, tp=SHARD_TP):
+    """(20) full-width llama3-8b (phase 5's bf16 weights) sharded over
+    ``tp`` virtual ranks of cuda:0 (JAX's serve step on
+    ``param_shardings``): each rank's resident GB (1/tp of the sharded
+    leaves) and the card's; phase 9's traffic served through the engine
+    on the shards at K = 8 (graph replays, then the steady rerun) under
+    ``pallas`` (each row-parallel weight all-gathered into the fused
+    AG+GEMM) and ``auto`` (partial products, all-reduced), launches
+    exact a step (:func:`sharded_per_step`), no stream in error, the
+    first token of every stream equal to phase 9's replicated tp 4
+    streams' where tp 1's top-2 margin is decisive (reported: with
+    random weights no margin has been; the float32 cut below is the
+    stream check that binds); the GEMM and the fused AG+GEMM graph-timed
+    on the shards (:func:`shard_kernel_rows`); teacher-forced logits on
+    the shards in both modes against tp 1 within the bf16 model's own
+    error (phase 9's); in float32 at 2 layers within one bf16 ulp, and
+    the engine's greedy streams at K = 8 on the shards token-identical
+    to tp 1's (:func:`_f32_cut`); and
+    ``steps.jitted_serve_step``'s function over the contiguous state, 4
+    steps at tp 4 on the shards against tp 1 (launches exact: the fused
+    strided decode once a card a layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import launch_counted
+    cfg = get_config("llama3-8b")
+    L = cfg.n_layers
+    parts_s = {}
+    t_part = [time.time()]
+
+    def part(name):
+        now = time.time()
+        parts_s[name] = now - t_part[0]
+        t_part[0] = now
+    mesh, shards, mem = _shard(params, tp)
+    print(f"[sharded] llama3-8b over {tp} ranks of one card: whole "
+          f"{mem['whole_gb']:.3f} GB, a rank " + ", ".join(
+              f"{x:.3f}" for x in mem["rank_gb"]) + f" GB, the shards on "
+          f"the card {mem['card_gb']:.3f} GB (cut in {mem['shard_s']:.2f} "
+          f"s)", flush=True)
+    plens = [int(n) for n in np.random.default_rng(1).integers(16, 49, 4)]
+    reqs_a = _full_requests(cfg, plens, 3, 16, 1)
+    reqs_b = _full_requests(cfg, plens, 4, 16, 1)
+    want9 = {int(k): v for k, v in tp9["streams_k8"].items()}
+    # teacher forcing against tp 1 (bf16: phase 9's bound) and float32
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    tok = torch.randint(1, cfg.vocab_size, (4, 8), device="cuda",
+                        generator=g)
+    lg_1 = _teacher_forced(params, cfg, tok, None)
+    own = tp9["teacher_forced_bf16_vs_f32_max_abs_diff"]
+    tf = {}
+    for mode in ("pallas", "auto"):
+        lg = _teacher_forced(shards, cfg, tok, dctx.DistContext(mesh, mode))
+        tf[mode] = (lg - lg_1).abs().max().item()
+        check(bool(torch.isfinite(lg).all()) and tf[mode] <= own,
+              f"shards {mode} vs tp=1 logits: max |diff| {tf[mode]:.3e} > "
+              f"the bf16 model's own error {own:.3e}")
+    # a first token must equal phase 9's where tp 1's top-2 margin after
+    # the prompt exceeds twice the larger of the two paths' measured
+    # distances from tp 1 (then both pick tp 1's token); below that it
+    # is a near-tie of bf16 rounding, reported
+    part("teacher_forced")
+    margin = _prompt_margins(params, cfg, [r[0] for r in reqs_a])
+    part("prompt_margins")
+    cells = {}
+    for mode in ("pallas", "auto"):
+        ctx = dctx.DistContext(mesh, mode)
+        per_step = sharded_per_step(cfg, mode, tp)
+        cell, done = serve_cell(shards, cfg, 8, reqs_a, reqs_b, batch=4,
+                                max_len=256, ctx=ctx,
+                                label=f"tp={tp} {mode} shards")
+        _check_serve(cell, done, cfg, 4, 16, per_step,
+                     f"shards tp={tp} {mode} K=8")
+        check(all(r.finish_reason != "error" for r in done),
+              f"shards {mode}: a stream ended in error")
+        got = {r.rid: r.out_tokens for r in done}
+        first = sum(got[r][0] == want9[r][0] for r in want9)
+        need = 2 * max(tf[mode], tp9["teacher_forced_max_abs_diff"])
+        must = [r for r in want9 if margin[r] > need]
+        check(all(got[r][0] == want9[r][0] for r in must),
+              f"shards {mode}: first tokens "
+              f"{[got[r][0] for r in sorted(got)]} vs phase 9's "
+              f"{[want9[r][0] for r in sorted(want9)]} (top-2 margins "
+              f"{[round(m, 4) for m in margin]}, decisive "
+              f"above {need:.3e})")
+        cell["first_tokens_equal_phase9"] = first
+        cell["first_tokens_decisive"] = len(must)
+        cell["streams_identical_to_phase9"] = sum(got[r] == want9[r]
+                                                  for r in want9)
+        cell["launches_per_step"] = per_step
+        part(f"serve_{mode}")
+        cells[mode] = cell
+    # where the pallas step's time goes: #1 and #4 on the shards, and
+    # the gather of the row blocks, graph-timed at the served shapes
+    kernels = shard_kernel_rows(params, shards, cfg,
+                                cells["pallas"]["launches"],
+                                cells["pallas"]["decode_steps"], tp)
+    part("kernels")
+    # the serve step (JAX's jitted_serve_step) over the contiguous state
+    fns = launch_counted()
+    c_steps, c_diff = 4, 0.0
+    runs = {}
+    for W in (tp, 1):
+        fn, ctx, _ = steps.jitted_serve_step(cfg, mesh if W > 1 else None,
+                                             "pallas")
+        p = shards if W > 1 else params
+        with dctx.use(ctx):
+            st = lm.init_decode_state(p, cfg, 4, 256)
+        torch.cuda.synchronize()
+        _counted(fns)
+        lgs = []
+        for j in range(c_steps):
+            lg, st = fn(p, tok[:, j:j + 1], st)
+            lgs.append(lg.float())
+        torch.cuda.synchronize()
+        runs[W] = ({f.__name__: f.launches for f in fns if f.launches}, lgs)
+        del st
+    c_launch = runs[tp][0]
+    c_want = {"matmul": c_steps * (2 * tp * L + tp),
+              "ag_gemm_fused": c_steps * 2 * L,
+              "flash_decode_fused": c_steps * L}
+    check(c_launch == c_want, f"serve step on shards: launches {c_launch} "
+                              f"!= {c_want}")
+    for a, b in zip(runs[tp][1], runs[1][1]):
+        c_diff = max(c_diff, (a - b).abs().max().item())
+    check(c_diff <= own, f"serve step shards vs tp=1: max |diff| "
+                         f"{c_diff:.3e} > {own:.3e}")
+    part("serve_step")
+    del shards
+    torch.cuda.empty_cache()
+    f32 = _f32_cut("llama3-8b", tp, streams=True)
+    part("f32_cut")
+    p9 = tp9["k8"]
+    summary = {"tp": tp, **mem, "cells": cells,
+               "teacher_forced_max_abs_diff": tf, "own_error_bound": own,
+               "f32_2_layers": f32, "parts_s": parts_s,
+               "kernels": kernels,
+               "serve_step": {"steps": c_steps, "launches": c_launch,
+                              "max_abs_diff_vs_tp1": c_diff},
+               "phase9_pallas": {k: p9[k] for k in (
+                   "steady_tokens_per_s", "pure_megatick_device_ms",
+                   "peak_mem_bytes")}}
+    for mode, c in cells.items():
+        print(f"[sharded] {mode}: steady {c['steady_tokens_per_s']:.2f} "
+              f"tok/s, pure megatick {c['pure_megatick_device_ms']:.2f} ms "
+              f"device ({c['pure_megatick_device_ms'] / 8:.2f} ms a step), "
+              f"peak {c['peak_mem_bytes'] / 1e9:.2f} GB (with the "
+              f"replicated {mem['whole_gb']:.2f} GB resident) | phase 9 "
+              f"replicated pallas: {p9['steady_tokens_per_s']:.2f} tok/s, "
+              f"{p9['pure_megatick_device_ms']:.2f} ms, peak "
+              f"{p9['peak_mem_bytes'] / 1e9:.2f} GB; first tokens equal "
+              f"phase 9's {c['first_tokens_equal_phase9']} of 4 "
+              f"({c['first_tokens_decisive']} decisive), whole "
+              f"streams {c['streams_identical_to_phase9']} of 4; "
+              f"teacher-forced vs tp=1 {tf[mode]:.3e} (bound {own:.3e}), "
+              f"float32 2 layers {f32['max_abs_diff'][mode]:.3e}, its "
+              f"engine streams identical to tp=1's "
+              f"{f32['streams_identical']} of 4", flush=True)
+    print(f"[sharded] serve step (contiguous, {c_steps} steps): launches "
+          f"{c_launch}, logits vs tp=1 max |diff| {c_diff:.3e}; s: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts_s.items()), flush=True)
+    return summary
+
+
+def _prompt_margins(params, cfg, prompts):
+    """tp 1's top-2 logit margin after each prompt (one slot a prompt,
+    the prompts consumed through ``lm.decode_chunk``), as floats."""
+    from repro_torch.models import lm
+    B, C = len(prompts), max(len(p) for p in prompts)
+    blocks = -(-C // 16)
+    tok = torch.zeros((B, C), dtype=torch.int64, device="cuda")
+    for b, p in enumerate(prompts):
+        tok[b, :len(p)] = torch.tensor(p)
+    counts = torch.tensor([len(p) for p in prompts], device="cuda")
+    with torch.inference_mode():
+        st = lm.init_paged_decode_state(params, cfg, B, B * blocks, 16,
+                                        blocks)
+        st["block_tables"].copy_(torch.arange(
+            B * blocks, dtype=torch.int32).reshape(B, blocks))
+        lg, _ = lm.decode_chunk(params, tok, counts, st, cfg)
+    top = lg[:, 0].float().topk(2, dim=-1).values
+    return [float(x) for x in (top[:, 0] - top[:, 1]).tolist()]
 
 
 # ------------------------------------------------------------ phase 19
@@ -5950,7 +6521,9 @@ def phase_taxes(params, smi, tp=4):
     megaticks, graph replays), at K = 1 with the temperature sampler
     (every host input of ``_tick`` and ``_next_tokens``) and at K = 8
     over ``tp`` virtual ranks under ``pallas`` (the fused kernels, whose
-    first capture grows the symmetric buffers), each call of ``_megatick``,
+    first capture grows the symmetric buffers), replicated and on
+    per-rank shards (``lm.shard_params``: the row-parallel weights
+    all-gathered in the step), each call of ``_megatick``,
     ``_megatick_mixed`` and ``_tick`` counted (:func:`count_taxes`).
     Fails where a call shows more than the static proof allows: on a
     call that captured no graph its per-call budget, on one that
@@ -5958,6 +6531,7 @@ def phase_taxes(params, smi, tp=4):
     from repro_torch.configs import get_config
     from repro_torch.distributed import context as dctx
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
     static = taxes_static()
     proven = static["proven"]
     cfg = get_config("llama3-8b")
@@ -5967,9 +6541,14 @@ def phase_taxes(params, smi, tp=4):
     for label, K, sampler, ctx in (
             ("K=8", 8, "greedy", None), ("K=1", 1, "temperature", None),
             (f"tp={tp} K=8", 8, "greedy",
+             dctx.DistContext(make_mesh(tp, device="cuda"), "pallas")),
+            (f"tp={tp} K=8 shards", 8, "greedy",
              dctx.DistContext(make_mesh(tp, device="cuda"), "pallas"))):
         t0 = time.time()
-        records, done = taxes_card(params, cfg, reqs, K, sampler, ctx)
+        p = lm.shard_params(params, ctx.mesh) if "shards" in label \
+            else params
+        records, done = taxes_card(p, cfg, reqs, K, sampler, ctx)
+        del p
         check(len(done) == len(reqs) and all(
             len(r.out_tokens) == 32
             and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
@@ -6086,6 +6665,7 @@ def main():
     summary_tp, lens_tp = timed("9 full width ranks",
                                 phase_full_width_ranks, params)
     taxes = timed("19 three taxes", phase_taxes, params, smi)
+    sharded = timed("20 sharded weights", phase_sharded, params, summary_tp)
     del params
     torch.cuda.empty_cache()
     train, train_kernel = timed("12 training", phase_train, gen)
@@ -6117,9 +6697,10 @@ def main():
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
     kernels += ([train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
-                + front_kernels)
+                + front_kernels + sharded["kernels"])
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
-                moe, front, fam, summary, kernels[0]["host_us_per_call"])
+                moe, front, fam, summary, kernels[0]["host_us_per_call"],
+                sharded)
     if "--bounds-against" in sys.argv:
         check_bounds(kernels, sys.argv[sys.argv.index("--bounds-against")
                                        + 1])
@@ -6138,6 +6719,7 @@ def main():
                    "dots_tp_families": fam,
                    "dots_tp_family_kernels": fam_kernels,
                    "dryrun_vs_card": dry, "taxes": taxes,
+                   "sharded": sharded,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -269,6 +269,32 @@ def all_gather(x, *, gather_axis: int = 0):
             for d in x]
 
 
+def all_gather_devices(x, devices, *, gather_axis: int = -1):
+    """The plain all-gather of per-rank blocks ``x`` into a replicated
+    value: the whole tensor once on each of ``devices`` (a mesh's
+    distinct devices: ranks that share a device share the copy), blocks
+    in rank order. The decode sites' gathers (``core.patterns``)."""
+    record("all-gather", nbytes(*x), len(x))
+    return [torch.cat([to_device(t, d) for t in x], dim=gather_axis)
+            for d in devices]
+
+
+def all_reduce_devices(x, devices):
+    """The plain all-reduce of per-rank partial tensors ``x`` (one
+    shape) into a replicated value: their sum, in rank order, once on
+    each of ``devices`` (a mesh's distinct devices), so every copy is
+    the same."""
+    record("all-reduce", nbytes(x[0]), len(x))
+    out = []
+    for d in devices:
+        acc = None
+        for t in x:
+            t = to_device(t, d)
+            acc = t if acc is None else acc + t
+        out.append(acc)
+    return out
+
+
 def all_reduce(x):
     """The plain all-reduce: every rank sums every rank's tensor, in rank
     order, so every rank's sum is the same (x per rank, one shape)."""
@@ -354,22 +380,28 @@ def ag_gemm_k_sharded_sm(a, b, mesh, *, axis="model", mode="ring"):
     a_r = a if isinstance(a, (list, tuple)) else [a] * W
     b_r = b if isinstance(b, (list, tuple)) else [b] * W
     K = a_r[0].shape[-1]
-    _check(K % W == 0,
-           f"ag_gemm_k_sharded: K={K} must divide by the '{axis}' axis "
-           f"size W={W} (A is K-sharded; a ragged shard would silently "
-           f"drop columns)")
-    _check(b_r[0].shape[0] == K,
-           f"ag_gemm_k_sharded: A K dim {K} != B K dim {b_r[0].shape[0]}")
-    _check(mode != "ring_bidir" or (K // W) % 2 == 0,
-           f"ag_gemm_k_sharded: ring_bidir splits the local K shard "
-           f"K/W={K // W} in half; it must be even — odd shards "
-           f"mis-slice B's row blocks and return silently WRONG results "
-           f"(measured max err ~5 on a unit test, not a rounding issue)")
+    check_ag_gemm_k_sharded(K, b_r[0].shape[0], W, mode, axis)
     k = K // W
     shards = [a_r[r][..., r * k:(r + 1) * k].to(mesh.devices[r])
               for r in range(W)]
     return ag_gemm_k_sharded(shards, [x.to(mesh.devices[r]) for r, x in
                                       enumerate(b_r)], mode=mode)
+
+
+def check_ag_gemm_k_sharded(K: int, Kb: int, W: int, mode: str,
+                            axis: str = "model"):
+    """JAX's shape checks of ``ag_gemm_k_sharded_sm`` on global sizes."""
+    _check(K % W == 0,
+           f"ag_gemm_k_sharded: K={K} must divide by the '{axis}' axis "
+           f"size W={W} (A is K-sharded; a ragged shard would silently "
+           f"drop columns)")
+    _check(Kb == K,
+           f"ag_gemm_k_sharded: A K dim {K} != B K dim {Kb}")
+    _check(mode != "ring_bidir" or (K // W) % 2 == 0,
+           f"ag_gemm_k_sharded: ring_bidir splits the local K shard "
+           f"K/W={K // W} in half; it must be even — odd shards "
+           f"mis-slice B's row blocks and return silently WRONG results "
+           f"(measured max err ~5 on a unit test, not a rounding issue)")
 
 
 def check_ag_gemm_m_sharded(M: int, K: int, Kb: int, N: int, W: int,

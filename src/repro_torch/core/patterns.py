@@ -33,6 +33,20 @@ Decode:
                 falls back to ``ring``: a shape the kernels cannot take
                 raises.
 
+Decode over sharded weights (JAX's serve step on ``param_shardings``),
+where activations are replicated (one tensor per distinct device) and
+each rank holds its shards: a column-parallel group runs one grouped GEMM
+a rank over its columns (:func:`column_shards`), gathered to every
+device where the step needs the whole output (:func:`gather_columns`:
+q/k/v, the Mamba2 in_proj); at the row-parallel site
+(:func:`project_k_sharded` on row shards) ``auto`` sums each rank's
+partial product in fp32 in rank order (:func:`row_parallel_sum`: the
+local partial dot and all-reduce GSPMD makes of JAX's einsum), and
+``bsp``/``ring``/``pallas`` all-gather the row shards into a transient
+whole weight once per distinct device, then run the mode's AG+GEMM, as
+GSPMD gathers the weight in front of JAX's ``shard_map`` (which takes it
+replicated).
+
 Values are per-rank lists (see ``core.flash_decode``). The train sites
 take W = 1 too, as a list of one: a plain product (the up sites' group
 in one launch), whatever the mode, as in JAX.
@@ -107,31 +121,97 @@ def project_down(x, w):
     return cm.gemm_rs(x, w, mode=_sp_mode())
 
 
-def project_k_sharded(x, w):
+def project_k_sharded(x, w, *, rows: bool = False, x_sliced: bool = False):
     """The paper's Figure-3 AG+GEMM, decode row-parallel site: ``x`` per
-    rank (..., K) (ranks agree; each keeps its own K/W columns), ``w``
-    per rank (K, N). Returns per rank (..., N)."""
+    rank (..., K) (ranks agree; each keeps its own K/W columns), or with
+    ``x_sliced`` rank r's K/W columns alone (the MLP's hidden units of
+    its column shards); ``w`` per rank (K, N), or with ``rows`` rank r's
+    row block (K/W, N) of a weight the rules shard (the caller says
+    which, from ``lm.split_axes``; a shape that is neither raises).
+    Returns per rank (..., N).
+
+    On row blocks, ``auto`` sums the ranks' partial products
+    (:func:`row_parallel_sum`); the other modes all-gather the blocks
+    into a transient (K, N) once per distinct device (recorded as an
+    ``all-gather`` of the weight's bytes) and run the AG+GEMM on it."""
     ctx = dctx.current()
     mesh, mode = ctx.mesh, ctx.fusion_mode
-    if mode == "auto":
+    W = mesh.size
+    if x_sliced and not rows:
+        raise ValueError("project_k_sharded: a K-sliced x needs the row "
+                         "blocks of w")
+    K = x[0].shape[-1] * (W if x_sliced else 1)
+    if w[0].shape[0] * (W if rows else 1) != K:
+        raise ValueError(f"project_k_sharded: w {tuple(w[0].shape)} is not "
+                         f"{'a row block' if rows else 'the whole'} of a "
+                         f"({K}, N) weight over W={W}")
+    if mode == "auto" and not rows:
         return [dense(xr, wr) for xr, wr in zip(x, w)]
+    if K % W:
+        raise ValueError(f"project_k_sharded: K={K} must divide by W={W}")
+    k = K // W
+    lead = x[0].shape[:-1]
+    shards = x if x_sliced else [x[r][..., r * k:(r + 1) * k]
+                                 for r in range(W)]
+    if mode == "auto":
+        return mesh.per_rank(row_parallel_sum(shards, w))
+    if rows:
+        w = mesh.per_rank(cm.all_gather_devices(w, mesh.distinct,
+                                                gather_axis=0))
+    w = [wr.to(xr.dtype) for wr, xr in zip(w, x)]
     if mode == "pallas":
-        W = mesh.size
-        K = x[0].shape[-1]
-        if K % W:
-            raise ValueError(f"ag_gemm_fused: K={K} must divide by W={W}")
-        k = K // W
-        lead = x[0].shape[:-1]
-        shards = [x[r].reshape(-1, K)[:, r * k:(r + 1) * k].contiguous()
-                  for r in range(W)]
+        shards = [s.reshape(-1, k).contiguous() for s in shards]
         cm.record("all-gather", W * cm.nbytes(shards[0]), W)
-        out = ag_gemm_fused(shards, [wr.to(xr.dtype) for wr, xr in
-                                     zip(w, x)], mesh)
+        out = ag_gemm_fused(shards, w, mesh)
         return [o.reshape(*lead, o.shape[-1]) for o in out]
     m = "bsp" if mode == "bsp" else "ring_bidir"
-    return cm.ag_gemm_k_sharded_sm([xr for xr in x],
-                                   [wr.to(xr.dtype) for wr, xr in zip(w, x)],
-                                   mesh, mode=m)
+    if not x_sliced:
+        return cm.ag_gemm_k_sharded_sm(list(x), w, mesh, mode=m)
+    cm.check_ag_gemm_k_sharded(K, w[0].shape[0], W, m)
+    return cm.ag_gemm_k_sharded(shards, w, mode=m)
+
+
+def row_parallel_sum(x, w):
+    """sum_r x_r @ w_r over the ranks, as a replicated value: ``x`` per
+    rank (..., K/W) (its K-slice), ``w`` per rank (K/W, N) (its row
+    block); each rank's partial product (the GEMM, in ``x``'s dtype)
+    summed in fp32 in rank order once per distinct device
+    (``cm.all_reduce_devices``), cast back to ``x``'s dtype. Returns
+    per device (..., N)."""
+    mesh = dctx.current().mesh
+    parts = [dense(xr.contiguous(), wr).float() for xr, wr in zip(x, w)]
+    return [t.to(x[0].dtype)
+            for t in cm.all_reduce_devices(parts, mesh.distinct)]
+
+
+def column_shards(x, ws):
+    """The decode column-parallel products over per-rank weights: ``x``
+    per distinct device (..., K), replicated; ``ws`` one per-rank list
+    per site of a group that shares ``x`` (wq/wk/wv, wg/wu), rank r's
+    (K, N_i/W) column block (or the whole (K, N_i) where the rules
+    replicate it). One grouped GEMM launch a rank. Returns one per-rank
+    list (..., N_i/W) per site."""
+    mesh = dctx.current().mesh
+    xr = mesh.per_rank(x)
+    ys = [dense_group(xr[r], [w[r] for w in ws]) for r in range(mesh.size)]
+    return [[y[i] for y in ys] for i in range(len(ws))]
+
+
+def gather_columns(x, ws, split):
+    """:func:`column_shards` with each site's output made whole on every
+    distinct device: ``split`` says per site whether its weight is a
+    column block (all-gathered, ``cm.all_gather_devices``) or whole
+    (taken from the first rank of each device). A group whole at every
+    site runs once per device. Returns one per-device list (..., N_i)
+    per site."""
+    mesh = dctx.current().mesh
+    if not any(split):
+        ys = [dense_group(xd, [w[r] for w in ws])
+              for xd, r in zip(x, mesh.leaders)]
+        return [[y[i] for y in ys] for i in range(len(ws))]
+    return [cm.all_gather_devices(y, mesh.distinct, gather_axis=-1) if s
+            else mesh.from_ranks(y)
+            for y, s in zip(column_shards(x, ws), split)]
 
 
 def decode_attn_fused(q, k_new, v_new, k_cache, v_cache, cur_len, *, scale,

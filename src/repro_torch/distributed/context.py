@@ -98,6 +98,15 @@ class DistContext:
         return 1 if self.mesh is None else self.mesh.size
 
 
+def by_device(per_rank: list) -> list:
+    """A per-rank value whose ranks agree on each device (replicated
+    weights, or what they compute) as a replicated one under the ambient
+    mesh: the first rank's entry on each distinct device (the list
+    itself at one rank)."""
+    mesh = current().mesh
+    return per_rank if mesh is None else mesh.from_ranks(per_rank)
+
+
 _CURRENT: DistContext | None = None
 
 

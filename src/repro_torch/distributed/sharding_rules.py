@@ -147,23 +147,43 @@ def shard_dims(spec: dict, rules: Rules, prefix: str = "") -> dict:
     return out
 
 
+def shard_shape(shape, dim: int | None, W: int) -> tuple:
+    """The per-rank shape of a leaf of global ``shape`` whose ``dim`` is
+    split in W blocks (``None``: replicated, the whole shape); JAX's
+    ``NamedSharding.shard_shape``."""
+    shape = tuple(shape)
+    if dim is None:
+        return shape
+    return shape[:dim] + (shape[dim] // W,) + shape[dim + 1:]
+
+
 def shard_tree(tree: dict, spec: dict, rules: Rules,
-               devices=None) -> list[dict]:
+               devices=None, share_replicated: bool = False) -> list[dict]:
     """Per-rank trees of ``tree``'s global leaves: a sharded leaf's block
     r (a contiguous copy) on rank r, a replicated leaf's own copy on
-    every rank (ranks that share a device still hold separate tensors).
-    ``devices``: one per rank (default: the leaves' own)."""
+    every rank (ranks that share a device still hold separate tensors,
+    as training writes each), or with ``share_replicated`` one copy per
+    distinct device, which every rank on it holds (serving: nothing
+    writes them). ``devices``: one per rank (default: the leaves'
+    own)."""
     W = rules.model_size
     dims = shard_dims(spec, rules)
+    shared: dict = {}
 
     def one(r):
         def cut(path, x):
             d = dims[path]
             x = x.detach()
+            dev = x.device if devices is None else devices[r]
+            if d is None and share_replicated:
+                key = (path, str(dev))
+                if key not in shared:
+                    shared[key] = x.to(dev, copy=True,
+                                       memory_format=torch.contiguous_format)
+                return shared[key]
             if d is not None:
                 n = x.shape[d] // W
                 x = x.narrow(d, r * n, n)
-            dev = x.device if devices is None else devices[r]
             return x.to(dev, copy=True,
                         memory_format=torch.contiguous_format)
         return tree_map(cut, tree)

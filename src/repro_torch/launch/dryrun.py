@@ -8,9 +8,11 @@ For each cell this driver:
   1. builds a model-only mesh of ``tp`` ranks, one fake CPU device a
      rank (``cpu:0`` ... ``cpu:<tp-1>``: distinct devices, so what one
      card of a ``tp``-card node holds is what one fake device holds);
-  2. makes the parameters (``lm.shard_params`` for train and prefill,
-     ``lm.replicate`` for decode, as the engine does), the optimizer
-     state, the inputs (``steps.input_specs``) and the decode state
+  2. makes the parameters (``lm.shard_params``: Megatron shards by the
+     sharding rules, trainable for train, the serving storage for
+     prefill and decode, as JAX's ``dryrun.py`` places every cell on
+     ``param_shardings``), the optimizer state, the inputs
+     (``steps.input_specs``) and the decode state
      under ``torch._subclasses.fake_tensor.FakeTensorMode``: no byte is
      allocated and every kernel wrapper takes its plain version;
   3. runs the cell's step: train = forward, loss, backward and AdamW
@@ -289,9 +291,9 @@ def _step(cfg, shape, mesh):
     dev0 = "cpu" if mesh is None else mesh.devices[0]
     train = shape.kind == "train"
     params = lm.init_params(cfg, device=dev0, trainable=train)
+    if mesh is not None:
+        params = lm.shard_params(params, mesh)
     if shape.kind in ("train", "prefill"):
-        if mesh is not None:
-            params = lm.shard_params(params, mesh)
         batch = _fake_inputs(cfg, shape, dev0)
         if train:
             opt = steps_lib.init_opt_state(params)
@@ -299,8 +301,6 @@ def _step(cfg, shape, mesh):
             return (lambda: fn(params, opt, batch)), params, opt, None, batch
         fn = steps_lib.make_eval_step(cfg)
         return (lambda: fn(params, batch)), params, None, None, batch
-    if mesh is not None:
-        params = lm.replicate(params, mesh)
     first = lm.as_ranks(params)[0]
     B, S = shape.global_batch, shape.seq_len
     state = lm.init_decode_state(first, cfg, B, S)

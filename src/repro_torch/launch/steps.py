@@ -12,9 +12,17 @@ holds what JAX's ``input_specs`` name for the model's family
 (:func:`synthetic_batch`). :func:`input_specs`,
 :func:`decode_state_specs` and :func:`param_specs` are JAX's
 ShapeDtypeStruct stand-ins as meta tensors (shape and dtype, no
-storage), which ``launch.dryrun`` makes fake tensors of; the JAX
-module's sharding trees belong to its data x model meshes, which the
-port does not build.
+storage), which ``launch.dryrun`` makes fake tensors of.
+
+The sharding trees are JAX's for the port's model-only mesh, as plain
+dicts (no ``NamedSharding``): :func:`param_shardings` says for every
+parameter leaf which dim the ``model`` axis splits and the per-rank
+shape (what ``lm.shard_params`` cuts), :func:`decode_state_shardings`
+the same for the decode state (the KV caches' sequence dim, JAX's
+``kv_seq``; the recurrent state and ``cur_len`` replicated), and
+:func:`batch_sharding` is trivial: the ``data`` axis has size 1, so the
+batch is replicated (the port builds no data axis yet).
+:func:`jitted_serve_step` is JAX's serve step on those shardings.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import lm
 from repro_torch.models.module import tree_map
 from repro_torch.optim import adamw
@@ -71,6 +80,68 @@ def param_specs(cfg, trainable: bool = True) -> dict:
     return tree_map(lambda path, p: _spec(
         p.shape, cfg.param_dtype if trainable
         else lm.storage_dtype(path, cfg)), lm.lm_spec(cfg))
+
+
+# ----------------------------------------------------------- sharding trees
+def _sharding(shape, dim, W: int) -> dict:
+    return {"dim": dim, "shape": sr.shard_shape(shape, dim, W)}
+
+
+def param_shardings(cfg, rules: sr.Rules) -> dict:
+    """JAX's ``param_shardings`` on the model-only mesh: the parameter
+    tree with a leaf ``{"dim": the dim the model axis splits or None,
+    "shape": the per-rank shape}`` for every parameter (rank r holds
+    block r of ``dim``; ``sharding_rules``' divisibility fallback
+    replicates, and ``rules.degradations`` records it)."""
+    dims = sr.shard_dims(lm.lm_spec(cfg), rules)
+    return tree_map(lambda path, p: _sharding(p.shape, dims[path],
+                                              rules.model_size),
+                    lm.lm_spec(cfg))
+
+
+def decode_state_shardings(cfg, rules: sr.Rules, state_specs) -> dict:
+    """JAX's ``decode_state_shardings`` on the model-only mesh, as
+    :func:`param_shardings` leaves over ``state_specs`` (a state, or
+    :func:`decode_state_specs`): an attention KV cache (a ``"k"``/``"v"``
+    leaf of 4 or more dims, (..., B, S, KVH, hd)) split on its sequence
+    dim where it divides by W (``kv_seq``; the port's strided layout,
+    ``lm.init_decode_state``); every other leaf replicated (the batch
+    dim would go to the data axis, which has size 1)."""
+    W = rules.model_size
+
+    def one(path, x):
+        nd = x.dim()
+        kv = path.rsplit(".", 1)[-1] in ("k", "v") and nd >= 4
+        dim = nd - 3 if kv and x.shape[nd - 3] % W == 0 else None
+        return _sharding(x.shape, dim, W)
+    return tree_map(one, state_specs)
+
+
+def batch_sharding(rules: sr.Rules, specs) -> dict:
+    """JAX's ``batch_sharding``: dim 0 over the data axes, which the
+    port's mesh holds at size 1, so every leaf is replicated."""
+    return tree_map(lambda _, x: _sharding(x.shape, None, rules.model_size),
+                    specs)
+
+
+def jitted_serve_step(cfg, mesh, fusion_mode: str = "auto"):
+    """JAX's ``jitted_serve_step``: (serve_fn, ctx, shardings). ``ctx``
+    is the ``DistContext`` of ``mesh`` (None: one rank) and
+    ``fusion_mode``; ``shardings`` is :func:`param_shardings`;
+    ``serve_fn(params, token, state)`` runs :func:`make_serve_step`'s
+    step under ``ctx`` with ``params`` placed as ``shardings`` says
+    (``lm.shard_params(params, mesh)``, JAX's ``device_put`` on them)
+    and ``state`` from ``lm.init_decode_state`` under ``ctx``. PyTorch
+    runs eagerly: nothing is compiled."""
+    rules = sr.rules_for(cfg, mesh)
+    ctx = dctx.DistContext(mesh if mesh is not None and mesh.size > 1
+                           else None, fusion_mode)
+    step_fn = make_serve_step(cfg)
+
+    def serve_fn(params, token, state):
+        with dctx.use(ctx), torch.no_grad():
+            return step_fn(params, token, state)
+    return serve_fn, ctx, param_shardings(cfg, rules)
 
 
 def init_opt_state(params):

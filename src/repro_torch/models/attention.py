@@ -5,10 +5,11 @@ over W ranks, each rank on its heads), and the decode step
 over the paged pool and the contiguous strided cache, on one rank or
 over the W ranks of the ambient mesh.
 
-Values in the decode step: ``params``, ``x``, ``cur_len``, ``active``
-and ``block_tables`` are lists with one entry per distinct device of the
-mesh (one entry at W = 1); the caches are lists of per-rank shards
-(``distributed.context``)."""
+Values in the decode step: ``params`` one tree per rank (its shards by
+the sharding rules, ``lm.shard_params``, or the replicated weights of
+its device); ``x``, ``cur_len``, ``active`` and ``block_tables`` lists
+with one entry per distinct device of the mesh (one entry at W = 1); the
+caches lists of per-rank shards (``distributed.context``)."""
 from __future__ import annotations
 
 import torch
@@ -207,9 +208,26 @@ def apply_attn(params, x, cfg, *, positions=None, dense_threshold=2048):
 def _qkv(params, x, cur_len, cfg):
     """q (B, H, hd), k/v (B, KVH, hd) of this step, RoPE at cur_len - 1;
     the three projections are one grouped GEMM call."""
-    B = x.shape[0]
+    return _heads(*dense_group(x, [params["wq"], params["wk"],
+                                   params["wv"]]), cur_len, cfg)
+
+
+def _qkv_ranks(params, x, cur_len, cfg, split):
+    """:func:`_qkv` on every distinct device over per-rank weights: the
+    column-parallel q/k/v (one grouped GEMM a rank over its head
+    columns, where ``split`` names an axis) gathered whole to every
+    device, then the heads and RoPE. Whole weights run once per
+    device."""
+    names = ("wq", "wk", "wv")
+    qkv = patterns.gather_columns(
+        x, [[p[n] for p in params] for n in names],
+        [split[n] is not None for n in names])
+    return [_heads(q, k, v, cl, cfg) for q, k, v, cl in zip(*qkv, cur_len)]
+
+
+def _heads(q, k, v, cur_len, cfg):
+    B = q.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = dense_group(x, [params["wq"], params["wk"], params["wv"]])
     q = q.reshape(B, 1, H, hd)
     k = k.reshape(B, 1, KVH, hd)
     v = v.reshape(B, 1, KVH, hd)
@@ -221,8 +239,11 @@ def _qkv(params, x, cur_len, cfg):
 
 
 def decode_attn_step(params, x, cache, cur_len, cfg, active,
-                     block_tables=None, bounded: bool = True):
-    """One-token decode. x: per device (B, 1, d); cache: dict(k, v) of
+                     block_tables=None, bounded: bool = True, *, split):
+    """One-token decode. params: per rank {"wq", "wk", "wv" column
+    blocks, "wo" row block} (or whole, where the rules replicate them;
+    ``split``, the block's ``lm.split_axes``, says which);
+    x: per device (B, 1, d); cache: dict(k, v) of
     per-rank shards -- paged pools (n_loc, block_size, KVH, hd) with
     ``block_tables`` (per device (B, C) int32, possibly a leading
     gather-width slice), else strided caches (B, S_max / W, KVH, hd);
@@ -231,17 +252,22 @@ def decode_attn_step(params, x, cache, cur_len, cfg, active,
 
     The K/V write goes into the cache IN PLACE (inactive slots' entries
     stay byte-identical). Attention and ``wo`` run through the fusion
-    mode's patterns at W > 1 (``core.patterns``); at W = 1 through the
-    paged or strided flash-decode kernel and the GEMM. ``bounded``
-    (W > 1, paged) picks the table walk over the masked whole-shard
-    oracle. Returns per device out (B, 1, d)."""
+    mode's patterns at W > 1 (``core.patterns``): q/k/v column-parallel
+    and gathered to every device (the KV cache is sequence-sharded and
+    holds every KV head), ``wo`` at the row-parallel site; at W = 1
+    through the paged or strided flash-decode kernel and the GEMM.
+    ``bounded`` (W > 1, paged) picks the table walk over the masked
+    whole-shard oracle. Returns per device out (B, 1, d)."""
     ctx = dctx.current()
     mesh = ctx.mesh
     W = len(cache["k"])
     B = x[0].shape[0]
     H, hd = cfg.n_heads, cfg.hd
     scale = 1.0 / (hd ** 0.5)
-    qkv = [_qkv(p, xd, cl, cfg) for p, xd, cl in zip(params, x, cur_len)]
+    if W == 1:
+        qkv = [_qkv(params[0], x[0], cur_len[0], cfg)]
+    else:
+        qkv = _qkv_ranks(params, x, cur_len, cfg, split)
     if W == 1:
         (q, k, v), = qkv
         if block_tables is not None:
@@ -269,8 +295,8 @@ def decode_attn_step(params, x, cache, cur_len, cfg, active,
     else:
         o = _strided(cfg, q, k, v, cache, cl, act, scale)
     out = patterns.project_k_sharded(
-        [t.reshape(B, 1, H * hd) for t in o],
-        mesh.per_rank([p["wo"] for p in params]))
+        [t.reshape(B, 1, H * hd) for t in o], [p["wo"] for p in params],
+        rows=split["wo"] is not None)
     return mesh.from_ranks(out)
 
 

@@ -40,6 +40,7 @@ state, ``cur_len``, the tables) one copy per distinct device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -52,7 +53,7 @@ from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import transformer
 from repro_torch.models.layers import (apply_embed, apply_norm, apply_unembed,
                                        dense, embed_spec, norm_spec)
-from repro_torch.models.module import Param, init_tree, tree_items
+from repro_torch.models.module import Param, init_tree, tree_items, tree_map
 
 
 def lm_spec(cfg):
@@ -137,7 +138,11 @@ class _Mixed(nn.Module):
 
 
 class LM(nn.Module):
-    """Parameter tree of a decoder LM, keyed like the JAX tree."""
+    """Parameter tree of a decoder LM, keyed like the JAX tree.
+    ``split``: on one rank's shards (:func:`shard_params`) the
+    :func:`split_axes` tree they were cut by; None on whole weights."""
+
+    split: dict | None = None
 
     def __init__(self, cfg, tree: dict, trainable: bool = False):
         super().__init__()
@@ -200,19 +205,54 @@ def shard_dims(cfg, mesh) -> dict:
     return sr.shard_dims(lm_spec(cfg), sr.rules_for(cfg, mesh))
 
 
+def split_axes(cfg, mesh) -> dict:
+    """The parameter tree with, at every leaf, the logical axis that the
+    ``model`` axis of ``mesh`` splits (``"heads"``, ``"mlp"``,
+    ``"experts"``, ``"vocab"``, ...), or None where the sharding rules
+    keep the leaf whole (every leaf when ``mesh`` is None): how
+    :func:`shard_params` cuts, and what the decode sites read to tell a
+    rank's block from a whole weight (:func:`decode_step`)."""
+    spec = lm_spec(cfg)
+    dims = shard_dims(cfg, mesh)
+    return tree_map(lambda path, p: None if dims[path] is None
+                    else p.axes[dims[path]], spec)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole(cfg) -> dict:
+    return split_axes(cfg, None)
+
+
 def shard_params(params: LM, mesh) -> list:
-    """The per-rank :class:`LM` of ``params`` over ``mesh``: rank r on
-    ``mesh.devices[r]`` holds block r of every sharded leaf and its own
-    copy of every replicated one (also where ranks share a card, so the
-    same code runs on virtual and real ranks). Trainable stays
-    trainable. Every block: the expert, ``ssm_inner`` and ``mlp`` dims
-    split as the rules say (serving replicates instead,
-    :func:`replicate`)."""
+    """The per-rank :class:`LM` of ``params`` over ``mesh`` (JAX's
+    ``param_shardings``): rank r on ``mesh.devices[r]`` holds block r of
+    every leaf the rules shard over ``model`` (attention heads, MLP and
+    ``ssm_inner`` columns, the experts or their ``expert_mlp`` columns,
+    the vocab; the divisibility fallback replicates, as recorded by
+    ``sharding_rules``), each in the dtype ``params`` stores it in. A
+    trainable ``params`` gives every rank its own copy of every
+    replicated leaf (also where ranks share a card, so the same code
+    runs on virtual and real ranks, and each copy takes its update); a
+    serving one (``storage_dtype``: fp32 head and :data:`FP32_LEAVES`,
+    ``cfg.dtype`` otherwise) one copy per distinct device, shared by its
+    ranks, which :func:`decode_step` reads once per device. Each rank's
+    ``split`` is :func:`split_axes`."""
     cfg = params.cfg
     trainable = any(p.requires_grad for p in params.parameters())
     trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
-                          sr.rules_for(cfg, mesh), devices=mesh.devices)
-    return [LM(cfg, t, trainable) for t in trees]
+                          sr.rules_for(cfg, mesh), devices=mesh.devices,
+                          share_replicated=not trainable)
+    split = split_axes(cfg, mesh)
+    out = [LM(cfg, t, trainable) for t in trees]
+    for p in out:
+        p.split = split
+    return out
+
+
+def device_of(params) -> torch.device:
+    """The device of an :class:`LM`, or of the first of a per-rank or
+    per-device list of them."""
+    return as_ranks(params)[0].device
 
 
 def gather_params(shards: list, mesh) -> LM:
@@ -527,7 +567,7 @@ def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
     state, ``cur_len`` and ``block_tables`` are lists with one copy per
     distinct device."""
     mesh = _mesh()
-    devs = [params.device] if mesh is None else list(mesh.distinct)
+    devs = [device_of(params)] if mesh is None else list(mesh.distinct)
     if mesh is None:
         caches = transformer.init_paged_caches(
             cfg, batch, n_blocks, block_size, cfg.dtype, device=devs[0])
@@ -560,10 +600,11 @@ def init_decode_state(params, cfg, batch: int, max_len: int):
     ``cur_len`` one copy per distinct device."""
     mesh = _mesh()
     if mesh is None:
+        dev = device_of(params)
         return {"caches": transformer.init_caches(
-                    cfg, batch, max_len, cfg.dtype, device=params.device),
+                    cfg, batch, max_len, cfg.dtype, device=dev),
                 "cur_len": torch.zeros((batch,), dtype=torch.int32,
-                                       device=params.device)}
+                                       device=dev)}
     return {"caches": _mesh_caches(cfg, mesh, batch,
                                    lambda d: transformer.contiguous_kv(
                                        cfg, batch, max_len, cfg.dtype, d,
@@ -624,6 +665,70 @@ def _device_lists(tree):
     return _per_device(tree)
 
 
+def _step_ranks(params, cfg) -> tuple:
+    """``params`` as one :class:`LM` per rank of the ambient mesh, and
+    the :func:`split_axes` tree they hold: a list of ``mesh.size``
+    shards (:func:`shard_params`) is per rank and split as its
+    ``split`` says; whole weights (an :class:`LM`: one rank, or every
+    rank's replica on one card; a per-device list, :func:`replicate`,
+    repeated for the ranks of each device) hold every leaf whole."""
+    ps = _per_device(params)
+    mesh = _mesh()
+    split = ps[0].split
+    W, n_dev = (1, 1) if mesh is None else (mesh.size, len(mesh.distinct))
+    if split is not None and isinstance(params, list) and len(ps) == W:
+        return ps, split
+    if split is None and len(ps) == n_dev:
+        return (ps if mesh is None else mesh.per_rank(ps)), _whole(cfg)
+    raise ValueError(f"{len(ps)} parameter trees "
+                     f"({'shards' if split else 'whole'}) for a mesh of "
+                     f"{W} ranks on {n_dev} devices: pass "
+                     f"lm.shard_params(params, mesh) (one per rank) or "
+                     f"lm.replicate(params, mesh) (one per device)")
+
+
+def _embed_decode(ps, token, cfg, axis):
+    """The decode step's input (B, 1, d) in ``cfg.dtype`` once per
+    distinct device, from per-rank ``ps`` whose input table the model
+    axis splits along ``axis`` (:func:`split_axes`): the fp32 gather of
+    JAX's decode, in the table's layout (:func:`_embed_ranks`): whole,
+    gathered on each device; its columns sharded, each rank's columns
+    all-gathered; its rows sharded (``in_vocab``: paligemma), each
+    rank's masked gather summed over the ranks in rank order. Cast, then
+    rwkv's ``ln_in``, as JAX's decode orders them."""
+    mesh = _mesh()
+    dev = dctx.by_device(ps)
+    if axis is None:
+        x = [apply_embed(p["embed"], token.to(p.device), torch.float32)
+             for p in dev]
+    else:
+        g = [_gather(p, token, cfg, r) for r, p in enumerate(ps)]
+        x = (cm.all_reduce_devices(g, mesh.distinct) if axis == "in_vocab"
+             else cm.all_gather_devices(g, mesh.distinct, gather_axis=-1))
+    x = [t.to(cfg.dtype) for t in x]
+    if cfg.block == "rwkv":
+        x = [apply_norm(p["ln_in"], t, "layernorm") for p, t in zip(dev, x)]
+    return x
+
+
+def _logits_decode(ps, x, cfg, split):
+    """The final norm once per device and the unembed: one (B, 1, V)
+    bf16 tensor on the first device. A whole head runs once there; vocab
+    shards (``logits_fn``, one product a rank) are gathered along the
+    vocab onto it, for the sampler."""
+    dev = dctx.by_device(ps)
+    axis = split["embed" if cfg.tie_embeddings else "head"]["table"]
+    if axis is None:
+        return logits_fn(dev[0], apply_norm(dev[0]["ln_f"], x[0], cfg.norm),
+                         cfg)
+    if axis not in ("vocab", "in_vocab"):
+        raise NotImplementedError(f"decode's unembed over a head split "
+                                  f"along {axis!r}")
+    h = [apply_norm(p["ln_f"], xd, cfg.norm) for p, xd in zip(dev, x)]
+    parts = logits_fn(ps, _mesh().per_rank(h), cfg, seq_sharded=False)
+    return cm.all_gather_devices(parts, [h[0].device], gather_axis=-1)[0]
+
+
 def decode_step(params, token, state, cfg, active=None,
                 gather_width: int | None = None, bounded: bool = True):
     """token: (B, 1) int; one autoregressive step over the paged state
@@ -631,8 +736,11 @@ def decode_step(params, token, state, cfg, active=None,
     (``init_decode_state``). Returns (logits (B, 1, V) bf16 on the first
     device, state) with ``state`` updated IN PLACE.
 
-    ``params``: an :class:`LM`, or over a mesh with several distinct
-    devices one per device (:func:`replicate`). ``active`` (B,) bool:
+    ``params``: an :class:`LM`; over a mesh with several ranks, per-rank
+    shards (:func:`shard_params`: a list of ``mesh.size``, JAX's serve
+    step on ``param_shardings``) or one replica per distinct device
+    (:func:`replicate`); the decode sites read how they are split from
+    :func:`split_axes` (``transformer.decode``). ``active`` (B,) bool:
     slots that consume a token this step; inactive slots keep their KV
     entries and ``cur_len`` byte-identical. ``None`` means all slots
     step.
@@ -644,30 +752,22 @@ def decode_step(params, token, state, cfg, active=None,
     ``bounded`` (paged, W > 1): the table walk (default) or the masked
     whole-shard oracle (CPU only)."""
     cur_len = _per_device(state["cur_len"])
-    ps = _per_device(params)
-    if len(ps) != len(cur_len):
-        raise ValueError(f"{len(ps)} parameter replicas for "
-                         f"{len(cur_len)} devices: pass lm.replicate("
-                         f"params, mesh)")
+    ps, split = _step_ranks(params, cfg)
     B = token.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=token.device)
     act = [active.to(c.device) for c in cur_len]
     for c, a in zip(cur_len, act):
         c += a.to(torch.int32)            # includes the new token
-    x = [apply_embed(p["embed"], token.to(c.device), torch.float32)
-         .to(cfg.dtype) for p, c in zip(ps, cur_len)]
-    if cfg.block == "rwkv":
-        x = [apply_norm(p["ln_in"], xd, "layernorm") for p, xd in zip(ps, x)]
+    x = _embed_decode(ps, token, cfg, split["embed"]["table"])
     bt = state.get("block_tables")
     btg = None if bt is None else [
         b if gather_width is None else b[:, :gather_width]
         for b in _per_device(bt)]
     caches = _device_lists(state["caches"])
     x = transformer.decode([p["backbone"] for p in ps], x, caches, cur_len,
-                           cfg, act, btg, bounded)
-    h = apply_norm(ps[0]["ln_f"], x[0], cfg.norm)
-    return logits_fn(ps[0], h, cfg), state
+                           cfg, act, btg, bounded, split=split["backbone"])
+    return _logits_decode(ps, x, cfg, split), state
 
 
 def decode_chunk(params, tokens, counts, state, cfg,

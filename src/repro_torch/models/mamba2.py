@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import patterns
+from repro_torch.distributed import context as dctx
 from repro_torch.models.layers import dense, select_
 from repro_torch.models.module import Param
 
@@ -211,13 +212,53 @@ def apply_mamba_decode(params, x, cache, cfg, active):
     "ssm"} (views into the stacked state), updated IN PLACE for the
     slots of ``active`` (B,) bool, the others byte-identical. Returns
     y (B, 1, d)."""
+    y = _decode_mix(params, dense(x, params["in_proj"]), cache, cfg, active,
+                    x.dtype)
+    return dense(y, params["out_proj"])
+
+
+def apply_mamba_decode_ranks(params, x, caches, cfg, active, split):
+    """One-token decode over the W ranks of the ambient mesh, JAX's
+    ``apply_mamba_decode`` on sharded weights: params per rank
+    (``in_proj`` column block, ``out_proj`` row block, the rest
+    replicated), x, caches (this layer's) and active per distinct
+    device. The in_proj runs one GEMM a rank over its columns, the
+    blocks all-gathered to every device (they cut through z and x), so
+    the conv, the SSM update and the readout run whole on each device on
+    its replicated state, as in :func:`apply_mamba_ranks`; ``out_proj``
+    is the row-parallel site (``patterns.project_k_sharded``). ``split``
+    (the layer's ``lm.split_axes``) says which projections are a rank's
+    block; whole weights run once per device. Returns per device y (B,
+    1, d)."""
+    mesh = dctx.current().mesh
+    dev = dctx.by_device(params)
+    cols = split["in_proj"] is not None
+    rows = split["out_proj"] is not None
+    if not (cols or rows):
+        return [apply_mamba_decode(p, xd, c, cfg, a)
+                for p, xd, c, a in zip(dev, x, caches, active)]
+    (zx,) = patterns.gather_columns(x, [[p["in_proj"] for p in params]],
+                                    [cols])
+    y = [_decode_mix(p, z, c, cfg, a, xd.dtype)
+         for p, z, c, a, xd in zip(dev, zx, caches, active, x)]
+    if not rows:
+        return [dense(yd, p["out_proj"]) for p, yd in zip(dev, y)]
+    return dctx.by_device(patterns.project_k_sharded(
+        mesh.per_rank(y), [p["out_proj"] for p in params], rows=True))
+
+
+def _decode_mix(params, zxbcdt, cache, cfg, active, dtype):
+    """The decode step between the projections: the conv window, the
+    SSM update, the readout and the gated norm over the in-projection's
+    output ``zxbcdt`` (B, 1, 2 d_in + 2 n + nh); writes ``cache`` IN
+    PLACE for the slots of ``active``. Returns y (B, 1, d_in)."""
     d_in, n, nh = dims(cfg)
-    z, xs, Bm, Cm, dt = _split(cfg, dense(x, params["in_proj"]))
+    z, xs, Bm, Cm, dt = _split(cfg, zxbcdt)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)             # (B,1,C)
     hist = torch.cat([cache["conv"], conv_in], dim=1)     # (B,K,C)
-    w = params["conv_w"].to(x.dtype)
+    w = params["conv_w"].to(dtype)
     conv = F.silu((hist * w).sum(dim=1)
-                  + params["conv_b"].to(x.dtype))[:, None, :]
+                  + params["conv_b"].to(dtype))[:, None, :]
     xs, Bm, Cm = torch.split(conv, [d_in, n, n], dim=-1)
     dt = softplus(dt.float() + params["dt_bias"].float())[:, 0]  # (B,nh)
     A = -torch.exp(params["A_log"].float())
@@ -227,8 +268,8 @@ def apply_mamba_decode(params, x, cache, cfg, active):
     ssm = cache["ssm"] * dec[:, :, None, None] + upd
     y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), ssm)
     y = y + xh * params["D"].float()[:, None]
-    y = _gate_norm(y.reshape(-1, 1, d_in), z, params, x.dtype)
+    y = _gate_norm(y.reshape(-1, 1, d_in), z, params, dtype)
     select_(active, cache["conv"], hist[:, 1:])
     select_(active, cache["ssm"], ssm)
-    return dense(y, params["out_proj"])
+    return y
 

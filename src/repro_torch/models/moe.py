@@ -14,7 +14,8 @@ Sort-based capacity routing, as in JAX:
 
 Over W ranks (training, :func:`apply_moe_ranks`) each rank runs its
 share of the experts, as JAX's sharding rules place them, on the
-gathered sequence, and the partial combines are reduce-scattered.
+gathered sequence, and the partial combines are reduce-scattered; the
+decode step (:func:`apply_moe_decode`) all-reduces them.
 
 The Switch aux load-balance loss is returned alongside. No op here
 syncs with the host (no ``nonzero``, boolean-mask indexing, ``unique``
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import collective_matmul as cm
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels.matmul import matmul_batched
 from repro_torch.models.layers import dense
 from repro_torch.models.module import Param
@@ -155,6 +157,34 @@ def apply_moe(params, x, cfg):
     in JAX (a no-op for the serving storage)."""
     r = route(x, params["router"], cfg)
     return _combine_share(params, x, r, cfg, 0).to(x.dtype), r["aux"]
+
+
+def apply_moe_decode(params, x, cfg, split):
+    """The decode layer (S = 1) over the W ranks of the ambient mesh,
+    JAX's ``apply_moe`` on sharded experts: params per rank, placed as
+    :func:`apply_moe_ranks` places them and as ``split`` (the layer's
+    ``lm.split_axes``) names it (``"experts"``: olmoe's experts over the
+    ranks; ``"expert_mlp"``: mixtral's columns; None: every expert
+    whole, where E % W != 0); x per distinct device (B, 1, D),
+    replicated. Each device routes once on its replicated router; each
+    rank runs its share of the three expert products (one batched launch
+    each) and weights its partial combine by the gates; the partials are
+    all-reduced in fp32 in rank order (``cm.all_reduce_devices``). Whole
+    experts (or W = 1) run
+    :func:`apply_moe` once per device. The aux loss is dropped, as in
+    JAX's decode. Returns per device (B, 1, D)."""
+    dev = dctx.by_device(params)
+    if split["wg"] is None:
+        return [apply_moe(p, xd, cfg)[0] for p, xd in zip(dev, x)]
+    mesh = dctx.current().mesh
+    n = cfg.moe_num_experts // mesh.size if split["wg"] == "experts" else 0
+    routes = mesh.per_rank([route(xd, p["router"], cfg)
+                            for p, xd in zip(dev, x)])
+    xr = mesh.per_rank(x)
+    parts = [_combine_share(p, xr[r], routes[r], cfg, r * n)
+             for r, p in enumerate(params)]
+    return [t.to(x[0].dtype)
+            for t in cm.all_reduce_devices(parts, mesh.distinct)]
 
 
 def apply_moe_ranks(params, x, cfg, *, seq_sharded: bool):

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import patterns
+from repro_torch.distributed import context as dctx
 from repro_torch.models.layers import apply_norm, dense, norm_spec, select_
 from repro_torch.models.module import Param
 
@@ -239,16 +240,60 @@ def apply_rwkv_decode(params, x, state, cfg, active):
     "x_prev_c", "S"} (views into the stacked state), updated IN PLACE
     for the slots of ``active`` (B,) bool, the others byte-identical.
     Returns x (B, 1, d)."""
-    B, _, d = x.shape
-    nh = d // HEAD
+    x, xk, new = _decode_time(params, x, state)
+    x = x + dense(torch.square(F.relu(dense(xk, params["ck"]))),
+                  params["cv"])
+    _commit(state, active, *new)
+    return x
+
+
+def apply_rwkv_decode_ranks(params, x, states, cfg, active, split):
+    """One-token block over the W ranks of the ambient mesh, JAX's
+    decode on sharded weights: params per rank (the channel mix's
+    ``ck`` column block and ``cv`` row block; the time mix replicated,
+    as JAX's rules leave it), x, states (this layer's) and active per
+    distinct device. The time mix runs once per device on its
+    replicated state; the channel mix's token-shifted input goes through
+    ``ck`` one GEMM a rank over its columns, relu², and ``cv``'s partial
+    products are summed in fp32 in rank order (one all-reduce,
+    ``patterns.row_parallel_sum``: JAX's ``project_up``/``project_down``
+    fall back to local products at S = 1, and GSPMD reduces the
+    contraction over the sharded d_ff). A whole channel mix (``split``,
+    the layer's ``lm.split_axes``, holds None at ``ck``; or W = 1) runs
+    :func:`apply_rwkv_decode` once per device. Returns per device x (B,
+    1, d)."""
+    dev = dctx.by_device(params)
+    if split["ck"] is None:
+        return [apply_rwkv_decode(p, xd, st, cfg, a)
+                for p, xd, st, a in zip(dev, x, states, active)]
+    x, xk, new = zip(*[_decode_time(p, xd, st)
+                       for p, xd, st in zip(dev, x, states)])
+    (k,) = patterns.column_shards(list(xk), [[p["ck"] for p in params]])
+    cv = patterns.row_parallel_sum([torch.square(F.relu(t)) for t in k],
+                                   [p["cv"] for p in params])
+    for st, a, nw in zip(states, active, new):
+        _commit(st, a, *nw)
+    return [xd + c for xd, c in zip(x, cv)]
+
+
+def _decode_time(params, x, state):
+    """The decode block up to the channel mix's products: the time mix
+    on the state (x + its output), the channel mix's token-shifted input
+    ``xk``, and the new state leaves (``ln_t`` and ``ln_c`` outputs, the
+    WKV state), not yet written."""
+    nh = x.shape[-1] // HEAD
     t_in = apply_norm(params["ln_t"], x, "layernorm")
     r, k, v, g, lw = _time_inputs(params, t_in, state["x_prev_t"])
     y, S = wkv_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0],
                     params["u"].float().reshape(nh, HEAD), state["S"])
     x = x + dense(_group_norm(y[:, None], params, g, x.dtype), params["wo"])
     c_in = apply_norm(params["ln_c"], x, "layernorm")
-    x = x + apply_rwkv_channelmix(params, c_in, cfg, state["x_prev_c"])
+    xk = _mix(c_in, _shift(c_in, state["x_prev_c"]),
+              params["mu_ck"].to(c_in.dtype))
+    return x, xk, (t_in, c_in, S)
+
+
+def _commit(state, active, t_in, c_in, S):
     select_(active, state["x_prev_t"], t_in)
     select_(active, state["x_prev_c"], c_in)
     select_(active, state["S"], S)
-    return x

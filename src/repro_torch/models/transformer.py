@@ -18,8 +18,12 @@ MoE layer with its experts over the ranks (``moe.apply_moe_ranks``), the
 Mamba2 and RWKV6 blocks on the gathered sequence
 (``mamba2.apply_mamba_ranks``, ``rwkv6.apply_rwkv_block_ranks``), the
 hybrid's shared attention block as the dense one. The decode
-step runs over W ranks: attention on the W-rank KV pool, the FFN and
-the recurrent layers once per distinct device on replicated weights.
+step runs over W ranks on per-rank weights (JAX's serve step on
+``param_shardings``): attention on the W-rank KV pool, the projections
+on each rank's shards at the decode sites (``core.patterns``), the
+activations and the recurrent state once per distinct device; where the
+weights are replicated (``lm.replicate``), each layer runs once per
+device.
 
 Decode state (``init_paged_caches``/``init_caches``): the attention KV
 stacked by its layers (``n_layers``, or the hybrid's ``n_groups =
@@ -37,6 +41,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels.matmul import DOT_OPS as DOT_KERNELS
 from repro_torch.models import attention, mamba2, mlp, moe, rwkv6
 from repro_torch.models.layers import apply_norm, norm_spec
@@ -309,72 +314,96 @@ def forward(params, x, cfg, *, positions):
 
 
 # ------------------------------------------------------------------- decode
+def _layers(trees, li, keys=None):
+    """Layer ``li`` of each per-rank stacked tree (its ``keys``, or all),
+    sliced once per distinct tree (the ranks of one device share a
+    replicated one)."""
+    seen: dict = {}
+    for t in trees:
+        if id(t) not in seen:
+            seen[id(t)] = _layer(t if keys is None else
+                                 {k: t[k] for k in keys}, li)
+    return [seen[id(t)] for t in trees]
+
+
 def _attn_block_decode(lp, x, cache, cur_len, cfg, active, block_tables,
-                       bounded):
-    """One attention block's decode step, ``lp`` per device, ``cache``
-    {"k", "v"} of this block's per-rank shards."""
-    h = [apply_norm(p["ln1"], xd, cfg.norm) for p, xd in zip(lp, x)]
+                       bounded, split):
+    """One attention block's decode step, ``lp`` per rank, ``x`` per
+    device, ``cache`` {"k", "v"} of this block's per-rank shards,
+    ``split`` the block's ``lm.split_axes``."""
+    dev = dctx.by_device(lp)
+    h = [apply_norm(p["ln1"], xd, cfg.norm) for p, xd in zip(dev, x)]
     y = attention.decode_attn_step([p["attn"] for p in lp], h, cache,
                                    cur_len, cfg, active, block_tables,
-                                   bounded)
+                                   bounded, split=split["attn"])
     x = [xd + yd for xd, yd in zip(x, y)]
-    h = [apply_norm(p["ln2"], xd, cfg.norm) for p, xd in zip(lp, x)]
-    return [xd + _ffn_decode(p, hd, cfg) for p, xd, hd in zip(lp, x, h)]
+    h = [apply_norm(p["ln2"], xd, cfg.norm) for p, xd in zip(dev, x)]
+    return [xd + fd for xd, fd in zip(x, _ffn_decode(lp, h, cfg, split))]
 
 
 def _kv_at(kv, i):
     return {k: [c[i] for c in v] for k, v in kv.items()}
 
 
-def _state_at(rec, d, li):
-    """Device ``d``'s layer-``li`` views of the per-device recurrent
+def _state_at(rec, li):
+    """Every device's layer-``li`` views of the per-device recurrent
     leaves."""
-    return {k: v[d][li] for k, v in rec.items()}
+    n = len(next(iter(rec.values())))
+    return [{k: v[d][li] for k, v in rec.items()} for d in range(n)]
 
 
 def decode(params, x, caches, cur_len, cfg, active, block_tables,
-           bounded: bool = True):
-    """One-token step through every layer. params, x (B, 1, d), cur_len
-    (B,), active (B,) and block_tables (B, C) (or None: contiguous
-    caches): one entry per distinct device; caches: the block's tree
-    (module docstring) whose KV leaves are lists of per-rank stacked
-    shards and whose recurrent leaves are lists with one copy per
-    distinct device, all written IN PLACE (inactive slots leave every
-    entry unchanged). The FFN (the MLP, or the MoE layer on replicated
-    experts, its aux loss dropped as in JAX) and the recurrent layers
-    run once per device. Returns x per device."""
+           bounded: bool = True, *, split):
+    """One-token step through every layer. params: one backbone tree per
+    rank of the ambient mesh (its shards by the sharding rules, or the
+    replicated weights of its device; one tree at W = 1); x (B, 1, d),
+    cur_len (B,), active (B,) and block_tables (B, C) (or None:
+    contiguous caches): one entry per distinct device; caches: the
+    block's tree (module docstring) whose KV leaves are lists of
+    per-rank stacked shards and whose recurrent leaves are lists with
+    one copy per distinct device, all written IN PLACE (inactive slots
+    leave every entry unchanged). Every layer takes per-rank weights and
+    returns per-device activations: attention on the W-rank KV pool, the
+    FFN (the MLP, or the MoE layer, its aux loss dropped as in JAX) and
+    the recurrent layers on their shards, or once per device where the
+    weights are whole. ``split``: the backbone's ``lm.split_axes`` tree
+    (every leaf None for whole weights), which tells each site which of
+    its weights are a rank's block. Returns x per device."""
     require_ported(cfg)
     layers = [p["layers"] for p in params]
     kv, rec = kv_part(cfg, caches), recurrent_part(cfg, caches)
     if cfg.block == "rwkv":
         for li in range(cfg.n_layers):
-            x = [rwkv6.apply_rwkv_decode(_layer(t, li), xd,
-                                         _state_at(rec, d, li), cfg, a)
-                 for d, (t, xd, a) in enumerate(zip(layers, x, active))]
+            x = rwkv6.apply_rwkv_decode_ranks(
+                _layers(layers, li), x, _state_at(rec, li), cfg, active,
+                split["layers"])
         return x
     if cfg.block == "mamba_hybrid":
         every = _every(cfg)
         n_groups = cfg.n_layers // every
         shared = [p["shared_attn"] for p in params]
         for li in range(cfg.n_layers):
-            x = [xd + mamba2.apply_mamba_decode(
-                     lp["mamba"], apply_norm(lp["ln1"], xd, cfg.norm),
-                     _state_at(rec, d, li), cfg, a)
-                 for d, (lp, xd, a) in enumerate(zip(
-                     [_layer(t, li) for t in layers], x, active))]
+            lp = _layers(layers, li)
+            dev = dctx.by_device(lp)
+            h = [apply_norm(p["ln1"], xd, cfg.norm) for p, xd in zip(dev, x)]
+            y = mamba2.apply_mamba_decode_ranks(
+                [p["mamba"] for p in lp], h, _state_at(rec, li), cfg, active,
+                split["layers"]["mamba"])
+            x = [xd + yd for xd, yd in zip(x, y)]
             if (li + 1) % every == 0 and li < n_groups * every:
                 x = _attn_block_decode(shared, x, _kv_at(kv, li // every),
                                        cur_len, cfg, active, block_tables,
-                                       bounded)
+                                       bounded, split["shared_attn"])
         return x
     for li in range(cfg.n_layers):
-        lp = [{k: _layer(t[k], li) for k in _parts(cfg)} for t in layers]
+        lp = _layers(layers, li, _parts(cfg))
         x = _attn_block_decode(lp, x, _kv_at(kv, li), cur_len, cfg, active,
-                               block_tables, bounded)
+                               block_tables, bounded, split["layers"])
     return x
 
 
-def _ffn_decode(p, h, cfg):
-    if "moe" in p:
-        return moe.apply_moe(p["moe"], h, cfg)[0]
-    return mlp.apply_mlp(p["mlp"], h, cfg)
+def _ffn_decode(lp, h, cfg, split):
+    if "moe" in lp[0]:
+        return moe.apply_moe_decode([p["moe"] for p in lp], h, cfg,
+                                    split["moe"])
+    return mlp.apply_mlp_decode([p["mlp"] for p in lp], h, cfg, split["mlp"])

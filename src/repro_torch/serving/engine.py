@@ -38,7 +38,9 @@ The engine takes the ambient distribution context
 (``distributed.context.current()``) when it is built and runs every
 dispatch under it: over the W ranks of its mesh the pool is sharded on
 the block dim and the decode step goes through the fusion mode's
-patterns (``core.patterns``); nothing in the scheduling changes.
+patterns (``core.patterns``), on weights replicated once per distinct
+device or on per-rank shards (``lm.shard_params``); nothing in the
+scheduling changes.
 
 ROBUSTNESS, as in the JAX engine: a seeded ``serving.faults.FaultPlan``
 keyed by (tick, site) injects faults, and the engine recovers:
@@ -157,7 +159,10 @@ class Engine:
     """Continuous-batching scheduler over a paged ``CachePool``.
 
     ``params`` is a :class:`repro_torch.models.lm.LM` on ``device``
-    (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions).
+    (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions),
+    replicated once per distinct device of the ambient mesh, or a
+    per-rank list of its shards (``lm.shard_params``: each rank holds
+    1/W of the sharded weights), used as given.
     ``prefill_chunk`` is the most prompt tokens a slot consumes per
     tick; ``block_size``/``n_blocks`` size the paged pool;
     ``scheduler`` is "fcfs", "priority", "slo" or a policy instance.
@@ -205,18 +210,21 @@ class Engine:
                 f"at least cover a full decode megatick, or the 1/K "
                 f"dispatch bound cannot hold")
         self.device = resolve_device(device)
-        if params.device.type != self.device.type:
-            raise ValueError(f"params live on {params.device}, engine "
+        pdev = lm.device_of(params)
+        if pdev.type != self.device.type:
+            raise ValueError(f"params live on {pdev}, engine "
                              f"device is {self.device}")
         self.policy = get_scheduler(scheduler)   # fail fast, pre-pool-init
         self.ctx = dctx.current()
         mesh = self.ctx.mesh if self.ctx.model_axis_size > 1 else None
-        if mesh is not None and mesh.distinct[0] != params.device:
-            raise ValueError(f"params live on {params.device}, the mesh's "
+        if mesh is not None and mesh.distinct[0] != pdev:
+            raise ValueError(f"params live on {pdev}, the mesh's "
                              f"first rank on {mesh.distinct[0]}")
         self.params = params
-        # what the decode step takes: one replica per distinct device
-        self.step_params = (params if mesh is None
+        # what the decode step takes: a per-rank list of shards
+        # (lm.shard_params) as given; one LM replicated once per distinct
+        # device (lm.replicate)
+        self.step_params = (params if mesh is None or isinstance(params, list)
                             else lm.replicate(params, mesh))
         self.bounded_gather = bool(bounded_gather)
         self.cfg = cfg
@@ -229,7 +237,7 @@ class Engine:
                               block_size=block_size, n_blocks=n_blocks)
         self.sampler = sampler
         self.seed = int(seed)
-        self._base_key = sampler_lib.prng_key(seed, params.device)
+        self._base_key = sampler_lib.prng_key(seed, pdev)
         self.decode_steps = int(decode_steps)
         self.megatick_tokens = (int(megatick_token_budget)
                                 if megatick_token_budget is not None
@@ -244,7 +252,7 @@ class Engine:
                 self.step_params, self.pool.state, cfg, batch=batch,
                 width=self.megatick_tokens, sampler=sampler,
                 key=self._base_key, bounded=self.bounded_gather,
-                device=params.device,
+                device=pdev,
                 graphs=self.device.type == "cuda" and one_card)
         # the single-step tick's host inputs go up through pinned host
         # buffers with non_blocking=True (:meth:`_upload`): no

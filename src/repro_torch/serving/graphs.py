@@ -67,8 +67,8 @@ def launch_counted() -> tuple:
 class MegatickRunner:
     """The megatick programs of one engine.
 
-    ``params``: what ``lm.decode_step`` takes (one replica per distinct
-    device over a mesh); ``state``: the pool's decode state; ``width``:
+    ``params``: what ``lm.decode_step`` takes (over a mesh one replica
+    per distinct device, or per-rank shards); ``state``: the pool's decode state; ``width``:
     the columns of the prompt-token input (the engine's per-slot token
     quota M); ``sampler``: "greedy" or "temperature" with base ``key``;
     ``graphs``: capture and replay (CUDA, every rank on one card) or

@@ -57,7 +57,8 @@ def pow2_bucket(n: int, cap: int) -> int:
 @dataclasses.dataclass(eq=False, repr=False)
 class CachePool:
     """Paged block pool + slot table for continuous batching, on the
-    parameters' device.
+    parameters' device (``params``: an LM, or the per-rank list the
+    engine decodes with).
 
     ``n_blocks`` defaults to contiguous parity (batch * max_len worth of
     blocks); size it smaller to serve mixed-length traffic — admission
@@ -115,7 +116,7 @@ class CachePool:
         # out of it has landed before it is written again
         self._stage = torch.zeros(
             self.tables.shape, dtype=torch.int32,
-            pin_memory=self.params.device.type == "cuda")
+            pin_memory=lm.device_of(self.params).type == "cuda")
         self._stage_np = self._stage.numpy()
         # counters
         self.prefix_hits = 0

@@ -799,6 +799,88 @@ def test_admission_and_buffer_growth_make_no_host_sync(cuda, tp):
             assert c.tolist() == [0, 0, 5, 0]
 
 
+# ------------------------------------------------ decode over weight shards
+@pytest.mark.parametrize("mode", ["pallas", "auto", "ring"])
+@pytest.mark.parametrize("paged", [True, False])
+def test_sharded_decode_step_matches_replicated(cuda, mode, paged):
+    """One decode step at tp 4 on virtual ranks over ``lm.shard_params``
+    (each rank 1/4 of the sharded weights; ``pallas`` all-gathers the
+    row-parallel weights into the fused AG+GEMM, ``auto`` sums partial
+    products) against the replicated step, float32: logits within one
+    bf16 ulp (both cast the fp32 unembed to bf16), and no host sync."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=2, dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    mesh = make_mesh(4, device="cuda")
+    shards = lm.shard_params(params, mesh)
+    tok = torch.arange(1, 5, device=cuda).reshape(4, 1)
+    out = []
+    with dctx.use(dctx.DistContext(mesh, mode)), torch.inference_mode():
+        for p in (params, shards):
+            if paged:
+                st = lm.init_paged_decode_state(p, cfg, 4, 16, 8, 4)
+                for t in st["block_tables"]:
+                    t.copy_(torch.arange(16, dtype=torch.int32)
+                            .reshape(4, 4))
+            else:
+                st = lm.init_decode_state(p, cfg, 4, 32)
+            lm.decode_step(p, tok, st, cfg)             # buffers grow
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg, _ = lm.decode_step(p, tok, st, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append(lg.float())
+    assert bool(torch.isfinite(out[1]).all())
+    d = (out[1] - out[0]).abs()
+    assert bool((d <= 1e-4 + 2 ** -7 * out[0].abs()).all()), d.max()
+
+
+def test_sharded_tick_path_makes_no_host_sync_above_its_proof(cuda):
+    """The engine over shards at tp 4 (``pallas``, K = 8: pure and mixed
+    megaticks replayed from CUDA graphs): a tick that captured no graph
+    synchronises at most once (its readback; the lint's proof of
+    ``_tick``, ``_megatick`` and ``_megatick_mixed``): the transient
+    weight gather at the row-parallel site does not sync."""
+    import warnings
+
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, Request
+    cfg, params = _smoke_cuda()
+    mesh = make_mesh(4, device="cuda")
+    with dctx.use(dctx.DistContext(mesh, "pallas")):
+        eng = Engine(lm.shard_params(params, mesh), cfg, batch=4,
+                     max_len=64, block_size=8, prefill_chunk=8,
+                     decode_steps=8, device="cuda")
+    rng = np.random.default_rng(0)
+    for rid, (n, at) in enumerate([(5, 0), (19, 0), (9, 2), (30, 3)]):
+        eng.submit(Request(rid=rid, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab_size, n)], max_new_tokens=20), at_tick=at)
+    syncs = []
+    while eng.queue or eng.active:
+        c0 = eng._runner.captures
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as log:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if eng._runner.captures == c0:
+            syncs.append(sum("synchronizing CUDA operation" in str(w.message)
+                             for w in log))
+    assert syncs and max(syncs) <= 1, syncs
+    assert eng._runner.replays > 0
+
+
 # ------------------------------------------------------------- megaticks
 def _smoke_cuda():
     from repro_torch.configs import get_config, smoke_config
