@@ -103,6 +103,18 @@ source, in parallel), then runs, failing on the first phase that fails:
    layers, tp 4 under ``ring``, 4 steps of 2 x 1024 tokens: losses
    finite, the first beside 12c's, GEMM launches per step, ms per step,
    tokens/s, peak memory, and one profiled step (busy share, GEMM ms);
+21. training on a data x model mesh, after phase 13 (FSDP on ``data``,
+   the batch's rows over the data groups, ``distributed.fsdp``): (a)
+   the float32 smoke model at (data 2, model 2) on 4 virtual ranks of
+   cuda:0 vs the same mesh on the CPU and vs one rank on the card (first
+   loss, every global gradient leaf); (b) llama3-8b at full width, 4 of
+   32 layers, (2, 2) under 13c's ``ring``, 3 steps of 2 x 1024 tokens
+   (one row a data group): each rank's fp32 masters at the rules' bytes
+   (1.923 GB; 7.69 GB with grads, m and v), losses finite, the first
+   beside 13c's, GEMM launches per step exact (``dm_products``), ms per
+   step, tokens/s, peak memory, a profiled step, every product timed;
+   (c) ``grad_compress``: ``compress_int8`` card vs CPU bit for bit,
+   ``compressed_psum_tree`` over the mesh's data groups card vs CPU;
 14. the MoE family, after phase 13: (a) the GEMM's batched mode
    (``matmul_batched``, one launch for all experts) vs its plain version
    at olmoe-1b-7b's expert products (decode: E 64, M 1, 8, 16, both
@@ -3224,6 +3236,335 @@ def phase_train_tp(gen, step0_loss, step0_gnorm):
           f"torch.matmul {kernel['library_ms']:.1f}, bound "
           f"{kernel['bound_ms']:.1f} ms ({kernel['bound_by']})", flush=True)
     return {"sites": sites, "small": small, "full": full}, kernel
+
+
+# ------------------------------------- phase 21: a data x model mesh
+DM_MESH = (2, 2)           # (data, model): 4 virtual ranks of cuda:0
+DM_STEPS = 3
+DM_MODE = TP_MODE          # 13c's fusion mode at the model-axis sites
+
+
+def _dm_args(extra, devices):
+    from repro_torch.launch import train as tr
+    D, W = DM_MESH
+    return tr.parse_args(["--devices", ",".join([devices] * (D * W)),
+                          "--tp", str(W), "--fusion-mode", DM_MODE] + extra)
+
+
+def _dm_grads(params, cfg):
+    """The global gradient of every leaf of a run's parameters after a
+    step (one LM, or one a rank of the (data, model) mesh: the blocks
+    joined, ``lm.gather_grads``), on the CPU."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    if not isinstance(params, list):
+        return {n: t.grad.detach().cpu().clone()
+                for n, t in params.named_parameters()}
+    return {n: g.cpu() for n, g in lm.gather_grads(
+        params, make_host_mesh(*DM_MESH, device="cpu")).items()}
+
+
+def phase_dm_small():
+    """(21a) the float32 smoke model at (data 2, model 2) on 4 virtual
+    ranks of cuda:0 against the same mesh on the CPU and one rank on the
+    card, from the same parameters on the same batch (2 rows: one a data
+    group): the first loss within 1e-5 relative and every gradient leaf
+    within 1e-3 of its largest |entry| (13b's bounds: the bf16 logits),
+    the GEMM launched and its plain version never ran on the card."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import train as tr
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(dtype=torch.float32)
+    init = lm.init_params(cfg, seed=0, device="cpu", trainable=True)
+    base = ["--arch", "llama3-8b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "32", "--log-every", "1", "--lr", "1e-4",
+            "--warmup", "4"]
+    grads, losses = {}, {}
+
+    def keep(key):
+        def fn(step, params, metrics):
+            grads[key] = _dm_grads(params, cfg)
+            losses[key] = float(metrics["loss"])
+        return fn
+    tr.train(cfg, _dm_args(base, "cpu"), params=_cpu_copy(init, cfg, "cpu"),
+             on_step=keep("cpu_mesh"))
+    tr.train(cfg, tr.parse_args(base + ["--device", "cuda"]),
+             params=_cpu_copy(init, cfg, "cuda"), on_step=keep("card1"))
+    n0, p0 = matmul.launches, matmul.plain_calls
+    tr.train(cfg, _dm_args(base, "cuda:0"),
+             params=_cpu_copy(init, cfg, "cuda"), on_step=keep("card_mesh"))
+    launched, plain = matmul.launches - n0, matmul.plain_calls - p0
+    check(launched > 0 and plain == 0, f"dm small: {launched} GEMM "
+          f"launches and {plain} plain calls on the card")
+    out = {"losses": losses, "gemm_launches": launched, "grad_err": {}}
+    for other in ("cpu_mesh", "card1"):
+        check(np.isclose(losses["card_mesh"], losses[other], rtol=1e-5,
+                         atol=0), f"dm small: first loss "
+              f"{losses['card_mesh']} vs {other} {losses[other]}")
+        err = max(((grads["card_mesh"][n] - g).abs().max()
+                   / g.abs().max()).item()
+                  for n, g in grads[other].items())
+        check(err <= 1e-3, f"dm small: gradients vs {other} {err:.3e} of "
+                           f"a leaf's largest entry")
+        out["grad_err"][other] = err
+    print(f"[dm small] float32 smoke at (data, model) {DM_MESH} on the "
+          f"card: loss {losses['card_mesh']:.6f} (CPU mesh "
+          f"{losses['cpu_mesh']:.6f}, card (1, 1) {losses['card1']:.6f}); "
+          f"gradients within {out['grad_err']['cpu_mesh']:.3e} of the CPU "
+          f"mesh's and {out['grad_err']['card1']:.3e} of (1, 1)'s; "
+          f"{launched} GEMM launches, 0 plain calls", flush=True)
+    return out
+
+
+def dm_products(cfg, M):
+    """Every GEMM product of one training step over the (data, model)
+    mesh: each data group runs :func:`tp_products` on its M / D tokens at
+    W = model ranks; FSDP adds no product (the gathers are copies)."""
+    D, W = DM_MESH
+    return [p[:-1] + (D * p[-1],) for p in tp_products(cfg, M // D, W)]
+
+
+def phase_dm_full(step0_loss_13c):
+    """(21b) llama3-8b at full width, TRAIN_LAYERS of 32 layers (as 12c
+    and 13c), on the (data 2, model 2) mesh of virtual ranks under 13c's
+    fusion mode: DM_STEPS steps of 2 x 1024 tokens of SyntheticLM(seed=0)
+    (one row a data group) through ``launch.train.train``, the same
+    seeded init. Checks each rank's fp32 masters at the bytes the rules
+    give (``steps.param_shardings``' shapes: 1.923 GB) and with
+    gradients, ``m`` and ``v`` 4 times that; the losses finite, the
+    first within TP_LOSS_ATOL of 13c's first (same parameters and
+    batch: bf16 sums round at other places); the GEMM launches of every
+    step (``dm_products``), no plain call; then one more step under the
+    profiler (busy share, GEMM ms). Returns the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as tr
+    from repro_torch.models.module import tree_items
+    from repro_torch.optim import adamw
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    M = TRAIN_BATCH * TRAIN_SEQ
+    args = _dm_args([
+        "--arch", "llama3-8b", "--steps", str(DM_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+        str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1"],
+        "cuda:0")
+    mesh = tr.build_mesh(args)
+    psh = steps_lib.param_shardings(cfg, sr.rules_for(cfg, mesh))
+    rule_bytes = 4 * sum(int(np.prod(v["shape"]))
+                         for v in _sharding_leaves(psh))
+    prods = dm_products(cfg, M)
+    per_step = sum(p[-1] for p in prods)
+    counts, state_bytes = [], {}
+
+    def count(step, params, metrics):
+        counts.append(matmul.launches)
+        if step == 0:
+            for r, p in enumerate(params):
+                ps = list(p.parameters())
+                state_bytes[r] = {
+                    "params": sum(t.numel() * t.element_size() for t in ps),
+                    "grads": sum(t.grad.numel() * t.grad.element_size()
+                                 for t in ps if t.grad is not None)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = matmul.plain_calls = 0
+    t0 = time.time()
+    res = tr.train(cfg, args, on_step=count)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches, plain = matmul.launches, matmul.plain_calls
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    opt_bytes = [sum(t.numel() * t.element_size() for k in ("m", "v")
+                     for _, t in tree_items(o[k])) for o in res["opt"]]
+    for r in range(mesh.size):
+        b = state_bytes[r]
+        check(b["params"] == rule_bytes and b["grads"] == rule_bytes
+              and opt_bytes[r] == 2 * rule_bytes,
+              f"dm full: rank {r} holds {b} and {opt_bytes[r]} B of m, v; "
+              f"the rules give {rule_bytes} B a tree")
+    losses = [m["loss"] for m in res["log"]]
+    gnorms = [m["grad_norm"] for m in res["log"]]
+    steps_s = [m["s"] for m in res["log"]]
+    check(all(np.isfinite(losses)), f"dm full: losses {losses}")
+    loss_gap = abs(losses[0] - step0_loss_13c)
+    check(loss_gap <= TP_LOSS_ATOL, f"dm full: first loss {losses[0]} vs "
+                                    f"13c's {step0_loss_13c}")
+    deltas = np.diff([0] + counts).tolist()
+    check(plain == 0 and deltas == [per_step] * DM_STEPS,
+          f"dm full: GEMM launches per step {deltas} (want {per_step}), "
+          f"{plain} plain calls")
+    check(peak_gb < 80, f"dm full: peak {peak_gb:.1f} GB")
+    step_s = float(np.mean(steps_s[1:]))
+    # one more step under the profiler
+    ctx = dctx.DistContext(mesh, DM_MODE)
+    step_fn = steps_lib.make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0).batch_at(DM_STEPS),
+                        mesh.devices[0], mesh)
+    params, opt = res["params"], res["opt"]
+    del res
+    torch.cuda.synchronize()
+    t1 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            dctx.use(ctx):
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    prof_wall = time.time() - t1
+    kern = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern.append((dev_us, ev.key, ev.count))
+    kern.sort(reverse=True)
+    dev_ms = sum(k[0] for k in kern) / 1e3
+    is_gemm = [port_kernel("gemm_stream", k[1])
+               or port_kernel("mm_kernel", k[1]) for k in kern]
+    gemm_ms = sum(k[0] for k, g in zip(kern, is_gemm) if g) / 1e3
+    gemm_calls = sum(k[2] for k, g in zip(kern, is_gemm) if g)
+    del params, opt, batch, step_fn
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = dev_ms / (1e3 * prof_wall)
+    out = {"config": f"llama3-8b full width, {cfg.n_layers} of 32 layers, "
+                     f"(data, model) {DM_MESH} virtual ranks, FSDP on "
+                     f"data, fusion mode {DM_MODE}, bf16 compute, fp32 "
+                     f"masters, remat full",
+           "tokens_per_step": M, "steps": DM_STEPS, "losses": losses,
+           "grad_norms": gnorms, "step0_loss_13c": step0_loss_13c,
+           "step0_loss_gap": loss_gap, "step_s": steps_s,
+           "rank_param_bytes": rule_bytes,
+           "rank_state_bytes": 4 * rule_bytes,
+           "ms_per_step": 1e3 * step_s, "tokens_per_s": M / step_s,
+           "run_s": run_s, "peak_gb": peak_gb, "gemm_launches": launches,
+           "gemm_launches_per_step": per_step,
+           "device_ms_over_step_ms": dev_ms / (1e3 * step_s),
+           "profiled_step": {"wall_ms": 1e3 * prof_wall,
+                             "device_ms": dev_ms, "busy_share": busy,
+                             "gemm_ms": gemm_ms, "gemm_calls": gemm_calls,
+                             "top_kernels": [
+                                 {"name": k[1][:80], "ms": k[0] / 1e3,
+                                  "calls": k[2]} for k in kern[:10]]}}
+    print(f"[dm full] {out['config']}: each rank's fp32 masters "
+          f"{rule_bytes} B ({rule_bytes / 1e9:.3f} GB; with grads, m, v "
+          f"{4 * rule_bytes / 1e9:.2f} GB), as the rules give; losses "
+          f"{[round(x, 4) for x in losses]}; first loss {loss_gap:.3e} "
+          f"from 13c's {step0_loss_13c:.6f}; {out['ms_per_step']:.1f} ms "
+          f"per step after step 0 ({out['tokens_per_s']:.0f} tokens/s); "
+          f"peak {peak_gb:.2f} GB; {per_step} GEMM launches a step; "
+          f"profiled step: wall {1e3 * prof_wall:.1f} ms, device "
+          f"{dev_ms:.1f} ms (busy {busy:.3f}), GEMM {gemm_ms:.1f} ms in "
+          f"{gemm_calls} launches", flush=True)
+    return out
+
+
+def _sharding_leaves(tree):
+    """The leaves of a ``steps`` sharding tree (the dicts holding
+    "spec")."""
+    for v in tree.values():
+        if "spec" in v:
+            yield v
+        else:
+            yield from _sharding_leaves(v)
+
+
+def phase_dm_compress():
+    """(21c) ``distributed.grad_compress`` on the card: ``compress_int8``
+    of a gradient-sized tensor bit-equal to the CPU's (q and scale), and
+    ``compressed_psum_tree`` (int8, with a carried residual) over the
+    ``data`` groups of the (2, 2) mesh of virtual ranks: every rank's
+    mean and residual bit-equal to the same call on the CPU mesh, the
+    groups' ranks holding one mean."""
+    from repro_torch.distributed import grad_compress as gc
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.launch.mesh import make_host_mesh
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(4096 * 1024 + 77, generator=gen)
+    q_c, s_c = gc.compress_int8(x.cuda())
+    q, s = gc.compress_int8(x)
+    check(torch.equal(q_c.cpu(), q) and torch.equal(s_c.cpu(), s),
+          "dm compress: int8 q / scale on the card differ from the CPU's")
+    trees = [{"w": torch.randn(1024, 4096, generator=gen),
+              "b": torch.randn(4096, generator=gen)} for _ in range(4)]
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_host_mesh(*DM_MESH, device=dev)
+        t = [{k: v.to(dev) for k, v in tr.items()} for tr in trees]
+        with use(DistContext(mesh)):
+            _, r1 = gc.compressed_psum_tree(t, "data", "int8")
+            res[dev] = gc.compressed_psum_tree(t, "data", "int8",
+                                               residual=r1)
+    for part in range(2):
+        for r in range(4):
+            for k in ("w", "b"):
+                got = res["cuda:0"][part][r][k].cpu()
+                check(torch.equal(got, res["cpu"][part][r][k]),
+                      f"dm compress: rank {r} {('mean', 'residual')[part]}"
+                      f" {k} on the card differs from the CPU's")
+    means = res["cuda:0"][0]
+    check(torch.equal(means[0]["w"], means[2]["w"])
+          and not torch.equal(means[0]["w"], means[1]["w"]),
+          "dm compress: the data groups' means")
+    true = (trees[0]["w"] + trees[2]["w"]) / 2
+    err = (means[0]["w"].cpu() - true).abs().max().item()
+    print(f"[dm compress] int8 of {x.numel()} entries bit-equal card vs "
+          f"CPU; compressed_psum_tree over the data groups of "
+          f"{DM_MESH}, residual carried: means and residuals bit-equal "
+          f"card vs CPU, {err:.3e} from the true mean", flush=True)
+    return {"int8_entries": x.numel(), "mean_err": err}
+
+
+def phase_data_mesh(gen, step0_loss_13c):
+    """(21) training on a data x model mesh: 21a, 21b, 21c. Returns
+    (numbers, the kernels-line row of the GEMM at (2, 2))."""
+    from repro_torch.configs import get_config
+    small = phase_dm_small()
+    full = phase_dm_full(step0_loss_13c)
+    comp = phase_dm_compress()
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    prods = dm_products(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    times, prod_err = tp_product_times(gen, prods)
+
+    def per_step(key):
+        return sum(c * times[(m, k, n, dt, tb)][key]
+                   for _, _, m, k, n, dt, tb, c in prods)
+    bound_s = sum(c * _product_bound(m, k, n, dt)[0]
+                  for _, _, m, k, n, dt, _, c in prods)
+    ops_tot = sum(c * ops_s(2 * m * k * n, dt)
+                  for _, _, m, k, n, dt, _, c in prods)
+    by_tot = sum(c * bytes_s((m * k + k * n + m * n)
+                             * (4 if dt == torch.float32 else 2))
+                 for _, _, m, k, n, dt, _, c in prods)
+    kernel = {"name": "matmul_train_dp2_tp2", "route": "cuda",
+              "source": "src/repro_torch/csrc/matmul.cu",
+              "replaces": "src/repro/kernels/matmul.py:34",
+              "launches": full["gemm_launches"],
+              "launches_per_step": full["gemm_launches_per_step"],
+              "max_abs_err": prod_err,
+              "ms": full["profiled_step"]["gemm_ms"],
+              "kernel_ms_products": per_step("ms"),
+              "plain_ms": per_step("plain_ms"),
+              "bound_ms": 1e3 * bound_s,
+              "bound_by": "operations" if ops_tot >= by_tot else "bytes",
+              "library_ms": per_step("library_ms"),
+              "unit": f"one training step of {full['config']}, "
+                      f"{full['tokens_per_step']} tokens"}
+    print(f"[dm full] GEMM at (data, model) {DM_MESH} a step: "
+          f"{kernel['ms']:.1f} ms (profiled), "
+          f"{kernel['kernel_ms_products']:.1f} ms as the sum of its "
+          f"products timed alone, plain {kernel['plain_ms']:.1f}, "
+          f"torch.matmul {kernel['library_ms']:.1f}, bound "
+          f"{kernel['bound_ms']:.1f} ms ({kernel['bound_by']})", flush=True)
+    return {"small": small, "full": full, "compress": comp}, kernel
 
 
 # ------------------------------------------------ phase 14: the MoE path
@@ -6672,6 +7013,8 @@ def main():
     train_tp, train_tp_kernel = timed(
         "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
         train["full"]["grad_norms"][0])
+    dm, dm_kernel = timed("21 data mesh", phase_data_mesh, gen,
+                          train_tp["full"]["losses"][0])
     moe, moe_kernels = timed("14 moe", phase_moe, gen)
     rec, rec_kernels = timed("15 recurrent", phase_recurrent, gen)
     front, front_kernels = timed("16 frontends", phase_frontends, gen)
@@ -6696,8 +7039,8 @@ def main():
                       "flash_decode_paged_fused": steps,
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
-    kernels += ([train_kernel, train_tp_kernel] + moe_kernels + rec_kernels
-                + front_kernels + sharded["kernels"])
+    kernels += ([train_kernel, train_tp_kernel, dm_kernel] + moe_kernels
+                + rec_kernels + front_kernels + sharded["kernels"])
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
                 moe, front, fam, summary, kernels[0]["host_us_per_call"],
                 sharded)
@@ -6719,7 +7062,7 @@ def main():
                    "dots_tp_families": fam,
                    "dots_tp_family_kernels": fam_kernels,
                    "dryrun_vs_card": dry, "taxes": taxes,
-                   "sharded": sharded,
+                   "sharded": sharded, "data_mesh": dm,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -25,11 +25,13 @@ checkpointer writes for a bf16 array) is read as bf16 bits too.
 template's tensors (``copy_``), so tensors that something else holds by
 address (a captured CUDA graph) see the restored values.
 
-Sharded state (W ranks, each holding blocks of some leaves) is saved as
-the global arrays (:meth:`Checkpointer.save_sharded`: the blocks joined
-in rank order), so the file is the one a single rank or the JAX
-checkpointer writes; :meth:`Checkpointer.restore_sharded` reads it onto
-any number of ranks (JAX's elastic restore).
+Sharded state (the ranks of a mesh, each holding blocks of some
+leaves, cut over the ``model`` and ``data`` axes by the sharding rules)
+is saved as the global arrays (:meth:`Checkpointer.save_sharded`: the
+blocks joined by each leaf's spec, ``distributed.sharding_rules.join``),
+so the file is the one a single rank or the JAX checkpointer writes;
+:meth:`Checkpointer.restore_sharded` reads it onto any mesh, any (data,
+model) (JAX's elastic restore).
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding_rules import (cut, join, n_blocks,
+                                                    rank_coords)
 
 SEP = "%%"
 BF16 = "bfloat16"
@@ -112,18 +117,23 @@ class Checkpointer:
         self.save_sharded(step, [tree], {}, extra, block)
 
     def save_sharded(self, step: int, trees: list, dims: dict,
-                     extra: dict | None = None, block: bool = False):
-        """:meth:`save` of the global tree of per-rank ``trees``: the leaf
-        at key k is joined from every rank's block along ``dims[k]``, or
-        taken from rank 0 where ``dims`` has no dim for it (a replicated
-        leaf). The join runs on the host."""
+                     extra: dict | None = None, block: bool = False,
+                     mesh_shape: dict | None = None):
+        """:meth:`save` of the global tree of per-rank ``trees`` (ranks
+        row-major over ``mesh_shape``'s axes; default one ``model`` axis
+        of every rank): the leaf at key k is joined from the ranks'
+        blocks by its spec ``dims[k]`` (one entry a dim: None, or the
+        mesh axes that cut it; ``sharding_rules.join``), or taken from
+        rank 0 where ``dims`` has none (a replicated leaf). The join runs
+        on the host."""
         self.wait()   # one in-flight save at a time
         flats = [flatten(t) for t in trees]
+        shape = _mesh_shape(mesh_shape, len(trees))
         joined = {}
         for key, leaf in flats[0].items():
             d = dims.get(key)
-            joined[key] = leaf if d is None else torch.cat(
-                [f[key].detach().cpu() for f in flats], dim=d)
+            joined[key] = leaf if not d else join(
+                [f[key].detach().cpu() for f in flats], d, shape)
         self._save_flat(step, joined, extra, block)
 
     def _save_flat(self, step, leaves: dict, extra, block):
@@ -219,28 +229,30 @@ class Checkpointer:
         return template, manifest
 
     def restore_sharded(self, step: int | None, templates: list,
-                        dims: dict):
-        """:meth:`restore` onto W ranks: rank r's template takes block r
-        (of W) of the leaf at key k along ``dims[k]``, or the whole leaf
-        where ``dims`` has no dim for it. Any W whose blocks divide the
-        saved leaves reads any checkpoint. Returns (templates,
-        manifest)."""
+                        dims: dict, mesh_shape: dict | None = None):
+        """:meth:`restore` onto the ranks of a mesh (row-major over
+        ``mesh_shape``'s axes; default one ``model`` axis of every
+        rank): each rank's template takes its block (``sharding_rules.cut``
+        by the spec ``dims[k]``) of the leaf at key k, or the whole leaf
+        where ``dims`` has none. Any mesh whose blocks divide the saved
+        leaves reads any checkpoint. Returns (templates, manifest)."""
         flat, manifest = self.read(step)
-        W = len(templates)
+        shape = _mesh_shape(mesh_shape, len(templates))
+        coords = rank_coords(shape)
         plan = []
         for r, template in enumerate(templates):
             for key, dst in flatten(template).items():
                 if key not in flat:
                     raise KeyError(f"checkpoint missing leaf {key}")
                 got, d = flat[key], dims.get(key)
-                if d is not None:
-                    if got.shape[d] % W:
-                        raise ValueError(
-                            f"checkpoint leaf {key}: dim {d} of "
-                            f"{tuple(got.shape)} does not split over {W} "
-                            f"ranks")
-                    n = got.shape[d] // W
-                    got = got.narrow(d, r * n, n)
+                if d:
+                    for i, p in enumerate(d):
+                        if got.shape[i] % n_blocks(p, shape):
+                            raise ValueError(
+                                f"checkpoint leaf {key}: dim {i} of "
+                                f"{tuple(got.shape)} does not split over "
+                                f"mesh {dict(shape)} as {d}")
+                    got = cut(got, d, coords[r], shape)
                 if (tuple(got.shape), got.dtype) != (tuple(dst.shape),
                                                      dst.dtype):
                     raise ValueError(
@@ -252,3 +264,7 @@ class Checkpointer:
             for dst, got in plan:
                 dst.copy_(got)
         return templates, manifest
+
+
+def _mesh_shape(mesh_shape, n: int) -> dict:
+    return {"model": n} if mesh_shape is None else dict(mesh_shape)

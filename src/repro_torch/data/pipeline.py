@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding_rules as sr
+
 
 @dataclasses.dataclass
 class SyntheticLM:
@@ -95,7 +97,18 @@ class ByteCorpus:
             step += 1
 
 
-def shard_batch(batch: dict, device) -> dict:
-    """A host batch of numpy arrays as tensors on ``device`` (at W = 1
-    the whole global batch; JAX places it with the batch sharding)."""
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+def shard_batch(batch: dict, device, mesh=None):
+    """A host batch (numpy arrays or tensors) placed as JAX's
+    ``batch_sharding`` places it: on a model-only mesh (or none) the
+    whole global batch on ``device``; over a mesh with data groups
+    (``pod`` x ``data`` = G > 1) a list of G batches, group g's block
+    of each leaf (``sharding_rules.batch_spec``: its rows, or the whole
+    batch where they do not divide by G) on the group's first rank's
+    device (``device`` is then ignored), which ``models.lm.loss_fn``
+    takes."""
+    if mesh is None or mesh.dp == 1:
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    first = [g * mesh.model for g in range(mesh.dp)]
+    return [{k: sr.cut(torch.as_tensor(v), sr.batch_spec(v.shape, mesh.shape),
+                       mesh.coords(r), mesh.shape).to(mesh.devices[r])
+             for k, v in batch.items()} for r in first]

@@ -2,9 +2,16 @@
 ``repro.distributed.context``).
 
 One process drives every rank, as JAX's single controller does: a
-``shard_map`` body becomes a loop over ranks. A :class:`Mesh` holds W
+``shard_map`` body becomes a loop over ranks. A :class:`Mesh` holds its
 ranks, each on a device; several ranks may share one device ("virtual
-ranks"), which is how a single card runs the W > 1 protocol.
+ranks"), which is how a single card runs the W > 1 protocol. Its named
+axes are ``("model",)``, ``("data", "model")`` or ``("pod", "data",
+"model")``, the ranks numbered row-major over them as ``jax.make_mesh``
+orders its devices. The ``model`` axis is the last: the W ranks of one
+data group (one (pod, data) coordinate) are consecutive, and
+:meth:`Mesh.group` is their model-only sub-mesh, the mesh that the
+model-axis collectives (``core.collective_matmul``, ``core.patterns``,
+``kernels.symm``) run over. At ``data = 1`` the mesh is its own group.
 
 Two kinds of values cross the distributed sites:
 
@@ -45,13 +52,39 @@ def canonical_device(device) -> torch.device:
     return dev
 
 
-class Mesh:
-    """W ranks on their devices, rank r on ``devices[r]``."""
+AXES = ("pod", "data", "model")
 
-    def __init__(self, devices):
+
+class Mesh:
+    """Ranks on their devices, rank r on ``devices[r]``, over the named
+    axes ``axis_names`` of sizes ``axis_shape`` (default: one ``model``
+    axis of every rank); ``shape`` maps each axis to its size, as a JAX
+    mesh's does."""
+
+    def __init__(self, devices, axis_shape=None, axis_names=None):
         devs = tuple(canonical_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one rank")
+        if axis_shape is None:
+            axis_shape = (len(devs),)
+        axis_shape = tuple(int(n) for n in axis_shape)
+        if axis_names is None:
+            axis_names = AXES[len(AXES) - len(axis_shape):]
+        axis_names = tuple(axis_names)
+        if (len(axis_names) != len(axis_shape) or axis_names[-1] != "model"
+                or axis_names != tuple(a for a in AXES if a in axis_names)):
+            raise ValueError(f"mesh axes {axis_names} of shape {axis_shape}: "
+                             f"expected axes of {AXES} in that order, the "
+                             f"last 'model'")
+        n = 1
+        for k in axis_shape:
+            n *= k
+        if n != len(devs):
+            raise ValueError(f"mesh shape {axis_shape} holds {n} ranks, "
+                             f"{len(devs)} devices given")
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, axis_shape))
+        self._groups: dict = {}
         self.devices = devs
         self.distinct = tuple(dict.fromkeys(devs))
         # rank -> index of its device in ``distinct``
@@ -62,10 +95,58 @@ class Mesh:
 
     @property
     def size(self) -> int:
+        """Every rank of the mesh (the model width is
+        ``shape["model"]``)."""
         return len(self.devices)
 
+    def axis_size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    @property
+    def model(self) -> int:
+        return self.shape["model"]
+
+    @property
+    def dp(self) -> int:
+        """The data groups: the product of the ``pod`` and ``data``
+        sizes, JAX's ``batch`` axes."""
+        return self.size // self.model
+
+    def coords(self, r: int) -> dict:
+        """Rank ``r``'s coordinate on every axis (row-major)."""
+        out = {}
+        for a in reversed(self.axis_names):
+            r, out[a] = divmod(r, self.shape[a])
+        return {a: out[a] for a in self.axis_names}
+
+    def axis_groups(self, axis) -> list:
+        """The ranks that differ only along ``axis`` (a name, or a tuple
+        of names), one list a group, each in row-major order (JAX's
+        ``psum`` groups)."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        out: dict = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            key = tuple(c[a] for a in self.axis_names if a not in axes)
+            out.setdefault(key, []).append(r)
+        return list(out.values())
+
+    def group(self, g: int) -> "Mesh":
+        """Data group ``g``'s model-only sub-mesh (its ranks ``g W ..
+        g W + W - 1``), the same object on every call (it keeps its
+        ``symm`` communicator); the mesh itself when ``dp`` is 1."""
+        if self.dp == 1:
+            return self
+        if g not in self._groups:
+            W = self.model
+            self._groups[g] = Mesh(self.devices[g * W:(g + 1) * W])
+        return self._groups[g]
+
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]})"
+        if self.axis_names == ("model",):
+            return f"Mesh({[str(d) for d in self.devices]})"
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"{dict(self.shape)})")
 
     def per_rank(self, rep: list) -> list:
         """A replicated value, one entry per rank (ranks on one device
@@ -95,7 +176,7 @@ class DistContext:
 
     @property
     def model_axis_size(self) -> int:
-        return 1 if self.mesh is None else self.mesh.size
+        return 1 if self.mesh is None else self.mesh.model
 
 
 def by_device(per_rank: list) -> list:

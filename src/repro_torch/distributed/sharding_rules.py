@@ -6,16 +6,21 @@ Params carry *logical* axis names ("embed", "mlp", "heads", ...). A
 fallback: a logical dim that does not divide by the mesh axes it maps to
 is replicated for that tensor, and the degradation is recorded.
 
-The port's mesh has only the ``model`` axis (``distributed.context``):
-``data`` and ``pod`` have size 1, so a logical axis mapped to them is
-replicated. A spec is a tuple with one entry per tensor dim (``None``,
-or the mesh axis name), as JAX's ``PartitionSpec`` holds.
+The mesh's axes are ``model``, ``data`` and ``pod``
+(``distributed.context``); an axis of size 1 shards nothing. A spec is a
+tuple with one entry per tensor dim (``None``, a mesh axis name, or a
+tuple of them), as JAX's ``PartitionSpec`` holds. By the default table
+a weight is cut over ``model`` on its heads / MLP / expert / vocab dim
+and over ``data`` on its ``embed`` (or ``in_vocab``) dim: FSDP, ZeRO-3
+style.
 
 :func:`shard_tree` cuts a tree of global tensors into per-rank trees of
-shard-shaped leaves (rank r holds block r of the ``model``-sharded dim)
-and :func:`unshard_tree` is its inverse; both read the logical axes of
-the tree's spec (``models.lm.lm_spec``), as the JAX package's shardings
-do.
+shard-shaped leaves (the rank at coordinates (d, m) holds block d of
+the ``data``-sharded dim and block m of the ``model``-sharded one, JAX's
+``NamedSharding.shard_shape``; the ranks numbered row-major over the
+mesh's axes) and :func:`unshard_tree` is its inverse; both read the
+logical axes of the tree's spec (``models.lm.lm_spec``), as the JAX
+package's shardings do.
 """
 from __future__ import annotations
 
@@ -110,41 +115,52 @@ class Rules:
     def model_size(self) -> int:
         return self.shape.get("model", 1)
 
-    def shard_dim(self, logical_axes, shape, name: str = "") -> int | None:
-        """The dim of a tensor that the ``model`` axis shards, or None
-        (replicated)."""
-        spec = self.spec_for(logical_axes, shape, name)
-        dims = [i for i, p in enumerate(spec) if p is not None]
-        for i in dims:
-            if spec[i] != "model":
-                raise NotImplementedError(
-                    f"{name}: spec {spec} shards over {spec[i]!r}; the "
-                    f"port's mesh has only the 'model' axis")
-        return dims[0] if dims else None
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def rules_for(cfg, mesh) -> Rules:
-    """Rules for ``mesh`` (a ``distributed.context.Mesh``, or None for
-    one rank) with ``cfg.sharding_overrides`` applied."""
+    """Rules for ``mesh`` (a ``distributed.context.Mesh``, or anything
+    with a ``shape`` of axis sizes; None for one rank) with
+    ``cfg.sharding_overrides`` applied."""
     table = dict(DEFAULT_RULES)
     for k, v in (getattr(cfg, "sharding_overrides", ()) or ()):
         table[k] = tuple(v)
-    W = 1 if mesh is None else mesh.size
-    return Rules({"data": 1, "model": W}, table=table)
+    shape = {"data": 1, "model": 1} if mesh is None else dict(mesh.shape)
+    return Rules(shape, table=table)
 
 
-def shard_dims(spec: dict, rules: Rules, prefix: str = "") -> dict:
-    """``{dotted path: sharded dim or None}`` for every leaf of ``spec``,
-    a tree whose leaves carry ``.axes`` and ``.shape`` (the ``Param``
-    declarations of ``models.lm.lm_spec``)."""
+def leaf_specs(spec: dict, rules: Rules, prefix: str = "") -> dict:
+    """``{dotted path: spec}`` for every leaf of ``spec``, a tree whose
+    leaves carry ``.axes`` and ``.shape`` (the ``Param`` declarations of
+    ``models.lm.lm_spec``)."""
     out = {}
     for k in sorted(spec):
         path = f"{prefix}.{k}" if prefix else k
         if isinstance(spec[k], dict):
-            out.update(shard_dims(spec[k], rules, path))
+            out.update(leaf_specs(spec[k], rules, path))
         else:
-            out[path] = rules.shard_dim(spec[k].axes, spec[k].shape, path)
+            out[path] = rules.spec_for(spec[k].axes, spec[k].shape, path)
     return out
+
+
+def dim_of(spec: tuple, axis: str) -> int | None:
+    """The dim of a spec that ``axis`` cuts, or None."""
+    for i, p in enumerate(spec):
+        if axis in spec_axes(p):
+            return i
+    return None
+
+
+def shard_dims(spec: dict, rules: Rules, axis: str = "model") -> dict:
+    """``{dotted path: the dim ``axis`` shards, or None}`` for every leaf
+    of ``spec`` (:func:`leaf_specs`)."""
+    return {path: dim_of(s, axis)
+            for path, s in leaf_specs(spec, rules).items()}
 
 
 def shard_shape(shape, dim: int | None, W: int) -> tuple:
@@ -157,50 +173,116 @@ def shard_shape(shape, dim: int | None, W: int) -> tuple:
     return shape[:dim] + (shape[dim] // W,) + shape[dim + 1:]
 
 
+def n_blocks(entry, mesh_shape) -> int:
+    """The blocks one spec entry cuts a dim into."""
+    n = 1
+    for a in spec_axes(entry):
+        n *= mesh_shape.get(a, 1)
+    return n
+
+
+def spec_shape(shape, spec: tuple, mesh_shape) -> tuple:
+    """The per-rank shape of a leaf of global ``shape`` cut by ``spec``
+    over a mesh of axis sizes ``mesh_shape``: JAX's
+    ``NamedSharding(mesh, spec).shard_shape``."""
+    return tuple(n // n_blocks(p, mesh_shape) for n, p in zip(shape, spec))
+
+
+def batch_spec(shape, mesh_shape) -> tuple:
+    """JAX's ``batch_sharding`` spec of a batch leaf of global ``shape``:
+    dim 0 over the ``("pod", "data")`` axes (those of more than one
+    rank) where it divides by their product, else replicated (every data
+    group holds the whole batch); the other dims replicated."""
+    axes = tuple(a for a in ("pod", "data") if mesh_shape.get(a, 1) > 1)
+    n = 1
+    for a in axes:
+        n *= mesh_shape[a]
+    ok = axes and len(shape) and shape[0] % n == 0
+    head = (axes if len(axes) > 1 else axes[0]) if ok else None
+    return (head,) + (None,) * (len(shape) - 1)
+
+
+def rank_coords(mesh_shape) -> list:
+    """Every rank's ``{axis: coordinate}``, ranks row-major over the axes
+    in ``mesh_shape``'s order."""
+    out = [{}]
+    for a, n in mesh_shape.items():
+        out = [{**c, a: i} for c in out for i in range(n)]
+    return out
+
+
+def _block_index(entry, coords, mesh_shape) -> int:
+    b = 0
+    for a in spec_axes(entry):
+        b = b * mesh_shape.get(a, 1) + coords.get(a, 0)
+    return b
+
+
+def cut(x, spec: tuple, coords: dict, mesh_shape):
+    """The block of ``x`` that the rank at ``coords`` holds under
+    ``spec`` (a view)."""
+    for i, p in enumerate(spec):
+        n = n_blocks(p, mesh_shape)
+        if n > 1:
+            m = x.shape[i] // n
+            x = x.narrow(i, _block_index(p, coords, mesh_shape) * m, m)
+    return x
+
+
+def join(blocks: list, spec: tuple, mesh_shape):
+    """The global tensor of the per-rank ``blocks`` (ranks row-major over
+    ``mesh_shape``) cut by ``spec``, on rank 0's device: the inverse of
+    :func:`cut`. Ranks that hold the same block give it once (the first
+    one's copy)."""
+    if all(n_blocks(p, mesh_shape) == 1 for p in spec):
+        return blocks[0].detach().clone()
+    b0 = blocks[0]
+    shape = [n * n_blocks(p, mesh_shape) for n, p in zip(b0.shape, spec)]
+    out = torch.empty(shape, dtype=b0.dtype, device=b0.device)
+    seen = set()
+    for c, b in zip(rank_coords(mesh_shape), blocks):
+        key = tuple(_block_index(p, c, mesh_shape) for p in spec)
+        if key not in seen:
+            seen.add(key)
+            cut(out, spec, c, mesh_shape).copy_(b.detach())
+    return out
+
+
 def shard_tree(tree: dict, spec: dict, rules: Rules,
                devices=None, share_replicated: bool = False) -> list[dict]:
-    """Per-rank trees of ``tree``'s global leaves: a sharded leaf's block
-    r (a contiguous copy) on rank r, a replicated leaf's own copy on
-    every rank (ranks that share a device still hold separate tensors,
-    as training writes each), or with ``share_replicated`` one copy per
-    distinct device, which every rank on it holds (serving: nothing
-    writes them). ``devices``: one per rank (default: the leaves'
-    own)."""
-    W = rules.model_size
-    dims = shard_dims(spec, rules)
+    """Per-rank trees of ``tree``'s global leaves, one per rank of the
+    mesh ``rules.shape`` describes (row-major): each leaf's block
+    (:func:`cut`, a contiguous copy) on its rank, a replicated leaf's
+    own copy on every rank (ranks that share a device still hold
+    separate tensors, as training writes each), or with
+    ``share_replicated`` one copy per distinct device, which every rank
+    on it holds (serving: nothing writes them). ``devices``: one per
+    rank (default: the leaves' own)."""
+    specs = leaf_specs(spec, rules)
+    coords = rank_coords(rules.shape)
     shared: dict = {}
 
     def one(r):
-        def cut(path, x):
-            d = dims[path]
+        def piece(path, x):
+            s = specs[path]
             x = x.detach()
             dev = x.device if devices is None else devices[r]
-            if d is None and share_replicated:
+            if share_replicated and not any(s):
                 key = (path, str(dev))
                 if key not in shared:
                     shared[key] = x.to(dev, copy=True,
                                        memory_format=torch.contiguous_format)
                 return shared[key]
-            if d is not None:
-                n = x.shape[d] // W
-                x = x.narrow(d, r * n, n)
-            return x.to(dev, copy=True,
-                        memory_format=torch.contiguous_format)
-        return tree_map(cut, tree)
-    return [one(r) for r in range(W)]
+            return cut(x, s, coords[r], rules.shape).to(
+                dev, copy=True, memory_format=torch.contiguous_format)
+        return tree_map(piece, tree)
+    return [one(r) for r in range(len(coords))]
 
 
 def unshard_tree(trees: list[dict], spec: dict, rules: Rules) -> dict:
     """The global tree of per-rank ``trees`` (inverse of
-    :func:`shard_tree`) on rank 0's device: sharded leaves concatenated
-    in rank order, replicated leaves rank 0's copy."""
-    dims = shard_dims(spec, rules)
+    :func:`shard_tree`) on rank 0's device (:func:`join`)."""
+    specs = leaf_specs(spec, rules)
     flat = [dict(tree_items(t)) for t in trees]
-
-    def join(path, x):
-        d = dims[path]
-        if d is None:
-            return x.detach().clone()
-        return torch.cat([f[path].detach().to(x.device) for f in flat],
-                         dim=d)
-    return tree_map(join, trees[0])
+    return tree_map(lambda path, _: join([f[path] for f in flat],
+                                         specs[path], rules.shape), trees[0])

@@ -5,9 +5,15 @@ cell for 512 fake XLA devices and reads ``memory_analysis``,
 ``cost_analysis`` and the HLO's collectives).
 
 For each cell this driver:
-  1. builds a model-only mesh of ``tp`` ranks, one fake CPU device a
-     rank (``cpu:0`` ... ``cpu:<tp-1>``: distinct devices, so what one
-     card of a ``tp``-card node holds is what one fake device holds);
+  1. builds a model-only mesh of ``tp`` ranks, or with ``--mesh`` JAX's
+     production meshes (``single``: (data 16, model 16), 256 ranks;
+     ``multi``: (pod 2, data 16, model 16), 512), one fake CPU device a
+     rank (``cpu:0`` ... ``cpu:<n-1>``: distinct devices, so what one
+     card of the node holds is what one fake device holds); on a data
+     mesh the data groups do the same work on their rows, so the trace
+     runs one of them (a role: its W ranks gather the FSDP blocks of
+     every data rank, whose gradients they reduce-scatter back) and the
+     optimizer step of every rank;
   2. makes the parameters (``lm.shard_params``: Megatron shards by the
      sharding rules, trainable for train, the serving storage for
      prefill and decode, as JAX's ``dryrun.py`` places every cell on
@@ -36,7 +42,8 @@ For each cell this driver:
      collectives, the roofline (``roofline.analysis``) and the three
      taxes of the cell's sites under its fusion mode (``core.taxes``).
 
-Per rank means the busiest rank device. A no-grad attention call that
+Per rank means the busiest rank device (on a data mesh, of the traced
+role's). A no-grad attention call that
 repeats (ranks, layers) replays its first trace's counts
 (:func:`_memo_attention`). The fake peak misses the CUDA caching
 allocator's rounding and any scratch a CUDA wrapper allocates outside
@@ -46,6 +53,8 @@ cells run in ``--jobs`` processes (the whole grid: ~9 minutes on 6).
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all --tp 1,8
+  python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k \
+      --mesh both                  # JAX's 16 x 16 and 2 x 16 x 16
   python -m repro_torch.launch.dryrun --summary [--markdown]
 """
 from __future__ import annotations
@@ -69,6 +78,8 @@ from repro_torch.configs.shapes import ARCH_IDS, applicable
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import taxes
 from repro_torch.distributed import context as dctx
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import attention, lm
 from repro_torch.optim import adamw
@@ -183,13 +194,19 @@ class CostCounter(TorchDispatchMode):
         self._refs[key] = weakref.ref(st, free)
         self.live[dev] += n
 
-    def _update_peak(self):
+    def _update_peak(self, devs=None):
+        """Note every device's live bytes (``devs``: only those an op
+        just wrote; the others' live bytes only fell since they were
+        noted, except at a phase's first op, which notes them all)."""
+        phase = self.phase
         if torch._C._current_graph_task_id() != -1:
             self.phase = "backward"
         elif self.phase == "backward":
             self.phase = "update"
-        for dev, n in self.live.items():
-            self.reach(dev, n)
+        if devs is None or self.phase != phase:
+            devs = list(self.live)
+        for dev in devs:
+            self.reach(dev, self.live[dev])
 
     def reach(self, dev: str, n: int):
         """Note that ``n`` bytes were live on ``dev``."""
@@ -229,7 +246,7 @@ class CostCounter(TorchDispatchMode):
         if outs:
             for t in outs:
                 self._add(t)
-            self._update_peak()
+            self._update_peak({str(t.device) for t in outs})
         return out
 
 
@@ -278,6 +295,43 @@ def mesh_devices(tp: int, virtual: bool = False) -> list[str]:
     return ["cpu"] * tp if virtual else [f"cpu:{r}" for r in range(tp)]
 
 
+def production_mesh(name: str) -> tuple:
+    """(tp, data, pods) of JAX's production mesh ``name`` (``--mesh``:
+    "single" one pod, "multi" two; ``launch.mesh.make_production_mesh``)."""
+    m = launch_mesh.make_production_mesh(multi_pod=name == "multi",
+                                         device="cpu")
+    return m.model, m.shape["data"], m.shape.get("pod", 1)
+
+
+def make_mesh(tp: int, virtual: bool = False, data: int = 1, pods: int = 1):
+    """The cell's mesh: None at one rank, ``tp`` model ranks, or
+    (pods, data, tp) ranks with a data axis. On a data mesh the traced
+    role's ``tp`` ranks (:func:`_one_role`) hold ``cpu:0`` ...
+    ``cpu:<tp-1>`` and the other ranks share the fake devices after them
+    (a ``torch.device`` index fits in 8 bits: 512 ranks cannot each
+    have one); the counts are read on the role's devices."""
+    n = tp * data * pods
+    if n == 1:
+        return None
+    if data * pods == 1:
+        return dctx.Mesh(mesh_devices(n, virtual))
+    devs = (mesh_devices(n, virtual) if virtual else
+            [f"cpu:{r if r < tp else tp + (r - tp) % (127 - tp)}"
+             for r in range(n)])
+    return launch_mesh.make_mesh_for_devices(n, tp, pods, devices=devs)
+
+
+def _one_role(groups):
+    """``models.lm._groups`` running the first data group only: every
+    group does the same work on its rows (one role), so its ranks' counts
+    are any rank's."""
+    def first(*args, **kwargs):
+        for out in groups(*args, **kwargs):
+            yield out
+            return
+    return first
+
+
 def _fake_inputs(cfg, shape, device):
     """The cell's batch as fake tensors of ``input_specs``' shapes."""
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
@@ -294,7 +348,7 @@ def _step(cfg, shape, mesh):
     if mesh is not None:
         params = lm.shard_params(params, mesh)
     if shape.kind in ("train", "prefill"):
-        batch = _fake_inputs(cfg, shape, dev0)
+        batch = shard_batch(_fake_inputs(cfg, shape, dev0), dev0, mesh)
         if train:
             opt = steps_lib.init_opt_state(params)
             fn = steps_lib.make_train_step(cfg, adamw.AdamWConfig())
@@ -325,13 +379,15 @@ def _per_device(tensors) -> collections.Counter:
 
 
 def trace(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
-          virtual: bool = False, memo: dict | None = None) -> dict:
+          virtual: bool = False, memo: dict | None = None, data: int = 1,
+          pods: int = 1) -> dict:
     """Per-rank counts of one traced step of ``cfg`` at ``shape`` over a
-    model-only mesh of ``tp`` ranks (``virtual``: all on one fake
-    device; ``memo``: replayed attention calls, :func:`_memo_attention`).
-    Allocates nothing."""
-    devs = mesh_devices(tp, virtual)
-    mesh = None if tp == 1 else dctx.Mesh(devs)
+    model-only mesh of ``tp`` ranks, or a (pods, data, tp) mesh
+    (:func:`make_mesh`; one data group traced, :func:`_one_role`)
+    (``virtual``: all on one fake device; ``memo``: replayed attention
+    calls, :func:`_memo_attention`). Allocates nothing."""
+    mesh = make_mesh(tp, virtual, data, pods)
+    role = None if data * pods == 1 else {str(d) for d in mesh.devices[:tp]}
     events = []
     with FakeTensorMode(), dctx.use(dctx.DistContext(mesh, fusion_mode)):
         run, params, opt, state, batch = _step(cfg, shape, mesh)
@@ -342,31 +398,37 @@ def trace(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
         counter = CostCounter()
         counter.track([t for p in ranks for t in p.parameters()]
                       + _tensors((opt, state, batch)))
-        plain = attention.blockwise_attention
+        plain, groups = attention.blockwise_attention, lm._groups
         attention.blockwise_attention = _memo_attention(
             counter, plain, {} if memo is None else memo)
+        lm._groups = _one_role(groups)
         try:
             with counter, cm.recording(
                     lambda op, size, g: events.append((op, size, g))):
                 run()
         finally:
-            attention.blockwise_attention = plain
-    peak = dict(counter.peak)
+            attention.blockwise_attention, lm._groups = plain, groups
+    def busiest(per_dev) -> int:
+        return max((n for d, n in per_dev.items()
+                    if role is None or d in role), default=0)
+    peak = {d: n for d, n in counter.peak.items()
+            if role is None or d in role}
     phases = {}
-    for (ph, _), n in counter.phase_peak.items():
-        phases[ph] = max(phases.get(ph, 0), n)
+    for (ph, d), n in counter.phase_peak.items():
+        if role is None or d in role:
+            phases[ph] = max(phases.get(ph, 0), n)
     return {
-        "flops": max(counter.flops.values(), default=0),
+        "flops": busiest(counter.flops),
         "flops_all_ranks": sum(counter.flops.values()),
-        "bytes": max(counter.bytes.values(), default=0),
+        "bytes": busiest(counter.bytes),
         "bytes_all_ranks": sum(counter.bytes.values()),
         "peak_bytes": max(peak.values(), default=0),
         "peak_bytes_by_device": peak,
         "peak_bytes_by_phase": phases,
-        "param_bytes": max(p_dev.values(), default=0),
+        "param_bytes": busiest(p_dev),
         "param_bytes_all_ranks": sum(p_dev.values()),
-        "opt_state_bytes": max(o_dev.values(), default=0),
-        "state_bytes": max(s_dev.values(), default=0),
+        "opt_state_bytes": busiest(o_dev),
+        "state_bytes": busiest(s_dev),
         "events": events,
     }
 
@@ -399,8 +461,8 @@ def _coll_summary(events) -> dict:
 
 
 def extrapolated(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
-                 virtual: bool = False, direct: bool = False
-                 ) -> tuple[dict, str]:
+                 virtual: bool = False, direct: bool = False, data: int = 1,
+                 pods: int = 1) -> tuple[dict, str]:
     """The counts of ``cfg`` at its depth from traces at L1 and L2 layers
     (or one trace where L <= L2, or ``direct``). Returns (counts,
     method)."""
@@ -408,11 +470,11 @@ def extrapolated(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
     L1, L2, P = _extrap_layers(cfg)
     memo: dict = {}
     if L <= L2 or direct:
-        t = trace(cfg, shape, tp, fusion_mode, virtual, memo)
+        t = trace(cfg, shape, tp, fusion_mode, virtual, memo, data, pods)
         t["collectives"] = _coll_summary(t.pop("events"))
         return t, f"direct trace L={L}"
     r1, r2 = (trace(cfg.replace(n_layers=n), shape, tp, fusion_mode,
-                    virtual, memo) for n in (L1, L2))
+                    virtual, memo, data, pods) for n in (L1, L2))
     k = (L - L1) / P
 
     def lin(a: dict, b: dict, keys) -> dict:
@@ -470,30 +532,46 @@ def cell_taxes(counts: dict, shape, tp: int, fusion_mode: str,
 
 
 # ------------------------------------------------------------------- cells
-def mesh_desc(tp: int) -> str:
-    return f"{tp}m"
+def mesh_desc(tp: int, data: int = 1, pods: int = 1) -> str:
+    """``"8m"`` for a model-only mesh, JAX's ``"16dx16m"`` /
+    ``"2px16dx16m"`` with a data axis."""
+    if data * pods == 1:
+        return f"{tp}m"
+    return (f"{pods}px" if pods > 1 else "") + f"{data}dx{tp}m"
+
+
+def _base(arch, shape_name, tp, fusion_mode, data, pods) -> dict:
+    return {"arch": arch, "shape": shape_name, "tp": tp, "data": data,
+            "pods": pods, "mesh": mesh_desc(tp, data, pods),
+            "chips": tp * data * pods, "fusion_mode": fusion_mode}
 
 
 def run_cell_cfg(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
                  virtual: bool = False, arch: str | None = None,
-                 chip=H100, direct: bool = False) -> dict:
-    """The dry-run record of ``cfg`` at ``shape`` over ``tp`` ranks
-    (``virtual``: all on one device, as virtual ranks share a card;
-    ``direct``: one trace at the config's depth, no extrapolation)."""
+                 chip=H100, direct: bool = False, data: int = 1,
+                 pods: int = 1) -> dict:
+    """The dry-run record of ``cfg`` at ``shape`` over ``tp`` ranks, or
+    a (pods, data, tp) mesh (``virtual``: all on one device, as virtual
+    ranks share a card; ``direct``: one trace at the config's depth, no
+    extrapolation). A decode cell on a data mesh is skipped: serving
+    runs on the model axis alone."""
     arch = arch or cfg.name
-    base = {"arch": arch, "shape": shape.name, "tp": tp,
-            "mesh": mesh_desc(tp), "chips": tp, "fusion_mode": fusion_mode}
+    base = _base(arch, shape.name, tp, fusion_mode, data, pods)
+    chips = base["chips"]
     ok, why = applicable(cfg, shape)
+    if ok and shape.kind == "decode" and data * pods > 1:
+        ok, why = False, ("serving over a data x model mesh is not ported "
+                          "yet (ROADMAP queue 1, item 1)")
     if not ok:
         return {**base, "status": "skipped", "reason": why}
     t0 = time.time()
     counts, method = extrapolated(cfg, shape, tp, fusion_mode, virtual,
-                                  direct)
+                                  direct, data, pods)
     dt = dtype_name(cfg.dtype)
     coll = counts["collectives"]
-    analytic = analysis.analytic_memory_bytes(cfg, shape, tp)
+    analytic = analysis.analytic_memory_bytes(cfg, shape, chips)
     roof = analysis.analyze(
-        arch, shape.name, mesh_desc(tp), tp, counts["flops"],
+        arch, shape.name, base["mesh"], chips, counts["flops"],
         counts["bytes"], analysis.CollectiveStats(
             coll["counts"], coll["wire_bytes_per_chip"], coll["detail"]),
         analysis.model_flops_for(cfg, shape),
@@ -526,18 +604,22 @@ def _where(exc) -> str:
             f"{(f.line or '').strip()}")
 
 
-def cell_path(arch, shape_name, tp, fusion_mode="auto", out_dir=OUT_DIR):
+def cell_path(arch, shape_name, tp, fusion_mode="auto", out_dir=OUT_DIR,
+              data=1, pods=1):
     os.makedirs(out_dir, exist_ok=True)
     suffix = "" if fusion_mode == "auto" else f"_{fusion_mode}"
-    return os.path.join(out_dir, f"{arch}__{shape_name}__tp{tp}{suffix}.json")
+    where = (f"tp{tp}" if data * pods == 1
+             else mesh_desc(tp, data, pods))
+    return os.path.join(out_dir, f"{arch}__{shape_name}__{where}{suffix}"
+                                 f".json")
 
 
 def run_cell(arch, shape_name, tp, fusion_mode="auto", force=False,
-             out_dir=OUT_DIR) -> dict:
+             out_dir=OUT_DIR, data=1, pods=1) -> dict:
     """One cell's record, cached in ``out_dir`` (``force`` re-traces). A
     cell the trace cannot run is recorded as ``status: "error"`` with the
     exception and the port's line it came from."""
-    path = cell_path(arch, shape_name, tp, fusion_mode, out_dir)
+    path = cell_path(arch, shape_name, tp, fusion_mode, out_dir, data, pods)
     if os.path.exists(path) and not force:
         with open(path) as f:
             rec = json.load(f)
@@ -547,11 +629,10 @@ def run_cell(arch, shape_name, tp, fusion_mode="auto", force=False,
             return rec
     try:
         rec = run_cell_cfg(get_config(arch), get_shape(shape_name), tp,
-                           fusion_mode, arch=arch)
+                           fusion_mode, arch=arch, data=data, pods=pods)
     except Exception as e:      # recorded, never skipped silently
-        rec = {"arch": arch, "shape": shape_name, "tp": tp,
-               "mesh": mesh_desc(tp), "chips": tp,
-               "fusion_mode": fusion_mode, "status": "error",
+        rec = {**_base(arch, shape_name, tp, fusion_mode, data, pods),
+               "status": "error",
                "error": f"{type(e).__name__}: {str(e)[:600]}",
                "where": _where(e),
                "traceback": traceback.format_exc()[-4000:]}
@@ -562,8 +643,8 @@ def run_cell(arch, shape_name, tp, fusion_mode="auto", force=False,
 
 
 def _print(rec):
-    head = (f"[dryrun] {rec['arch']} x {rec['shape']} x tp{rec['tp']} "
-            f"({rec['fusion_mode']}): {rec['status']}")
+    head = (f"[dryrun] {rec['arch']} x {rec['shape']} x "
+            f"{_label(rec)} ({rec['fusion_mode']}): {rec['status']}")
     if rec["status"] == "skipped":
         print(f"{head}: {rec['reason']}", flush=True)
     elif rec["status"] == "error":
@@ -592,9 +673,18 @@ def load(out_dir=OUT_DIR, fusion_mode="auto") -> list[dict]:
                 rows.append(r)
     order = {a: i for i, a in enumerate(ARCH_IDS)}
     shapes = {s.name: i for i, s in enumerate(ALL_SHAPES)}
-    rows.sort(key=lambda r: (r.get("tp", 1), order.get(r["arch"], 99),
+    rows.sort(key=lambda r: (r.get("chips", r.get("tp", 1)),
+                             order.get(r["arch"], 99),
                              shapes.get(r["shape"], 9)))
     return rows
+
+
+def _label(r) -> str:
+    """A record's mesh as the table names it: ``tp 8``, or JAX's
+    ``16dx16m``."""
+    if r.get("data", 1) * r.get("pods", 1) == 1:
+        return f"tp {r['tp']}"
+    return r["mesh"]
 
 
 SUMMARY_COLS = ("arch", "shape", "tp", "status", "peak GB/rank", "fits",
@@ -624,22 +714,26 @@ def _why(r) -> str:
 def summary_rows(rows) -> list[tuple]:
     out = []
     for r in rows:
+        where = r["tp"] if r.get("data", 1) * r.get("pods", 1) == 1 \
+            else r["mesh"]
         if r["status"] != "ok":
-            out.append((r["arch"], r["shape"], r["tp"],
+            out.append((r["arch"], r["shape"], where,
                         f"{r['status']}: {_why(r)}") + ("-",) * 9)
             continue
-        out.append((r["arch"], r["shape"], r["tp"], "ok") + _terms(r))
+        out.append((r["arch"], r["shape"], where, "ok") + _terms(r))
     return out
 
 
 def _wide(rows) -> list[str]:
-    """One markdown row a cell, each tp's peak, fits, terms (memory:
-    the analytic one), dominant*, bound* and frac* side by side."""
-    tps = sorted({r["tp"] for r in rows})
+    """One markdown row a cell, each mesh's (tp's) peak, fits, terms
+    (memory: the analytic one), dominant*, bound* and frac* side by
+    side."""
+    order = {_label(r): r.get("chips", r["tp"]) for r in rows}
+    tps = sorted(order, key=lambda k: (order[k], k))
     cells: dict = {}
     for r in rows:
-        cells.setdefault((r["arch"], r["shape"]), {})[r["tp"]] = r
-    head = ["arch", "shape"] + [f"tp {t}: {c}" for t in tps
+        cells.setdefault((r["arch"], r["shape"]), {})[_label(r)] = r
+    head = ["arch", "shape"] + [f"{t}: {c}" for t in tps
                                 for c in WIDE_COLS]
     lines = ["| " + " | ".join(head) + " |", "|" + "---|" * len(head)]
     for (arch, shape), by_tp in cells.items():
@@ -689,7 +783,8 @@ def main(argv=None):
                    help="comma-separated model-axis sizes (default 1,8)")
     p.add_argument("--mesh", default=None, choices=("single", "multi",
                                                     "both"),
-                   help="JAX's data x model meshes: not in the port")
+                   help="JAX's production meshes in place of --tp: "
+                        "single (16 x 16), multi (2 x 16 x 16), both")
     p.add_argument("--fusion-mode", default="auto",
                    choices=dctx.FUSION_MODES)
     p.add_argument("--all", action="store_true")
@@ -701,24 +796,25 @@ def main(argv=None):
                    help="cells traced at once, one process each "
                         "(default: min(6, CPUs))")
     args = p.parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit(
-            "--mesh: JAX's single/multi-pod meshes shard over the 'data' "
-            "and 'pod' axes, which the port's sharding rules refuse "
-            "(distributed/sharding_rules.py); they wait for the multi-card "
-            "items (ROADMAP 10d). Use --tp W for a model-only mesh.")
     if args.summary:
         print(summary(args.out, args.markdown, args.fusion_mode))
         return
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = ([s.name for s in ALL_SHAPES]
               if (args.all or not args.shape) else [args.shape])
-    todo = [(arch, shape_name, tp, args.fusion_mode, args.force, args.out)
-            for tp in _tps(args.tp) for arch in archs for shape_name in shapes]
+    if args.mesh is None:
+        meshes = [(tp, 1, 1) for tp in _tps(args.tp)]
+    else:
+        names = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+        meshes = [production_mesh(n) for n in names]
+    todo = [(arch, shape_name, tp, args.fusion_mode, args.force, args.out,
+             data, pods)
+            for tp, data, pods in meshes for arch in archs
+            for shape_name in shapes]
     t0 = time.time()
     if args.jobs > 1 and len(todo) > 1:
         # the widest meshes first: they take longest
-        todo.sort(key=lambda c: -c[2])
+        todo.sort(key=lambda c: -c[2] * c[6] * c[7])
         ctx = multiprocessing.get_context("spawn")
         with ctx.Pool(args.jobs, initializer=torch.set_num_threads,
                       initargs=(1,)) as pool:

@@ -2,25 +2,91 @@
 
 The JAX package builds ``jax.make_mesh`` meshes over (possibly fake)
 devices; the port's mesh lists a device per rank, and a device may
-carry several ranks (virtual ranks).
+carry several ranks (virtual ranks). The shapes are JAX's: (data,
+model), (pod, data, model) for several pods, and the production meshes
+(16, 16) (one pod, 256 ranks) and (2, 16, 16) (two pods, 512 ranks):
+DP across pods, FSDP on ``data``, TP/SP/EP on ``model``.
 """
 from __future__ import annotations
 
 from repro_torch.distributed.context import Mesh
 
 
+def _device_list(devices, n: int, device: str) -> list:
+    """``devices`` (a list, or a comma-separated string of one device per
+    rank, ``"cuda:0,cuda:1"``), or ``n`` ranks on ``device``."""
+    if devices is None:
+        return [device] * n
+    if isinstance(devices, str):
+        return [d.strip() for d in devices.split(",") if d.strip()]
+    return list(devices)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, devices=None,
+                   device: str = "cuda") -> Mesh:
+    """A (data, model) mesh over ``devices`` (default: every rank on
+    ``device``, virtual ranks), JAX's ``make_host_mesh``."""
+    devs = _device_list(devices, data * model, device)
+    return Mesh(devs, (data, model), ("data", "model"))
+
+
+def make_mesh_for_devices(n: int, model: int = 16, pods: int = 1,
+                          devices=None, device: str = "cuda") -> Mesh:
+    """JAX's elastic mesh: ``n`` ranks as (pods, n / (model pods),
+    model), the pod axis only when ``pods`` > 1."""
+    if n % (model * pods):
+        raise ValueError(f"{n} ranks do not divide into {pods} pod(s) of "
+                         f"model={model}")
+    data = n // (model * pods)
+    devs = _device_list(devices, n, device)
+    if pods > 1:
+        return Mesh(devs, (pods, data, model), ("pod", "data", "model"))
+    return Mesh(devs, (data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None,
+                         device: str = "cuda") -> Mesh:
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")`` with ``multi_pod``: JAX's production meshes, as virtual
+    ranks on ``device`` unless ``devices`` lists 256 (512)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for k in shape:
+        n *= k
+    return Mesh(_device_list(devices, n, device), shape, names)
+
+
 def make_mesh(tp: int, devices=None, device: str = "cuda") -> Mesh:
-    """A mesh of ``tp`` ranks. ``devices`` is a list or a comma-separated
-    string of one device per rank (``"cuda:0,cuda:1"``); by default all
-    ranks share ``device`` (virtual ranks)."""
+    """The launchers' mesh, JAX's ``build_mesh``: n ranks (one per entry
+    of ``devices``, a list or a comma-separated string; by default
+    ``tp`` ranks on ``device``, virtual ranks) as (data = n // model,
+    model = min(tp, n)). ``--devices cpu,cpu,cpu,cpu --tp 2`` is a (2, 2)
+    mesh. A count that does not divide by ``tp`` (fewer devices than
+    ``tp`` included) raises: JAX's ``n`` is the host's device count,
+    the port's is what the caller listed."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if devices is None:
-        devs = [device] * tp
-    else:
-        devs = ([d.strip() for d in devices.split(",") if d.strip()]
-                if isinstance(devices, str) else list(devices))
-    if len(devs) != tp:
-        raise ValueError(f"--devices lists {len(devs)} devices for "
-                         f"--tp {tp}: give one device per rank")
-    return Mesh(devs)
+    devs = _device_list(devices, tp, device)
+    if not devs:
+        raise ValueError("--devices lists no device")
+    model = min(tp, len(devs))
+    if len(devs) % tp:
+        raise ValueError(f"--devices lists {len(devs)} devices, which do not "
+                         f"divide by --tp {tp}: give one device per rank, "
+                         f"data x tp of them")
+    return make_host_mesh(len(devs) // model, model, devs)
+
+
+def make_serve_mesh(tp: int, devices=None, device: str = "cuda") -> Mesh:
+    """:func:`make_mesh` for the serving launchers, which run on the
+    model axis alone: a mesh with data groups (more devices than
+    ``tp``) raises, naming the ROADMAP item that ports it."""
+    mesh = make_mesh(tp, devices, device)
+    if mesh.dp > 1:
+        raise NotImplementedError(
+            f"serving over a data x model mesh ({dict(mesh.shape)}: "
+            f"--devices lists {mesh.size} ranks for --tp {tp}) is not "
+            f"ported yet (ROADMAP queue 1, item 1: serving over a data x "
+            f"model mesh); list one device per rank, --tp of them")
+    return mesh

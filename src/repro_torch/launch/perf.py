@@ -12,8 +12,12 @@ model-only mesh of 8 ranks (one 8-card NVLink node); records land in
   * olmoe-1b-7b x train_4k          -- JAX's most collective-bound.
 
 A variant whose change needs the ``data`` axis (``no_fsdp`` and every
-``embed`` override: FSDP over ``data``) is recorded as skipped: the
-port's sharding rules build the ``model`` axis only (ROADMAP 10d).
+``embed`` override: FSDP over ``data``, which a model-only mesh does not
+have) runs on JAX's single-pod mesh, (data 16, model 16) (the dry run's
+``--mesh single``, one data group traced), and in such a cell the
+baselines (``baseline_auto``, ``fused_ring``) run there too, with FSDP
+on, as JAX runs every variant on that mesh; the report compares each
+variant with ``baseline_auto`` on its own mesh.
 
 Usage: python -m repro_torch.launch.perf [--cell mistral_decode|phi3_train|
        olmoe_train|all] [--variant NAME] [--force] [--report] [--jobs N]
@@ -126,57 +130,100 @@ def needs_data_axis(kw: dict) -> bool:
     return any(axis == "embed" for axis, _ in over)
 
 
+# traced again on the single-pod mesh in a cell with data-axis variants
+SINGLE_POD_BASELINES = ("baseline_auto", "fused_ring")
+
+
+def variant_mesh(kw: dict, single: bool = False) -> dict:
+    """The dry run's mesh for a variant: ``tp`` TP ranks, or JAX's
+    single-pod mesh where it needs the data axis or ``single`` asks."""
+    if single or needs_data_axis(kw):
+        tp, data, pods = dryrun.production_mesh("single")
+        return {"tp": tp, "data": data, "pods": pods}
+    return {"tp": TP, "data": 1, "pods": 1}
+
+
+def runs(cell_name: str, variant: str | None = None) -> list:
+    """(cell, variant, single) of every run of a cell (``variant``: that
+    one only): each variant on its mesh, and where any variant needs the
+    data axis the :data:`SINGLE_POD_BASELINES` on the single-pod mesh."""
+    vs = EXPERIMENTS[cell_name]["variants"]
+    out = [(cell_name, v, False) for v in vs if variant in (None, v)]
+    if any(needs_data_axis(kw) for kw in vs.values()):
+        out += [(cell_name, v, True) for v in SINGLE_POD_BASELINES
+                if v in vs and variant in (None, v)]
+    return out
+
+
+def record_path(cell_name: str, variant: str, single: bool,
+                out_dir: str) -> str:
+    """Where a run's record lands: ``<cell>__<variant>.json``, with the
+    mesh appended for a baseline run again on the single-pod mesh."""
+    kw = EXPERIMENTS[cell_name]["variants"][variant]
+    m = variant_mesh(kw, single)
+    tag = (f"__{dryrun.mesh_desc(m['tp'], m['data'], m['pods'])}"
+           if single and not needs_data_axis(kw) else "")
+    return os.path.join(out_dir, f"{cell_name}__{variant}{tag}.json")
+
+
 def run_variant(cell_name: str, variant: str, force: bool = False,
-                out_dir: str = PERF_DIR) -> dict:
-    """One variant's record (cached unless ``force``)."""
+                out_dir: str = PERF_DIR, single: bool = False) -> dict:
+    """One variant's record (cached unless ``force``), on the single-pod
+    mesh where it needs the data axis or ``single`` asks."""
     exp = EXPERIMENTS[cell_name]
     kw = exp["variants"][variant]
-    path = os.path.join(out_dir, f"{cell_name}__{variant}.json")
+    m = variant_mesh(kw, single)
+    path = record_path(cell_name, variant, single, out_dir)
+    name = os.path.basename(path)[:-len(".json")]
     if os.path.exists(path) and not force:
         with open(path) as f:
             rec = json.load(f)
         if rec.get("status") in ("ok", "skipped"):
-            print(f"[perf] cached {cell_name}/{variant}", flush=True)
+            print(f"[perf] cached {name}", flush=True)
             return rec
     base = {"cell": cell_name, "variant": variant, "arch": exp["arch"],
-            "shape": exp["shape"], "tp": TP,
+            "shape": exp["shape"], **m,
+            "mesh": dryrun.mesh_desc(m["tp"], m["data"], m["pods"]),
             "hypothesis": exp["hypothesis"].get(variant, "baseline")}
-    if needs_data_axis(kw):
-        rec = {**base, "status": "skipped",
-               "reason": "needs the 'data' axis (FSDP over it): the port's "
-                         "rules build the 'model' axis only (ROADMAP 10d)"}
-    else:
-        cfg = get_config(exp["arch"]).replace(**(kw.get("overrides") or {}))
-        try:
-            rec = {**base, **dryrun.run_cell_cfg(
-                cfg, get_shape(exp["shape"]), TP, kw["fusion_mode"],
-                arch=exp["arch"])}
-        except Exception as e:          # recorded, never skipped silently
-            rec = {**base, "status": "error",
-                   "error": f"{type(e).__name__}: {str(e)[:600]}",
-                   "where": dryrun._where(e)}
+    cfg = get_config(exp["arch"]).replace(**(kw.get("overrides") or {}))
+    try:
+        rec = {**base, **dryrun.run_cell_cfg(
+            cfg, get_shape(exp["shape"]), m["tp"], kw["fusion_mode"],
+            arch=exp["arch"], data=m["data"], pods=m["pods"])}
+    except Exception as e:              # recorded, never skipped silently
+        rec = {**base, "status": "error",
+               "error": f"{type(e).__name__}: {str(e)[:600]}",
+               "where": dryrun._where(e)}
     os.makedirs(out_dir, exist_ok=True)
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
-    print(f"[perf] {cell_name}/{variant}: {rec['status']}", flush=True)
+    print(f"[perf] {name}: {rec['status']}", flush=True)
     return rec
 
 
-def report(cell_name: str, results: dict) -> str:
-    lines = [f"== {cell_name} (tp {TP}) =="]
-    base = results.get("baseline_auto", {}).get("roofline")
-    for variant, rec in results.items():
+def report(cell_name: str, recs: list) -> str:
+    """The cell's table: one line a record, each compared with
+    ``baseline_auto`` on its own mesh."""
+    bases = {r["mesh"]: r["roofline"] for r in recs
+             if r["variant"] == "baseline_auto" and r.get("status") == "ok"}
+    lines = [f"== {cell_name} (each vs baseline_auto on its mesh) =="]
+    for rec in recs:
+        variant, mesh = rec["variant"], rec.get("mesh")
+        head = f"  {variant:22s} {mesh:10s}"
         if rec.get("status") != "ok":
-            lines.append(f"  {variant:22s} {rec.get('status')}: "
+            lines.append(f"{head} {rec.get('status')}: "
                          f"{rec.get('reason') or rec.get('error', '')}")
             continue
         r = rec["roofline"]
-        line = (f"  {variant:22s} compute={r['compute_s']:.3e} "
+        line = (f"{head} compute={r['compute_s']:.3e} "
                 f"mem*={r['memory_s_analytic']:.3e} "
                 f"coll={r['collective_s']:.3e} "
                 f"dom*={r['dominant_star']:10s} frac*={r['frac_star']:.3f} "
                 f"peak/rank={rec['memory']['peak_bytes'] / 1e9:.1f}GB")
-        if base and variant != "baseline_auto" and r["collective_s"]:
+        base = bases.get(mesh)
+        if base is None:
+            line += f"  (no baseline_auto on {mesh})"
+        elif variant != "baseline_auto" and r["collective_s"]:
             dd = base["collective_s"] / r["collective_s"]
             line += (f"  (coll x{dd:.2f} better)" if dd > 1 else
                      f"  (coll x{1 / dd:.2f} worse)")
@@ -195,13 +242,12 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=min(6, os.cpu_count() or 1))
     args = ap.parse_args(argv)
     cells = list(EXPERIMENTS) if args.cell == "all" else [args.cell]
-    todo = [(c, v, args.force, args.out) for c in cells
-            for v in EXPERIMENTS[c]["variants"]
-            if args.variant in (None, v)]
+    todo = [(c, v, args.force, args.out, single) for c in cells
+            for _, v, single in runs(c, args.variant)]
     if args.report:
         recs = []
-        for c, v, _, out in todo:
-            path = os.path.join(out, f"{c}__{v}.json")
+        for c, v, _, out, single in todo:
+            path = record_path(c, v, single, out)
             if os.path.exists(path):
                 with open(path) as f:
                     recs.append(json.load(f))
@@ -213,7 +259,7 @@ def main(argv=None):
     else:
         recs = [run_variant(*t) for t in todo]
     for c in cells:
-        print(report(c, {r["variant"]: r for r in recs if r["cell"] == c}))
+        print(report(c, [r for r in recs if r["cell"] == c]))
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``
 is given) and ``--devices`` (one device per rank, comma-separated;
-default: all ``--tp`` ranks on ``--device``). ``--ckpt-dir`` serves the
+default: all ``--tp`` ranks on ``--device``); serving runs on the
+model axis alone, so listing more devices than ``--tp`` (JAX's data
+axis) raises until it is ported (ROADMAP queue 1, item 1). ``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (keys ``params%%...``, as the
 JAX package's trainer writes them) instead of seeded random ones.
 """
@@ -33,7 +35,7 @@ from repro_torch.checkpoint.checkpointer import SEP, Checkpointer, unflatten
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import context as dctx
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.metrics import percentile
@@ -110,7 +112,7 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
 
-    mesh = make_mesh(args.tp, args.devices, args.device)
+    mesh = make_serve_mesh(args.tp, args.devices, args.device)
     ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
     if args.ckpt_dir:
         params, manifest = load_params(args.ckpt_dir, cfg, mesh.devices[0])

@@ -77,6 +77,10 @@ too long for ``max_len`` or for the whole block pool -> 400, malformed
 JSON -> 400, admission queue full or shedding -> 429, draining or a
 broken engine -> 503, unknown route -> 404.
 
+The mesh is the model axis alone (``launch.mesh.make_serve_mesh``): more
+``--devices`` than ``--tp`` (JAX's data axis) raises until serving over
+a data x model mesh is ported (ROADMAP queue 1, item 1).
+
     PYTHONPATH=src python -m repro_torch.launch.server --arch llama3-8b \
         --port 8008 --decode-steps 8                  # on the card
     PYTHONPATH=src python -m repro_torch.launch.server --arch llama3-8b \
@@ -736,7 +740,7 @@ def build_engine(args):
     with the fault plan, the degraded ladder and ``--resume``."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.distributed import context as dctx
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import make_serve_mesh
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.faults import FaultPlan
@@ -746,7 +750,7 @@ def build_engine(args):
         cfg = smoke_config(cfg)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
-    mesh = make_mesh(args.tp, args.devices, args.device)
+    mesh = make_serve_mesh(args.tp, args.devices, args.device)
     ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
     params = lm.init_params(cfg, seed=args.seed, device=mesh.devices[0])
     fault_plan = None

@@ -14,15 +14,18 @@ holds what JAX's ``input_specs`` name for the model's family
 ShapeDtypeStruct stand-ins as meta tensors (shape and dtype, no
 storage), which ``launch.dryrun`` makes fake tensors of.
 
-The sharding trees are JAX's for the port's model-only mesh, as plain
-dicts (no ``NamedSharding``): :func:`param_shardings` says for every
-parameter leaf which dim the ``model`` axis splits and the per-rank
-shape (what ``lm.shard_params`` cuts), :func:`decode_state_shardings`
-the same for the decode state (the KV caches' sequence dim, JAX's
-``kv_seq``; the recurrent state and ``cur_len`` replicated), and
-:func:`batch_sharding` is trivial: the ``data`` axis has size 1, so the
-batch is replicated (the port builds no data axis yet).
-:func:`jitted_serve_step` is JAX's serve step on those shardings.
+The sharding trees are JAX's, as plain dicts (no ``NamedSharding``):
+:func:`param_shardings` says for every parameter leaf its spec over the
+mesh's axes, the dim the ``model`` axis splits (``"dim"``), the dim the
+``data`` axis splits (``"data_dim"``, FSDP) and the per-rank shape (what
+``lm.shard_params`` cuts); :func:`opt_state_shardings` the same for
+AdamW's ``m`` and ``v``; :func:`batch_sharding` splits dim 0 over
+``("pod", "data")`` where it divides (else replicates it, JAX's
+fallback). :func:`decode_state_shardings` is the decode state's on the
+model-only mesh (the KV caches' sequence dim, JAX's ``kv_seq``; the
+recurrent state and ``cur_len`` replicated), and
+:func:`jitted_serve_step` is JAX's serve step on those shardings:
+serving stays on the model-only mesh.
 """
 from __future__ import annotations
 
@@ -84,19 +87,35 @@ def param_specs(cfg, trainable: bool = True) -> dict:
 
 # ----------------------------------------------------------- sharding trees
 def _sharding(shape, dim, W: int) -> dict:
-    return {"dim": dim, "shape": sr.shard_shape(shape, dim, W)}
+    return {"dim": dim, "data_dim": None, "spec": tuple(
+        "model" if i == dim else None for i in range(len(shape))),
+        "shape": sr.shard_shape(shape, dim, W)}
+
+
+def _placed(shape, spec, mesh_shape) -> dict:
+    return {"dim": sr.dim_of(spec, "model"),
+            "data_dim": sr.dim_of(spec, "data"),
+            "spec": tuple(spec),
+            "shape": sr.spec_shape(shape, spec, mesh_shape)}
 
 
 def param_shardings(cfg, rules: sr.Rules) -> dict:
-    """JAX's ``param_shardings`` on the model-only mesh: the parameter
-    tree with a leaf ``{"dim": the dim the model axis splits or None,
-    "shape": the per-rank shape}`` for every parameter (rank r holds
-    block r of ``dim``; ``sharding_rules``' divisibility fallback
-    replicates, and ``rules.degradations`` records it)."""
-    dims = sr.shard_dims(lm.lm_spec(cfg), rules)
-    return tree_map(lambda path, p: _sharding(p.shape, dims[path],
-                                              rules.model_size),
-                    lm.lm_spec(cfg))
+    """JAX's ``param_shardings``: the parameter tree with a leaf
+    ``{"spec", "dim", "data_dim", "shape"}`` for every parameter: its
+    spec over the mesh's axes, the dims the ``model`` and the ``data``
+    axes split (or None) and the per-rank shape, JAX's
+    ``NamedSharding.shard_shape`` (``sharding_rules``' divisibility
+    fallback replicates, and ``rules.degradations`` records it)."""
+    specs = sr.leaf_specs(lm.lm_spec(cfg), rules)
+    return tree_map(lambda path, p: _placed(p.shape, specs[path],
+                                            rules.shape), lm.lm_spec(cfg))
+
+
+def opt_state_shardings(cfg, rules: sr.Rules, params_sh) -> dict:
+    """JAX's ``opt_state_shardings``: ``m`` and ``v`` placed as the
+    parameters, ``step`` replicated."""
+    return {"m": params_sh, "v": params_sh,
+            "step": _placed((), (), rules.shape)}
 
 
 def decode_state_shardings(cfg, rules: sr.Rules, state_specs) -> dict:
@@ -105,8 +124,9 @@ def decode_state_shardings(cfg, rules: sr.Rules, state_specs) -> dict:
     :func:`decode_state_specs`): an attention KV cache (a ``"k"``/``"v"``
     leaf of 4 or more dims, (..., B, S, KVH, hd)) split on its sequence
     dim where it divides by W (``kv_seq``; the port's strided layout,
-    ``lm.init_decode_state``); every other leaf replicated (the batch
-    dim would go to the data axis, which has size 1)."""
+    ``lm.init_decode_state``); every other leaf replicated (JAX puts the
+    batch dim on the data axis, which serving does not take yet: ROADMAP
+    queue 1, item 1)."""
     W = rules.model_size
 
     def one(path, x):
@@ -118,10 +138,12 @@ def decode_state_shardings(cfg, rules: sr.Rules, state_specs) -> dict:
 
 
 def batch_sharding(rules: sr.Rules, specs) -> dict:
-    """JAX's ``batch_sharding``: dim 0 over the data axes, which the
-    port's mesh holds at size 1, so every leaf is replicated."""
-    return tree_map(lambda _, x: _sharding(x.shape, None, rules.model_size),
-                    specs)
+    """JAX's ``batch_sharding``: each leaf's ``sharding_rules.batch_spec``
+    (dim 0 over the ``("pod", "data")`` axes where it divides by their
+    product, else replicated; ``"data_dim"`` 0 or None, ``"dim"`` None:
+    the model axis splits no batch)."""
+    return tree_map(lambda _, x: _placed(
+        x.shape, sr.batch_spec(x.shape, rules.shape), rules.shape), specs)
 
 
 def jitted_serve_step(cfg, mesh, fusion_mode: str = "auto"):
@@ -134,6 +156,11 @@ def jitted_serve_step(cfg, mesh, fusion_mode: str = "auto"):
     and ``state`` from ``lm.init_decode_state`` under ``ctx``. PyTorch
     runs eagerly: nothing is compiled."""
     rules = sr.rules_for(cfg, mesh)
+    if mesh is not None and mesh.dp > 1:
+        raise NotImplementedError(
+            f"serving over a data x model mesh ({dict(mesh.shape)}) is the "
+            f"next ROADMAP item (queue 1, item 1): serve on a model-only "
+            f"mesh")
     ctx = dctx.DistContext(mesh if mesh is not None and mesh.size > 1
                            else None, fusion_mode)
     step_fn = make_serve_step(cfg)
@@ -187,10 +214,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         list of per-rank ones over the ambient mesh; opt_state:
         :func:`init_opt_state` of them; batch: {"tokens", "labels"} (B,
         S), with "patches" for a vlm, "frames" in place of "tokens" for
-        audio (:func:`synthetic_batch`), the whole batch (every rank
-        reads it; data axis 1). Leaves
-        this step's gradients on the parameters (``.grad``; a replicated
-        leaf's copies hold the sum over the ranks)."""
+        audio (:func:`synthetic_batch`), placed by
+        ``data.pipeline.shard_batch`` (over data groups one batch a
+        group, ``lm.loss_fn``). Leaves this step's
+        gradients on the parameters (``.grad``; the ranks that hold the
+        same block of a leaf hold the sum over them)."""
         ranks = lm.as_ranks(params)
         for p in ranks:
             p.zero_grad(set_to_none=True)
@@ -200,7 +228,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         mesh = dctx.current().mesh
         om = adamw.apply_updates_ranks(
             trees, [_grads(t) for t in trees], lm.as_ranks(opt_state),
-            opt_cfg, {} if mesh is None else lm.shard_dims(cfg, mesh))
+            opt_cfg, {} if mesh is None else lm.leaf_specs(cfg, mesh),
+            {"model": 1} if mesh is None else mesh.shape)
         return params, opt_state, {
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}, **om}

@@ -12,38 +12,50 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
       --smoke --device cpu --steps 3      # text only, as JAX's trainer
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+      --smoke --devices cpu,cpu,cpu,cpu --tp 2 --steps 4  # (data 2, model 2)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
 and ``--devices`` (one device per rank, comma-separated; default: all
 ``--tp`` ranks on ``--device``, i.e. virtual ranks), as in
-``launch.serve``. ``--tp W`` trains what JAX trains on a ``(data=1,
-model=W)`` mesh: Megatron-style shards (``lm.shard_params``), the whole
-batch on every rank, the paper's sequence-parallel AG+GEMM and GEMM+RS
-at the projection sites in ``--fusion-mode`` (``core.patterns``); at
-W = 1 the mode has no effect, as in JAX. The parameters are fp32 masters
+``launch.serve``. As JAX's trainer builds its mesh, the run has n
+ranks (those ``--devices`` lists; by default ``--tp`` ranks on
+``--device``) as (data = n // model, model = min(tp, n)); a count that
+does not divide by ``--tp`` raises. On each data group of W = model
+ranks it trains what JAX trains on that mesh: Megatron-style shards on
+``model`` and FSDP blocks on ``data`` (``lm.shard_params``: every
+weight's ``embed`` / ``in_vocab`` dim over ``data``, gathered per layer
+and its gradient reduce-scattered, ``distributed.fsdp``), the batch's
+rows split over the data groups (``data.pipeline.shard_batch``), the
+paper's sequence-parallel AG+GEMM and GEMM+RS at the projection sites in
+``--fusion-mode`` (``core.patterns``); at W = 1 the mode has no effect,
+as in JAX. The loss is JAX's global mean over every group's tokens.
+``--devices cpu,cpu,cpu,cpu --tp 2`` trains on a (2, 2) mesh of virtual
+ranks. The parameters are fp32 masters
 (``lm.init_params(..., trainable=True)``, seeded from ``--seed`` with a
-``torch.Generator``, so not JAX's numbers; the same numbers at every
-W); the data is ``SyntheticLM``, byte-identical to JAX's for the same
+``torch.Generator``, so not JAX's numbers; the same numbers on every
+mesh); the data is ``SyntheticLM``, byte-identical to JAX's for the same
 seed and step. Checkpoints hold the global ``{"params", "opt"}`` with
 ``extra={"next_step": ...}`` in the JAX checkpointer's format, whatever
-W wrote them, so ``--resume`` continues a run of either package at any
-W (JAX's elastic restore). SIGTERM/SIGINT checkpoints and exits
-(``PreemptionGuard``), slow steps are flagged (``StragglerWatchdog``)
-and ``--heartbeat-file`` records liveness (``Heartbeat``).
+mesh wrote them, so ``--resume`` continues a run of either package on
+any (data, model) (JAX's elastic restore). SIGTERM/SIGINT checkpoints
+and exits (``PreemptionGuard``), slow steps are flagged
+(``StragglerWatchdog``) and ``--heartbeat-file`` records liveness
+(``Heartbeat``).
 
 ``--tp W`` trains every family JAX trains: the dense blocks, MoE
 (``attn_moe``, e.g. ``--arch olmoe-1b-7b``: the experts over the ranks
-as JAX's rules place them, the log lines carrying the aux loss) and the
-recurrent ones (``mamba_hybrid``, ``rwkv``: their scans on the gathered
-sequence). The remat policy comes from the config, as in JAX's trainer
-(``cfg.replace(remat=True, remat_policy="dots")`` reaches ``"dots"``;
-there is no flag). ``--mesh production`` and ``--multi-pod`` raise
+as JAX's rules place them, the log lines carrying the aux loss, over
+the global batch) and the recurrent ones (``mamba_hybrid``, ``rwkv``:
+their scans on the gathered sequence). The remat policy comes from the
+config, as in JAX's trainer (``cfg.replace(remat=True,
+remat_policy="dots")`` reaches ``"dots"``; there is no flag).
+``--mesh production`` and ``--multi-pod`` (256 and 512 ranks) raise
 ``NotImplementedError``: they need one process per card (ROADMAP item
-10d). ``--grad-compress``
-is parsed and unused, as in JAX's trainer (the port's mesh has no data
-axis to compress over).
+10d). ``--grad-compress`` is parsed and unused, as in JAX's trainer
+(``distributed.grad_compress`` is there for its callers).
 
 The data is token batches, so a vlm (paligemma-3b) trains on text
 alone, as JAX's trainer does (no "patches"; the prefix-LM mask still
@@ -107,20 +119,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build_mesh(args):
-    """The run's mesh (``--tp`` ranks on ``--devices`` or ``--device``)."""
+    """The run's mesh, JAX's ``build_mesh``: the ranks ``--devices``
+    lists (default: ``--tp`` on ``--device``) as (data, model =
+    ``--tp``)."""
     if args.mesh == "production" or args.multi_pod:
         raise NotImplementedError(
             "--mesh production and --multi-pod need one process per card "
-            "(ROADMAP item 10d); the port's mesh is --tp ranks driven by "
-            "one process")
+            "(ROADMAP item 10d); the port's mesh is the ranks --devices "
+            "lists, driven by one process")
     return make_mesh(args.tp, args.devices, args.device)
 
 
 def _ckpt_dims(cfg, mesh) -> dict:
-    """The sharded dim of every checkpoint key (``params%%...``,
-    ``opt%%m%%...``, ``opt%%v%%...``) of a run over ``mesh``."""
+    """The spec of every checkpoint key (``params%%...``, ``opt%%m%%...``,
+    ``opt%%v%%...``) of a run over ``mesh`` (``lm.leaf_specs``)."""
     dims = {}
-    for path, d in lm.shard_dims(cfg, mesh).items():
+    for path, d in lm.leaf_specs(cfg, mesh).items():
         key = path.replace(".", SEP)
         for prefix in ("params", f"opt{SEP}m", f"opt{SEP}v"):
             dims[f"{prefix}{SEP}{key}"] = d
@@ -146,7 +160,7 @@ def train(cfg, args, params=None, on_step=None) -> dict:
             f"'frames' (steps.synthetic_batch)")
     mesh = build_mesh(args)
     dev = mesh.devices[0]
-    W = mesh.size
+    W = mesh.size                 # every rank: data groups x model
     ctx = dctx.DistContext(mesh if W > 1 else None, args.fusion_mode)
     opt_cfg = adamw.AdamWConfig(
         lr=schedule.warmup_cosine(args.lr, args.warmup, args.steps))
@@ -170,17 +184,18 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     start_step = 0
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume and ckpt.latest_step() is not None:
-        _, manifest = ckpt.restore_sharded(None, states, dims)  # in place
+        _, manifest = ckpt.restore_sharded(None, states, dims,  # in place
+                                           mesh_shape=mesh.shape)
         start_step = manifest["extra"].get("next_step", 0)
-        print(f"[train] resumed at step {start_step} on {W} rank(s)",
-              flush=True)
+        print(f"[train] resumed at step {start_step} on {W} rank(s) "
+              f"{dict(mesh.shape)}", flush=True)
 
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)
     metrics_log = []
     t_last = time.monotonic()
     for step in range(start_step, args.steps):
         t0 = time.monotonic()
-        batch = shard_batch(data.batch_at(step), dev)
+        batch = shard_batch(data.batch_at(step), dev, mesh)
         with dctx.use(ctx):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
         if on_step is not None:
@@ -205,7 +220,7 @@ def train(cfg, args, params=None, on_step=None) -> dict:
         if ckpt and ((step + 1) % args.ckpt_every == 0 or guard.preempted):
             ckpt.save_sharded(step + 1, states, dims,
                               extra={"next_step": step + 1},
-                              block=guard.preempted)
+                              block=guard.preempted, mesh_shape=mesh.shape)
         if guard.preempted:
             print(f"[train] preempted at step {step}; checkpoint saved, "
                   f"exiting cleanly", flush=True)
@@ -216,7 +231,8 @@ def train(cfg, args, params=None, on_step=None) -> dict:
             # JAX saves here after a preemption too, marking the skipped
             # steps done
             ckpt.save_sharded(args.steps, states, dims,
-                              extra={"next_step": args.steps}, block=True)
+                              extra={"next_step": args.steps}, block=True,
+                              mesh_shape=mesh.shape)
         ckpt.wait()
     if watchdog.slow_steps:
         print(f"[train] straggler summary: {watchdog.summary()}")

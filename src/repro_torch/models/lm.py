@@ -27,7 +27,14 @@ say so (paligemma's tied table); norm scales and ``frontend_proj``
 copied to every rank) and
 run the paper's sequence-parallel AG+GEMM and GEMM+RS at the projection
 sites (``core.patterns``); the loss is vocab-parallel
-(:func:`cross_entropy_ranks`).
+(:func:`cross_entropy_ranks`). Over a (data, model) mesh (``pod`` x
+``data`` data groups of W ranks) the list holds one :class:`LM` a rank,
+every weight also cut over ``data`` on its ``embed`` / ``in_vocab`` dim
+(FSDP, JAX's rules); each data group runs the W-rank path on its rows
+of the batch, gathering the FSDP blocks per layer inside the remat
+scope (``distributed.fsdp``), and the loss is the global mean over every
+group's tokens, the MoE aux loss the global batch's
+(:func:`loss_fn`).
 
 Decode state is a dict ``{"caches", "cur_len"}`` (plus
 ``"block_tables"`` when paged) as in JAX, ``caches`` the block's tree
@@ -49,8 +56,9 @@ from torch import nn
 from repro_torch.core import collective_matmul as cm
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding_rules as sr
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import (apply_embed, apply_norm, apply_unembed,
                                        dense, embed_spec, norm_spec)
 from repro_torch.models.module import Param, init_tree, tree_items, tree_map
@@ -205,6 +213,19 @@ def shard_dims(cfg, mesh) -> dict:
     return sr.shard_dims(lm_spec(cfg), sr.rules_for(cfg, mesh))
 
 
+def data_dims(cfg, mesh) -> dict:
+    """``{dotted path: the dim the data axis shards (FSDP), or None}`` of
+    every parameter leaf for ``mesh``."""
+    return sr.shard_dims(lm_spec(cfg), sr.rules_for(cfg, mesh), "data")
+
+
+def leaf_specs(cfg, mesh) -> dict:
+    """``{dotted path: spec}`` of every parameter leaf for ``mesh``: JAX's
+    ``param_shardings`` specs, one entry a dim (None, or the mesh axes
+    that split it)."""
+    return sr.leaf_specs(lm_spec(cfg), sr.rules_for(cfg, mesh))
+
+
 def split_axes(cfg, mesh) -> dict:
     """The parameter tree with, at every leaf, the logical axis that the
     ``model`` axis of ``mesh`` splits (``"heads"``, ``"mlp"``,
@@ -263,6 +284,18 @@ def gather_params(shards: list, mesh) -> LM:
     tree = sr.unshard_tree([param_tree(p) for p in shards], lm_spec(cfg),
                            sr.rules_for(cfg, mesh))
     return LM(cfg, tree, trainable)
+
+
+def gather_grads(shards: list, mesh) -> dict:
+    """``{dotted path: the global gradient}`` of per-rank ``shards``
+    after a train step over ``mesh`` (``launch.steps.make_train_step``),
+    on rank 0's device: the blocks joined, as :func:`gather_params`
+    joins the parameters (the optimizer wrote the sum over each block's
+    copies into every copy: what JAX's ``value_and_grad`` returns)."""
+    specs = leaf_specs(shards[0].cfg, mesh)
+    named = [dict(p.named_parameters()) for p in shards]
+    return {path: sr.join([nm[path].grad for nm in named], spec,
+                          mesh.shape) for path, spec in specs.items()}
 
 
 def param_tree(params: LM) -> dict:
@@ -395,7 +428,9 @@ def _embed_ranks(params, tokens, cfg, front=None):
 
 
 def _forward(ranks, batch, cfg):
-    """Per-rank logits and the aux loss of the per-rank ``ranks``."""
+    """Per-rank logits of the per-rank ``ranks`` (LMs, or a data group's
+    FSDP views) and the MoE layers' Switch statistics
+    (``transformer.forward``; :func:`_aux` makes the aux loss)."""
     W = dctx.current().model_axis_size
     if len(ranks) != W:
         raise ValueError(f"{len(ranks)} per-rank parameter trees for a "
@@ -403,26 +438,90 @@ def _forward(ranks, batch, cfg):
                          f"DistContext(mesh, ...)) with lm.shard_params("
                          f"params, mesh)")
     x, positions, _ = embed_inputs(ranks, batch, cfg)
-    x, aux = transformer.forward([p["backbone"] for p in ranks], x, cfg,
-                                 positions=positions)
+    x, stats = transformer.forward([p["backbone"] for p in ranks], x, cfg,
+                                   positions=positions)
     x = [apply_norm(p["ln_f"], xr, cfg.norm) for p, xr in zip(ranks, x)]
     return logits_fn(ranks, x, cfg, seq_sharded=positions.shape[-1]
-                     % len(ranks) == 0), aux
+                     % len(ranks) == 0), stats
+
+
+def _data_mesh():
+    """The ambient mesh when it has several data groups, else None."""
+    mesh = dctx.current().mesh
+    return mesh if mesh is not None and mesh.dp > 1 else None
+
+
+def _groups(params, batch, cfg):
+    """Run every data group of the ambient (pod, data, model) mesh on its
+    rows, ``batch[g]`` (``data.pipeline.shard_batch``: one batch a
+    group): yields (the group's per-rank logits, its MoE statistics, its
+    rows), each group under its model-only sub-mesh (``Mesh.group``)
+    with its FSDP views (``distributed.fsdp``): the ``data``-sharded
+    top-level leaves (embedding, head, ``ln_f``, frontend) gathered once
+    here, the backbone's per layer inside the remat scope."""
+    ctx = dctx.current()
+    mesh = ctx.mesh
+    ranks = as_ranks(params)
+    if len(ranks) != mesh.size:
+        raise ValueError(f"{len(ranks)} per-rank parameter trees for a mesh "
+                         f"of {mesh.size} ranks: lm.shard_params(params, "
+                         f"mesh)")
+    if not isinstance(batch, list) or len(batch) != mesh.dp:
+        raise TypeError(f"over {mesh.dp} data groups the batch is one a "
+                        f"group: data.pipeline.shard_batch(batch, device, "
+                        f"mesh)")
+    ddims = data_dims(cfg, mesh)
+    for g, rows in enumerate(batch):
+        sub = mesh.group(g)
+        views = fsdp.group_views(ranks, mesh, g, ddims)
+        for v in views:
+            for k in list(v):
+                if k != "backbone":
+                    v[k] = fsdp.View(fsdp.materialize(v[k]), v.device)
+        with dctx.use(dctx.DistContext(sub if sub.size > 1 else None,
+                                       ctx.fusion_mode)):
+            logits, stats = _forward(views, rows, cfg)
+        yield logits, stats, rows
 
 
 def forward(params, batch, cfg):
     """Full forward: returns (logits (B, L, V) bf16, aux_loss), L the
     rows of :func:`embed_inputs` (the vlm's patches and tokens). Over W
     ranks (``params`` a list of per-rank :class:`LM`): per-rank logits
-    (:func:`logits_fn`)."""
-    logits, aux = _forward(as_ranks(params), batch, cfg)
-    return (logits if isinstance(params, list) else logits[0]), aux
+    (:func:`logits_fn`). Over data groups (``batch`` one a group,
+    ``data.pipeline.shard_batch``): one list of per-rank logits for
+    every rank of the mesh, each group's on its rows, and the aux
+    loss over the global batch (``moe.global_aux``)."""
+    if _data_mesh() is not None:
+        logits, stats = [], []
+        for lg, st, _ in _groups(params, batch, cfg):
+            logits += lg
+            stats.append(st)
+        return logits, _aux(stats, logits[0].device)
+    logits, stats = _forward(as_ranks(params), batch, cfg)
+    return ((logits if isinstance(params, list) else logits[0]),
+            _aux([stats], logits[0].device))
+
+
+def _aux(stats: list, dev):
+    """The aux loss of the data groups' MoE statistics (one group's on a
+    model-only mesh; ``moe.global_aux``), 0.0 without MoE layers, on
+    ``dev``."""
+    aux = moe.global_aux(stats)
+    return (torch.zeros((), dtype=torch.float32, device=dev) if aux is None
+            else aux.to(dev))
 
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
     """Mean token cross-entropy in fp32 with z-loss; labels -100 (any
     negative) and mask entries <= 0 are ignored."""
-    lf = logits.float()
+    total, count = _ce_sum(logits.float(), labels, mask, z_loss)
+    return total / count.clamp_min(1)
+
+
+def _ce_sum(lf, labels, mask, z_loss):
+    """(the sum of the token losses, the count of counted tokens) of
+    fp32 logits ``lf``: :func:`cross_entropy`'s terms."""
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     ce = lse - gold
@@ -431,8 +530,7 @@ def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask > 0)
-    ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, ce, 0.0).sum(), valid.sum()
 
 
 def cross_entropy_ranks(logits, labels, vocab_size: int, mask=None,
@@ -443,9 +541,18 @@ def cross_entropy_ranks(logits, labels, vocab_size: int, mask=None,
     the gold logit from the rank that owns the label, the z-loss on the
     global lse. Logits replicated by the rules ((B, S, V) on every rank)
     take rank 0's. Returns the loss on rank 0's device."""
+    total, count = _ce_terms_ranks(logits, labels, vocab_size, mask, z_loss)
+    return total / count.clamp_min(1)
+
+
+def _ce_terms_ranks(logits, labels, vocab_size: int, mask=None,
+                    z_loss: float = 1e-4):
+    """:func:`cross_entropy_ranks`' (sum of the token losses, count of
+    counted tokens) on rank 0's device, which data groups add up
+    (:func:`loss_fn`)."""
     dev = logits[0].device
     if logits[0].shape[-1] == vocab_size:
-        return cross_entropy(logits[0], labels.to(dev), mask, z_loss)
+        return _ce_sum(logits[0].float(), labels.to(dev), mask, z_loss)
     lf = [x.float() for x in logits]
     m = torch.stack([cm.to_device(x.amax(dim=-1), dev) for x in lf]).amax(
         dim=0).detach()
@@ -470,8 +577,7 @@ def cross_entropy_ranks(logits, labels, vocab_size: int, mask=None,
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask.to(dev) > 0)
-    ce = torch.where(valid, ce, 0.0)
-    return ce.sum() / valid.sum().clamp_min(1)
+    return torch.where(valid, ce, 0.0).sum(), valid.sum()
 
 
 def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
@@ -480,16 +586,47 @@ def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
     vlm's patch rows take no loss: their labels are -100, put in front
     of the batch's (JAX's pad). Over W ranks (``params`` a list of
     per-rank :class:`LM`) the whole batch goes to every rank and the
-    loss lies on rank 0's device."""
-    logits, aux = _forward(as_ranks(params), batch, cfg)
-    labels = batch["labels"]
+    loss lies on rank 0's device.
+
+    Over a mesh with data groups (``pod`` x ``data`` > 1; ``params``
+    one :class:`LM` a rank of the mesh, ``shard_params``; ``batch``
+    one a group, ``data.pipeline.shard_batch``) each group runs the
+    W-rank path on its rows (:func:`_groups`), and the loss is
+    JAX's global mean: the groups' token-loss sums over all counted
+    tokens (where the rows do not divide, every group runs the whole
+    batch, and the sums' D copies over D times the count give the one
+    mean and a gradient of the right size); the aux loss is
+    ``moe.global_aux`` of the groups' statistics."""
+    if _data_mesh() is not None:
+        tot = cnt = None
+        stats = []
+        dev = as_ranks(params)[0].device
+        for logits, st, rows in _groups(params, batch, cfg):
+            s_, n_ = _ce_terms_ranks(
+                logits, _pad_labels(rows["labels"], logits), cfg.vocab_size)
+            s_, n_ = cm.to_device(s_, dev), cm.to_device(n_, dev)
+            tot = s_ if tot is None else tot + s_
+            cnt = n_ if cnt is None else cnt + n_
+            stats.append(st)
+        loss = tot / cnt.clamp_min(1)
+        aux = _aux(stats, loss.device)
+        return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+    logits, stats = _forward(as_ranks(params), batch, cfg)
+    labels = _pad_labels(batch["labels"], logits)
+    loss = cross_entropy_ranks(logits, labels, cfg.vocab_size)
+    aux = _aux([stats], loss.device)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def _pad_labels(labels, logits):
+    """``labels`` with -100 in front for the vlm's patch rows (JAX's
+    pad: no loss on them)."""
     pad = logits[0].shape[1] - labels.shape[1]
     if pad:
         labels = torch.cat([torch.full((labels.shape[0], pad), -100,
                                        dtype=labels.dtype,
                                        device=labels.device), labels], dim=1)
-    loss = cross_entropy_ranks(logits, labels, cfg.vocab_size)
-    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+    return labels
 
 
 def replicate(params, mesh) -> list:

@@ -17,7 +17,8 @@ share of the experts, as JAX's sharding rules place them, on the
 gathered sequence, and the partial combines are reduce-scattered; the
 decode step (:func:`apply_moe_decode`) all-reduces them.
 
-The Switch aux load-balance loss is returned alongside. No op here
+:func:`apply_moe` returns the Switch aux load-balance loss alongside,
+:func:`apply_moe_ranks` its statistics (me, fe). No op here
 syncs with the host (no ``nonzero``, boolean-mask indexing, ``unique``
 or ``.item()``): the routing replays inside a megatick's CUDA graph.
 """
@@ -104,10 +105,33 @@ def route(x, router_w, cfg):
     me = probs.mean(dim=(0, 1))
     top1 = (eidx[..., :1] == torch.arange(E, device=dev)).float()
     fe = top1.mean(dim=(0, 1))
-    aux = E * (me * fe).sum()
     return dict(token_of_slot=token_of_slot, slot_valid=valid,
                 expert_of_flat=flat_e, slot_of_flat=slot_of_flat,
-                kept_flat=kept_flat, gate=gate, aux=aux, C=C)
+                kept_flat=kept_flat, gate=gate, aux=switch_aux(me, fe),
+                me=me, fe=fe, C=C)
+
+
+def switch_aux(me, fe):
+    """The Switch load-balance loss E * sum_e me_e * fe_e of the mean
+    router probabilities ``me`` (E,) and top-1 fractions ``fe`` (E,)."""
+    return me.shape[-1] * (me * fe).sum()
+
+
+def global_aux(stats: list):
+    """The aux loss of D data groups' MoE layers, JAX's over the global
+    batch: ``stats`` holds per group the list of its layers' (me, fe)
+    (equal rows a group, or the whole batch in each); each layer's me
+    and fe are averaged over the groups before the product (a mean of
+    the groups' products is not JAX's aux), and the layers' losses
+    summed, on the first group's device."""
+    dev = stats[0][0][0].device if stats[0] else None
+    total = None
+    for layer in zip(*stats):
+        me = torch.stack([m.to(dev) for m, _ in layer]).mean(dim=0)
+        fe = torch.stack([f.to(dev) for _, f in layer]).mean(dim=0)
+        a = switch_aux(me, fe)
+        total = a if total is None else total + a
+    return total
 
 
 def _combine_share(params, x, r, cfg, lo: int):
@@ -188,8 +212,8 @@ def apply_moe_decode(params, x, cfg, split):
 
 
 def apply_moe_ranks(params, x, cfg, *, seq_sharded: bool):
-    """The train/prefill layer over the W ranks of the ambient mesh (W =
-    1 is :func:`apply_moe`). params: per rank the layer's shards by
+    """The train/prefill layer over the W ranks of the ambient mesh (at W
+    = 1 :func:`apply_moe`'s numbers). params: per rank the layer's shards by
     JAX's rules (``experts`` over ``model``: rank r holds experts [r E/W,
     (r+1) E/W); mixtral's overrides: every expert, its d_ff / W columns;
     E % W != 0: every expert whole, the recorded degradation); x: per
@@ -203,27 +227,25 @@ def apply_moe_ranks(params, x, cfg, *, seq_sharded: bool):
     in rank order, to the ranks' rows (``cm.reduce_scatter``; summed on
     every rank when T does not divide by W). Where the experts are
     replicated each rank computes the whole layer and keeps its rows.
-    Returns (per rank the layout of ``x``, the aux loss: rank 0's, so it
-    counts once)."""
+    Returns (per rank the layout of ``x``, rank 0's Switch statistics
+    (me, fe), so they count once: :func:`switch_aux` makes the aux loss,
+    :func:`global_aux` that of several data groups)."""
     W = len(x)
-    if W == 1:
-        y, aux = apply_moe(params[0], x[0], cfg)
-        return [y], aux
-    xf = cm.all_gather(x, gather_axis=1) if seq_sharded else x
+    xf = cm.all_gather(x, gather_axis=1) if seq_sharded and W > 1 else x
     E, f = cfg.moe_num_experts, cfg.d_ff
     whole = tuple(params[0]["wg"].shape[::2]) == (E, f)
-    parts, aux = [], None
+    parts, stats = [], None
     for rank, (p, xr) in enumerate(zip(params, xf)):
         rt = route(xr, p["router"], cfg)
-        aux = rt["aux"] if aux is None else aux
+        stats = stats or (rt["me"], rt["fe"])
         parts.append(_combine_share(p, xr, rt, cfg,
                                     rank * p["wg"].shape[0] % E))
     dt = x[0].dtype
     if whole:
-        if seq_sharded:
+        if seq_sharded and W > 1:
             m = x[0].shape[1]
             parts = [t.narrow(1, r * m, m) for r, t in enumerate(parts)]
-        return [t.to(dt) for t in parts], aux
+        return [t.to(dt) for t in parts], stats
     out = (cm.reduce_scatter(parts, scatter_axis=1) if seq_sharded
            else cm.all_reduce(parts))
-    return [t.to(dt) for t in out], aux
+    return [t.to(dt) for t in out], stats

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import fsdp
 from repro_torch.kernels.matmul import DOT_OPS as DOT_KERNELS
 from repro_torch.models import attention, mamba2, mlp, moe, rwkv6
 from repro_torch.models.layers import apply_norm, norm_spec
@@ -228,23 +229,25 @@ def copy_paged_block(cfg, caches, src: int, dst: int):
 
 # ------------------------------------------------------------------ forward
 def _layer(tree, li):
-    """Layer ``li`` of a stacked parameter (or state) tree."""
-    return {k: v[li] if isinstance(v, torch.Tensor) else _layer(v, li)
-            for k, v in tree.items()}
+    """Layer ``li`` of a stacked parameter (or state) tree (an FSDP
+    leaf's blocks sliced, ``distributed.fsdp.Shards``)."""
+    return {k: v[li] if isinstance(v, (torch.Tensor, fsdp.Shards))
+            else _layer(v, li) for k, v in tree.items()}
 
 
 def _attn_mlp_layer(p, x, cfg, positions, seq_sharded):
-    """One layer over the ranks: (x per rank, the layer's aux loss, or
-    None for a dense layer)."""
+    """One layer over the ranks: (x per rank, the MoE layer's Switch
+    statistics (me, fe), ``moe.apply_moe_ranks``, or None for a dense
+    layer)."""
     h = [apply_norm(pr["ln1"], xr, cfg.norm) for pr, xr in zip(p, x)]
     a = attention.apply_attn([pr["attn"] for pr in p], h, cfg,
                              positions=positions)
     x = [xr + ar for xr, ar in zip(x, a)]
     h = [apply_norm(pr["ln2"], xr, cfg.norm) for pr, xr in zip(p, x)]
     if "moe" in p[0]:
-        y, aux = moe.apply_moe_ranks([pr["moe"] for pr in p], h, cfg,
-                                     seq_sharded=seq_sharded)
-        return [xr + yr for xr, yr in zip(x, y)], aux
+        y, stats = moe.apply_moe_ranks([pr["moe"] for pr in p], h, cfg,
+                                       seq_sharded=seq_sharded)
+        return [xr + yr for xr, yr in zip(x, y)], stats
     m = mlp.apply_mlp_ranks([pr["mlp"] for pr in p], h, cfg,
                             seq_sharded=seq_sharded)
     return [xr + mr for xr, mr in zip(x, m)], None
@@ -266,20 +269,27 @@ def _parts(cfg):
             "moe" if cfg.block == "attn_moe" else "mlp")
 
 
+def _body(fn, cfg, params):
+    """A layer's body under remat (:func:`_ckpt`), gathering the layer's
+    FSDP shards first where ``params`` are a data group's views
+    (``distributed.fsdp``), inside the remat scope."""
+    return _ckpt(fsdp.gathering(fn) if fsdp.is_view(params) else fn, cfg)
+
+
 def _forward_recurrent(params, x, cfg, positions, seq_sharded):
     """The hybrid's and rwkv's full-sequence forward over the ranks.
     Remat wraps each Mamba2 layer, each shared-block call (the dense
     W-rank block) and each RWKV6 block."""
     layers = [p["layers"] for p in params]
     if cfg.block == "rwkv":
-        body = _ckpt(_rwkv_layer, cfg)
+        body = _body(_rwkv_layer, cfg, params)
         for li in range(cfg.n_layers):
             x = body([_layer(t, li) for t in layers], x, cfg, seq_sharded)
         return x
     every = _every(cfg)
     n_groups = cfg.n_layers // every
-    body = _ckpt(_mamba_layer, cfg)
-    shared = _ckpt(_attn_mlp_layer, cfg)
+    body = _body(_mamba_layer, cfg, params)
+    shared = _body(_attn_mlp_layer, cfg, params)
     for li in range(cfg.n_layers):
         x = body([_layer(t, li) for t in layers], x, cfg, seq_sharded)
         if (li + 1) % every == 0 and li < n_groups * every:
@@ -293,24 +303,26 @@ def forward(params, x, cfg, *, positions):
     = 1 included), every block: ``params`` per-rank backbone trees,
     ``x`` per-rank (B, S/W, d) sequence shards of the embedded input
     (rank r's rows; (B, S, d) on every rank when S does not divide by
-    W), ``positions`` (1, S). Returns (x per rank, aux_loss): the sum of
-    the layers' MoE aux losses (each counted once, not once a rank), 0.0
-    for the other blocks. Remat wraps each layer's body over every
-    rank."""
+    W), ``positions`` (1, S). Returns (x per rank, the list of the MoE
+    layers' Switch statistics (me, fe), each counted once, not once a
+    rank; empty for the other blocks), which ``models.lm`` makes the aux
+    loss of (``moe.global_aux``: over a data mesh the groups' averaged
+    before the product). Remat wraps each layer's body over every rank; on a data
+    group's views (``distributed.fsdp``) the body gathers the layer's
+    FSDP shards first."""
     require_ported(cfg)
-    total = torch.zeros((), dtype=torch.float32, device=x[0].device)
     seq_sharded = positions.shape[-1] % len(x) == 0
     if cfg.block in RECURRENT_BLOCKS:
-        return _forward_recurrent(params, x, cfg, positions,
-                                  seq_sharded), total
-    body = _ckpt(_attn_mlp_layer, cfg)
+        return _forward_recurrent(params, x, cfg, positions, seq_sharded), []
+    body = _body(_attn_mlp_layer, cfg, params)
+    stats = []
     for li in range(cfg.n_layers):
         lp = [{k: _layer(p["layers"][k], li) for k in _parts(cfg)}
               for p in params]
-        x, aux = body(lp, x, cfg, positions, seq_sharded)
-        if aux is not None:
-            total = total + aux
-    return x, total
+        x, st = body(lp, x, cfg, positions, seq_sharded)
+        if st is not None:
+            stats.append(st)
+    return x, stats
 
 
 # ------------------------------------------------------------------- decode

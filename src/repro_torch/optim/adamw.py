@@ -12,12 +12,14 @@ every leaf whose ``/``-joined path contains a ``no_decay`` substring
 (so ``backbone/layers/mlp/wu``, which contains ``"u"``, gets none, as in
 JAX).
 
-Over W ranks, :func:`apply_updates_ranks` takes per-rank trees of
-shards (``lm.shard_params``): the gradients of a replicated leaf's
-per-rank copies are summed across the ranks first, the global norm
-counts each sharded leaf's shards once and each replicated leaf once,
-and every rank then takes JAX's step on its shards with the one clip,
-so the copies of a replicated leaf stay bit-identical.
+Over the ranks of a mesh, :func:`apply_updates_ranks` takes per-rank
+trees of shards (``lm.shard_params``) and each leaf's spec over the
+mesh's axes (``lm.leaf_specs``): the gradients of the ranks that hold
+the same block of a leaf (its copies: over ``data`` for a leaf that
+only ``model`` cuts, over every rank for a replicated one, over none
+for one both axes cut) are summed first, the global norm counts each
+distinct block once, and every rank then takes JAX's step on its
+blocks with the one clip, so the copies stay bit-identical.
 
 A gradient leaf may be ``None``: a parameter the loss never reads (an
 audio model's input table: JAX's ``value_and_grad`` gives it zeros)
@@ -32,6 +34,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.collective_matmul import to_device
+from repro_torch.distributed.sharding_rules import rank_coords
 from repro_torch.models.module import tree_items
 
 
@@ -82,36 +85,49 @@ def apply_updates(params: dict, grads: dict, state: dict,
     a leaf with no gradient: zeros). Returns the
     metrics {"grad_norm", "lr"} (float32 0-d tensors). One rank of
     :func:`apply_updates_ranks`."""
-    return apply_updates_ranks([params], [grads], [state], cfg, {})
+    return apply_updates_ranks([params], [grads], [state], cfg, {},
+                               {"model": 1})
 
 
 @torch.no_grad()
 def apply_updates_ranks(params: list, grads: list, states: list,
-                        cfg: AdamWConfig, dims: dict) -> dict:
-    """:func:`apply_updates` over W ranks: ``params``, ``grads`` and
-    ``states`` hold one tree per rank; ``dims`` maps each leaf's dotted
-    path to the dim it is sharded on; a leaf it gives no dim is a copy
-    on every rank. The copies' gradients are summed across the ranks (in
-    rank order, on rank 0's device) and written back into every copy, IN
-    PLACE. The global norm sums the leaves' squares in sorted-key order
-    (:func:`global_norm` at W = 1). Returns rank 0's metrics."""
+                        cfg: AdamWConfig, specs: dict,
+                        mesh_shape: dict) -> dict:
+    """:func:`apply_updates` over the ranks of a mesh: ``params``,
+    ``grads`` and ``states`` hold one tree per rank (row-major over the
+    axes of ``mesh_shape``, axis -> size in the mesh's order); ``specs``
+    maps each leaf's dotted path to its spec (``lm.leaf_specs``; a leaf
+    it leaves out is replicated). The gradients of the
+    ranks that hold the same block are summed (in rank order, on the
+    first one's device) and written back into each of them, IN PLACE.
+    The global norm sums the leaves' squares in sorted-key order, each
+    distinct block once (:func:`global_norm` at one rank). Returns rank
+    0's metrics."""
     g_l = [{k: torch.zeros_like(p, dtype=torch.float32) if g is None else g
             for (k, g), (_, p) in zip(tree_items(gt), tree_items(pt))}
            for gt, pt in zip(grads, params)]
+    coords = rank_coords(mesh_shape)
     dev0 = next(iter(g_l[0].values())).device
     sq = []
     for path, g0 in g_l[0].items():
-        if dims.get(path) is None:
-            tot = g0.float()
-            for g in g_l[1:]:
-                tot = tot + to_device(g[path], dev0).float()
-            if len(g_l) > 1:
-                for g in g_l:
-                    g[path].copy_(tot)
-            sq.append(tot.square().sum())
-        else:
-            sq.append(torch.stack([to_device(g[path].float().square().sum(),
-                                             dev0) for g in g_l]).sum())
+        spec = specs.get(path) or ()
+        axes = {a for p in spec for a in ((p,) if isinstance(p, str)
+                                          else (p or ()))}
+        groups: dict = {}
+        for r, c in enumerate(coords):
+            groups.setdefault(tuple(c[a] for a in sorted(axes)),
+                              []).append(r)
+        parts = []
+        for ranks in groups.values():
+            tot = g_l[ranks[0]][path].float()
+            for r in ranks[1:]:
+                tot = tot + to_device(g_l[r][path], tot.device).float()
+            if len(ranks) > 1:
+                for r in ranks:
+                    g_l[r][path].copy_(tot)
+            parts.append(tot.square().sum())
+        sq.append(parts[0] if len(parts) == 1 else torch.stack(
+            [to_device(t, dev0) for t in parts]).sum())
     gnorm = torch.stack(sq).sum().sqrt()
     out = [_step(p, g, s, cfg, to_device(gnorm, s["step"].device))
            for p, g, s in zip(params, g_l, states)]

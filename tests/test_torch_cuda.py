@@ -1388,6 +1388,65 @@ def test_training_step_at_tp4_on_the_card_matches_tp1(cuda):
         assert (g4 - g).abs().max() <= 1e-3 * g.abs().max(), n
 
 
+def test_training_step_on_a_data_mesh_on_the_card_matches_tp1(cuda):
+    """The float32 smoke model's first step on a (data 2, model 2) mesh
+    of virtual ranks (FSDP on ``data``, one batch row a data group,
+    ``ring``) against one rank on the card: the loss within 1e-5
+    relative, every leaf's global gradient within 1e-3 of its largest
+    entry (the bf16 logits), through the kernel only."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    _, p1 = _smoke_params(cuda)
+    _, p4 = _smoke_params(cuda)
+    grads = {}
+
+    def keep(step, params, metrics):
+        if isinstance(params, list):
+            grads["mesh"] = {n: g.cpu() for n, g in lm.gather_grads(
+                params, make_host_mesh(2, 2, device="cpu")).items()}
+        else:
+            grads["one"] = {n: p.grad.detach().cpu()
+                            for n, p in params.named_parameters()}
+    want = _smoke_train("cuda", p1, steps=1, on_step=keep)
+    n0, q0 = kmm.matmul.launches, kmm.matmul.plain_calls
+    got = _smoke_train("cuda", p4, steps=1, on_step=keep, extra=[
+        "--devices", ",".join(["cuda:0"] * 4), "--tp", "2",
+        "--fusion-mode", "ring"])
+    assert kmm.matmul.launches > n0 and kmm.matmul.plain_calls == q0
+    assert isinstance(got["params"], list) and len(got["params"]) == 4
+    np.testing.assert_allclose(got["log"][0]["loss"], want["log"][0]["loss"],
+                               rtol=1e-5)
+    for n, g in grads["one"].items():
+        gm = grads["mesh"][n]
+        assert gm.abs().max() > 0, n
+        assert (gm - g).abs().max() <= 1e-3 * g.abs().max(), n
+
+
+def test_grad_compress_on_the_card_equals_the_cpu(cuda):
+    """``compress_int8`` bit-equal card vs CPU (true divisions on both),
+    and ``compressed_psum_tree`` over the data groups of a (2, 2) mesh of
+    virtual ranks bit-equal to the same call on the CPU."""
+    from repro_torch.distributed import grad_compress as gc
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.launch.mesh import make_host_mesh
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100_003, generator=g) * 3
+    q, s = gc.compress_int8(x)
+    qc, sc = gc.compress_int8(x.to(cuda))
+    assert torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), s)
+    trees = [{"w": torch.randn(64, 300, generator=g)} for _ in range(4)]
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        with use(DistContext(make_host_mesh(2, 2, device=dev))):
+            out[dev] = gc.compressed_psum_tree(
+                [{"w": t["w"].to(dev)} for t in trees], "data", "int8")
+    for part in range(2):
+        for r in range(4):
+            assert torch.equal(out["cuda:0"][part][r]["w"].cpu(),
+                               out["cpu"][part][r]["w"])
+
+
 # ------------------------------------------------------------------ MoE
 @pytest.mark.parametrize("E,M,K,N", [
     (64, 1, 2048, 1024), (64, 8, 2048, 1024), (64, 16, 1024, 2048),

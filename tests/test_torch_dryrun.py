@@ -211,22 +211,63 @@ def test_cli_records_summary_and_mesh_refusal(tmp_path, capsys):
     assert "| llama3-8b | decode_32k | " in table
     assert "| hubert-xlarge | decode_32k | skipped: encoder-only" in table
     assert "cells: 1 ok, 1 skipped (N/A), 0 error" in table
-    with pytest.raises(SystemExit, match="10d"):
-        dryrun.main(["--mesh", "single"])
+    # JAX's production meshes: a decode cell on a data mesh is skipped,
+    # naming the item that ports serving over one
+    dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k", "--mesh",
+                 "both", "--out", out, "--jobs", "1"])
+    for desc in ("16dx16m", "2px16dx16m"):
+        with open(tmp_path / f"llama3-8b__decode_32k__{desc}.json") as f:
+            rec = json.load(f)
+        assert rec["status"] == "skipped" and "queue 1, item 1" in \
+            rec["reason"] and rec["mesh"] == desc
+    assert rec["chips"] == 512 and (rec["pods"], rec["data"]) == (2, 16)
 
 
-def test_perf_table_skips_data_axis_variants(tmp_path):
+def test_perf_table_skips_data_axis_variants(tmp_path, monkeypatch):
     """``launch.perf``: every variant that remaps ``embed`` (FSDP over
-    ``data``) is recorded as skipped, naming 10d, without a trace; the
-    others run the dry run's cell at tp 8."""
+    ``data``) no longer skips: it runs the dry run's cell on JAX's
+    single-pod mesh (data 16, model 16); the others at tp 8, and in a
+    cell with such variants the baselines again on the single-pod mesh;
+    the report compares each record with ``baseline_auto`` on its own
+    mesh."""
     from repro_torch.launch import perf
-    skipped = {(c, v) for c, e in perf.EXPERIMENTS.items()
-               for v, kw in e["variants"].items() if perf.needs_data_axis(kw)}
-    assert skipped == {("phi3_train", "no_fsdp"),
-                       ("phi3_train", "fused_ring_no_fsdp"),
-                       ("phi3_train", "remat_dots_no_fsdp"),
-                       ("olmoe_train", "experts_tp_no_fsdp")}
+    moved = {(c, v) for c, e in perf.EXPERIMENTS.items()
+             for v, kw in e["variants"].items() if perf.needs_data_axis(kw)}
+    assert moved == {("phi3_train", "no_fsdp"),
+                     ("phi3_train", "fused_ring_no_fsdp"),
+                     ("phi3_train", "remat_dots_no_fsdp"),
+                     ("olmoe_train", "experts_tp_no_fsdp")}
+    assert perf.runs("phi3_train")[-2:] == [
+        ("phi3_train", "baseline_auto", True),
+        ("phi3_train", "fused_ring", True)]
+    assert perf.runs("mistral_decode") == [
+        ("mistral_decode", v, False) for v in
+        perf.EXPERIMENTS["mistral_decode"]["variants"]]
+    calls = []
+
+    def fake_cell(cfg, shape, tp, mode, arch=None, data=1, pods=1):
+        calls.append((cfg.sharding_overrides, tp, data, pods))
+        return {"status": "ok", "mesh": dryrun.mesh_desc(tp, data, pods),
+                "roofline": {"compute_s": 1.0, "memory_s_analytic": 1.0,
+                             "collective_s": 2.0 if data > 1 and (
+                                 "embed", ()) not in cfg.sharding_overrides
+                             else 1.0,
+                             "dominant_star": "compute", "frac_star": 1.0},
+                "memory": {"peak_bytes": 1e9}}
+    monkeypatch.setattr(dryrun, "run_cell_cfg", fake_cell)
     rec = perf.run_variant("phi3_train", "no_fsdp", out_dir=str(tmp_path))
-    assert rec["status"] == "skipped" and "10d" in rec["reason"]
+    base = perf.run_variant("phi3_train", "baseline_auto",
+                            out_dir=str(tmp_path))
+    assert calls[0][1:] == (16, 16, 1) and ("embed", ()) in calls[0][0]
+    assert calls[1][1:] == (8, 1, 1)
+    assert rec["status"] == "ok" and rec["mesh"] == "16dx16m"
     assert (tmp_path / "phi3_train__no_fsdp.json").exists()
-    assert "skipped" in perf.report("phi3_train", {"no_fsdp": rec})
+    single = perf.run_variant("phi3_train", "baseline_auto",
+                              out_dir=str(tmp_path), single=True)
+    assert calls[2][1:] == (16, 16, 1) and ("embed", ()) not in calls[2][0]
+    assert single["mesh"] == "16dx16m"
+    assert (tmp_path / "phi3_train__baseline_auto__16dx16m.json").exists()
+    table = perf.report("phi3_train", [base, rec, single])
+    assert "no_fsdp" in table and "(coll x2.00 better)" in table
+    table = perf.report("phi3_train", [base, rec])
+    assert "(no baseline_auto on 16dx16m)" in table

@@ -680,7 +680,8 @@ def test_adamw_over_ranks_equals_one_rank_on_the_same_grads(W):
                 gs[r][n] = parts[r].clone()
         m1 = tadamw.apply_updates(p1, _nest(g1), o1, opt)
         mw = tadamw.apply_updates_ranks(ps, [_nest(g) for g in gs], os_,
-                                        opt, dims)
+                                        opt, tlm.leaf_specs(cfg, mesh),
+                                        mesh.shape)
         assert float(m1["grad_norm"]) > opt.grad_clip      # clipped
         np.testing.assert_allclose(float(mw["grad_norm"]),
                                    float(m1["grad_norm"]), rtol=1e-6)

@@ -334,7 +334,8 @@ def test_moe_layer_over_ranks_equals_one_rank(arch, W, S):
         assert dims["wg"] == (0 if 8 % W == 0 else None)
     xr = [x.clone().requires_grad_() for _ in range(W)]
     with use(DistContext(mesh, "ring")):
-        y, aux = tmoe.apply_moe_ranks(pr, xr, cfg, seq_sharded=False)
+        y, stats = tmoe.apply_moe_ranks(pr, xr, cfg, seq_sharded=False)
+        aux = tmoe.switch_aux(*stats)
     for yr in y:
         np.testing.assert_allclose(yr.detach().numpy(), y1.detach().numpy(),
                                    rtol=1e-5, atol=1e-5)
