@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--kernels-only | --peers] [--verbose]
+    python3 chip_smoke.py --phase 22   # one phase alone: 2, 3, 7 or 22
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then runs, failing on the first phase that fails:
@@ -64,6 +65,21 @@ source, in parallel), then runs, failing on the first phase that fails:
    function over the contiguous state vs tp 1. Phases 14c, 15c and 16c
    each shard their model the same way for one teacher-forced chunk
    (launches exact, logits vs tp 1);
+22. serving on a (data 2, model 2) mesh of virtual ranks of cuda:0,
+   after phase 20 (each rank's shards, the ``embed`` dim cut over
+   ``data`` and decoded weights-stationary; the pool over the 4 ranks):
+   (a) the float32 smoke llama3-8b served with a prefix hit, a copy on
+   write and a preemption at K = 8 and K = 1 under ``pallas`` and
+   ``auto``: the card vs the CPU mesh vs the card's (1, 1), streams and
+   counters identical; (b) phase 5's full-width weights on the mesh,
+   each rank's bytes to the byte of the rules and its KV pool, phase
+   9's traffic at K = 8 under ``pallas`` and ``auto``: launches exact a
+   step (``data_mesh_per_step``), steady tok/s, ms a step, peak, no
+   stream in error; (c) the GEMM over one ``auto`` step's products on
+   the shards' data blocks and the fused paged decode over the 4
+   sources, each graph-timed beside its plain version, one library call
+   and its bound (kernel lines ``matmul_data_mesh``,
+   ``flash_decode_paged_fused_data_mesh``);
 11. the robustness plane: (a), right after phase 8, phase 4's smoke
    serve at K = 8 under a fault plan (a dispatch failing twice, a slow
    tick, a pool spike that preempts between pure-megatick graph
@@ -2198,6 +2214,64 @@ def phase_timings(gen, lens, launches, per_step, errs):
     return [gemm, decode], list(rows.values())
 
 
+def _paged_fused_times(gen, lens, mesh, B=None, H=32, KVH=8, D=128,
+                       bs=16):
+    """The fused paged decode over ``mesh``'s ranks (llama3-8b's heads,
+    bf16, a pool of 16 blocks a slot split over the ranks, cur_len
+    ``lens``) in CUDA-graph replays, its plain version (eager) and SDPA
+    on the gathered view (the gather excluded): (call ms, plain ms,
+    library ms, bytes read and written, operations, the launch plan,
+    the gather width, max |fused - plain|)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import symm
+    from repro_torch.kernels import flash_decode as kfd
+    B = B or len(lens)
+    W = mesh.size
+    bf16 = torch.bfloat16
+    n_blocks = B * 16
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    gw = 1
+    while gw < -(-max(lens) // bs):
+        gw *= 2
+    q, kp, vp, full = _decode_inputs(gen, bf16, B=B, H=H, KVH=KVH, D=D,
+                                     bs=bs, C=gw, n_blocks=n_blocks)
+    tb = full[:, :gw].contiguous()
+    n_loc = n_blocks // W
+    kps = [kp[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(W)]
+    vps = [vp[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(W)]
+    scale = D ** -0.5
+    args = ([q] * W, kps, vps, [cl] * W, [tb] * W, scale)
+    t_k = graph_ms(lambda: kfd.flash_decode_paged_fused(*args, mesh=mesh),
+                   iters=50)
+    plan = kfd.decode_plan(B, KVH, W, gw, symm.sm_count("cuda:0"),
+                           symm.capacity("cuda:0", kfd._per_sm_query(), D,
+                                         H // KVH, 1))
+
+    def paged_plain():
+        return kfd.fused_plain(
+            [kfd.paged_partial_plain(q, kps[r], vps[r], cl, tb, scale,
+                                     base=r * n_loc) for r in range(W)],
+            bf16)
+    t_p = time_ms(paged_plain, iters=5)
+    err = max((o.float() - paged_plain()[0].float()).abs().max().item()
+              for o in kfd.flash_decode_paged_fused(*args, mesh=mesh))
+    S = gw * bs
+    idx = tb.long()
+    kk = kp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2) \
+        .transpose(1, 2).contiguous()
+    vv = vp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2) \
+        .transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
+                                                                None, :]
+    t_l = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kk, vv, attn_mask=mask, scale=scale), iters=50)
+    blocks_read = sum(-(-n // bs) for n in lens)
+    by = (blocks_read * bs * KVH * D * 2 * 2 + nbytes(q) + nbytes(cl)
+          + nbytes(tb) + W * nbytes(q))
+    ops = sum(4 * n * H * D for n in lens)
+    return t_k, t_p, t_l, by, ops, plan, gw, err
+
+
 def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     """(10) device time per call and per decode step of the three W-rank
     kernels at the shapes of phase 9 (tp virtual ranks, batch 4, the
@@ -2210,7 +2284,7 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     grid, graph-timed the same way."""
     import torch.nn.functional as F
     from repro_torch.distributed.context import Mesh
-    from repro_torch.kernels import _build, symm
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_decode as kfd
     from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
     L, B, H, KVH, D, bs = 32, len(lens), 32, 8, 128, 16
@@ -2256,53 +2330,19 @@ def phase_timings_ranks(gen, lens, launches, steps, errs, tp=4):
     torch.cuda.empty_cache()
 
     # fused paged decode at the served lengths
-    n_blocks = B * 16
-    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    gw = 1
-    while gw < -(-max(lens) // bs):
-        gw *= 2
-    q, kp, vp, full = _decode_inputs(gen, bf16, B=B, H=H, KVH=KVH, D=D,
-                                     bs=bs, C=gw, n_blocks=n_blocks)
-    tb = full[:, :gw].contiguous()
-    n_loc = n_blocks // tp
-    kps = [kp[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(tp)]
-    vps = [vp[r * n_loc:(r + 1) * n_loc].contiguous() for r in range(tp)]
-    scale = D ** -0.5
-    args = ([q] * tp, kps, vps, [cl] * tp, [tb] * tp, scale)
-    t_k = graph_ms(lambda: kfd.flash_decode_paged_fused(*args, mesh=mesh),
-                   iters=50)
-    plan = kfd.decode_plan(B, KVH, tp, gw, symm.sm_count("cuda:0"),
-                           symm.capacity("cuda:0", kfd._per_sm_query(), D,
-                                         H // KVH, 1))
+    t_k, t_p, t_l, by, ops, plan, gw, _ = _paged_fused_times(gen, lens,
+                                                             mesh)
     empty = _build.load("flash_decode_paged").symm_empty_launch
     empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     t_floor = graph_ms(lambda: _build.check(empty(
         plan.grid, 128, torch.cuda.current_stream().cuda_stream),
         "symm_empty_launch"), iters=50)
-
-    def paged_plain():
-        return kfd.fused_plain(
-            [kfd.paged_partial_plain(q, kps[r], vps[r], cl, tb, scale,
-                                     base=r * n_loc) for r in range(tp)],
-            bf16)
-    t_p = time_ms(paged_plain, iters=5)
-    S = gw * bs
-    idx = tb.long()
-    kk = kp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2) \
-        .transpose(1, 2).contiguous()
-    vv = vp[idx].reshape(B, S, KVH, D).repeat_interleave(H // KVH, 2) \
-        .transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
-                                                                None, :]
-    t_l = graph_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kk, vv, attn_mask=mask, scale=scale), iters=50)
-    blocks_read = sum(-(-n // bs) for n in lens)
-    by = (blocks_read * bs * KVH * D * 2 * 2 + nbytes(q) + nbytes(cl)
-          + nbytes(tb) + tp * nbytes(q))
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(bf16)
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = D ** -0.5
     row("flash_decode_paged_fused", "src/repro_torch/csrc/"
         "flash_decode_paged.cu", "src/repro/kernels/flash_decode.py:272",
-        t_k, t_p, t_l, by,
-        sum(4 * n * H * D for n in lens),
+        t_k, t_p, t_l, by, ops,
         f"one decode step at batch {B} over {tp} virtual ranks, cur_len "
         f"{lens}, gather width {gw}",
         grid=plan.grid, n_split=plan.n_split,
@@ -6353,12 +6393,14 @@ def _serve_streams(params, cfg, ctx, reqs):
     return {r.rid: r.out_tokens for r in done}
 
 
-def _f32_cut(arch, tp=SHARD_TP, layers=2, streams=False):
+def _f32_cut(arch, tp=SHARD_TP, layers=2, streams=False, data=1):
     """``arch`` at full width, cut to ``layers`` layers, in float32
     (seeded): one teacher-forced chunk (4 slots x 8 tokens) on its
-    shards under ``pallas`` and ``auto`` against tp 1 within one bf16
-    ulp (2**-7 relative; 1e-4), phase 9's float32 bound: a wrong block
-    offset, gather or dropped partial sum shows far above it. With
+    shards (over ``tp`` model ranks, or a (``data``, ``tp``) mesh of
+    virtual ranks, weights-stationary) under ``pallas`` and ``auto``
+    against tp 1 within one bf16 ulp (2**-7 relative; 1e-4), phase 9's
+    float32 bound: a wrong block offset, gather, dropped partial sum or
+    join over ``data`` shows far above it. With
     ``streams``: 4 requests' greedy streams (16 new tokens each) served
     through the engine at K = 8 on the shards in both modes must be
     token-identical to tp 1's. Returns the max |diff| per mode (and the
@@ -6373,15 +6415,21 @@ def _f32_cut(arch, tp=SHARD_TP, layers=2, streams=False):
                         generator=g)
     p32 = lm.init_params(cfg, seed=0, device="cuda")
     want = _teacher_forced(p32, cfg, tok, None)
-    mesh, shards, _ = _shard(p32, tp)
-    out = {"layers": layers, "max_abs_diff": {}}
+    if data > 1:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(tp, ["cuda:0"] * (data * tp))
+        shards = lm.shard_params(p32, mesh)
+    else:
+        mesh, shards, _ = _shard(p32, tp)
+    out = {"layers": layers, "mesh": dict(mesh.shape), "max_abs_diff": {}}
     for mode in ("pallas", "auto"):
         got = _teacher_forced(shards, cfg, tok, dctx.DistContext(mesh, mode))
         d = (got - want).abs()
         out["max_abs_diff"][mode] = d.max().item()
         check(bool((d <= 1e-4 + 2 ** -7 * want.abs()).all()),
-              f"{arch} float32 {layers} layers shards {mode} vs tp=1: max "
-              f"|diff| {out['max_abs_diff'][mode]:.3e}")
+              f"{arch} float32 {layers} layers shards on {mesh.shape} "
+              f"{mode} vs tp=1: max |diff| "
+              f"{out['max_abs_diff'][mode]:.3e}")
     if streams:
         plens = [int(n) for n in np.random.default_rng(2).integers(16, 49,
                                                                    4)]
@@ -6932,6 +6980,442 @@ def phase_taxes(params, smi, tp=4):
     return {"static": static, "card": cells, "device": smi}
 
 
+# --------------------------------------- phase 22: serving on a data mesh
+DM_SERVE = (2, 2)           # (data, model) virtual ranks of cuda:0
+
+
+def data_mesh_per_step(cfg, mode, D, M):
+    """Kernel launches of one llama3-8b (``attn_mlp``) decode step on a
+    (data D, model M > 1) mesh of virtual ranks of one card, weights-
+    stationary (``models.lm``: data group 0's model ranks run the weight
+    sites, each product one launch a ``data`` block of its weight): a
+    column group (wq/wk/wv, wg/wu) and the unembed one GEMM a block and
+    model rank (D M); a row site (wo, wd) under ``auto`` one GEMM a block
+    and model rank, under ``pallas`` one fused AG+GEMM a block (over
+    that data group's M ranks); attention one paged decode a layer (the
+    pool over the D M ranks, one launch on the card)."""
+    L, n = cfg.n_layers, D * M
+    row = {"pallas": 0, "auto": n}[mode]
+    attn = "flash_decode_paged_fused" if mode == "pallas" else \
+        "flash_decode_paged_partial"
+    out = {"matmul": L * (2 * n + 2 * row) + n, attn: L}
+    if mode == "pallas":
+        out["ag_gemm_fused"] = 2 * L * D
+    return out
+
+
+def _dm_prompts(seed, *lens):
+    r = np.random.default_rng(seed)
+    return [[int(t) for t in r.integers(1, 512, n)] for n in lens]
+
+
+# phases of (prompt, max_new, arrival tick), each run to completion: a
+# prompt registered whole, hit again (prefix hits, a copy-on-write of
+# its last block), then three slots outgrowing 6 blocks (a preemption);
+# tests/test_torch_data_serve.py serves the same on the CPU
+_DM_SHARED = _dm_prompts(3, 24)[0]
+DM_PHASES = [[(_DM_SHARED, 5, 0)],
+             [(_DM_SHARED + [9, 8, 7], 6, 0), (_DM_SHARED, 5, 1),
+              (_dm_prompts(4, 5)[0], 7, 2)],
+             [(p, 12, 0) for p in _dm_prompts(5, 7, 7, 7)]]
+DM_KEYS = ("ticks", "dispatches", "mixed_dispatches", "preemptions",
+           "prefix_hits", "cow_copies")
+
+
+def _dm_drive(params, cfg, ctx, K, device):
+    """The DM_PHASES traffic through the engine (batch 3, 6 blocks of 8)
+    under ``ctx``: ({rid: tokens}, {counter: value})."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.serving.engine import Engine, Request
+    with dctx.use(ctx):
+        eng = Engine(params, cfg, batch=3, max_len=64, prefill_chunk=4,
+                     block_size=8, n_blocks=6, decode_steps=K,
+                     device=device)
+        streams, rid, done = {}, 0, []
+        for phase in DM_PHASES:
+            for prompt, max_new, at in phase:
+                eng.submit(Request(rid=rid, prompt=list(prompt),
+                                   max_new_tokens=max_new), at_tick=at)
+                rid += 1
+            out = eng.run()
+            done += out
+            streams.update({r.rid: list(r.out_tokens) for r in out})
+        m = eng.metrics(done)
+    check(all(r.finish_reason != "error" for r in done),
+          f"dm serve small: a stream ended in error under {ctx}")
+    return streams, {k: m[k] for k in DM_KEYS}
+
+
+def phase_dm_serve_small():
+    """(22a) the float32 smoke llama3-8b (2 layers) served on (data 2,
+    model 2) virtual ranks of cuda:0 (each rank's shards) against one
+    rank on the card, with the cases that differ on the card (the CPU
+    tests serve every mode at K = 8 and K = 1 on the CPU mesh): K = 8
+    (graph replays) under ``pallas``, also against the same mesh on the
+    CPU, and under ``auto``; K = 1 (the eager tick) under ``ring``.
+    Greedy streams token-identical, the engine's counters (ticks,
+    dispatches, preemptions, prefix hits, copies on write) equal; the
+    kernels ran, their plain versions never on the card."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=2, dtype=torch.float32)
+    D, M = DM_SERVE
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    p_card = lm.replicate(p_cpu, make_mesh(1, ["cuda:0"]))[0]
+    card_mesh = make_mesh(M, ["cuda:0"] * (D * M))
+    card_shards = lm.shard_params(p_card, card_mesh)
+    out = {}
+    # K: [(mode, also on the CPU mesh)]
+    for K, runs in ((8, [("pallas", True), ("auto", False)]),
+                    (1, [("ring", False)])):
+        want = _dm_drive(p_card, cfg, dctx.DistContext(), K, "cuda")
+        check(want[1]["preemptions"] >= 1 and want[1]["prefix_hits"] >= 2
+              and want[1]["cow_copies"] >= 1,
+              f"dm serve small: the traffic missed a path {want[1]}")
+        for mode, on_cpu in runs:
+            n0, q0 = matmul.launches, matmul.plain_calls
+            got = _dm_drive(card_shards, cfg,
+                            dctx.DistContext(card_mesh, mode), K, "cuda")
+            check(matmul.launches > n0 and matmul.plain_calls == q0,
+                  f"dm serve small {mode} K={K}: the GEMM kernel did not "
+                  f"carry the card's serve")
+            check(got == want, f"dm serve small {mode} K={K}: card (2, 2) "
+                               f"{got} != card (1, 1) {want}")
+            if on_cpu:
+                cpu_mesh = make_mesh(M, ["cpu"] * (D * M))
+                got_cpu = _dm_drive(lm.shard_params(p_cpu, cpu_mesh), cfg,
+                                    dctx.DistContext(cpu_mesh, mode), K,
+                                    "cpu")
+                check(got == got_cpu, f"dm serve small {mode} K={K}: card "
+                                      f"{got} != CPU mesh {got_cpu}")
+        out[f"k{K}"] = {"streams": len(want[0]), "counters": want[1],
+                        "modes": [m for m, _ in runs]}
+    print(f"[dm serve small] float32 smoke at (data, model) {DM_SERVE}: "
+          f"card = card (1, 1) under pallas (= the CPU mesh) and auto at "
+          f"K = 8 {out['k8']['counters']}, under ring at K = 1 "
+          f"{out['k1']['counters']}", flush=True)
+    return out
+
+
+def _dm_rank_bytes(params, shards, mesh):
+    """Each rank's resident bytes on ``mesh`` against the rules' (every
+    leaf's ``launch.steps.param_shardings`` per-rank shape in its
+    storage dtype): equal to the byte."""
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_items
+    plan = steps.param_shardings(params.cfg, sr.rules_for(params.cfg, mesh))
+    leaves = dict(tree_items(lm.param_tree(params)))
+
+    def per_rank(tree, prefix=""):
+        n = 0
+        for k, v in tree.items():
+            path = f"{prefix}.{k}" if prefix else k
+            n += (int(np.prod(v["shape"])) * leaves[path].element_size()
+                  if "dim" in v else per_rank(v, path))
+        return n
+    want = per_rank(plan)
+    got = [round(_resident_gb([s]) * 1e9) for s in shards]
+    check(all(g == want for g in got), f"dm serve: {got} B a rank, the "
+                                       f"rules' {want}")
+    return {"rank_bytes": want, "rank_gb": want / 1e9,
+            "card_gb": _resident_gb(shards),
+            "whole_gb": _resident_gb([params])}
+
+
+def dm_serve_kernel_rows(gen, shards, cfg, mesh, cells, lens, B=4):
+    """(22c) the kernels as the (2, 2) serve runs them: the GEMM (#1) over
+    one ``auto`` decode step's products on the real shards (per layer,
+    model rank m and data block g: wq/wk/wv and wg/wu grouped on x's
+    g-th d/D columns, wo and wd on the model rank's K-slice into their
+    d/D columns; the fp32 unembed on each block: 16 L + 4 launches),
+    graph-timed, beside the plain versions, one ``torch.matmul`` a
+    product and the bound from the bytes they move, layer 0's products
+    held to their plain versions; and the fused paged decode (#2) over
+    the mesh's D M ranks (sources) at the served lengths
+    (:func:`_paged_fused_times`), beside its plain version and SDPA."""
+    from repro_torch.kernels.matmul import (matmul, matmul_group,
+                                            matmul_plain)
+    D, M = DM_SERVE
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hq = cfg.n_heads * cfg.hd
+    bf16 = torch.bfloat16
+    g_ = torch.Generator(device="cuda")
+    g_.manual_seed(24)
+    xs = [torch.randn((B, d // D), generator=g_, device="cuda").to(bf16)
+          for _ in range(D)]
+    o = torch.randn((B, hq // M), generator=g_, device="cuda").to(bf16)
+    h = torch.randn((B, f // M), generator=g_, device="cuda").to(bf16)
+    lay = [s["backbone"]["layers"] for s in shards]
+    groups, rows = [], []
+    for li in range(L):
+        for m in range(M):
+            for g in range(D):
+                x = lay[g * M + m]
+                groups.append((xs[g], [x["attn"][n][li]
+                                       for n in ("wq", "wk", "wv")]))
+                groups.append((xs[g], [x["mlp"][n][li]
+                                       for n in ("wg", "wu")]))
+                rows += [(o, x["attn"]["wo"][li]), (h, x["mlp"]["wd"][li])]
+    heads = [(xs[g].float(), shards[g * M + m]["head"]["table"])
+             for m in range(M) for g in range(D)]
+
+    def step(group, one, unembed):
+        for a, ws in groups:
+            group(a, ws)
+        for a, w in rows:
+            one(a, w)
+        for a, t in heads:
+            unembed(a, t)
+    t_k = graph_ms(lambda: step(matmul_group, matmul,
+                                lambda a, t: matmul(a, t, trans_b=True)),
+                   iters=1)
+    t_l = graph_ms(lambda: step(
+        lambda a, ws: [torch.matmul(a, w) for w in ws], torch.matmul,
+        lambda a, t: torch.matmul(a, t.T)), iters=1)
+    t_p = time_ms(lambda: step(
+        lambda a, ws: [matmul_plain(a, w) for w in ws], matmul_plain,
+        lambda a, t: matmul_plain(a, t, True)), iters=2, warmup=1)
+    err = max([_gemm_err(y, matmul_plain(a, w), bf16,
+                         f"matmul on a data block {tuple(w.shape)}")
+               for a, ws in groups[:2 * M * D]
+               for y, w in zip(matmul_group(a, ws), ws)]
+              + [_gemm_err(matmul(a, w), matmul_plain(a, w), bf16,
+                           f"matmul on a row block {tuple(w.shape)}")
+                 for a, w in rows[:2 * M * D]]
+              + [_gemm_err(matmul(a, t, trans_b=True),
+                           matmul_plain(a, t, True), torch.float32,
+                           "matmul on the head's block")
+                 for a, t in heads[:1]])
+    by = (sum(_gemm_io_bytes(a, ws, bf16) for a, ws in groups)
+          + sum(_gemm_io_bytes(a, [w], bf16) for a, w in rows)
+          + sum(nbytes(a, t) + B * t.shape[0] * 4 for a, t in heads))
+    ops = [(sum(2 * B * w.numel() for _, ws in groups for w in ws)
+            + sum(2 * B * w.numel() for _, w in rows), bf16),
+           (sum(2 * B * t.numel() for _, t in heads), torch.float32)]
+    b_s, b_by = bound(ops, by)
+    auto = cells["auto"]
+    n_launch = len(groups) + len(rows) + len(heads)
+    check(n_launch == data_mesh_per_step(cfg, "auto", D, M)["matmul"],
+          f"dm serve kernels: {n_launch} products a step")
+    gemm = {"name": "matmul_data_mesh", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul.py:34",
+            "launches": auto["launches"]["matmul"],
+            "launches_per_step": auto["launches"]["matmul"]
+            / auto["decode_steps"],
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": 1e3 * b_s, "bound_by": b_by, "bytes": by,
+            "library_ms": t_l,
+            "unit": f"one auto decode step at batch {B} on llama3-8b's "
+                    f"shards over (data, model) {DM_SERVE} ({n_launch} "
+                    f"launches: each product on each data block of its "
+                    f"weight, weights-stationary)"}
+    pallas = cells["pallas"]
+    name = "flash_decode_paged_fused"
+    per = pallas["launches"][name] / pallas["decode_steps"]
+    t_k, t_p, t_l, by, ops1, plan, gw, err = _paged_fused_times(gen, lens,
+                                                                mesh)
+    check(err <= 2e-2, f"dm serve: fused paged decode over {mesh.size} "
+                       f"sources vs plain {err:.3e}")
+    b1, b1_by = bound(ops1, by, bf16)
+    paged = {"name": "flash_decode_paged_fused_data_mesh", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_decode_paged.cu",
+             "replaces": "src/repro/kernels/flash_decode.py:272",
+             "launches": pallas["launches"][name],
+             "launches_per_step": per, "max_abs_err": err,
+             "ms": per * t_k, "call_ms": t_k, "plain_ms": per * t_p,
+             "bound_ms": 1e3 * per * b1, "bound_by": b1_by,
+             "library_ms": per * t_l, "grid": plan.grid,
+             "n_split": plan.n_split,
+             "unit": f"one decode step at batch {B}, the pool over the "
+                     f"{mesh.size} ranks of (data, model) {DM_SERVE} "
+                     f"(sources), cur_len {lens}, gather width {gw}"}
+    for k in (gemm, paged):
+        print(f"[dm serve kernels] {k['name']}: {k['ms']:.3f} ms a step "
+              f"(bound {k['bound_ms']:.3f} {k['bound_by']}; plain "
+              f"{k['plain_ms']:.3f}, library {k['library_ms']:.3f}; "
+              f"{k['launches_per_step']:.0f} launches a step; max |err| "
+              f"{k['max_abs_err']:.3e})", flush=True)
+    return [gemm, paged]
+
+
+def dm_ag_gemm_row(shards, cfg, cells, B=4):
+    """(22c) the fused AG+GEMM (#4) as the (2, 2) serve's ``pallas`` step
+    runs it on the real shards: per layer and data block g, wo ((B, hq/M)
+    a rank . (hq, d/D)) and wd ((B, f/M) a rank . (f, d/D)), each one
+    launch over data group g's M ranks, on block g's columns of the
+    weight gathered over ``model`` from the ranks' row blocks
+    (``patterns._gather_row_blocks``: that gather, a ``torch.cat``,
+    timed apart, as phase 20's), graph-timed, beside the plain version
+    (eager), one ``torch.matmul`` a product and the bound from the bytes
+    (x and the block read once, each rank's output written once); every
+    product of layer 0 on both blocks held to its plain version
+    (``_gemm_err``: bf16 within one ulp)."""
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
+    D, M = DM_SERVE
+    L = cfg.n_layers
+    bf16 = torch.bfloat16
+    grp = Mesh(["cuda:0"] * M)
+    g_ = torch.Generator(device="cuda")
+    g_.manual_seed(25)
+    xs = {"wo": torch.randn((B, cfg.n_heads * cfg.hd), generator=g_,
+                            device="cuda").to(bf16),
+          "wd": torch.randn((B, cfg.d_ff), generator=g_,
+                            device="cuda").to(bf16)}
+    sl = {n: [x[:, m * (x.shape[1] // M):(m + 1) * (x.shape[1] // M)]
+              .contiguous() for m in range(M)] for n, x in xs.items()}
+    lay = [s["backbone"]["layers"] for s in shards]
+    site = {"wo": "attn", "wd": "mlp"}
+    parts = [(n, li, [lay[g * M + m][site[n]][n][li] for m in range(M)])
+             for n in ("wo", "wd") for li in range(L) for g in range(D)]
+    t_gather = graph_ms(lambda: [torch.cat(ws, dim=0) for *_, ws in parts],
+                        iters=1)
+    whole = [(n, li, torch.cat(ws, dim=0)) for n, li, ws in parts]
+    check(len(whole) == data_mesh_per_step(cfg, "pallas", D, M)[
+        "ag_gemm_fused"], f"dm serve kernels: {len(whole)} AG+GEMM "
+                          f"products a step")
+    t_k = graph_ms(lambda: [ag_gemm_fused(sl[n], [w] * M, grp)
+                            for n, _, w in whole], iters=1)
+    t_l = graph_ms(lambda: [torch.matmul(xs[n], w) for n, _, w in whole],
+                   iters=1)
+    t_p = time_ms(lambda: [ag_gemm_plain(sl[n], [w] * M)
+                           for n, _, w in whole], iters=2, warmup=1)
+    err = max(_gemm_err(u, v, bf16, f"ag_gemm_fused on data block columns "
+                                    f"{n} {tuple(w.shape)}")
+              for n, li, w in whole if li == 0
+              for u, v in zip(ag_gemm_fused(sl[n], [w] * M, grp),
+                              ag_gemm_plain(sl[n], [w] * M)))
+    by = sum(nbytes(xs[n], w) + M * B * w.shape[1] * 2
+             for n, _, w in whole)
+    b_s, b_by = bound(sum(M * 2 * B * w.numel() for *_, w in whole), by,
+                      bf16)
+    pallas = cells["pallas"]
+    n_l = pallas["launches"]["ag_gemm_fused"]
+    d, f = cfg.d_model, cfg.d_ff
+    hq = cfg.n_heads * cfg.hd
+    row = {"name": "ag_gemm_fused_data_mesh", "route": "cuda",
+           "source": "src/repro_torch/csrc/ag_gemm.cu",
+           "replaces": "src/repro/kernels/ag_gemm.py:114",
+           "launches": n_l, "launches_per_step": n_l / pallas[
+               "decode_steps"],
+           "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+           "bound_ms": 1e3 * b_s, "bound_by": b_by, "bytes": by,
+           "library_ms": t_l, "gather_ms": t_gather,
+           "gather_bytes": sum(nbytes(*ws) for *_, ws in parts),
+           "unit": f"one pallas decode step at batch {B} over (data, "
+                   f"model) {DM_SERVE}: per layer and data block, wo "
+                   f"({B}x{hq // M} a rank . {hq}x{d // D}) and wd "
+                   f"({B}x{f // M} a rank . {f}x{d // D}) over the "
+                   f"block's {M} model ranks, on the columns gathered "
+                   f"over model from the row blocks (the gather: "
+                   f"gather_ms)"}
+    del whole
+    torch.cuda.empty_cache()
+    print(f"[dm serve kernels] {row['name']}: {t_k:.3f} ms a step (bound "
+          f"{row['bound_ms']:.3f} {b_by}; plain {t_p:.3f}, library "
+          f"{t_l:.3f}; {row['launches_per_step']:.0f} launches a step; max "
+          f"|err| {err:.3e}); the row blocks' gather over model {t_gather:.3f}"
+          f" ms ({row['gather_bytes'] / 1e9:.3f} GB)", flush=True)
+    return row
+
+
+def phase_serve_data_mesh(gen, params):
+    """(22) serving on a (data 2, model 2) mesh of virtual ranks of
+    cuda:0: (a) :func:`phase_dm_serve_small`; (b) full-width llama3-8b
+    (``params``: phase 5's bf16 weights) on each rank's shards
+    (``lm.shard_params``: the embed dim cut over ``data``, decoded
+    weights-stationary), the bytes a rank to the byte of the rules and
+    the KV pool a rank; phase 9's traffic at K = 8 under ``pallas`` and
+    ``auto`` (graph replays, then the steady rerun): launches exact a
+    step (:func:`data_mesh_per_step`), no stream in error, tok/s, ms a
+    step, the peak; (c) :func:`dm_serve_kernel_rows` and
+    :func:`dm_ag_gemm_row`; then the model at full width in float32, cut
+    to 2 layers, on its (2, 2) shards under ``pallas`` and ``auto``
+    against tp 1 within one bf16 ulp (:func:`_f32_cut`). Returns
+    (numbers, kernel rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    D, M = DM_SERVE
+    parts_s, t_part = {}, [time.time()]
+
+    def part(name):
+        now = time.time()
+        parts_s[name] = now - t_part[0]
+        t_part[0] = now
+    small = phase_dm_serve_small()
+    part("small")
+    cfg = get_config("llama3-8b")
+    mesh = make_mesh(M, ["cuda:0"] * (D * M))
+    t0 = time.time()
+    shards = lm.shard_params(params, mesh)
+    torch.cuda.synchronize()
+    mem = {**_dm_rank_bytes(params, shards, mesh),
+           "shard_s": time.time() - t0}
+    plens = [int(n) for n in np.random.default_rng(1).integers(16, 49, 4)]
+    reqs_a = _full_requests(cfg, plens, 3, 16, 1)
+    reqs_b = _full_requests(cfg, plens, 4, 16, 1)
+    n_blocks = 4 * (256 // 16)                # the engine's default pool
+    n_loc, _ = sr.pool_blocks(n_blocks, mesh.size)
+    mem["kv_rank_bytes"] = (cfg.n_layers * 2 * n_loc * 16 * cfg.n_kv_heads
+                            * cfg.hd * 2)
+    print(f"[dm serve] llama3-8b on (data, model) {DM_SERVE} of one card: "
+          f"a rank {mem['rank_bytes']} B ({mem['rank_gb']:.3f} GB, the "
+          f"rules' to the byte), the shards on the card "
+          f"{mem['card_gb']:.3f} GB (cut in {mem['shard_s']:.2f} s); KV "
+          f"pool a rank {n_loc} of {n_blocks} blocks, "
+          f"{mem['kv_rank_bytes'] / 1e6:.1f} MB", flush=True)
+    cells = {}
+    for mode in ("pallas", "auto"):
+        per_step = data_mesh_per_step(cfg, mode, D, M)
+        cell, done = serve_cell(shards, cfg, 8, reqs_a, reqs_b, batch=4,
+                                max_len=256,
+                                ctx=dctx.DistContext(mesh, mode),
+                                label=f"(data, model) {DM_SERVE} {mode}")
+        _check_serve(cell, done, cfg, 4, 16, per_step,
+                     f"data mesh {DM_SERVE} {mode} K=8")
+        check(all(r.finish_reason != "error" for r in done),
+              f"data mesh {mode}: a stream ended in error")
+        cell["launches_per_step"] = per_step
+        cell["steady_ms_per_step"] = (cell["pure_megatick_wall_ms"] / 8
+                                      if cell["pure_megaticks"] else None)
+        cells[mode] = cell
+        part(f"serve_{mode}")
+    lens = [n + 8 for n in plens]
+    kernels = dm_serve_kernel_rows(gen, shards, cfg, mesh, cells, lens)
+    kernels.insert(1, dm_ag_gemm_row(shards, cfg, cells))
+    part("kernels")
+    for mode, c in cells.items():
+        print(f"[dm serve] {mode}: steady {c['steady_tokens_per_s']:.2f} "
+              f"tok/s, {c['steady_ms_per_token']:.2f} ms/token, pure "
+              f"megatick {c['pure_megatick_wall_ms'] / 8:.2f} ms a step "
+              f"({c['pure_megatick_device_ms'] / 8:.2f} ms device), peak "
+              f"{c['peak_mem_bytes'] / 1e9:.2f} GB, launches a step "
+              f"{c['launches_per_step']}", flush=True)
+    del shards
+    torch.cuda.empty_cache()
+    f32 = _f32_cut("llama3-8b", M, data=D)
+    part("f32_cut")
+    print(f"[dm serve] float32 llama3-8b at full width, 2 layers, on the "
+          f"{DM_SERVE} shards vs tp=1: max |diff| " + ", ".join(
+              f"{m} {v:.3e}" for m, v in f32["max_abs_diff"].items())
+          + " (within one bf16 ulp)", flush=True)
+    print("[dm serve] parts: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in parts_s.items()),
+          flush=True)
+    return {"small": small, "memory": mem, "cells": cells, "f32_cut": f32,
+            "parts_s": parts_s}, kernels
+
+
 def check_bounds(kernels, path):
     """Print every kernel line's bound beside the same line's in the
     ``chip_smoke.json`` at ``path`` (an earlier run's) and fail where the
@@ -6951,6 +7435,48 @@ def check_bounds(kernels, path):
         check(same and k["bound_by"] == p["bound_by"],
               f"bound of {k['name']} moved: {k['bound_ms']} vs "
               f"{p['bound_ms']}")
+
+
+def run_alone(phase, gen, smi, timed, phase_s, t_start):
+    """``--phase N``: only phase N after the build, for the phases that
+    need no earlier phase's output (2, 3, 7: the kernel checks; 22: its
+    own full-width weights, seeded as phase 5's), then the kernels line,
+    the card and the last line as a whole run prints them."""
+    kernels = []
+    if phase == "2":
+        timed("2 gemm", phase_gemm, gen)
+    elif phase == "3":
+        timed("3 decode", phase_decode, gen)
+    elif phase == "7":
+        timed("7a ag_gemm", phase_ag_gemm, gen)
+        timed("7b paged ranks", phase_paged_ranks, gen)
+        timed("7c strided", phase_strided, gen)
+        timed("7d graph replays", phase_graph_replays, gen)
+    elif phase == "22":
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+        params = lm.init_params(get_config("llama3-8b"), seed=0,
+                                device="cuda")
+        out, kernels = timed("22 serve on a data mesh",
+                             phase_serve_data_mesh, gen, params)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_phase22.json"),
+                  "w") as f:
+            json.dump({"device": smi, "serve_data_mesh": out,
+                       "kernels": kernels, "phase_s": phase_s}, f, indent=1)
+    else:
+        print(f"chip_smoke: --phase {phase}: only 2, 3, 7 and 22 run "
+              f"alone (the others take earlier phases' outputs)",
+              file=sys.stderr)
+        sys.exit(2)
+    print("[phases] " + ", ".join(f"{k} {v:.1f} s"
+                                  for k, v in phase_s.items()), flush=True)
+    print(f"[total] {time.time() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 def main():
@@ -6982,6 +7508,9 @@ def main():
         out = fn(*args)
         phase_s[name] = time.time() - t0
         return out
+    if "--phase" in sys.argv:
+        return run_alone(sys.argv[sys.argv.index("--phase") + 1], gen, smi,
+                         timed, phase_s, t_start)
     errs = {"gemm": timed("2 gemm", phase_gemm, gen),
             "decode": timed("3 decode", phase_decode, gen),
             "ag_gemm_fused": timed("7a ag_gemm", phase_ag_gemm, gen),
@@ -7007,6 +7536,8 @@ def main():
                                 phase_full_width_ranks, params)
     taxes = timed("19 three taxes", phase_taxes, params, smi)
     sharded = timed("20 sharded weights", phase_sharded, params, summary_tp)
+    serve_dm, serve_dm_kernels = timed("22 serve on a data mesh",
+                                       phase_serve_data_mesh, gen, params)
     del params
     torch.cuda.empty_cache()
     train, train_kernel = timed("12 training", phase_train, gen)
@@ -7040,7 +7571,8 @@ def main():
                       "flash_decode_fused": c_steps,
                       "flash_decode_fused_w1": c_steps}, errs)
     kernels += ([train_kernel, train_tp_kernel, dm_kernel] + moe_kernels
-                + rec_kernels + front_kernels + sharded["kernels"])
+                + rec_kernels + front_kernels + sharded["kernels"]
+                + serve_dm_kernels)
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
                 moe, front, fam, summary, kernels[0]["host_us_per_call"],
                 sharded)
@@ -7063,6 +7595,7 @@ def main():
                    "dots_tp_family_kernels": fam_kernels,
                    "dryrun_vs_card": dry, "taxes": taxes,
                    "sharded": sharded, "data_mesh": dm,
+                   "serve_data_mesh": serve_dm,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -87,7 +87,10 @@ def record(op: str, size: int, group: int, n: int = 1, out=None):
 
 
 def _mm(a, b):
-    """(..., k) @ (k, N) through the GEMM kernel."""
+    """(..., k) @ (k, N) through the GEMM kernel (a :class:`Stationary`
+    ``b`` block by block)."""
+    if isinstance(b, Stationary):
+        return stationary(lambda x, bs: [_mm(x, bs[0])], a, [b], 0)[0]
     lead = a.shape[:-1]
     return matmul(a.reshape(-1, a.shape[-1]).contiguous(), b).reshape(
         *lead, b.shape[1])
@@ -96,6 +99,126 @@ def _mm(a, b):
 def to_device(x, dev):
     """``x`` on ``dev``: a copy when it lies elsewhere."""
     return x.to(dev, copy=x.device != dev)
+
+
+# ------------------------------------------------- weights-stationary data
+class Stationary:
+    """One weight's D ``data`` blocks as the decode step reads them over a
+    (data, model) mesh: ``blocks[g]`` is block g of dim ``dim`` (the
+    weight's ``embed`` or ``in_vocab`` dim, the FSDP shards), on the
+    device of the rank that holds it. JAX's decode never gathers these
+    (``repro/models/lm.py``, weights-stationary decode): every product
+    becomes a local partial dot per block plus a small sum or join of
+    its (B, 1, out) outputs over ``data`` (:func:`stationary`).
+
+    It reads like the weight: ``shape`` is the whole one, a cast casts
+    every block, an int or a slice indexes every block (a stacked
+    layer's layer, a row range), an index tensor gathers rows
+    (:meth:`__getitem__`). It never moves: ``to(device)`` returns it as
+    it is, and the products move the activations to the blocks."""
+
+    __slots__ = ("blocks", "dim")
+
+    def __init__(self, blocks: list, dim: int):
+        self.blocks, self.dim = list(blocks), dim
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.blocks[0].shape)
+        s[self.dim] *= len(self.blocks)
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks[0].device
+
+    def to(self, *args, **kwargs):
+        dt = kwargs.get("dtype") or next(
+            (a for a in args if isinstance(a, torch.dtype)), None)
+        if dt is None or dt == self.dtype:
+            return self
+        return Stationary([b.to(dt) for b in self.blocks], self.dim)
+
+    def float(self):
+        return self.to(torch.float32)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, int):
+            return Stationary([b[idx] for b in self.blocks], self.dim - 1)
+        if isinstance(idx, slice):
+            if self.dim == 0:
+                raise ValueError("a row range of a weight cut over data "
+                                 "on its rows")
+            return Stationary([b[idx] for b in self.blocks], self.dim)
+        return self._gather_rows(idx)
+
+    def _gather_rows(self, ids):
+        """``weight[ids]`` (an embedding lookup) on ``ids``' device: rows
+        cut over ``data``, each block's masked gather (zeros for rows
+        it does not hold) summed in block order, JAX's masked gather and
+        psum; columns cut, the blocks' gathers joined."""
+        dev = ids.device
+        D = len(self.blocks)
+        if self.dim == 0:
+            n = self.blocks[0].shape[0]
+            out = None
+            for g, b in enumerate(self.blocks):
+                i = to_device(ids, b.device) - g * n
+                own = ((i >= 0) & (i < n)).reshape(*i.shape,
+                                                   *(1,) * (b.dim() - 1))
+                part = to_device(torch.where(own, b[i.clamp(0, n - 1)], 0),
+                                 dev)
+                out = part if out is None else out + part
+            record("all-reduce", nbytes(out), D)
+            return out
+        out = torch.cat([to_device(b[to_device(ids, b.device)], dev)
+                         for b in self.blocks], dim=-1)
+        record("all-gather", nbytes(out), D)
+        return out
+
+
+def stationary(prod, x, ws, kdim: int):
+    """The weights-stationary products of ``x`` with the weights ``ws``
+    (the sites of a group that shares ``x``), each a :class:`Stationary`
+    cut over ``data`` the same way: ``prod(x_g, [block g of each
+    weight])`` runs on each block's device (``x`` moved there), the one
+    helper every decode site's product goes through on a data mesh.
+    ``kdim`` is the weights' contracted dim: where ``data`` cuts it, x's
+    columns of block g go to block g and the D partial outputs are
+    summed in fp32 in block (rank) order, then cast back (an all-reduce
+    over ``data``); where it cuts the output dim, each block's outputs
+    are joined along the last dim (an all-gather). Returns one output
+    per weight, on ``x``'s device."""
+    D = len(ws[0].blocks)
+    kcut = ws[0].dim == kdim
+    if any(not isinstance(w, Stationary) or w.dim != ws[0].dim
+           or len(w.blocks) != D for w in ws):
+        raise ValueError("weights of one product group cut over data "
+                         "differently")
+    k = ws[0].blocks[0].shape[kdim] if kcut else None
+    parts = []
+    for g in range(D):
+        dev = ws[0].blocks[g].device
+        xg = x[..., g * k:(g + 1) * k].contiguous() if kcut else x
+        ys = prod(to_device(xg, dev), [w.blocks[g] for w in ws])
+        parts.append([to_device(y, x.device) for y in ys])
+    out = []
+    for ys in zip(*parts):
+        if kcut:
+            acc = None
+            for y in ys:
+                acc = y.float() if acc is None else acc + y.float()
+            y = acc.to(ys[0].dtype)
+            record("all-reduce", nbytes(y), D)
+        else:
+            y = torch.cat(ys, dim=-1)
+            record("all-gather", nbytes(y), D)
+        out.append(y)
+    return out
 
 
 def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):

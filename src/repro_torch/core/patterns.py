@@ -53,6 +53,8 @@ in one launch), whatever the mode, as in JAX.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import flash_decode as fd
 from repro_torch.distributed import context as dctx
@@ -156,19 +158,82 @@ def project_k_sharded(x, w, *, rows: bool = False, x_sliced: bool = False):
     if mode == "auto":
         return mesh.per_rank(row_parallel_sum(shards, w))
     if rows:
-        w = mesh.per_rank(cm.all_gather_devices(w, mesh.distinct,
-                                                gather_axis=0))
+        w = mesh.per_rank(_gather_row_blocks(w, mesh))
     w = [wr.to(xr.dtype) for wr, xr in zip(w, x)]
     if mode == "pallas":
         shards = [s.reshape(-1, k).contiguous() for s in shards]
         cm.record("all-gather", W * cm.nbytes(shards[0]), W)
-        out = ag_gemm_fused(shards, w, mesh)
+        out = _ag_gemm_fused(shards, w, mesh)
         return [o.reshape(*lead, o.shape[-1]) for o in out]
     m = "bsp" if mode == "bsp" else "ring_bidir"
     if not x_sliced:
         return cm.ag_gemm_k_sharded_sm(list(x), w, mesh, mode=m)
     cm.check_ag_gemm_k_sharded(K, w[0].shape[0], W, m)
     return cm.ag_gemm_k_sharded(shards, w, mode=m)
+
+
+def _gather_row_blocks(w, mesh):
+    """The row blocks ``w`` (per rank (K/W, N)) all-gathered over the
+    ``model`` axis into a whole (K, N) once per distinct device. Blocks
+    also cut over ``data`` on N (``cm.Stationary``, a data mesh's
+    weights-stationary decode) are gathered over ``model`` block by
+    block, never over ``data``: the (K, N/D) of each data block."""
+    if not isinstance(w[0], cm.Stationary):
+        return cm.all_gather_devices(w, mesh.distinct, gather_axis=0)
+    blocks = [cm.all_gather_devices([t.blocks[g] for t in w],
+                                    [w[0].blocks[g].device],
+                                    gather_axis=0)[0]
+              for g in range(len(w[0].blocks))]
+    whole = cm.Stationary(blocks, w[0].dim)
+    return [whole] * len(mesh.distinct)
+
+
+def _ag_gemm_fused(shards, w, mesh):
+    """The fused AG+GEMM kernel over ``mesh``'s ranks; on a weight cut
+    over ``data`` on its N dim (``cm.Stationary``) one launch per data
+    block g over data group g's model ranks (``Mesh.group`` of the
+    ambient ``DistContext.data``), the blocks' outputs joined."""
+    if not isinstance(w[0], cm.Stationary):
+        return ag_gemm_fused(shards, w, mesh)
+    data = dctx.current().data
+    parts = []
+    for g in range(len(w[0].blocks)):
+        grp = data.group(g)
+        parts.append(ag_gemm_fused(
+            [cm.to_device(s, d) for s, d in zip(shards, grp.devices)],
+            [wr.blocks[g] for wr in w], grp))
+    out = [torch.cat([cm.to_device(p[r], s.device) for p in parts], dim=-1)
+           for r, s in enumerate(shards)]
+    cm.record("all-gather", cm.nbytes(out[0]), len(parts))
+    return out
+
+
+def over_groups(fn, states, *inputs):
+    """The batch-sharded part of a decode step over a mesh with data
+    groups (the ambient ``DistContext.data``): ``fn(state_i, *rows)``
+    for each copy i of a state the groups hold (``Mesh.holders``: (g,
+    device)), on group g's rows (``Mesh.rows``) of each whole-batch
+    input, moved to the copy's device (``fn`` writes the state in
+    place). Returns ``fn``'s output (a tensor or a tuple of them), each
+    group's rows joined over ``data`` on the first input's device (the
+    first copy's output where the batch does not divide: every group
+    ran every row)."""
+    data = dctx.current().data
+    B, dev = inputs[0].shape[0], inputs[0].device
+    first: dict = {}
+    for st, (g, d) in zip(states, data.holders):
+        rows = data.rows(g, B)
+        out = fn(st, *[cm.to_device(t[rows], d) for t in inputs])
+        first.setdefault(g, out if isinstance(out, tuple) else (out,))
+    outs = [first[g] for g in range(data.dp)]
+    if B % data.dp:
+        joined = tuple(cm.to_device(t, dev) for t in outs[0])
+    else:
+        joined = tuple(torch.cat([cm.to_device(o[j], dev) for o in outs],
+                                 dim=0) for j in range(len(outs[0])))
+        for t in joined:
+            cm.record("all-gather", cm.nbytes(t), data.dp)
+    return joined if len(joined) > 1 else joined[0]
 
 
 def row_parallel_sum(x, w):

@@ -35,10 +35,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.symm import check_virtual_ranks
 
 FUSION_MODES = ("auto", "bsp", "ring", "pallas")
 
@@ -82,6 +84,7 @@ class Mesh:
         if n != len(devs):
             raise ValueError(f"mesh shape {axis_shape} holds {n} ranks, "
                              f"{len(devs)} devices given")
+        check_virtual_ranks(devs)
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, axis_shape))
         self._groups: dict = {}
@@ -142,6 +145,25 @@ class Mesh:
             self._groups[g] = Mesh(self.devices[g * W:(g + 1) * W])
         return self._groups[g]
 
+    @functools.cached_property
+    def holders(self) -> list:
+        """(data group, device) of every copy of a value the ranks of a
+        data group share (the decode step's recurrent state, ``models.lm``):
+        each group's distinct devices, groups in order; on a model-only
+        mesh its distinct devices."""
+        return [(g, d) for g in range(self.dp)
+                for d in self.group(g).distinct]
+
+    def rows(self, g: int, batch: int) -> slice:
+        """Data group ``g``'s rows of a batch of ``batch`` slots: JAX's
+        ``batch_spec`` (``sharding_rules``), ``batch / dp`` consecutive
+        rows where it divides, else every row (each group holds the whole
+        batch)."""
+        if batch % self.dp:
+            return slice(0, batch)
+        b = batch // self.dp
+        return slice(g * b, (g + 1) * b)
+
     def __repr__(self):
         if self.axis_names == ("model",):
             return f"Mesh({[str(d) for d in self.devices]})"
@@ -165,9 +187,13 @@ class Mesh:
 @dataclasses.dataclass
 class DistContext:
     """The mesh (``None``: one rank on the caller's device) and the
-    fusion mode of the paper's patterns (``core.patterns``)."""
+    fusion mode of the paper's patterns (``core.patterns``). ``data``:
+    inside a decode step on a mesh with data groups, that mesh, while
+    ``mesh`` is data group 0's model sub-mesh (``Mesh.group``; None at
+    one model rank) that the weight sites run on (``models.lm``)."""
     mesh: Mesh | None = None
     fusion_mode: str = "auto"      # auto | bsp | ring | pallas
+    data: Mesh | None = None
 
     def __post_init__(self):
         if self.fusion_mode not in FUSION_MODES:

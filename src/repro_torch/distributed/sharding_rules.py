@@ -163,16 +163,6 @@ def shard_dims(spec: dict, rules: Rules, axis: str = "model") -> dict:
             for path, s in leaf_specs(spec, rules).items()}
 
 
-def shard_shape(shape, dim: int | None, W: int) -> tuple:
-    """The per-rank shape of a leaf of global ``shape`` whose ``dim`` is
-    split in W blocks (``None``: replicated, the whole shape); JAX's
-    ``NamedSharding.shard_shape``."""
-    shape = tuple(shape)
-    if dim is None:
-        return shape
-    return shape[:dim] + (shape[dim] // W,) + shape[dim + 1:]
-
-
 def n_blocks(entry, mesh_shape) -> int:
     """The blocks one spec entry cuts a dim into."""
     n = 1
@@ -200,6 +190,48 @@ def batch_spec(shape, mesh_shape) -> tuple:
     ok = axes and len(shape) and shape[0] % n == 0
     head = (axes if len(axes) > 1 else axes[0]) if ok else None
     return (head,) + (None,) * (len(shape) - 1)
+
+
+def decode_state_spec(path: str, shape, rules: Rules) -> tuple:
+    """JAX's ``decode_state_shardings`` spec of one leaf of a contiguous
+    decode state (``path`` dotted, ``shape`` global): an attention KV
+    cache (a ``"k"``/``"v"`` leaf of 4 or more dims, (..., B, S, KVH,
+    hd)) has its batch dim on the ``("pod", "data")`` axes
+    (:func:`batch_spec`) and its sequence dim on ``model``, each where
+    it divides; another leaf whose dim 0 is more than 1 (the recurrent
+    state stacked by layer, (layers, B, ...)) has dim 1 on the batch
+    axes where it divides; the rest (``cur_len``) is replicated."""
+    shape = tuple(shape)
+    nd = len(shape)
+    spec = [None] * nd
+    if path.rsplit(".", 1)[-1] in ("k", "v") and nd >= 4:
+        lead = nd - 4
+        spec[lead] = batch_spec(shape[lead:], rules.shape)[0]
+        if rules.model_size > 1 and shape[lead + 1] % rules.model_size == 0:
+            spec[lead + 1] = "model"
+    elif nd >= 2 and shape[0] > 1:
+        spec[1] = batch_spec(shape[1:], rules.shape)[0]
+    return tuple(spec)
+
+
+def pool_blocks(n_blocks: int, ranks: int,
+                rules: Rules | None = None) -> tuple:
+    """(blocks a rank, blocks of padding) of a paged KV pool of
+    ``n_blocks`` over ``ranks`` ranks. Over a mesh with data groups the
+    port splits the pool's blocks over every rank (global block t on
+    rank t // n_loc), which holds the bytes a rank of JAX's spec (blocks
+    on ``("pod", "data")``, ``block_size`` on ``model``); a count that
+    does not divide is padded with blocks no table names (the pool
+    keeps its ``n_blocks``, JAX's rounding to the ``model`` axis), at
+    most JAX's fallback bytes (every block on each group), and the
+    padding is recorded in ``rules.degradations``."""
+    n_loc = -(-n_blocks // ranks)
+    pad = n_loc * ranks - n_blocks
+    if pad and rules is not None:
+        rules.degradations.append(
+            f"paged pool n_blocks={n_blocks} not divisible by the mesh's "
+            f"{ranks} ranks -> {n_loc} blocks a rank, {pad} of padding")
+    return n_loc, pad
 
 
 def rank_coords(mesh_shape) -> list:

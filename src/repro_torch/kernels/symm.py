@@ -41,6 +41,27 @@ import torch
 from repro_torch.kernels import _build
 
 
+# ranks one device carries in a fused launch (csrc/symm.cuh MAX_RANKS)
+MAX_RANKS = 8
+
+
+def check_virtual_ranks(devices):
+    """Raise where a CUDA device carries more ranks of one mesh than a
+    fused launch takes (:data:`MAX_RANKS`): such a mesh of virtual ranks
+    cannot run the fused kernels, and nothing falls back to their plain
+    versions on the card. ``devices``: one ``torch.device`` per rank."""
+    n: dict = {}
+    for d in devices:
+        if d.type == "cuda":
+            n[d] = n.get(d, 0) + 1
+    over = {str(d): k for d, k in n.items() if k > MAX_RANKS}
+    if over:
+        raise ValueError(
+            f"{over} ranks on one card: the fused kernels take at most "
+            f"MAX_RANKS={MAX_RANKS} virtual ranks a device "
+            f"(csrc/symm.cuh); list at most {MAX_RANKS} ranks a card")
+
+
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
 

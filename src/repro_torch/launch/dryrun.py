@@ -11,9 +11,12 @@ For each cell this driver:
      rank (``cpu:0`` ... ``cpu:<n-1>``: distinct devices, so what one
      card of the node holds is what one fake device holds); on a data
      mesh the data groups do the same work on their rows, so the trace
-     runs one of them (a role: its W ranks gather the FSDP blocks of
-     every data rank, whose gradients they reduce-scatter back) and the
-     optimizer step of every rank;
+     runs one of them (a role: in training its W ranks gather the FSDP
+     blocks of every data rank, whose gradients they reduce-scatter
+     back, and the optimizer step runs on every rank; in decode its
+     ranks run their own blocks' partial products, weights-stationary,
+     and attend their group's rows: :func:`_role_blocks`,
+     :func:`_role_rows`);
   2. makes the parameters (``lm.shard_params``: Megatron shards by the
      sharding rules, trainable for train, the serving storage for
      prefill and decode, as JAX's ``dryrun.py`` places every cell on
@@ -332,6 +335,36 @@ def _one_role(groups):
     return first
 
 
+def _role_blocks(stationary):
+    """``cm.stationary`` tracing data block 0's partial products alone
+    (a decode step on a data mesh, weights-stationary): the other blocks'
+    products are the same work on the other data ranks' devices, outside
+    the role's counts, and fake tensors carry no values, so block 0's
+    outputs stand in for theirs; the sums and joins still run and
+    report."""
+    def first(prod, x, ws, kdim):
+        memo = []
+
+        def once(xg, bs):
+            if not memo:
+                memo.append(prod(xg, bs))
+            return memo[0]
+        return stationary(once, x, ws, kdim)
+    return first
+
+
+def _role_rows(strided, role):
+    """``models.attention._strided`` tracing the role's data group alone
+    (a decode step on a data mesh: each group attends its rows over its
+    model ranks); another group's call gives zeros of its output's
+    shape."""
+    def only(cfg, q, *args):
+        if str(q[0].device) in role:
+            return strided(cfg, q, *args)
+        return [torch.zeros_like(t) for t in q]
+    return only
+
+
 def _fake_inputs(cfg, shape, device):
     """The cell's batch as fake tensors of ``input_specs``' shapes."""
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
@@ -399,15 +432,20 @@ def trace(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
         counter.track([t for p in ranks for t in p.parameters()]
                       + _tensors((opt, state, batch)))
         plain, groups = attention.blockwise_attention, lm._groups
+        stationary, strided = cm.stationary, attention._strided
         attention.blockwise_attention = _memo_attention(
             counter, plain, {} if memo is None else memo)
         lm._groups = _one_role(groups)
+        if role is not None:
+            cm.stationary = _role_blocks(stationary)
+            attention._strided = _role_rows(strided, role)
         try:
             with counter, cm.recording(
                     lambda op, size, g: events.append((op, size, g))):
                 run()
         finally:
             attention.blockwise_attention, lm._groups = plain, groups
+            cm.stationary, attention._strided = stationary, strided
     def busiest(per_dev) -> int:
         return max((n for d, n in per_dev.items()
                     if role is None or d in role), default=0)
@@ -553,15 +591,13 @@ def run_cell_cfg(cfg, shape, tp: int = 1, fusion_mode: str = "auto",
     """The dry-run record of ``cfg`` at ``shape`` over ``tp`` ranks, or
     a (pods, data, tp) mesh (``virtual``: all on one device, as virtual
     ranks share a card; ``direct``: one trace at the config's depth, no
-    extrapolation). A decode cell on a data mesh is skipped: serving
-    runs on the model axis alone."""
+    extrapolation). A decode cell on a data mesh decodes
+    weights-stationary on each rank's shards, the caches' batch on the
+    data groups (``lm.decode_step``)."""
     arch = arch or cfg.name
     base = _base(arch, shape.name, tp, fusion_mode, data, pods)
     chips = base["chips"]
     ok, why = applicable(cfg, shape)
-    if ok and shape.kind == "decode" and data * pods > 1:
-        ok, why = False, ("serving over a data x model mesh is not ported "
-                          "yet (ROADMAP queue 1, item 1)")
     if not ok:
         return {**base, "status": "skipped", "reason": why}
     t0 = time.time()

@@ -76,17 +76,3 @@ def make_mesh(tp: int, devices=None, device: str = "cuda") -> Mesh:
                          f"divide by --tp {tp}: give one device per rank, "
                          f"data x tp of them")
     return make_host_mesh(len(devs) // model, model, devs)
-
-
-def make_serve_mesh(tp: int, devices=None, device: str = "cuda") -> Mesh:
-    """:func:`make_mesh` for the serving launchers, which run on the
-    model axis alone: a mesh with data groups (more devices than
-    ``tp``) raises, naming the ROADMAP item that ports it."""
-    mesh = make_mesh(tp, devices, device)
-    if mesh.dp > 1:
-        raise NotImplementedError(
-            f"serving over a data x model mesh ({dict(mesh.shape)}: "
-            f"--devices lists {mesh.size} ranks for --tp {tp}) is not "
-            f"ported yet (ROADMAP queue 1, item 1: serving over a data x "
-            f"model mesh); list one device per rank, --tp of them")
-    return mesh

@@ -17,9 +17,19 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
 The flags are those of ``repro.launch.serve`` plus ``--device``
 (default ``cuda``; the run raises without a GPU unless ``--device cpu``
 is given) and ``--devices`` (one device per rank, comma-separated;
-default: all ``--tp`` ranks on ``--device``); serving runs on the
-model axis alone, so listing more devices than ``--tp`` (JAX's data
-axis) raises until it is ported (ROADMAP queue 1, item 1). ``--ckpt-dir`` serves the
+default: all ``--tp`` ranks on ``--device``). The mesh is JAX's:
+the ranks ``--devices`` lists as (data = n // tp, model = tp)
+(``launch.mesh.make_mesh``). On a mesh with data groups the engine
+serves each rank's shards (``lm.shard_params``: the weights' embed dim
+cut over ``data``, decoded weights-stationary, the KV caches' batch on
+the data groups); a model-only mesh serves replicated weights:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --smoke --device cpu --devices cpu,cpu,cpu,cpu --tp 2   # (2, 2)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+      --devices cuda:0,cuda:0,cuda:0,cuda:0 --tp 2   # virtual ranks
+
+``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (keys ``params%%...``, as the
 JAX package's trainer writes them) instead of seeded random ones.
 """
@@ -35,7 +45,7 @@ from repro_torch.checkpoint.checkpointer import SEP, Checkpointer, unflatten
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import context as dctx
-from repro_torch.launch.mesh import make_serve_mesh
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.metrics import percentile
@@ -50,6 +60,14 @@ def load_params(ckpt_dir: str, cfg, device):
     tree = unflatten({k[len(prefix):]: v.float().numpy()
                       for k, v in flat.items() if k.startswith(prefix)})
     return params_from_numpy(tree, cfg, device=device), manifest
+
+
+def serving_params(params, mesh):
+    """What the engine serves on ``mesh``: each rank's shards
+    (``lm.shard_params``) on a mesh with data groups, where decode reads
+    the weights cut over ``data`` where they lie; ``params`` itself
+    (replicated per device by the engine) on a model-only mesh."""
+    return lm.shard_params(params, mesh) if mesh.dp > 1 else params
 
 
 def main(argv=None):
@@ -112,14 +130,16 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
 
-    mesh = make_serve_mesh(args.tp, args.devices, args.device)
-    ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
+    mesh = make_mesh(args.tp, args.devices, args.device)
+    ctx = dctx.DistContext(mesh if mesh.size > 1 else None,
+                           args.fusion_mode)
     if args.ckpt_dir:
         params, manifest = load_params(args.ckpt_dir, cfg, mesh.devices[0])
         print(f"[serve] restored step {manifest['step']}")
     else:
         params = lm.init_params(cfg, seed=args.seed,
                                 device=mesh.devices[0])
+    params = serving_params(params, mesh)
     with dctx.use(ctx):
         eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
                      prefill_chunk=args.prefill_chunk, sampler=args.sampler,
@@ -144,6 +164,7 @@ def main(argv=None):
     toks = sum(len(r.out_tokens) for r in done)
     lat = [r.finished_t - r.submitted_t for r in done]
     stats = {"device": str(eng.device), "tp": args.tp,
+             "mesh": dict(mesh.shape),
              "devices": [str(d) for d in mesh.devices],
              "fusion_mode": args.fusion_mode, "requests": len(done),
              "new_tokens": toks, "wall_s": round(dt, 3),
@@ -155,7 +176,7 @@ def main(argv=None):
     if args.metrics_file:
         with open(args.metrics_file, "w") as f:
             json.dump(stats, f)
-    return stats
+    return {**stats, "streams": {r.rid: list(r.out_tokens) for r in done}}
 
 
 if __name__ == "__main__":

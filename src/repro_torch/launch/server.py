@@ -77,9 +77,10 @@ too long for ``max_len`` or for the whole block pool -> 400, malformed
 JSON -> 400, admission queue full or shedding -> 429, draining or a
 broken engine -> 503, unknown route -> 404.
 
-The mesh is the model axis alone (``launch.mesh.make_serve_mesh``): more
-``--devices`` than ``--tp`` (JAX's data axis) raises until serving over
-a data x model mesh is ported (ROADMAP queue 1, item 1).
+The mesh is JAX's (``launch.mesh.make_mesh``): the ranks ``--devices``
+lists as (data = n // tp, model = tp); with data groups the engine
+serves each rank's shards, as ``launch.serve`` does
+(``launch.serve.serving_params``).
 
     PYTHONPATH=src python -m repro_torch.launch.server --arch llama3-8b \
         --port 8008 --decode-steps 8                  # on the card
@@ -740,7 +741,8 @@ def build_engine(args):
     with the fault plan, the degraded ladder and ``--resume``."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.distributed import context as dctx
-    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serving_params
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.faults import FaultPlan
@@ -750,9 +752,11 @@ def build_engine(args):
         cfg = smoke_config(cfg)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
-    mesh = make_serve_mesh(args.tp, args.devices, args.device)
-    ctx = dctx.DistContext(mesh if args.tp > 1 else None, args.fusion_mode)
-    params = lm.init_params(cfg, seed=args.seed, device=mesh.devices[0])
+    mesh = make_mesh(args.tp, args.devices, args.device)
+    ctx = dctx.DistContext(mesh if mesh.size > 1 else None,
+                           args.fusion_mode)
+    params = serving_params(
+        lm.init_params(cfg, seed=args.seed, device=mesh.devices[0]), mesh)
     fault_plan = None
     if args.chaos_plan:
         with open(args.chaos_plan) as f:

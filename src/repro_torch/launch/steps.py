@@ -21,11 +21,11 @@ mesh's axes, the dim the ``model`` axis splits (``"dim"``), the dim the
 ``lm.shard_params`` cuts); :func:`opt_state_shardings` the same for
 AdamW's ``m`` and ``v``; :func:`batch_sharding` splits dim 0 over
 ``("pod", "data")`` where it divides (else replicates it, JAX's
-fallback). :func:`decode_state_shardings` is the decode state's on the
-model-only mesh (the KV caches' sequence dim, JAX's ``kv_seq``; the
-recurrent state and ``cur_len`` replicated), and
-:func:`jitted_serve_step` is JAX's serve step on those shardings:
-serving stays on the model-only mesh.
+fallback). :func:`decode_state_shardings` is the decode state's (the
+KV caches' batch on ``("pod", "data")`` and sequence on ``model``, the
+recurrent state's batch on ``("pod", "data")``), and
+:func:`jitted_serve_step` is JAX's serve step on those shardings, on
+any mesh.
 """
 from __future__ import annotations
 
@@ -86,12 +86,6 @@ def param_specs(cfg, trainable: bool = True) -> dict:
 
 
 # ----------------------------------------------------------- sharding trees
-def _sharding(shape, dim, W: int) -> dict:
-    return {"dim": dim, "data_dim": None, "spec": tuple(
-        "model" if i == dim else None for i in range(len(shape))),
-        "shape": sr.shard_shape(shape, dim, W)}
-
-
 def _placed(shape, spec, mesh_shape) -> dict:
     return {"dim": sr.dim_of(spec, "model"),
             "data_dim": sr.dim_of(spec, "data"),
@@ -119,21 +113,37 @@ def opt_state_shardings(cfg, rules: sr.Rules, params_sh) -> dict:
 
 
 def decode_state_shardings(cfg, rules: sr.Rules, state_specs) -> dict:
-    """JAX's ``decode_state_shardings`` on the model-only mesh, as
-    :func:`param_shardings` leaves over ``state_specs`` (a state, or
-    :func:`decode_state_specs`): an attention KV cache (a ``"k"``/``"v"``
-    leaf of 4 or more dims, (..., B, S, KVH, hd)) split on its sequence
-    dim where it divides by W (``kv_seq``; the port's strided layout,
-    ``lm.init_decode_state``); every other leaf replicated (JAX puts the
-    batch dim on the data axis, which serving does not take yet: ROADMAP
-    queue 1, item 1)."""
-    W = rules.model_size
+    """JAX's ``decode_state_shardings``, as :func:`param_shardings`
+    leaves over ``state_specs`` (a state, or :func:`decode_state_specs`),
+    each leaf's spec from ``sharding_rules.decode_state_spec``: an
+    attention KV cache's batch dim on ``("pod", "data")`` and its
+    sequence dim on ``model`` (the port's strided layout,
+    ``lm.init_decode_state``), the recurrent state's batch on
+    ``("pod", "data")``, each where it divides; ``cur_len`` replicated.
+    A paged state (one holding ``"block_tables"``) is the port's own
+    layout: each KV pool's blocks split over every rank of the mesh
+    (``sharding_rules.pool_blocks``, its padding recorded in
+    ``rules.degradations``), the block tables replicated; per-rank
+    shapes under ``"shape"``."""
+    paged = "block_tables" in state_specs
+    ranks = 1
+    for n in rules.shape.values():
+        ranks *= n
+    axes = tuple(a for a in ("pod", "data", "model")
+                 if rules.shape.get(a, 1) > 1)
 
     def one(path, x):
-        nd = x.dim()
-        kv = path.rsplit(".", 1)[-1] in ("k", "v") and nd >= 4
-        dim = nd - 3 if kv and x.shape[nd - 3] % W == 0 else None
-        return _sharding(x.shape, dim, W)
+        leaf = path.rsplit(".", 1)[-1]
+        if paged and leaf in ("k", "v"):
+            n_loc, _ = sr.pool_blocks(x.shape[1], ranks, rules)
+            spec = (None, axes if len(axes) > 1 else (axes or (None,))[0],
+                    *(None,) * (x.dim() - 2))
+            return {**_placed(x.shape, spec, rules.shape),
+                    "shape": (x.shape[0], n_loc, *x.shape[2:])}
+        if paged and leaf == "block_tables":
+            return _placed(x.shape, (None,) * x.dim(), rules.shape)
+        return _placed(x.shape, sr.decode_state_spec(path, x.shape, rules),
+                       rules.shape)
     return tree_map(one, state_specs)
 
 
@@ -156,11 +166,6 @@ def jitted_serve_step(cfg, mesh, fusion_mode: str = "auto"):
     and ``state`` from ``lm.init_decode_state`` under ``ctx``. PyTorch
     runs eagerly: nothing is compiled."""
     rules = sr.rules_for(cfg, mesh)
-    if mesh is not None and mesh.dp > 1:
-        raise NotImplementedError(
-            f"serving over a data x model mesh ({dict(mesh.shape)}) is the "
-            f"next ROADMAP item (queue 1, item 1): serve on a model-only "
-            f"mesh")
     ctx = dctx.DistContext(mesh if mesh is not None and mesh.size > 1
                            else None, fusion_mode)
     step_fn = make_serve_step(cfg)

@@ -257,17 +257,29 @@ def decode_attn_step(params, x, cache, cur_len, cfg, active,
     holds every KV head), ``wo`` at the row-parallel site; at W = 1
     through the paged or strided flash-decode kernel and the GEMM.
     ``bounded`` (W > 1, paged) picks the table walk over the masked
-    whole-shard oracle. Returns per device out (B, 1, d)."""
+    whole-shard oracle. Over a mesh with data groups (the ambient
+    ``DistContext.data``; ``params`` data group 0's model ranks) the
+    caches are laid out over that whole mesh and attended there
+    (:func:`_attn_data`). Returns per device out (B, 1, d)."""
     ctx = dctx.current()
     mesh = ctx.mesh
     W = len(cache["k"])
     B = x[0].shape[0]
     H, hd = cfg.n_heads, cfg.hd
     scale = 1.0 / (hd ** 0.5)
-    if W == 1:
+    if W == 1 or (ctx.data is not None and mesh is None):
         qkv = [_qkv(params[0], x[0], cur_len[0], cfg)]
     else:
         qkv = _qkv_ranks(params, x, cur_len, cfg, split)
+    if ctx.data is not None:
+        o = _attn_data(cfg, ctx.data, *qkv[0], cache, cur_len, active,
+                       block_tables, bounded, scale).reshape(B, 1, H * hd)
+        if mesh is None:
+            return [dense(o, params[0]["wo"])]
+        out = patterns.project_k_sharded(
+            [cm.to_device(o, d) for d in mesh.devices],
+            [p["wo"] for p in params], rows=split["wo"] is not None)
+        return mesh.from_ranks(out)
     if W == 1:
         (q, k, v), = qkv
         if block_tables is not None:
@@ -298,6 +310,54 @@ def decode_attn_step(params, x, cache, cur_len, cfg, active,
         [t.reshape(B, 1, H * hd) for t in o], [p["wo"] for p in params],
         rows=split["wo"] is not None)
     return mesh.from_ranks(out)
+
+
+def _attn_data(cfg, data, q, k, v, cache, cur_len, active, block_tables,
+               bounded, scale):
+    """The attention of a decode step over a mesh with data groups
+    (``data``; the KV state's layout, ``models.lm``), from the whole q
+    (B, H, hd), k and v (B, KVH, hd) of this step; returns o (B, H, hd)
+    on q's device. The paged pool is one pool over every rank of the
+    mesh: the write on the block's owner, each rank's partial over its
+    blocks and the combine over the D x M sources (the W-rank path
+    over the whole mesh, its fused kernel under ``pallas``). The
+    contiguous caches hold each data group's rows (``Mesh.rows``) over
+    its model sub-mesh: each group writes and attends its rows there,
+    and the groups' outputs are joined over ``data`` (where the batch
+    does not divide, every group runs every row on its copy and group
+    0's output is kept)."""
+    mode = dctx.current().fusion_mode
+    if block_tables is not None:
+        def per(t):
+            return [cm.to_device(t, d) for d in data.devices]
+        with dctx.use(dctx.DistContext(data, mode)):
+            o, _, _ = patterns.decode_attn_paged(
+                per(q), per(k), per(v), cache["k"], cache["v"],
+                data.per_rank(cur_len), data.per_rank(block_tables),
+                scale=scale, window=cfg.sliding_window,
+                active=data.per_rank(active), bounded=bounded)
+        return cm.to_device(o[0], q.device)
+    M, B = data.model, q.shape[0]
+    cl, act = data.per_rank(cur_len), data.per_rank(active)
+    outs = []
+    for g in range(data.dp):
+        grp, rows = data.group(g), data.rows(g, B)
+        ranks = range(g * M, (g + 1) * M)
+
+        def sel(t):
+            return [cm.to_device(t[rows], d) for d in grp.devices]
+        part = {n: [cache[n][r] for r in ranks] for n in ("k", "v")}
+        with dctx.use(dctx.DistContext(grp if grp.size > 1 else None,
+                                       mode)):
+            og = _strided(cfg, sel(q), sel(k), sel(v), part,
+                          [cl[r][rows] for r in ranks],
+                          [act[r][rows] for r in ranks], scale)
+        outs.append(cm.to_device(og[0], q.device))
+    if B % data.dp:
+        return outs[0]
+    o = torch.cat(outs, dim=0)
+    cm.record("all-gather", cm.nbytes(o), data.dp)
+    return o
 
 
 def _strided(cfg, q, k, v, cache, cur_len, active, scale):

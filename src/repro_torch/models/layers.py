@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import collective_matmul as cm
 from repro_torch.kernels.matmul import matmul, matmul_group
 from repro_torch.models.module import Param
 
@@ -49,8 +50,12 @@ def apply_unembed(params, x, dtype=torch.float32):
     table = params["table"]
     wide = torch.promote_types(x.dtype, table.dtype)
     lead = x.shape[:-1]
-    y = matmul(x.reshape(-1, x.shape[-1]).to(wide), table.to(wide),
-               trans_b=True)
+    x2 = x.reshape(-1, x.shape[-1]).to(wide)
+
+    def prod(a, ts):
+        return [matmul(a, ts[0].to(wide), trans_b=True)]
+    y = (cm.stationary(prod, x2, [table], kdim=1)[0]
+         if isinstance(table, cm.Stationary) else prod(x2, [table])[0])
     return y.reshape(*lead, table.shape[0]).to(dtype)
 
 
@@ -76,18 +81,22 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------- dense
 def dense(x, w):
     """``x @ w`` for ``x`` (..., K) and a weight in the JAX (K, N) layout,
-    through the GEMM kernel (its plain version for CPU tensors)."""
-    lead = x.shape[:-1]
-    y = matmul(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
-    return y.reshape(*lead, w.shape[1])
+    through the GEMM kernel (its plain version for CPU tensors; a weight
+    cut over ``data``, ``cm.Stationary``, block by block)."""
+    return dense_group(x, [w])[0]
 
 
 def dense_group(x, ws):
     """``[dense(x, w) for w in ws]`` in one GEMM launch (the products
     that share ``x``: wq/wk/wv, wg/wu); each output equals ``dense``'s
-    bit for bit."""
+    bit for bit. Weights cut over ``data`` (``cm.Stationary``) run one
+    launch a block (``cm.stationary``)."""
+    if isinstance(ws[0], cm.Stationary):
+        return cm.stationary(dense_group, x, ws, kdim=0)
     lead = x.shape[:-1]
-    ys = matmul_group(x.reshape(-1, x.shape[-1]), [w.to(x.dtype) for w in ws])
+    x2 = x.reshape(-1, x.shape[-1])
+    ws = [w.to(x.dtype) for w in ws]
+    ys = (matmul_group(x2, ws) if len(ws) > 1 else [matmul(x2, ws[0])])
     return [y.reshape(*lead, w.shape[1]) for y, w in zip(ys, ws)]
 
 

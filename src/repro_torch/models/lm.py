@@ -48,7 +48,7 @@ state, ``cur_len``, the tables) one copy per distinct device.
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch import nn
@@ -669,24 +669,26 @@ def _lists(trees: list):
             else [t[k] for t in trees] for k, v in trees[0].items()}
 
 
-def _leaves(tree):
-    """Every tensor of a state tree (lists of per-device copies
-    included)."""
-    if tree is None:
-        return []
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    vals = tree.values() if isinstance(tree, dict) else tree
-    return [t for v in vals for t in _leaves(v)]
-
-
 def _mesh_caches(cfg, mesh, batch: int, kv_shard):
     """The caches tree over ``mesh``: ``kv_shard(device)`` on every rank
-    (per-rank lists), the recurrent state once per distinct device."""
+    (per-rank lists), the recurrent state once per distinct device; over
+    data groups once per (group, device) (``Mesh.holders``), each
+    copy its group's rows (``Mesh.rows``)."""
     return transformer.assemble(
         cfg, _lists([kv_shard(d) for d in mesh.devices]),
-        _lists([transformer.recurrent_state(cfg, batch, cfg.dtype, d)
-                for d in mesh.distinct]))
+        _lists([transformer.recurrent_state(
+            cfg, _n_rows(mesh.rows(g, batch)), cfg.dtype, d)
+            for g, d in mesh.holders]))
+
+
+def _n_rows(rows: slice) -> int:
+    return rows.stop - rows.start
+
+
+def _state_mesh():
+    """The ambient mesh that lays out a decode state: one with data
+    groups, or several model ranks; else None (one rank)."""
+    return _data_mesh() or _mesh()
 
 
 def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
@@ -702,19 +704,24 @@ def init_paged_decode_state(params, cfg, batch: int, n_blocks: int,
     (kv_layers, n_blocks / W, ...) shards (rank r holds global blocks
     [r * n_blocks / W, (r + 1) * n_blocks / W)), and the recurrent
     state, ``cur_len`` and ``block_tables`` are lists with one copy per
-    distinct device."""
-    mesh = _mesh()
+    distinct device. Over a mesh with data groups W is every rank of it
+    (the D x M ranks share one pool, each ``sharding_rules.pool_blocks``
+    of it: a count that does not divide is padded with blocks no table
+    names), and the recurrent state is one copy per (group, device),
+    of the group's rows (``Mesh.holders``, ``Mesh.rows``)."""
+    mesh = _state_mesh()
     devs = [device_of(params)] if mesh is None else list(mesh.distinct)
     if mesh is None:
         caches = transformer.init_paged_caches(
             cfg, batch, n_blocks, block_size, cfg.dtype, device=devs[0])
     else:
-        if n_blocks % mesh.size:
+        if mesh.dp == 1 and n_blocks % mesh.size:
             raise ValueError(f"n_blocks={n_blocks} must divide by the "
                              f"{mesh.size} ranks (CachePool rounds up)")
+        n_loc, _ = sr.pool_blocks(n_blocks, mesh.size)
         caches = _mesh_caches(
             cfg, mesh, batch, lambda d: transformer.paged_kv(
-                cfg, n_blocks // mesh.size, block_size, cfg.dtype, d))
+                cfg, n_loc, block_size, cfg.dtype, d))
     state = {"caches": caches,
              "cur_len": [torch.zeros((batch,), dtype=torch.int32, device=d)
                          for d in devs],
@@ -734,18 +741,24 @@ def init_decode_state(params, cfg, batch: int, max_len: int):
     Over the W ranks of the ambient mesh the KV caches are per-rank
     lists of strided shards (kv_layers, B, S_max / W, KVH, hd) (local
     slot j of rank r holds position j * W + r), the recurrent state and
-    ``cur_len`` one copy per distinct device."""
-    mesh = _mesh()
+    ``cur_len`` one copy per distinct device. Over data groups (JAX's
+    ``decode_state_shardings``: the batch on ``("pod", "data")``, the
+    sequence on ``model``) rank (g, m) holds group g's rows (``Mesh.rows``:
+    B / dp of them, or all B where B does not divide) of the strided
+    shard over the group's M ranks, and the recurrent state is one copy
+    per (group, device) of the group's rows."""
+    mesh = _state_mesh()
     if mesh is None:
         dev = device_of(params)
         return {"caches": transformer.init_caches(
                     cfg, batch, max_len, cfg.dtype, device=dev),
                 "cur_len": torch.zeros((batch,), dtype=torch.int32,
                                        device=dev)}
+    b = _n_rows(mesh.rows(0, batch))
     return {"caches": _mesh_caches(cfg, mesh, batch,
                                    lambda d: transformer.contiguous_kv(
-                                       cfg, batch, max_len, cfg.dtype, d,
-                                       W=mesh.size)),
+                                       cfg, b, max_len, cfg.dtype, d,
+                                       W=mesh.model)),
             "cur_len": [torch.zeros((batch,), dtype=torch.int32, device=d)
                         for d in mesh.distinct]}
 
@@ -767,15 +780,42 @@ def copy_cache_block(state, cfg, src: int, dst: int):
     return state
 
 
-def _zero_slot(tree, slot: int):
-    for leaf in _leaves(tree):
-        leaf[:, slot].zero_()
+def _leaf_lists(tree) -> list:
+    """Every leaf of a state tree: a tensor, or its list of per-rank
+    (per-copy) tensors."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaf_lists(v)]
+    return [] if tree is None else [tree]
+
+
+def _zero_slot(tree, slot: int, batch: int):
+    """Zero one slot of every leaf of ``tree`` (the slot at dim 1), in
+    place; over data groups in each copy of the slot's group, at its row
+    there (``Mesh.rows``): a list of ``mesh.size`` entries is per rank
+    (rank r in group r // M), another per ``Mesh.holders`` entry (the
+    two agree where both lengths are equal: every rank on its own
+    device)."""
+    mesh = _data_mesh()
+    for leaf in _leaf_lists(tree):
+        for i, t in enumerate(_per_device(leaf)):
+            if mesh is None:
+                t[:, slot].zero_()
+                continue
+            g = (i // mesh.model if len(leaf) == mesh.size
+                 else mesh.holders[i][0])
+            rows = mesh.rows(g, batch)
+            if rows.start <= slot < rows.stop:
+                t[:, slot - rows.start].zero_()
+
+
+def _batch(state) -> int:
+    return _per_device(state["cur_len"])[0].shape[0]
 
 
 def reset_slot(state, slot: int):
     """Contiguous admission reset: zero one slot's caches (every leaf has
     the slot at dim 1) and position, in place."""
-    _zero_slot(state["caches"], slot)
+    _zero_slot(state["caches"], slot, _batch(state))
     return set_slot_len(state, slot, 0)
 
 
@@ -784,7 +824,8 @@ def reset_slot_paged(state, cfg, slot: int):
     hybrid's and rwkv's leaves, slot at dim 1) and position, in place.
     Paged KV blocks need no zeroing: stale block contents sit beyond
     cur_len and are masked."""
-    _zero_slot(transformer.recurrent_part(cfg, state["caches"]), slot)
+    _zero_slot(transformer.recurrent_part(cfg, state["caches"]), slot,
+               _batch(state))
     return set_slot_len(state, slot, 0)
 
 
@@ -802,26 +843,79 @@ def _device_lists(tree):
     return _per_device(tree)
 
 
-def _step_ranks(params, cfg) -> tuple:
+class StepRanks(NamedTuple):
+    """Parameters as the decode step reads them (:func:`step_ranks`):
+    one per rank (on a data mesh data group 0's views), and the
+    :func:`split_axes` tree they hold. Their owner builds them once
+    (``Engine``) and passes them where :func:`decode_step` and its
+    callers take ``params``."""
+    ranks: list
+    split: dict
+
+
+def step_ranks(params, cfg) -> StepRanks:
     """``params`` as one :class:`LM` per rank of the ambient mesh, and
-    the :func:`split_axes` tree they hold: a list of ``mesh.size``
+    the :func:`split_axes` tree they hold (a :class:`StepRanks` as it
+    is): a list of ``mesh.size``
     shards (:func:`shard_params`) is per rank and split as its
     ``split`` says; whole weights (an :class:`LM`: one rank, or every
     rank's replica on one card; a per-device list, :func:`replicate`,
-    repeated for the ranks of each device) hold every leaf whole."""
+    repeated for the ranks of each device) hold every leaf whole. Over a
+    mesh with data groups only shards serve (the weights' ``embed`` dim
+    is cut over ``data``), as data group 0's per-model-rank views
+    (:func:`_stationary_views`)."""
+    if isinstance(params, StepRanks):
+        return params
     ps = _per_device(params)
-    mesh = _mesh()
+    data = _data_mesh()
     split = ps[0].split
+    if data is not None:
+        if split is None or not isinstance(params, list) \
+                or len(ps) != data.size:
+            raise ValueError(
+                f"{len(ps)} parameter trees "
+                f"({'shards' if split else 'whole'}) for a mesh of "
+                f"{data.size} ranks with {data.dp} data groups: decode on "
+                f"a data mesh takes lm.shard_params(params, mesh), one per "
+                f"rank (the weights' embed dim stays cut over data)")
+        return StepRanks(_stationary_views(ps, data, cfg), split)
+    mesh = _mesh()
     W, n_dev = (1, 1) if mesh is None else (mesh.size, len(mesh.distinct))
     if split is not None and isinstance(params, list) and len(ps) == W:
-        return ps, split
+        return StepRanks(ps, split)
     if split is None and len(ps) == n_dev:
-        return (ps if mesh is None else mesh.per_rank(ps)), _whole(cfg)
+        return StepRanks(ps if mesh is None else mesh.per_rank(ps),
+                         _whole(cfg))
     raise ValueError(f"{len(ps)} parameter trees "
                      f"({'shards' if split else 'whole'}) for a mesh of "
                      f"{W} ranks on {n_dev} devices: pass "
                      f"lm.shard_params(params, mesh) (one per rank) or "
                      f"lm.replicate(params, mesh) (one per device)")
+
+
+def _stationary_views(ps: list, mesh, cfg) -> list:
+    """The weights-stationary decode's parameters over a mesh with data
+    groups: one ``fsdp.View`` per model rank m of data group 0 (the
+    ranks that run the weight sites), each leaf that the ``data`` axis
+    cuts the ``cm.Stationary`` of its D blocks (ranks (0, g, m) of the
+    first pod: the pods hold copies), every other leaf rank m's own.
+    Nothing is gathered or copied: the views wrap the shards' tensors."""
+    M, D = mesh.model, mesh.axis_size("data")
+    ddims = data_dims(cfg, mesh)
+    views = []
+    for m in range(M):
+        peers = [dict(ps[g * M + m].named_parameters()) for g in range(D)]
+        tree: dict = {}
+        for name, t in peers[0].items():
+            node = tree
+            *path, leaf = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            dim = ddims[name]
+            node[leaf] = t if dim is None else cm.Stationary(
+                [p[name] for p in peers], dim)
+        views.append(fsdp.View(tree, ps[m].device))
+    return views
 
 
 def _embed_decode(ps, token, cfg, axis):
@@ -888,8 +982,25 @@ def decode_step(params, token, state, cfg, active=None,
     ``CachePool.gather_width()``); ``None`` means the full table.
     ``bounded`` (paged, W > 1): the table walk (default) or the masked
     whole-shard oracle (CPU only)."""
+    ps, split = step_ranks(params, cfg)
+    data = _data_mesh()
+    if data is None:
+        return _decode_step(ps, split, token, state, cfg, active,
+                            gather_width, bounded)
+    sub = data.group(0)
+    with dctx.use(dctx.DistContext(sub if sub.size > 1 else None,
+                                   dctx.current().fusion_mode, data)):
+        return _decode_step(ps, split, token, state, cfg, active,
+                            gather_width, bounded)
+
+
+def _decode_step(ps, split, token, state, cfg, active, gather_width,
+                 bounded):
+    """:func:`decode_step` on per-rank parameters ``ps`` (data group 0's
+    views over a data mesh, under its model sub-mesh: ``DistContext.data``
+    holds the whole mesh, which the KV caches and the recurrent state
+    are laid out on)."""
     cur_len = _per_device(state["cur_len"])
-    ps, split = _step_ranks(params, cfg)
     B = token.shape[0]
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=token.device)

@@ -230,10 +230,13 @@ def apply_mamba_decode_ranks(params, x, caches, cfg, active, split):
     (the layer's ``lm.split_axes``) says which projections are a rank's
     block; whole weights run once per device. Returns per device y (B,
     1, d)."""
-    mesh = dctx.current().mesh
+    ctx = dctx.current()
+    mesh = ctx.mesh
     dev = dctx.by_device(params)
     cols = split["in_proj"] is not None
     rows = split["out_proj"] is not None
+    if ctx.data is not None:
+        return _decode_data(params, dev, x, caches, cfg, active, cols, rows)
     if not (cols or rows):
         return [apply_mamba_decode(p, xd, c, cfg, a)
                 for p, xd, c, a in zip(dev, x, caches, active)]
@@ -241,6 +244,29 @@ def apply_mamba_decode_ranks(params, x, caches, cfg, active, split):
                                     [cols])
     y = [_decode_mix(p, z, c, cfg, a, xd.dtype)
          for p, z, c, a, xd in zip(dev, zx, caches, active, x)]
+    if not rows:
+        return [dense(yd, p["out_proj"]) for p, yd in zip(dev, y)]
+    return dctx.by_device(patterns.project_k_sharded(
+        mesh.per_rank(y), [p["out_proj"] for p in params], rows=True))
+
+
+def _decode_data(params, dev, x, caches, cfg, active, cols, rows):
+    """:func:`apply_mamba_decode_ranks` over a mesh with data groups (the
+    ambient ``DistContext.data``; the weight sites on data group 0's
+    model ranks, weights-stationary): the in_proj on the whole batch,
+    the conv and SSM step of each group's rows on its own copy of the
+    state (``patterns.over_groups``: the state's batch is on ``("pod",
+    "data")``), the rows joined, then ``out_proj``."""
+    mesh = dctx.current().mesh
+    if cols:
+        (zx,) = patterns.gather_columns(
+            x, [[p["in_proj"] for p in params]], [True])
+    else:
+        zx = [dense(xd, p["in_proj"]) for p, xd in zip(dev, x)]
+    y = patterns.over_groups(
+        lambda c, z, a: _decode_mix(dev[0], z, c, cfg, a, x[0].dtype),
+        caches, zx[0], active[0])
+    y = [cm.to_device(y, xd.device) for xd in x]
     if not rows:
         return [dense(yd, p["out_proj"]) for p, yd in zip(dev, y)]
     return dctx.by_device(patterns.project_k_sharded(

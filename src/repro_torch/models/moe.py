@@ -155,10 +155,10 @@ def _combine_share(params, x, r, cfg, lo: int):
     xe = xe.transpose(0, 1).reshape(e, B * C, D).contiguous()
 
     dt = x.dtype
-    g = matmul_batched(xe, params["wg"].to(dt))
-    u = matmul_batched(xe, params["wu"].to(dt))
+    g = _bmm(xe, params["wg"].to(dt))
+    u = _bmm(xe, params["wu"].to(dt))
     h = F.silu(g) * u
-    ye = matmul_batched(h, params["wd"].to(dt))              # (e, B*C, D)
+    ye = _bmm(h, params["wd"].to(dt))                        # (e, B*C, D)
     ye = ye.reshape(e, B, C, D).transpose(0, 1).reshape(B, e * C, D)
 
     # combine: gather each (t, k)'s expert output, weight by its gate
@@ -173,6 +173,15 @@ def _combine_share(params, x, r, cfg, lo: int):
     vals = vals.reshape(B, T, K, D)
     gate = r["gate"].to(dt).float()
     return (vals.float() * gate[..., None]).sum(dim=2)
+
+
+def _bmm(a, b):
+    """``matmul_batched``; experts cut over ``data`` on their ``embed``
+    dim (``cm.Stationary``) block by block, weights-stationary."""
+    if isinstance(b, cm.Stationary):
+        return cm.stationary(lambda x, bs: [matmul_batched(x, bs[0])], a,
+                             [b], kdim=1)[0]
+    return matmul_batched(a, b)
 
 
 def apply_moe(params, x, cfg):

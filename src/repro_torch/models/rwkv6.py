@@ -263,6 +263,8 @@ def apply_rwkv_decode_ranks(params, x, states, cfg, active, split):
     :func:`apply_rwkv_decode` once per device. Returns per device x (B,
     1, d)."""
     dev = dctx.by_device(params)
+    if dctx.current().data is not None:
+        return _decode_data(params, dev, x, states, cfg, active, split)
     if split["ck"] is None:
         return [apply_rwkv_decode(p, xd, st, cfg, a)
                 for p, xd, st, a in zip(dev, x, states, active)]
@@ -274,6 +276,31 @@ def apply_rwkv_decode_ranks(params, x, states, cfg, active, split):
     for st, a, nw in zip(states, active, new):
         _commit(st, a, *nw)
     return [xd + c for xd, c in zip(x, cv)]
+
+
+def _decode_data(params, dev, x, states, cfg, active, split):
+    """:func:`apply_rwkv_decode_ranks` over a mesh with data groups (the
+    ambient ``DistContext.data``; the weight sites on data group 0's
+    model ranks, weights-stationary): the time mix of each group's rows
+    on its own copy of the state (``patterns.over_groups``: the state's
+    batch is on ``("pod", "data")``), written in place, the rows joined;
+    the channel mix on the whole batch, as the model axis splits it."""
+    if split["ck"] is None:
+        y = patterns.over_groups(
+            lambda st, xr, a: apply_rwkv_decode(dev[0], xr, st, cfg, a),
+            states, x[0], active[0])
+        return [cm.to_device(y, xd.device) for xd in x]
+
+    def time_mix(st, xr, a):
+        xr, xk, new = _decode_time(dev[0], xr, st)
+        _commit(st, a, *new)
+        return xr, xk
+    xs, xk = patterns.over_groups(time_mix, states, x[0], active[0])
+    (k,) = patterns.column_shards([cm.to_device(xk, xd.device) for xd in x],
+                                  [[p["ck"] for p in params]])
+    cv = patterns.row_parallel_sum([torch.square(F.relu(t)) for t in k],
+                                   [p["cv"] for p in params])
+    return [cm.to_device(xs, c.device) + c for c in cv]
 
 
 def _decode_time(params, x, state):

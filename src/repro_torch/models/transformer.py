@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import collective_matmul as cm
 from repro_torch.distributed import context as dctx
 from repro_torch.distributed import fsdp
 from repro_torch.kernels.matmul import DOT_OPS as DOT_KERNELS
@@ -231,7 +232,8 @@ def copy_paged_block(cfg, caches, src: int, dst: int):
 def _layer(tree, li):
     """Layer ``li`` of a stacked parameter (or state) tree (an FSDP
     leaf's blocks sliced, ``distributed.fsdp.Shards``)."""
-    return {k: v[li] if isinstance(v, (torch.Tensor, fsdp.Shards))
+    return {k: v[li] if isinstance(v, (torch.Tensor, fsdp.Shards,
+                                       cm.Stationary))
             else _layer(v, li) for k, v in tree.items()}
 
 

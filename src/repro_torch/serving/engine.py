@@ -221,11 +221,13 @@ class Engine:
             raise ValueError(f"params live on {pdev}, the mesh's "
                              f"first rank on {mesh.distinct[0]}")
         self.params = params
-        # what the decode step takes: a per-rank list of shards
+        # what the decode step takes, built once (lm.step_ranks, which
+        # refuses what the mesh cannot serve): a per-rank list of shards
         # (lm.shard_params) as given; one LM replicated once per distinct
         # device (lm.replicate)
-        self.step_params = (params if mesh is None or isinstance(params, list)
-                            else lm.replicate(params, mesh))
+        self.step_params = lm.step_ranks(
+            params if mesh is None or isinstance(params, list)
+            else lm.replicate(params, mesh), cfg)
         self.bounded_gather = bool(bounded_gather)
         self.cfg = cfg
         self.batch = batch

@@ -841,6 +841,70 @@ def test_sharded_decode_step_matches_replicated(cuda, mode, paged):
     assert bool((d <= 1e-4 + 2 ** -7 * out[0].abs()).all()), d.max()
 
 
+@pytest.mark.parametrize("mode", ["pallas", "auto", "ring"])
+@pytest.mark.parametrize("paged", [True, False])
+def test_data_mesh_serve_step_on_the_card_matches_the_cpu(cuda, mode,
+                                                          paged):
+    """``launch.steps.jitted_serve_step`` on a (data 2, model 2) mesh of
+    virtual ranks of the card (each rank's shards, weights-stationary:
+    the partial products of the ``embed`` blocks summed or joined over
+    ``data``; the caches' batch on the data groups; ``pallas``: the
+    fused paged decode over the 4 sources, the fused AG+GEMM once per
+    data group) against the same step on a CPU mesh, float32, 3 steps:
+    logits within one bf16 ulp, through the kernels (no plain call), and
+    no host sync in a step."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    cfg = smoke_config(get_config("llama3-8b")).replace(
+        n_layers=2, dtype=torch.float32)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_mesh(2, [dev] * 4)
+        fn, ctx, _ = steps.jitted_serve_step(cfg, mesh, mode)
+        shards = lm.shard_params(lm.replicate(params, make_mesh(
+            1, [dev]))[0], mesh)
+        with dctx.use(ctx):
+            if paged:
+                st = lm.init_paged_decode_state(shards, cfg, 4, 16, 8, 4)
+                for t in st["block_tables"]:
+                    t.copy_(torch.arange(16, dtype=torch.int32)
+                            .reshape(4, 4))
+            else:
+                st = lm.init_decode_state(shards, cfg, 4, 32)
+        tok = torch.arange(1, 5, device=dev).reshape(4, 1)
+        q0 = kmm.matmul.plain_calls
+        with torch.inference_mode():
+            lgs = [fn(shards, tok, st)[0].float()]
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert kmm.matmul.plain_calls == q0
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lgs += [fn(shards, tok + i, st)[0].float() for i in (1, 2)]
+            finally:
+                if dev != "cpu":
+                    torch.cuda.set_sync_debug_mode(0)
+        out[dev] = torch.stack(lgs).cpu()
+    assert bool(torch.isfinite(out["cuda:0"]).all())
+    d = (out["cuda:0"] - out["cpu"]).abs()
+    assert bool((d <= 1e-4 + 2 ** -7 * out["cpu"].abs()).all()), d.max()
+
+
+def test_a_virtual_mesh_over_max_ranks_raises_on_the_card(cuda):
+    """16 virtual ranks of one card exceed what a fused launch takes
+    (``kernels.symm.MAX_RANKS``): the mesh raises, naming the limit;
+    8 build."""
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(ValueError, match="MAX_RANKS"):
+        make_mesh(4, ["cuda:0"] * 16)
+    assert make_mesh(2, ["cuda:0"] * 8).shape == {"data": 4, "model": 2}
+
+
 def test_sharded_tick_path_makes_no_host_sync_above_its_proof(cuda):
     """The engine over shards at tp 4 (``pallas``, K = 8: pure and mixed
     megaticks replayed from CUDA graphs): a tick that captured no graph

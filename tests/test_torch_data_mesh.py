@@ -435,14 +435,29 @@ def test_launch_meshes_are_jax_shapes():
     assert p.shape == {"pod": 2, "data": 16, "model": 16} and p.dp == 32
 
 
-def test_serving_refuses_a_data_axis():
-    """Serving runs on the model axis; a data axis names its ROADMAP
-    item."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tmesh.make_serve_mesh(2, "cpu,cpu,cpu,cpu")
-    assert tmesh.make_serve_mesh(2, "cpu,cpu").shape["model"] == 2
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        tsteps.jitted_serve_step(_cfg(), _mesh(2, 2))
+def test_serving_refuses_a_data_axis(monkeypatch):
+    """Serving takes the data axis now (the name is the old refusal's):
+    ``launch.serve --smoke --devices cpu,cpu,cpu,cpu --tp 2`` serves on
+    a (2, 2) mesh (each rank's shards, weights-stationary decode), and
+    so does ``--tp 1`` over four devices (4, 1); their greedy float32
+    streams equal ``--tp 1`` on one device. ``jitted_serve_step`` takes
+    a data mesh."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(serve, "smoke_config", lambda c: smoke_config(
+        c).replace(dtype=torch.float32))
+    base = ["--arch", "llama3-8b", "--smoke", "--device", "cpu",
+            "--requests", "4", "--batch", "2", "--max-new", "4",
+            "--max-len", "32", "--fusion-mode", "ring"]
+    want = serve.main(base + ["--tp", "1"])
+    got = serve.main(base + ["--devices", "cpu,cpu,cpu,cpu", "--tp", "2"])
+    assert got["mesh"] == {"data": 2, "model": 2}
+    assert got["streams"] == want["streams"] and len(want["streams"]) == 4
+    got = serve.main(base + ["--devices", "cpu,cpu,cpu,cpu", "--tp", "1"])
+    assert got["mesh"] == {"data": 4, "model": 1}
+    assert got["streams"] == want["streams"]
+    assert tmesh.make_mesh(2, "cpu,cpu").shape == {"data": 1, "model": 2}
+    fn, ctx, _ = tsteps.jitted_serve_step(_cfg(), _mesh(2, 2))
+    assert ctx.mesh.dp == 2
 
 
 # ------------------------------------------------------------ FSDP gather

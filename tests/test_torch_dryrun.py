@@ -188,7 +188,8 @@ def test_replayed_attention_counts_what_a_trace_counts():
     assert len(memo) == 1
 
 
-def test_cli_records_summary_and_mesh_refusal(tmp_path, capsys):
+def test_cli_records_summary_and_mesh_refusal(tmp_path, capsys,
+                                              monkeypatch):
     out = str(tmp_path)
     dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k", "--tp",
                  "1", "--out", out, "--jobs", "1"])
@@ -211,15 +212,28 @@ def test_cli_records_summary_and_mesh_refusal(tmp_path, capsys):
     assert "| llama3-8b | decode_32k | " in table
     assert "| hubert-xlarge | decode_32k | skipped: encoder-only" in table
     assert "cells: 1 ok, 1 skipped (N/A), 0 error" in table
-    # JAX's production meshes: a decode cell on a data mesh is skipped,
-    # naming the item that ports serving over one
+    # JAX's production meshes: a decode cell on a data mesh is traced
+    # (serving decodes weights-stationary there), no longer skipped; the
+    # trace itself is a recording stand-in (the real one runs a smoke
+    # cell on (data 2, model 2)) to keep the test short
+    calls = []
+    real = dryrun.extrapolated
+
+    def stand_in(cfg, shape, tp, fusion_mode, virtual, direct, data, pods):
+        calls.append((cfg.name, shape.name, tp, data, pods))
+        return real(smoke_config(cfg), ShapeConfig(shape.name, 32, 8,
+                                                   shape.kind),
+                    2, fusion_mode, virtual, True, 2, 1)
+    monkeypatch.setattr(dryrun, "extrapolated", stand_in)
     dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k", "--mesh",
                  "both", "--out", out, "--jobs", "1"])
+    assert calls == [("llama3-8b", "decode_32k", 16, 16, 1),
+                     ("llama3-8b", "decode_32k", 16, 16, 2)]
     for desc in ("16dx16m", "2px16dx16m"):
         with open(tmp_path / f"llama3-8b__decode_32k__{desc}.json") as f:
             rec = json.load(f)
-        assert rec["status"] == "skipped" and "queue 1, item 1" in \
-            rec["reason"] and rec["mesh"] == desc
+        assert rec["status"] == "ok" and rec["mesh"] == desc
+        assert rec["memory"]["state_bytes"] > 0
     assert rec["chips"] == 512 and (rec["pods"], rec["data"]) == (2, 16)
 
 
