@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--kernels-only | --peers] [--verbose]
-    python3 chip_smoke.py --phase 22   # one phase alone: 2, 3, 7 or 22
+    python3 chip_smoke.py --phase 23   # one phase alone: 2, 3, 7, 22, 23
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then runs, failing on the first phase that fails:
@@ -80,6 +80,18 @@ source, in parallel), then runs, failing on the first phase that fails:
    sources, each graph-timed beside its plain version, one library call
    and its bound (kernel lines ``matmul_data_mesh``,
    ``flash_decode_paged_fused_data_mesh``);
+23. parameters born sharded, after phase 22 (``lm.init_params(...,
+   mesh=)``, each rank's blocks drawn on its device, no whole model):
+   (a) llama3-8b at full width over 4 virtual ranks bit-equal to
+   ``lm.shard_params`` of phase 5's model, the init's peak increment
+   within the shards' bytes plus one draw and its cast; (b) the serving
+   CLI (``launch.serve.main``) at ``--tp 4 --fusion-mode pallas`` and on
+   ``--devices cuda:0,cuda:0,cuda:0,cuda:0 --tp 2`` with phase 9's
+   batch and budget at K = 1: launches exact a step, each rank's bytes
+   the rules', its peak increment, finite logits on its shards; (c) the
+   float32 smoke model through the CLI at ``--tp 4`` token-identical to
+   ``--tp 1``. ``--phase 23`` alone adds the CLI at ``--tp 4`` at K = 8
+   in ``pallas`` and ``auto``: its steady rate and ms a step;
 11. the robustness plane: (a), right after phase 8, phase 4's smoke
    serve at K = 8 under a fault plan (a dispatch failing twice, a slow
    tick, a pool spike that preempts between pure-megatick graph
@@ -243,6 +255,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1270,6 +1283,33 @@ def _drive_timed(eng, reqs):
                         for t, k, ev in ticks]
 
 
+def _steady(eng, reqs_b, K, c0):
+    """The steady numbers of ``eng`` serving ``reqs_b`` (the lengths it
+    served already, other tokens: its graphs replay; ``c0`` its captures
+    so far): tok/s, ms a token, busy share, the pure K-step megaticks'
+    wall and device ms."""
+    done_b, wall_b, ticks_b = _drive_timed(eng, reqs_b)
+    toks_b = sum(len(r.out_tokens) for r in done_b)
+    dev_ms = sum(t[2] for t in ticks_b)
+    # the steady megatick: a pure one of the full length K
+    steady = [t for t in ticks_b if t[1] == ("pure", K)]
+    out = {
+        "steady_wall_s": wall_b, "steady_tokens_per_s": toks_b / wall_b,
+        "steady_ms_per_token": 1e3 * wall_b / max(toks_b, 1),
+        "steady_captures": eng.metrics(done_b)["graph_captures"] - c0,
+        "steady_replay_device_ms": dev_ms,
+        "steady_busy_share": dev_ms / (1e3 * wall_b),
+        "pure_megaticks": len(steady),
+        "pure_megatick_wall_ms": (1e3 * sum(t[0] for t in steady)
+                                  / max(len(steady), 1)),
+        "pure_megatick_device_ms": (sum(t[2] for t in steady)
+                                    / max(len(steady), 1))}
+    out["pure_megatick_busy_share"] = (
+        out["pure_megatick_device_ms"] / out["pure_megatick_wall_ms"]
+        if steady else 0.0)
+    return out
+
+
 def serve_cell(params, cfg, K, reqs_a, reqs_b=None, *, batch, max_len,
                ctx=None, graphs=True, label=""):
     """Serve ``reqs_a`` through the engine at megatick length ``K`` with
@@ -1319,26 +1359,7 @@ def serve_cell(params, cfg, K, reqs_a, reqs_b=None, *, batch, max_len,
            "graph_replays": m.get("graph_replays", 0),
            "p50_ttft_s": m["p50_ttft_s"], "p50_tpot_s": m["p50_tpot_s"]}
     if reqs_b is not None:
-        c0 = m.get("graph_captures", 0)
-        done_b, wall_b, ticks_b = _drive_timed(eng, reqs_b)
-        toks_b = sum(len(r.out_tokens) for r in done_b)
-        dev_ms = sum(t[2] for t in ticks_b)
-        # the steady megatick: a pure one of the full length K
-        steady = [t for t in ticks_b if t[1] == ("pure", K)]
-        out.update({
-            "steady_wall_s": wall_b, "steady_tokens_per_s": toks_b / wall_b,
-            "steady_ms_per_token": 1e3 * wall_b / max(toks_b, 1),
-            "steady_captures": eng.metrics(done_b)["graph_captures"] - c0,
-            "steady_replay_device_ms": dev_ms,
-            "steady_busy_share": dev_ms / (1e3 * wall_b),
-            "pure_megaticks": len(steady),
-            "pure_megatick_wall_ms": (1e3 * sum(t[0] for t in steady)
-                                      / max(len(steady), 1)),
-            "pure_megatick_device_ms": (sum(t[2] for t in steady)
-                                        / max(len(steady), 1))})
-        out["pure_megatick_busy_share"] = (
-            out["pure_megatick_device_ms"] / out["pure_megatick_wall_ms"]
-            if steady else 0.0)
+        out.update(_steady(eng, reqs_b, K, m.get("graph_captures", 0)))
     print(f"[serve {label} K={K}{'' if graphs else ' eager'}] {toks} tokens "
           f"in {wall:.2f} s: {toks / wall:.2f} tok/s, "
           f"{out['ms_per_token']:.2f} ms/token, {steps} steps "
@@ -2661,14 +2682,127 @@ def phase_train_small(tmp):
     return out
 
 
+def _last_step_descent(cfg, params, dev, mesh):
+    """The loss of the trained ``params`` (per-rank over ``mesh``, under
+    TP_MODE) on the batch of the last step of a :func:`phase_train_full`
+    or :func:`phase_tp_full` run, whose logged loss is that batch's
+    before the step: a gradient of the wrong sign, or far off in size,
+    would raise it."""
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import steps as steps_lib
+    steps = TRAIN_STEPS if mesh is None else TP_STEPS
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                    seed=0).batch_at(steps - 1), dev, mesh)
+    ctx = dctx.DistContext(mesh, TP_MODE) if mesh is not None \
+        else dctx.DistContext()
+    with dctx.use(ctx):
+        loss = steps_lib.make_eval_step(cfg)(params, batch)["loss"]
+    return float(loss)
+
+
+def _joined_grads(params, cfg, mesh, dev=None):
+    """The gradients on ``params`` (one LM, or per-rank ones over
+    ``mesh``) as global leaves: sharded blocks joined, a replicated
+    leaf's summed copies taken once, None where the loss reads nothing;
+    moved to ``dev`` if given."""
+    from repro_torch.models import lm
+    dims = {} if mesh is None else lm.shard_dims(cfg, mesh)
+    per = [dict(p.named_parameters()) for p in lm.as_ranks(params)]
+    out = {}
+    for n, t in per[0].items():
+        d = dims.get(n)
+        g = (None if t.grad is None else t.grad.detach().clone()
+             if d is None else torch.cat([q[n].grad.detach() for q in per],
+                                         dim=d))
+        out[n] = g if g is None or dev is None else g.to(dev)
+    return out
+
+
+def _tp_leaf_grads():
+    """(13c, last part) llama3-8b at full width, TP_LEAF_LAYERS layers,
+    float32 compute: the gradients that one ``launch.steps`` train step
+    leaves on every leaf over TP ranks (``lm.shard_params`` of the
+    seed-0 init, TP_MODE; the replicated leaves' copies summed by the
+    step) against one rank's, on the first batch of 12c's data, each
+    leaf's gap ||g_W - g_1|| / ||g_1||; on the seeded init as it is
+    (printed: which leaves carry the gap that saturation spreads) and on
+    it scaled by TP_LEAF_TEMPER in every stacked matrix, where every
+    leaf must lie within TP_LEAF_RTOL. Returns both inits' gaps and the
+    seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, shard_batch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    t0 = time.time()
+    cfg = get_config("llama3-8b").replace(n_layers=TP_LEAF_LAYERS,
+                                          dtype=torch.float32)
+    mesh = make_mesh(TP, device="cuda")
+    host = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                       seed=0).batch_at(0)
+    step = steps_lib.make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    out = {}
+    for init in ("seeded", "tempered"):
+        whole = lm.init_params(cfg, seed=0, device="cuda", trainable=True)
+        if init == "tempered":
+            with torch.no_grad():
+                for t in whole.parameters():
+                    if t.dim() >= 3:
+                        t.mul_(TP_LEAF_TEMPER)
+        ranks = lm.shard_params(whole, mesh)
+        grads = []
+        for p, m in ((whole, None), (ranks, mesh)):
+            ctx = dctx.DistContext(m, TP_MODE) if m is not None \
+                else dctx.DistContext()
+            opt = steps_lib.init_opt_state(p)
+            with dctx.use(ctx):
+                step(p, opt, shard_batch(host, "cuda", m))
+            grads.append(_joined_grads(p, cfg, m))
+            del opt
+            for r in lm.as_ranks(p):
+                r.zero_grad(set_to_none=True)
+        del whole, ranks
+        gaps = {}
+        for n, g1 in grads[0].items():
+            check((g1 is None) == (grads[1][n] is None),
+                  f"tp leaf gradients: {n} present at one rank count only")
+            if g1 is not None:
+                gaps[n] = ((grads[1][n] - g1).norm()
+                           / g1.norm().clamp_min(1e-30)).item()
+        del grads
+        torch.cuda.empty_cache()
+        out[init] = gaps
+    worst = max(out["tempered"], key=out["tempered"].get)
+    check(out["tempered"][worst] <= TP_LEAF_RTOL,
+          f"tp leaf gradients (float32, tempered init): {worst} "
+          f"{out['tempered'][worst]:.3e} apart at tp {TP} and tp 1 "
+          f"(bound {TP_LEAF_RTOL})")
+    out["s"] = time.time() - t0
+    top = sorted(out["seeded"].items(), key=lambda kv: -kv[1])
+    print(f"[tp full] float32, {TP_LEAF_LAYERS} layers, first-step "
+          f"gradients tp {TP} vs tp 1, ||g_W - g_1|| / ||g_1|| per leaf: "
+          f"tempered init worst {worst} {out['tempered'][worst]:.3e} "
+          f"(bound {TP_LEAF_RTOL}); seeded init " + ", ".join(
+              f"{n} {g:.3e}" for n, g in top) + f" ({out['s']:.1f} s)",
+          flush=True)
+    return out
+
+
 def phase_train_full(gem_rows):
     """(12c) llama3-8b at full width, depth cut to TRAIN_LAYERS, bf16
     compute with fp32 masters and AdamW, remat full: TRAIN_STEPS steps
     of 2 x 1024 tokens through ``launch.train.train`` with warmup = the
-    steps. Checks the losses finite and the last below the first, the
-    GEMM launches of every step, no plain call, and peak memory below 80
-    GB; then one more step under the profiler for the GEMM's device
-    time. Returns the run's numbers."""
+    steps. Checks the losses finite and the last step's descent: the
+    trained parameters' loss on the last step's batch below that batch's
+    loss before the step (:func:`_last_step_descent`; the logged losses
+    are each a new batch's, all near ln V at this init, and whether the
+    last lies below the first turns on the draw, so it is printed, not
+    checked), the GEMM launches of every step, no plain call, and peak
+    memory below 80 GB; then one more step under the profiler for the
+    GEMM's device time. Returns the run's numbers."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM, shard_batch
@@ -2700,8 +2834,10 @@ def phase_train_full(gem_rows):
     losses = [m["loss"] for m in res["log"]]
     grad_norms = [m["grad_norm"] for m in res["log"]]
     steps_s = [m["s"] for m in res["log"]]
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-          f"train full width: losses {losses}")
+    check(all(np.isfinite(losses)), f"train full width: losses {losses}")
+    descent = _last_step_descent(cfg, res["params"], "cuda", None)
+    check(descent < losses[-1], f"train full width: the last step's batch "
+          f"at {descent} after the step, {losses[-1]} before it")
     deltas = np.diff([0] + counts).tolist()
     check(plain == 0 and deltas == [per_step] * TRAIN_STEPS,
           f"train full width: GEMM launches per step {deltas} (want "
@@ -2767,6 +2903,8 @@ def phase_train_full(gem_rows):
                      f"bf16 compute, fp32 masters, remat full",
            "params": n_params, "tokens_per_step": M,
            "steps": TRAIN_STEPS, "lr": TRAIN_LR, "losses": losses,
+           "last_below_first": losses[-1] < losses[0],
+           "last_batch_loss_after_step": descent,
            "grad_norms": grad_norms, "step_s": steps_s, "ms_per_step": 1e3 * step_s,
            "tokens_per_s": M / step_s, "run_s": run_s,
            "flops_per_step": flops, "gemm_flops_per_step": gemm_flops,
@@ -2786,7 +2924,9 @@ def phase_train_full(gem_rows):
            "bound_ms_per_step": 1e3 * bound_s,
            "bound_by": "operations" if ops_tot >= by_tot else "bytes"}
     print(f"[train full] {out['config']}: {n_params / 1e9:.3f} B "
-          f"parameters; losses {[round(x, 4) for x in losses]}; "
+          f"parameters; losses {[round(x, 4) for x in losses]} (last "
+          f"below first: {losses[-1] < losses[0]}); the last step's "
+          f"batch {losses[-1]:.4f} -> {descent:.4f} after it; "
           f"{out['ms_per_step']:.1f} ms per step after step 0 "
           f"({out['tokens_per_s']:.0f} tokens/s), "
           f"{out['tflops_per_s']:.1f} TFLOP/s executed "
@@ -2839,11 +2979,19 @@ TP = 4                     # virtual ranks of cuda:0
 TP_STEPS = 4
 TP_MODE = "ring"           # the train sites' ring_bidir (core.patterns)
 # 13c against 12c at step 0, the same init and batch: the loss's absolute
-# gap and the gradient norm's relative gap, ~5x and ~1.5x what one H100
-# measured (9.7e-5 and 6.5e-3; PERF.md). Both runs are deterministic on
-# the card but for the embedding backward's atomics, so the gaps repeat.
+# gap, ~5x what one H100 measured (9.7e-5; PERF.md). Both runs are
+# deterministic on the card but for the embedding backward's atomics, so
+# the gap repeats. The gradient norm's gap is printed, not checked: at
+# this init (the stacked fan-in's std 0.5: attention saturated) bf16's
+# rounding at other places over the ranks moves it by up to tens of
+# percent with the seed. The gradients are held leaf by leaf in float32 instead, at
+# TP_LEAF_LAYERS layers, on the seeded init scaled by TP_LEAF_TEMPER in
+# every stacked matrix (std ~1/sqrt(fan-in): nothing saturates), within
+# TP_LEAF_RTOL of each leaf's norm (float32 sums in another order).
 TP_LOSS_ATOL = 5e-4
-TP_GNORM_RTOL = 1e-2
+TP_LEAF_LAYERS = 2
+TP_LEAF_TEMPER = 1 / 64
+TP_LEAF_RTOL = 1e-4
 
 
 def tp_products(cfg, M, W):
@@ -3077,15 +3225,16 @@ def phase_tp_full(step0_loss, step0_gnorm):
     """(13c) llama3-8b at full width, TRAIN_LAYERS of 32 layers (as 12c),
     tp 4 virtual ranks, ``--fusion-mode ring``: TP_STEPS steps of 2 x
     1024 tokens of SyntheticLM(seed=0) through ``launch.train.train``
-    (the same seeded init as 12c, sharded). Checks the losses finite;
-    the first within TP_LOSS_ATOL of 12c's first and the first gradient
-    norm within TP_GNORM_RTOL of 12c's first (the same parameters and
-    batch: bf16 sums round at other places over the ranks; the loss at
-    init sits near ln V whatever the layers compute, so the gradient
-    norm, which every leaf's gradient feeds, is the sharper check); the
-    GEMM launches of every step (``tp_products``), no plain call, peak
-    memory below 80 GB; then one more step under the profiler: device
-    busy share, GEMM ms and launches. Returns the run's numbers."""
+    (the same seeded init as 12c, born sharded). Checks the losses
+    finite; the first within TP_LOSS_ATOL of 12c's first (the same
+    parameters and batch); the last step's descent
+    (:func:`_last_step_descent`, as 12c); the GEMM launches of every
+    step (``tp_products``), no plain call, peak memory below 80 GB; then
+    one more step under the profiler: device busy share, GEMM ms and
+    launches; then every leaf's first-step gradient at tp 4 against tp 1
+    (:func:`_tp_leaf_grads`). The first gradient norm's gap to 12c's is
+    printed (TP_LOSS_ATOL's comment says why it is not checked). Returns
+    the run's numbers."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM, shard_batch
@@ -3124,8 +3273,10 @@ def phase_tp_full(step0_loss, step0_gnorm):
     gnorm_gap = abs(gnorms[0] - step0_gnorm) / step0_gnorm
     check(loss_gap <= TP_LOSS_ATOL, f"tp full width: first loss "
           f"{losses[0]} vs 12c's {step0_loss}")
-    check(gnorm_gap <= TP_GNORM_RTOL, f"tp full width: first grad norm "
-          f"{gnorms[0]} vs 12c's {step0_gnorm} ({gnorm_gap:.3e} relative)")
+    descent = _last_step_descent(cfg, res["params"], res["params"][0].device,
+                                 tr.build_mesh(args))
+    check(descent < losses[-1], f"tp full width: the last step's batch "
+          f"at {descent} after the step, {losses[-1]} before it")
     deltas = np.diff([0] + counts).tolist()
     check(plain == 0 and deltas == [per_step] * TP_STEPS,
           f"tp full width: GEMM launches per step {deltas} (want "
@@ -3165,6 +3316,7 @@ def phase_tp_full(step0_loss, step0_gnorm):
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    leaf = _tp_leaf_grads()
     busy = dev_ms / (1e3 * prof_wall)
     out = {"config": f"llama3-8b full width, {cfg.n_layers} of 32 layers, "
                      f"tp {TP} virtual ranks, fusion mode {TP_MODE}, bf16 "
@@ -3172,7 +3324,9 @@ def phase_tp_full(step0_loss, step0_gnorm):
            "tokens_per_step": M, "steps": TP_STEPS, "losses": losses,
            "grad_norms": gnorms, "step0_loss_12c": step0_loss,
            "step0_grad_norm_12c": step0_gnorm, "step0_loss_gap": loss_gap,
-           "step0_grad_norm_gap": gnorm_gap, "step_s": steps_s,
+           "step0_grad_norm_gap": gnorm_gap,
+           "last_batch_loss_after_step": descent,
+           "leaf_grads_f32": leaf, "step_s": steps_s,
            "ms_per_step": 1e3 * step_s, "tokens_per_s": M / step_s,
            "run_s": run_s, "peak_gb": peak_gb, "gemm_launches": launches,
            "gemm_launches_per_step": per_step,
@@ -3186,7 +3340,9 @@ def phase_tp_full(step0_loss, step0_gnorm):
     print(f"[tp full] {out['config']}: losses "
           f"{[round(x, 4) for x in losses]}; first loss {loss_gap:.3e} "
           f"from 12c's {step0_loss:.6f}, first grad norm {gnorms[0]:.6f} "
-          f"vs 12c's {step0_gnorm:.6f} ({gnorm_gap:.3e} relative); "
+          f"vs 12c's {step0_gnorm:.6f} ({gnorm_gap:.3e} relative, not "
+          f"checked); the last step's batch {losses[-1]:.4f} -> "
+          f"{descent:.4f} after it; "
           f"{out['ms_per_step']:.1f} ms per step after step 0 "
           f"({out['tokens_per_s']:.0f} tokens/s); peak {peak_gb:.2f} GB; "
           f"{per_step} GEMM launches a step; profiled step: wall "
@@ -4803,6 +4959,11 @@ def phase_recurrent(gen):
 # ------------------------------------------- (16) the vlm and audio frontends
 FRONT_ARCHS = ("paligemma-3b", "hubert-xlarge")
 FRONT_STEPS = 3
+# 16b's gradient bound: 2x the largest first-step gap of the CPU's own run
+# under this many draws of one float32 ulp of weight noise (two of them
+# also give the grad norms' bound over every step); the draws' gaps
+# spread ~4x with the seed, so a few draws misjudge the spread
+FRONT_NOISE_DRAWS = 8
 
 
 def front_gemm_rows(cfg):
@@ -5053,16 +5214,7 @@ def _front_train(init, cfg, dev, mesh=None, steps=FRONT_STEPS):
         gnorms.append(met["grad_norm"].item())
         if i:
             continue
-        ranks = lm.as_ranks(params)
-        dims = ({} if mesh is None else lm.shard_dims(cfg, mesh))
-        per = [dict(p.named_parameters()) for p in ranks]
-        g0 = {}
-        for n, t in per[0].items():
-            d = dims.get(n)
-            g0[n] = (None if t.grad is None else
-                     t.grad.detach().cpu().clone() if d is None else
-                     torch.cat([q[n].grad.detach().cpu() for q in per],
-                               dim=d))
+        g0 = _joined_grads(params, cfg, mesh, "cpu")
     return losses, gnorms, g0, matmul.launches - n0, matmul.plain_calls - p0
 
 
@@ -5092,10 +5244,12 @@ def phase_front_small(tp=4):
     relative, losses 1e-4 (card vs CPU), every first-step gradient leaf
     within 1e-3 of its largest |entry| and grad norms within 1e-2, each
     of the last two or 2x the CPU's own gap under one float32 ulp of
-    weight noise (two noisy CPU runs, 14d's and 15d's bound) if that is
-    larger: hubert-smoke's second grad norm moves by more than 1% on the
-    CPU alone under such noise, as AdamW's normalised update moves the
-    entries whose gradient is near zero either way."""
+    weight noise if that is larger (the gradients' over
+    FRONT_NOISE_DRAWS noisy CPU runs of the first step, the grad norms'
+    over two runs of every step, 14d's and 15d's bound): hubert-smoke's
+    second grad norm moves by more than 1% on the CPU alone under such
+    noise, as AdamW's normalised update moves the entries whose gradient
+    is near zero either way."""
     from repro_torch.distributed import context as dctx
     from repro_torch.kernels.matmul import matmul
     from repro_torch.launch.mesh import make_mesh
@@ -5135,8 +5289,11 @@ def phase_front_small(tp=4):
         cpu = _front_train(p0, c, "cpu")
         noise = [_front_train(_ulp_noise(p0, c, seed), c, "cpu")
                  for seed in (0, 1)]
-        g_tol = max(1e-3, 2 * max(_grads_apart(n[2], cpu[2])
-                                  for n in noise))
+        g_noise = [_grads_apart(n[2], cpu[2]) for n in noise] + [
+            _grads_apart(_front_train(_ulp_noise(p0, c, seed), c, "cpu",
+                                      steps=1)[2], cpu[2])
+            for seed in range(2, FRONT_NOISE_DRAWS)]
+        g_tol = max(1e-3, 2 * max(g_noise))
         n_tol = max(1e-2, 2 * max(abs(a / b - 1) for n in noise
                                   for a, b in zip(n[1], cpu[1])))
         card = _front_train(p0, c, "cuda")
@@ -5163,6 +5320,7 @@ def phase_front_small(tp=4):
                        "cpu_grad_norms": cpu[1], "card_grad_norms": card[1],
                        "grad_err_vs_cpu": g_cpu, "grad_err_tp_vs_1": g_tp,
                        "grad_bound": g_tol, "grad_norm_bound": n_tol,
+                       "cpu_noise_grad_errs": g_noise,
                        "gemm_launches": card[3]}
     print(f"[front small] paligemma-smoke float32 served on the card as on "
           f"the CPU at K=1 {serve[1][1]} and K=8 {serve[8][1]} (graph "
@@ -7101,25 +7259,30 @@ def phase_dm_serve_small():
     return out
 
 
-def _dm_rank_bytes(params, shards, mesh):
-    """Each rank's resident bytes on ``mesh`` against the rules' (every
-    leaf's ``launch.steps.param_shardings`` per-rank shape in its
-    storage dtype): equal to the byte."""
+def _rules_rank_bytes(cfg, mesh):
+    """The bytes a rank of ``mesh`` holds by the rules: every leaf's
+    ``launch.steps.param_shardings`` shape in its serving storage dtype
+    (``lm.storage_dtype``)."""
     from repro_torch.distributed import sharding_rules as sr
     from repro_torch.launch import steps
     from repro_torch.models import lm
-    from repro_torch.models.module import tree_items
-    plan = steps.param_shardings(params.cfg, sr.rules_for(params.cfg, mesh))
-    leaves = dict(tree_items(lm.param_tree(params)))
 
     def per_rank(tree, prefix=""):
         n = 0
         for k, v in tree.items():
             path = f"{prefix}.{k}" if prefix else k
-            n += (int(np.prod(v["shape"])) * leaves[path].element_size()
+            n += (int(np.prod(v["shape"]))
+                  * lm.storage_dtype(path, cfg).itemsize
                   if "dim" in v else per_rank(v, path))
         return n
-    want = per_rank(plan)
+    return per_rank(steps.param_shardings(cfg, sr.rules_for(cfg, mesh)))
+
+
+def _dm_rank_bytes(params, shards, mesh):
+    """Each rank's resident bytes on ``mesh`` against the rules' (every
+    leaf's ``launch.steps.param_shardings`` per-rank shape in its
+    storage dtype, :func:`_rules_rank_bytes`): equal to the byte."""
+    want = _rules_rank_bytes(params.cfg, mesh)
     got = [round(_resident_gb([s]) * 1e9) for s in shards]
     check(all(g == want for g in got), f"dm serve: {got} B a rank, the "
                                        f"rules' {want}")
@@ -7416,6 +7579,233 @@ def phase_serve_data_mesh(gen, params):
             "parts_s": parts_s}, kernels
 
 
+BORN_TP = 4                 # phase 23: virtual ranks of cuda:0
+CLI_TRAFFIC = ["--batch", "4", "--max-len", "256", "--max-new", "16",
+               "--requests", "4", "--stagger", "1", "--seed", "0"]
+
+
+def _draw_bound(cfg):
+    """(bytes, path) of the largest draw of a born-sharded init and its
+    cast: one layer slice or one unstacked leaf drawn in fp32, and the
+    same values in the leaf's storage dtype."""
+    from repro_torch.models import lm
+    from repro_torch.models import module
+    from repro_torch.models.module import tree_items
+    best = (0, None)
+    for path, p in tree_items(lm.lm_spec(cfg)):
+        if module.constant(p) is not None:
+            continue
+        n = int(np.prod(p.shape[1:] if module.stacked(p) else p.shape))
+        size = lm.storage_dtype(path, cfg).itemsize
+        best = max(best, (n * (4 + size), path))
+    return best
+
+
+def cli_serve(argv, cfg, per_step, what, steady_seed=None):
+    """``launch.serve.main(argv)`` as a user runs it, with every kernel
+    wrapper's counters set to 0 just before and read just after, the
+    engine it builds kept (a subclass of ``serve.Engine`` that records
+    it and what it is sent): its checks as a serve cell's (every request
+    finished in vocabulary, no plain-version call, launches exact a
+    decode step: ``per_step``), the peak increment over what the card
+    held before, each rank's bytes against the rules'; with
+    ``steady_seed`` the same lengths served again with other tokens on
+    the CLI's engine, its graphs replaying (:func:`_steady`). Returns
+    (summary, the engine)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.graphs import launch_counted
+    made = []
+
+    class Kept(serve.Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.sent = []
+            made.append(self)
+
+        def submit(self, req, at_tick=None):
+            self.sent.append((len(req.prompt), req.max_new_tokens, at_tick))
+            return super().submit(req, at_tick=at_tick)
+    fns = launch_counted()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _counted(fns)
+    plain_engine, serve.Engine = serve.Engine, Kept
+    t0 = time.time()
+    try:
+        stats = serve.main(argv)
+    finally:
+        serve.Engine = plain_engine
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    (eng,) = made
+    made.clear()          # no cycle through Kept's closure: del frees it
+    runner = eng._runner
+    steps = eng.scan_steps + (runner.warmup_steps if runner else 0)
+    cell = {"K": eng.decode_steps, "graphs": stats["graphs"],
+            "decode_steps": steps,
+            "launches": {f.__name__: f.launches for f in fns},
+            "plain_calls": {f.__name__: f.plain_calls for f in fns},
+            "graph_replays": stats.get("graph_replays", 0),
+            "graph_captures": stats.get("graph_captures", 0),
+            "dispatches": stats["dispatches"],
+            "peak_increment_bytes": torch.cuda.max_memory_allocated() - base,
+            "main_s": wall, "tok_per_s": stats["tok_per_s"],
+            "mesh": stats["mesh"], "fusion_mode": stats["fusion_mode"]}
+    done = [types.SimpleNamespace(rid=rid, out_tokens=toks, finish_reason="")
+            for rid, toks in stats["streams"].items()]
+    _check_serve(cell, done, cfg, len(eng.sent), eng.sent[0][1], per_step,
+                 what)
+    ranks = eng.params
+    check(isinstance(ranks, list) and len(ranks) == len(eng.ctx.mesh.devices),
+          f"{what}: the engine holds {type(ranks)}, not a rank's shards")
+    want = _rules_rank_bytes(cfg, eng.ctx.mesh)
+    got = [round(_resident_gb([r]) * 1e9) for r in ranks]
+    check(all(g == want for g in got), f"{what}: {got} B a rank, the "
+                                       f"rules' {want}")
+    cell.update({"rank_bytes": want, "card_gb": _resident_gb(ranks)})
+    if steady_seed is not None:
+        rng = np.random.default_rng(steady_seed)
+        reqs_b = [([int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+                   max_new, at or 0) for n, max_new, at in eng.sent]
+        cell.update(_steady(eng, reqs_b, eng.decode_steps,
+                            cell["graph_captures"]))
+        cell["steady_ms_per_step"] = (
+            cell["pure_megatick_wall_ms"] / eng.decode_steps
+            if cell["pure_megaticks"] else None)
+    print(f"[born] {what}: {stats['new_tokens']} tokens in {wall:.2f} s "
+          f"(init, engine, serve), {steps} decode steps, launches exact, "
+          f"peak +{cell['peak_increment_bytes'] / 1e9:.2f} GB, a rank "
+          f"{want} B, the card {cell['card_gb']:.3f} GB"
+          + (f"; steady {cell['steady_tokens_per_s']:.2f} tok/s, "
+             f"{cell['steady_ms_per_step']:.2f} ms a step"
+             if cell.get("steady_ms_per_step") else ""), flush=True)
+    return cell, eng
+
+
+def _f32_cli_streams(flags):
+    """The CLI's greedy streams of the float32 smoke model on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    plain = serve.smoke_config
+    serve.smoke_config = lambda c: smoke_config(c).replace(
+        dtype=torch.float32)
+    try:
+        return serve.main(["--arch", "llama3-8b", "--smoke", "--batch", "2",
+                           "--max-len", "64", "--max-new", "8",
+                           "--requests", "4", "--decode-steps", "4",
+                           *flags])["streams"]
+    finally:
+        serve.smoke_config = plain
+
+
+def phase_born_sharded(params, steady=False):
+    """(23) parameters born sharded, on one card: (a) llama3-8b at full
+    width over 4 virtual ranks (``lm.init_params(..., mesh=)``), every
+    leaf of every rank ``torch.equal`` to ``lm.shard_params`` of
+    ``params`` (phase 5's whole model, seed 0), the init's peak
+    increment within the shards' bytes plus the largest draw and its
+    cast (:func:`_draw_bound`); (b) ``launch.serve.main`` with phase 9's
+    batch and budget (4 requests, 16 new tokens, stagger 1, K = 1; the
+    prompts the CLI's own, 2-7 tokens, where phase 9's are 16-48) at
+    ``--tp 4 --fusion-mode pallas`` and on the (data 2, model 2)
+    mesh ``--devices cuda:0,cuda:0,cuda:0,cuda:0 --tp 2``
+    (:func:`cli_serve`: launches exact, each rank's bytes the rules',
+    the peak increment), and finite logits of a teacher-forced chunk on
+    the CLI's shards; (c) the float32 smoke model through the CLI at
+    ``--tp 4`` token-identical to ``--tp 1``. ``steady`` (``--phase
+    23``): the CLI at ``--tp 4`` also at K = 8 in ``pallas`` and
+    ``auto``, its steady rate and ms a step on its own engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_items
+    parts_s, t_part = {}, [time.time()]
+
+    def part(name):
+        now = time.time()
+        parts_s[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = get_config("llama3-8b")
+    mesh = make_mesh(BORN_TP, device="cuda")
+    draw_bytes, draw_path = _draw_bound(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    born = lm.init_params(cfg, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    inc = torch.cuda.max_memory_allocated() - base
+    shards_bytes = round(_resident_gb(born) * 1e9)
+    init = {"init_s": init_s, "peak_increment_bytes": inc,
+            "shards_bytes": shards_bytes, "draw_bytes": draw_bytes,
+            "draw_leaf": draw_path,
+            "rank_bytes": _rules_rank_bytes(cfg, mesh)}
+    check(inc <= shards_bytes + draw_bytes,
+          f"born-sharded init: peak +{inc} B > the shards' {shards_bytes} "
+          f"+ one draw and its cast {draw_bytes} ({draw_path})")
+    cut = lm.shard_params(params, mesh)
+    for r, (a, b) in enumerate(zip(born, cut)):
+        la, lb = (dict(tree_items(lm.param_tree(x))) for x in (a, b))
+        for k, t in la.items():
+            check(t.dtype == lb[k].dtype and torch.equal(t, lb[k]),
+                  f"born-sharded init: rank {r} {k} differs from "
+                  f"lm.shard_params of phase 5's model")
+    del born, cut
+    torch.cuda.empty_cache()
+    part("a_init")
+    print(f"[born] llama3-8b over {BORN_TP} ranks born sharded in "
+          f"{init_s:.2f} s, bit-equal to lm.shard_params of phase 5's "
+          f"model: peak +{inc / 1e9:.3f} GB for {shards_bytes / 1e9:.3f} "
+          f"GB of shards (bound: + {draw_bytes / 1e9:.3f} GB, {draw_path} "
+          f"drawn in fp32 and cast)", flush=True)
+    full = ["--arch", "llama3-8b", *CLI_TRAFFIC]
+    cli = {}
+    tp4 = ["--tp", str(BORN_TP), "--fusion-mode", "pallas"]
+    dm = ["--devices", ",".join(["cuda:0"] * 4), "--tp", "2",
+          "--fusion-mode", "pallas"]
+    tok = torch.randint(1, cfg.vocab_size, (4, 8), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    for name, flags, per_step in (
+            ("tp4_pallas", tp4, sharded_per_step(cfg, "pallas", BORN_TP)),
+            ("dm_2x2_pallas", dm, data_mesh_per_step(cfg, "pallas", 2, 2))):
+        cli[name], eng = cli_serve(full + flags + ["--decode-steps", "1"],
+                                   cfg, per_step, f"CLI {name} K=1")
+        lg = _teacher_forced(eng.params, cfg, tok, eng.ctx)
+        check(bool(torch.isfinite(lg).all()),
+              f"CLI {name}: non-finite logits on its shards")
+        del eng, lg
+        torch.cuda.empty_cache()
+        part(f"b_{name}")
+    if steady:
+        for mode in ("pallas", "auto"):
+            name = f"tp4_{mode}_k8"
+            cli[name], eng = cli_serve(
+                full + ["--tp", str(BORN_TP), "--fusion-mode", mode,
+                        "--decode-steps", "8"], cfg,
+                sharded_per_step(cfg, mode, BORN_TP), f"CLI {name}",
+                steady_seed=4)
+            del eng
+            torch.cuda.empty_cache()
+            part(f"d_{name}")
+    one = _f32_cli_streams(["--tp", "1"])
+    four = _f32_cli_streams(["--tp", str(BORN_TP), "--fusion-mode",
+                             "pallas"])
+    check(one == four, f"float32 smoke through the CLI: --tp 4 streams "
+                       f"{four} != --tp 1 {one}")
+    part("c_f32_cli")
+    print(f"[born] float32 smoke through the CLI: --tp {BORN_TP} pallas "
+          f"token-identical to --tp 1 ({sum(map(len, one.values()))} "
+          f"tokens)", flush=True)
+    print("[born] parts: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in parts_s.items()),
+          flush=True)
+    return {"init": init, "cli": cli,
+            "f32_cli_tokens": sum(map(len, one.values())),
+            "parts_s": parts_s}
+
+
 def check_bounds(kernels, path):
     """Print every kernel line's bound beside the same line's in the
     ``chip_smoke.json`` at ``path`` (an earlier run's) and fail where the
@@ -7439,9 +7829,10 @@ def check_bounds(kernels, path):
 
 def run_alone(phase, gen, smi, timed, phase_s, t_start):
     """``--phase N``: only phase N after the build, for the phases that
-    need no earlier phase's output (2, 3, 7: the kernel checks; 22: its
-    own full-width weights, seeded as phase 5's), then the kernels line,
-    the card and the last line as a whole run prints them."""
+    need no earlier phase's output (2, 3, 7: the kernel checks; 22 and
+    23: their own full-width weights, seeded as phase 5's; 23 alone also
+    times the CLI's steady megaticks), then the kernels line, the card
+    and the last line as a whole run prints them."""
     kernels = []
     if phase == "2":
         timed("2 gemm", phase_gemm, gen)
@@ -7464,8 +7855,19 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
                   "w") as f:
             json.dump({"device": smi, "serve_data_mesh": out,
                        "kernels": kernels, "phase_s": phase_s}, f, indent=1)
+    elif phase == "23":
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+        params = lm.init_params(get_config("llama3-8b"), seed=0,
+                                device="cuda")
+        out = timed("23 born sharded", phase_born_sharded, params, True)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_phase23.json"),
+                  "w") as f:
+            json.dump({"device": smi, "born_sharded": out,
+                       "phase_s": phase_s}, f, indent=1)
     else:
-        print(f"chip_smoke: --phase {phase}: only 2, 3, 7 and 22 run "
+        print(f"chip_smoke: --phase {phase}: only 2, 3, 7, 22 and 23 run "
               f"alone (the others take earlier phases' outputs)",
               file=sys.stderr)
         sys.exit(2)
@@ -7538,6 +7940,7 @@ def main():
     sharded = timed("20 sharded weights", phase_sharded, params, summary_tp)
     serve_dm, serve_dm_kernels = timed("22 serve on a data mesh",
                                        phase_serve_data_mesh, gen, params)
+    born = timed("23 born sharded", phase_born_sharded, params)
     del params
     torch.cuda.empty_cache()
     train, train_kernel = timed("12 training", phase_train, gen)
@@ -7595,7 +7998,7 @@ def main():
                    "dots_tp_family_kernels": fam_kernels,
                    "dryrun_vs_card": dry, "taxes": taxes,
                    "sharded": sharded, "data_mesh": dm,
-                   "serve_data_mesh": serve_dm,
+                   "serve_data_mesh": serve_dm, "born_sharded": born,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding_rules import (cut, join, n_blocks,
-                                                    rank_coords)
+                                                    rank_coords, spec_shape)
 
 SEP = "%%"
 BF16 = "bfloat16"
@@ -88,15 +88,29 @@ def _to_host(leaf) -> tuple[np.ndarray, str | None]:
     return np.array(leaf, copy=True), None
 
 
-def _is_bf16_bits(arr: np.ndarray, dtype: str | None) -> bool:
-    return dtype == BF16 or (arr.dtype.kind == "V" and arr.dtype.itemsize == 2)
+def _is_bf16_bits(dt: np.dtype, dtype: str | None) -> bool:
+    return dtype == BF16 or (dt.kind == "V" and dt.itemsize == 2)
 
 
 def _to_tensor(arr: np.ndarray, dtype: str | None) -> torch.Tensor:
     arr = np.require(arr, requirements=["C", "W"])   # keeps 0-d arrays
-    if _is_bf16_bits(arr, dtype):
+    if _is_bf16_bits(arr.dtype, dtype):
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _header(z, key: str, dtype: str | None) -> tuple[tuple, torch.dtype]:
+    """(shape, torch dtype) of the member ``key`` of the open npz ``z``,
+    read from the member's header alone."""
+    fmt = np.lib.format
+    with z.zip.open(key + ".npy") as f:
+        version = fmt.read_magic(f)
+        read = (fmt.read_array_header_1_0 if version == (1, 0)
+                else fmt.read_array_header_2_0)
+        shape, _, dt = read(f)
+    if _is_bf16_bits(dt, dtype):
+        return tuple(shape), torch.bfloat16
+    return tuple(shape), torch.from_numpy(np.empty(0, dt)).dtype
 
 
 class Checkpointer:
@@ -229,40 +243,55 @@ class Checkpointer:
         return template, manifest
 
     def restore_sharded(self, step: int | None, templates: list,
-                        dims: dict, mesh_shape: dict | None = None):
+                        dims: dict, mesh_shape: dict | None = None,
+                        cast: bool = False):
         """:meth:`restore` onto the ranks of a mesh (row-major over
         ``mesh_shape``'s axes; default one ``model`` axis of every
         rank): each rank's template takes its block (``sharding_rules.cut``
         by the spec ``dims[k]``) of the leaf at key k, or the whole leaf
         where ``dims`` has none. Any mesh whose blocks divide the saved
-        leaves reads any checkpoint. Returns (templates, manifest)."""
-        flat, manifest = self.read(step)
+        leaves reads any checkpoint. The file is read one member at a
+        time (the headers first, so a missing leaf or a shape or dtype
+        mismatch raises before anything is written), so the host holds
+        one leaf, never the whole tree. A leaf's dtype must be the
+        template's, unless ``cast``: then each rank's block is cast to
+        its template's dtype after the cut (serving restores fp32
+        masters, or bf16 leaves, into its storage dtypes). Returns
+        (templates, manifest)."""
+        path = self._path(step)
+        manifest = self.manifest(step)
+        dtypes = manifest.get("dtypes", {})
         shape = _mesh_shape(mesh_shape, len(templates))
         coords = rank_coords(shape)
-        plan = []
-        for r, template in enumerate(templates):
-            for key, dst in flatten(template).items():
-                if key not in flat:
-                    raise KeyError(f"checkpoint missing leaf {key}")
-                got, d = flat[key], dims.get(key)
-                if d:
-                    for i, p in enumerate(d):
-                        if got.shape[i] % n_blocks(p, shape):
-                            raise ValueError(
-                                f"checkpoint leaf {key}: dim {i} of "
-                                f"{tuple(got.shape)} does not split over "
-                                f"mesh {dict(shape)} as {d}")
-                    got = cut(got, d, coords[r], shape)
-                if (tuple(got.shape), got.dtype) != (tuple(dst.shape),
-                                                     dst.dtype):
-                    raise ValueError(
-                        f"checkpoint leaf {key}: {got.dtype} "
-                        f"{tuple(got.shape)} != template {dst.dtype} "
-                        f"{tuple(dst.shape)}")
-                plan.append((dst, got))
-        with torch.no_grad():
-            for dst, got in plan:
-                dst.copy_(got)
+        with np.load(os.path.join(path, "shard_0.npz")) as z:
+            heads = {k: _header(z, k, dtypes.get(k)) for k in z.files}
+            plan: dict = {}
+            for r, template in enumerate(templates):
+                for key, dst in flatten(template).items():
+                    if key not in heads:
+                        raise KeyError(f"checkpoint missing leaf {key}")
+                    (got, dt), d = heads[key], dims.get(key)
+                    if d:
+                        for i, p in enumerate(d):
+                            if got[i] % n_blocks(p, shape):
+                                raise ValueError(
+                                    f"checkpoint leaf {key}: dim {i} of "
+                                    f"{got} does not split over "
+                                    f"mesh {dict(shape)} as {d}")
+                        got = spec_shape(got, d, shape)
+                    if got != tuple(dst.shape) or (dt != dst.dtype
+                                                   and not cast):
+                        raise ValueError(
+                            f"checkpoint leaf {key}: {dt} {got} != "
+                            f"template {dst.dtype} {tuple(dst.shape)}")
+                    plan.setdefault(key, []).append((dst, coords[r], d))
+            with torch.no_grad():
+                for key, dsts in plan.items():
+                    leaf = _to_tensor(z[key], dtypes.get(key))
+                    for dst, c, d in dsts:
+                        block = cut(leaf, d, c, shape) if d else leaf
+                        dst.copy_(block.to(dst.dtype) if cast else block)
+                    del leaf
         return templates, manifest
 
 

@@ -14,18 +14,22 @@ a weight is cut over ``model`` on its heads / MLP / expert / vocab dim
 and over ``data`` on its ``embed`` (or ``in_vocab``) dim: FSDP, ZeRO-3
 style.
 
-:func:`shard_tree` cuts a tree of global tensors into per-rank trees of
-shard-shaped leaves (the rank at coordinates (d, m) holds block d of
-the ``data``-sharded dim and block m of the ``model``-sharded one, JAX's
-``NamedSharding.shard_shape``; the ranks numbered row-major over the
-mesh's axes) and :func:`unshard_tree` is its inverse; both read the
+:func:`make_shards` builds per-rank trees of shard-shaped leaves from
+draws, each rank's block cut out of one layer slice or one unstacked
+leaf at a time (born sharded, as JAX's ``jit(init, out_shardings=)``:
+no device ever holds a whole model), and :func:`shard_tree` the same
+trees from a tree of global tensors (the rank at coordinates (d, m)
+holds block d of the ``data``-sharded dim and block m of the
+``model``-sharded one, JAX's ``NamedSharding.shard_shape``; the ranks
+numbered row-major over the mesh's axes); :func:`unshard_tree` is their
+inverse; all read the
 logical axes of the tree's spec (``models.lm.lm_spec``), as the JAX
 package's shardings do.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Iterable, Mapping, Sequence
 
 import torch
 
@@ -280,35 +284,79 @@ def join(blocks: list, spec: tuple, mesh_shape):
     return out
 
 
-def shard_tree(tree: dict, spec: dict, rules: Rules,
-               devices=None, share_replicated: bool = False) -> list[dict]:
-    """Per-rank trees of ``tree``'s global leaves, one per rank of the
-    mesh ``rules.shape`` describes (row-major): each leaf's block
-    (:func:`cut`, a contiguous copy) on its rank, a replicated leaf's
-    own copy on every rank (ranks that share a device still hold
-    separate tensors, as training writes each), or with
-    ``share_replicated`` one copy per distinct device, which every rank
-    on it holds (serving: nothing writes them). ``devices``: one per
-    rank (default: the leaves' own)."""
+def make_shards(spec: dict, rules: Rules, devices, draw, dtype_of,
+                share_replicated: bool = False) -> list[dict]:
+    """Per-rank trees of ``spec``'s leaves, one per rank of the mesh
+    ``rules.shape`` describes (row-major), rank r's on ``devices[r]``,
+    built from draws, never from a global leaf on one device: each rank
+    holds its block of every leaf (:func:`cut` by the leaf's spec) in
+    ``dtype_of(path)``, a replicated leaf's own copy on every rank (ranks
+    that share a device still hold separate tensors, as training writes
+    each), or with ``share_replicated`` one copy per distinct device,
+    which every rank on it holds (serving: nothing writes them).
+
+    ``draw(path, device)`` gives the leaf's values on ``device``, asked
+    once per distinct device: an iterable of ``(l, layer slice l)`` of a
+    layer-stacked leaf, in any order, or ``(None, the whole leaf)``
+    (``models.module.draws``; the values may lie on another device); a
+    number (every entry that value: a ``zeros`` / ``ones`` leaf, made at
+    block shape with no draw); or None (the blocks are left unwritten,
+    for a restore to fill). Every rank's block on the device is cut out
+    of each piece and cast as it is written, so a device holds its
+    ranks' blocks plus one piece."""
     specs = leaf_specs(spec, rules)
     coords = rank_coords(rules.shape)
-    shared: dict = {}
+    devices = list(devices)
+    trees: list[dict] = [{} for _ in coords]
+    for path, p in tree_items(spec):
+        s, dt = specs[path], dtype_of(path)
+        shape = spec_shape(p.shape, s, rules.shape)
+        for dev in dict.fromkeys(devices):
+            ranks = [r for r, d in enumerate(devices) if d == dev]
+            shared = share_replicated and not any(s)
+            with torch.no_grad():
+                made = [torch.empty(shape, dtype=dt, device=dev)
+                        for _ in ranks[:1 if shared else None]]
+                _fill(made, [coords[r] for r in ranks], s, rules.shape,
+                      draw(path, dev))
+            for i, r in enumerate(ranks):
+                trees[r][path] = made[0 if shared else i]
+    return [tree_map(lambda path, _: t[path], spec) for t in trees]
 
-    def one(r):
-        def piece(path, x):
-            s = specs[path]
-            x = x.detach()
-            dev = x.device if devices is None else devices[r]
-            if share_replicated and not any(s):
-                key = (path, str(dev))
-                if key not in shared:
-                    shared[key] = x.to(dev, copy=True,
-                                       memory_format=torch.contiguous_format)
-                return shared[key]
-            return cut(x, s, coords[r], rules.shape).to(
-                dev, copy=True, memory_format=torch.contiguous_format)
-        return tree_map(piece, tree)
-    return [one(r) for r in range(len(coords))]
+
+def _fill(blocks, coords, spec, mesh_shape, values):
+    """Write each rank's block (``blocks[i]`` of the rank at
+    ``coords[i]``) from ``values`` (:func:`make_shards`'s ``draw``)."""
+    if values is None:
+        return
+    if not isinstance(values, Iterable):
+        for b in blocks:
+            b.fill_(values)
+        return
+    for layer, x in values:
+        for b, c in zip(blocks, coords):
+            if layer is None:
+                b.copy_(cut(x, spec, c, mesh_shape))
+                continue
+            # the rank's block of a stacked leaf holds layers
+            # [k m, (k + 1) m) where the rules cut the layer dim
+            i = layer - _block_index(spec[0], c, mesh_shape) * b.shape[0]
+            if 0 <= i < b.shape[0]:
+                b[i].copy_(cut(x, spec[1:], c, mesh_shape))
+
+
+def shard_tree(tree: dict, spec: dict, rules: Rules,
+               devices=None, share_replicated: bool = False) -> list[dict]:
+    """:func:`make_shards` of ``tree``'s global leaves, each in its own
+    dtype: a caller that already holds the whole tree. ``devices``: one
+    per rank (default: every rank on the leaves' device)."""
+    leaves = dict(tree_items(tree))
+    if devices is None:
+        devices = [next(iter(leaves.values())).device] * len(
+            rank_coords(rules.shape))
+    return make_shards(spec, rules, devices,
+                       lambda path, _: [(None, leaves[path].detach())],
+                       lambda path: leaves[path].dtype, share_replicated)
 
 
 def unshard_tree(trees: list[dict], spec: dict, rules: Rules) -> dict:

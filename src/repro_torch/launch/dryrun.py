@@ -17,9 +17,10 @@ For each cell this driver:
      ranks run their own blocks' partial products, weights-stationary,
      and attend their group's rows: :func:`_role_blocks`,
      :func:`_role_rows`);
-  2. makes the parameters (``lm.shard_params``: Megatron shards by the
-     sharding rules, trainable for train, the serving storage for
-     prefill and decode, as JAX's ``dryrun.py`` places every cell on
+  2. makes the parameters born sharded (``lm.init_params(..., mesh=)``:
+     Megatron shards by the sharding rules, each rank's blocks drawn on
+     its device, trainable for train, the serving storage for prefill
+     and decode, as JAX's ``dryrun.py`` places every cell on
      ``param_shardings``), the optimizer state, the inputs
      (``steps.input_specs``) and the decode state
      under ``torch._subclasses.fake_tensor.FakeTensorMode``: no byte is
@@ -377,9 +378,7 @@ def _step(cfg, shape, mesh):
     and mesh: (run, params, opt_state, state, batch)."""
     dev0 = "cpu" if mesh is None else mesh.devices[0]
     train = shape.kind == "train"
-    params = lm.init_params(cfg, device=dev0, trainable=train)
-    if mesh is not None:
-        params = lm.shard_params(params, mesh)
+    params = lm.init_params(cfg, device=dev0, trainable=train, mesh=mesh)
     if shape.kind in ("train", "prefill"):
         batch = shard_batch(_fake_inputs(cfg, shape, dev0), dev0, mesh)
         if train:

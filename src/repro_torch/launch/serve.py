@@ -9,8 +9,7 @@ through the continuous-batching engine (port of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --decode-steps 8 --sampler temperature --temp 0.8 --top-k 50
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
-      --smoke --device cpu --decode-steps 4   # MoE (any --tp: replicated
-                                              # experts)
+      --smoke --device cpu --decode-steps 4   # MoE (any --tp)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --smoke --device cpu --tp 2 --fusion-mode pallas   # also rwkv6-3b
 
@@ -19,10 +18,13 @@ The flags are those of ``repro.launch.serve`` plus ``--device``
 is given) and ``--devices`` (one device per rank, comma-separated;
 default: all ``--tp`` ranks on ``--device``). The mesh is JAX's:
 the ranks ``--devices`` lists as (data = n // tp, model = tp)
-(``launch.mesh.make_mesh``). On a mesh with data groups the engine
-serves each rank's shards (``lm.shard_params``: the weights' embed dim
-cut over ``data``, decoded weights-stationary, the KV caches' batch on
-the data groups); a model-only mesh serves replicated weights:
+(``launch.mesh.make_mesh``). On every mesh of more than one rank the
+engine serves each rank's shards, born sharded (``lm.init_params(...,
+mesh=)``: each rank's blocks drawn on its own device, the whole model
+never built; with ``--ckpt-dir`` restored into shards leaf by leaf):
+the heads, MLP columns and vocab over ``model``; with data groups the
+weights' embed dim also cut over ``data``, decoded weights-stationary,
+the KV caches' batch on the data groups:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --smoke --device cpu --devices cpu,cpu,cpu,cpu --tp 2   # (2, 2)
@@ -31,7 +33,8 @@ the data groups); a model-only mesh serves replicated weights:
 
 ``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (keys ``params%%...``, as the
-JAX package's trainer writes them) instead of seeded random ones.
+JAX package's trainer and the port's write them) instead of seeded
+random ones.
 """
 from __future__ import annotations
 
@@ -41,9 +44,8 @@ import time
 
 import numpy as np
 
-from repro_torch.checkpoint.checkpointer import SEP, Checkpointer, unflatten
+from repro_torch.checkpoint.checkpointer import SEP, Checkpointer
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.convert import params_from_numpy
 from repro_torch.distributed import context as dctx
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
@@ -51,23 +53,40 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.metrics import percentile
 
 
-def load_params(ckpt_dir: str, cfg, device):
-    """The :class:`~repro_torch.models.lm.LM` held under ``params`` in the
-    latest checkpoint of ``ckpt_dir``, and the checkpoint's manifest.
-    bf16 leaves widen to float32 exactly on the way through numpy."""
-    flat, manifest = Checkpointer(ckpt_dir).read(None)
-    prefix = "params" + SEP
-    tree = unflatten({k[len(prefix):]: v.float().numpy()
-                      for k, v in flat.items() if k.startswith(prefix)})
-    return params_from_numpy(tree, cfg, device=device), manifest
+def load_params(ckpt_dir: str, cfg, device="cuda", mesh=None):
+    """The parameters held under ``params`` in the latest checkpoint of
+    ``ckpt_dir`` (as the JAX package's trainer and the port's write them:
+    fp32 masters, or bf16 leaves), and the checkpoint's manifest: one
+    :class:`~repro_torch.models.lm.LM` on ``device``, or each rank's
+    blocks over a ``mesh`` of W > 1 ranks, in the serving storage dtypes
+    (``lm.empty_params`` filled by ``Checkpointer.restore_sharded``: one
+    leaf on the host at a time, each block cast after its cut), so no
+    device or host ever holds the whole model widened."""
+    params = lm.empty_params(cfg, device=device, mesh=mesh)
+    ranks = lm.as_ranks(params)
+    one = mesh is None or mesh.size == 1
+    dims = {} if one else {
+        SEP.join(("params", *path.split("."))): d
+        for path, d in lm.leaf_specs(cfg, mesh).items()}
+    _, manifest = Checkpointer(ckpt_dir).restore_sharded(
+        None, [{"params": lm.param_tree(p)} for p in ranks], dims,
+        mesh_shape=None if one else mesh.shape, cast=True)
+    return params, manifest
 
 
-def serving_params(params, mesh):
-    """What the engine serves on ``mesh``: each rank's shards
-    (``lm.shard_params``) on a mesh with data groups, where decode reads
-    the weights cut over ``data`` where they lie; ``params`` itself
-    (replicated per device by the engine) on a model-only mesh."""
-    return lm.shard_params(params, mesh) if mesh.dp > 1 else params
+def serving_params(cfg, mesh, seed: int = 0, ckpt_dir: str | None = None):
+    """What the engine serves on ``mesh``, and the checkpoint's manifest
+    (None without ``ckpt_dir``): one :class:`~repro_torch.models.lm.LM`
+    at one rank; on a mesh of more than one rank, model-only or with data
+    groups, each rank's blocks (``lm.shard_params``'s), born sharded from
+    ``seed`` (``lm.init_params(..., mesh=)``) or restored into shards
+    from ``ckpt_dir`` (:func:`load_params`): no device holds the whole
+    model."""
+    m = mesh if mesh.size > 1 else None
+    if ckpt_dir:
+        return load_params(ckpt_dir, cfg, mesh.devices[0], m)
+    return lm.init_params(cfg, seed=seed, device=mesh.devices[0],
+                          mesh=m), None
 
 
 def main(argv=None):
@@ -133,13 +152,9 @@ def main(argv=None):
     mesh = make_mesh(args.tp, args.devices, args.device)
     ctx = dctx.DistContext(mesh if mesh.size > 1 else None,
                            args.fusion_mode)
-    if args.ckpt_dir:
-        params, manifest = load_params(args.ckpt_dir, cfg, mesh.devices[0])
+    params, manifest = serving_params(cfg, mesh, args.seed, args.ckpt_dir)
+    if manifest is not None:
         print(f"[serve] restored step {manifest['step']}")
-    else:
-        params = lm.init_params(cfg, seed=args.seed,
-                                device=mesh.devices[0])
-    params = serving_params(params, mesh)
     with dctx.use(ctx):
         eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
                      prefill_chunk=args.prefill_chunk, sampler=args.sampler,

@@ -78,9 +78,9 @@ JSON -> 400, admission queue full or shedding -> 429, draining or a
 broken engine -> 503, unknown route -> 404.
 
 The mesh is JAX's (``launch.mesh.make_mesh``): the ranks ``--devices``
-lists as (data = n // tp, model = tp); with data groups the engine
-serves each rank's shards, as ``launch.serve`` does
-(``launch.serve.serving_params``).
+lists as (data = n // tp, model = tp); on every mesh of more than one
+rank the engine serves each rank's shards, born sharded, as
+``launch.serve`` does (``launch.serve.serving_params``).
 
     PYTHONPATH=src python -m repro_torch.launch.server --arch llama3-8b \
         --port 8008 --decode-steps 8                  # on the card
@@ -743,7 +743,6 @@ def build_engine(args):
     from repro_torch.distributed import context as dctx
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import serving_params
-    from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.faults import FaultPlan
 
@@ -755,8 +754,7 @@ def build_engine(args):
     mesh = make_mesh(args.tp, args.devices, args.device)
     ctx = dctx.DistContext(mesh if mesh.size > 1 else None,
                            args.fusion_mode)
-    params = serving_params(
-        lm.init_params(cfg, seed=args.seed, device=mesh.devices[0]), mesh)
+    params, _ = serving_params(cfg, mesh, args.seed)
     fault_plan = None
     if args.chaos_plan:
         with open(args.chaos_plan) as f:

@@ -25,7 +25,7 @@ ranks (those ``--devices`` lists; by default ``--tp`` ranks on
 ``--device``) as (data = n // model, model = min(tp, n)); a count that
 does not divide by ``--tp`` raises. On each data group of W = model
 ranks it trains what JAX trains on that mesh: Megatron-style shards on
-``model`` and FSDP blocks on ``data`` (``lm.shard_params``: every
+``model`` and FSDP blocks on ``data`` (``lm.leaf_specs``: every
 weight's ``embed`` / ``in_vocab`` dim over ``data``, gathered per layer
 and its gradient reduce-scattered, ``distributed.fsdp``), the batch's
 rows split over the data groups (``data.pipeline.shard_batch``), the
@@ -33,17 +33,19 @@ paper's sequence-parallel AG+GEMM and GEMM+RS at the projection sites in
 ``--fusion-mode`` (``core.patterns``); at W = 1 the mode has no effect,
 as in JAX. The loss is JAX's global mean over every group's tokens.
 ``--devices cpu,cpu,cpu,cpu --tp 2`` trains on a (2, 2) mesh of virtual
-ranks. The parameters are fp32 masters
-(``lm.init_params(..., trainable=True)``, seeded from ``--seed`` with a
-``torch.Generator``, so not JAX's numbers; the same numbers on every
-mesh); the data is ``SyntheticLM``, byte-identical to JAX's for the same
-seed and step. Checkpoints hold the global ``{"params", "opt"}`` with
-``extra={"next_step": ...}`` in the JAX checkpointer's format, whatever
-mesh wrote them, so ``--resume`` continues a run of either package on
-any (data, model) (JAX's elastic restore). SIGTERM/SIGINT checkpoints
-and exits (``PreemptionGuard``), slow steps are flagged
-(``StragglerWatchdog``) and ``--heartbeat-file`` records liveness
-(``Heartbeat``).
+ranks. The parameters are fp32 masters, born sharded on a mesh of
+more than one rank, as JAX's trainer builds them
+(``lm.init_params(..., trainable=True, mesh=)``: each rank's blocks
+drawn on its own device, never the whole model; a generator a leaf,
+seeded from ``--seed`` and the leaf's path, so not JAX's numbers, but
+the same numbers on every mesh); the data is ``SyntheticLM``,
+byte-identical to JAX's for the same seed and step. Checkpoints hold
+the global ``{"params", "opt"}`` with ``extra={"next_step": ...}`` in
+the JAX checkpointer's format, whatever mesh wrote them, so
+``--resume`` continues a run of either package on any (data, model)
+(JAX's elastic restore). SIGTERM/SIGINT checkpoints and exits
+(``PreemptionGuard``), slow steps are flagged (``StragglerWatchdog``)
+and ``--heartbeat-file`` records liveness (``Heartbeat``).
 
 ``--tp W`` trains every family JAX trains: the dense blocks, MoE
 (``attn_moe``, e.g. ``--arch olmoe-1b-7b``: the experts over the ranks
@@ -143,10 +145,11 @@ def _ckpt_dims(cfg, mesh) -> dict:
 
 def train(cfg, args, params=None, on_step=None) -> dict:
     """Train ``cfg`` as ``args`` (:func:`parse_args`) says, from
-    ``params`` (a trainable LM; default: the seeded init; at ``--tp`` > 1
-    it is sharded, or given as per-rank LMs). ``on_step(step, params,
-    metrics)`` runs after every step, the step's gradients still on the
-    parameters. Returns {"log": the logged steps ({"step", "loss",
+    ``params`` (a trainable LM, cut by ``lm.shard_params`` on a mesh of
+    more than one rank, or per-rank LMs; default: the seeded init, born
+    sharded on such a mesh). ``on_step(step, params, metrics)`` runs
+    after every step, the step's gradients still on the parameters.
+    Returns {"log": the logged steps ({"step", "loss",
     "grad_norm", "s": wall seconds since the previous log}), "params":
     the trainable LM (at ``--tp`` > 1 the per-rank list), "opt": the
     optimizer state (one per rank), "start_step": the first step run};

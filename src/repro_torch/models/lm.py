@@ -20,10 +20,11 @@ so the functional code reads either. It comes in two forms:
 
 Over the W ranks of the ambient mesh (``distributed.context``) the
 training forward and loss take a list of W :class:`LM` holding each
-rank's shards (:func:`shard_params`, Megatron-style by the sharding
-rules: attention heads, MLP columns and the vocab split over the ranks,
-the input table's columns too, or its rows where a config's overrides
-say so (paligemma's tied table); norm scales and ``frontend_proj``
+rank's shards (born sharded by :func:`init_params` with a mesh, or
+cut from a whole model by :func:`shard_params`; Megatron-style by the
+sharding rules: attention heads, MLP columns and the vocab split over
+the ranks, the input table's columns too, or its rows where a config's
+overrides say so (paligemma's tied table); norm scales and ``frontend_proj``
 copied to every rank) and
 run the paper's sequence-parallel AG+GEMM and GEMM+RS at the projection
 sites (``core.patterns``); the loss is vocab-parallel
@@ -61,7 +62,7 @@ from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import moe, transformer
 from repro_torch.models.layers import (apply_embed, apply_norm, apply_unembed,
                                        dense, embed_spec, norm_spec)
-from repro_torch.models.module import Param, init_tree, tree_items, tree_map
+from repro_torch.models.module import Param, leaf_values, tree_items, tree_map
 
 
 def lm_spec(cfg):
@@ -193,18 +194,51 @@ def from_tree(cfg, tree: dict, trainable: bool = False) -> LM:
 
 def init_params(cfg, *, seed: int = 0, device="cuda",
                 trainable: bool = False, mesh=None):
-    """Seeded random init from :func:`lm_spec` (a ``torch.Generator`` on
-    ``device``; no weights are read from anywhere); ``trainable`` gives
-    fp32 masters that require grad. With a ``mesh`` of W > 1 ranks: the
-    same numbers, sharded (:func:`shard_params`), drawn on the first
-    rank's device."""
-    dev = resolve_device(device if mesh is None else mesh.devices[0])
-    tree = init_tree(lm_spec(cfg), seed=seed, device=dev,
-                     cast=lambda path, x: x.to(_dtype(path, cfg, trainable)))
-    params = LM(cfg, tree, trainable)
-    if mesh is None or mesh.size == 1:
-        return params
-    return shard_params(params, mesh)
+    """Seeded random init from :func:`lm_spec` (``models.module.draws``:
+    a generator a leaf, seeded from ``seed`` and the leaf's path, a
+    stacked leaf drawn a layer slice at a time; no weights are read from
+    anywhere) on ``device``; ``trainable`` gives fp32 masters that require
+    grad. With a ``mesh`` of W > 1 ranks the parameters are born sharded,
+    as JAX's trainer builds them (``jit(init_params, out_shardings=)``):
+    each rank's blocks (:func:`shard_params`'s, dtypes, devices and shared
+    replicated leaves alike, bit for bit) are cut out of draws made on
+    their own device (``sharding_rules.make_shards``), so no device holds
+    more than its ranks' blocks plus one slice or unstacked leaf drawn in
+    fp32. One seed gives the same numbers on every mesh."""
+    leaves = dict(tree_items(lm_spec(cfg)))
+    return _build(cfg, device, trainable, mesh, lambda path, dev: (
+        leaf_values(leaves[path], seed=seed, path=path, device=dev)))
+
+
+def empty_params(cfg, *, device="cuda", trainable: bool = False,
+                 mesh=None):
+    """:func:`init_params`'s tensors, left unwritten: what a restore fills
+    (``launch.serve.load_params``)."""
+    return _build(cfg, device, trainable, mesh, lambda path, dev: None)
+
+
+def _build(cfg, device, trainable: bool, mesh, draw):
+    """One :class:`LM` on ``device`` (or the one rank of ``mesh``), or
+    per-rank LMs over a ``mesh`` of W > 1 ranks, of the leaves ``draw``
+    gives (``sharding_rules.make_shards``)."""
+    one = mesh is None or mesh.size == 1
+    trees = sr.make_shards(
+        lm_spec(cfg), sr.rules_for(cfg, None if one else mesh),
+        [resolve_device(device if mesh is None else mesh.devices[0])]
+        if one else mesh.devices, draw,
+        lambda path: _dtype(path, cfg, trainable),
+        share_replicated=not trainable)
+    if one:
+        return LM(cfg, trees[0], trainable)
+    return _rank_lms(cfg, mesh, trees, trainable)
+
+
+def _rank_lms(cfg, mesh, trees: list, trainable: bool) -> list:
+    split = split_axes(cfg, mesh)
+    out = [LM(cfg, t, trainable) for t in trees]
+    for p in out:
+        p.split = split
+    return out
 
 
 def shard_dims(cfg, mesh) -> dict:
@@ -257,17 +291,15 @@ def shard_params(params: LM, mesh) -> list:
     serving one (``storage_dtype``: fp32 head and :data:`FP32_LEAVES`,
     ``cfg.dtype`` otherwise) one copy per distinct device, shared by its
     ranks, which :func:`decode_step` reads once per device. Each rank's
-    ``split`` is :func:`split_axes`."""
+    ``split`` is :func:`split_axes`. For callers that already hold a
+    whole model (a test's, a converted tree); the entry points build
+    their shards born sharded (:func:`init_params` with a mesh)."""
     cfg = params.cfg
     trainable = any(p.requires_grad for p in params.parameters())
     trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
                           sr.rules_for(cfg, mesh), devices=mesh.devices,
                           share_replicated=not trainable)
-    split = split_axes(cfg, mesh)
-    out = [LM(cfg, t, trainable) for t in trees]
-    for p in out:
-        p.split = split
-    return out
+    return _rank_lms(cfg, mesh, trees, trainable)
 
 
 def device_of(params) -> torch.device:

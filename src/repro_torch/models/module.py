@@ -1,16 +1,25 @@
 """Parameter declarations and seeded materialization (port of
 ``repro.models.module``).
 
-A *spec tree* is a nested dict of :class:`Param` leaves; :func:`init_tree`
-materializes it into a nested dict of tensors, drawing every leaf from
-one ``torch.Generator`` in sorted-key order, so an init is reproducible
-from its seed. The numbers differ from ``jax.random``'s for the same
+A *spec tree* is a nested dict of :class:`Param` leaves. As JAX's init
+splits one key per leaf, every leaf draws from its own
+``torch.Generator``, seeded from the run's seed and the leaf's dotted
+path by a stable hash (:func:`leaf_seed`), and a layer-stacked leaf is
+drawn one layer slice at a time, in layer order (:func:`draws`). So a
+rank can draw any leaf, or any slice, alone:
+``distributed.sharding_rules.make_shards`` builds a whole tree, or each
+rank's blocks, from these draws (``models.lm.init_params``), and one
+seed gives the same numbers on every mesh. The numbers are
+bit-identical across devices of one kind (CUDA's draw may depend on the
+card's SM count: the same numbers on cards of one model; CPU and CUDA
+generators differ), and they differ from ``jax.random``'s for the same
 seed: tests that compare the two packages convert the JAX tree instead
 (``repro_torch.convert.params_from_numpy``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Any
 
@@ -33,32 +42,76 @@ class Param:
                 f"axes {self.axes} rank != shape {self.shape} rank")
 
 
-def _materialize(gen: torch.Generator, p: Param, device) -> torch.Tensor:
-    """Mirrors ``repro.models.module._materialize`` as written, including
-    its fan-in: ``shape[0]``, which for a layer-stacked leaf is the layer
-    count (kept so the port builds the JAX package's model)."""
-    if p.init == "zeros":
-        return torch.zeros(p.shape, dtype=p.dtype, device=device)
-    if p.init == "ones":
-        return torch.ones(p.shape, dtype=p.dtype, device=device)
-    if p.init == "normal":
-        scale = p.scale if p.scale is not None else 0.02
-        x = torch.randn(p.shape, generator=gen, device=device,
-                        dtype=torch.float32)
-        return (x * scale).to(p.dtype)
-    if p.init == "scaled":
-        fan_in = p.shape[0] if p.shape else 1
-        scale = p.scale if p.scale is not None else 1.0
-        std = scale / math.sqrt(max(fan_in, 1))
-        x = torch.randn(p.shape, generator=gen, device=device,
-                        dtype=torch.float32)
-        return (x * std).to(p.dtype)
+LAYER_AXIS = "layers"        # the leading axis of a layer-stacked leaf
+
+
+def leaf_seed(seed: int, path: str) -> int:
+    """The generator seed of the leaf at dotted ``path``: a stable hash of
+    (``seed``, ``path``), never Python's salted ``hash``, so every process
+    and every rank draws the same leaf."""
+    h = hashlib.blake2b(f"{int(seed)}:{path}".encode(), digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def constant(p: Param) -> float | None:
+    """The value every entry of a ``zeros`` / ``ones`` leaf takes (made
+    at any shape without a draw); None for a drawn leaf."""
+    return {"zeros": 0.0, "ones": 1.0}.get(p.init)
+
+
+def stacked(p: Param) -> bool:
+    """Whether ``p`` is layer-stacked (:func:`stack_layer_specs`)."""
+    return bool(p.axes) and p.axes[0] == LAYER_AXIS
+
+
+def _sample(gen, p: Param, shape, fan_in: int, device) -> torch.Tensor:
+    """One draw of ``shape`` for ``p``'s init, scaled in place."""
     if p.init == "uniform":
         scale = p.scale if p.scale is not None else 1.0
-        x = torch.rand(p.shape, generator=gen, device=device,
+        x = torch.rand(shape, generator=gen, device=device,
                        dtype=torch.float32)
-        return (x * (2 * scale) - scale).to(p.dtype)
-    raise ValueError(f"unknown init {p.init!r}")
+        return x.mul_(2 * scale).sub_(scale).to(p.dtype)
+    if p.init == "normal":
+        std = p.scale if p.scale is not None else 0.02
+    elif p.init == "scaled":
+        scale = p.scale if p.scale is not None else 1.0
+        std = scale / math.sqrt(max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown init {p.init!r}")
+    x = torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return x.mul_(std).to(p.dtype)
+
+
+def draws(p: Param, *, seed: int, path: str, device):
+    """The values of the drawn leaf ``p`` at dotted ``path``, on
+    ``device``, from its own generator (:func:`leaf_seed`): ``(l, layer
+    slice l)`` for every layer in order where ``p`` is layer-stacked,
+    else one ``(None, the whole leaf)``; each in ``p.dtype``, so the
+    largest draw alive is one slice or one unstacked leaf. The
+    ``"scaled"`` init's fan-in is the whole leaf's ``shape[0]``, which
+    for a stacked leaf is the layer count: it mirrors
+    ``repro.models.module._materialize`` as written, so the port builds
+    the JAX package's model."""
+    if constant(p) is not None:
+        raise ValueError(f"{path}: a {p.init} leaf is not drawn")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(leaf_seed(seed, path))
+    fan_in = p.shape[0] if p.shape else 1
+    if not stacked(p):
+        yield None, _sample(gen, p, p.shape, fan_in, device)
+        return
+    for layer in range(p.shape[0]):
+        yield layer, _sample(gen, p, p.shape[1:], fan_in, device)
+
+
+def leaf_values(p: Param, *, seed: int, path: str, device):
+    """What ``distributed.sharding_rules.make_shards`` takes of the leaf
+    ``p`` at dotted ``path``: its :func:`constant`, or its
+    :func:`draws`."""
+    c = constant(p)
+    return c if c is not None else draws(p, seed=seed, path=path,
+                                         device=device)
 
 
 def tree_items(tree, prefix: str = ""):
@@ -83,21 +136,7 @@ def tree_map(fn, tree):
     return go(tree, "")
 
 
-def init_tree(spec, *, seed: int, device, cast=None) -> dict:
-    """Materialize a tree of :class:`Param` declarations into tensors.
-    ``cast(path, tensor)`` converts each leaf to its storage form as soon
-    as it is drawn, so at most one full-precision leaf is alive at once."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    cast = cast or (lambda _, x: x)
-    # draw in sorted path order (the generator is sequential), then
-    # rebuild the nesting
-    values = {path: cast(path, _materialize(gen, p, device))
-              for path, p in tree_items(spec)}
-    return tree_map(lambda path, _: values[path], spec)
-
-
-def stack_layer_specs(spec, n_layers: int, layer_axis: str = "layers"):
+def stack_layer_specs(spec, n_layers: int, layer_axis: str = LAYER_AXIS):
     """Turn a single-layer Param spec into a layer-stacked spec: every
     leaf gains a leading ``n_layers`` dim (the JAX scan layout)."""
     def _stack(_, p: Param) -> Param:

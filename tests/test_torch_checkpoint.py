@@ -3,7 +3,9 @@ the cases of tests/test_checkpoint.py (round trip with bf16 leaves bit
 for bit, async save, retention, no partial checkpoint, latest step, a
 missing leaf), plus: reading checkpoints that the JAX package's
 checkpointer wrote, and ``launch/serve.py --ckpt-dir`` on such a params
-checkpoint, whose logits must equal the JAX model's."""
+checkpoint, or on the port trainer's, served at one rank and on shards,
+whose logits must equal the JAX model's."""
+import functools
 import os
 
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.checkpoint.checkpointer import (Checkpointer,  # noqa: E402
                                                  flatten, unflatten)
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.module import tree_items  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -172,36 +175,99 @@ def test_reads_a_jax_params_checkpoint(tmp_path, dtype):
             assert np.array_equal(got.numpy(), w)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_serve_ckpt_dir_logits_equal_jax(tmp_path, dtype):
-    """``serve.py --ckpt-dir`` on a params checkpoint the JAX package
-    wrote: the port's model gives the JAX model's logits on the same
-    tokens (the tolerance of tests/test_torch_decode.py: both cast the
-    fp32 logits to bf16, one bf16 ulp on a rounding boundary), and the
-    CLI serves from it."""
-    from repro_torch.launch import serve
-    jc, jp, tc = _jax_models(dtype)
-    jckpt.Checkpointer(str(tmp_path), async_save=False).save(5, {"params": jp})
-    params, manifest = serve.load_params(str(tmp_path), tc, "cpu")
-    assert manifest["step"] == 5
+@functools.lru_cache(maxsize=None)
+def _jax_logits(dtype):
+    """The tokens and the JAX model's logits at each of their steps, for
+    the JAX parameters stored in ``dtype``."""
+    jc, jp, _ = _jax_models(dtype)
     toks = np.random.default_rng(0).integers(1, jc.vocab_size, (2, 6))
     jp32 = cast_tree(jp, jnp.float32)
     jst = jlm.init_decode_state(jp32, jc, 2, 16)
-    tst = lm.init_decode_state(params, tc, 2, 16)
+    out = []
     for j in range(toks.shape[1]):
         jl, jst = jlm.decode_step(jp32, jnp.asarray(toks[:, j:j + 1]), jst,
                                   jc)
+        out.append(np.asarray(jl, np.float32))
+    return toks, out
+
+
+def _write_params(path, source):
+    """A params checkpoint of the JAX parameters: the JAX checkpointer's
+    at step 5 (``source`` float32 or bfloat16 leaves), or ("port") the
+    port trainer's fp32 masters, saved from 2 ranks at step 0, after no
+    step. Returns (the dtype of the JAX parameters it holds, its step)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import train as ttrain
+    dtype = "float32" if source == "port" else source
+    _, jp, tc = _jax_models(dtype)
+    if source != "port":
+        jckpt.Checkpointer(path, async_save=False).save(5, {"params": jp})
+        return dtype, 5
+    args = ttrain.parse_args(["--arch", "llama3-8b", "--smoke", "--device",
+                              "cpu", "--tp", "2", "--steps", "0",
+                              "--ckpt-dir", path])
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                               device="cpu", trainable=True)
+    ttrain.train(tc, args, params=params)
+    return dtype, 0
+
+
+# the serving meshes: (CLI flags, the mesh's ranks, --tp)
+SERVE_MESHES = {"tp1": ([], 1, 1), "tp2": (["--tp", "2"], 2, 2),
+                "2x2": (["--devices", "cpu,cpu,cpu,cpu", "--tp", "2"], 4,
+                        2)}
+
+
+@pytest.mark.parametrize("mesh_name", list(SERVE_MESHES))
+@pytest.mark.parametrize("source", ["float32", "bfloat16", "port"])
+def test_serve_ckpt_dir_logits_equal_jax(tmp_path, source, mesh_name):
+    """``serve.py --ckpt-dir`` on a params checkpoint the JAX package
+    wrote (float32 or bf16 leaves) or the port's trainer wrote (fp32
+    masters, from 2 ranks): restored at one rank, at tp 2 and on a
+    (data 2, model 2) mesh, each rank's shards read leaf by leaf and cast
+    after the cut (``serve.load_params``), the port's model gives the
+    JAX model's logits on the same tokens (the tolerance of
+    tests/test_torch_decode.py: both cast the fp32 logits to bf16, one
+    bf16 ulp on a rounding boundary), and the CLI serves from it."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_mesh
+    flags, n, tp = SERVE_MESHES[mesh_name]
+    dtype, step = _write_params(str(tmp_path), source)
+    tc = _jax_models(dtype)[2]
+    mesh = make_mesh(tp, ["cpu"] * n, "cpu")
+    params, manifest = serve.load_params(
+        str(tmp_path), tc, "cpu", mesh if n > 1 else None)
+    assert manifest["step"] == step
+    if n > 1:
+        want = tlm_shard_shapes(tc, mesh)
+        assert len(params) == n
+        for p in params:
+            assert {k: tuple(v.shape) for k, v in
+                    tree_items(lm.param_tree(p))} == want
+    fn, _, _ = tsteps.jitted_serve_step(tc, mesh if n > 1 else None)
+    with dctx.use(dctx.DistContext(mesh if n > 1 else None)):
+        tst = lm.init_decode_state(params, tc, 2, 16)
+    toks, jax_logits = _jax_logits(dtype)
+    for j, want in enumerate(jax_logits):
         with torch.inference_mode():
-            tl, _ = lm.decode_step(params, torch.from_numpy(
-                toks[:, j:j + 1]), tst, tc)
-        want = np.asarray(jl, np.float32)
+            tl, tst = fn(params, torch.from_numpy(toks[:, j:j + 1]), tst)
         got = tl.float().numpy()
         assert np.all(np.abs(got - want) <= 1e-4 + 2 ** -7 * np.abs(want))
     stats = serve.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
                         "--ckpt-dir", str(tmp_path), "--requests", "2",
                         "--batch", "2", "--max-new", "2", "--max-len",
-                        "32"])
+                        "32", *flags])
     assert stats["requests"] == 2 and stats["new_tokens"] == 4
+
+
+def tlm_shard_shapes(cfg, mesh):
+    """``{dotted path: a rank's block shape}`` by the sharding rules."""
+    from repro_torch.distributed import sharding_rules as sr
+    specs = lm.leaf_specs(cfg, mesh)
+    return {path: sr.spec_shape(p.shape, specs[path], mesh.shape)
+            for path, p in tree_items(lm.lm_spec(cfg))}
 
 
 def test_engine_snapshot_of_bf16_state_is_bit_exact(tmp_path):
