@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--kernels-only | --peers] [--verbose]
-    python3 chip_smoke.py --phase 23   # one phase alone: 2, 3, 7, 22, 23
+    python3 chip_smoke.py --phase 24   # one phase alone: 2, 3, 7, 22-24
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then runs, failing on the first phase that fails:
@@ -143,6 +143,20 @@ source, in parallel), then runs, failing on the first phase that fails:
    step, tokens/s, peak memory, a profiled step, every product timed;
    (c) ``grad_compress``: ``compress_int8`` card vs CPU bit for bit,
    ``compressed_psum_tree`` over the mesh's data groups card vs CPU;
+24. the trainer over processes, after phase 21
+   (``distributed.processes``; the kernels built before any process
+   starts): (a) 21b's first 2 steps in 2 spawned processes on cuda:0,
+   one data group of 2 virtual ranks each, ``--dist-backend gloo``:
+   losses and grad norms bit-identical to 21b's, each rank's bytes the
+   rules',
+   each process's GEMM launches a step exact (half of 21b's), ms a
+   step, each process's peak, the bytes a step staged through host
+   memory, the second step's GEMM ms per process under the profiler
+   (beside row 1dm's); (b) beside (a), the smoke model through the CLI
+   under torchrun (2 processes, ``--devices cuda:0,cuda:0
+   --dist-backend gloo``): logged losses equal to the one-process CLI's
+   at (2, 2); with the default nccl the two processes sharing the card
+   refuse, naming the flag;
 14. the MoE family, after phase 13: (a) the GEMM's batched mode
    (``matmul_batched``, one launch for all experts) vs its plain version
    at olmoe-1b-7b's expert products (decode: E 64, M 1, 8, 16, both
@@ -203,14 +217,14 @@ source, in parallel), then runs, failing on the first phase that fails:
    every gradient leaf across policies and devices; the forward's and
    the backward's GEMM launches by the counter and the profiler: under
    ``"dots"`` no layer forward product comes back), then 12c's
-   configuration 3 steps under each policy (the config's
+   configuration 2 steps under each policy (the config's
    ``remat_policy``): ms per step, peak memory, launches, one profiled
    step's GEMM ms, and the ``"dots"`` step's products timed; (b) the
    float32 smoke models of olmoe, mixtral, zamba2 and rwkv6 trained 3
    steps over 4 virtual ranks under ``ring`` vs tp 4 on the CPU and tp
    1 on the card, and zamba2's tp 4 checkpoint resumed at tp 1; (c)
    olmoe-1b-7b (4 of 16 layers), zamba2-1.2b (all 38) and rwkv6-3b (12
-   of 32) at full width over 4 virtual ranks, 3 steps of 2 x 1024
+   of 32) at full width over 4 virtual ranks, 2 steps of 2 x 1024
    tokens: losses finite, launches exact, ms per step, tokens/s, peak
    memory, every product of the step timed beside its plain version
    and ``torch.matmul``/``torch.bmm`` with its bound;
@@ -1548,6 +1562,12 @@ def _teacher_forced(params, cfg, tok, ctx, gather_width=None):
     return lg.float()
 
 
+# 9's K = 1 serve: 2 of the 4 requests, new tokens a request (its K = 8
+# serves keep all 4 and 16); K = 1 steps and prefills eagerly on the
+# host, and 2 requests of 8 steps check what 4 of 16 did
+K1_NEW_9 = 8
+
+
 def phase_full_width_ranks(params, tp=4):
     """(9) full-width llama3-8b (bf16) over ``tp`` virtual ranks of
     cuda:0 under ``pallas``: a short serve through the engine at K = 1
@@ -1572,8 +1592,10 @@ def phase_full_width_ranks(params, tp=4):
     per_step = {"matmul": 3 * L + 1, "ag_gemm_fused": L,
                 "flash_decode_paged_fused": L}
     cells = {}
-    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
-    _check_serve(cells["k1"], done1, cfg, 4, 16, per_step,
+    cells["k1"], done1 = serve_cell(
+        params, cfg, 1, _full_requests(cfg, plens[:2], 3, K1_NEW_9, 1),
+        **kw)
+    _check_serve(cells["k1"], done1, cfg, 2, K1_NEW_9, per_step,
                  f"full width tp={tp} K=1")
     # the contiguous-cache path: 4 steps over a strided cache on the tp
     # ranks, then 4 on one rank (the kernel's NORMAL mode)
@@ -1600,7 +1622,8 @@ def phase_full_width_ranks(params, tp=4):
     _check_serve(cells["k8"], done8, cfg, 4, 16, per_step,
                  f"full width tp={tp} K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    same = sum(s1[r.rid] == r.out_tokens for r in done8)
+    same = sum(s1[r.rid] == r.out_tokens[:K1_NEW_9] for r in done8
+               if r.rid in s1)
     cells["k8"]["streams_identical_to_k1"] = same
 
     # teacher forcing: one 8-token chunk at tp=1 and at tp on the served
@@ -1654,7 +1677,8 @@ def phase_full_width_ranks(params, tp=4):
                "teacher_forced_f32_max_abs_diff": d32.max().item(),
                "teacher_forced_max_abs_logit": ref, "profile": profile,
                "streams_k8": {r.rid: r.out_tokens for r in done8}}
-    print(f"[full tp={tp}] K=8 streams identical to K=1 for {same} of 4; "
+    print(f"[full tp={tp}] K=8 streams' first {K1_NEW_9} tokens "
+          f"identical to K=1's for {same} of {len(s1)}; "
           f"teacher-forced logits vs tp=1 max |diff| {diff:.3e} bf16, "
           f"gather width 1 vs 8 {d_gw:.3e} (bf16 vs float32 weights "
           f"{own:.3e}, max |logit| {ref:.3e}), {d32.max().item():.3e} "
@@ -3588,9 +3612,10 @@ def phase_dm_full(step0_loss_13c):
     gnorms = [m["grad_norm"] for m in res["log"]]
     steps_s = [m["s"] for m in res["log"]]
     check(all(np.isfinite(losses)), f"dm full: losses {losses}")
-    loss_gap = abs(losses[0] - step0_loss_13c)
-    check(loss_gap <= TP_LOSS_ATOL, f"dm full: first loss {losses[0]} vs "
-                                    f"13c's {step0_loss_13c}")
+    loss_gap = None if step0_loss_13c is None else \
+        abs(losses[0] - step0_loss_13c)      # None: run alone (--phase 24)
+    check(loss_gap is None or loss_gap <= TP_LOSS_ATOL,
+          f"dm full: first loss {losses[0]} vs 13c's {step0_loss_13c}")
     deltas = np.diff([0] + counts).tolist()
     check(plain == 0 and deltas == [per_step] * DM_STEPS,
           f"dm full: GEMM launches per step {deltas} (want {per_step}), "
@@ -3653,8 +3678,8 @@ def phase_dm_full(step0_loss_13c):
     print(f"[dm full] {out['config']}: each rank's fp32 masters "
           f"{rule_bytes} B ({rule_bytes / 1e9:.3f} GB; with grads, m, v "
           f"{4 * rule_bytes / 1e9:.2f} GB), as the rules give; losses "
-          f"{[round(x, 4) for x in losses]}; first loss {loss_gap:.3e} "
-          f"from 13c's {step0_loss_13c:.6f}; {out['ms_per_step']:.1f} ms "
+          f"{[round(x, 4) for x in losses]}; first loss {loss_gap} "
+          f"from 13c's {step0_loss_13c}; {out['ms_per_step']:.1f} ms "
           f"per step after step 0 ({out['tokens_per_s']:.0f} tokens/s); "
           f"peak {peak_gb:.2f} GB; {per_step} GEMM launches a step; "
           f"profiled step: wall {1e3 * prof_wall:.1f} ms, device "
@@ -3761,6 +3786,318 @@ def phase_data_mesh(gen, step0_loss_13c):
           f"torch.matmul {kernel['library_ms']:.1f}, bound "
           f"{kernel['bound_ms']:.1f} ms ({kernel['bound_by']})", flush=True)
     return {"small": small, "full": full, "compress": comp}, kernel
+
+
+# ------------------------------------- phase 24: the trainer over processes
+P24_PROCS = 2              # processes on cuda:0, one data group (2 ranks) each
+P24_TIMEOUT = 900          # s the processes of 24a may take together
+# 24a's steps, 21b's first two: gloo stages ~28 GB a process a step
+# through host memory (~25 s a step), and the second step is profiled
+P24_STEPS = 2
+
+
+def _p24_child(rank, world, rdv, out):
+    """(24a) one of P24_PROCS spawned processes: joins the gloo job over
+    ``rdv`` and trains P24_STEPS steps of 21b's run (llama3-8b full
+    width, TRAIN_LAYERS layers, DM_MESH, DM_MODE) on its data group's 2
+    virtual ranks of
+    cuda:0 through ``launch.train.train``, its last step under the
+    profiler (started and stopped by ``on_step``); writes its numbers
+    (or the traceback) to ``out.<rank>`` as JSON."""
+    import traceback
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import processes
+        from repro_torch.kernels.matmul import matmul
+        from repro_torch.launch import train as tr
+        from repro_torch.models.module import tree_items
+        procs = processes.init("gloo", "cuda", init_method=rdv, rank=rank,
+                               world_size=world)
+        D, W = DM_MESH
+        args = tr.parse_args([
+            "--arch", "llama3-8b", "--steps", str(P24_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
+            str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
+            "--devices", ",".join(["cuda:0"] * (D * W // world)), "--tp",
+            str(W), "--fusion-mode", DM_MODE, "--dist-backend", "gloo"])
+        cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+        mesh = tr.build_mesh(args, procs)
+        counts, hosts, state_bytes = [], [], {}
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        walls = []
+
+        def count(step, params, metrics):
+            counts.append(matmul.launches)
+            hosts.append(procs.host_bytes)
+            if step == P24_STEPS - 1:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                walls.append(time.time())
+            elif step == P24_STEPS - 2:
+                torch.cuda.synchronize()
+                walls.append(time.time())
+                prof.__enter__()
+            if step == 0:
+                for r, p in zip(mesh.local, params):
+                    ps = list(p.parameters())
+                    state_bytes[r] = {
+                        "params": sum(t.numel() * t.element_size()
+                                      for t in ps),
+                        "grads": sum(t.grad.numel() * t.grad.element_size()
+                                     for t in ps if t.grad is not None)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        matmul.launches = matmul.plain_calls = 0
+        t0 = time.time()
+        run = tr.train(cfg, args, on_step=count, mesh=mesh)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        opt_bytes = [sum(t.numel() * t.element_size() for k in ("m", "v")
+                         for _, t in tree_items(o[k])) for o in run["opt"]]
+        launches, plain = matmul.launches, matmul.plain_calls
+        prof_wall = walls[1] - walls[0]
+        kern = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            if dev_us > 0 and \
+                    ev.device_type == torch.autograd.DeviceType.CUDA:
+                kern.append((dev_us, ev.key, ev.count))
+        is_gemm = [port_kernel("gemm_stream", k[1])
+                   or port_kernel("mm_kernel", k[1]) for k in kern]
+        res = {"rank": rank, "ranks": list(mesh.local),
+               "losses": [m["loss"] for m in run["log"]],
+               "grad_norms": [m["grad_norm"] for m in run["log"]],
+               "step_s": [m["s"] for m in run["log"]], "run_s": run_s,
+               "state_bytes": state_bytes, "opt_bytes": opt_bytes,
+               "peak_bytes": peak, "gemm_launches": launches,
+               "plain_calls": plain,
+               "launch_deltas": np.diff([0] + counts).tolist(),
+               "host_bytes_per_step": np.diff([0] + hosts).tolist(),
+               "profiled_step": {
+                   "wall_ms": 1e3 * prof_wall,
+                   "device_ms": sum(k[0] for k in kern) / 1e3,
+                   "gemm_ms": sum(k[0] for k, g in zip(kern, is_gemm)
+                                  if g) / 1e3,
+                   "gemm_calls": sum(k[2] for k, g in zip(kern, is_gemm)
+                                     if g),
+                   "host_bytes": hosts[-1] - hosts[-2],
+                   "top_kernels": [{"name": k[1][:80], "ms": k[0] / 1e3,
+                                    "calls": k[2]} for k in
+                                   sorted(kern, reverse=True)[:8]]}}
+    except Exception:
+        res = {"error": traceback.format_exc()}
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(res, f)
+    from repro_torch.distributed import processes
+    processes.shutdown()
+    if "error" in res:
+        sys.exit(1)
+
+
+def phase_processes_train(dm_full):
+    """(24a) 21b's first P24_STEPS steps over P24_PROCS processes: each a
+    spawned process
+    holding one data group of DM_MESH (2 virtual ranks of cuda:0) under
+    ``--dist-backend gloo``, the FSDP gathers, their reduce-scatters, the
+    copies' sums, the norm and the loss over ``torch.distributed``
+    (staged through page-locked host memory), the last step profiled.
+    Held against 21b in the same call:
+    the losses and grad norms bit-identical (every cross-process sum
+    has two terms or runs in rank order), each rank's fp32 masters,
+    gradients, m and v at the rules' bytes, each process's GEMM launches
+    a step exactly half of 21b's (one of the two groups), no plain
+    call; reports ms a step, each process's peak, the bytes a step
+    through host memory and one profiled step's GEMM ms per process."""
+    import multiprocessing
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    D, W = DM_MESH
+    psh = steps_lib.param_shardings(
+        cfg, sr.rules_for(cfg, make_host_mesh(D, W, device="cpu")))
+    rule_bytes = 4 * sum(int(np.prod(v["shape"]))
+                         for v in _sharding_leaves(psh))
+    per_step = sum(p[-1] for p in tp_products(
+        cfg, TRAIN_BATCH * TRAIN_SEQ // D, W)) * (D // P24_PROCS)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p24_")
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.time()
+    kids = [ctx.Process(target=_p24_child, args=(
+        r, P24_PROCS, f"file://{tmp}/rdv", f"{tmp}/out"))
+        for r in range(P24_PROCS)]
+    for k in kids:
+        k.start()
+    for k in kids:
+        k.join(max(1.0, P24_TIMEOUT - (time.time() - t0)))
+    hung = [r for r, k in enumerate(kids) if k.is_alive()]
+    for k in kids:
+        if k.is_alive():
+            k.kill()
+            k.join()
+    wall = time.time() - t0
+    check(not hung, f"processes: {hung} still running after "
+                    f"{P24_TIMEOUT} s")
+    res = []
+    for r, k in enumerate(kids):
+        with open(f"{tmp}/out.{r}") as f:
+            x = json.load(f)
+        check("error" in x or k.exitcode == 0, f"processes: process {r} "
+              f"exit code {k.exitcode}")
+        check("error" not in x, f"processes: process {r} failed:\n"
+                                f"{x.get('error')}")
+        res.append(x)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for x in res:
+        check(x["losses"] == res[0]["losses"]
+              and x["grad_norms"] == res[0]["grad_norms"],
+              f"processes: process {x['rank']} logs {x['losses']} vs "
+              f"process 0's {res[0]['losses']}")
+        for r, b in x["state_bytes"].items():
+            check(b["params"] == rule_bytes and b["grads"] == rule_bytes,
+                  f"processes: rank {r} holds {b}; the rules give "
+                  f"{rule_bytes} B a tree")
+        check(all(o == 2 * rule_bytes for o in x["opt_bytes"]),
+              f"processes: m, v {x['opt_bytes']} B")
+        check(x["plain_calls"] == 0
+              and x["launch_deltas"] == [per_step] * P24_STEPS,
+              f"processes: process {x['rank']} GEMM launches a step "
+              f"{x['launch_deltas']} (want {per_step}), "
+              f"{x['plain_calls']} plain calls")
+    losses, gnorms = res[0]["losses"], res[0]["grad_norms"]
+    want = (dm_full["losses"][:P24_STEPS], dm_full["grad_norms"][:P24_STEPS])
+    same = (losses, gnorms) == want
+    gap = max(abs(a - b) for a, b in zip(losses, want[0]))
+    check(same, f"processes: losses {losses} grad norms {gnorms} vs 21b's "
+                f"{want[0]} {want[1]} (gap {gap})")
+    step_ms = [1e3 * float(np.mean(x["step_s"][1:])) for x in res]
+    out = {"config": f"21b's run over {P24_PROCS} processes on cuda:0, one "
+                     f"data group of {W} virtual ranks each, gloo",
+           "losses": losses, "grad_norms": gnorms,
+           "bit_identical_to_21b": same, "rank_param_bytes": rule_bytes,
+           "gemm_launches_per_step_per_process": per_step,
+           "ms_per_step": step_ms, "ms_per_step_21b": dm_full["ms_per_step"],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (max(step_ms) / 1e3),
+           "peak_gb": [x["peak_bytes"] / 1e9 for x in res],
+           "peak_gb_21b": dm_full["peak_gb"],
+           "host_bytes_per_step": [x["host_bytes_per_step"] for x in res],
+           "run_s": [x["run_s"] for x in res], "wall_s": wall,
+           "profiled_step": [x["profiled_step"] for x in res]}
+    gemm = [p["gemm_ms"] for p in out["profiled_step"]]
+    out["gemm_ms"], out["gemm_ms_sum"] = gemm, sum(gemm)
+    print(f"[processes] {out['config']}: losses {losses} bit-identical to "
+          f"21b's; each rank {rule_bytes} B of fp32 masters (the rules'), "
+          f"{per_step} GEMM launches a step a process, exact; ms a step "
+          f"{[round(v, 1) for v in step_ms]} (21b "
+          f"{dm_full['ms_per_step']:.1f}); peak a process "
+          f"{[round(v, 2) for v in out['peak_gb']]} GB (21b "
+          f"{dm_full['peak_gb']:.2f} for 4 ranks in one); bytes through "
+          f"host a step {[h[1:] for h in out['host_bytes_per_step']]}; "
+          f"profiled step GEMM {[round(v, 1) for v in gemm]} ms (sum "
+          f"{sum(gemm):.1f}, 21b {dm_full['profiled_step']['gemm_ms']:.1f})"
+          f", wall {[round(p['wall_ms'], 1) for p in out['profiled_step']]}"
+          f" ms; the processes took {wall:.1f} s", flush=True)
+    return out
+
+
+def _torchrun(args, env, log):
+    """``python -m torch.distributed.run --standalone`` (a rendezvous on
+    a free local port) of ``args``, its output to ``log``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+        + args, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+
+def _processes_cli_start():
+    """(24b), started: the smoke model (bf16 compute, fp32 masters: the
+    CLI's) through ``repro_torch.launch.train`` at (data 2, model 2),
+    three runs side by side: under torchrun in 2 processes on
+    ``--devices cuda:0,cuda:0 --dist-backend gloo``; the one-process CLI
+    on ``--devices cuda:0,cuda:0,cuda:0,cuda:0``; under torchrun with the
+    default nccl (the two processes sharing the card). Returns what
+    :func:`_processes_cli_finish` takes."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p24b_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    base = ["-m", "repro_torch.launch.train", "--arch", "llama3-8b",
+            "--smoke", "--steps", "3", "--batch", "4", "--seq", "32",
+            "--log-every", "1", "--tp", "2", "--fusion-mode", DM_MODE]
+    two = ["--devices", "cuda:0,cuda:0"]
+    logs = {k: open(os.path.join(tmp, f"{k}.log"), "w+")
+            for k in ("one", "two", "nccl")}
+    runs = {"one": subprocess.Popen(
+        [sys.executable] + base + ["--devices", ",".join(["cuda:0"] * 4),
+                                   "--metrics-file", f"{tmp}/one.json"],
+        env=env, stdout=logs["one"], stderr=subprocess.STDOUT),
+        "two": _torchrun(["--nproc-per-node", "2"] + base + two + [
+            "--dist-backend", "gloo", "--metrics-file", f"{tmp}/two.json"],
+            env, logs["two"]),
+        "nccl": _torchrun(["--nproc-per-node", "2"] + base + two, env,
+                          logs["nccl"])}
+    return tmp, runs, logs, time.time()
+
+
+def _processes_cli_finish(started):
+    """(24b), checked: the torchrun run's logged losses equal the
+    one-process CLI's; under nccl both processes refuse before any
+    parameter is drawn, naming ``--dist-backend gloo``."""
+    tmp, runs, logs, t0 = started
+    rcs = {}
+    for k, p in runs.items():
+        try:
+            rcs[k] = p.wait(timeout=max(1.0, 600 - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs[k] = p.wait()
+    wall = time.time() - t0
+    text = {}
+    for k, f in logs.items():
+        f.seek(0)
+        text[k] = f.read()
+        f.close()
+    for k in ("one", "two"):
+        check(rcs[k] == 0, f"processes CLI {k}: exit {rcs[k]}\n"
+                           f"{text[k][-3000:]}")
+    check(rcs["nccl"] != 0 and "--dist-backend gloo" in text["nccl"]
+          and "Duplicate GPU" not in text["nccl"],
+          f"processes CLI: nccl on one card exit {rcs['nccl']}, "
+          f"expected the refusal naming --dist-backend gloo:\n"
+          f"{text['nccl'][-3000:]}")
+    with open(f"{tmp}/one.json") as f:
+        one = [m["loss"] for m in json.load(f)]
+    with open(f"{tmp}/two.json") as f:
+        two_l = [m["loss"] for m in json.load(f)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(len(one) == 3 and two_l == one,
+          f"processes CLI: torchrun losses {two_l} vs one process {one}")
+    print(f"[processes CLI] smoke (2, 2): torchrun 2 processes (gloo) "
+          f"losses {two_l} = one process's; nccl on one card refused "
+          f"before drawing (exit {rcs['nccl']}); {wall:.1f} s", flush=True)
+    return {"losses": one, "nccl_exit": rcs["nccl"], "wall_s": wall}
+
+
+def phase_processes(dm_full):
+    """(24) the trainer over processes: 24b's CLI runs started, 24a run
+    beside them (its processes wait on gloo, the card mostly idle; 24b
+    ends during 24a's start and first step, which its ms a step
+    leaves out), then 24b checked."""
+    cli = _processes_cli_start()
+    train = phase_processes_train(dm_full)
+    return {"train": train, "cli": _processes_cli_finish(cli)}
 
 
 # ------------------------------------------------ phase 14: the MoE path
@@ -4001,10 +4338,16 @@ def _products_row(rows, names, L=1):
             "library_ms": per_step("library_ms")}
 
 
+# 14c's K = 1 serve: 4 of the 8 requests, new tokens a request (its
+# K = 8 serves keep all 8 and 32)
+K1_NEW_14 = 16
+
+
 def phase_moe_full(rows, worst):
     """(14c) olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
     top-8, bf16, seeded random weights, nothing cut) served through the
-    engine with phase 5's traffic at K = 1 and at K = 8 (graph replays;
+    engine with phase 5's traffic at K = 1 (4 requests of K1_NEW_14 new
+    tokens) and at K = 8 (graph replays;
     then prompts of the same lengths again for the steady time), every
     kernel's launches counted around each serve (6 GEMM launches a
     layer, 3 of them batched, + the unembed; one paged decode a layer);
@@ -4030,12 +4373,15 @@ def phase_moe_full(rows, worst):
     per_step = {"matmul": 6 * L + 1, "matmul_batched": 3 * L,
                 "flash_decode_paged": L}
     cells = {}
-    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
-    _check_serve(cells["k1"], done1, cfg, 8, 32, per_step, "olmoe K=1")
+    cells["k1"], done1 = serve_cell(
+        params, cfg, 1, _full_requests(cfg, plens[:4], 1, K1_NEW_14, 2),
+        **kw)
+    _check_serve(cells["k1"], done1, cfg, 4, K1_NEW_14, per_step,
+                 "olmoe K=1")
     cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "olmoe K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens for r in done8}
+    s8 = {r.rid: r.out_tokens[:K1_NEW_14] for r in done8}
     same = sum(s1[r] == s8[r] for r in s1)
     cells["k8"]["streams_identical_to_k1"] = same
     lockstep = phase_graph_vs_eager(params, cfg)
@@ -4681,10 +5027,16 @@ def rec_per_step(cfg):
             "flash_decode_paged": groups}
 
 
+# 15c's K = 1 serve: 2 requests, new tokens a request (its K = 8 serves
+# keep all 8 and 32)
+K1_NEW_15 = 16
+
+
 def phase_rec_full(arch, gen, rows, worst, dec_err):
     """(15c) ``arch`` at full width (bf16, seeded weights, nothing cut)
-    through the engine with phase 5's traffic: K = 1 on 4 requests, K =
-    8 on all 8 (graph replays) and again on prompts of the same lengths
+    through the engine with phase 5's traffic: K = 1 on 2 requests
+    (K1_NEW_15 new tokens each), K = 8 on all 8 (graph replays) and
+    again on prompts of the same lengths
     for the steady time, every kernel's launches counted around each
     serve and exact per decode step (``rec_per_step``); a
     teacher-forced chunk's logits finite; one K = 8 serve on two engines
@@ -4706,14 +5058,16 @@ def phase_rec_full(arch, gen, rows, worst, dec_err):
     per_step = rec_per_step(cfg)
     cells = {}
     cells["k1"], done1 = serve_cell(
-        params, cfg, 1, _full_requests(cfg, plens[:4], 1, 32, 2), **kw)
-    _check_serve(cells["k1"], done1, cfg, 4, 32, per_step, f"{arch} K=1")
+        params, cfg, 1, _full_requests(cfg, plens[:2], 1, K1_NEW_15, 2),
+        **kw)
+    _check_serve(cells["k1"], done1, cfg, 2, K1_NEW_15, per_step,
+                 f"{arch} K=1")
     cells["k8"], done8 = serve_cell(
         params, cfg, 8, _full_requests(cfg, plens, 1, 32, 2),
         _full_requests(cfg, plens, 2, 32, 2), **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, f"{arch} K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens for r in done8}
+    s8 = {r.rid: r.out_tokens[:K1_NEW_15] for r in done8}
     cells["k8"]["streams_identical_to_k1"] = sum(s1[r] == s8[r] for r in s1)
     lockstep = phase_graph_vs_eager(params, cfg)
     with torch.inference_mode():
@@ -5341,7 +5695,7 @@ def phase_front_serve(gen, rows, worst, dec_err):
     """(16c) paligemma-3b at full width (18 layers, d 2048, 8/1 heads of
     256, d_ff 16384 geglu, tied vocab 257216; bf16 layers and the fp32
     tied table, seeded weights, nothing cut) through the engine with
-    phase 5's traffic: K = 1 on 4 requests, K = 8 on all 8 (graph
+    phase 5's traffic: K = 1 on 2 requests, K = 8 on all 8 (graph
     replays) and again on prompts of the same lengths for the steady
     time, launches exact a decode step (73 GEMM, 18 paged decodes);
     teacher-forced paged logits finite; decode steps over the contiguous
@@ -5365,8 +5719,8 @@ def phase_front_serve(gen, rows, worst, dec_err):
     per_step = {"matmul": 4 * L + 1, "flash_decode_paged": L}
     cells = {}
     cells["k1"], done1 = serve_cell(
-        params, cfg, 1, _full_requests(cfg, plens[:4], 1, 32, 2), **kw)
-    _check_serve(cells["k1"], done1, cfg, 4, 32, per_step, "paligemma K=1")
+        params, cfg, 1, _full_requests(cfg, plens[:2], 1, 32, 2), **kw)
+    _check_serve(cells["k1"], done1, cfg, 2, 32, per_step, "paligemma K=1")
     cells["k8"], done8 = serve_cell(
         params, cfg, 8, _full_requests(cfg, plens, 1, 32, 2),
         _full_requests(cfg, plens, 2, 32, 2), **kw)
@@ -5556,6 +5910,9 @@ def phase_frontends(gen):
 # ------------------------------- phase 17: "dots" and every family at tp W
 TP_FAMILIES = ("olmoe-1b-7b", "mixtral-8x22b", "zamba2-1.2b", "rwkv6-3b")
 TP_FAM_STEPS = 3
+# 17a's full-width "dots" vs "full" runs and 17c's: steps each (launches
+# and products a step are checked on every step, the first included)
+TP_FULL_STEPS = 2
 # 17c: the full-width models over TP virtual ranks, depth cut to fit 80
 # GB where it must: olmoe as 14d (fp32 AdamW state, 16 B a parameter);
 # rwkv6-3b's time mix is replicated on every rank (~2.8 GB of masters and
@@ -5849,7 +6206,7 @@ def _train_counted(cfg, argv, what, per_step=None, log=None):
 
 def phase_dots_full(gen):
     """(17a, second part) 12c's configuration (llama3-8b at full width, 4
-    of 32 layers, 2 x 1024 tokens, lr 1e-3) TP_FAM_STEPS steps under
+    of 32 layers, 2 x 1024 tokens, lr 1e-3) TP_FULL_STEPS steps under
     ``"full"`` and under ``"dots"`` (the config's ``remat_policy``, as
     JAX's perf harness reaches it), each from the same seeded init:
     losses finite and equal to 1e-3 relative between the policies (the
@@ -5865,13 +6222,13 @@ def phase_dots_full(gen):
     from repro_torch.models import lm
     from repro_torch.optim import adamw
     L = TRAIN_LAYERS
-    argv = ["--arch", "llama3-8b", "--steps", str(TP_FAM_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
-            str(TP_FAM_STEPS), "--lr", str(TRAIN_LR), "--log-every", "1",
-            "--device", "cuda"]
+    argv = ["--arch", "llama3-8b", "--steps", str(TP_FULL_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--warmup", str(TP_FULL_STEPS), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--device", "cuda"]
     batch = shard_batch(SyntheticLM(get_config("llama3-8b").vocab_size,
                                     TRAIN_SEQ, TRAIN_BATCH, seed=0)
-                        .batch_at(TP_FAM_STEPS), "cuda")
+                        .batch_at(TP_FULL_STEPS), "cuda")
     out, logs = {}, {}
     for pol, per_step in (("full", L * 19 + 3), ("dots", L * 15 + 3)):
         cfg = get_config("llama3-8b").replace(n_layers=L, remat=True,
@@ -5904,7 +6261,7 @@ def phase_dots_full(gen):
     lf, ld = out["full"]["losses"], out["dots"]["losses"]
     check(np.allclose(ld, lf, rtol=1e-3, atol=0), f"dots full: losses dots "
           f"{ld} vs full {lf}")
-    times = log_times(gen, logs["dots"], TP_FAM_STEPS, "dots full")
+    times = log_times(gen, logs["dots"], TP_FULL_STEPS, "dots full")
     check(times["launches_per_step"] == L * 15 + 3, f"dots full: logged "
           f"{times['launches_per_step']} launches a step")
     for pol in ("full", "dots"):
@@ -5924,7 +6281,7 @@ def phase_dots_full(gen):
     kernel = {"name": "matmul_train_dots", "route": "cuda",
               "source": "src/repro_torch/csrc/matmul.cu",
               "replaces": "src/repro/kernels/matmul.py:34",
-              "launches": TP_FAM_STEPS * times["launches_per_step"],
+              "launches": TP_FULL_STEPS * times["launches_per_step"],
               **{k: times[k] for k in ("launches_per_step", "max_abs_err",
                                        "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")},
@@ -6101,7 +6458,7 @@ def phase_tp_families_full(gen):
     """(17c) olmoe-1b-7b (4 of 16 layers), zamba2-1.2b (all 38) and
     rwkv6-3b (12 of 32 blocks) at full width over TP virtual ranks of
     cuda:0 under ``ring``, bf16 compute, fp32 masters, AdamW, remat
-    full: TP_FAM_STEPS steps of 2 x 1024 tokens through
+    full: TP_FULL_STEPS steps of 2 x 1024 tokens through
     ``launch.train.train``: losses finite, GEMM (and batched) launches
     per step exact (``tp_family_launches``), no plain call, peak below 80
     GB, ms per step, tokens/s; every product of the step timed beside its
@@ -6114,9 +6471,9 @@ def phase_tp_families_full(gen):
         if layers:
             cfg = cfg.replace(n_layers=layers)
         per_step, per_b = tp_family_launches(cfg, TP)
-        argv = ["--arch", arch, "--steps", str(TP_FAM_STEPS), "--batch",
+        argv = ["--arch", arch, "--steps", str(TP_FULL_STEPS), "--batch",
                 str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--warmup",
-                str(TP_FAM_STEPS), "--lr", str(TRAIN_LR), "--log-every",
+                str(TP_FULL_STEPS), "--lr", str(TRAIN_LR), "--log-every",
                 "1", "--device", "cuda", "--tp", str(TP), "--fusion-mode",
                 TP_MODE]
         log = ProductLog()
@@ -6129,7 +6486,7 @@ def phase_tp_families_full(gen):
         check(run["batched_launches_per_step"] == per_b, f"{arch} tp full: "
               f"{run['batched_launches_per_step']} batched launches a step "
               f"(want {per_b})")
-        times = log_times(gen, log, TP_FAM_STEPS, f"{arch} tp full")
+        times = log_times(gen, log, TP_FULL_STEPS, f"{arch} tp full")
         check(times["launches_per_step"] == per_step, f"{arch} tp full: "
               f"logged {times['launches_per_step']} launches a step")
         tag = arch.split("-")[0]
@@ -6142,7 +6499,7 @@ def phase_tp_families_full(gen):
             "name": f"matmul_train_tp{TP}_{tag}", "route": "cuda",
             "source": "src/repro_torch/csrc/matmul.cu",
             "replaces": "src/repro/kernels/matmul.py:34",
-            "launches": TP_FAM_STEPS * per_step, "launches_per_step":
+            "launches": TP_FULL_STEPS * per_step, "launches_per_step":
             per_step, "batched_launches_per_step": per_b,
             **{k: times[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms",
@@ -6269,10 +6626,80 @@ def launch_costs(iters=2000, reps=5):
     return out
 
 
+def dryrun_cases() -> list:
+    """Phase 18's cells: (name, config, shape, tp, fusion mode), each at
+    the depth the phase that ran it on the card cut it to."""
+    from repro_torch.configs import ShapeConfig, get_config
+    train_sh = ShapeConfig("train_2x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
+    llama4 = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
+    return [
+        ("12c", llama4, train_sh, 1, "auto"),
+        ("17a dots", llama4.replace(remat_policy="dots"), train_sh, 1,
+         "auto"),
+        ("13c", llama4, train_sh, TP, TP_MODE),
+        ("14d", get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS),
+         train_sh, 1, "auto"),
+        ("16d paligemma-3b", get_config("paligemma-3b"), train_sh, 1,
+         "auto"),
+        ("16d hubert-xlarge", get_config("hubert-xlarge"), train_sh, 1,
+         "auto"),
+        ("5 serve", get_config("llama3-8b"),
+         ShapeConfig("decode_8x512", 512, 8, "decode"), 1, "auto"),
+        ("20 serve on shards", get_config("llama3-8b"),
+         ShapeConfig("decode_4x256", 256, 4, "decode"), SHARD_TP, "pallas")]
+
+
+def _dryrun_traces(out):
+    """Phase 18's traces (``launch.dryrun.run_cell_cfg``: fake CPU
+    tensors, nothing allocated), made in a process of their own while
+    the card runs the earlier phases; ``{name: (record, seconds)}``
+    pickled to ``out``."""
+    import pickle
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import dryrun
+    recs = {}
+    for name, cfg, shape, tp, mode in dryrun_cases():
+        t0 = time.time()
+        rec = dryrun.run_cell_cfg(cfg, shape, tp, mode, virtual=tp > 1,
+                                  direct=True)
+        recs[name] = (rec, time.time() - t0)
+    with open(out, "wb") as f:
+        pickle.dump(recs, f)
+
+
+class Traces:
+    """:func:`_dryrun_traces` in a spawned process from the start of the
+    run; :meth:`result` waits for it, :meth:`stop` ends it."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_p18_")
+        self.out = os.path.join(self.dir, "traces.pkl")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_dryrun_traces, args=(self.out,))
+        self.proc.start()
+
+    def result(self) -> dict:
+        import pickle
+        self.proc.join(600)
+        check(self.proc.exitcode == 0,
+              f"dry run traces: exit {self.proc.exitcode}")
+        with open(self.out, "rb") as f:      # this run's own file
+            return pickle.load(f)
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us,
-                 sharded):
+                 sharded, traces):
     """(18) the port's dry run (``launch.dryrun``: the step traced on fake
-    CPU tensors, at the phase's own depth) beside what earlier phases
+    CPU tensors, at the phase's own depth, by ``traces``, a
+    :class:`Traces` started with the run) beside what earlier phases
     measured on the card, reusing their stored numbers: 12c (llama3-8b,
     4 layers, ``"full"``; 17a's ``"dots"``), 13c (tp 4 virtual ranks
     under ``ring``), 14d (olmoe-1b-7b, 4 layers), 16d (paligemma-3b,
@@ -6287,47 +6714,35 @@ def phase_dryrun(smi, train, train_tp, moe, front, fam, serve, host_us,
     model's fixed costs measured (``launch_costs``) beside
     ``core.taxes.H100``'s, the GEMM wrapper's fixed host cost from phase
     6 and a 2 GB copy's rate beside the data sheet's."""
-    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.core import taxes
-    from repro_torch.launch import dryrun
-    train_sh = ShapeConfig("train_2x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
-    llama4 = get_config("llama3-8b").replace(n_layers=TRAIN_LAYERS)
-    front_sh = ShapeConfig("train_2x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
     k8 = serve["k8"]
-    cases = [
-        ("12c", llama4, train_sh, 1, "auto", train["full"], True),
-        ("17a dots", llama4.replace(remat_policy="dots"), train_sh, 1,
-         "auto", fam["dots_full"]["dots"], False),
-        ("13c", llama4, train_sh, TP, TP_MODE, train_tp["full"], False),
-        ("14d", get_config(MOE_ARCH).replace(n_layers=MOE_TRAIN_LAYERS),
-         train_sh, 1, "auto", moe["train_full"], True),
-        ("16d paligemma-3b", get_config("paligemma-3b"), front_sh, 1,
-         "auto", front["train_paligemma-3b"], False),
-        ("16d hubert-xlarge", get_config("hubert-xlarge"), front_sh, 1,
-         "auto", front["train_hubert-xlarge"], False),
-        ("5 serve", get_config("llama3-8b"),
-         ShapeConfig("decode_8x512", 512, 8, "decode"), 1, "auto",
-         {"peak_gb": serve["k1"]["peak_mem_bytes"] / 1e9,
-          "ms_per_step": k8["pure_megatick_device_ms"] / k8["K"]}, False),
-        ("20 serve on shards", get_config("llama3-8b"),
-         ShapeConfig("decode_4x256", 256, 4, "decode"), SHARD_TP, "pallas",
-         {"peak_gb": sharded["cells"]["pallas"]["peak_mem_bytes"] / 1e9
-          - sharded["whole_gb"],
-          "ms_per_step": sharded["cells"]["pallas"][
-              "pure_megatick_device_ms"] / 8}, False),
-    ]
+    cards = {
+        "12c": (train["full"], True),
+        "17a dots": (fam["dots_full"]["dots"], False),
+        "13c": (train_tp["full"], False),
+        "14d": (moe["train_full"], True),
+        "16d paligemma-3b": (front["train_paligemma-3b"], False),
+        "16d hubert-xlarge": (front["train_hubert-xlarge"], False),
+        "5 serve": ({"peak_gb": serve["k1"]["peak_mem_bytes"] / 1e9,
+                     "ms_per_step": k8["pure_megatick_device_ms"]
+                     / k8["K"]}, False),
+        "20 serve on shards": (
+            {"peak_gb": sharded["cells"]["pallas"]["peak_mem_bytes"] / 1e9
+             - sharded["whole_gb"],
+             "ms_per_step": sharded["cells"]["pallas"][
+                 "pure_megatick_device_ms"] / 8}, False)}
+    recs = traces.result()
     rows = []
-    for name, cfg, shape, tp, mode, card, flops_checked in cases:
-        t0 = time.time()
-        rec = dryrun.run_cell_cfg(cfg, shape, tp, mode, virtual=tp > 1,
-                                  direct=True)
+    for name, cfg, shape, tp, mode in dryrun_cases():
+        card, flops_checked = cards[name]
+        rec, trace_s = recs[name]
         check(rec["status"] == "ok", f"dry run {name}: {rec}")
         pred_gb = rec["memory"]["peak_bytes"] / 1e9
         # the bound on the analytic memory term (``bound_s_star``): the
         # traced bytes count every unfused op's operands
         bound_ms = 1e3 * rec["roofline"]["bound_s_star"]
         row = {"case": name, "tp": tp, "fusion_mode": mode,
-               "trace_s": time.time() - t0,
+               "trace_s": trace_s,
                "pred_peak_gb": pred_gb, "card_peak_gb": card["peak_gb"],
                "peak_rel": pred_gb / card["peak_gb"] - 1,
                "pred_flops": rec["cost"]["flops_all_ranks"],
@@ -7061,11 +7476,18 @@ def taxes_card(params, cfg, reqs, K, sampler, ctx=None):
     return records, done
 
 
+# 19's K = 1 cell: 4 requests, new tokens a request (the megatick cells
+# keep 8 of 32, which their pure and mixed megaticks each need past the
+# captures)
+TAX_K1_NEW = 16
+
+
 def phase_taxes(params, smi, tp=4):
     """(19) three taxes, static vs card: (a) :func:`taxes_static`; (b)
     phase 5's weights and traffic (8 requests of 32-128 prompt tokens,
-    32 new each, admitted 2 ticks apart) served at K = 8 (pure and mixed
-    megaticks, graph replays), at K = 1 with the temperature sampler
+    32 new each; 4 of TAX_K1_NEW at K = 1; admitted 2 ticks apart)
+    served at K = 8 (pure and mixed megaticks, graph replays), at K = 1
+    with the temperature sampler
     (every host input of ``_tick`` and ``_next_tokens``) and at K = 8
     over ``tp`` virtual ranks under ``pallas`` (the fused kernels, whose
     first capture grows the symmetric buffers), replicated and on
@@ -7083,7 +7505,6 @@ def phase_taxes(params, smi, tp=4):
     proven = static["proven"]
     cfg = get_config("llama3-8b")
     plens = [int(n) for n in np.random.default_rng(0).integers(32, 129, 8)]
-    reqs = _full_requests(cfg, plens, 5, 32, 2)
     cells = {}
     for label, K, sampler, ctx in (
             ("K=8", 8, "greedy", None), ("K=1", 1, "temperature", None),
@@ -7092,12 +7513,14 @@ def phase_taxes(params, smi, tp=4):
             (f"tp={tp} K=8 shards", 8, "greedy",
              dctx.DistContext(make_mesh(tp, device="cuda"), "pallas"))):
         t0 = time.time()
+        new, n = (32, 8) if K > 1 else (TAX_K1_NEW, 4)
+        reqs = _full_requests(cfg, plens[:n], 5, new, 2)
         p = lm.shard_params(params, ctx.mesh) if "shards" in label \
             else params
         records, done = taxes_card(p, cfg, reqs, K, sampler, ctx)
         del p
         check(len(done) == len(reqs) and all(
-            len(r.out_tokens) == 32
+            len(r.out_tokens) == new
             and all(0 <= t < cfg.vocab_size for t in r.out_tokens)
             for r in done), f"taxes {label}: not every stream finished")
         rows = {}
@@ -7831,8 +8254,9 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
     """``--phase N``: only phase N after the build, for the phases that
     need no earlier phase's output (2, 3, 7: the kernel checks; 22 and
     23: their own full-width weights, seeded as phase 5's; 23 alone also
-    times the CLI's steady megaticks), then the kernels line, the card
-    and the last line as a whole run prints them."""
+    times the CLI's steady megaticks; 24 after its own 21b, without
+    13c's first-loss check), then the kernels line, the card and the
+    last line as a whole run prints them."""
     kernels = []
     if phase == "2":
         timed("2 gemm", phase_gemm, gen)
@@ -7855,6 +8279,14 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
                   "w") as f:
             json.dump({"device": smi, "serve_data_mesh": out,
                        "kernels": kernels, "phase_s": phase_s}, f, indent=1)
+    elif phase == "24":
+        full = timed("21b data mesh full", phase_dm_full, None)
+        out = timed("24 processes", phase_processes, full)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_phase24.json"),
+                  "w") as f:
+            json.dump({"device": smi, "dm_full": full, "processes": out,
+                       "phase_s": phase_s}, f, indent=1)
     elif phase == "23":
         from repro_torch.configs import get_config
         from repro_torch.models import lm
@@ -7867,8 +8299,8 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
             json.dump({"device": smi, "born_sharded": out,
                        "phase_s": phase_s}, f, indent=1)
     else:
-        print(f"chip_smoke: --phase {phase}: only 2, 3, 7, 22 and 23 run "
-              f"alone (the others take earlier phases' outputs)",
+        print(f"chip_smoke: --phase {phase}: only 2, 3, 7, 22, 23 and 24 "
+              f"run alone (the others take earlier phases' outputs)",
               file=sys.stderr)
         sys.exit(2)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"
@@ -7887,12 +8319,25 @@ def main():
               "GPU", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import _build
-
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
+    # a whole run traces phase 18's cells on the CPU from here, beside
+    # the build and the card's phases
+    whole = not any(a in sys.argv for a in ("--phase", "--kernels-only",
+                                            "--peers"))
+    traces = Traces() if whole else None
+    try:
+        run_all(smi, t_start, traces)
+    finally:
+        if traces is not None:
+            traces.stop()
+
+
+def run_all(smi, t_start, traces):
+    """The build, then every phase in order (:func:`main`)."""
+    from repro_torch.kernels import _build
     t0 = time.time()
     logs = _build.build_all(verbose="--verbose" in sys.argv)
     build_s = time.time() - t0
@@ -7949,6 +8394,10 @@ def main():
         train["full"]["grad_norms"][0])
     dm, dm_kernel = timed("21 data mesh", phase_data_mesh, gen,
                           train_tp["full"]["losses"][0])
+    dm["processes"] = timed("24 processes", phase_processes, dm["full"])
+    # this process layout's GEMM ms a step beside 21b's (row 1dm)
+    dm_kernel["ms_processes"] = dm["processes"]["train"]["gemm_ms"]
+    dm_kernel["ms_processes_sum"] = dm["processes"]["train"]["gemm_ms_sum"]
     moe, moe_kernels = timed("14 moe", phase_moe, gen)
     rec, rec_kernels = timed("15 recurrent", phase_recurrent, gen)
     front, front_kernels = timed("16 frontends", phase_frontends, gen)
@@ -7978,7 +8427,7 @@ def main():
                 + serve_dm_kernels)
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
                 moe, front, fam, summary, kernels[0]["host_us_per_call"],
-                sharded)
+                sharded, traces)
     if "--bounds-against" in sys.argv:
         check_bounds(kernels, sys.argv[sys.argv.index("--bounds-against")
                                        + 1])

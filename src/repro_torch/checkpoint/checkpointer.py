@@ -31,7 +31,11 @@ is saved as the global arrays (:meth:`Checkpointer.save_sharded`: the
 blocks joined by each leaf's spec, ``distributed.sharding_rules.join``),
 so the file is the one a single rank or the JAX checkpointer writes;
 :meth:`Checkpointer.restore_sharded` reads it onto any mesh, any (data,
-model) (JAX's elastic restore).
+model) (JAX's elastic restore). Over processes (``distributed.processes``:
+each holds its own ranks' blocks) the first process joins and writes,
+the others send it their blocks a leaf at a time; a restore reads each
+process's own ranks' blocks, so a checkpoint of any mesh, in one
+process or many (or JAX's), resumes on any process layout.
 """
 from __future__ import annotations
 
@@ -132,23 +136,41 @@ class Checkpointer:
 
     def save_sharded(self, step: int, trees: list, dims: dict,
                      extra: dict | None = None, block: bool = False,
-                     mesh_shape: dict | None = None):
+                     mesh_shape: dict | None = None, link=None):
         """:meth:`save` of the global tree of per-rank ``trees`` (ranks
         row-major over ``mesh_shape``'s axes; default one ``model`` axis
         of every rank): the leaf at key k is joined from the ranks'
         blocks by its spec ``dims[k]`` (one entry a dim: None, or the
         mesh axes that cut it; ``sharding_rules.join``), or taken from
         rank 0 where ``dims`` has none (a replicated leaf). The join runs
-        on the host."""
+        on the host. With ``link`` (``processes.Link`` over every
+        process, ``Mesh.across``) ``trees`` are this process's ranks,
+        the processes' in order make every rank's, and the first process
+        joins (each leaf's blocks gathered to it) and writes; the others
+        write nothing."""
         self.wait()   # one in-flight save at a time
         flats = [flatten(t) for t in trees]
-        shape = _mesh_shape(mesh_shape, len(trees))
+        shape = _mesh_shape(mesh_shape, len(trees) * (
+            1 if link is None else len(link)))
+        first = link is None or link.index == 0
         joined = {}
-        for key, leaf in flats[0].items():
+        for key in sorted(flats[0]):
             d = dims.get(key)
-            joined[key] = leaf if not d else join(
-                [f[key].detach().cpu() for f in flats], d, shape)
-        self._save_flat(step, joined, extra, block)
+            if not d:
+                joined[key] = flats[0][key]
+                continue
+            if link is None:
+                blocks = [f[key].detach().cpu() for f in flats]
+            else:           # this process's ranks lie on one device
+                every = link.gather(torch.stack([f[key].detach()
+                                                 for f in flats]))
+                blocks = None if every is None else [
+                    b for part in every for b in part]
+            if first:
+                joined[key] = join(blocks, d, shape)
+        if first:
+            self._save_flat(step, {k: joined[k] for k in flats[0]}, extra,
+                            block)
 
     def _save_flat(self, step, leaves: dict, extra, block):
         flat, dtypes = {}, {}
@@ -244,7 +266,7 @@ class Checkpointer:
 
     def restore_sharded(self, step: int | None, templates: list,
                         dims: dict, mesh_shape: dict | None = None,
-                        cast: bool = False):
+                        cast: bool = False, first: int = 0):
         """:meth:`restore` onto the ranks of a mesh (row-major over
         ``mesh_shape``'s axes; default one ``model`` axis of every
         rank): each rank's template takes its block (``sharding_rules.cut``
@@ -256,13 +278,15 @@ class Checkpointer:
         one leaf, never the whole tree. A leaf's dtype must be the
         template's, unless ``cast``: then each rank's block is cast to
         its template's dtype after the cut (serving restores fp32
-        masters, or bf16 leaves, into its storage dtypes). Returns
-        (templates, manifest)."""
+        masters, or bf16 leaves, into its storage dtypes). ``first``: the
+        global rank of the first template (a process's ranks of a mesh
+        over processes, ``Mesh.first``). Returns (templates,
+        manifest)."""
         path = self._path(step)
         manifest = self.manifest(step)
         dtypes = manifest.get("dtypes", {})
         shape = _mesh_shape(mesh_shape, len(templates))
-        coords = rank_coords(shape)
+        coords = rank_coords(shape)[first:]
         with np.load(os.path.join(path, "shard_0.npz")) as z:
             heads = {k: _header(z, k, dtypes.get(k)) for k in z.files}
             plan: dict = {}

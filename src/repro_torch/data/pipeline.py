@@ -105,10 +105,13 @@ def shard_batch(batch: dict, device, mesh=None):
     of each leaf (``sharding_rules.batch_spec``: its rows, or the whole
     batch where they do not divide by G) on the group's first rank's
     device (``device`` is then ignored), which ``models.lm.loss_fn``
-    takes."""
+    takes. Over processes (``distributed.processes``) the list holds this
+    process's groups (``Mesh.local_groups``) alone: each process cuts its
+    rows out of the same global batch, with no communication."""
     if mesh is None or mesh.dp == 1:
         return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-    first = [g * mesh.model for g in range(mesh.dp)]
+    first = [g * mesh.model for g in mesh.local_groups]
     return [{k: sr.cut(torch.as_tensor(v), sr.batch_spec(v.shape, mesh.shape),
-                       mesh.coords(r), mesh.shape).to(mesh.devices[r])
+                       mesh.coords(r), mesh.shape).to(
+                           mesh.devices[r - mesh.first])
              for k, v in batch.items()} for r in first]

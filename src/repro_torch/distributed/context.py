@@ -27,6 +27,14 @@ shards and each rank's own copy of a replicated leaf, sequence-sharded
 activations), so the same code runs on virtual and on real ranks
 (``models.lm.shard_params``).
 
+The trainer may also run as several processes (torchrun), each holding
+whole data groups of one global mesh (``distributed.processes``): a
+:class:`Mesh` with ``procs`` keeps the global shape, coordinates and
+groups, and lists the devices of its process's ranks only
+(:attr:`Mesh.local`); per-rank values hold those ranks, and
+:meth:`Mesh.across` is the link to the processes that hold their peers
+along the data axes.
+
 Model code reads the mesh and the fusion mode from :func:`current`;
 launchers install a :class:`DistContext` around their run with
 :func:`use`, as in the JAX package.
@@ -40,6 +48,7 @@ import functools
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import processes
 from repro_torch.kernels.symm import check_virtual_ranks
 
 FUSION_MODES = ("auto", "bsp", "ring", "pallas")
@@ -61,14 +70,18 @@ class Mesh:
     """Ranks on their devices, rank r on ``devices[r]``, over the named
     axes ``axis_names`` of sizes ``axis_shape`` (default: one ``model``
     axis of every rank); ``shape`` maps each axis to its size, as a JAX
-    mesh's does."""
+    mesh's does. With ``procs`` (``processes.Processes``) the shape is
+    the whole job's and ``devices`` lists this process's ranks, rank r
+    on ``devices[r - first]`` for r in :attr:`local`."""
 
-    def __init__(self, devices, axis_shape=None, axis_names=None):
+    def __init__(self, devices, axis_shape=None, axis_names=None,
+                 procs=None):
         devs = tuple(canonical_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one rank")
+        world = 1 if procs is None else procs.world
         if axis_shape is None:
-            axis_shape = (len(devs),)
+            axis_shape = (len(devs) * world,)
         axis_shape = tuple(int(n) for n in axis_shape)
         if axis_names is None:
             axis_names = AXES[len(AXES) - len(axis_shape):]
@@ -81,13 +94,27 @@ class Mesh:
         n = 1
         for k in axis_shape:
             n *= k
-        if n != len(devs):
+        if n != len(devs) * world:
             raise ValueError(f"mesh shape {axis_shape} holds {n} ranks, "
-                             f"{len(devs)} devices given")
+                             f"{len(devs)} devices given"
+                             + (f" to each of {world} processes"
+                                if world > 1 else ""))
         check_virtual_ranks(devs)
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, axis_shape))
         self._groups: dict = {}
+        self.procs = procs
+        # the global ranks this process holds (every rank in one process)
+        self.local = range(0, n) if procs is None else \
+            processes.process_ranks(self.shape, world, procs.rank)
+        if procs is not None and len(set(devs)) > 1:
+            raise NotImplementedError(
+                f"a process's ranks on several devices ({list(devs)}) over "
+                f"processes: autograd runs each device's backward on a "
+                f"thread of its own, which would put the cross-process "
+                f"collectives on the wire in an order that differs "
+                f"between processes; list one device per process "
+                f"(ROADMAP queue 1)")
         self.devices = devs
         self.distinct = tuple(dict.fromkeys(devs))
         # rank -> index of its device in ``distinct``
@@ -98,9 +125,42 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        """Every rank of the mesh (the model width is
+        """Every rank of the mesh, in every process (the model width is
         ``shape["model"]``)."""
-        return len(self.devices)
+        n = 1
+        for k in self.shape.values():
+            n *= k
+        return n
+
+    @property
+    def first(self) -> int:
+        """The global rank of this process's first rank."""
+        return self.local.start
+
+    @property
+    def local_groups(self) -> range:
+        """The data groups this process holds (every one in one
+        process)."""
+        return range(self.local.start // self.model,
+                     self.local.stop // self.model)
+
+    @property
+    def rank_devices(self) -> tuple:
+        """A device for every rank of the mesh, None for the ranks other
+        processes hold."""
+        return ((None,) * self.first + self.devices
+                + (None,) * (self.size - self.local.stop))
+
+    def across(self, axes):
+        """The :class:`processes.Link` to the processes that hold the
+        peers of this process's ranks along ``axes`` (of ``("pod",
+        "data")``), or None where this process holds them all."""
+        if self.procs is None:
+            return None
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        members = processes.peers(self.shape, self.procs.world,
+                                  self.procs.rank, axes)
+        return None if len(members) == 1 else self.procs.link(members)
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -140,9 +200,11 @@ class Mesh:
         ``symm`` communicator); the mesh itself when ``dp`` is 1."""
         if self.dp == 1:
             return self
+        if g not in self.local_groups:
+            raise ValueError(f"data group {g} lies in another process")
         if g not in self._groups:
-            W = self.model
-            self._groups[g] = Mesh(self.devices[g * W:(g + 1) * W])
+            W, lo = self.model, g * self.model - self.first
+            self._groups[g] = Mesh(self.devices[lo:lo + W])
         return self._groups[g]
 
     @functools.cached_property
@@ -167,8 +229,10 @@ class Mesh:
     def __repr__(self):
         if self.axis_names == ("model",):
             return f"Mesh({[str(d) for d in self.devices]})"
+        where = "" if self.procs is None else \
+            f", process {self.procs.rank} of {self.procs.world}"
         return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"{dict(self.shape)})")
+                f"{dict(self.shape)}{where})")
 
     def per_rank(self, rep: list) -> list:
         """A replicated value, one entry per rank (ranks on one device

@@ -293,7 +293,10 @@ def make_shards(spec: dict, rules: Rules, devices, draw, dtype_of,
     ``dtype_of(path)``, a replicated leaf's own copy on every rank (ranks
     that share a device still hold separate tensors, as training writes
     each), or with ``share_replicated`` one copy per distinct device,
-    which every rank on it holds (serving: nothing writes them).
+    which every rank on it holds (serving: nothing writes them). A rank
+    whose device is None (another process holds it,
+    ``distributed.processes``) is not built: the trees are those of the
+    other ranks, in rank order.
 
     ``draw(path, device)`` gives the leaf's values on ``device``, asked
     once per distinct device: an iterable of ``(l, layer slice l)`` of a
@@ -311,7 +314,7 @@ def make_shards(spec: dict, rules: Rules, devices, draw, dtype_of,
     for path, p in tree_items(spec):
         s, dt = specs[path], dtype_of(path)
         shape = spec_shape(p.shape, s, rules.shape)
-        for dev in dict.fromkeys(devices):
+        for dev in dict.fromkeys(d for d in devices if d is not None):
             ranks = [r for r, d in enumerate(devices) if d == dev]
             shared = share_replicated and not any(s)
             with torch.no_grad():
@@ -321,7 +324,8 @@ def make_shards(spec: dict, rules: Rules, devices, draw, dtype_of,
                       draw(path, dev))
             for i, r in enumerate(ranks):
                 trees[r][path] = made[0 if shared else i]
-    return [tree_map(lambda path, _: t[path], spec) for t in trees]
+    return [tree_map(lambda path, _: t[path], spec)
+            for t, d in zip(trees, devices) if d is not None]
 
 
 def _fill(blocks, coords, spec, mesh_shape, values):

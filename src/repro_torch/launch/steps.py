@@ -234,7 +234,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig):
         om = adamw.apply_updates_ranks(
             trees, [_grads(t) for t in trees], lm.as_ranks(opt_state),
             opt_cfg, {} if mesh is None else lm.leaf_specs(cfg, mesh),
-            {"model": 1} if mesh is None else mesh.shape)
+            {"model": 1} if mesh is None else mesh.shape, mesh)
         return params, opt_state, {
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}, **om}

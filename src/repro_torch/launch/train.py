@@ -15,6 +15,9 @@
       --smoke --devices cpu,cpu,cpu,cpu --tp 2 --steps 4  # (data 2, model 2)
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20   # the card
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch llama3-8b --smoke --device cpu \
+      --tp 2 --steps 3        # (data 2, model 2) over 2 processes, gloo
 
 The flags are those of ``repro.launch.train`` plus ``--device`` (default
 ``cuda``; without a GPU the run raises unless ``--device cpu`` is given)
@@ -54,10 +57,29 @@ the global batch) and the recurrent ones (``mamba_hybrid``, ``rwkv``:
 their scans on the gathered sequence). The remat policy comes from the
 config, as in JAX's trainer (``cfg.replace(remat=True,
 remat_policy="dots")`` reaches ``"dots"``; there is no flag).
-``--mesh production`` and ``--multi-pod`` (256 and 512 ranks) raise
-``NotImplementedError``: they need one process per card (ROADMAP item
-10d). ``--grad-compress`` is parsed and unused, as in JAX's trainer
-(``distributed.grad_compress`` is there for its callers).
+Under torchrun (``python -m torch.distributed.run --nproc-per-node P``)
+the run is P processes, as JAX's trainer is one controller per host
+(``distributed.processes``): each process lists its own ranks
+(``--devices``; by default ``--tp`` ranks on ``--device``, which is
+``cuda:$LOCAL_RANK`` on a card) and holds whole data groups of one
+global mesh, (data = P x its groups, model = ``--tp``), ranks numbered
+row-major as in one process; the ``model`` axis stays inside a process.
+The FSDP gathers and their reduce-scatters, the copies' gradient sums,
+the global norm, the loss and the MoE aux cross the processes over
+``torch.distributed`` (``--dist-backend``: nccl by default on cards,
+which must be each process's own; gloo on the CPU, and for processes
+that share a card when asked, staged through host memory); each
+process draws, restores and trains its own ranks' blocks alone and
+cuts its own rows of the global batch. Only process 0 prints and
+writes ``--metrics-file``; it also joins and writes the checkpoints
+(the JAX format, whatever the layout); a preemption in any process
+stops every process at the same step, each saving it. One process runs
+every path as before. ``--mesh production`` is JAX's (16, 16) mesh over
+16 processes and ``--multi-pod`` its (2, 16, 16) over 32, one data
+group of 16 model ranks each; in another number of processes they
+refuse before any parameter is drawn. ``--grad-compress`` is parsed
+and unused, as in JAX's trainer (``distributed.grad_compress`` is there
+for its callers).
 
 The data is token batches, so a vlm (paligemma-3b) trains on text
 alone, as JAX's trainer does (no "patches"; the prefix-LM mask still
@@ -71,17 +93,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
+
+import torch
 
 from repro_torch.checkpoint.checkpointer import SEP, Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.data.pipeline import SyntheticLM, shard_batch
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import processes
 from repro_torch.distributed.fault_tolerance import (Heartbeat,
                                                      PreemptionGuard,
                                                      StragglerWatchdog)
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import (PRODUCTION_PROCESSES, make_mesh,
+                                     make_production_mesh)
 from repro_torch.models import lm
 from repro_torch.optim import adamw, schedule
 
@@ -109,6 +136,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "rank on --device, i.e. virtual ranks)")
     p.add_argument("--fusion-mode", default="auto",
                    choices=("auto", "bsp", "ring", "pallas"))
+    p.add_argument("--dist-backend", default=None, choices=processes.BACKENDS,
+                   help="over processes (torchrun): the torch.distributed "
+                        "backend (default nccl on cards, gloo on the CPU; "
+                        "processes that share a card need gloo)")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=100)
     p.add_argument("--resume", action="store_true")
@@ -120,16 +151,58 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def build_mesh(args):
+def _device(args) -> str:
+    """Where this process's ranks go by default: ``--device``, the card
+    ``$LOCAL_RANK`` of torchrun's processes on a card."""
+    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+        return f"cuda:{os.environ['LOCAL_RANK']}"
+    return args.device
+
+
+def _device_type(args) -> str:
+    if args.devices:
+        return args.devices.split(",")[0].strip().split(":")[0]
+    return args.device
+
+
+def build_mesh(args, procs=None):
     """The run's mesh, JAX's ``build_mesh``: the ranks ``--devices``
     lists (default: ``--tp`` on ``--device``) as (data, model =
-    ``--tp``)."""
+    ``--tp``), over ``procs`` (``distributed.processes``; None: one
+    process) each process's ranks; ``--mesh production`` (or
+    ``--multi-pod``) JAX's production mesh, which needs its 16 (32)
+    processes."""
+    world = 1 if procs is None else procs.world
     if args.mesh == "production" or args.multi_pod:
-        raise NotImplementedError(
-            "--mesh production and --multi-pod need one process per card "
-            "(ROADMAP item 10d); the port's mesh is the ranks --devices "
-            "lists, driven by one process")
-    return make_mesh(args.tp, args.devices, args.device)
+        need = PRODUCTION_PROCESSES[bool(args.multi_pod)]
+        if world != need:
+            shape = (2, 16, 16) if args.multi_pod else (16, 16)
+            raise ValueError(
+                f"--mesh production{' --multi-pod' if args.multi_pod else ''}"
+                f" is JAX's {shape} mesh over {need} processes, each one "
+                f"data group of 16 model ranks: run it under torchrun "
+                f"(python -m torch.distributed.run) with {need} processes "
+                f"in all; this run has {world}")
+        return make_production_mesh(multi_pod=bool(args.multi_pod),
+                                    devices=args.devices,
+                                    device=_device(args), procs=procs)
+    return make_mesh(args.tp, args.devices, _device(args), procs=procs)
+
+
+def join(args, mesh=None):
+    """This process's place in the job (``processes.init`` from
+    torchrun's environment; None for one process) and the run's mesh
+    (``mesh``, or :func:`build_mesh`'s), its process groups made and,
+    under nccl, its cards checked: before any parameter is drawn."""
+    procs = processes.init(args.dist_backend, _device_type(args))
+    if mesh is None:
+        mesh = build_mesh(args, procs)
+    if procs is not None:
+        processes.check_cards(procs, mesh.devices)
+        if mesh.devices[0].type == "cuda":
+            torch.cuda.set_device(mesh.devices[0])
+        procs.connect(mesh.shape)
+    return procs, mesh
 
 
 def _ckpt_dims(cfg, mesh) -> dict:
@@ -143,7 +216,7 @@ def _ckpt_dims(cfg, mesh) -> dict:
     return dims
 
 
-def train(cfg, args, params=None, on_step=None) -> dict:
+def train(cfg, args, params=None, on_step=None, mesh=None) -> dict:
     """Train ``cfg`` as ``args`` (:func:`parse_args`) says, from
     ``params`` (a trainable LM, cut by ``lm.shard_params`` on a mesh of
     more than one rank, or per-rank LMs; default: the seeded init, born
@@ -153,7 +226,12 @@ def train(cfg, args, params=None, on_step=None) -> dict:
     "grad_norm", "s": wall seconds since the previous log}), "params":
     the trainable LM (at ``--tp`` > 1 the per-rank list), "opt": the
     optimizer state (one per rank), "start_step": the first step run};
-    an MoE model's log entries also carry "aux", its load-balance loss."""
+    an MoE model's log entries also carry "aux", its load-balance loss.
+    ``mesh``: the run's mesh in place of :func:`build_mesh`'s (a
+    ``(pod, data, model)`` one, ``launch.mesh.make_mesh_for_devices``).
+    Over processes (torchrun, or ``processes.init`` first) the params,
+    the optimizer state and the log are this process's ranks' (the log
+    and its numbers the same on every process)."""
     if cfg.family == "audio":
         raise SystemExit(
             f"{cfg.name} is an audio model: it trains on a 'frames' stream "
@@ -161,7 +239,9 @@ def train(cfg, args, params=None, on_step=None) -> dict:
             f"(SyntheticLM: tokens and labels) does not make; train it "
             f"with launch.steps.make_train_step on a batch holding "
             f"'frames' (steps.synthetic_batch)")
-    mesh = build_mesh(args)
+    procs, mesh = join(args, mesh)
+    lead = procs is None or procs.rank == 0     # prints, writes metrics
+    everyone = mesh.across(("pod", "data"))     # None in one process
     dev = mesh.devices[0]
     W = mesh.size                 # every rank: data groups x model
     ctx = dctx.DistContext(mesh if W > 1 else None, args.fusion_mode)
@@ -169,7 +249,9 @@ def train(cfg, args, params=None, on_step=None) -> dict:
         lr=schedule.warmup_cosine(args.lr, args.warmup, args.steps))
     guard = PreemptionGuard().install()
     watchdog = StragglerWatchdog()
-    hb = Heartbeat(args.heartbeat_file) if args.heartbeat_file else None
+    hb = Heartbeat(args.heartbeat_file,
+                   host_id=0 if procs is None else procs.rank) \
+        if args.heartbeat_file else None
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                        global_batch=args.batch, seed=args.seed)
 
@@ -184,14 +266,16 @@ def train(cfg, args, params=None, on_step=None) -> dict:
               zip(lm.as_ranks(params), lm.as_ranks(opt_state))]
     dims = _ckpt_dims(cfg, mesh)
 
-    start_step = 0
+    start_step, stop = 0, False
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     if ckpt and args.resume and ckpt.latest_step() is not None:
         _, manifest = ckpt.restore_sharded(None, states, dims,  # in place
-                                           mesh_shape=mesh.shape)
+                                           mesh_shape=mesh.shape,
+                                           first=mesh.first)
         start_step = manifest["extra"].get("next_step", 0)
-        print(f"[train] resumed at step {start_step} on {W} rank(s) "
-              f"{dict(mesh.shape)}", flush=True)
+        if lead:
+            print(f"[train] resumed at step {start_step} on {W} rank(s) "
+                  f"{dict(mesh.shape)}", flush=True)
 
     step_fn = steps_lib.make_train_step(cfg, opt_cfg)
     metrics_log = []
@@ -213,33 +297,39 @@ def train(cfg, args, params=None, on_step=None) -> dict:
             if cfg.block == "attn_moe":
                 entry["aux"] = float(metrics["aux"])
                 aux = f" aux {entry['aux']:.4f}"
-            print(f"[train] step {step:5d} loss {loss:.4f}{aux} gnorm "
-                  f"{gnorm:.3f} ({dt:.2f}s)", flush=True)
+            if lead:
+                print(f"[train] step {step:5d} loss {loss:.4f}{aux} gnorm "
+                      f"{gnorm:.3f} ({dt:.2f}s)", flush=True)
             metrics_log.append(entry)
             if hb:
                 hb.beat(step, loss=loss)
         watchdog.timed(step, t0)
 
-        if ckpt and ((step + 1) % args.ckpt_every == 0 or guard.preempted):
+        stop = guard.preempted
+        if everyone is not None:    # agreed: any process's signal stops all
+            stop = bool(everyone.all_reduce(
+                torch.tensor(float(stop), device=dev), "max").item())
+        if ckpt and ((step + 1) % args.ckpt_every == 0 or stop):
             ckpt.save_sharded(step + 1, states, dims,
-                              extra={"next_step": step + 1},
-                              block=guard.preempted, mesh_shape=mesh.shape)
-        if guard.preempted:
-            print(f"[train] preempted at step {step}; checkpoint saved, "
-                  f"exiting cleanly", flush=True)
+                              extra={"next_step": step + 1}, block=stop,
+                              mesh_shape=mesh.shape, link=everyone)
+        if stop:
+            if lead:
+                print(f"[train] preempted at step {step}; checkpoint "
+                      f"saved, exiting cleanly", flush=True)
             break
 
     if ckpt:
-        if not guard.preempted:
+        if not stop:
             # JAX saves here after a preemption too, marking the skipped
             # steps done
             ckpt.save_sharded(args.steps, states, dims,
                               extra={"next_step": args.steps}, block=True,
-                              mesh_shape=mesh.shape)
+                              mesh_shape=mesh.shape, link=everyone)
         ckpt.wait()
-    if watchdog.slow_steps:
+    if watchdog.slow_steps and lead:
         print(f"[train] straggler summary: {watchdog.summary()}")
-    if args.metrics_file:
+    if args.metrics_file and lead:
         with open(args.metrics_file, "w") as f:
             json.dump(metrics_log, f)
     return {"log": metrics_log, "params": params, "opt": opt_state,
@@ -248,11 +338,15 @@ def train(cfg, args, params=None, on_step=None) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    build_mesh(args)
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = smoke_config(cfg)
-    return train(cfg, args)["log"]
+    procs = processes.init(args.dist_backend, _device_type(args))
+    try:
+        cfg = get_config(args.arch)
+        if args.smoke:
+            cfg = smoke_config(cfg)
+        return train(cfg, args)["log"]
+    finally:
+        if procs is not None:
+            processes.shutdown()
 
 
 if __name__ == "__main__":

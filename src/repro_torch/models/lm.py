@@ -225,7 +225,7 @@ def _build(cfg, device, trainable: bool, mesh, draw):
     trees = sr.make_shards(
         lm_spec(cfg), sr.rules_for(cfg, None if one else mesh),
         [resolve_device(device if mesh is None else mesh.devices[0])]
-        if one else mesh.devices, draw,
+        if one else mesh.rank_devices, draw,
         lambda path: _dtype(path, cfg, trainable),
         share_replicated=not trainable)
     if one:
@@ -297,7 +297,7 @@ def shard_params(params: LM, mesh) -> list:
     cfg = params.cfg
     trainable = any(p.requires_grad for p in params.parameters())
     trees = sr.shard_tree(param_tree(params), lm_spec(cfg),
-                          sr.rules_for(cfg, mesh), devices=mesh.devices,
+                          sr.rules_for(cfg, mesh), devices=mesh.rank_devices,
                           share_replicated=not trainable)
     return _rank_lms(cfg, mesh, trees, trainable)
 
@@ -494,16 +494,17 @@ def _groups(params, batch, cfg):
     ctx = dctx.current()
     mesh = ctx.mesh
     ranks = as_ranks(params)
-    if len(ranks) != mesh.size:
+    if len(ranks) != len(mesh.local):
         raise ValueError(f"{len(ranks)} per-rank parameter trees for a mesh "
-                         f"of {mesh.size} ranks: lm.shard_params(params, "
-                         f"mesh)")
-    if not isinstance(batch, list) or len(batch) != mesh.dp:
-        raise TypeError(f"over {mesh.dp} data groups the batch is one a "
+                         f"of {len(mesh.local)} ranks: lm.shard_params("
+                         f"params, mesh)")
+    groups = mesh.local_groups
+    if not isinstance(batch, list) or len(batch) != len(groups):
+        raise TypeError(f"over {len(groups)} data groups the batch is one a "
                         f"group: data.pipeline.shard_batch(batch, device, "
                         f"mesh)")
     ddims = data_dims(cfg, mesh)
-    for g, rows in enumerate(batch):
+    for g, rows in zip(groups, batch):
         sub = mesh.group(g)
         views = fsdp.group_views(ranks, mesh, g, ddims)
         for v in views:
@@ -529,10 +530,28 @@ def forward(params, batch, cfg):
         for lg, st, _ in _groups(params, batch, cfg):
             logits += lg
             stats.append(st)
-        return logits, _aux(stats, logits[0].device)
+        return logits, _aux(_every_group(stats), logits[0].device)
     logits, stats = _forward(as_ranks(params), batch, cfg)
     return ((logits if isinstance(params, list) else logits[0]),
             _aux([stats], logits[0].device))
+
+
+def _every_group(stats: list) -> list:
+    """The MoE statistics of every data group of the job from this
+    process's groups' (``stats``: per group its layers' (me, fe)): one
+    ``share`` over the processes (``distributed.processes``), so every
+    process takes the aux of the same stack, and the gradient reaches
+    each group's router through its own process; ``stats`` itself in
+    one process."""
+    link = dctx.current().mesh.across(("pod", "data"))
+    if link is None or not stats[0]:
+        return stats
+    L = len(stats[0])
+    mine = torch.stack([torch.stack([torch.stack(lay[i]) for i in range(L)])
+                        for lay in stats])       # (G, L, 2, E)
+    every = link.share(mine).flatten(0, 1)       # (dp, L, 2, E)
+    return [[(every[g, i, 0], every[g, i, 1]) for i in range(L)]
+            for g in range(every.shape[0])]
 
 
 def _aux(stats: list, dev):
@@ -628,20 +647,29 @@ def loss_fn(params, batch, cfg, aux_weight: float = 0.01):
     tokens (where the rows do not divide, every group runs the whole
     batch, and the sums' D copies over D times the count give the one
     mean and a gradient of the right size); the aux loss is
-    ``moe.global_aux`` of the groups' statistics."""
+    ``moe.global_aux`` of the groups' statistics. Over processes
+    (``distributed.processes``) each process runs its own groups, and
+    every group's terms and statistics are shared before the sums, in
+    group order, so every process holds the one loss, the same bits as
+    in one process."""
     if _data_mesh() is not None:
-        tot = cnt = None
-        stats = []
+        sums, cnts, stats = [], [], []
         dev = as_ranks(params)[0].device
         for logits, st, rows in _groups(params, batch, cfg):
             s_, n_ = _ce_terms_ranks(
                 logits, _pad_labels(rows["labels"], logits), cfg.vocab_size)
-            s_, n_ = cm.to_device(s_, dev), cm.to_device(n_, dev)
-            tot = s_ if tot is None else tot + s_
-            cnt = n_ if cnt is None else cnt + n_
+            sums.append(cm.to_device(s_, dev))
+            cnts.append(cm.to_device(n_, dev))
             stats.append(st)
+        link = dctx.current().mesh.across(("pod", "data"))
+        if link is not None:        # every group's terms, in group order
+            sums = list(link.share(torch.stack(sums)).flatten())
+            cnts = list(link.share(torch.stack(cnts)).flatten())
+        tot, cnt = sums[0], cnts[0]
+        for s_, n_ in zip(sums[1:], cnts[1:]):
+            tot, cnt = tot + s_, cnt + n_
         loss = tot / cnt.clamp_min(1)
-        aux = _aux(stats, loss.device)
+        aux = _aux(_every_group(stats), loss.device)
         return loss + aux_weight * aux, {"ce": loss, "aux": aux}
     logits, stats = _forward(as_ranks(params), batch, cfg)
     labels = _pad_labels(batch["labels"], logits)

@@ -21,6 +21,14 @@ for one both axes cut) are summed first, the global norm counts each
 distinct block once, and every rank then takes JAX's step on its
 blocks with the one clip, so the copies stay bit-identical.
 
+Over processes (``distributed.processes``; ``mesh`` with ``procs``)
+each process passes the trees of its own ranks: a copy group that
+spans processes shares its members' gradients over the processes that
+hold them (``Mesh.across``) and sums them in rank order, and each
+distinct block's square sum comes from the process of its first rank
+(one sum over the processes, every other entry 0), so every process
+takes the same norm, the same bits as in one process.
+
 A gradient leaf may be ``None``: a parameter the loss never reads (an
 audio model's input table: JAX's ``value_and_grad`` gives it zeros)
 takes a zero gradient, so its moments and its weight decay move as in
@@ -92,7 +100,7 @@ def apply_updates(params: dict, grads: dict, state: dict,
 @torch.no_grad()
 def apply_updates_ranks(params: list, grads: list, states: list,
                         cfg: AdamWConfig, specs: dict,
-                        mesh_shape: dict) -> dict:
+                        mesh_shape: dict, mesh=None) -> dict:
     """:func:`apply_updates` over the ranks of a mesh: ``params``,
     ``grads`` and ``states`` hold one tree per rank (row-major over the
     axes of ``mesh_shape``, axis -> size in the mesh's order); ``specs``
@@ -101,15 +109,17 @@ def apply_updates_ranks(params: list, grads: list, states: list,
     ranks that hold the same block are summed (in rank order, on the
     first one's device) and written back into each of them, IN PLACE.
     The global norm sums the leaves' squares in sorted-key order, each
-    distinct block once (:func:`global_norm` at one rank). Returns rank
-    0's metrics."""
+    distinct block once (:func:`global_norm` at one rank). ``mesh``: a
+    mesh over processes (``Mesh.procs``), whose ranks ``mesh.local``
+    the trees are. Returns the first rank's metrics."""
     g_l = [{k: torch.zeros_like(p, dtype=torch.float32) if g is None else g
             for (k, g), (_, p) in zip(tree_items(gt), tree_items(pt))}
            for gt, pt in zip(grads, params)]
     coords = rank_coords(mesh_shape)
+    local = range(len(g_l)) if mesh is None else mesh.local
     dev0 = next(iter(g_l[0].values())).device
-    sq = []
-    for path, g0 in g_l[0].items():
+    parts_of: dict = {}
+    for path in g_l[0]:
         spec = specs.get(path) or ()
         axes = {a for p in spec for a in ((p,) if isinstance(p, str)
                                           else (p or ()))}
@@ -117,21 +127,75 @@ def apply_updates_ranks(params: list, grads: list, states: list,
         for r, c in enumerate(coords):
             groups.setdefault(tuple(c[a] for a in sorted(axes)),
                               []).append(r)
+        copies = _copies(g_l, path, list(groups.values()), local, mesh,
+                         axes)
         parts = []
         for ranks in groups.values():
-            tot = g_l[ranks[0]][path].float()
-            for r in ranks[1:]:
-                tot = tot + to_device(g_l[r][path], tot.device).float()
+            held = [r for r in ranks if r in local]
+            tot = copies(ranks) if held else None
             if len(ranks) > 1:
-                for r in ranks:
-                    g_l[r][path].copy_(tot)
-            parts.append(tot.square().sum())
-        sq.append(parts[0] if len(parts) == 1 else torch.stack(
-            [to_device(t, dev0) for t in parts]).sum())
+                for r in held:
+                    g_l[r - local.start][path].copy_(tot)
+            # a block's square sum counts once: at its first rank's process
+            parts.append(tot.square().sum() if ranks[0] in local else None)
+        parts_of[path] = parts
+    if mesh is not None and mesh.procs is not None:
+        parts_of = _every_part(parts_of, mesh, dev0)
+    sq = [parts[0] if len(parts) == 1 else torch.stack(
+          [to_device(t, dev0) for t in parts]).sum()
+          for parts in parts_of.values()]
     gnorm = torch.stack(sq).sum().sqrt()
     out = [_step(p, g, s, cfg, to_device(gnorm, s["step"].device))
            for p, g, s in zip(params, g_l, states)]
     return out[0]
+
+
+def _copies(g_l, path, groups, local, mesh, axes):
+    """``sum(ranks)``: the float32 sum of the gradients of a copy group's
+    ``ranks`` in rank order (left to right), for a group of which this
+    process holds a rank. Members other processes hold come from one
+    ``share`` over the processes that hold the leaf's copies, made here
+    for every group that spans processes."""
+    def own(r):
+        return g_l[r - local.start][path]
+    have: dict = {}
+    spans = [rs for rs in groups if any(r in local for r in rs)
+             and not all(r in local for r in rs)]
+    if spans:
+        link = mesh.across(tuple(a for a in ("pod", "data")
+                                 if a not in axes))
+        order = [r for rs in spans for r in rs]
+        mine = [r for r in order if r in local]
+        every = link.share(torch.stack([own(r).float() for r in mine]))
+        n = len(local)
+        for i, q in enumerate(link.members):
+            held = [r for r in order if q * n <= r < (q + 1) * n]
+            have.update({r: every[i, j] for j, r in enumerate(held)})
+
+    def total(ranks):
+        def g(r):
+            return have[r] if r in have else own(r)
+        tot = g(ranks[0]).float()
+        for r in ranks[1:]:
+            tot = tot + to_device(g(r), tot.device).float()
+        return tot
+    return total
+
+
+def _every_part(parts_of: dict, mesh, dev) -> dict:
+    """Every block's square sum on every process: each process's parts
+    (None where another process holds the block's first rank) summed
+    over the processes, one flat all-reduce whose every entry has one
+    non-zero term (exact)."""
+    flat = torch.stack([torch.zeros((), device=dev) if t is None
+                        else to_device(t, dev).float()
+                        for parts in parts_of.values() for t in parts])
+    flat = mesh.across(("pod", "data")).all_reduce(flat)
+    out, i = {}, 0
+    for path, parts in parts_of.items():
+        out[path] = list(flat[i:i + len(parts)])
+        i += len(parts)
+    return out
 
 
 def _step(params: dict, g_l: dict, state: dict, cfg: AdamWConfig,

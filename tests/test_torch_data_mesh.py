@@ -652,8 +652,8 @@ def test_jax_trainer_resumes_the_ports_two_by_two_checkpoint(tmp_path):
 def test_cli_data_mesh_matches_tp1(tmp_path):
     """``python -m repro_torch.launch.train --devices cpu,cpu,cpu,cpu
     --tp 2`` (bf16 smoke, a (2, 2) mesh) against ``--tp 1``; a device
-    count that does not divide by ``--tp`` and the production meshes
-    raise."""
+    count that does not divide by ``--tp`` and, in one process, the
+    production meshes (16 and 32 processes) raise."""
     argv = ["--arch", "llama3-8b", "--smoke", "--device", "cpu", "--batch",
             "4", "--seq", "32", "--log-every", "1", "--warmup", "8",
             "--steps", "3"]
@@ -670,8 +670,8 @@ def test_cli_data_mesh_matches_tp1(tmp_path):
     np.testing.assert_allclose(mesh, tp1, rtol=2e-3)
     with pytest.raises(ValueError, match="do not divide by --tp 2"):
         ttrain.main(argv + ["--tp", "2", *_devs(3)])
-    for extra in (["--mesh", "production"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="10d"):
+    for extra, n in ((["--mesh", "production"], 16), (["--multi-pod"], 32)):
+        with pytest.raises(ValueError, match=f"over {n} processes"):
             ttrain.main(argv + ["--tp", "2", *_devs(4)] + extra)
 
 

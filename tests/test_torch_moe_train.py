@@ -195,14 +195,15 @@ def test_port_resumes_a_jax_moe_checkpoint(tmp_path, float32_trainers):
 def test_moe_training_over_ranks_raises_before_allocating(monkeypatch):
     """``--tp W > 1`` trains attn_moe now (the experts over the ranks:
     tests/test_torch_multirank_train_families.py); what still raises
-    NotImplementedError before any parameter is drawn is a production
-    mesh (one process per card, ROADMAP item 10d). Sharding splits the
-    experts and gathers back to the same tree; serving replicates."""
+    before any parameter is drawn is a production mesh in one process
+    (it needs 16 processes, one a data group:
+    tests/test_torch_processes.py). Sharding splits the experts and
+    gathers back to the same tree; serving replicates."""
     drawn = []
     monkeypatch.setattr(tlm, "init_params",
                         lambda *a, **k: drawn.append(1))
     for tp in ("2", "4"):
-        with pytest.raises(NotImplementedError, match="10d"):
+        with pytest.raises(ValueError, match="over 16 processes"):
             ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--tp",
                                tp, "--mesh", "production"])
     assert not drawn

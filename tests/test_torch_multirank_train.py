@@ -454,14 +454,15 @@ def test_cli_tp2_matches_tp1_and_resumes_at_tp1_and_in_jax(tmp_path):
 
 def test_trainer_meshes():
     """``--devices`` lists one device per rank, as in ``launch.serve``;
-    the production meshes need one process per card (item 10d)."""
+    the production meshes need 16 and 32 processes (torchrun), and one
+    process refuses them."""
     log = ttrain.main(RUN + ["--steps", "1", "--tp", "2", "--devices",
                              "cpu,cpu"])
     assert np.isfinite(log[0]["loss"])
     with pytest.raises(ValueError, match="one device per rank"):
         ttrain.main(RUN + ["--steps", "1", "--tp", "2", "--devices", "cpu"])
-    for extra in (["--mesh", "production"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="10d"):
+    for extra, n in ((["--mesh", "production"], 16), (["--multi-pod"], 32)):
+        with pytest.raises(ValueError, match=f"over {n} processes"):
             ttrain.main(RUN + ["--steps", "1", "--tp", "2"] + extra)
 
 

@@ -194,15 +194,15 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, arch, float32_trainers):
 def test_training_over_ranks_raises_before_allocating(arch, monkeypatch):
     """``--tp W > 1`` trains the recurrent families now
     (tests/test_torch_multirank_train_families.py); what still raises
-    NotImplementedError before any parameter is drawn is a production
-    mesh (one process per card, ROADMAP item 10d). Sharding splits the
-    ``ssm_inner``/``mlp`` dims and gathers back to the same tree;
-    serving replicates."""
+    before any parameter is drawn is a production mesh in one process
+    (``--multi-pod`` needs 32 processes: tests/test_torch_processes.py).
+    Sharding splits the ``ssm_inner``/``mlp`` dims and gathers back to
+    the same tree; serving replicates."""
     drawn = []
     monkeypatch.setattr(tlm, "init_params",
                         lambda *a, **k: drawn.append(1))
     for tp in ("2", "4"):
-        with pytest.raises(NotImplementedError, match="10d"):
+        with pytest.raises(ValueError, match="over 32 processes"):
             ttrain.main(_run(arch) + ["--steps", "1", "--device", "cpu",
                                       "--tp", tp, "--multi-pod"])
     assert not drawn

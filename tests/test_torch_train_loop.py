@@ -219,7 +219,7 @@ def test_port_resume_equals_the_uninterrupted_run(tmp_path):
 
 
 def test_trainer_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="10d"):
+    with pytest.raises(ValueError, match="over 16 processes"):
         ttrain.main(RUN + ["--steps", "1", "--device", "cpu", "--mesh",
                            "production"])
     if torch.cuda.is_available():
