@@ -204,7 +204,7 @@ source, in parallel), then runs, failing on the first phase that fails:
    identical; hubert-smoke refused by the engine; both smoke models
    trained 3 steps with patches / frames through ``launch.steps``, card
    vs CPU and tp 4 vs tp 1; (c) paligemma-3b at full width (nothing
-   cut) with phase 5's traffic at K = 1 (4 requests) and K = 8 (+ the
+   cut) with phase 5's traffic at K = 1 (2 requests) and K = 8 (+ the
    steady rerun), launches exact a step (73 GEMM + 18 paged decodes),
    finite logits, contiguous-cache decode steps (18 contiguous decodes a
    step); (d) paligemma-3b (2 x (1024 tokens + 256 patches)) and
@@ -350,7 +350,7 @@ def graph_ms(fn, iters=20):
 # the __global__ functions of csrc/*.cu, as the profiler names them
 # ("(anonymous namespace)::<name><T, ...>(...)")
 PORT_KERNELS = ("gemm_stream", "mm_kernel", "fd_paged", "fd_strided",
-                "ag_gemm_kernel")
+                "ag_gemm_kernel", "exchange_kernel")
 
 
 def port_kernel(name: str, key: str) -> bool:
@@ -1249,6 +1249,16 @@ def _full_requests(cfg, plens, seed, max_new, stagger):
              stagger * i) for i, n in enumerate(plens)]
 
 
+def _tail_requests(cfg, plens, seed, max_new, stagger, n):
+    """The last ``n`` of :func:`_full_requests`'s requests (the same
+    prompt tokens; phase 5's last prompts are its short ones: 61, 35,
+    39, 33 tokens), ``max_new`` new tokens each, admitted ``stagger``
+    ticks apart from the first tick. Request i here is request
+    ``len(plens) - n + i`` there."""
+    reqs = _full_requests(cfg, plens, seed, max_new, stagger)[-n:]
+    return [(p, m, stagger * i) for i, (p, m, _) in enumerate(reqs)]
+
+
 def _drive_timed(eng, reqs):
     """Submit ``reqs`` and tick to the end, timing every tick on the host
     clock and every graph replay with CUDA events. Returns (finished
@@ -1418,13 +1428,19 @@ def _check_serve(cell, done, cfg, n, max_new, per_step, what):
               f"{what}: not one graph replay per megatick: {cell}")
 
 
+# phase 5's K = 1 and eager K = 8 serves: the last 4 of its 8 requests
+# (the short prompts, 32 new tokens each; the graph-replayed K = 8
+# serves keep all 8)
+K1_REQS_5 = 4
+
+
 def phase_full_width():
     """(5) full-width llama3-8b (bf16, seeded random weights) served at
-    K = 1 (eager, one dispatch a tick) and at K = 8 (one CUDA-graph
-    replay a megatick; then the same lengths again with the graphs
-    reused, for the steady time), and at K = 8 with the loop run
-    eagerly; the launches of both W = 1 kernels counted around each
-    serve."""
+    K = 1 (eager, one dispatch a tick; the last K1_REQS_5 requests) and
+    at K = 8 (one CUDA-graph replay a megatick; then the same lengths
+    again with the graphs reused, for the steady time), and at K = 8
+    with the loop run eagerly (the last K1_REQS_5); the launches of
+    both W = 1 kernels counted around each serve."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     cfg = get_config("llama3-8b")
@@ -1439,14 +1455,20 @@ def phase_full_width():
     per_step = {"matmul": 4 * cfg.n_layers + 1,
                 "flash_decode_paged": cfg.n_layers}
     cells = {}
-    cells["k1"], done1 = serve_cell(params, cfg, 1, reqs_a, **kw)
-    _check_serve(cells["k1"], done1, cfg, 8, 32, per_step, "full width K=1")
+    # K = 1 and the eager K = 8 (host-bound) on the last K1_REQS_5
+    off = len(plens) - K1_REQS_5
+    cells["k1"], done1 = serve_cell(
+        params, cfg, 1, _tail_requests(cfg, plens, 1, 32, 2, K1_REQS_5),
+        **kw)
+    _check_serve(cells["k1"], done1, cfg, K1_REQS_5, 32, per_step,
+                 "full width K=1")
     cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "full width K=8")
-    cells["k8_eager"], _ = serve_cell(params, cfg, 8, reqs_a, graphs=False,
-                                      **kw)
+    cells["k8_eager"], _ = serve_cell(
+        params, cfg, 8, _tail_requests(cfg, plens, 1, 32, 2, K1_REQS_5),
+        graphs=False, **kw)
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens for r in done8}
+    s8 = {r.rid - off: r.out_tokens for r in done8 if r.rid >= off}
     same = sum(s1[r] == s8[r] for r in s1)
     cells["k8"]["streams_identical_to_k1"] = same
     print(f"[full] K=8 streams identical to K=1 for {same} of {len(s1)} "
@@ -4100,6 +4122,651 @@ def phase_processes(dm_full):
     return {"train": train, "cli": _processes_cli_finish(cli)}
 
 
+# ----------------------- phase 25: serving, the model axis over processes
+P25_PROCS = 2              # processes on cuda:0, P25_W / 2 model ranks each
+P25_W = 4                  # the job's model axis (phase 10's tp)
+P25_TIMEOUT = 600          # s the processes of 25a-c may take together
+P25_RT_ITERS = 200         # 25a: timed round trips
+P25_ITERS = 20             # 25b: timed calls of each kernel a process
+P25_PLENS = (16, 24, 40, 48)   # 25c: prompt tokens of the 4 requests
+P25_NEW, P25_K = 16, 8         # 25c: new tokens a request, megatick K
+P25_MODES = ("pallas", "auto")
+P25_STEPS = 4              # 25c: contiguous decode steps (the strided path)
+P25_CLI = ["--arch", "llama3-8b", "--smoke", "--tp", str(P25_W),
+           "--fusion-mode", "pallas", "--decode-steps", "4",
+           "--requests", "4", "--max-new", "6", "--batch", "4"]
+
+
+def _p25_mesh(procs, W):
+    """A (1, W) mesh whose model axis the job's processes split, this
+    process's W / P ranks virtual on cuda:0 (every rank here without
+    ``procs``)."""
+    from repro_torch.launch.mesh import make_mesh
+    world = 1 if procs is None else procs.world
+    mesh = make_mesh(W, devices=["cuda:0"] * (W // world), procs=procs,
+                     split_model=True)
+    if procs is not None:
+        procs.connect(mesh.shape)
+    return mesh
+
+
+def _p25_ms(fn, iters=P25_ITERS):
+    """Wall ms of one ``fn()`` call (synchronised around ``iters`` calls
+    after 2 warm-ups): both processes run the same loop, so it counts the
+    card's switches between their contexts."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _p25_roundtrip(procs):
+    """(25a) ``symm_exchange`` between the 2 processes, one rank each on
+    cuda:0: the gathered values, then the wall us of one exchange (a
+    push, a flag and a wait on the other context) over P25_RT_ITERS."""
+    from repro_torch.kernels import symm
+    mesh = _p25_mesh(procs, procs.world)
+    x = torch.full((4,), float(procs.rank + 1), device="cuda:0")
+    out = symm.exchange([x], mesh)
+    torch.cuda.synchronize()
+    want = [float(q + 1) for q in range(procs.world) for _ in range(4)]
+    check(out.tolist() == want, f"round trip: {out.tolist()} != {want}")
+    us = 1e3 * _p25_ms(lambda: symm.exchange([x], mesh), P25_RT_ITERS)
+    mesh.symm.close()
+    return {"us_per_round_trip": us}
+
+
+def _p25_missing(procs):
+    """(25a) a peer that never arrives: both processes make one exchange,
+    then process 0 makes another, which process 1 never joins (it waits
+    on the store, its heap mapped). Process 0's kernel must end in a
+    CUDA error within ``csrc/symm.cuh`` SPIN_NS (~1 s), not hang."""
+    from repro_torch.distributed import processes
+    from repro_torch.kernels import symm
+    mesh = _p25_mesh(procs, procs.world)
+    x = torch.ones(4, device="cuda:0")
+    symm.exchange([x], mesh)
+    torch.cuda.synchronize()
+    processes.barrier(procs, "p25/armed", range(procs.world))
+    if procs.rank != 0:
+        processes.collect(procs, "p25/missing", (0,))
+        return {"waited": True}
+    t0 = time.perf_counter()
+    err = None
+    try:
+        symm.exchange([x], mesh)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        err = str(e)
+    s = time.perf_counter() - t0
+    processes.publish(procs, "p25/missing", b"1")
+    return {"error": err, "s": s}
+
+
+def _p25_inputs(gen):
+    """(25b) the kernels' inputs at phase 10's decode shapes (llama3-8b's
+    heads, batch 8, bf16) for P25_W ranks, on the host."""
+    bf16 = torch.bfloat16
+    W, M, K, N = P25_W, 8, 4096, 4096
+    k = K // W
+    a = torch.randn((M, K), generator=gen, device="cuda").to(bf16)
+    b = (torch.randn((K, N), generator=gen, device="cuda") / 64).to(bf16)
+    q, kps, vps, cur, tb = _paged_ranks_inputs(gen, bf16, W)
+    qs, ks, vs, cs = _strided_inputs(gen, bf16, W)
+    qkv = [torch.randn((8, 1, 1536), generator=gen, device="cuda").to(bf16)
+           for _ in range(W)]
+    part = [torch.randn((8, 1, 4096), generator=gen, device="cuda")
+            for _ in range(W)]
+    host = {"ag_a": [a[:, r * k:(r + 1) * k].contiguous() for r in range(W)],
+            "ag_b": b, "pq": q, "pk": kps, "pv": vps, "pcur": cur,
+            "ptb": tb, "sq": qs, "sk": ks, "sv": vs, "scur": cs,
+            "qkv": qkv, "part": part}
+    return {n: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+            for n, v in host.items()}
+
+
+def _p25_calls(inp, mesh):
+    """(25b) the four calls over ``mesh``'s ranks (every rank in one
+    process, or this process's over several), by name: each returns the
+    per-rank outputs (the exchange: its one tensor)."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import symm
+    from repro_torch.kernels.ag_gemm import ag_gemm_fused
+    ids = list(mesh.local)
+    n = len(ids)
+    dev = "cuda:0"
+
+    def mine(name):
+        return [inp[name][r].to(dev) for r in ids]
+    shards, b = mine("ag_a"), inp["ag_b"].to(dev)
+    pk, pv = mine("pk"), mine("pv")
+    pq, pc, pt = (inp[k].to(dev) for k in ("pq", "pcur", "ptb"))
+    sk, sv = mine("sk"), mine("sv")
+    sq, sc = inp["sq"].to(dev), inp["scur"].to(dev)
+    qkv, part = mine("qkv"), mine("part")
+    scale = 128 ** -0.5
+    split = symm.split(mesh)
+    return {
+        "ag_gemm_fused": lambda: ag_gemm_fused(shards, [b] * n, mesh),
+        "flash_decode_paged_fused": lambda: kfd.flash_decode_paged_fused(
+            [pq] * n, pk, pv, [pc] * n, [pt] * n, scale, mesh=mesh),
+        "flash_decode_fused": lambda: kfd.flash_decode_fused(
+            [sq] * n, sk, sv, [sc] * n, scale, mesh=mesh),
+        "symm_exchange": lambda: [
+            symm.exchange(qkv, mesh, "gather", -1) if split
+            else torch.cat(qkv, dim=-1),
+            symm.exchange(part, mesh, "sum") if split
+            else sum(part[1:], part[0])]}
+
+
+def _p25_kernels(procs, path):
+    """(25b) each call of :func:`_p25_calls` over the 2 processes: the
+    outputs (host copies, for the parent) and the wall ms a call."""
+    inp = torch.load(path)
+    mesh = _p25_mesh(procs, P25_W)
+    out, ms = {}, {}
+    for name, fn in _p25_calls(inp, mesh).items():
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = [t.cpu() for t in res]
+        ms[name] = _p25_ms(fn)
+    mesh.symm.close()
+    return {"out": out, "ms": ms}
+
+
+def _p25_requests(cfg):
+    """(25c) 4 requests of P25_PLENS seeded prompt tokens."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(25)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, n)], max_new_tokens=P25_NEW)
+        for i, n in enumerate(P25_PLENS)]
+
+
+def _p25_serve(procs):
+    """(25c) llama3-8b at full width and depth, born sharded (seed 0)
+    over the (1, P25_W) mesh of this job (or one process), served under
+    each of P25_MODES at K = P25_K (4 requests at once, 16 new tokens
+    each), the kernels' counters zeroed just before and read just
+    after; then P25_STEPS decode steps over the contiguous state under
+    ``pallas`` (the strided fused decode). Returns the streams, the
+    counts, ms a step, GB (shards + heap), graph replays, host bytes
+    and the contiguous steps' logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import launch_counted
+    cfg = get_config("llama3-8b")
+    mesh = _p25_mesh(procs, P25_W)
+    params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh)
+    shard_bytes = sum(t.numel() * t.element_size() for t in
+                      {id(t): t for p in params
+                       for t in p.parameters()}.values())
+    fns = launch_counted()
+    out = {"shard_gb": shard_bytes / 1e9}
+    for mode in P25_MODES:
+        with use(DistContext(mesh, mode)):
+            eng = Engine(params, cfg, batch=4, max_len=128, block_size=16,
+                         prefill_chunk=8, decode_steps=P25_K,
+                         device="cuda:0")
+        for r in _p25_requests(cfg):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counted(fns)
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.scan_steps + eng._runner.warmup_steps
+        m = eng.metrics(done)
+        out[mode] = {
+            "streams": {r.rid: list(r.out_tokens) for r in done},
+            "launches": {f.__name__: f.launches for f in fns},
+            "plain_calls": {f.__name__: f.plain_calls for f in fns},
+            "decode_steps": steps, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / max(steps, 1),
+            "graph_replays": m.get("graph_replays", 0),
+            "graph_captures": m.get("graph_captures", 0),
+            "dispatches": m["dispatches"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "heap_gb": (0 if mesh.symm is None
+                        else mesh.symm.heap_bytes / 1e9),
+            "host_bytes": 0 if procs is None else procs.host_bytes}
+        del eng
+        torch.cuda.empty_cache()
+    toks = torch.from_numpy(np.random.default_rng(26).integers(
+        1, cfg.vocab_size, (P25_STEPS, 4, 1)).astype(np.int64))
+    kfd.flash_decode_fused.launches = 0
+    logits = []
+    with use(DistContext(mesh, "pallas")), torch.inference_mode():
+        st = lm.init_decode_state(params, cfg, 4, 64)
+        for i in range(P25_STEPS):
+            lg, st = lm.decode_step(params, toks[i].to("cuda:0"), st, cfg)
+            logits.append(lg.cpu())
+    out["contiguous"] = {"logits": logits,
+                         "launches": kfd.flash_decode_fused.launches}
+    if mesh.symm is not None:
+        mesh.symm.close()
+    return out
+
+
+def _p25_child(rank, world, rdv, out, inputs, what):
+    """One of P25_PROCS spawned processes on cuda:0 in a gloo job over
+    ``rdv``: ``what`` "missing" runs :func:`_p25_missing` alone; "all"
+    runs 25a's round trip, 25b's kernels (inputs in ``inputs``) and 25c's
+    serves. Writes its results (or the traceback) to ``out.<rank>``
+    (``torch.save``)."""
+    import traceback
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        from repro_torch.distributed import processes
+        procs = processes.init("gloo", "cuda", init_method=rdv, rank=rank,
+                               world_size=world)
+        torch.cuda.set_device(0)
+        if what == "missing":
+            res = _p25_missing(procs)
+        else:
+            for name, fn, args in (("roundtrip", _p25_roundtrip, ()),
+                                   ("kernels", _p25_kernels, (inputs,)),
+                                   ("serve", _p25_serve, ())):
+                with open(f"{out}.{rank}.stage", "w") as f:
+                    f.write(name)     # where a process that aborts was
+                res[name] = fn(procs, *args)
+    except Exception:
+        res = {"error": traceback.format_exc()}
+    torch.save(res, f"{out}.{rank}")
+    if what == "missing":
+        os._exit(0)             # process 0's context ended in the trap
+    from repro_torch.distributed import processes
+    processes.shutdown()
+    if "error" in res:
+        sys.exit(1)
+
+
+def _p25_start(what, inputs=None):
+    """P25_PROCS spawned :func:`_p25_child` processes, started."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p25_")
+    ctx = multiprocessing.get_context("spawn")
+    kids = [ctx.Process(target=_p25_child, args=(
+        r, P25_PROCS, f"file://{tmp}/rdv", f"{tmp}/out", inputs, what))
+        for r in range(P25_PROCS)]
+    for k in kids:
+        k.start()
+    return what, kids, tmp, time.time()
+
+
+def _p25_finish(started, timeout=P25_TIMEOUT):
+    """The results of :func:`_p25_start`'s processes, and their s."""
+    what, kids, tmp, t0 = started
+    for k in kids:
+        k.join(max(1.0, timeout - (time.time() - t0)))
+    hung = [r for r, k in enumerate(kids) if k.is_alive()]
+    for k in kids:
+        if k.is_alive():
+            k.kill()
+            k.join()
+    check(not hung, f"model processes ({what}): {hung} still running "
+                    f"after {timeout} s")
+    res = []
+    for r in range(P25_PROCS):
+        if not os.path.exists(f"{tmp}/out.{r}"):
+            stage = (open(f"{tmp}/out.{r}.stage").read()
+                     if os.path.exists(f"{tmp}/out.{r}.stage") else "start")
+            check(False, f"model processes ({what}): process {r} ended "
+                         f"(exit {kids[r].exitcode}) in {stage} with no "
+                         f"result")
+        x = torch.load(f"{tmp}/out.{r}")
+        check("error" not in x or what == "missing",
+              f"model processes ({what}): process {r} failed:\n"
+              f"{x.get('error')}")
+        res.append(x)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, time.time() - t0
+
+
+def _p25_cli_start():
+    """(25d), started: the smoke CLI (P25_CLI) under torchrun in 2
+    processes on ``--devices cuda:0,cuda:0``."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p25d_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    log = open(os.path.join(tmp, "two.log"), "w+")
+    run = _torchrun(["--nproc-per-node", "2", "-m",
+                     "repro_torch.launch.serve"] + P25_CLI
+                    + ["--devices", "cuda:0,cuda:0", "--metrics-file",
+                       f"{tmp}/two.json"], env, log)
+    return tmp, run, log, time.time()
+
+
+def _p25_cli_finish(started):
+    """(25d), checked against ``launch.serve.main`` of the same flags in
+    this process (4 virtual ranks): the same streams, and only process 0
+    of the torchrun job printed its stats."""
+    from repro_torch.launch import serve
+    tmp, run, log, t0 = started
+    try:
+        rc = run.wait(timeout=max(1.0, 300 - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        run.kill()
+        rc = run.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    check(rc == 0, f"serve CLI over processes: exit {rc}\n{text[-3000:]}")
+    with open(f"{tmp}/two.json") as f:
+        two = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    one = {str(k): v for k, v in serve.main(P25_CLI)["streams"].items()}
+    printed = text.count("[serve] {")
+    check(two["streams"] == one, f"serve CLI: torchrun streams "
+                                 f"{two['streams']} vs one process {one}")
+    check(printed == 1 and two["host_bytes"] == 0,
+          f"serve CLI: {printed} processes printed their stats, host "
+          f"bytes {two.get('host_bytes')}")
+    wall = time.time() - t0
+    print(f"[model processes CLI] smoke --tp {P25_W} pallas: torchrun 2 "
+          f"processes on cuda:0 serve the one process's streams, process "
+          f"0 alone prints; {wall:.1f} s", flush=True)
+    return {"streams": one, "wall_s": wall}
+
+
+def _p25_rows(gen, inp, ref, kids, serve, plain):
+    """The kernels line's rows of 25: ``symm_exchange`` and the three
+    fused kernels over the 2 processes (each call's ms from the
+    processes, wall under the card's time-slicing; launches from 25c's
+    pallas serve, the strided decode's from its contiguous steps; bound
+    and plain version from the same inputs here)."""
+    W, bf16 = P25_W, torch.bfloat16
+    ms = {n: max(k["kernels"]["ms"][n] for k in kids) for n in ref}
+    launch = serve["pallas"]["launches"]
+    lens = inp["pcur"].tolist()
+    by_pool = sum(-(-n // 16) for n in lens) * 16 * 8 * 128 * 2 * 2
+    q_b = nbytes(inp["pq"])
+    sl = inp["scur"].tolist()
+    qkv_b, part_b = nbytes(inp["qkv"][0]), nbytes(inp["part"][0])
+    spec = {
+        "ag_gemm_fused": (
+            "src/repro_torch/csrc/ag_gemm.cu",
+            "src/repro/kernels/ag_gemm.py:114", launch["ag_gemm_fused"],
+            W * 2 * 8 * 4096 * 4096,
+            nbytes(*inp["ag_a"]) + nbytes(inp["ag_b"]) + W * 8 * 4096 * 2,
+            "wo at batch 8: 8x4096 . 4096x4096 bf16 over 4 ranks"),
+        "flash_decode_paged_fused": (
+            "src/repro_torch/csrc/flash_decode_paged.cu",
+            "src/repro/kernels/flash_decode.py:272",
+            launch["flash_decode_paged_fused"],
+            sum(4 * n * 32 * 128 for n in lens),
+            by_pool + q_b + W * q_b, f"batch 8, cur_len {lens}"),
+        "flash_decode_fused": (
+            "src/repro_torch/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode.py:321",
+            serve["contiguous"]["launches"],
+            sum(4 * n * 32 * 128 for n in sl),
+            sum(sl) * 8 * 128 * 2 * 2 + nbytes(inp["sq"]) + W
+            * nbytes(inp["sq"]), f"batch 8, strided S_max 512, cur_len "
+                                 f"{sl}"),
+        "symm_exchange": (
+            "src/repro_torch/csrc/symm_exchange.cu",
+            "none, no Pallas kernel: XLA's all-gather and all-reduce "
+            "(as at src/repro/core/collective_matmul.py:64)",
+            launch["exchange"], 0,
+            W * (qkv_b + part_b) + P25_PROCS * (W * qkv_b + part_b),
+            "the q/k/v gather (8x1x1536 bf16 a rank) + the row sum (8x1x"
+            "4096 fp32 a rank) over 4 ranks")}
+    rows = []
+    for name, (src, rep, n, ops, by, unit) in spec.items():
+        b, b_by = bound(ops, by, bf16)
+        err = max((g.float() - w.float().cpu()).abs().max().item()
+                  for g, w in zip(ref[name], plain[name]))
+        rows.append({"name": f"{name}_processes", "route": "cuda",
+                     "source": src, "replaces": rep, "launches": n,
+                     "max_abs_err": err, "ms": ms[name],
+                     "plain_ms": plain["ms"][name], "bound_ms": 1e3 * b,
+                     "bound_by": b_by,
+                     "library_ms": plain["library_ms"][name],
+                     "unit": f"one call, 2 processes x 2 ranks on cuda:0 "
+                             f"(time-sliced): {unit}"})
+    return rows
+
+
+def _p25_library(g, scale):
+    """(25b) one PyTorch library call a function on the same inputs, in
+    one process, graph-timed (the gathers they take joined beforehand,
+    as phase 10's are): ``torch.matmul`` of the joined A, SDPA over the
+    paged blocks gathered (holes and lengths masked) and over the
+    strided shards in global order, ``torch.cat`` + ``torch.sum`` for
+    the exchange's gather and sum."""
+    import torch.nn.functional as F
+    B, H, D = g["pq"].shape
+    a = torch.cat(g["ag_a"], dim=-1)
+    pool_k, pool_v = torch.cat(g["pk"]), torch.cat(g["pv"])
+    bs, KVH = pool_k.shape[1], pool_k.shape[2]
+    tb = g["ptb"].long()
+    S = tb.shape[1] * bs
+    pos = torch.arange(S, device=tb.device)
+    ok = (tb >= 0).repeat_interleave(bs, 1) & (pos[None] < g["pcur"][:,
+                                                                  None])
+
+    def heads(x):
+        return x.reshape(B, -1, KVH, D).repeat_interleave(H // KVH, 2) \
+            .transpose(1, 2).contiguous()
+    pk = heads(pool_k[tb.clamp_min(0)])
+    pv = heads(pool_v[tb.clamp_min(0)])
+    sk = heads(torch.stack(g["sk"], dim=2))
+    sv = heads(torch.stack(g["sv"], dim=2))
+    s_ok = torch.arange(sk.shape[2], device=tb.device)[None] \
+        < g["scur"][:, None]
+    part = torch.stack(g["part"])
+    fns = {
+        "ag_gemm_fused": lambda: torch.matmul(a, g["ag_b"]),
+        "flash_decode_paged_fused": lambda: F.scaled_dot_product_attention(
+            g["pq"][:, :, None], pk, pv, attn_mask=ok[:, None, None],
+            scale=scale),
+        "flash_decode_fused": lambda: F.scaled_dot_product_attention(
+            g["sq"][:, :, None], sk, sv, attn_mask=s_ok[:, None, None],
+            scale=scale),
+        "symm_exchange": lambda: (torch.cat(g["qkv"], dim=-1),
+                                  torch.sum(part, dim=0))}
+    return {n: graph_ms(fn, iters=50) for n, fn in fns.items()}
+
+
+def _p25_plain(inp):
+    """(25b) the plain PyTorch versions on the same inputs (every rank
+    here), and their ms a call; the library calls' ms."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels.ag_gemm import ag_gemm_plain
+    W, dev, bf16 = P25_W, "cuda:0", torch.bfloat16
+    scale = 128 ** -0.5
+    g = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+         for k, v in inp.items()}
+    n_loc = g["pk"][0].shape[0]
+    fns = {
+        "ag_gemm_fused": lambda: ag_gemm_plain(g["ag_a"], [g["ag_b"]] * W),
+        "flash_decode_paged_fused": lambda: kfd.fused_plain(
+            [kfd.paged_partial_plain(g["pq"], g["pk"][r], g["pv"][r],
+                                     g["pcur"], g["ptb"], scale,
+                                     base=r * n_loc) for r in range(W)],
+            bf16),
+        "flash_decode_fused": lambda: kfd.fused_plain(
+            [kfd.strided_partial_plain(g["sq"], g["sk"][r], g["sv"][r],
+                                       g["scur"], scale, None, r, W)
+             for r in range(W)], bf16),
+        "symm_exchange": lambda: [torch.cat(g["qkv"], dim=-1),
+                                  sum(g["part"][1:], g["part"][0])]}
+    out = {n: fn() for n, fn in fns.items()}
+    out["ms"] = {n: time_ms(fn, iters=5) for n, fn in fns.items()}
+    out["library_ms"] = _p25_library(g, scale)
+    return out
+
+
+def phase_model_processes(gen):
+    """(25) serving with the model axis over processes: 2 spawned
+    processes on cuda:0 (no MPS: the card time-slices their contexts),
+    P25_W / 2 virtual model ranks each, their symmetric heaps mapped by
+    CUDA IPC. (a) a round trip through ``symm_exchange`` and its us, and
+    a peer that never arrives ending in a CUDA error within SPIN_NS;
+    (b) the three fused kernels and the exchange at phase 10's decode
+    shapes against their plain versions and bit-identical to the same
+    call over 4 ranks in one process; (c) llama3-8b full width and depth
+    served under ``pallas`` and ``auto`` (K 8): streams token-identical
+    to one process's tp 4 serve of the same requests here, no plain
+    call, no byte through torch.distributed, one graph replay a
+    megatick, the contiguous steps' logits bit-identical; (d) the CLI
+    under torchrun against one process. The time-sliced calls of (a)-(c)
+    run with nothing else on the card."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import DistContext, Mesh, use
+    from repro_torch.kernels import symm
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import launch_counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p25in_")
+    inp = _p25_inputs(gen)
+    path = os.path.join(tmp, "inputs.pt")
+    torch.save(inp, path)
+    kids, kids_s = _p25_finish(_p25_start("all", path))
+    shutil.rmtree(tmp, ignore_errors=True)
+    # (b): one process, every rank, the same calls and inputs; the plain
+    # versions timed with nothing else on the card
+    mesh4 = Mesh(["cuda:0"] * P25_W)
+    ref = {n: fn() for n, fn in _p25_calls(inp, mesh4).items()}
+    torch.cuda.synchronize()
+    plain = _p25_plain(inp)
+    # (c): the missing peer's processes and 25d's torchrun job start
+    # beside this process's references (eager: no graph to capture;
+    # graphs and eager give the same streams, phase 5b)
+    side = _p25_start("missing"), _p25_cli_start()
+    cfg = get_config("llama3-8b")
+    params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh4)
+    fns = launch_counted()
+    one = {}
+    for mode in P25_MODES:
+        with use(DistContext(mesh4, mode)):
+            eng = Engine(params, cfg, batch=4, max_len=128, block_size=16,
+                         prefill_chunk=8, decode_steps=P25_K,
+                         device="cuda:0")
+        eng._runner.use_graphs = False
+        for r in _p25_requests(cfg):
+            eng.submit(r)
+        _counted(fns)
+        done = eng.run()
+        one[mode] = {"streams": {r.rid: list(r.out_tokens) for r in done},
+                     "decode_steps": eng.scan_steps}
+        del eng
+    toks = torch.from_numpy(np.random.default_rng(26).integers(
+        1, cfg.vocab_size, (P25_STEPS, 4, 1)).astype(np.int64))
+    logits = []
+    with use(DistContext(mesh4, "pallas")), torch.inference_mode():
+        st = lm.init_decode_state(params, cfg, 4, 64)
+        for i in range(P25_STEPS):
+            lg, st = lm.decode_step(params, toks[i].to("cuda:0"), st, cfg)
+            logits.append(lg.cpu())
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    missing, missing_s = _p25_finish(side[0], timeout=120)
+    cli = _p25_cli_finish(side[1])
+    # (a)
+    rt = [k["roundtrip"]["us_per_round_trip"] for k in kids]
+    err = missing[0].get("error")
+    check(err is not None and missing[0]["s"] < 5.0,
+          f"missing peer: {missing[0]}")
+    print(f"[model processes] (a) symm_exchange round trip between 2 "
+          f"processes on cuda:0: {[round(u, 1) for u in rt]} us; a peer "
+          f"that never arrives: CUDA error after {missing[0]['s']:.2f} s "
+          f"({err.splitlines()[0][:80]})", flush=True)
+    # (b)
+    for n in ref:
+        ref[n] = [t.cpu() for t in ref[n]]
+        for p, k in enumerate(kids):
+            got = k["kernels"]["out"][n]
+            want = ref[n] if n == "symm_exchange" else \
+                ref[n][p * 2:(p + 1) * 2]
+            check(len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+                f"model processes: {n} in process {p} differs from the "
+                f"same call in one process")
+        _close(ref[n][0].to("cuda:0"), plain[n][0], torch.bfloat16,
+               f"model processes: {n} vs its plain version")
+    print(f"[model processes] (b) ag_gemm_fused, flash_decode_paged_fused,"
+          f" flash_decode_fused and symm_exchange over 2 processes x 2 "
+          f"ranks bit-identical to 4 ranks in one process and within "
+          f"their tolerance of the plain versions; ms a call "
+          f"{ {n: round(v, 3) for n, v in kids[0]['kernels']['ms'].items()} }"
+          f" (time-sliced)", flush=True)
+    # (c)
+    serve = [k["serve"] for k in kids]
+    for p, s in enumerate(serve):
+        for mode in P25_MODES:
+            c = s[mode]
+            check(c["streams"] == one[mode]["streams"],
+                  f"model processes {mode}: process {p}'s streams "
+                  f"{c['streams']} vs one process's "
+                  f"{one[mode]['streams']}")
+            check(all(len(t) == P25_NEW for t in c["streams"].values()),
+                  f"model processes {mode}: streams {c['streams']}")
+            check(not any(c["plain_calls"].values()) and c["host_bytes"]
+                  == 0, f"model processes {mode}: plain calls "
+                        f"{c['plain_calls']}, host bytes {c['host_bytes']}")
+            check(c["launches"]["exchange"] > 0 and c["launches"]["matmul"]
+                  > 0 and c["graph_replays"] == c["dispatches"] > 0,
+                  f"model processes {mode}: launches {c['launches']}, "
+                  f"{c['graph_replays']} replays for {c['dispatches']} "
+                  f"dispatches")
+        check(all(s["pallas"]["launches"][n] > 0 for n in (
+            "ag_gemm_fused", "flash_decode_paged_fused")),
+            f"model processes pallas: launches {s['pallas']['launches']}")
+        check(s["contiguous"]["launches"] > 0 and all(
+            torch.equal(a, b) for a, b in zip(s["contiguous"]["logits"],
+                                             logits)),
+            f"model processes: process {p}'s contiguous logits differ from "
+            f"one process's")
+    for mode in P25_MODES:
+        c = serve[0][mode]
+        gb = [round(s[mode]["peak_gb"] + s[mode]["heap_gb"], 2)
+              for s in serve]
+        print(f"[model processes] (c) llama3-8b full width, 32 layers, tp "
+              f"{P25_W} over 2 processes, {mode} K={P25_K}: streams = one "
+              f"process's; {c['decode_steps']} steps, "
+              f"{[round(s[mode]['ms_per_step'], 1) for s in serve]} ms a "
+              f"step; GB a process {gb} (shards {serve[0]['shard_gb']:.2f}, heap "
+              f"{c['heap_gb']:.3f}); {c['graph_replays']} replays a "
+              f"process; host bytes {c['host_bytes']}", flush=True)
+    rows = _p25_rows(gen, inp, ref, kids, serve[0], plain)
+    for r in rows:
+        print(f"[model processes] {r['name']}: {r['ms']:.3f} ms a call "
+              f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, "
+              f"library {r['library_ms']:.4f}), {r['launches']} launches "
+              f"in 25c", flush=True)
+    out = {"round_trip_us": rt, "missing_peer": missing[0],
+           "kernels_ms": [k["kernels"]["ms"] for k in kids],
+           "serve": [{m: {k: v for k, v in s[m].items() if k != "streams"}
+                      for m in P25_MODES} | {"shard_gb": s["shard_gb"]}
+                     for s in serve],
+           "serve_one_process": {m: {k: v for k, v in one[m].items()
+                                     if k != "streams"} for m in P25_MODES},
+           "streams": one["pallas"]["streams"], "cli": cli,
+           "processes_s": kids_s, "missing_s": missing_s,
+           "exchange_launches": symm.exchange.launches}
+    return out, rows
+
+
 # ------------------------------------------------ phase 14: the MoE path
 MOE_ARCH = "olmoe-1b-7b"
 # 14d: olmoe at full width, depth cut to MOE_TRAIN_LAYERS of 16 (fp32
@@ -4340,14 +5007,14 @@ def _products_row(rows, names, L=1):
 
 # 14c's K = 1 serve: 4 of the 8 requests, new tokens a request (its
 # K = 8 serves keep all 8 and 32)
-K1_NEW_14 = 16
+K1_NEW_14 = 8
 
 
 def phase_moe_full(rows, worst):
     """(14c) olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
     top-8, bf16, seeded random weights, nothing cut) served through the
-    engine with phase 5's traffic at K = 1 (4 requests of K1_NEW_14 new
-    tokens) and at K = 8 (graph replays;
+    engine with phase 5's traffic at K = 1 (its last 2 requests, of
+    K1_NEW_14 new tokens) and at K = 8 (graph replays;
     then prompts of the same lengths again for the steady time), every
     kernel's launches counted around each serve (6 GEMM launches a
     layer, 3 of them batched, + the unembed; one paged decode a layer);
@@ -4374,14 +5041,14 @@ def phase_moe_full(rows, worst):
                 "flash_decode_paged": L}
     cells = {}
     cells["k1"], done1 = serve_cell(
-        params, cfg, 1, _full_requests(cfg, plens[:4], 1, K1_NEW_14, 2),
+        params, cfg, 1, _tail_requests(cfg, plens, 1, K1_NEW_14, 2, 2),
         **kw)
-    _check_serve(cells["k1"], done1, cfg, 4, K1_NEW_14, per_step,
+    _check_serve(cells["k1"], done1, cfg, 2, K1_NEW_14, per_step,
                  "olmoe K=1")
     cells["k8"], done8 = serve_cell(params, cfg, 8, reqs_a, reqs_b, **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "olmoe K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens[:K1_NEW_14] for r in done8}
+    s8 = {r.rid - 6: r.out_tokens[:K1_NEW_14] for r in done8 if r.rid >= 6}
     same = sum(s1[r] == s8[r] for r in s1)
     cells["k8"]["streams_identical_to_k1"] = same
     lockstep = phase_graph_vs_eager(params, cfg)
@@ -4420,7 +5087,8 @@ def phase_moe_full(rows, worst):
           f"{cells['k8']['steady_ms_per_token']:.2f} ms/token, busy "
           f"{cells['k8']['steady_busy_share']:.3f}, peak "
           f"{cells['k8']['peak_mem_bytes'] / 1e9:.2f} GB; launches a step "
-          f"{per_step}; K=8 streams identical to K=1 for {same} of 8 "
+          f"{per_step}; K=8 streams identical to K=1 for {same} of "
+          f"{len(s1)} "
           f"(reported); batched GEMM {kernel['ms']:.3f} ms a step (bound "
           f"{kernel['bound_ms']:.3f}, plain {kernel['plain_ms']:.3f}, "
           f"torch.bmm {kernel['library_ms']:.3f})", flush=True)
@@ -5029,13 +5697,13 @@ def rec_per_step(cfg):
 
 # 15c's K = 1 serve: 2 requests, new tokens a request (its K = 8 serves
 # keep all 8 and 32)
-K1_NEW_15 = 16
+K1_NEW_15 = 8
 
 
 def phase_rec_full(arch, gen, rows, worst, dec_err):
     """(15c) ``arch`` at full width (bf16, seeded weights, nothing cut)
-    through the engine with phase 5's traffic: K = 1 on 2 requests
-    (K1_NEW_15 new tokens each), K = 8 on all 8 (graph replays) and
+    through the engine with phase 5's traffic: K = 1 on its last 2
+    requests (K1_NEW_15 new tokens each), K = 8 on all 8 (graph replays) and
     again on prompts of the same lengths
     for the steady time, every kernel's launches counted around each
     serve and exact per decode step (``rec_per_step``); a
@@ -5058,7 +5726,7 @@ def phase_rec_full(arch, gen, rows, worst, dec_err):
     per_step = rec_per_step(cfg)
     cells = {}
     cells["k1"], done1 = serve_cell(
-        params, cfg, 1, _full_requests(cfg, plens[:2], 1, K1_NEW_15, 2),
+        params, cfg, 1, _tail_requests(cfg, plens, 1, K1_NEW_15, 2, 2),
         **kw)
     _check_serve(cells["k1"], done1, cfg, 2, K1_NEW_15, per_step,
                  f"{arch} K=1")
@@ -5067,7 +5735,7 @@ def phase_rec_full(arch, gen, rows, worst, dec_err):
         _full_requests(cfg, plens, 2, 32, 2), **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, f"{arch} K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens[:K1_NEW_15] for r in done8}
+    s8 = {r.rid - 6: r.out_tokens[:K1_NEW_15] for r in done8 if r.rid >= 6}
     cells["k8"]["streams_identical_to_k1"] = sum(s1[r] == s8[r] for r in s1)
     lockstep = phase_graph_vs_eager(params, cfg)
     with torch.inference_mode():
@@ -5691,11 +6359,15 @@ def phase_front_small(tp=4):
             "train": train}
 
 
+K1_NEW_16 = 8              # 16c's K = 1 serve: 2 requests of 8 new tokens
+
+
 def phase_front_serve(gen, rows, worst, dec_err):
     """(16c) paligemma-3b at full width (18 layers, d 2048, 8/1 heads of
     256, d_ff 16384 geglu, tied vocab 257216; bf16 layers and the fp32
     tied table, seeded weights, nothing cut) through the engine with
-    phase 5's traffic: K = 1 on 2 requests, K = 8 on all 8 (graph
+    phase 5's traffic: K = 1 on its last 2 requests of K1_NEW_16 new
+    tokens, K = 8 on all 8 (graph
     replays) and again on prompts of the same lengths for the steady
     time, launches exact a decode step (73 GEMM, 18 paged decodes);
     teacher-forced paged logits finite; decode steps over the contiguous
@@ -5719,14 +6391,16 @@ def phase_front_serve(gen, rows, worst, dec_err):
     per_step = {"matmul": 4 * L + 1, "flash_decode_paged": L}
     cells = {}
     cells["k1"], done1 = serve_cell(
-        params, cfg, 1, _full_requests(cfg, plens[:2], 1, 32, 2), **kw)
-    _check_serve(cells["k1"], done1, cfg, 2, 32, per_step, "paligemma K=1")
+        params, cfg, 1, _tail_requests(cfg, plens, 1, K1_NEW_16, 2, 2),
+        **kw)
+    _check_serve(cells["k1"], done1, cfg, 2, K1_NEW_16, per_step,
+                 "paligemma K=1")
     cells["k8"], done8 = serve_cell(
         params, cfg, 8, _full_requests(cfg, plens, 1, 32, 2),
         _full_requests(cfg, plens, 2, 32, 2), **kw)
     _check_serve(cells["k8"], done8, cfg, 8, 32, per_step, "paligemma K=8")
     s1 = {r.rid: r.out_tokens for r in done1}
-    s8 = {r.rid: r.out_tokens for r in done8}
+    s8 = {r.rid - 6: r.out_tokens[:K1_NEW_16] for r in done8 if r.rid >= 6}
     cells["k8"]["streams_identical_to_k1"] = sum(s1[r] == s8[r] for r in s1)
     fns = launch_counted()
     with torch.inference_mode():
@@ -7480,12 +8154,14 @@ def taxes_card(params, cfg, reqs, K, sampler, ctx=None):
 # keep 8 of 32, which their pure and mixed megaticks each need past the
 # captures)
 TAX_K1_NEW = 16
+TAX_TP_REQS = 4            # 19's tp = 4 cells: the first 4 of 8 requests
 
 
 def phase_taxes(params, smi, tp=4):
     """(19) three taxes, static vs card: (a) :func:`taxes_static`; (b)
     phase 5's weights and traffic (8 requests of 32-128 prompt tokens,
-    32 new each; 4 of TAX_K1_NEW at K = 1; admitted 2 ticks apart)
+    32 new each, the tp cells the first TAX_TP_REQS; the last 2, of
+    TAX_K1_NEW, at K = 1; admitted 2 ticks apart)
     served at K = 8 (pure and mixed megaticks, graph replays), at K = 1
     with the temperature sampler
     (every host input of ``_tick`` and ``_next_tokens``) and at K = 8
@@ -7513,8 +8189,10 @@ def phase_taxes(params, smi, tp=4):
             (f"tp={tp} K=8 shards", 8, "greedy",
              dctx.DistContext(make_mesh(tp, device="cuda"), "pallas"))):
         t0 = time.time()
-        new, n = (32, 8) if K > 1 else (TAX_K1_NEW, 4)
-        reqs = _full_requests(cfg, plens[:n], 5, new, 2)
+        new, n = ((32, TAX_TP_REQS if ctx is not None else 8) if K > 1
+                  else (TAX_K1_NEW, 2))
+        reqs = (_full_requests(cfg, plens[:n], 5, new, 2) if K > 1
+                else _tail_requests(cfg, plens, 5, new, 2, n))
         p = lm.shard_params(params, ctx.mesh) if "shards" in label \
             else params
         records, done = taxes_card(p, cfg, reqs, K, sampler, ctx)
@@ -8287,6 +8965,15 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
                   "w") as f:
             json.dump({"device": smi, "dm_full": full, "processes": out,
                        "phase_s": phase_s}, f, indent=1)
+    elif phase == "25":
+        out, kernels = timed("25 model processes", phase_model_processes,
+                             gen)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_phase25.json"),
+                  "w") as f:
+            json.dump({"device": smi, "model_processes": out,
+                       "kernels": kernels, "phase_s": phase_s}, f,
+                      indent=1)
     elif phase == "23":
         from repro_torch.configs import get_config
         from repro_torch.models import lm
@@ -8299,7 +8986,7 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
             json.dump({"device": smi, "born_sharded": out,
                        "phase_s": phase_s}, f, indent=1)
     else:
-        print(f"chip_smoke: --phase {phase}: only 2, 3, 7, 22, 23 and 24 "
+        print(f"chip_smoke: --phase {phase}: only 2, 3, 7 and 22-25 "
               f"run alone (the others take earlier phases' outputs)",
               file=sys.stderr)
         sys.exit(2)
@@ -8388,6 +9075,8 @@ def run_all(smi, t_start, traces):
     born = timed("23 born sharded", phase_born_sharded, params)
     del params
     torch.cuda.empty_cache()
+    model_procs, model_proc_rows = timed("25 model processes",
+                                         phase_model_processes, gen)
     train, train_kernel = timed("12 training", phase_train, gen)
     train_tp, train_tp_kernel = timed(
         "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
@@ -8424,7 +9113,7 @@ def run_all(smi, t_start, traces):
                       "flash_decode_fused_w1": c_steps}, errs)
     kernels += ([train_kernel, train_tp_kernel, dm_kernel] + moe_kernels
                 + rec_kernels + front_kernels + sharded["kernels"]
-                + serve_dm_kernels)
+                + serve_dm_kernels + model_proc_rows)
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
                 moe, front, fam, summary, kernels[0]["host_us_per_call"],
                 sharded, traces)
@@ -8448,6 +9137,7 @@ def run_all(smi, t_start, traces):
                    "dryrun_vs_card": dry, "taxes": taxes,
                    "sharded": sharded, "data_mesh": dm,
                    "serve_data_mesh": serve_dm, "born_sharded": born,
+                   "model_processes": model_procs,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

@@ -22,7 +22,14 @@ Modes, as in the JAX package (``fused`` lives in ``kernels.ag_gemm``):
 Values are per-rank lists. Per-rank GEMMs go through the GEMM kernel
 (``kernels.matmul``; its plain version for CPU tensors), so autograd
 records every step of a ring (the kernel's own backward); rank-to-rank
-moves are copies onto the receiving rank's device.
+moves are copies onto the receiving rank's device. Where processes split
+the ambient mesh's model axis (``Mesh.split``), a per-rank list holds
+this process's ranks, and the plain gathers and sums
+(:func:`all_gather`, :func:`all_gather_devices`, :func:`all_reduce`,
+:func:`all_reduce_devices`) take the other ranks' blocks through
+``kernels.symm`` (on the card the ``symm_exchange`` kernel, on the CPU
+the gloo link), in rank order, so every value is bit-identical to the
+one-process run.
 
 While a dry run records (:func:`recording`; ``launch.dryrun``), every
 collective here and in ``core.flash_decode`` reports itself as JAX's HLO
@@ -39,6 +46,8 @@ import contextlib
 import torch
 
 from repro_torch.device import capturing
+from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.kernels.matmul import matmul
 
 # ------------------------------------------------------------- recording
@@ -221,9 +230,12 @@ def stationary(prod, x, ws, kdim: int):
     return out
 
 
-def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
+def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring", ranks=None):
     """C = concat_K(A) @ B with A K-sharded. a_shards: per rank
-    (..., M, K/W); b: per rank (K, N). Returns per rank (..., M, N)."""
+    (..., M, K/W); b: per rank (K, N). Returns per rank (..., M, N);
+    with ``ranks`` only those ranks' outputs (the ranks of this process
+    where processes split the model axis: ``a_shards`` then holds every
+    rank's shard, gathered), each the same sum in the same order."""
     W = len(a_shards)
     k = a_shards[0].shape[-1]
     devs = [x.device for x in a_shards]
@@ -231,10 +243,12 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
     def move(x, r):
         return to_device(x, devs[r])
 
+    rs = range(W) if ranks is None else ranks
+
     if mode == "bsp":
         record("all-gather", W * nbytes(a_shards[0]), W, out=a_shards[0])
         out = []
-        for r in range(W):
+        for r in rs:
             a_full = torch.empty((*a_shards[r].shape[:-1], W * k),
                                  dtype=a_shards[r].dtype, device=devs[r])
             for s in range(W):
@@ -247,13 +261,13 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
                out=a_shards[0])
         cur, acc = list(a_shards), [None] * W
         for t in range(W):
-            for r in range(W):
+            for r in rs:
                 s = (r - t) % W          # shard held by rank r at step t
                 part = _mm(cur[r], b[r][s * k:(s + 1) * k])
                 acc[r] = part if acc[r] is None else acc[r] + part
             if t < W - 1:
                 cur = [move(cur[(r - 1) % W], r) for r in range(W)]
-        return acc
+        return [acc[r] for r in rs]
 
     if mode == "ring_bidir":
         h = k // 2
@@ -263,7 +277,7 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
             record("collective-permute", nbytes(half), W, n=W - 1, out=half)
         acc = [None] * W
         for t in range(W):
-            for r in range(W):
+            for r in rs:
                 s_r, s_l = (r - t) % W, (r + t) % W
                 part = (_mm(cur_r[r], b[r][s_r * k:s_r * k + h])
                         + _mm(cur_l[r], b[r][s_l * k + h:(s_l + 1) * k]))
@@ -271,7 +285,7 @@ def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring"):
             if t < W - 1:
                 cur_r = [move(cur_r[(r - 1) % W], r) for r in range(W)]
                 cur_l = [move(cur_l[(r + 1) % W], r) for r in range(W)]
-        return acc
+        return [acc[r] for r in rs]
 
     raise ValueError(f"unknown mode {mode!r}")
 
@@ -383,11 +397,29 @@ def gemm_rs(a, b, *, mode: str = "ring"):
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def _over_processes(x):
+    """The ambient mesh where processes split its model axis and ``x``
+    holds this process's ranks' entries, else None."""
+    mesh = dctx.current().mesh
+    return mesh if symm.split(mesh) and len(x) == len(mesh.local) else None
+
+
+def _per_rank_copies(t, n: int) -> list:
+    """``t`` for each of ``n`` ranks: itself, then copies (each rank's
+    value its own tensor, as in one process)."""
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
 def all_gather(x, *, gather_axis: int = 0):
     """The plain all-gather (every rank copies every block at once): x
     per rank, block r of the gathered dim; returns per rank the whole
     tensor."""
-    record("all-gather", nbytes(*x), len(x), out=x[0])
+    mesh = _over_processes(x)
+    W = len(x) if mesh is None else mesh.size
+    record("all-gather", W * nbytes(x[0]), W, out=x[0])
+    if mesh is not None:
+        return _per_rank_copies(symm.all_gather(x, mesh, gather_axis),
+                                len(x))
     return [torch.cat([to_device(t, d.device) for t in x], dim=gather_axis)
             for d in x]
 
@@ -397,7 +429,12 @@ def all_gather_devices(x, devices, *, gather_axis: int = -1):
     value: the whole tensor once on each of ``devices`` (a mesh's
     distinct devices: ranks that share a device share the copy), blocks
     in rank order. The decode sites' gathers (``core.patterns``)."""
-    record("all-gather", nbytes(*x), len(x))
+    mesh = _over_processes(x)
+    W = len(x) if mesh is None else mesh.size
+    record("all-gather", W * nbytes(x[0]), W)
+    if mesh is not None:
+        whole = symm.all_gather(x, mesh, gather_axis)
+        return [to_device(whole, d) for d in devices]
     return [torch.cat([to_device(t, d) for t in x], dim=gather_axis)
             for d in devices]
 
@@ -407,7 +444,11 @@ def all_reduce_devices(x, devices):
     shape) into a replicated value: their sum, in rank order, once on
     each of ``devices`` (a mesh's distinct devices), so every copy is
     the same."""
-    record("all-reduce", nbytes(x[0]), len(x))
+    mesh = _over_processes(x)
+    record("all-reduce", nbytes(x[0]), len(x) if mesh is None else mesh.size)
+    if mesh is not None:
+        total = symm.all_reduce(x, mesh)
+        return [to_device(total, d) for d in devices]
     out = []
     for d in devices:
         acc = None
@@ -421,7 +462,11 @@ def all_reduce_devices(x, devices):
 def all_reduce(x):
     """The plain all-reduce: every rank sums every rank's tensor, in rank
     order, so every rank's sum is the same (x per rank, one shape)."""
-    record("all-reduce", nbytes(x[0]), len(x), out=x[0])
+    mesh = _over_processes(x)
+    record("all-reduce", nbytes(x[0]), len(x) if mesh is None else
+           mesh.size, out=x[0])
+    if mesh is not None:
+        return _per_rank_copies(symm.all_reduce(x, mesh), len(x))
     out = []
     for d in x:
         acc = None

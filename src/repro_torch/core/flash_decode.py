@@ -28,7 +28,12 @@ them in rank order; ``ring`` folds each neighbour's partial as it
 arrives; ``rs_ag`` reduce-scatters over heads and all-gathers;
 ``pallas`` is the fused kernel (``kernels.flash_decode``), which pushes
 the partial to every rank and folds the sources in rank order inside
-the kernel. Outputs are per-rank lists.
+the kernel. Outputs are per-rank lists. Where processes split the
+mesh's model axis (``Mesh.split``), the lists hold this process's ranks
+(entry i is global rank ``mesh.first + i``), W is the mesh's, and the
+combines take the other ranks' partials through ``kernels.symm``
+(:func:`~repro_torch.kernels.symm.every_rank`), folding them exactly as
+one process does.
 
 Unlike JAX, every write updates the cache IN PLACE.
 """
@@ -37,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.collective_matmul import nbytes, record
+from repro_torch.kernels import symm
 
 NEG = torch.finfo(torch.float32).min
 
@@ -159,14 +165,29 @@ _COMBINES = {"bsp": combine_bsp, "ring": combine_ring,
              "rs_ag": combine_rs_ag}
 
 
-def _combine(partials, mode, dtype):
-    if len(partials) == 1:
-        acc = partials
+def every_partial(partials, mesh) -> list:
+    """Every rank's partial (o, m, l), rank order, from this process's
+    ranks' (``partials``): one exchange of the packed (B, H, D + 2)
+    rows where processes split ``mesh``'s model axis, else
+    ``partials``."""
+    if not symm.split(mesh):
+        return list(partials)
+    rows = [torch.cat([o, m[..., None], l[..., None]], dim=-1)
+            for o, m, l in partials]
+    D = partials[0][0].shape[-1]
+    return [(t[..., :D], t[..., D], t[..., D + 1])
+            for t in symm.every_rank(rows, mesh)]
+
+
+def _combine(partials, mode, dtype, mesh=None):
+    full = every_partial(partials, mesh)
+    if len(full) == 1:
+        acc = full
     elif mode in _COMBINES:
-        acc = _COMBINES[mode](partials)
+        acc = _COMBINES[mode](full)
     else:
         raise ValueError(f"unknown decode combine mode {mode!r}")
-    return [finalize(a).to(dtype) for a in acc]
+    return [finalize(acc[r]).to(dtype) for r in symm.rank_ids(partials, mesh)]
 
 
 # ------------------------------------------------------- contiguous decode
@@ -184,15 +205,16 @@ def decode_attention(q, k_shards, v_shards, cur_len, *, scale,
     always takes the kernel's single-source path."""
     from repro_torch.kernels import flash_decode as kfd
     B, H, D = q[0].shape
+    W = symm.width(k_shards, mesh)
     cl = [lens(c, B, k.device) for c, k in zip(cur_len, k_shards)]
     if mode == "pallas":
-        _record_push(B, H, D, len(k_shards))
-    if mode == "pallas" or len(k_shards) == 1:
+        _record_push(B, H, D, W)
+    if mode == "pallas" or W == 1:
         return kfd.flash_decode_fused(q, k_shards, v_shards, cl, scale,
                                       window=window, mesh=mesh)
     partials = kfd.flash_decode_partial(q, k_shards, v_shards, cl, scale,
-                                        window=window)
-    return _combine(partials, mode, q[0].dtype)
+                                        window=window, mesh=mesh)
+    return _combine(partials, mode, q[0].dtype, mesh)
 
 
 def strided_write(shard, new, cur_len, rank: int, W: int, active=None,
@@ -229,12 +251,12 @@ def decode_attention_fused(q, k_new, v_new, k_shards, v_shards, cur_len, *,
     that do not consume a token this step. With ``rolling_len`` the
     cache is a ring of that many positions (window = cache size).
     Returns (per-rank outputs, k_shards, v_shards)."""
-    W = len(k_shards)
-    act = active if active is not None else [None] * W
-    for r in range(W):
-        strided_write(k_shards[r], k_new[r], cur_len[r], r, W, act[r],
+    W = symm.width(k_shards, mesh)
+    act = active if active is not None else [None] * len(k_shards)
+    for i, r in enumerate(symm.rank_ids(k_shards, mesh)):
+        strided_write(k_shards[i], k_new[i], cur_len[i], r, W, act[i],
                       rolling_len)
-        strided_write(v_shards[r], v_new[r], cur_len[r], r, W, act[r],
+        strided_write(v_shards[i], v_new[i], cur_len[i], r, W, act[i],
                       rolling_len)
     eff = cur_len if rolling_len is None else [
         torch.as_tensor(c).clamp_max(rolling_len) for c in cur_len]
@@ -347,7 +369,8 @@ def decode_paged_attention_fused(q, k_new, v_new, k_pools, v_pools, cur_len,
     is the masked whole-shard oracle, plain code for CPU tensors only.
     Returns (per-rank outputs, k_pools, v_pools)."""
     from repro_torch.kernels import flash_decode as kfd
-    W = len(k_pools)
+    W = symm.width(k_pools, mesh)
+    ids = symm.rank_ids(k_pools, mesh)
     n_loc = k_pools[0].shape[0]
     B = q[0].shape[0]
     if not bounded and any(p.device.type != "cpu" for p in k_pools):
@@ -357,10 +380,10 @@ def decode_paged_attention_fused(q, k_new, v_new, k_pools, v_pools, cur_len,
                          "the tables (bounded)")
     act = [torch.ones((B,), dtype=torch.bool, device=k.device)
            if active is None else a
-           for k, a in zip(k_pools, active or [None] * W)]
-    for r in range(W):
+           for k, a in zip(k_pools, active or [None] * len(k_pools))]
+    for i, r in enumerate(ids):
         for pools, new in ((k_pools, k_new), (v_pools, v_new)):
-            paged_write(pools[r], new[r], tables[r], cur_len[r], act[r],
+            paged_write(pools[i], new[i], tables[i], cur_len[i], act[i],
                         owner_base=r * n_loc, n_owned=n_loc)
     if bounded:
         if mode == "pallas":
@@ -370,23 +393,24 @@ def decode_paged_attention_fused(q, k_new, v_new, k_pools, v_pools, cur_len,
                 mesh=mesh)
             return out, k_pools, v_pools
         partials = kfd.flash_decode_paged_partial(
-            q, k_pools, v_pools, cur_len, tables, scale, window=window)
+            q, k_pools, v_pools, cur_len, tables, scale, window=window,
+            mesh=mesh)
     else:
         bs = k_pools[0].shape[1]
         partials = []
-        for r in range(W):
-            gpos, has = paged_block_positions(tables[r], n_loc, r, bs)
-            cl = cur_len[r].long()[:, None, None]
+        for i, r in enumerate(ids):
+            gpos, has = paged_block_positions(tables[i], n_loc, r, bs)
+            cl = cur_len[i].long()[:, None, None]
             valid = has[:, :, None] & (gpos < cl)
             if window is not None:
                 valid = valid & (gpos >= cl - window)
             partials.append(paged_local_partial_attention(
-                q[r], k_pools[r].reshape(n_loc * bs, *k_pools[r].shape[2:]),
-                v_pools[r].reshape(n_loc * bs, *v_pools[r].shape[2:]),
+                q[i], k_pools[i].reshape(n_loc * bs, *k_pools[i].shape[2:]),
+                v_pools[i].reshape(n_loc * bs, *v_pools[i].shape[2:]),
                 valid.reshape(B, n_loc * bs), scale))
         if mode == "pallas":      # the fused kernel folds in rank order
             mode = "bsp"
-    return _combine(partials, mode, q[0].dtype), k_pools, v_pools
+    return _combine(partials, mode, q[0].dtype, mesh), k_pools, v_pools
 
 
 # ---------------------------------------------------------------- references

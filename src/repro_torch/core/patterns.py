@@ -58,6 +58,7 @@ import torch
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import flash_decode as fd
 from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.kernels.ag_gemm import ag_gemm_fused
 from repro_torch.models.layers import dense, dense_group
 
@@ -153,8 +154,9 @@ def project_k_sharded(x, w, *, rows: bool = False, x_sliced: bool = False):
         raise ValueError(f"project_k_sharded: K={K} must divide by W={W}")
     k = K // W
     lead = x[0].shape[:-1]
-    shards = x if x_sliced else [x[r][..., r * k:(r + 1) * k]
-                                 for r in range(W)]
+    ids = symm.rank_ids(x, mesh)
+    shards = x if x_sliced else [x[i][..., r * k:(r + 1) * k]
+                                 for i, r in enumerate(ids)]
     if mode == "auto":
         return mesh.per_rank(row_parallel_sum(shards, w))
     if rows:
@@ -166,6 +168,18 @@ def project_k_sharded(x, w, *, rows: bool = False, x_sliced: bool = False):
         out = _ag_gemm_fused(shards, w, mesh)
         return [o.reshape(*lead, o.shape[-1]) for o in out]
     m = "bsp" if mode == "bsp" else "ring_bidir"
+    if symm.split(mesh):
+        # every rank's shard here (one exchange) and the weight whole on
+        # this process's one device: the product of the group's first
+        # rank, in the schedule's order, for each of this process's
+        # ranks. One process with every rank on one card hands on that
+        # rank's value (Mesh.from_ranks), and a ring's per-rank sums
+        # differ in their order, so every process takes it too
+        cm.check_ag_gemm_k_sharded(K, w[0].shape[0], W, m)
+        g0 = mesh.first - mesh.first % mesh.model
+        out = cm.ag_gemm_k_sharded(symm.every_rank(shards, mesh),
+                                   [w[0]] * W, mode=m, ranks=[g0])[0]
+        return cm._per_rank_copies(out, len(ids))
     if not x_sliced:
         return cm.ag_gemm_k_sharded_sm(list(x), w, mesh, mode=m)
     cm.check_ag_gemm_k_sharded(K, w[0].shape[0], W, m)
@@ -258,7 +272,8 @@ def column_shards(x, ws):
     list (..., N_i/W) per site."""
     mesh = dctx.current().mesh
     xr = mesh.per_rank(x)
-    ys = [dense_group(xr[r], [w[r] for w in ws]) for r in range(mesh.size)]
+    ys = [dense_group(xr[r], [w[r] for w in ws])
+          for r in range(len(mesh.devices))]
     return [[y[i] for y in ys] for i in range(len(ws))]
 
 
@@ -274,9 +289,29 @@ def gather_columns(x, ws, split):
         ys = [dense_group(xd, [w[r] for w in ws])
               for xd, r in zip(x, mesh.leaders)]
         return [[y[i] for y in ys] for i in range(len(ws))]
+    ys = column_shards(x, ws)
+    if symm.split(mesh) and all(split) and len(ws) > 1:
+        return _gather_sites(ys, mesh)
     return [cm.all_gather_devices(y, mesh.distinct, gather_axis=-1) if s
-            else mesh.from_ranks(y)
-            for y, s in zip(column_shards(x, ws), split)]
+            else mesh.from_ranks(y) for y, s in zip(ys, split)]
+
+
+def _gather_sites(ys, mesh):
+    """Each site's column blocks (``ys``: one per-rank list per site)
+    joined in rank order on this process's device where processes split
+    the model axis: every site's blocks in ONE exchange (a cross-process
+    call costs a switch between contexts on a shared card), then cut
+    apart; the same bytes as a gather per site."""
+    W = mesh.size
+    n = [y[0].shape[-1] for y in ys]
+    full = symm.every_rank([torch.cat(cols, dim=-1) for cols in zip(*ys)],
+                           mesh)
+    out, at = [], 0
+    for y, ni in zip(ys, n):
+        cm.record("all-gather", W * cm.nbytes(y[0]), W)
+        out.append([torch.cat([f[..., at:at + ni] for f in full], dim=-1)])
+        at += ni
+    return out
 
 
 def decode_attn_fused(q, k_new, v_new, k_cache, v_cache, cur_len, *, scale,

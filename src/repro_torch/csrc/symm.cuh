@@ -11,7 +11,14 @@
 //   state     per device, one 64-bit word: the card's epoch and a count.
 // The kernels get a device array of the W inbox bases and one of the W
 // flag bases (Iris's heap-base table); for ranks on distinct devices
-// these are peer pointers (symm_enable_peer below maps them).
+// these are peer pointers (symm_enable_peer below maps them); for ranks
+// that another process holds (the model axis split over processes),
+// the process maps their buffers by CUDA IPC: the owner allocates them
+// with cudaMalloc (symm_heap_alloc; a handle names a whole allocation,
+// so PyTorch's caching allocator cannot give them), exports one handle
+// each (cudaIpcGetMemHandle), and every peer opens it once
+// (symm_heap_open, cudaIpcMemLazyEnablePeerAccess). A peer closes what
+// it opened before the owner frees it (kernels/symm.py orders the two).
 //
 // The epoch lives in device memory, so a CUDA graph can replay a fused
 // call: one thread of every block of a fused launch takes the card's
@@ -45,16 +52,27 @@
 // only once its call-n launch has finished) -- so r's call n+2 starts
 // after q's call n+1 push, which q makes after its call n has ended.
 //
-// No deadlock on one device: ranks that share a device run in ONE
-// launch (the grid spans the local ranks) and that launch is
+// No deadlock within a process: the ranks a process holds on one device
+// run in ONE launch (the grid spans its local ranks) and that launch is
 // cooperative (cudaLaunchCooperativeKernel), so every block that another
-// block waits on is resident; a grid that cannot be co-resident fails to
-// launch instead of hanging. Every spin is bounded by the globaltimer
-// (SPIN_NS): a peer that never arrives ends in __trap(), i.e. a CUDA
-// error at the next synchronisation, not a hang.
+// block of the launch waits on is resident; a grid that cannot be
+// co-resident fails to launch instead of hanging. The cooperative
+// guarantee covers only a process's own ranks. Peers in other processes
+// run their own launches: on distinct cards those run side by side; on
+// ONE card (processes sharing it, no MPS) the contexts are time-sliced
+// by the GPU, so a block that spins on a peer in another context
+// makes progress only once the GPU switches to that context, and a
+// round trip costs context switches, not memory latency. Every spin is
+// bounded by the globaltimer (SPIN_NS): a peer that never arrives (or
+// never gets the card) ends in __trap(), i.e. a CUDA error at the next
+// synchronisation, not a hang. Processes therefore make their calls
+// within SPIN_NS of each other: a host step that takes longer in one
+// than in its peers (a CUDA-graph capture) ends at a store barrier
+// before the next call (serving/graphs.py).
 #pragma once
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <cstring>
 
 namespace symm {
 
@@ -141,7 +159,8 @@ struct Spin {
 };
 
 // Flags are stored and read at system scope when a peer is on another
-// card, at device scope (cheaper) when every rank shares this one.
+// card or in another process (make_peers: some rank is not in this
+// launch), at device scope (cheaper) when every rank is in it.
 __device__ __forceinline__ void store_release(unsigned* p, unsigned v,
                                               bool sys) {
   if (sys)
@@ -259,7 +278,8 @@ __device__ __forceinline__ void wait_all(const Peers& P, int dst,
   __syncthreads();
 }
 
-// n_local: the ranks of this launch's card; the others are elsewhere.
+// n_local: the ranks of this launch (this process's ranks on its card);
+// the others are on other cards or in other processes, so `sys`.
 inline Peers make_peers(const void* inbox_tab, const void* flag_tab,
                         void* state, int W, int n_chunk,
                         long long slot_bytes, long long half, int n_local) {
@@ -317,3 +337,40 @@ extern "C" int symm_enable_peer(int dev, int peer) {
   }
   return (int)e;
 }
+
+// ---- the symmetric heap over processes (CUDA IPC)
+// `bytes` zeroed bytes of device memory on the current device, from
+// cudaMalloc (one allocation, so one IPC handle names exactly it), and
+// its handle (sizeof(cudaIpcMemHandle_t) = 64 bytes) in `handle`. The
+// zeros have landed when it returns.
+extern "C" int symm_heap_alloc(long long bytes, void** ptr, void* handle) {
+  *ptr = nullptr;
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)e;
+}
+
+extern "C" int symm_heap_free(void* ptr) { return (int)cudaFree(ptr); }
+
+// Map another process's allocation (its 64-byte handle) into this one,
+// on the current device; once per process per allocation.
+extern "C" int symm_heap_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int symm_heap_close(void* ptr) {
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+extern "C" int symm_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+

@@ -33,7 +33,13 @@ whole data groups of one global mesh (``distributed.processes``): a
 groups, and lists the devices of its process's ranks only
 (:attr:`Mesh.local`); per-rank values hold those ranks, and
 :meth:`Mesh.across` is the link to the processes that hold their peers
-along the data axes.
+along the data axes. Serving may split the ``model`` axis too
+(:attr:`Mesh.split` processes a data group, each a block of its model
+ranks): ``size``, ``shape`` and ``model`` stay the job's, while
+``devices``, ``distinct``, ``leaders``, ``per_rank`` / ``from_ranks``
+and the per-rank lists are this process's ranks' (list index i is
+global rank ``first + i``); the model-axis collectives cross processes
+(``kernels.symm``: :func:`~repro_torch.kernels.symm.every_rank`).
 
 Model code reads the mesh and the fusion mode from :func:`current`;
 launchers install a :class:`DistContext` around their run with
@@ -121,7 +127,32 @@ class Mesh:
         self.dev_index = tuple(self.distinct.index(d) for d in devs)
         # first rank on each distinct device
         self.leaders = tuple(devs.index(d) for d in self.distinct)
+        # processes that share a data group's model ranks (1: none)
+        self.split = 1 if procs is None else \
+            processes.model_split(self.shape, world)
         self.symm = None            # kernels.symm.Communicator, on first use
+        self._link = None
+
+    @property
+    def job_leaders(self) -> tuple:
+        """The global rank of the first rank on each device of this
+        process's data group, in every process of it (a fused kernel
+        pushes into their inboxes; :attr:`leaders` where one process
+        holds the group)."""
+        if self.split == 1:
+            return tuple(self.first + i for i in self.leaders)
+        n = len(self.devices)
+        g0 = self.first - self.first % self.model
+        return tuple(g0 + q * n + i for q in range(self.split)
+                     for i in self.leaders)
+
+    @property
+    def model_link(self):
+        """The :class:`processes.Link` to the processes of this process's
+        data group (:attr:`split` > 1), made once."""
+        if self._link is None:
+            self._link = self.procs.model_link(self.shape)
+        return self._link
 
     @property
     def size(self) -> int:
@@ -142,7 +173,7 @@ class Mesh:
         """The data groups this process holds (every one in one
         process)."""
         return range(self.local.start // self.model,
-                     self.local.stop // self.model)
+                     -(-self.local.stop // self.model))
 
     @property
     def rank_devices(self) -> tuple:

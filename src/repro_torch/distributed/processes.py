@@ -36,6 +36,20 @@ copied each way.
 A process's ranks lie on one device (its card, or the CPU): autograd
 runs a device's backward on one thread, so the collectives of the
 backward reach the wire in the graph's order on every process.
+
+Serving may also split the ``model`` axis itself (:func:`model_split`):
+S processes share one data group, process p holding the W / S
+consecutive model ranks ``[p W / S, (p + 1) W / S)``, as JAX drives the
+chips of one model axis from several host controllers. What the decode
+step gathers or sums over ``model`` then crosses processes: on the card
+through the symmetric heap (``kernels.symm``: buffers mapped by CUDA IPC,
+the handles exchanged through the job's store, :func:`publish` /
+:func:`collect`), device-side, so nothing of a step passes through
+``torch.distributed``; on the CPU over the :class:`Link` of the model
+peers (:meth:`Processes.model_link`). Only serving at ``data`` = 1 of
+the attention families splits it (:func:`check_model_split`); the
+trainer and serving's data groups over processes refuse such a layout
+before any parameter is drawn.
 """
 from __future__ import annotations
 
@@ -53,10 +67,30 @@ def _groups_axes(mesh_shape: dict) -> tuple:
     return (mesh_shape.get("pod", 1), mesh_shape.get("data", 1))
 
 
+def model_split(mesh_shape: dict, world: int) -> int:
+    """S, the processes that share one data group's model ranks: 1 where
+    each process holds whole data groups (:func:`check_layout`), else
+    ``world / dp`` (more processes than data groups), which must divide
+    the model axis."""
+    pods, D = _groups_axes(mesh_shape)
+    dp, W = pods * D, mesh_shape.get("model", 1)
+    if world <= dp:
+        return 1
+    if world % dp or W % (world // dp):
+        raise ValueError(f"{world} processes split neither the {dp} data "
+                         f"groups nor the {W} model ranks of each group of "
+                         f"mesh {dict(mesh_shape)}")
+    return world // dp
+
+
 def check_layout(mesh_shape: dict, world: int) -> int:
     """The data groups a process holds (G) when ``world`` processes split
     the data groups of a mesh of ``mesh_shape``: they must divide, and
-    a process's groups lie in one pod or hold whole pods."""
+    a process's groups lie in one pod or hold whole pods. 1 where the
+    processes split the model axis (a block of one group's model ranks
+    a process, :func:`model_split`)."""
+    if model_split(mesh_shape, world) > 1:
+        return 1
     pods, D = _groups_axes(mesh_shape)
     dp = pods * D
     if world < 1 or dp % world:
@@ -72,32 +106,42 @@ def check_layout(mesh_shape: dict, world: int) -> int:
 
 def process_groups(mesh_shape: dict, world: int, p: int) -> range:
     """The data groups (row-major ``pod x data`` indices) process ``p``
-    holds."""
+    holds ranks of (its one group where processes split the model
+    axis)."""
+    S = model_split(mesh_shape, world)
+    if S > 1:
+        return range(p // S, p // S + 1)
     G = check_layout(mesh_shape, world)
     return range(p * G, (p + 1) * G)
 
 
 def process_ranks(mesh_shape: dict, world: int, p: int) -> range:
-    """The global ranks process ``p`` holds (its groups' model ranks)."""
+    """The global ranks process ``p`` holds: its groups' model ranks, or
+    its block of ``model / S`` of its group's (:func:`model_split`)."""
     W = mesh_shape.get("model", 1)
-    g = process_groups(mesh_shape, world, p)
-    return range(g.start * W, g.stop * W)
+    S = model_split(mesh_shape, world)
+    n = W // S if S > 1 else len(process_groups(mesh_shape, world, p)) * W
+    return range(p * n, (p + 1) * n)
 
 
 def _key(mesh_shape, world, p, axes) -> tuple:
-    """Process ``p``'s coordinates along the (pod, data) axes NOT in
-    ``axes``: the set of its groups' coordinates there."""
+    """Process ``p``'s coordinates along the axes NOT in ``axes``: the
+    set of its groups' coordinates along (pod, data), and where the
+    processes split the model axis its block of it."""
     _, D = _groups_axes(mesh_shape)
     keep = [a for a in AXES if a not in axes]
-    return tuple(sorted({tuple({"pod": g // D, "data": g % D}[a]
-                               for a in keep)
-                         for g in process_groups(mesh_shape, world, p)}))
+    key = tuple(sorted({tuple({"pod": g // D, "data": g % D}[a]
+                              for a in keep)
+                        for g in process_groups(mesh_shape, world, p)}))
+    if "model" in axes:
+        return key
+    return key, p % model_split(mesh_shape, world)
 
 
 def peers(mesh_shape: dict, world: int, p: int, axes) -> tuple:
     """The processes (ascending) whose ranks differ from process ``p``'s
-    only along ``axes`` (a subset of ``("pod", "data")``): those that
-    hold the peers of p's ranks on those axes, p among them."""
+    only along ``axes`` (a subset of ``("pod", "data", "model")``): those
+    that hold the peers of p's ranks on those axes, p among them."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     k = _key(mesh_shape, world, p, axes)
     return tuple(q for q in range(world)
@@ -127,11 +171,18 @@ class Processes:
         ``torch.distributed.new_group`` asks)."""
         import torch.distributed as dist
         everyone = tuple(range(self.world))
-        for axes in (("data",), ("pod",), AXES):
+        for axes in (("data",), ("pod",), AXES, ("model",)):
             for part in partition(mesh_shape, self.world, axes):
                 if 1 < len(part) < self.world and part not in self._pg:
                     self._pg[part] = dist.new_group(list(part))
         self._pg[everyone] = None           # the default group
+
+    def model_link(self, mesh_shape: dict) -> "Link":
+        """The :class:`Link` to the processes that hold this process's
+        group's other model ranks (:func:`model_split`), in rank
+        order."""
+        return self.link(peers(mesh_shape, self.world, self.rank,
+                               ("model",)))
 
     def link(self, members: tuple) -> "Link":
         if members not in self._pg:
@@ -303,6 +354,84 @@ def shutdown():
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _PROCS = None
+
+
+def _store():
+    import torch.distributed as dist
+    return dist.distributed_c10d._get_default_store()
+
+
+def publish(procs: Processes, key: str, value: bytes):
+    """Put this process's ``value`` under ``key`` in the job's store."""
+    _store().set(f"repro_torch/{key}/{procs.rank}", value)
+
+
+def collect(procs: Processes, key: str, members) -> list:
+    """Every member's value under ``key`` (:func:`publish`), in member
+    order; waits for each (the store's timeout ends a missing one)."""
+    store = _store()
+    return [store.get(f"repro_torch/{key}/{q}") for q in members]
+
+
+def barrier(procs: Processes, key: str, members):
+    """Wait until every member has reached ``key``."""
+    publish(procs, key, b"1")
+    collect(procs, key, members)
+
+
+_AGREED: dict = {}          # key -> agreements made under it so far
+
+
+def agree(procs: Processes, key: str, value: bytes, members, what: str):
+    """Raise unless every member put the same ``value`` under ``key``
+    (the end of a run: what each process computed must be one). Each
+    call takes a fresh key (``key`` and a count of the calls made under
+    it, the same in every process), so a later agreement never reads an
+    earlier one's values."""
+    _AGREED[key] = n = _AGREED.get(key, 0) + 1
+    key = f"{key}/{n}"
+    publish(procs, key, value)
+    got = collect(procs, key, members)
+    differ = [q for q, v in zip(members, got) if v != value]
+    if differ:
+        raise RuntimeError(f"process {procs.rank}'s {what} differ from "
+                           f"those of processes {differ}")
+
+
+# where the model axis over processes goes next (ROADMAP queue 1)
+NEXT = {"train": "ROADMAP queue 1, item 1b: the trainer with the model "
+                 "axis over processes",
+        "data": "ROADMAP queue 1, item 1c: serving's data groups over "
+                "processes",
+        "family": "ROADMAP queue 1, item 1d: the recurrent, hybrid and "
+                  "vlm families with the model axis over processes"}
+# the families whose decode step crosses processes on the model axis
+SPLIT_BLOCKS = ("attn_mlp", "attn_moe")
+SPLIT_FAMILIES = ("dense", "moe")
+
+
+def check_model_split(mesh_shape: dict, world: int, *, what: str,
+                      cfg=None):
+    """Refuse a layout whose processes split the model axis
+    (:func:`model_split`) where ``what`` cannot run on it: ``"train"``
+    (the trainer), or ``"serve"`` with data groups or a family outside
+    :data:`SPLIT_FAMILIES` (``cfg``). Called before any parameter is
+    drawn; a layout of whole data groups passes."""
+    if model_split(mesh_shape, world) == 1:
+        return
+    layout = (f"{world} processes splitting the model axis of mesh "
+              f"{dict(mesh_shape)}")
+    if what == "train":
+        raise NotImplementedError(f"training over {layout}: not yet "
+                                  f"({NEXT['train']})")
+    pods, D = _groups_axes(mesh_shape)
+    if pods * D > 1:
+        raise NotImplementedError(f"serving data groups over {layout}: "
+                                  f"not yet ({NEXT['data']})")
+    if cfg is not None and (cfg.family not in SPLIT_FAMILIES
+                            or cfg.block not in SPLIT_BLOCKS):
+        raise NotImplementedError(f"serving {cfg.name} ({cfg.family}) over "
+                                  f"{layout}: not yet ({NEXT['family']})")
 
 
 def check_cards(procs: Processes, devices):

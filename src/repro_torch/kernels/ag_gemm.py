@@ -14,6 +14,12 @@ and stored into every local output. For CPU tensors it runs
 CUDA call the kernel cannot take raises. :func:`ag_gemm_plan` sizes the
 kernel's persistent grid.
 
+Where processes split the mesh's model axis (``Mesh.split``) the lists
+hold this process's ranks: the launch passes their global ids, W and
+the job's leaders (each process's first rank), and the other
+processes' shards arrive pushed through the heap's IPC-mapped inboxes
+(``kernels.symm``); a peer that never arrives traps, nothing falls back.
+
 Counters: ``ag_gemm_fused.launches`` (one per device per call) and
 ``ag_gemm_fused.plain_calls``.
 """
@@ -139,7 +145,7 @@ def launch_card(a, b, c, ranks, mesh):
         work = torch.empty((n_prod, plan.n_strips, plan.n_kc, M, plan.bn),
                            dtype=torch.float32, device=dev)
         cnt = symm.counters(dev, n_prod * plan.n_strips)
-    leaders = sum(1 << r for r in mesh.leaders)
+    leaders = sum(1 << r for r in mesh.job_leaders)
     with torch.cuda.device(dev):
         rc = _lib()(symm.ptrs(a), symm.ptrs(b), symm.ptrs(c), symm.ints(ranks), n_local, n_prod, M, N,
                     k, _DTYPES[dtype], int(vec), plan.n_kc, plan.grid,
@@ -157,13 +163,14 @@ def ag_gemm_fused(a_shards, b, mesh=None):
     chunking, so the outputs are bit-identical on every rank. ``mesh``
     (the ranks' devices and their symmetric buffers) is needed for CUDA
     tensors at W > 1."""
-    W = len(a_shards)
-    if W == 0 or len(b) != W:
+    n = len(a_shards)
+    if n == 0 or len(b) != n:
         raise ValueError(f"ag_gemm_fused: {len(a_shards)} A shards and "
                          f"{len(b)} B replicas")
+    W = symm.width(a_shards, mesh)
     M, k = a_shards[0].shape
     K, N = b[0].shape
-    for r in range(W):
+    for r in range(n):
         if a_shards[r].dim() != 2 or a_shards[r].shape != (M, k) \
                 or b[r].shape != (K, N):
             raise ValueError(f"ag_gemm_fused: rank {r} shapes "
@@ -176,9 +183,9 @@ def ag_gemm_fused(a_shards, b, mesh=None):
         return [matmul(a_shards[0], b[0])]
     if all(t.device.type == "cpu" for t in (*a_shards, *b)):
         ag_gemm_fused.plain_calls += 1
-        return ag_gemm_plain(a_shards, b)
+        return ag_gemm_plain(symm.every_rank(a_shards, mesh), b)
     dtype = a_shards[0].dtype
-    for r in range(W):
+    for r in range(n):
         a, br = a_shards[r], b[r]
         if a.device.type != "cuda" or br.device != a.device \
                 or (mesh is not None and mesh.devices[r] != a.device):
@@ -194,17 +201,18 @@ def ag_gemm_fused(a_shards, b, mesh=None):
                              "row-major")
     if W > 32:
         raise ValueError(f"ag_gemm_fused: at most 32 ranks, got {W}")
-    outs: list = [None] * W
+    outs: list = [None] * n
     if M == 0 or N == 0:
         return [torch.empty((M, N), dtype=dtype, device=a.device)
                 for a in a_shards]
     groups = symm.rank_groups(a_shards)
+    ids = symm.rank_ids(a_shards, mesh)
     if max(len(r) for r in groups.values()) > 8:
         raise ValueError("ag_gemm_fused: at most 8 ranks per device")
     for dev, ranks in groups.items():
         c = [torch.empty((M, N), dtype=dtype, device=dev) for _ in ranks]
         launch_card([a_shards[r] for r in ranks], [b[r] for r in ranks], c,
-                    ranks, mesh)
+                    [ids[r] for r in ranks], mesh)
         for r, t in zip(ranks, c):
             outs[r] = t
     ag_gemm_fused.launches += len(groups)

@@ -19,7 +19,12 @@ cannot take raises):
   single-source case.
 
 W-rank arguments are per-rank lists (ranks on one device may pass the
-same tensor); ranks sharing a device are launched together. Semantics
+same tensor); ranks sharing a device are launched together. Where
+processes split the mesh's model axis (``Mesh.split``) the lists hold
+this process's ranks (global ranks ``mesh.local``), W is the mesh's,
+and the fused launches push into the other processes' inboxes through
+the heap's IPC-mapped tables (``kernels.symm``); the partial calls take
+the mesh for the ranks' ids. Semantics
 (kernels and plain versions alike): slot ``b`` attends to the positions
 ``p < cur_len[b]`` (and ``p >= cur_len[b] - window`` with a window) that
 this rank holds; ``-1`` table entries and other ranks' blocks are
@@ -43,8 +48,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.flash_decode import (combine2, finalize,
-                                           gather_owned_blocks,
+from repro_torch.core.flash_decode import (combine2, every_partial,
+                                           finalize, gather_owned_blocks,
                                            local_partial_attention)
 from repro_torch.kernels import _build, symm
 
@@ -99,12 +104,16 @@ def strided_partial_plain(q, k_shard, v_shard, cur_len, scale,
     return local_partial_attention(q, k_shard, v_shard, valid, scale)
 
 
-def fused_plain(partials, dtype):
+def fused_plain(partials, dtype, mesh=None):
     """The fused kernels' Part 2 in plain PyTorch: every rank "pushes" its
     partial by a copy into every rank's inbox, and each rank folds its
-    inbox in source order 0..W-1."""
+    inbox in source order 0..W-1 (over processes the other ranks'
+    partials arrive through the model peers' link; the outputs are this
+    process's ranks')."""
+    ids = symm.rank_ids(partials, mesh)
+    partials = every_partial(partials, mesh)
     out = []
-    for own in partials:
+    for own in (partials[r] for r in ids):
         dev = own[0].device
         inbox = [tuple(t.to(dev, copy=True) for t in p) for p in partials]
         acc = inbox[0]
@@ -222,18 +231,23 @@ LIST_CAP = 512        # csrc/fd_common.cuh LIST_CAP
 
 
 def decode_plan(B: int, KVH: int, n_local: int, C: int, sm_count: int,
-                capacity: int | None = None, groups: int = 1) -> DecodePlan:
+                capacity: int | None = None, groups: int = 1,
+                split_ranks: int | None = None) -> DecodePlan:
     """Splits per unit and blocks of one decode launch (``groups`` units
     per KV head, :func:`heads_per_unit`). A unit walks its
     slot's ``C`` table entries (or ``C`` tiles of its strided shard); it
     is split only while the card has fewer than about two blocks per SM
     and every split still walks ``SPLIT_MIN`` entries (at most 16
     splits, and never more than ``LIST_CAP`` entries per split).
-    ``capacity`` (the blocks the card holds at once) bounds the grid of
-    a cooperative (FUSED) launch; ``None`` launches one block per
-    item."""
+    ``split_ranks`` (default ``n_local``) is the ranks that choice
+    counts: the wrappers pass the mesh's W, so that a rank's partial,
+    which the splits' order rounds, has the same bits whatever the
+    ranks' layout over cards and processes. ``capacity`` (the blocks
+    the card holds at once) bounds the grid of a cooperative (FUSED)
+    launch; ``None`` launches one block per item."""
     units = n_local * B * KVH * groups
-    want = -(-2 * sm_count // max(units, 1))
+    want = -(-2 * sm_count // max((split_ranks or n_local) * B * KVH
+                                  * groups, 1))
     n_split = max(1, min(want, -(-C // SPLIT_MIN), 16), -(-C // LIST_CAP))
     items = units * n_split
     grid = items if capacity is None else min(items, capacity)
@@ -303,7 +317,8 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
     ((n_local, ...) views): (B, H, D) in q's dtype, or fp32 (B, H, D + 2)
     partials."""
     paged = tables is not None
-    W = len(k)
+    W = symm.width(k, mesh)
+    ids = symm.rank_ids(k, mesh)
     B, H, D = q[0].shape
     KVH = k[0].shape[-2]
     gu = heads_per_unit(H // KVH, D)
@@ -317,7 +332,7 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
         call = symm.communicator(mesh).call(B * KVH * n_groups * rec * 8, 1)
     fn = _lib(paged)
     dt = _DTYPES[q[0].dtype]
-    outs: list = [None] * W
+    outs: list = [None] * len(k)
     for dev, ranks in groups.items():
         n_local = len(ranks)
         if n_local > 8:
@@ -326,7 +341,7 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
         cap = (symm.capacity(dev, _per_sm_query(paged), D, gu, dt)
                if mode == FUSED else None)
         plan = decode_plan(B, KVH, n_local, C, symm.sm_count(dev), cap,
-                           n_groups)
+                           n_groups, split_ranks=W)
         split_rec = cnt = None
         if plan.n_split > 1:
             split_rec = torch.empty((plan.items, rec), dtype=torch.float32,
@@ -350,7 +365,8 @@ def _launch(name, mode, q, k, v, cur_len, scale, window, mesh=None,
             shape = (B, H, KVH, D, k[0].shape[1], C)
             head = tuple(per_rank)
         with torch.cuda.device(dev):
-            rc = fn(*head, symm.ints(ranks), n_local, *scratch, *shape,
+            rc = fn(*head, symm.ints([ids[r] for r in ranks]), n_local,
+                    *scratch, *shape,
                     plan.n_split, plan.grid, float(scale),
                     -1 if window is None else int(window), dt, mode, *sym,
                     torch.cuda.current_stream(dev).cuda_stream)
@@ -427,21 +443,22 @@ def _paged_ranks(name, q, k_pools, v_pools, cur_len, tables, window, mesh):
 
 
 def flash_decode_paged_partial(q, k_pools, v_pools, cur_len, tables, scale,
-                               window: int | None = None):
+                               window: int | None = None, mesh=None):
     """Each rank's unnormalised paged partial (o, m, l) over its pool
     shard (n_loc, bs, KVH, D), which holds global blocks
-    [r * n_loc, (r + 1) * n_loc). Per-rank lists in and out."""
+    [r * n_loc, (r + 1) * n_loc). Per-rank lists in and out (``mesh``:
+    the ranks' ids where processes split its model axis)."""
     name = "flash_decode_paged_partial"
     n_loc = k_pools[0].shape[0]
     if _paged_ranks(name, q, k_pools, v_pools, cur_len, tables, window,
                     None):
         flash_decode_paged_partial.plain_calls += 1
-        return [paged_partial_plain(q[r], k_pools[r], v_pools[r],
-                                    cur_len[r], tables[r], scale, window,
+        return [paged_partial_plain(q[i], k_pools[i], v_pools[i],
+                                    cur_len[i], tables[i], scale, window,
                                     base=r * n_loc)
-                for r in range(len(k_pools))]
+                for i, r in enumerate(symm.rank_ids(k_pools, mesh))]
     raw = _launch(name, PARTIAL, q, k_pools, v_pools, cur_len, scale,
-                  window, tables=tables)
+                  window, mesh=mesh, tables=tables)
     flash_decode_paged_partial.launches += len(symm.rank_groups(k_pools))
     return [_split(x) for x in raw]
 
@@ -458,9 +475,10 @@ def flash_decode_paged_fused(q, k_pools, v_pools, cur_len, tables, scale,
                     mesh):
         flash_decode_paged_fused.plain_calls += 1
         return fused_plain(
-            [paged_partial_plain(q[r], k_pools[r], v_pools[r], cur_len[r],
-                                 tables[r], scale, window, base=r * n_loc)
-             for r in range(len(k_pools))], q[0].dtype)
+            [paged_partial_plain(q[i], k_pools[i], v_pools[i], cur_len[i],
+                                 tables[i], scale, window, base=r * n_loc)
+             for i, r in enumerate(symm.rank_ids(k_pools, mesh))],
+            q[0].dtype, mesh)
     out = _launch(name, FUSED, q, k_pools, v_pools, cur_len, scale, window,
                   mesh=mesh, tables=tables)
     flash_decode_paged_fused.launches += len(symm.rank_groups(k_pools))
@@ -468,7 +486,8 @@ def flash_decode_paged_fused(q, k_pools, v_pools, cur_len, tables, scale,
 
 
 def _strided_ranks(name, q, k_shards, v_shards, cur_len, window, mesh):
-    W = _check_common(name, q, k_shards, v_shards, cur_len, mesh)
+    _check_common(name, q, k_shards, v_shards, cur_len, mesh)
+    W = symm.width(k_shards, mesh)
     if k_shards[0].dim() != 4:
         raise ValueError(f"{name}: shards must be (B, S_loc, KVH, D), got "
                          f"{tuple(k_shards[0].shape)}")
@@ -480,20 +499,21 @@ def _strided_ranks(name, q, k_shards, v_shards, cur_len, window, mesh):
 
 
 def flash_decode_partial(q, k_shards, v_shards, cur_len, scale,
-                         window: int | None = None):
+                         window: int | None = None, mesh=None):
     """Each rank's unnormalised partial (o, m, l) over its strided shard
     (B, S_loc, KVH, D) (local slot j holds position j * W + r). Per-rank
-    lists in and out; cur_len per rank (B,) int32."""
+    lists in and out; cur_len per rank (B,) int32 (``mesh``: the ranks'
+    ids and W where processes split its model axis)."""
     name = "flash_decode_partial"
     W, cpu = _strided_ranks(name, q, k_shards, v_shards, cur_len, window,
-                            None)
+                            mesh)
     if cpu:
         flash_decode_partial.plain_calls += 1
-        return [strided_partial_plain(q[r], k_shards[r], v_shards[r],
-                                      cur_len[r], scale, window, r, W)
-                for r in range(W)]
+        return [strided_partial_plain(q[i], k_shards[i], v_shards[i],
+                                      cur_len[i], scale, window, r, W)
+                for i, r in enumerate(symm.rank_ids(k_shards, mesh))]
     raw = _launch(name, PARTIAL, q, k_shards, v_shards, cur_len, scale,
-                  window)
+                  window, mesh=mesh)
     flash_decode_partial.launches += len(symm.rank_groups(k_shards))
     return [_split(x) for x in raw]
 
@@ -511,9 +531,10 @@ def flash_decode_fused(q, k_shards, v_shards, cur_len, scale,
     if cpu:
         flash_decode_fused.plain_calls += 1
         return fused_plain(
-            [strided_partial_plain(q[r], k_shards[r], v_shards[r],
-                                   cur_len[r], scale, window, r, W)
-             for r in range(W)], q[0].dtype)
+            [strided_partial_plain(q[i], k_shards[i], v_shards[i],
+                                   cur_len[i], scale, window, r, W)
+             for i, r in enumerate(symm.rank_ids(k_shards, mesh))],
+            q[0].dtype, mesh)
     out = _launch(name, NORMAL if W == 1 else FUSED, q, k_shards,
                   v_shards, cur_len, scale, window, mesh=mesh)
     flash_decode_fused.launches += len(symm.rank_groups(k_shards))

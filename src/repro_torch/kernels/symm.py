@@ -30,6 +30,31 @@ also kept alive when a larger array supersedes them, and
 :func:`sm_count` / :func:`capacity` give the sizes the launch plans
 take. Buffers are sized before a call is captured into a CUDA graph (a
 warm-up call does it): growing inside a capture raises.
+
+Over processes (a mesh whose ``model`` axis several processes split,
+``Mesh.split`` > 1) the communicator holds this process's ranks' inboxes
+and flags in the symmetric heap: ``cudaMalloc`` allocations (a CUDA IPC
+handle names a whole allocation, so not PyTorch's caching allocator;
+:attr:`Communicator.heap_bytes` counts them, since
+``torch.cuda.max_memory_allocated`` cannot see them), zeroed, their
+handles published through the job's store, and every peer's opened once
+(``csrc/symm.cuh`` ``symm_heap_*``); the W-entry tables hold the local
+pointers and the opened ones. A growth happens at the same call in
+every process (they make the same calls); no process writes a peer's
+new buffers before it has collected their handles, which the peer
+publishes only once its zeros have landed: the store is the barrier.
+Retired buffers stay mapped, as captured graphs may replay into them,
+until :meth:`Communicator.close`. Every process runs the same sequence
+of fused and exchange calls, so the epoch words of the processes stay
+equal.
+
+:func:`every_rank`, :func:`all_gather` and :func:`all_reduce` are the
+model axis's collectives over processes: on the card one launch of the
+hand-written ``csrc/symm_exchange.cu`` (:func:`exchange`, the fused
+kernels' protocol: push, flag, wait, then the blocks joined or summed
+in rank order), on the CPU the gloo link of the model peers
+(``Mesh.model_link``); values are bit-identical to the same collective
+over the same ranks in one process.
 """
 from __future__ import annotations
 
@@ -85,10 +110,21 @@ class Call:
 
 class Communicator:
     def __init__(self, mesh):
+        global _SEQ
         if any(d.type != "cuda" for d in mesh.devices):
             raise ValueError(f"symmetric buffers need CUDA ranks, got "
                              f"{mesh}")
         self.mesh = mesh
+        # over processes: the heap's owned and opened pointers, the bytes
+        # this process allocated, and the store keys' namespace
+        self.procs = mesh.procs if mesh.split > 1 else None
+        self.owned: list[int] = []
+        self.opened: list[int] = []
+        self.heap_bytes = 0
+        self.gen = 0
+        if self.procs is not None:
+            _SEQ += 1
+            self.key = f"symm/{_SEQ}"
         self.half = 0          # inbox bytes per parity
         self.n_chunk = 0
         self.inbox: list[torch.Tensor] = []
@@ -115,20 +151,91 @@ class Communicator:
         _no_capture("the symmetric buffers")
         for d in self.mesh.distinct:
             torch.cuda.synchronize(d)
-        if self.inbox:
+        if self.tables:
             self.retired.append((self.inbox, self.flags, self.tables))
         W = self.mesh.size
         self.half, self.n_chunk = half, n_chunk
-        # zeros: LL lines (csrc/symm.cuh) carry their epoch, and a
-        # recycled buffer could hold lines of another mesh's epochs
-        self.inbox = [torch.zeros(2 * half, dtype=torch.uint8, device=d)
-                      for d in self.mesh.devices]
-        self.flags = [torch.zeros(W * n_chunk, dtype=torch.int32, device=d)
-                      for d in self.mesh.devices]
-        ib = [t.data_ptr() for t in self.inbox]
-        fl = [t.data_ptr() for t in self.flags]
+        if self.procs is not None:
+            ib, fl = self._grow_heap(half, n_chunk)
+        else:
+            # zeros: LL lines (csrc/symm.cuh) carry their epoch, and a
+            # recycled buffer could hold lines of another mesh's epochs
+            self.inbox = [torch.zeros(2 * half, dtype=torch.uint8, device=d)
+                          for d in self.mesh.devices]
+            self.flags = [torch.zeros(W * n_chunk, dtype=torch.int32,
+                                      device=d)
+                          for d in self.mesh.devices]
+            ib = [t.data_ptr() for t in self.inbox]
+            fl = [t.data_ptr() for t in self.flags]
         self.tables = [(_upload(ib, d), _upload(fl, d), st)
                        for d, st in zip(self.mesh.distinct, self.state)]
+
+    def _grow_heap(self, half: int, n_chunk: int) -> tuple:
+        """New zeroed heap buffers for this process's ranks, their
+        handles exchanged with the group's processes through the store
+        and the peers' opened: the W inbox and flag bases, rank order."""
+        from repro_torch.distributed import processes
+        mesh, lib = self.mesh, _heap_lib()
+        W, hb = mesh.size, lib.symm_handle_bytes()
+        mine, handles = {}, b""
+        with torch.cuda.device(mesh.devices[0]):
+            for r in mesh.local:
+                for size in (2 * half, 4 * W * n_chunk):
+                    ptr, h = ctypes.c_void_p(), ctypes.create_string_buffer(hb)
+                    _build.check(lib.symm_heap_alloc(size, ctypes.byref(ptr),
+                                                     h), "symm_heap_alloc")
+                    self.owned.append(ptr.value)
+                    self.heap_bytes += size
+                    mine.setdefault(r, []).append(ptr.value)
+                    handles += h.raw
+            self.gen += 1
+            key = f"{self.key}/{self.gen}"
+            members = processes.peers(mesh.shape, self.procs.world,
+                                      self.procs.rank, ("model",))
+            processes.publish(self.procs, key, handles)
+            n = len(mesh.local)
+            g0 = mesh.first - mesh.first % mesh.model
+            for q, got in zip(members, processes.collect(self.procs, key,
+                                                         members)):
+                if q == self.procs.rank:
+                    continue
+                lo = g0 + members.index(q) * n
+                for i in range(n):
+                    ptrs = []
+                    for j in range(2):
+                        at = (2 * i + j) * hb
+                        ptr = ctypes.c_void_p()
+                        _build.check(lib.symm_heap_open(
+                            got[at:at + hb], ctypes.byref(ptr)),
+                            f"symm_heap_open (rank {lo + i})")
+                        self.opened.append(ptr.value)
+                        ptrs.append(ptr.value)
+                    mine[lo + i] = ptrs
+        return ([mine[r][0] for r in range(g0, g0 + W)],
+                [mine[r][1] for r in range(g0, g0 + W)])
+
+    def close(self):
+        """Unmap the peers' heap buffers, wait until every process of the
+        group has, then free this process's (over processes; nothing in
+        one process). Call after the last launch that uses them."""
+        if self.procs is None or not (self.owned or self.opened):
+            return
+        from repro_torch.distributed import processes
+        lib = _heap_lib()
+        torch.cuda.synchronize(self.mesh.devices[0])
+        with torch.cuda.device(self.mesh.devices[0]):
+            for p in self.opened:
+                _build.check(lib.symm_heap_close(ctypes.c_void_p(p)),
+                             "symm_heap_close")
+            processes.barrier(self.procs, f"{self.key}/closed",
+                              processes.peers(self.mesh.shape,
+                                              self.procs.world,
+                                              self.procs.rank, ("model",)))
+            for p in self.owned:
+                _build.check(lib.symm_heap_free(ctypes.c_void_p(p)),
+                             "symm_heap_free")
+        self.opened, self.owned = [], []
+        self.heap_bytes = 0
 
     def epoch(self, i: int = 0) -> int:
         """The epoch of distinct device ``i``: the number of fused
@@ -144,6 +251,25 @@ class Communicator:
         if W * slot > self.half or n_chunk > self.n_chunk:
             self._grow(max(W * slot, self.half), max(n_chunk, self.n_chunk))
         return Call(slot, self.half, self.n_chunk, W, self.tables)
+
+
+_SEQ = 0          # communicators over processes made so far (store keys)
+
+
+def _heap_lib():
+    lib = _build.load("symm_exchange")
+    if lib.symm_heap_alloc.argtypes is None:
+        ptr = ctypes.c_void_p
+        lib.symm_heap_alloc.argtypes = [ctypes.c_longlong,
+                                        ctypes.POINTER(ptr), ctypes.c_char_p]
+        lib.symm_heap_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ptr)]
+        lib.symm_heap_close.argtypes = [ptr]
+        lib.symm_heap_free.argtypes = [ptr]
+        for f in (lib.symm_heap_alloc, lib.symm_heap_open,
+                  lib.symm_heap_close, lib.symm_heap_free,
+                  lib.symm_handle_bytes):
+            f.restype = ctypes.c_int
+    return lib
 
 
 def communicator(mesh) -> Communicator:
@@ -234,3 +360,143 @@ def ptrs(tensors) -> ctypes.Array:
 
 def ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
+
+
+# ------------------------------------------- the model axis over processes
+_OPS = {"gather": 0, "sum": 1}
+_SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK_BYTES = 1 << 16            # bytes a block of an exchange pushes
+
+
+def split(mesh) -> bool:
+    """Whether processes split ``mesh``'s model axis (its per-rank lists
+    then hold this process's ranks only)."""
+    return mesh is not None and mesh.split > 1
+
+
+def width(blocks, mesh) -> int:
+    """W: every rank of the group (``mesh.size``) where processes split
+    ``mesh``'s model axis, else ``len(blocks)`` (every rank here)."""
+    return mesh.size if split(mesh) else len(blocks)
+
+
+def rank_ids(blocks, mesh) -> list:
+    """The global rank of each entry of a per-rank list: ``mesh.local``
+    where processes split the model axis, else 0 .. len - 1."""
+    return list(mesh.local) if split(mesh) else list(range(len(blocks)))
+
+
+def _exchange_lib():
+    lib = _build.load("symm_exchange")
+    fn = lib.symm_exchange_launch
+    if fn.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([ptr, ptr] + [i32] * 4 + [i64, i64, ctypes.c_uint,
+                                                  ptr, i32, ptr, ptr, ptr,
+                                                  i32, i32, i64, i64, ptr])
+        fn.restype = ctypes.c_int
+        q = lib.symm_exchange_blocks_per_sm
+        q.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        q.restype = ctypes.c_int
+    return lib
+
+
+def exchange_plan(nbytes: int, capacity: int) -> int:
+    """The exchange's grid: a block per :data:`CHUNK_BYTES` of one rank's
+    block, at least one, at most what the card holds at once."""
+    return max(1, min(capacity, -(-nbytes // CHUNK_BYTES)))
+
+
+def exchange(blocks, mesh, op: str = "gather", axis: int = 0):
+    """One launch of ``csrc/symm_exchange.cu`` over this process's ranks
+    of ``mesh`` (processes split its model axis; CUDA tensors, one
+    shape and dtype): ``op`` ``"gather"`` joins every rank's block along
+    ``axis`` in rank order, ``"sum"`` adds them in rank order (float32 or
+    bfloat16, each partial sum rounded to the dtype, as ``acc + x`` is).
+    Returns the result on this process's device. Counters:
+    ``exchange.launches``."""
+    if op not in _OPS:
+        raise ValueError(f"exchange: unknown op {op!r}")
+    b0 = blocks[0]
+    dev, shape, dtype = b0.device, tuple(b0.shape), b0.dtype
+    if not split(mesh) or len(blocks) != len(mesh.local):
+        raise ValueError(f"exchange: {len(blocks)} blocks for a mesh that "
+                         f"processes do not split ({mesh})")
+    if any(t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+           for t in blocks) or dev.type != "cuda":
+        raise ValueError("exchange: the blocks must share one CUDA device, "
+                         "shape and dtype")
+    if op == "sum" and dtype not in _SUM_DTYPES:
+        raise TypeError(f"exchange: sums float32 or bfloat16, got {dtype}")
+    xs = [t.contiguous() for t in blocks]
+    nd = max(len(shape), 1)
+    axis %= nd
+    outer = 1
+    for k in shape[:axis]:
+        outer *= k
+    inner = b0.numel() // max(outer, 1)
+    W = mesh.size
+    out_shape = list(shape) or [1]
+    if op == "gather":
+        out_shape[axis] *= W
+    out = torch.empty(out_shape, dtype=dtype, device=dev)
+    if b0.numel() == 0:
+        return out
+    esz = b0.element_size()
+    nbytes = b0.numel() * esz
+    lib = _exchange_lib()
+    grid = exchange_plan(nbytes, capacity(
+        dev, lib.symm_exchange_blocks_per_sm))
+    call = communicator(mesh).call(nbytes, grid)
+    leaders = sum(1 << r for r in mesh.job_leaders)
+    with torch.cuda.device(dev):
+        rc = lib.symm_exchange_launch(
+            ptrs(xs), ints(list(mesh.local)), len(xs), _OPS[op],
+            _SUM_DTYPES.get(dtype, 0), esz, outer, inner, leaders,
+            out.data_ptr(), grid, *call.args(0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "symm_exchange")
+    exchange.launches += 1
+    return out
+
+
+exchange.launches = 0
+exchange.plain_calls = 0
+
+
+def every_rank(blocks, mesh) -> list:
+    """Every rank's block of the group, rank order, on this process's
+    device, from this process's ranks' ``blocks`` (one shape and dtype):
+    the blocks themselves where one process holds the group; over
+    processes on the card one :func:`exchange` (the blocks stacked), on
+    the CPU the gloo link of the model peers."""
+    if not split(mesh):
+        return list(blocks)
+    b0 = blocks[0]
+    if b0.device.type == "cuda":
+        return list(exchange([t.unsqueeze(0) for t in blocks], mesh,
+                             "gather", 0).unbind(0))
+    exchange.plain_calls += 1
+    parts = mesh.model_link._all_gather(torch.stack(
+        [t.contiguous() for t in blocks]))
+    return [t for p in parts for t in p.unbind(0)]
+
+
+def all_gather(blocks, mesh, axis: int) -> torch.Tensor:
+    """Every rank's block joined along ``axis`` in rank order, on this
+    process's device (processes split ``mesh``'s model axis)."""
+    if blocks[0].device.type == "cuda":
+        return exchange(blocks, mesh, "gather", axis)
+    return torch.cat(every_rank(blocks, mesh), dim=axis)
+
+
+def all_reduce(blocks, mesh) -> torch.Tensor:
+    """Every rank's block summed in rank order (``acc + x``), on this
+    process's device (processes split ``mesh``'s model axis)."""
+    if blocks[0].device.type == "cuda":
+        return exchange(blocks, mesh, "sum")
+    acc = None
+    for t in every_rank(blocks, mesh):
+        acc = t if acc is None else acc + t
+    return acc
+

@@ -77,7 +77,7 @@ def make_production_mesh(*, multi_pod: bool = False, devices=None,
 
 
 def make_mesh(tp: int, devices=None, device: str = "cuda",
-              procs=None) -> Mesh:
+              procs=None, split_model: bool = False) -> Mesh:
     """The launchers' mesh, JAX's ``build_mesh``: n ranks (one per entry
     of ``devices``, a list or a comma-separated string; by default
     ``tp`` ranks on ``device``, virtual ranks) as (data = n // model,
@@ -86,9 +86,23 @@ def make_mesh(tp: int, devices=None, device: str = "cuda",
     ``tp`` included) raises: JAX's ``n`` is the host's device count,
     the port's is what the caller listed. Over ``procs`` each process
     lists its own ranks, and the mesh is (data = P n // model, model):
-    JAX's ``n`` is every device of the job."""
+    JAX's ``n`` is every device of the job. With ``split_model`` (the
+    serving launchers) the processes split the model axis instead: each
+    lists its block of the ranks (by default ``tp / P`` on ``device``),
+    and the mesh is (data = P n // tp, model = tp)."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
+    world = _world(procs)
+    if split_model and world > 1:
+        if tp % world and devices is None:
+            raise ValueError(f"--tp {tp} does not split over {world} "
+                             f"processes")
+        devs = _device_list(devices, tp // world, device)
+        if not devs or (world * len(devs)) % tp:
+            raise ValueError(f"{world} processes of {len(devs)} ranks do "
+                             f"not divide by --tp {tp}")
+        return make_host_mesh(world * len(devs) // tp, tp, devs,
+                              procs=procs)
     devs = _device_list(devices, tp, device)
     if not devs:
         raise ValueError("--devices lists no device")

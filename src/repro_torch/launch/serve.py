@@ -31,6 +31,22 @@ the KV caches' batch on the data groups:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --devices cuda:0,cuda:0,cuda:0,cuda:0 --tp 2   # virtual ranks
 
+Under torchrun the processes split the model axis (``--tp`` is the
+job's; each process holds a block of ``--tp / P`` ranks on its one
+device: ``cuda:$LOCAL_RANK``, or what its ``--devices`` lists), as JAX
+drives one model axis from several hosts; what a decode step gathers or
+sums over ``model`` crosses processes device-side (``kernels.symm``),
+``torch.distributed`` (gloo) carries only the heap's handles and the
+end-of-run agreement of the streams; process 0 prints and writes
+``--metrics-file``:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch llama3-8b --tp 4 \
+      --fusion-mode pallas --devices cuda:0,cuda:0   # both on one card
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch llama3-8b --smoke \
+      --device cpu --tp 2
+
 ``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (keys ``params%%...``, as the
 JAX package's trainer and the port's write them) instead of seeded
@@ -40,13 +56,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.checkpointer import SEP, Checkpointer
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import processes
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
 from repro_torch.serving.engine import Engine, Request
@@ -149,11 +168,58 @@ def main(argv=None):
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
 
-    mesh = make_mesh(args.tp, args.devices, args.device)
+    joined = processes.current() is None
+    procs, mesh = join(args, cfg)
+    lead = procs is None or procs.rank == 0
+    try:
+        return _serve(args, cfg, mesh, lead)
+    finally:
+        if mesh.symm is not None:
+            mesh.symm.close()
+        if procs is not None and joined:
+            processes.shutdown()
+
+
+def _device(args) -> str:
+    """Where this process's ranks go by default: ``--device``, the card
+    ``$LOCAL_RANK`` of torchrun's processes on a card."""
+    if args.device == "cuda" and "LOCAL_RANK" in os.environ:
+        return f"cuda:{os.environ['LOCAL_RANK']}"
+    return args.device
+
+
+def join(args, cfg):
+    """This process's place in the job (``processes.init`` from
+    torchrun's environment; None for one process) and the mesh: over
+    processes they split the model axis, which serving supports at data
+    1 for the attention families only (``processes.check_model_split``);
+    a layout of whole data groups over processes is refused. Before any
+    parameter is drawn."""
+    dtype = (args.devices.split(",")[0].strip().split(":")[0]
+             if args.devices else args.device)
+    procs = processes.init("gloo", dtype)
+    mesh = make_mesh(args.tp, args.devices, _device(args), procs=procs,
+                     split_model=True)
+    if procs is None:
+        return procs, mesh
+    if mesh.split == 1:
+        raise NotImplementedError(
+            f"serving over {procs.world} processes that each hold whole "
+            f"data groups of mesh {dict(mesh.shape)}: not yet "
+            f"({processes.NEXT['data']})")
+    processes.check_model_split(mesh.shape, procs.world, what="serve",
+                                cfg=cfg)
+    if mesh.devices[0].type == "cuda":
+        torch.cuda.set_device(mesh.devices[0])
+    procs.connect(mesh.shape)
+    return procs, mesh
+
+
+def _serve(args, cfg, mesh, lead):
     ctx = dctx.DistContext(mesh if mesh.size > 1 else None,
                            args.fusion_mode)
     params, manifest = serving_params(cfg, mesh, args.seed, args.ckpt_dir)
-    if manifest is not None:
+    if manifest is not None and lead:
         print(f"[serve] restored step {manifest['step']}")
     with dctx.use(ctx):
         eng = Engine(params, cfg, batch=args.batch, max_len=args.max_len,
@@ -187,11 +253,18 @@ def main(argv=None):
              "p50_latency_s": round(percentile(lat, 50), 3),
              "p99_latency_s": round(percentile(lat, 99), 3),
              **eng.metrics(done)}
-    print(f"[serve] {stats}")
-    if args.metrics_file:
+    if mesh.procs is not None:
+        stats["processes"] = mesh.procs.world
+        stats["host_bytes"] = mesh.procs.host_bytes
+        if mesh.symm is not None:
+            stats["heap_bytes"] = mesh.symm.heap_bytes
+    if lead:
+        print(f"[serve] {stats}")
+    streams = {r.rid: list(r.out_tokens) for r in done}
+    if args.metrics_file and lead:
         with open(args.metrics_file, "w") as f:
-            json.dump(stats, f)
-    return {**stats, "streams": {r.rid: list(r.out_tokens) for r in done}}
+            json.dump({**stats, "streams": streams}, f)
+    return {**stats, "streams": streams}
 
 
 if __name__ == "__main__":

@@ -186,7 +186,9 @@ def build_mesh(args, procs=None):
         return make_production_mesh(multi_pod=bool(args.multi_pod),
                                     devices=args.devices,
                                     device=_device(args), procs=procs)
-    return make_mesh(args.tp, args.devices, _device(args), procs=procs)
+    listed = len(args.devices.split(",")) if args.devices else args.tp
+    return make_mesh(args.tp, args.devices, _device(args), procs=procs,
+                     split_model=world > 1 and listed < args.tp)
 
 
 def join(args, mesh=None):
@@ -198,6 +200,7 @@ def join(args, mesh=None):
     if mesh is None:
         mesh = build_mesh(args, procs)
     if procs is not None:
+        processes.check_model_split(mesh.shape, procs.world, what="train")
         processes.check_cards(procs, mesh.devices)
         if mesh.devices[0].type == "cuda":
             torch.cuda.set_device(mesh.devices[0])

@@ -18,6 +18,7 @@ from repro_torch.core import collective_matmul as cm
 from repro_torch.core import flash_decode as fd
 from repro_torch.core import patterns
 from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.kernels.flash_decode import flash_decode_paged
 from repro_torch.models.layers import apply_rope, dense, dense_group
 from repro_torch.models.module import Param
@@ -263,7 +264,7 @@ def decode_attn_step(params, x, cache, cur_len, cfg, active,
     (:func:`_attn_data`). Returns per device out (B, 1, d)."""
     ctx = dctx.current()
     mesh = ctx.mesh
-    W = len(cache["k"])
+    W = symm.width(cache["k"], mesh)
     B = x[0].shape[0]
     H, hd = cfg.n_heads, cfg.hd
     scale = 1.0 / (hd ** 0.5)
@@ -365,7 +366,7 @@ def _strided(cfg, q, k, v, cache, cur_len, active, scale):
     the contiguous flash-decode kernel's single-source path). A window
     at least as long as the cache makes it a rolling ring (positions
     wrap modulo S_max, the cache holds the last S_max tokens)."""
-    W = len(cache["k"])
+    W = symm.width(cache["k"], dctx.current().mesh)
     S_max = cache["k"][0].shape[1] * W
     rolling = (cfg.sliding_window is not None
                and S_max <= cfg.sliding_window)

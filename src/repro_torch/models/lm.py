@@ -57,6 +57,7 @@ from torch import nn
 from repro_torch.core import collective_matmul as cm
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import moe, transformer
@@ -940,7 +941,8 @@ def step_ranks(params, cfg) -> StepRanks:
                 f"rank (the weights' embed dim stays cut over data)")
         return StepRanks(_stationary_views(ps, data, cfg), split)
     mesh = _mesh()
-    W, n_dev = (1, 1) if mesh is None else (mesh.size, len(mesh.distinct))
+    W, n_dev = (1, 1) if mesh is None else (len(mesh.devices),
+                                            len(mesh.distinct))
     if split is not None and isinstance(params, list) and len(ps) == W:
         return StepRanks(ps, split)
     if split is None and len(ps) == n_dev:
@@ -993,7 +995,8 @@ def _embed_decode(ps, token, cfg, axis):
         x = [apply_embed(p["embed"], token.to(p.device), torch.float32)
              for p in dev]
     else:
-        g = [_gather(p, token, cfg, r) for r, p in enumerate(ps)]
+        g = [_gather(p, token, cfg, r)
+             for r, p in zip(symm.rank_ids(ps, mesh), ps)]
         x = (cm.all_reduce_devices(g, mesh.distinct) if axis == "in_vocab"
              else cm.all_gather_devices(g, mesh.distinct, gather_axis=-1))
     x = [t.to(cfg.dtype) for t in x]
@@ -1006,7 +1009,9 @@ def _logits_decode(ps, x, cfg, split):
     """The final norm once per device and the unembed: one (B, 1, V)
     bf16 tensor on the first device. A whole head runs once there; vocab
     shards (``logits_fn``, one product a rank) are gathered along the
-    vocab onto it, for the sampler."""
+    vocab onto it, for the sampler, in rank order; where processes split
+    the model axis every process gathers them onto its device (each
+    samples, and the streams must not part)."""
     dev = dctx.by_device(ps)
     axis = split["embed" if cfg.tie_embeddings else "head"]["table"]
     if axis is None:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collective_matmul as cm
 from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.kernels.matmul import matmul_batched
 from repro_torch.models.layers import dense
 from repro_torch.models.module import Param
@@ -214,8 +215,9 @@ def apply_moe_decode(params, x, cfg, split):
     routes = mesh.per_rank([route(xd, p["router"], cfg)
                             for p, xd in zip(dev, x)])
     xr = mesh.per_rank(x)
-    parts = [_combine_share(p, xr[r], routes[r], cfg, r * n)
-             for r, p in enumerate(params)]
+    parts = [_combine_share(p, xr[i], routes[i], cfg, r * n)
+             for i, (r, p) in enumerate(zip(symm.rank_ids(params, mesh),
+                                            params))]
     return [t.to(x[0].dtype)
             for t in cm.all_reduce_devices(parts, mesh.distinct)]
 

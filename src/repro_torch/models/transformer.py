@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import collective_matmul as cm
 from repro_torch.distributed import context as dctx
+from repro_torch.kernels import symm
 from repro_torch.distributed import fsdp
 from repro_torch.kernels.matmul import DOT_OPS as DOT_KERNELS
 from repro_torch.models import attention, mamba2, mlp, moe, rwkv6
@@ -216,15 +217,32 @@ def copy_paged_block(cfg, caches, src: int, dst: int):
     copy-on-write; recurrent state is untouched. The KV leaves are
     tensors (one rank) or per-rank shard lists; over W ranks global
     block t lives on rank t // n_loc at t % n_loc, and a copy between
-    ranks goes through the receiving rank's device."""
+    ranks goes through the receiving rank's device. Where processes split
+    the ambient mesh's model axis the lists hold this process's ranks:
+    a block that crosses processes goes through one exchange of every
+    rank's candidate (``kernels.symm.every_rank``: the source block on its
+    owner, zeros elsewhere), which every process makes."""
     kv = kv_part(cfg, caches)
+    mesh = dctx.current().mesh
     for leaf in (kv or {}).values():
         if isinstance(leaf, torch.Tensor):
             leaf[:, dst] = leaf[:, src]
             continue
         n_loc = leaf[0].shape[1]
-        leaf[dst // n_loc][:, dst % n_loc].copy_(
-            leaf[src // n_loc][:, src % n_loc])
+        ids = symm.rank_ids(leaf, mesh)
+        s_own, d_own = src // n_loc, dst // n_loc
+        # one process holds both ranks (every process decides alike)
+        if s_own // len(leaf) == d_own // len(leaf):
+            if d_own in ids:
+                leaf[ids.index(d_own)][:, dst % n_loc].copy_(
+                    leaf[ids.index(s_own)][:, src % n_loc])
+        else:
+            block = symm.every_rank(
+                [t[:, src % n_loc] if r == s_own
+                 else torch.zeros_like(t[:, src % n_loc])
+                 for r, t in zip(ids, leaf)], mesh)[s_own]
+            if d_own in ids:
+                leaf[ids.index(d_own)][:, dst % n_loc].copy_(block)
     return caches
 
 

@@ -88,6 +88,7 @@ thread may drive the engine (the server ticks on an executor thread).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 
@@ -245,8 +246,11 @@ class Engine:
                                 if megatick_token_budget is not None
                                 else max(self.decode_steps,
                                          self.prefill_chunk))
-        # a megatick is one CUDA-graph replay when every rank is on one
-        # card; over distinct cards (and on the CPU) the loop runs eagerly
+        # a megatick is one CUDA-graph replay when this process's ranks
+        # are on one card (also where processes split the model axis:
+        # what crosses them moves device-side, kernels.symm); over
+        # distinct cards of one process (and on the CPU) the loop runs
+        # eagerly
         one_card = mesh is None or len(mesh.distinct) == 1
         self._runner = None
         if self.decode_steps > 1:
@@ -887,7 +891,24 @@ class Engine:
         while ((self.queue or self.active)
                and self.tick_count - start < max_ticks):
             finished.extend(self.tick())
+        self._agree(finished)
         return finished
+
+    def _agree(self, finished):
+        """Where processes split the mesh's model axis, each runs this
+        engine on the same requests and samples the same logits: compare
+        the finished streams over the job's store, raise if they part."""
+        mesh = self.ctx.mesh
+        if mesh is None or mesh.split == 1:
+            return
+        from repro_torch.distributed import processes
+        streams = repr(sorted((r.rid, list(r.out_tokens))
+                              for r in finished)).encode()
+        processes.agree(mesh.procs, "streams",
+                        hashlib.blake2b(streams).digest(),
+                        processes.peers(mesh.shape, mesh.procs.world,
+                                        mesh.procs.rank, ("model",)),
+                        "streams")
 
     # --------------------------------------------- drain / snapshot / restore
     @torch.inference_mode()

@@ -56,12 +56,33 @@ PURE, MIXED = "pure", "mixed"
 def launch_counted() -> tuple:
     """The kernel wrappers that count their launches."""
     from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import symm
     from repro_torch.kernels.ag_gemm import ag_gemm_fused
     from repro_torch.kernels.matmul import matmul, matmul_batched
     return (matmul, matmul_batched, kfd.flash_decode_paged,
             kfd.flash_decode_paged_partial,
             kfd.flash_decode_paged_fused, kfd.flash_decode_partial,
-            kfd.flash_decode_fused, ag_gemm_fused)
+            kfd.flash_decode_fused, ag_gemm_fused, symm.exchange)
+
+
+def _captured_alike():
+    """Where processes split the ambient mesh's model axis, wait until
+    every process of the group has captured this graph: a capture takes
+    seconds of host time, and a replay's first cross-process call would
+    otherwise spin on a peer still capturing (``csrc/symm.cuh``)."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import processes
+    mesh = dctx.current().mesh
+    if mesh is None or mesh.split == 1:
+        return
+    global _CAPTURES
+    _CAPTURES += 1
+    processes.barrier(mesh.procs, f"captured/{_CAPTURES}",
+                      processes.peers(mesh.shape, mesh.procs.world,
+                                      mesh.procs.rank, ("model",)))
+
+
+_CAPTURES = 0               # graphs captured over a split model axis
 
 
 class MegatickRunner:
@@ -181,6 +202,7 @@ class MegatickRunner:
             finally:
                 if collect:
                     gc.enable()
+        _captured_alike()
         launches = [(fn, fn.launches - n0)
                     for fn, n0 in zip(counted, before) if fn.launches != n0]
         for fn, n in launches:            # recorded, not launched

@@ -1660,3 +1660,70 @@ def test_recurrent_megatick_replay_matches_eager_loop(cuda, arch, tp):
         per_step = 2 * cfg.n_layers + (4 if tp == 1 else 3) * groups + 1
     assert matmul.launches - n0 == steps * per_step
 
+
+def test_fused_kernels_over_two_processes_on_one_card(cuda, tmp_path):
+    """The three fused kernels at W = 4 over 2 processes on cuda:0 (2
+    virtual ranks each, the symmetric heap mapped by CUDA IPC, the
+    processes' contexts time-sliced): each process's outputs
+    bit-identical to the same call over 4 virtual ranks in one process,
+    which matches the plain versions."""
+    import sys
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from test_torch_processes import Job
+
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels.ag_gemm import ag_gemm_fused, ag_gemm_plain
+    W, B, H, KVH, D, bs, n_blocks, C = 4, 8, 32, 8, 128, 16, 256, 16
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(30)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * s).to(bf16)
+    a, b = rnd(8, 4096), rnd(4096, 4096, s=1 / 64)
+    q = rnd(B, H, D)
+    kp, vp = rnd(n_blocks, bs, KVH, D), rnd(n_blocks, bs, KVH, D)
+    sk, sv = rnd(B, 64, KVH, D), rnd(B, 64, KVH, D)
+    tables = torch.randperm(n_blocks, generator=g, device=cuda)[
+        :B * C].reshape(B, C).to(torch.int32)
+    cur = torch.tensor([1, 40, 16, 17, 100, 200, 256, 77],
+                       dtype=torch.int32, device=cuda)
+    n = n_blocks // W
+    x = {"ag_a": [a[:, r * 1024:(r + 1) * 1024].contiguous()
+                  for r in range(W)], "ag_b": b, "q": q,
+         "pk": [kp[r * n:(r + 1) * n].contiguous() for r in range(W)],
+         "pv": [vp[r * n:(r + 1) * n].contiguous() for r in range(W)],
+         "cur": cur, "tables": tables,
+         "sk": [sk[:, r * 16:(r + 1) * 16].contiguous() for r in range(W)],
+         "sv": [sv[:, r * 16:(r + 1) * 16].contiguous() for r in range(W)]}
+    path = tmp_path / "inputs.pt"
+    torch.save({k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+                for k, v in x.items()}, path)
+    job = Job(tmp_path, "fused_on_card", world=2, path=str(path), W=W)
+    mesh = Mesh(["cuda:0"] * W)
+    scale = D ** -0.5
+    one = {"ag_gemm_fused": ag_gemm_fused(x["ag_a"], [b] * W, mesh),
+           "flash_decode_paged_fused": kfd.flash_decode_paged_fused(
+               [q] * W, x["pk"], x["pv"], [cur] * W, [tables] * W, scale,
+               mesh=mesh),
+           "flash_decode_fused": kfd.flash_decode_fused(
+               [q] * W, x["sk"], x["sv"], [cur.clamp_max(64)] * W, scale,
+               mesh=mesh)}
+    plain = {"ag_gemm_fused": ag_gemm_plain(x["ag_a"], [b])[0],
+             "flash_decode_paged_fused": kfd.fused_plain(
+                 [kfd.paged_partial_plain(q, x["pk"][r], x["pv"][r], cur,
+                                          tables, scale, base=r * n)
+                  for r in range(W)], bf16)[0],
+             "flash_decode_fused": kfd.fused_plain(
+                 [kfd.strided_partial_plain(q, x["sk"][r], x["sv"][r],
+                                            cur.clamp_max(64), scale, None,
+                                            r, W) for r in range(W)],
+                 bf16)[0]}
+    two = job.results()
+    for name, outs in one.items():
+        want = plain[name].float()
+        assert ((outs[0].float() - want).abs()
+                <= 1e-2 * want.abs() + 1e-3).all(), name
+        for p, res in enumerate(two):
+            for i, t in enumerate(res[name]):
+                assert torch.equal(t, outs[2 * p + i].cpu()), (name, p, i)
