@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py [--kernels-only | --peers] [--verbose]
-    python3 chip_smoke.py --phase 24   # one phase alone: 2, 3, 7, 22-24
+    python3 chip_smoke.py --phase 26   # one phase alone: 2, 3, 7, 22-26
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then runs, failing on the first phase that fails:
@@ -92,6 +92,36 @@ source, in parallel), then runs, failing on the first phase that fails:
    float32 smoke model through the CLI at ``--tp 4`` token-identical to
    ``--tp 1``. ``--phase 23`` alone adds the CLI at ``--tp 4`` at K = 8
    in ``pallas`` and ``auto``: its steady rate and ms a step;
+25. serving with the model axis over processes, after phase 23: 2
+   spawned processes on cuda:0, 2 of tp 4's model ranks each, their
+   symmetric heaps mapped by CUDA IPC: (a) the ``symm_exchange`` round
+   trip, and a peer that never arrives ending in a CUDA error; (b) the
+   three fused kernels and the exchange bit-identical to one process's
+   4 ranks, held to their plain versions, timed (time-sliced) beside a
+   library call; (c) llama3-8b at full width with 8 of its 32 layers
+   (the cut: the time-sliced steps) under ``pallas`` and ``auto`` at
+   K = 8, streams token-identical to one process's tp 4 serve, no plain
+   call, no byte through torch.distributed, a graph replay a megatick,
+   the contiguous steps' logits bit-identical; (d) the serving CLI under
+   torchrun against one process;
+26. serving with data groups over processes, after phase 25, on cuda:0:
+   (a) the float32 smoke llama3-8b and zamba2-1.2b on (data 2, model 2)
+   over 2 processes (a data group each) and llama3-8b over 4 (the model
+   axis split too), phase 22a's traffic at K = 8 under ``pallas`` and
+   ``auto``: streams and counters as one process's (2, 2) serve, the
+   contiguous logits bit-identical; (b) llama3-8b at full width with 8
+   of its 32 layers over 2 processes, phase 25c's traffic at K = 8 in
+   both modes: streams token-identical to one process's, launches a
+   step exact (``data_processes_per_step``: the data axis's sums and
+   joins and the paged pool's combine crossing processes device-side),
+   no plain call, no host byte, a graph replay a megatick, GB a
+   process, ms a step; (c) the data-axis exchange and the fused paged
+   decode over the whole mesh across the processes, bit-identical to
+   one process, held to their plain versions, timed beside a library
+   call and the bound (kernel lines ``symm_exchange_data_processes``,
+   ``flash_decode_paged_fused_data_processes``); (d) the serving CLI
+   under torchrun on (2, 2), 2 processes (``--devices cuda:0,cuda:0``)
+   and 4 (``--devices cuda:0``), against one process;
 11. the robustness plane: (a), right after phase 8, phase 4's smoke
    serve at K = 8 under a fault plan (a dispatch failing twice, a slow
    tick, a pool spike that preempts between pure-megatick graph
@@ -4132,6 +4162,7 @@ P25_PLENS = (16, 24, 40, 48)   # 25c: prompt tokens of the 4 requests
 P25_NEW, P25_K = 16, 8         # 25c: new tokens a request, megatick K
 P25_MODES = ("pallas", "auto")
 P25_STEPS = 4              # 25c: contiguous decode steps (the strided path)
+P25_LAYERS = 8             # 25c: llama3-8b's 32 layers cut to 8
 P25_CLI = ["--arch", "llama3-8b", "--smoke", "--tp", str(P25_W),
            "--fusion-mode", "pallas", "--decode-steps", "4",
            "--requests", "4", "--max-new", "6", "--batch", "4"]
@@ -4176,7 +4207,7 @@ def _p25_roundtrip(procs):
     want = [float(q + 1) for q in range(procs.world) for _ in range(4)]
     check(out.tolist() == want, f"round trip: {out.tolist()} != {want}")
     us = 1e3 * _p25_ms(lambda: symm.exchange([x], mesh), P25_RT_ITERS)
-    mesh.symm.close()
+    mesh.close()
     return {"us_per_round_trip": us}
 
 
@@ -4274,7 +4305,7 @@ def _p25_kernels(procs, path):
         torch.cuda.synchronize()
         out[name] = [t.cpu() for t in res]
         ms[name] = _p25_ms(fn)
-    mesh.symm.close()
+    mesh.close()
     return {"out": out, "ms": ms}
 
 
@@ -4288,7 +4319,8 @@ def _p25_requests(cfg):
 
 
 def _p25_serve(procs):
-    """(25c) llama3-8b at full width and depth, born sharded (seed 0)
+    """(25c) llama3-8b at full width, P25_LAYERS of its 32 layers (the
+    cut: the time-sliced steps), born sharded (seed 0)
     over the (1, P25_W) mesh of this job (or one process), served under
     each of P25_MODES at K = P25_K (4 requests at once, 16 new tokens
     each), the kernels' counters zeroed just before and read just
@@ -4302,7 +4334,7 @@ def _p25_serve(procs):
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.graphs import launch_counted
-    cfg = get_config("llama3-8b")
+    cfg = get_config("llama3-8b").replace(n_layers=P25_LAYERS)
     mesh = _p25_mesh(procs, P25_W)
     params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh)
     shard_bytes = sum(t.numel() * t.element_size() for t in
@@ -4352,8 +4384,7 @@ def _p25_serve(procs):
             logits.append(lg.cpu())
     out["contiguous"] = {"logits": logits,
                          "launches": kfd.flash_decode_fused.launches}
-    if mesh.symm is not None:
-        mesh.symm.close()
+    mesh.close()
     return out
 
 
@@ -4436,25 +4467,25 @@ def _p25_finish(started, timeout=P25_TIMEOUT):
     return res, time.time() - t0
 
 
-def _p25_cli_start():
-    """(25d), started: the smoke CLI (P25_CLI) under torchrun in 2
-    processes on ``--devices cuda:0,cuda:0``."""
+def _cli_start(nproc, flags):
+    """The serve CLI with ``flags`` under torchrun in ``nproc`` processes
+    (its stats to a metrics file), started."""
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_p25d_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    log = open(os.path.join(tmp, "two.log"), "w+")
-    run = _torchrun(["--nproc-per-node", "2", "-m",
-                     "repro_torch.launch.serve"] + P25_CLI
-                    + ["--devices", "cuda:0,cuda:0", "--metrics-file",
-                       f"{tmp}/two.json"], env, log)
+    log = open(os.path.join(tmp, "run.log"), "w+")
+    run = _torchrun(["--nproc-per-node", str(nproc), "-m",
+                     "repro_torch.launch.serve"] + flags
+                    + ["--metrics-file", f"{tmp}/run.json"], env, log)
     return tmp, run, log, time.time()
 
 
-def _p25_cli_finish(started):
-    """(25d), checked against ``launch.serve.main`` of the same flags in
-    this process (4 virtual ranks): the same streams, and only process 0
-    of the torchrun job printed its stats."""
-    from repro_torch.launch import serve
+def _cli_finish(started, one, what):
+    """:func:`_cli_start`'s job, waited for, then checked against
+    ``one()`` (the streams of ``launch.serve.main`` of the same mesh in
+    this process, :func:`_cli_streams`): the same streams, only process
+    0 printed its stats, no byte of a step through torch.distributed.
+    Returns the streams and the job's wall s."""
     tmp, run, log, t0 = started
     try:
         rc = run.wait(timeout=max(1.0, 300 - (time.time() - t0)))
@@ -4464,18 +4495,41 @@ def _p25_cli_finish(started):
     log.seek(0)
     text = log.read()
     log.close()
-    check(rc == 0, f"serve CLI over processes: exit {rc}\n{text[-3000:]}")
-    with open(f"{tmp}/two.json") as f:
-        two = json.load(f)
+    check(rc == 0, f"{what}: exit {rc}\n{text[-3000:]}")
+    with open(f"{tmp}/run.json") as f:
+        got = json.load(f)
     shutil.rmtree(tmp, ignore_errors=True)
-    one = {str(k): v for k, v in serve.main(P25_CLI)["streams"].items()}
-    printed = text.count("[serve] {")
-    check(two["streams"] == one, f"serve CLI: torchrun streams "
-                                 f"{two['streams']} vs one process {one}")
-    check(printed == 1 and two["host_bytes"] == 0,
-          f"serve CLI: {printed} processes printed their stats, host "
-          f"bytes {two.get('host_bytes')}")
     wall = time.time() - t0
+    one = one()
+    printed = text.count("[serve] {")
+    check(got["streams"] == one, f"{what}: torchrun streams "
+                                 f"{got['streams']} vs one process {one}")
+    check(printed == 1 and got["host_bytes"] == 0,
+          f"{what}: {printed} processes printed their stats, host bytes "
+          f"{got.get('host_bytes')}")
+    return one, wall
+
+
+def _cli_streams(flags) -> dict:
+    """The streams of ``launch.serve.main(flags)`` in this process, keyed
+    as its metrics file keys them."""
+    from repro_torch.launch import serve
+    return {str(k): v for k, v in serve.main(flags)["streams"].items()}
+
+
+def _p25_cli_start():
+    """(25d), started: the smoke CLI (P25_CLI) under torchrun in 2
+    processes on ``--devices cuda:0,cuda:0``."""
+    return _cli_start(2, P25_CLI + ["--devices", "cuda:0,cuda:0"])
+
+
+def _p25_cli_finish(started):
+    """(25d), checked against ``launch.serve.main`` of the same flags in
+    this process (4 virtual ranks): the same streams, and only process 0
+    of the torchrun job printed its stats."""
+    one, _ = _cli_finish(started, lambda: _cli_streams(P25_CLI),
+                         "serve CLI over processes")
+    wall = time.time() - started[3]
     print(f"[model processes CLI] smoke --tp {P25_W} pallas: torchrun 2 "
           f"processes on cuda:0 serve the one process's streams, process "
           f"0 alone prints; {wall:.1f} s", flush=True)
@@ -4619,9 +4673,10 @@ def phase_model_processes(gen):
     a peer that never arrives ending in a CUDA error within SPIN_NS;
     (b) the three fused kernels and the exchange at phase 10's decode
     shapes against their plain versions and bit-identical to the same
-    call over 4 ranks in one process; (c) llama3-8b full width and depth
-    served under ``pallas`` and ``auto`` (K 8): streams token-identical
-    to one process's tp 4 serve of the same requests here, no plain
+    call over 4 ranks in one process; (c) llama3-8b full width, depth cut
+    to P25_LAYERS of 32, served under ``pallas`` and ``auto`` (K 8):
+    streams token-identical to one process's tp 4 serve of the same
+    requests here, no plain
     call, no byte through torch.distributed, one graph replay a
     megatick, the contiguous steps' logits bit-identical; (d) the CLI
     under torchrun against one process. The time-sliced calls of (a)-(c)
@@ -4652,7 +4707,7 @@ def phase_model_processes(gen):
     # beside this process's references (eager: no graph to capture;
     # graphs and eager give the same streams, phase 5b)
     side = _p25_start("missing"), _p25_cli_start()
-    cfg = get_config("llama3-8b")
+    cfg = get_config("llama3-8b").replace(n_layers=P25_LAYERS)
     params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh4)
     fns = launch_counted()
     one = {}
@@ -4741,7 +4796,8 @@ def phase_model_processes(gen):
         c = serve[0][mode]
         gb = [round(s[mode]["peak_gb"] + s[mode]["heap_gb"], 2)
               for s in serve]
-        print(f"[model processes] (c) llama3-8b full width, 32 layers, tp "
+        print(f"[model processes] (c) llama3-8b full width, {P25_LAYERS} of "
+              f"32 layers (the cut), tp "
               f"{P25_W} over 2 processes, {mode} K={P25_K}: streams = one "
               f"process's; {c['decode_steps']} steps, "
               f"{[round(s[mode]['ms_per_step'], 1) for s in serve]} ms a "
@@ -4764,6 +4820,562 @@ def phase_model_processes(gen):
            "streams": one["pallas"]["streams"], "cli": cli,
            "processes_s": kids_s, "missing_s": missing_s,
            "exchange_launches": symm.exchange.launches}
+    return out, rows
+
+
+# ---------------------- phase 26: serving, data groups over processes
+P26_MESH = (2, 2)          # (data, model) of every serve in 26
+P26_LAYERS = 8             # 26b: llama3-8b's 32 layers cut to 8
+P26_TIMEOUT = 420          # s the processes of one job may take
+P26_ITERS = 20             # 26c: timed calls of each kernel a process
+P26_MODES = ("pallas", "auto")
+P26_STEPS = 4              # contiguous decode steps (rows joined over data)
+# (26d) the smoke CLI under torchrun on the (2, 2) mesh: --devices of
+# each process, by the number of processes (a data group each; a block
+# of one group's model ranks), against one process with every rank
+P26_CLI = ["--arch", "llama3-8b", "--smoke", "--tp", "2",
+           "--fusion-mode", "pallas", "--decode-steps", "4",
+           "--requests", "4", "--max-new", "6", "--batch", "4"]
+P26_CLI_DEVICES = {2: "cuda:0,cuda:0", 4: "cuda:0"}
+
+
+def _p26_mesh(procs):
+    """The (2, 2) mesh over this job's processes on cuda:0, each its block
+    of the ranks (2 processes: a data group each; 4: a block of one
+    group's model ranks), or every rank here without ``procs``."""
+    from repro_torch.launch.mesh import make_mesh
+    D, M = P26_MESH
+    world = 1 if procs is None else procs.world
+    mesh = make_mesh(M, devices=["cuda:0"] * (D * M // world), procs=procs,
+                     split_model=True)
+    if procs is not None:
+        procs.connect(mesh.shape)
+    return mesh
+
+
+def data_processes_per_step(cfg, mode):
+    """Launches of one llama3-8b (``attn_mlp``) decode step a process when
+    2 processes hold a data group each of (data 2, model 2) on one card
+    (weights-stationary: this process's group's model ranks run the
+    weight sites on their data block): the GEMMs of
+    :func:`data_mesh_per_step` for one block; attention one paged decode
+    a layer over every rank of the job; ``exchange`` one a column group
+    and (``auto``) a row site, for both model ranks at once
+    (``cm.stationary_ranks``), one a row site under ``pallas`` (the
+    ranks' fused AG+GEMM outputs are one), one a model rank for the
+    embedding and the unembed, and under ``auto`` the paged combine's
+    gather of the partials a layer."""
+    L, M = cfg.n_layers, P26_MESH[1]
+    out = data_mesh_per_step(cfg, mode, 1, M)
+    out["exchange"] = L * {"pallas": 4, "auto": 5}[mode] + 2 * M
+    return out
+
+
+def _p26_smoke(procs, arch):
+    """(26a) ``arch``'s float32 smoke (2 layers) born sharded (seed 0) on
+    the (2, 2) mesh of this job (or one process): phase 22a's traffic
+    (``_dm_drive``: preemption, prefix hits, a copy on write) under each
+    of P26_MODES at K = 8, then P26_STEPS contiguous steps under
+    ``pallas`` at batch 4. Returns the streams and counters, the plain
+    calls on the card, the logits."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.models import lm
+    from repro_torch.serving.graphs import launch_counted
+    cfg = smoke_config(get_config(arch)).replace(n_layers=2,
+                                                 dtype=torch.float32)
+    mesh = _p26_mesh(procs)
+    params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh)
+    fns = launch_counted()
+    out = {}
+    for mode in P26_MODES:
+        _counted(fns)
+        out[mode] = _dm_drive(params, cfg, DistContext(mesh, mode), 8,
+                              "cuda:0")
+        out[f"{mode}_plain"] = sum(f.plain_calls for f in fns)
+    toks = torch.from_numpy(np.random.default_rng(26).integers(
+        1, cfg.vocab_size, (P26_STEPS, 4, 1)).astype(np.int64))
+    logits = []
+    with use(DistContext(mesh, "pallas")), torch.inference_mode():
+        st = lm.init_decode_state(params, cfg, 4, 16)
+        for i in range(P26_STEPS):
+            lg, st = lm.decode_step(params, toks[i].to("cuda:0"), st, cfg)
+            logits.append(lg.cpu())
+    out["logits"] = logits
+    mesh.close()
+    return out
+
+
+def _p26_serve(procs, graphs=True):
+    """(26b) llama3-8b at full width, P26_LAYERS of its 32 layers, born
+    sharded (seed 0) on the (2, 2) mesh of this job (or one process):
+    25c's traffic (4 requests of 16-48 prompt tokens, 16 new each) under
+    each of P26_MODES at K = 8, the kernels' counters zeroed just before
+    and read just after; then P26_STEPS contiguous steps under
+    ``pallas``. Returns the streams, the counts, ms a step, GB (shards,
+    peak, heap), graph replays, host bytes and the contiguous logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.graphs import launch_counted
+    cfg = get_config("llama3-8b").replace(n_layers=P26_LAYERS)
+    mesh = _p26_mesh(procs)
+    params = lm.init_params(cfg, seed=0, device="cuda:0", mesh=mesh)
+    shard_bytes = sum(t.numel() * t.element_size() for t in
+                      {id(t): t for p in params
+                       for t in p.parameters()}.values())
+    fns = launch_counted()
+    out = {"shard_gb": shard_bytes / 1e9}
+    for mode in P26_MODES:
+        with use(DistContext(mesh, mode)):
+            eng = Engine(params, cfg, batch=4, max_len=128, block_size=16,
+                         prefill_chunk=8, decode_steps=P25_K,
+                         device="cuda:0")
+        eng._runner.use_graphs = graphs
+        for r in _p25_requests(cfg):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counted(fns)
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = eng.scan_steps + eng._runner.warmup_steps
+        m = eng.metrics(done)
+        out[mode] = {
+            "streams": {r.rid: list(r.out_tokens) for r in done},
+            "launches": {f.__name__: f.launches for f in fns},
+            "plain_calls": {f.__name__: f.plain_calls for f in fns},
+            "decode_steps": steps, "wall_s": wall,
+            "ms_per_step": 1e3 * wall / max(steps, 1),
+            "graph_replays": m.get("graph_replays", 0),
+            "dispatches": m["dispatches"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "heap_gb": mesh.heap_bytes / 1e9,
+            "host_bytes": 0 if procs is None else procs.host_bytes}
+        del eng
+        torch.cuda.empty_cache()
+    toks = torch.from_numpy(np.random.default_rng(26).integers(
+        1, cfg.vocab_size, (P26_STEPS, 4, 1)).astype(np.int64))
+    kfd.flash_decode_fused.launches = 0
+    logits = []
+    with use(DistContext(mesh, "pallas")), torch.inference_mode():
+        st = lm.init_decode_state(params, cfg, 4, 64)
+        for i in range(P26_STEPS):
+            lg, st = lm.decode_step(params, toks[i].to("cuda:0"), st, cfg)
+            logits.append(lg.cpu())
+    out["contiguous"] = {"logits": logits,
+                         "launches": kfd.flash_decode_fused.launches}
+    mesh.close()
+    return out
+
+
+def _p26_inputs(gen):
+    """(26c) on the host: the data-axis exchange's blocks at 26b's shapes
+    (a model rank's q/k/v partial sums, 4x1x3072 fp32 a data block, and
+    its wo outputs, 4x1x2048 bf16 a block) and the paged decode's over
+    the (2, 2) mesh's 4 ranks (phase 7's, batch 8)."""
+    bf16 = torch.bfloat16
+    D = P26_MESH[0]
+    q, kps, vps, cur, tb = _paged_ranks_inputs(gen, bf16, D * P26_MESH[1])
+    host = {"part": [torch.randn((4, 1, 3072), generator=gen,
+                                 device="cuda") for _ in range(D)],
+            "join": [torch.randn((4, 1, 2048), generator=gen,
+                                 device="cuda").to(bf16) for _ in range(D)],
+            "pq": q, "pk": kps, "pv": vps, "pcur": cur, "ptb": tb}
+    return {n: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+            for n, v in host.items()}
+
+
+def _p26_calls(inp, mesh):
+    """(26c) the two calls over ``mesh`` (every rank here, or this
+    process's over 2): the data-axis exchange (a sum and a join over
+    model rank 0's data span) and the fused paged decode over every
+    rank; each returns a list of outputs."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import symm
+    dev = "cuda:0"
+    span = mesh.axis_span(mesh.first, "data")
+    held = span.local if span.spans else range(span.size)
+    part = [inp["part"][e].to(dev) for e in held]
+    join = [inp["join"][e].to(dev) for e in held]
+    pk = [inp["pk"][r].to(dev) for r in mesh.local]
+    pv = [inp["pv"][r].to(dev) for r in mesh.local]
+    pq, pc, pt = (inp[k].to(dev) for k in ("pq", "pcur", "ptb"))
+    n = len(pk)
+
+    def exchange():
+        if span.spans:
+            return [symm.all_reduce(part, span),
+                    symm.all_gather(join, span, -1)]
+        return [sum(part[1:], part[0]), torch.cat(join, dim=-1)]
+    return {"symm_exchange": exchange,
+            "flash_decode_paged_fused": lambda: kfd.flash_decode_paged_fused(
+                [pq] * n, pk, pv, [pc] * n, [pt] * n, 128 ** -0.5,
+                mesh=mesh)}
+
+
+def _p26_kernels(procs, path):
+    """(26c) each call of :func:`_p26_calls` over the 2 processes: the
+    outputs (host copies) and the wall ms a call."""
+    inp = torch.load(path)
+    mesh = _p26_mesh(procs)
+    out, ms = {}, {}
+    for name, fn in _p26_calls(inp, mesh).items():
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = [t.cpu() for t in res]
+        ms[name] = _p25_ms(fn, P26_ITERS)
+    mesh.close()
+    return {"out": out, "ms": ms}
+
+
+def _p26_child(rank, world, rdv, out, path):
+    """One of ``world`` spawned processes on cuda:0 in a gloo job over
+    ``rdv``: 2 processes run 26c's calls (inputs in ``path``), 26a's
+    smoke serves of llama3-8b and zamba2 and 26b's serve; 4 run 26a's
+    llama3-8b. Writes its results (or the traceback) to ``out.<rank>``."""
+    import traceback
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        from repro_torch.distributed import processes
+        procs = processes.init("gloo", "cuda", init_method=rdv, rank=rank,
+                               world_size=world)
+        torch.cuda.set_device(0)
+        todo = [("smoke llama3-8b", _p26_smoke, ("llama3-8b",))]
+        if world == 2:
+            todo = ([("kernels", _p26_kernels, (path,)),
+                     ("serve", _p26_serve, ())] + todo
+                    + [("smoke zamba2-1.2b", _p26_smoke, ("zamba2-1.2b",))])
+        for name, fn, args in todo:
+            with open(f"{out}.{rank}.stage", "w") as f:
+                f.write(name)     # where a process that aborts was
+            res[name] = fn(procs, *args)
+            if name == "serve" and rank == 0:
+                # the timed stages are over: others may share the card
+                open(f"{out}.timed", "w").close()
+    except Exception:
+        res = {"error": traceback.format_exc()}
+    torch.save(res, f"{out}.{rank}")
+    from repro_torch.distributed import processes
+    processes.shutdown()
+    if "error" in res:
+        sys.exit(1)
+
+
+def _p26_job(world, path=None):
+    """``world`` spawned :func:`_p26_child` processes, started."""
+    import multiprocessing
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p26_")
+    ctx = multiprocessing.get_context("spawn")
+    kids = [ctx.Process(target=_p26_child, args=(
+        r, world, f"file://{tmp}/rdv", f"{tmp}/out", path))
+        for r in range(world)]
+    for k in kids:
+        k.start()
+    return kids, tmp, time.time()
+
+
+def _p26_timed(started):
+    """Wait until :func:`_p26_job`'s 2 processes have ended their timed
+    stages (26c's calls, 26b's serve), or have ended."""
+    kids, tmp, t0 = started
+    while not os.path.exists(f"{tmp}/out.timed") and any(
+            k.is_alive() for k in kids) and time.time() - t0 < P26_TIMEOUT:
+        time.sleep(0.5)
+
+
+def _p26_results(started):
+    """The results of :func:`_p26_job`'s processes, and their s."""
+    kids, tmp, t0 = started
+    for k in kids:
+        k.join(max(1.0, P26_TIMEOUT - (time.time() - t0)))
+    hung = [r for r, k in enumerate(kids) if k.is_alive()]
+    for k in kids:
+        if k.is_alive():
+            k.kill()
+            k.join()
+    check(not hung, f"data processes: {hung} still running after "
+                    f"{P26_TIMEOUT} s")
+    res = []
+    for r in range(len(kids)):
+        if not os.path.exists(f"{tmp}/out.{r}"):
+            stage = (open(f"{tmp}/out.{r}.stage").read()
+                     if os.path.exists(f"{tmp}/out.{r}.stage") else "start")
+            check(False, f"data processes: process {r} of {len(kids)} "
+                         f"ended (exit {kids[r].exitcode}) in {stage} with "
+                         f"no result")
+        x = torch.load(f"{tmp}/out.{r}")
+        check("error" not in x, f"data processes: process {r} of "
+                                f"{len(kids)} failed:\n{x.get('error')}")
+        res.append(x)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, time.time() - t0
+
+
+def _p26_plain(inp):
+    """(26c) the plain versions on the same inputs (every rank here) and
+    their ms a call, and one library call a function (one process,
+    graph-timed): ``torch.cat`` + ``torch.sum`` for the exchange, SDPA
+    over the paged blocks gathered (holes and lengths masked)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as kfd
+    dev, bf16 = "cuda:0", torch.bfloat16
+    scale = 128 ** -0.5
+    g = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+         for k, v in inp.items()}
+    W, n_loc = len(g["pk"]), g["pk"][0].shape[0]
+    B, H, D = g["pq"].shape
+    fns = {
+        "symm_exchange": lambda: [sum(g["part"][1:], g["part"][0]),
+                                  torch.cat(g["join"], dim=-1)],
+        "flash_decode_paged_fused": lambda: kfd.fused_plain(
+            [kfd.paged_partial_plain(g["pq"], g["pk"][r], g["pv"][r],
+                                     g["pcur"], g["ptb"], scale,
+                                     base=r * n_loc) for r in range(W)],
+            bf16)}
+    out = {n: fn() for n, fn in fns.items()}
+    out["ms"] = {n: time_ms(fn, iters=5) for n, fn in fns.items()}
+    pool_k, pool_v = torch.cat(g["pk"]), torch.cat(g["pv"])
+    bs, KVH = pool_k.shape[1], pool_k.shape[2]
+    tb = g["ptb"].long()
+    pos = torch.arange(tb.shape[1] * bs, device=dev)
+    ok = (tb >= 0).repeat_interleave(bs, 1) & (pos[None]
+                                               < g["pcur"][:, None])
+
+    def heads(x):
+        return x.reshape(B, -1, KVH, D).repeat_interleave(H // KVH, 2) \
+            .transpose(1, 2).contiguous()
+    pk, pv = heads(pool_k[tb.clamp_min(0)]), heads(pool_v[tb.clamp_min(0)])
+    part = torch.stack(g["part"])
+    lib = {"symm_exchange": lambda: (torch.sum(part, dim=0),
+                                     torch.cat(g["join"], dim=-1)),
+           "flash_decode_paged_fused": lambda: F.scaled_dot_product_attention(
+               g["pq"][:, :, None], pk, pv, attn_mask=ok[:, None, None],
+               scale=scale)}
+    out["library_ms"] = {n: graph_ms(fn, iters=50) for n, fn in lib.items()}
+    return out
+
+
+def _p26_rows(inp, kids, serve, plain, errs):
+    """The kernels line's rows of 26c: the data-axis exchange and the
+    fused paged decode over the (2, 2) mesh across the 2 processes (each
+    call's ms from the processes, wall under the card's time-slicing;
+    launches from 26b's ``pallas`` serve; bound and plain version from
+    the same inputs)."""
+    D, M = P26_MESH
+    bf16 = torch.bfloat16
+    ms = {n: max(k["kernels"]["ms"][n] for k in kids) for n in errs}
+    launch = serve["pallas"]["launches"]
+    lens = inp["pcur"].tolist()
+    q_b = nbytes(inp["pq"])
+    part_b, join_b = nbytes(inp["part"][0]), nbytes(inp["join"][0])
+    by_pool = sum(-(-n // 16) for n in lens) * 16 * 8 * 128 * 2 * 2
+    spec = {
+        "symm_exchange": (
+            "src/repro_torch/csrc/symm_exchange.cu",
+            "none, no Pallas kernel: XLA's all-reduce and all-gather over "
+            "data (as at src/repro/core/collective_matmul.py:64)",
+            launch["exchange"], D * 4 * 3072,
+            D * (part_b + join_b) + 2 * (part_b + D * join_b),
+            "a model rank's q/k/v partials summed (4x1x3072 fp32 a data "
+            "block) + its wo outputs joined (4x1x2048 bf16 a block) over "
+            "2 data blocks"),
+        "flash_decode_paged_fused": (
+            "src/repro_torch/csrc/flash_decode_paged.cu",
+            "src/repro/kernels/flash_decode.py:272",
+            launch["flash_decode_paged_fused"],
+            sum(4 * n * 32 * 128 for n in lens),
+            by_pool + q_b + D * M * q_b,
+            f"the pool over the 4 ranks of (2, 2), batch 8, cur_len "
+            f"{lens}")}
+    rows = []
+    for name, (src, rep, n, ops, by, unit) in spec.items():
+        b, b_by = bound(ops, by, torch.float32 if name == "symm_exchange"
+                        else bf16)
+        rows.append({"name": f"{name}_data_processes", "route": "cuda",
+                     "source": src, "replaces": rep, "launches": n,
+                     "max_abs_err": errs[name], "ms": ms[name],
+                     "plain_ms": plain["ms"][name], "bound_ms": 1e3 * b,
+                     "bound_by": b_by,
+                     "library_ms": plain["library_ms"][name],
+                     "unit": f"one call, 2 processes x 2 ranks of (data 2, "
+                             f"model 2) on cuda:0 (time-sliced): {unit}"})
+    return rows
+
+
+def phase_data_processes(gen):
+    """(26) serving with data groups over processes, on cuda:0 (no MPS:
+    the card time-slices the contexts): (a) the float32 smoke llama3-8b
+    and zamba2 on (2, 2) over 2 processes (a data group each) and
+    llama3-8b over 4 (the model axis split too), phase 22a's traffic at
+    K = 8 under ``pallas`` and ``auto``: streams and counters as the
+    one-process (2, 2) serve's on the card, the contiguous logits
+    bit-identical; (b) llama3-8b full width, P26_LAYERS of 32 layers,
+    over 2 processes: 25c's traffic at K = 8, streams token-identical to
+    one process's (2, 2) serve at that depth, launches a step exact
+    (:func:`data_processes_per_step`), no plain call, no byte through
+    torch.distributed, a graph replay a megatick, GB a process, ms a
+    step; (c) the data-axis exchange and the fused paged decode over the
+    whole mesh across the processes, bit-identical to one process, held
+    to their plain versions, timed beside a library call and the
+    bound; (d) the serve CLI under torchrun on (2, 2) in both layouts (2
+    processes, a data group each; 4, the model axis split too) against
+    one process. No step waits at a barrier the product does not make
+    (``processes.align`` at ``Engine.run`` and each graph capture)."""
+    import gc
+    import tempfile
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p26in_")
+    inp = _p26_inputs(gen)
+    path = os.path.join(tmp, "inputs.pt")
+    torch.save(inp, path)
+    # (c)'s one-process calls and the plain versions, timed with nothing
+    # else on the card; then the 2 processes' timed stages (26c, 26b)
+    # alone; their smoke serves, the 4 processes', 26d's and this
+    # process's references share the card after
+    mesh4 = _p26_mesh(None)
+    ref = {n: [t.cpu() for t in fn()]
+           for n, fn in _p26_calls(inp, mesh4).items()}
+    torch.cuda.synchronize()
+    plain = _p26_plain(inp)
+    two_job = _p26_job(2, path)
+    _p26_timed(two_job)
+    four_job = _p26_job(4)
+    clis = {n: _cli_start(n, P26_CLI + ["--devices", d])
+            for n, d in P26_CLI_DEVICES.items()}
+    smoke = {a: _p26_smoke(None, a) for a in ("llama3-8b", "zamba2-1.2b")}
+    one = _p26_serve(None, graphs=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two, two_s = _p26_results(two_job)
+    shutil.rmtree(tmp, ignore_errors=True)
+    four, four_s = _p26_results(four_job)
+    # (d)
+    cli_one = _cli_streams(P26_CLI + ["--devices", ",".join(["cuda:0"] * 4)])
+    cli_s = {n: _cli_finish(started, lambda: cli_one,
+                            f"serve CLI, (2, 2) over {n} processes")[1]
+             for n, started in clis.items()}
+    layouts = " and ".join(f"{n} processes (--devices {d})"
+                           for n, d in P26_CLI_DEVICES.items())
+    print(f"[data processes CLI] smoke --tp 2 pallas on (2, 2): torchrun "
+          f"{layouts} on cuda:0 serve the one process's streams, process 0 "
+          f"alone prints; {cli_s} s", flush=True)
+    # (a)
+    for p, k in enumerate(two + four):
+        for arch in ("llama3-8b", "zamba2-1.2b"):
+            got = k.get(f"smoke {arch}")
+            if got is None:
+                continue
+            want = smoke[arch]
+            for mode in P26_MODES:
+                check(got[mode] == want[mode],
+                      f"data processes smoke {arch} {mode}: process {p} "
+                      f"{got[mode]} vs one process {want[mode]}")
+                check(got[f"{mode}_plain"] == 0,
+                      f"data processes smoke {arch} {mode}: plain calls "
+                      f"{got[f'{mode}_plain']} on the card")
+            check(all(torch.equal(a, b) for a, b in zip(got["logits"],
+                                                        want["logits"])),
+                  f"data processes smoke {arch}: process {p}'s contiguous "
+                  f"logits differ from one process's")
+    print(f"[data processes] (a) float32 smoke llama3-8b and zamba2-1.2b "
+          f"on (2, 2) over 2 processes (a group each), llama3-8b over 4 "
+          f"(model split too), {'/'.join(P26_MODES)} K=8: streams and "
+          f"counters = one process's "
+          f"{smoke['llama3-8b']['pallas'][1]}; contiguous logits "
+          f"bit-identical", flush=True)
+    # (b)
+    cfg = get_config("llama3-8b").replace(n_layers=P26_LAYERS)
+    serve = [k["serve"] for k in two]
+    for p, s in enumerate(serve):
+        for mode in P26_MODES:
+            c = s[mode]
+            per = data_processes_per_step(cfg, mode)
+            n = c["decode_steps"]
+            check(c["streams"] == one[mode]["streams"],
+                  f"data processes {mode}: process {p}'s streams "
+                  f"{c['streams']} vs one process's "
+                  f"{one[mode]['streams']}")
+            check(all(len(t) == P25_NEW for t in c["streams"].values()),
+                  f"data processes {mode}: streams {c['streams']}")
+            check(not any(c["plain_calls"].values()) and c["host_bytes"]
+                  == 0, f"data processes {mode}: plain calls "
+                        f"{c['plain_calls']}, host bytes {c['host_bytes']}")
+            check(all(c["launches"][f] == per[f] * n for f in per),
+                  f"data processes {mode}: launches {c['launches']} for "
+                  f"{n} steps, {per} a step")
+            check(c["graph_replays"] == c["dispatches"] > 0,
+                  f"data processes {mode}: {c['graph_replays']} replays "
+                  f"for {c['dispatches']} dispatches")
+        check(s["contiguous"]["launches"] > 0 and all(
+            torch.equal(a, b) for a, b in zip(
+                s["contiguous"]["logits"], one["contiguous"]["logits"])),
+            f"data processes: process {p}'s contiguous logits differ from "
+            f"one process's")
+    for mode in P26_MODES:
+        c = serve[0][mode]
+        per = {k: v for k, v in data_processes_per_step(cfg, mode).items()}
+        print(f"[data processes] (b) llama3-8b full width, {P26_LAYERS} of "
+              f"32 layers (the cut), (2, 2) over 2 processes, {mode} "
+              f"K={P25_K}: streams = one process's; {c['decode_steps']} "
+              f"steps, {[round(s[mode]['ms_per_step'], 1) for s in serve]}"
+              f" ms a step (one process, eager: "
+              f"{one[mode]['ms_per_step']:.1f}); launches a step {per}; GB "
+              f"a process "
+              f"{[round(s['shard_gb'], 3) for s in serve]} shards, "
+              f"{[round(s[mode]['peak_gb'], 2) for s in serve]} peak, "
+              f"{[round(s[mode]['heap_gb'], 4) for s in serve]} heap; "
+              f"{c['graph_replays']} replays a process; host bytes "
+              f"{c['host_bytes']}", flush=True)
+    # (c)
+    errs = {}
+    for n in ref:
+        for p, k in enumerate(two):
+            got = k["kernels"]["out"][n]
+            want = ref[n] if n == "symm_exchange" else \
+                ref[n][2 * p:2 * (p + 1)]
+            check(len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+                f"data processes: {n} in process {p} differs from the same "
+                f"call in one process")
+        if n == "symm_exchange":
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(ref[n],
+                                                              plain[n])),
+                  "data processes: the exchange differs from torch's sum "
+                  "and cat")
+            errs[n] = 0.0
+        else:
+            errs[n] = _close(ref[n][0].to("cuda:0"), plain[n][0],
+                             torch.bfloat16, f"data processes: {n} vs its "
+                                             f"plain version")
+    rows = _p26_rows(inp, two, serve[0], plain, errs)
+    for r in rows:
+        print(f"[data processes] (c) {r['name']}: {r['ms']:.3f} ms a call "
+              f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, "
+              f"library {r['library_ms']:.4f}), {r['launches']} launches "
+              f"in 26b pallas", flush=True)
+    out = {"serve": [{m: {k: v for k, v in s[m].items() if k != "streams"}
+                      for m in P26_MODES} | {"shard_gb": s["shard_gb"]}
+                     for s in serve],
+           "serve_one_process": {m: {k: v for k, v in one[m].items()
+                                     if k != "streams"} for m in P26_MODES},
+           "per_step": {m: data_processes_per_step(cfg, m)
+                        for m in P26_MODES},
+           "smoke_counters": {a: {m: smoke[a][m][1] for m in P26_MODES}
+                              for a in smoke},
+           "kernels_ms": [k["kernels"]["ms"] for k in two],
+           "layers": P26_LAYERS, "two_s": two_s, "four_s": four_s,
+           "cli": {"streams": cli_one, "wall_s": cli_s}}
     return out, rows
 
 
@@ -8974,6 +9586,15 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
             json.dump({"device": smi, "model_processes": out,
                        "kernels": kernels, "phase_s": phase_s}, f,
                       indent=1)
+    elif phase == "26":
+        out, kernels = timed("26 data processes", phase_data_processes,
+                             gen)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_phase26.json"),
+                  "w") as f:
+            json.dump({"device": smi, "data_processes": out,
+                       "kernels": kernels, "phase_s": phase_s}, f,
+                      indent=1)
     elif phase == "23":
         from repro_torch.configs import get_config
         from repro_torch.models import lm
@@ -8986,7 +9607,7 @@ def run_alone(phase, gen, smi, timed, phase_s, t_start):
             json.dump({"device": smi, "born_sharded": out,
                        "phase_s": phase_s}, f, indent=1)
     else:
-        print(f"chip_smoke: --phase {phase}: only 2, 3, 7 and 22-25 "
+        print(f"chip_smoke: --phase {phase}: only 2, 3, 7 and 22-26 "
               f"run alone (the others take earlier phases' outputs)",
               file=sys.stderr)
         sys.exit(2)
@@ -9077,6 +9698,8 @@ def run_all(smi, t_start, traces):
     torch.cuda.empty_cache()
     model_procs, model_proc_rows = timed("25 model processes",
                                          phase_model_processes, gen)
+    data_procs, data_proc_rows = timed("26 data processes",
+                                       phase_data_processes, gen)
     train, train_kernel = timed("12 training", phase_train, gen)
     train_tp, train_tp_kernel = timed(
         "13 training tp", phase_train_tp, gen, train["full"]["losses"][0],
@@ -9113,7 +9736,7 @@ def run_all(smi, t_start, traces):
                       "flash_decode_fused_w1": c_steps}, errs)
     kernels += ([train_kernel, train_tp_kernel, dm_kernel] + moe_kernels
                 + rec_kernels + front_kernels + sharded["kernels"]
-                + serve_dm_kernels + model_proc_rows)
+                + serve_dm_kernels + model_proc_rows + data_proc_rows)
     dry = timed("18 dry run vs card", phase_dryrun, smi, train, train_tp,
                 moe, front, fam, summary, kernels[0]["host_us_per_call"],
                 sharded, traces)
@@ -9138,6 +9761,7 @@ def run_all(smi, t_start, traces):
                    "sharded": sharded, "data_mesh": dm,
                    "serve_data_mesh": serve_dm, "born_sharded": born,
                    "model_processes": model_procs,
+                   "data_processes": data_procs,
                    "phase_s": phase_s, "total_s": time.time() - t_start},
                   f, indent=1)
     print("[phases] " + ", ".join(f"{k} {v:.1f} s"

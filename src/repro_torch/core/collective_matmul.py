@@ -22,8 +22,8 @@ Modes, as in the JAX package (``fused`` lives in ``kernels.ag_gemm``):
 Values are per-rank lists. Per-rank GEMMs go through the GEMM kernel
 (``kernels.matmul``; its plain version for CPU tensors), so autograd
 records every step of a ring (the kernel's own backward); rank-to-rank
-moves are copies onto the receiving rank's device. Where processes split
-the ambient mesh's model axis (``Mesh.split``), a per-rank list holds
+moves are copies onto the receiving rank's device. Where other processes
+hold ranks of the ambient mesh (``Mesh.spans``), a per-rank list holds
 this process's ranks, and the plain gathers and sums
 (:func:`all_gather`, :func:`all_gather_devices`, :func:`all_reduce`,
 :func:`all_reduce_devices`) take the other ranks' blocks through
@@ -113,12 +113,19 @@ def to_device(x, dev):
 # ------------------------------------------------- weights-stationary data
 class Stationary:
     """One weight's D ``data`` blocks as the decode step reads them over a
-    (data, model) mesh: ``blocks[g]`` is block g of dim ``dim`` (the
-    weight's ``embed`` or ``in_vocab`` dim, the FSDP shards), on the
-    device of the rank that holds it. JAX's decode never gathers these
-    (``repro/models/lm.py``, weights-stationary decode): every product
-    becomes a local partial dot per block plus a small sum or join of
-    its (B, 1, out) outputs over ``data`` (:func:`stationary`).
+    (data, model) mesh: ``blocks[i]`` is block ``held[i]`` of dim
+    ``dim`` (the weight's ``embed`` or ``in_vocab`` dim, the FSDP
+    shards), on the device of the rank that holds it. JAX's decode never
+    gathers these (``repro/models/lm.py``, weights-stationary decode):
+    every product becomes a local partial dot per block plus a small sum
+    or join of its (B, 1, out) outputs over ``data`` (:func:`stationary`).
+    In one process ``blocks`` holds every block; where other processes
+    hold some (the data groups over processes), ``span`` is the mesh of
+    the D ranks that hold block 0 .. D - 1 (``Mesh.span``: one model
+    rank's ``data`` peers), ``blocks`` its local members' blocks, and
+    the sums and joins cross processes through it (``kernels.symm``).
+    ``apart``: each process of the span brings rows of its own to the
+    products (:meth:`rows_apart`), not the same rows.
 
     It reads like the weight: ``shape`` is the whole one, a cast casts
     every block, an int or a slice indexes every block (a stacked
@@ -126,15 +133,28 @@ class Stationary:
     (:meth:`__getitem__`). It never moves: ``to(device)`` returns it as
     it is, and the products move the activations to the blocks."""
 
-    __slots__ = ("blocks", "dim")
+    __slots__ = ("blocks", "dim", "span", "apart")
 
-    def __init__(self, blocks: list, dim: int):
-        self.blocks, self.dim = list(blocks), dim
+    def __init__(self, blocks: list, dim: int, span=None,
+                 apart: bool = False):
+        self.blocks, self.dim, self.span = list(blocks), dim, span
+        self.apart = apart
+
+    @property
+    def n_blocks(self) -> int:
+        """D: every block, here or in other processes."""
+        return len(self.blocks) if self.span is None else self.span.size
+
+    @property
+    def held(self) -> range:
+        """The indices of the blocks ``blocks`` holds."""
+        return range(len(self.blocks)) if self.span is None \
+            else self.span.local
 
     @property
     def shape(self) -> torch.Size:
         s = list(self.blocks[0].shape)
-        s[self.dim] *= len(self.blocks)
+        s[self.dim] *= self.n_blocks
         return torch.Size(s)
 
     @property
@@ -145,24 +165,37 @@ class Stationary:
     def device(self) -> torch.device:
         return self.blocks[0].device
 
+    def _like(self, blocks, dim):
+        return Stationary(blocks, dim, self.span, self.apart)
+
+    def rows_apart(self) -> "Stationary":
+        """This weight where each process of its span brings rows of its
+        own to the products (``patterns.over_groups`` over processes:
+        each runs its data groups' rows), which :func:`stationary_ranks`
+        then takes :func:`_stationary_rows`' way; itself in one
+        process."""
+        if self.span is None:
+            return self
+        return Stationary(self.blocks, self.dim, self.span, True)
+
     def to(self, *args, **kwargs):
         dt = kwargs.get("dtype") or next(
             (a for a in args if isinstance(a, torch.dtype)), None)
         if dt is None or dt == self.dtype:
             return self
-        return Stationary([b.to(dt) for b in self.blocks], self.dim)
+        return self._like([b.to(dt) for b in self.blocks], self.dim)
 
     def float(self):
         return self.to(torch.float32)
 
     def __getitem__(self, idx):
         if isinstance(idx, int):
-            return Stationary([b[idx] for b in self.blocks], self.dim - 1)
+            return self._like([b[idx] for b in self.blocks], self.dim - 1)
         if isinstance(idx, slice):
             if self.dim == 0:
                 raise ValueError("a row range of a weight cut over data "
                                  "on its rows")
-            return Stationary([b[idx] for b in self.blocks], self.dim)
+            return self._like([b[idx] for b in self.blocks], self.dim)
         return self._gather_rows(idx)
 
     def _gather_rows(self, ids):
@@ -171,63 +204,176 @@ class Stationary:
         it does not hold) summed in block order, JAX's masked gather and
         psum; columns cut, the blocks' gathers joined."""
         dev = ids.device
-        D = len(self.blocks)
+        D = self.n_blocks
         if self.dim == 0:
             n = self.blocks[0].shape[0]
-            out = None
-            for g, b in enumerate(self.blocks):
+            parts = []
+            for g, b in zip(self.held, self.blocks):
                 i = to_device(ids, b.device) - g * n
                 own = ((i >= 0) & (i < n)).reshape(*i.shape,
                                                    *(1,) * (b.dim() - 1))
-                part = to_device(torch.where(own, b[i.clamp(0, n - 1)], 0),
-                                 dev)
-                out = part if out is None else out + part
+                parts.append(to_device(torch.where(
+                    own, b[i.clamp(0, n - 1)], 0), dev))
+            out = over_data(parts, self.span, "sum")
             record("all-reduce", nbytes(out), D)
             return out
-        out = torch.cat([to_device(b[to_device(ids, b.device)], dev)
-                         for b in self.blocks], dim=-1)
+        out = over_data([to_device(b[to_device(ids, b.device)], dev)
+                         for b in self.blocks], self.span, "join")
         record("all-gather", nbytes(out), D)
         return out
+
+
+def over_data(parts, span, op: str):
+    """Every data block's ``parts`` (this process's, on one device, one
+    shape) combined in block order: ``"sum"`` adds them (``acc + x``),
+    ``"join"`` joins them along the last dim. ``span``: the mesh of the
+    blocks' ranks where other processes hold some (``Stationary.span``;
+    the collective crosses processes there, ``kernels.symm``), else
+    None (``parts`` is every block)."""
+    if span is not None:
+        return (symm.all_reduce(parts, span) if op == "sum"
+                else symm.all_gather(parts, span, -1))
+    if op == "join":
+        return torch.cat(parts, dim=-1)
+    acc = None
+    for y in parts:
+        acc = y if acc is None else acc + y
+    return acc
 
 
 def stationary(prod, x, ws, kdim: int):
     """The weights-stationary products of ``x`` with the weights ``ws``
     (the sites of a group that shares ``x``), each a :class:`Stationary`
     cut over ``data`` the same way: ``prod(x_g, [block g of each
-    weight])`` runs on each block's device (``x`` moved there), the one
-    helper every decode site's product goes through on a data mesh.
+    weight])`` runs on each held block's device (``x`` moved there), the
+    one helper every decode site's product goes through on a data mesh.
     ``kdim`` is the weights' contracted dim: where ``data`` cuts it, x's
     columns of block g go to block g and the D partial outputs are
     summed in fp32 in block (rank) order, then cast back (an all-reduce
     over ``data``); where it cuts the output dim, each block's outputs
-    are joined along the last dim (an all-gather). Returns one output
-    per weight, on ``x``'s device."""
-    D = len(ws[0].blocks)
-    kcut = ws[0].dim == kdim
-    if any(not isinstance(w, Stationary) or w.dim != ws[0].dim
-           or len(w.blocks) != D for w in ws):
+    are joined along the last dim (an all-gather). Over processes
+    :func:`stationary_ranks` of one rank. Returns one output per weight,
+    on ``x``'s device."""
+    w0 = ws[0]
+    if w0.span is not None:
+        return stationary_ranks(prod, [x], [ws], kdim)[0]
+    _one_cut(ws)
+    kcut = w0.dim == kdim
+    k = w0.blocks[0].shape[kdim] if kcut else None
+    parts = []
+    for g, b in enumerate(w0.blocks):
+        xg = x[..., g * k:(g + 1) * k].contiguous() if kcut else x
+        ys = prod(to_device(xg, b.device), [w.blocks[g] for w in ws])
+        parts.append([to_device(y, x.device) for y in ys])
+    return [_finish(over_data([y.float() for y in ys] if kcut else list(ys),
+                              None, "sum" if kcut else "join"),
+                    ys[0], kcut, w0.n_blocks)
+            for ys in zip(*parts)]
+
+
+def stationary_ranks(prod, xs, wss, kdim: int):
+    """:func:`stationary` for each of this process's model ranks (``xs[r]``
+    with its weights ``wss[r]``). Where their blocks cross processes,
+    every rank's sums or joins go in one collective over all their
+    spans' ranks (a rank's span alone, else the ambient
+    ``DistContext.data``'s ``Mesh.span`` of them: the ranks' spans share
+    their processes, a process's members a block), each rank's outputs
+    combined in block order as :func:`stationary` combines them, bit for
+    bit; weights marked :meth:`Stationary.rows_apart` go
+    :func:`_stationary_rows`' way."""
+    w0 = wss[0][0]
+    if w0.span is None:
+        return [stationary(prod, x, ws, kdim) for x, ws in zip(xs, wss)]
+    for ws in wss:
+        _one_cut(ws)
+    D, n = w0.n_blocks, len(xs)
+    kcut = w0.dim == kdim
+    k = w0.blocks[0].shape[kdim] if kcut else None
+    if w0.apart:
+        return [_stationary_rows(prod, x, ws, kcut, k)
+                for x, ws in zip(xs, wss)]
+    span = w0.span if n == 1 else dctx.current().data.span(sorted(
+        r for ws in wss for r in ws[0].span.ranks))
+    sides, first = [], []
+    for i, g in enumerate(w0.held):
+        for x, ws in zip(xs, wss):
+            xg = x[..., g * k:(g + 1) * k].contiguous() if kcut else x
+            ys = [to_device(y, x.device) for y in prod(
+                to_device(xg, ws[0].blocks[i].device),
+                [w.blocks[i] for w in ws])]
+            sides.append(_side(ys, kcut))
+            if i == 0:
+                first.append(ys)
+    every = symm.every_rank(sides, span)          # block e of rank r: e n + r
+    out = []
+    for r in range(n):
+        mine = [every[e * n + r] for e in range(D)]
+        out.append(_outputs([over_data(mine, None, "sum")] if kcut
+                            else mine, first[r], kcut, D))
+    return out
+
+
+def _one_cut(ws):
+    """Raise unless the weights of one product group are cut over
+    ``data`` alike."""
+    w0 = ws[0]
+    if any(not isinstance(w, Stationary) or w.dim != w0.dim
+           or len(w.blocks) != len(w0.blocks) for w in ws):
         raise ValueError("weights of one product group cut over data "
                          "differently")
-    k = ws[0].blocks[0].shape[kdim] if kcut else None
-    parts = []
-    for g in range(D):
-        dev = ws[0].blocks[g].device
-        xg = x[..., g * k:(g + 1) * k].contiguous() if kcut else x
-        ys = prod(to_device(xg, dev), [w.blocks[g] for w in ws])
-        parts.append([to_device(y, x.device) for y in ys])
-    out = []
-    for ys in zip(*parts):
-        if kcut:
-            acc = None
-            for y in ys:
-                acc = y.float() if acc is None else acc + y.float()
-            y = acc.to(ys[0].dtype)
-            record("all-reduce", nbytes(y), D)
-        else:
-            y = torch.cat(ys, dim=-1)
-            record("all-gather", nbytes(y), D)
-        out.append(y)
+
+
+def _side(ys, kcut: bool):
+    """A group's outputs of one block side by side (fp32 to be summed)."""
+    return torch.cat([y.float() if kcut else y for y in ys], dim=-1)
+
+
+def _outputs(every, ys0, kcut: bool, D: int) -> list:
+    """The group's outputs (shaped and typed as ``ys0``) from ``every``,
+    pieces that hold them side by side: each output's columns of the
+    pieces joined (the blocks' outputs, or their sum: one piece)."""
+    out, at = [], 0
+    for y0 in ys0:
+        n = y0.shape[-1]
+        out.append(_finish(torch.cat([e[..., at:at + n] for e in every],
+                                     dim=-1), y0, kcut, D))
+        at += n
     return out
+
+
+def _finish(y, y0, kcut: bool, D: int):
+    """A weights-stationary output ``y``: cast back to ``y0``'s dtype
+    where ``data`` cuts K (the fp32 sum), recorded as its collective."""
+    if kcut:
+        y = y.to(y0.dtype)
+    record("all-reduce" if kcut else "all-gather", nbytes(y), D)
+    return y
+
+
+def _stationary_rows(prod, x, ws, kcut: bool, k):
+    """:func:`stationary` where the processes of the weights' span bring
+    different rows ``x`` (:meth:`Stationary.rows_apart`): every
+    process's rows gathered (one exchange), each block held here
+    multiplied with each process's rows (the products of one process's
+    group, shape for shape), the partials exchanged, and this process's
+    rows' D partials summed in fp32 in block order, or joined."""
+    w0, span = ws[0], ws[0].span
+    G = len(span.local)
+    me = span.peers.index(span.procs.rank)
+    xs = symm.every_rank([x] * G, span)[::G]
+    sides = []
+    for i, g in enumerate(w0.held):
+        per = []
+        for xq in xs:
+            xg = xq[..., g * k:(g + 1) * k].contiguous() if kcut else xq
+            ys = [to_device(y, x.device) for y in prod(
+                to_device(xg, w0.blocks[i].device),
+                [w.blocks[i] for w in ws])]
+            per.append(_side(ys, kcut))
+        sides.append(torch.stack(per))
+    mine = [e[me] for e in symm.every_rank(sides, span)]
+    return _outputs([over_data(mine, None, "sum")] if kcut else mine, ys,
+                    kcut, w0.n_blocks)
 
 
 def ag_gemm_k_sharded(a_shards, b, *, mode: str = "ring", ranks=None):
@@ -398,7 +544,7 @@ def gemm_rs(a, b, *, mode: str = "ring"):
 
 
 def _over_processes(x):
-    """The ambient mesh where processes split its model axis and ``x``
+    """The ambient mesh where other processes hold ranks of it and ``x``
     holds this process's ranks' entries, else None."""
     mesh = dctx.current().mesh
     return mesh if symm.split(mesh) and len(x) == len(mesh.local) else None

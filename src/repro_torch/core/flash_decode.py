@@ -28,8 +28,8 @@ them in rank order; ``ring`` folds each neighbour's partial as it
 arrives; ``rs_ag`` reduce-scatters over heads and all-gathers;
 ``pallas`` is the fused kernel (``kernels.flash_decode``), which pushes
 the partial to every rank and folds the sources in rank order inside
-the kernel. Outputs are per-rank lists. Where processes split the
-mesh's model axis (``Mesh.split``), the lists hold this process's ranks
+the kernel. Outputs are per-rank lists. Where other processes hold
+ranks of the mesh (``Mesh.spans``), the lists hold this process's ranks
 (entry i is global rank ``mesh.first + i``), W is the mesh's, and the
 combines take the other ranks' partials through ``kernels.symm``
 (:func:`~repro_torch.kernels.symm.every_rank`), folding them exactly as
@@ -168,7 +168,7 @@ _COMBINES = {"bsp": combine_bsp, "ring": combine_ring,
 def every_partial(partials, mesh) -> list:
     """Every rank's partial (o, m, l), rank order, from this process's
     ranks' (``partials``): one exchange of the packed (B, H, D + 2)
-    rows where processes split ``mesh``'s model axis, else
+    rows where other processes hold ranks of ``mesh``, else
     ``partials``."""
     if not symm.split(mesh):
         return list(partials)

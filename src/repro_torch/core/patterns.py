@@ -58,9 +58,10 @@ import torch
 from repro_torch.core import collective_matmul as cm
 from repro_torch.core import flash_decode as fd
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import fsdp
 from repro_torch.kernels import symm
 from repro_torch.kernels.ag_gemm import ag_gemm_fused
-from repro_torch.models.layers import dense, dense_group
+from repro_torch.models.layers import dense, dense_group, dense_group_ranks
 
 _ATTN_COMBINE = {"auto": "rs_ag", "bsp": "bsp", "ring": "ring",
                  "pallas": "pallas"}
@@ -194,60 +195,103 @@ def _gather_row_blocks(w, mesh):
     block, never over ``data``: the (K, N/D) of each data block."""
     if not isinstance(w[0], cm.Stationary):
         return cm.all_gather_devices(w, mesh.distinct, gather_axis=0)
-    blocks = [cm.all_gather_devices([t.blocks[g] for t in w],
-                                    [w[0].blocks[g].device],
+    blocks = [cm.all_gather_devices([t.blocks[i] for t in w],
+                                    [w[0].blocks[i].device],
                                     gather_axis=0)[0]
-              for g in range(len(w[0].blocks))]
-    whole = cm.Stationary(blocks, w[0].dim)
+              for i in range(len(w[0].blocks))]
+    whole = cm.Stationary(blocks, w[0].dim, w[0].span)
     return [whole] * len(mesh.distinct)
 
 
 def _ag_gemm_fused(shards, w, mesh):
     """The fused AG+GEMM kernel over ``mesh``'s ranks; on a weight cut
     over ``data`` on its N dim (``cm.Stationary``) one launch per data
-    block g over data group g's model ranks (``Mesh.group`` of the
-    ambient ``DistContext.data``), the blocks' outputs joined."""
+    block g this process holds, over data group g's model ranks of the
+    pod (``Mesh.group`` of the ambient ``DistContext.data``), the
+    blocks' outputs joined (over processes through the weight's span;
+    the ranks' outputs are one: the first's, joined once)."""
     if not isinstance(w[0], cm.Stationary):
         return ag_gemm_fused(shards, w, mesh)
     data = dctx.current().data
+    D = w[0].n_blocks
+    pod = data.local_groups[0] // D
     parts = []
-    for g in range(len(w[0].blocks)):
-        grp = data.group(g)
+    for i, g in enumerate(w[0].held):
+        grp = data.group(pod * D + g)
         parts.append(ag_gemm_fused(
             [cm.to_device(s, d) for s, d in zip(shards, grp.devices)],
-            [wr.blocks[g] for wr in w], grp))
-    out = [torch.cat([cm.to_device(p[r], s.device) for p in parts], dim=-1)
-           for r, s in enumerate(shards)]
-    cm.record("all-gather", cm.nbytes(out[0]), len(parts))
+            [wr.blocks[i] for wr in w], grp))
+    if w[0].span is None:
+        out = [torch.cat([cm.to_device(p[r], s.device) for p in parts],
+                         dim=-1) for r, s in enumerate(shards)]
+    else:
+        out = cm._per_rank_copies(symm.all_gather(
+            [cm.to_device(p[0], shards[0].device) for p in parts],
+            w[0].span, -1), len(shards))
+    cm.record("all-gather", cm.nbytes(out[0]), D)
     return out
 
 
-def over_groups(fn, states, *inputs):
+def join_groups(outs, dev):
+    """Every data group's rows of a whole-batch output, joined in group
+    order on ``dev``, from this process's groups' (``outs``, in
+    ``Mesh.local_groups`` order) under the ambient ``DistContext.data``;
+    over processes one collective over the ranks of this process's first
+    model rank in every group (``Mesh.axis_span``)."""
+    data = dctx.current().data
+    outs = [cm.to_device(o, dev) for o in outs]
+    if not data.spans or len(outs) == data.dp:
+        out = torch.cat(outs, dim=0)
+    else:
+        span = data.axis_span(data.first, ("pod", "data"))
+        out = symm.all_gather(outs, span, 0)
+    cm.record("all-gather", cm.nbytes(out), data.dp)
+    return out
+
+
+def over_groups(fn, params, states, *inputs):
     """The batch-sharded part of a decode step over a mesh with data
-    groups (the ambient ``DistContext.data``): ``fn(state_i, *rows)``
-    for each copy i of a state the groups hold (``Mesh.holders``: (g,
-    device)), on group g's rows (``Mesh.rows``) of each whole-batch
-    input, moved to the copy's device (``fn`` writes the state in
-    place). Returns ``fn``'s output (a tensor or a tuple of them), each
-    group's rows joined over ``data`` on the first input's device (the
-    first copy's output where the batch does not divide: every group
-    ran every row)."""
+    groups (the ambient ``DistContext.data``): ``fn(params, state_i,
+    *rows)`` for each copy i of a state this process's groups hold
+    (``Mesh.holders``: (g, device)), on group g's rows (``Mesh.rows``)
+    of each whole-batch input, moved to the copy's device (``fn`` writes
+    the state in place). ``params``: the view ``fn`` reads its weights
+    from; where processes hold the groups, each brings its own rows, and
+    ``fn`` gets the view with its weights cut over ``data`` marked so
+    (:func:`_rows_apart`). Returns ``fn``'s output (a tensor or a tuple
+    of them), each group's rows joined over ``data`` on the first
+    input's device (:func:`join_groups`; where the batch does not
+    divide, every group ran every row, and this process's first copy's
+    output is every group's)."""
     data = dctx.current().data
     B, dev = inputs[0].shape[0], inputs[0].device
+    if data.spans:
+        params = _rows_apart(params)
     first: dict = {}
     for st, (g, d) in zip(states, data.holders):
         rows = data.rows(g, B)
-        out = fn(st, *[cm.to_device(t[rows], d) for t in inputs])
+        out = fn(params, st, *[cm.to_device(t[rows], d) for t in inputs])
         first.setdefault(g, out if isinstance(out, tuple) else (out,))
-    outs = [first[g] for g in range(data.dp)]
+    outs = list(first.values())
     if B % data.dp:
         joined = tuple(cm.to_device(t, dev) for t in outs[0])
     else:
-        joined = tuple(torch.cat([cm.to_device(o[j], dev) for o in outs],
-                                 dim=0) for j in range(len(outs[0])))
-        for t in joined:
-            cm.record("all-gather", cm.nbytes(t), data.dp)
+        joined = tuple(join_groups([o[j] for o in outs], dev)
+                       for j in range(len(outs[0])))
     return joined if len(joined) > 1 else joined[0]
+
+
+def _rows_apart(tree):
+    """``tree`` (a layer's parameters: a dict or an ``fsdp.View``) with
+    each weight cut over ``data`` across processes marked rows-apart
+    (``cm.Stationary.rows_apart``); the tensors are its own."""
+    if isinstance(tree, cm.Stationary):
+        return tree.rows_apart()
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _rows_apart(v) for k, v in tree.items()}
+    return fsdp.View(out, tree.device) if isinstance(tree, fsdp.View) \
+        else out
 
 
 def row_parallel_sum(x, w):
@@ -258,7 +302,8 @@ def row_parallel_sum(x, w):
     (``cm.all_reduce_devices``), cast back to ``x``'s dtype. Returns
     per device (..., N)."""
     mesh = dctx.current().mesh
-    parts = [dense(xr.contiguous(), wr).float() for xr, wr in zip(x, w)]
+    parts = [y[0].float() for y in dense_group_ranks(
+        [xr.contiguous() for xr in x], [[wr] for wr in w])]
     return [t.to(x[0].dtype)
             for t in cm.all_reduce_devices(parts, mesh.distinct)]
 
@@ -271,9 +316,9 @@ def column_shards(x, ws):
     replicate it). One grouped GEMM launch a rank. Returns one per-rank
     list (..., N_i/W) per site."""
     mesh = dctx.current().mesh
-    xr = mesh.per_rank(x)
-    ys = [dense_group(xr[r], [w[r] for w in ws])
-          for r in range(len(mesh.devices))]
+    n = len(mesh.devices)
+    ys = dense_group_ranks(mesh.per_rank(x),
+                           [[w[r] for w in ws] for r in range(n)])
     return [[y[i] for y in ys] for i in range(len(ws))]
 
 

@@ -38,8 +38,13 @@ along the data axes. Serving may split the ``model`` axis too
 ranks): ``size``, ``shape`` and ``model`` stay the job's, while
 ``devices``, ``distinct``, ``leaders``, ``per_rank`` / ``from_ranks``
 and the per-rank lists are this process's ranks' (list index i is
-global rank ``first + i``); the model-axis collectives cross processes
-(``kernels.symm``: :func:`~repro_torch.kernels.symm.every_rank`).
+global rank ``first + i``). A collective over some of the job's ranks
+(a data group's model ranks, a model rank's data peers, the whole
+mesh) runs on :meth:`Mesh.span`, a one-axis mesh of those ranks whose
+``local`` are the members this process holds (:attr:`Mesh.spans` where
+other processes hold the rest); its collectives cross processes
+(``kernels.symm``: :func:`~repro_torch.kernels.symm.every_rank`), each
+span with its own communicator.
 
 Model code reads the mesh and the fusion mode from :func:`current`;
 launchers install a :class:`DistContext` around their run with
@@ -81,7 +86,7 @@ class Mesh:
     on ``devices[r - first]`` for r in :attr:`local`."""
 
     def __init__(self, devices, axis_shape=None, axis_names=None,
-                 procs=None):
+                 procs=None, *, local=None, peers=None):
         devs = tuple(canonical_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one rank")
@@ -100,7 +105,8 @@ class Mesh:
         n = 1
         for k in axis_shape:
             n *= k
-        if n != len(devs) * world:
+        if (local is None and n != len(devs) * world) \
+                or (local is not None and len(local) != len(devs)):
             raise ValueError(f"mesh shape {axis_shape} holds {n} ranks, "
                              f"{len(devs)} devices given"
                              + (f" to each of {world} processes"
@@ -110,9 +116,18 @@ class Mesh:
         self.shape = dict(zip(axis_names, axis_shape))
         self._groups: dict = {}
         self.procs = procs
-        # the global ranks this process holds (every rank in one process)
-        self.local = range(0, n) if procs is None else \
-            processes.process_ranks(self.shape, world, procs.rank)
+        # the ranks this process holds (every rank in one process), and
+        # the processes that hold ranks of this mesh (None: this one)
+        if local is not None:
+            self.local, self.peers = local, tuple(peers)
+        elif procs is None:
+            self.local, self.peers = range(0, n), None
+        else:
+            self.local = processes.process_ranks(self.shape, world,
+                                                 procs.rank)
+            self.peers = tuple(range(world))
+        # the job's ranks of this mesh, in its order (a span's members)
+        self.ranks = tuple(range(n))
         if procs is not None and len(set(devs)) > 1:
             raise NotImplementedError(
                 f"a process's ranks on several devices ({list(devs)}) over "
@@ -127,32 +142,94 @@ class Mesh:
         self.dev_index = tuple(self.distinct.index(d) for d in devs)
         # first rank on each distinct device
         self.leaders = tuple(devs.index(d) for d in self.distinct)
-        # processes that share a data group's model ranks (1: none)
-        self.split = 1 if procs is None else \
-            processes.model_split(self.shape, world)
+        # processes that share a data group's model ranks (1: none); of
+        # a span, the processes that share it
+        self.split = 1 if procs is None else (
+            len(self.peers) if local is not None
+            else processes.model_split(self.shape, world))
         self.symm = None            # kernels.symm.Communicator, on first use
         self._link = None
 
     @property
+    def spans(self) -> bool:
+        """Whether other processes hold ranks of this mesh (its per-rank
+        lists then hold this process's ranks, :attr:`local`)."""
+        return self.peers is not None and len(self.peers) > 1
+
+    @property
     def job_leaders(self) -> tuple:
-        """The global rank of the first rank on each device of this
-        process's data group, in every process of it (a fused kernel
-        pushes into their inboxes; :attr:`leaders` where one process
-        holds the group)."""
-        if self.split == 1:
+        """The rank of the first rank on each device of this mesh, in
+        every process that holds ranks of it (a fused kernel pushes into
+        their inboxes; :attr:`leaders` where one process holds them
+        all). Each process holds as many consecutive ranks."""
+        if not self.spans:
             return tuple(self.first + i for i in self.leaders)
-        n = len(self.devices)
-        g0 = self.first - self.first % self.model
-        return tuple(g0 + q * n + i for q in range(self.split)
+        n = len(self.local)
+        return tuple(q * n + i for q in range(len(self.peers))
                      for i in self.leaders)
 
     @property
-    def model_link(self):
-        """The :class:`processes.Link` to the processes of this process's
-        data group (:attr:`split` > 1), made once."""
+    def link(self):
+        """The :class:`processes.Link` to the processes that hold ranks
+        of this mesh (:attr:`spans`), made once."""
         if self._link is None:
-            self._link = self.procs.model_link(self.shape)
+            self._link = self.procs.link(self.peers)
         return self._link
+
+    def span(self, ranks) -> "Mesh":
+        """The one-axis mesh over ``ranks`` (the job's ranks of this
+        mesh, ascending: the ranks one collective spans), the same object
+        on every call: a mesh of its devices where this process holds
+        every one, else a mesh over processes whose :attr:`local` are
+        the members this process holds (each process as many, in a
+        block, processes in rank order). Its ``symm`` communicator and
+        its link are its own; the mesh itself over all its ranks."""
+        ranks = tuple(ranks)
+        if ranks == self.ranks:
+            return self
+        if ranks not in self._groups:
+            here = [i for i, r in enumerate(ranks) if r in self.local]
+            if not here:
+                raise ValueError(f"ranks {list(ranks)} lie in other "
+                                 f"processes")
+            devs = [self.devices[ranks[i] - self.first] for i in here]
+            if len(here) == len(ranks):
+                sub = Mesh(devs)
+            else:
+                n = len(self.local)
+                peers = tuple(sorted({r // n for r in ranks}))
+                if here != list(range(here[0], here[0] + len(here))) \
+                        or len(ranks) != len(peers) * len(here):
+                    raise ValueError(f"ranks {list(ranks)}: each process "
+                                     f"must hold a block of as many")
+                sub = Mesh(devs, (len(ranks),), ("model",), self.procs,
+                           local=range(here[0], here[-1] + 1), peers=peers)
+            sub.ranks = ranks
+            self._groups[ranks] = sub
+        return self._groups[ranks]
+
+    def axis_span(self, rank: int, axes) -> "Mesh":
+        """:meth:`span` over the ranks that differ from ``rank`` only
+        along ``axes`` (its peers on those axes, rank r of the span the
+        r-th of them in row-major order)."""
+        for g in self.axis_groups(axes):
+            if rank in g:
+                return self.span(g)
+        raise ValueError(f"rank {rank} is not in mesh {self}")
+
+    @property
+    def heap_bytes(self) -> int:
+        """The symmetric heap this process allocated for this mesh and
+        its spans (``kernels.symm``; 0 in one process)."""
+        return sum(m.symm.heap_bytes for m in (self, *self._groups.values())
+                   if m.symm is not None)
+
+    def close(self):
+        """Release the symmetric buffers of this mesh and of its spans
+        (``kernels.symm.close``); after the last launch that uses them."""
+        from repro_torch.kernels import symm
+        symm.close([m.symm for m in (self, *self._groups.values())
+                    if m.symm is not None], self)
 
     @property
     def size(self) -> int:
@@ -227,24 +304,23 @@ class Mesh:
 
     def group(self, g: int) -> "Mesh":
         """Data group ``g``'s model-only sub-mesh (its ranks ``g W ..
-        g W + W - 1``), the same object on every call (it keeps its
-        ``symm`` communicator); the mesh itself when ``dp`` is 1."""
+        g W + W - 1``; :meth:`span`), the same object on every call (it
+        keeps its ``symm`` communicator); the mesh itself when ``dp`` is
+        1."""
         if self.dp == 1:
             return self
         if g not in self.local_groups:
             raise ValueError(f"data group {g} lies in another process")
-        if g not in self._groups:
-            W, lo = self.model, g * self.model - self.first
-            self._groups[g] = Mesh(self.devices[lo:lo + W])
-        return self._groups[g]
+        W = self.model
+        return self.span(range(g * W, (g + 1) * W))
 
     @functools.cached_property
     def holders(self) -> list:
         """(data group, device) of every copy of a value the ranks of a
         data group share (the decode step's recurrent state, ``models.lm``):
-        each group's distinct devices, groups in order; on a model-only
-        mesh its distinct devices."""
-        return [(g, d) for g in range(self.dp)
+        each group's distinct devices, this process's groups in order; on
+        a model-only mesh its distinct devices."""
+        return [(g, d) for g in self.local_groups
                 for d in self.group(g).distinct]
 
     def rows(self, g: int, batch: int) -> slice:
@@ -284,8 +360,9 @@ class DistContext:
     """The mesh (``None``: one rank on the caller's device) and the
     fusion mode of the paper's patterns (``core.patterns``). ``data``:
     inside a decode step on a mesh with data groups, that mesh, while
-    ``mesh`` is data group 0's model sub-mesh (``Mesh.group``; None at
-    one model rank) that the weight sites run on (``models.lm``)."""
+    ``mesh`` is the model sub-mesh of this process's first data group
+    (``Mesh.group``; None at one model rank) that the weight sites run
+    on (``models.lm``)."""
     mesh: Mesh | None = None
     fusion_mode: str = "auto"      # auto | bsp | ring | pallas
     data: Mesh | None = None

@@ -46,10 +46,17 @@ through the symmetric heap (``kernels.symm``: buffers mapped by CUDA IPC,
 the handles exchanged through the job's store, :func:`publish` /
 :func:`collect`), device-side, so nothing of a step passes through
 ``torch.distributed``; on the CPU over the :class:`Link` of the model
-peers (:meth:`Processes.model_link`). Only serving at ``data`` = 1 of
-the attention families splits it (:func:`check_model_split`); the
-trainer and serving's data groups over processes refuse such a layout
+peers (``Mesh.link``). Only serving of the attention families splits
+it (:func:`check_model_split`); the trainer refuses such a layout
 before any parameter is drawn.
+
+Serving's data groups may lie in several processes too (whole groups a
+process, or a split model axis on a mesh with several groups): what the
+decode step sums or joins over ``data`` and ``pod`` (the weights-
+stationary products' partials, the batch rows, the paged pool's
+combine over every rank) crosses processes the same way, each
+collective over the processes that hold the ranks it spans
+(``Mesh.span``), in rank order.
 """
 from __future__ import annotations
 
@@ -176,13 +183,6 @@ class Processes:
                 if 1 < len(part) < self.world and part not in self._pg:
                     self._pg[part] = dist.new_group(list(part))
         self._pg[everyone] = None           # the default group
-
-    def model_link(self, mesh_shape: dict) -> "Link":
-        """The :class:`Link` to the processes that hold this process's
-        group's other model ranks (:func:`model_split`), in rank
-        order."""
-        return self.link(peers(mesh_shape, self.world, self.rank,
-                               ("model",)))
 
     def link(self, members: tuple) -> "Link":
         if members not in self._pg:
@@ -379,6 +379,20 @@ def barrier(procs: Processes, key: str, members):
     collect(procs, key, members)
 
 
+def align(mesh, what: str):
+    """Where other processes hold ranks of ``mesh`` (``Mesh.spans``),
+    wait until every one of them has reached this call (each makes the
+    same calls, so the n-th of each meets the n-th of the others): a
+    cross-process kernel's wait for its peers is bounded
+    (``csrc/symm.cuh``, SPIN_NS), so none must start while a peer is
+    still busy on its host (building an engine, capturing a graph)."""
+    if mesh is None or not mesh.spans:
+        return
+    _ALIGNED[0] += 1
+    barrier(mesh.procs, f"aligned/{what}/{_ALIGNED[0]}", mesh.peers)
+
+
+_ALIGNED = [0]              # align() calls made so far (store keys)
 _AGREED: dict = {}          # key -> agreements made under it so far
 
 
@@ -401,35 +415,46 @@ def agree(procs: Processes, key: str, value: bytes, members, what: str):
 # where the model axis over processes goes next (ROADMAP queue 1)
 NEXT = {"train": "ROADMAP queue 1, item 1b: the trainer with the model "
                  "axis over processes",
-        "data": "ROADMAP queue 1, item 1c: serving's data groups over "
-                "processes",
         "family": "ROADMAP queue 1, item 1d: the recurrent, hybrid and "
                   "vlm families with the model axis over processes"}
 # the families whose decode step crosses processes on the model axis
 SPLIT_BLOCKS = ("attn_mlp", "attn_moe")
 SPLIT_FAMILIES = ("dense", "moe")
+# the most ranks one collective spans over processes when serving: the
+# exchange and the fused kernels take a 32-bit mask of ranks
+# (csrc/symm_exchange.cu, csrc/ag_gemm.cu), and the paged pool's combine
+# spans the whole mesh
+MAX_SPAN = 32
 
 
 def check_model_split(mesh_shape: dict, world: int, *, what: str,
                       cfg=None):
-    """Refuse a layout whose processes split the model axis
-    (:func:`model_split`) where ``what`` cannot run on it: ``"train"``
-    (the trainer), or ``"serve"`` with data groups or a family outside
-    :data:`SPLIT_FAMILIES` (``cfg``). Called before any parameter is
-    drawn; a layout of whole data groups passes."""
-    if model_split(mesh_shape, world) == 1:
-        return
+    """Refuse a layout over ``world`` processes where ``what`` cannot run
+    on it: ``"train"`` (the trainer) over processes that split the model
+    axis (:func:`model_split`); ``"serve"`` over a mesh of more than
+    :data:`MAX_SPAN` ranks (its collectives span up to the whole mesh),
+    or with a family outside :data:`SPLIT_FAMILIES` (``cfg``) over a
+    split model axis. Called before any parameter is drawn; data groups
+    over processes pass, with or without a split model axis."""
+    S = model_split(mesh_shape, world)
     layout = (f"{world} processes splitting the model axis of mesh "
               f"{dict(mesh_shape)}")
     if what == "train":
-        raise NotImplementedError(f"training over {layout}: not yet "
-                                  f"({NEXT['train']})")
-    pods, D = _groups_axes(mesh_shape)
-    if pods * D > 1:
-        raise NotImplementedError(f"serving data groups over {layout}: "
-                                  f"not yet ({NEXT['data']})")
-    if cfg is not None and (cfg.family not in SPLIT_FAMILIES
-                            or cfg.block not in SPLIT_BLOCKS):
+        if S > 1:
+            raise NotImplementedError(f"training over {layout}: not yet "
+                                      f"({NEXT['train']})")
+        return
+    n = 1
+    for k in mesh_shape.values():
+        n *= k
+    if world > 1 and n > MAX_SPAN:
+        raise ValueError(
+            f"serving mesh {dict(mesh_shape)} over {world} processes: its "
+            f"{n} ranks exceed MAX_SPAN={MAX_SPAN}, the most one "
+            f"collective spans across processes (the exchange and the "
+            f"fused kernels take a 32-bit mask of ranks)")
+    if S > 1 and cfg is not None and (cfg.family not in SPLIT_FAMILIES
+                                      or cfg.block not in SPLIT_BLOCKS):
         raise NotImplementedError(f"serving {cfg.name} ({cfg.family}) over "
                                   f"{layout}: not yet ({NEXT['family']})")
 

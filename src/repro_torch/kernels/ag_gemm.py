@@ -14,9 +14,10 @@ and stored into every local output. For CPU tensors it runs
 CUDA call the kernel cannot take raises. :func:`ag_gemm_plan` sizes the
 kernel's persistent grid.
 
-Where processes split the mesh's model axis (``Mesh.split``) the lists
-hold this process's ranks: the launch passes their global ids, W and
-the job's leaders (each process's first rank), and the other
+Where other processes hold ranks of the mesh (``Mesh.spans``: a data
+group's model axis split over them) the lists hold this process's
+ranks: the launch passes their ids, W and the leaders of the mesh's
+processes (each one's first rank), and the other
 processes' shards arrive pushed through the heap's IPC-mapped inboxes
 (``kernels.symm``); a peer that never arrives traps, nothing falls back.
 

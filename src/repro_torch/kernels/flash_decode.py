@@ -20,8 +20,9 @@ cannot take raises):
 
 W-rank arguments are per-rank lists (ranks on one device may pass the
 same tensor); ranks sharing a device are launched together. Where
-processes split the mesh's model axis (``Mesh.split``) the lists hold
-this process's ranks (global ranks ``mesh.local``), W is the mesh's,
+other processes hold ranks of the mesh (``Mesh.spans``: a split model
+axis, or the pool over every rank of a job) the lists hold this
+process's ranks (global ranks ``mesh.local``), W is the mesh's,
 and the fused launches push into the other processes' inboxes through
 the heap's IPC-mapped tables (``kernels.symm``); the partial calls take
 the mesh for the ranks' ids. Semantics
@@ -447,7 +448,7 @@ def flash_decode_paged_partial(q, k_pools, v_pools, cur_len, tables, scale,
     """Each rank's unnormalised paged partial (o, m, l) over its pool
     shard (n_loc, bs, KVH, D), which holds global blocks
     [r * n_loc, (r + 1) * n_loc). Per-rank lists in and out (``mesh``:
-    the ranks' ids where processes split its model axis)."""
+    the ranks' ids where other processes hold some of its ranks)."""
     name = "flash_decode_paged_partial"
     n_loc = k_pools[0].shape[0]
     if _paged_ranks(name, q, k_pools, v_pools, cur_len, tables, window,

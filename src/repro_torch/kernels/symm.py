@@ -31,8 +31,10 @@ also kept alive when a larger array supersedes them, and
 take. Buffers are sized before a call is captured into a CUDA graph (a
 warm-up call does it): growing inside a capture raises.
 
-Over processes (a mesh whose ``model`` axis several processes split,
-``Mesh.split`` > 1) the communicator holds this process's ranks' inboxes
+Over processes (a mesh that other processes hold ranks of,
+``Mesh.spans``: a data group's model ranks that several processes
+split, a model rank's data peers, the whole mesh) the communicator
+holds this process's ranks' inboxes
 and flags in the symmetric heap: ``cudaMalloc`` allocations (a CUDA IPC
 handle names a whole allocation, so not PyTorch's caching allocator;
 :attr:`Communicator.heap_bytes` counts them, since
@@ -44,17 +46,18 @@ every process (they make the same calls); no process writes a peer's
 new buffers before it has collected their handles, which the peer
 publishes only once its zeros have landed: the store is the barrier.
 Retired buffers stay mapped, as captured graphs may replay into them,
-until :meth:`Communicator.close`. Every process runs the same sequence
-of fused and exchange calls, so the epoch words of the processes stay
-equal.
+until :func:`close`. Every process of a mesh runs the same sequence of
+fused and exchange calls on it, so the epoch words of its processes
+stay equal; each span (``Mesh.span``) has its communicator, heap, store
+keys (its ranks) and epoch.
 
 :func:`every_rank`, :func:`all_gather` and :func:`all_reduce` are the
-model axis's collectives over processes: on the card one launch of the
-hand-written ``csrc/symm_exchange.cu`` (:func:`exchange`, the fused
-kernels' protocol: push, flag, wait, then the blocks joined or summed
-in rank order), on the CPU the gloo link of the model peers
-(``Mesh.model_link``); values are bit-identical to the same collective
-over the same ranks in one process.
+collectives over processes: on the card one launch of the hand-written
+``csrc/symm_exchange.cu`` (:func:`exchange`, the fused kernels'
+protocol: push, flag, wait, then the blocks joined or summed in rank
+order), on the CPU the gloo link of the mesh's processes
+(``Mesh.link``); values are bit-identical to the same collective over
+the same ranks in one process.
 """
 from __future__ import annotations
 
@@ -110,21 +113,23 @@ class Call:
 
 class Communicator:
     def __init__(self, mesh):
-        global _SEQ
         if any(d.type != "cuda" for d in mesh.devices):
             raise ValueError(f"symmetric buffers need CUDA ranks, got "
                              f"{mesh}")
         self.mesh = mesh
         # over processes: the heap's owned and opened pointers, the bytes
-        # this process allocated, and the store keys' namespace
-        self.procs = mesh.procs if mesh.split > 1 else None
+        # this process allocated, and the store keys' namespace (the
+        # mesh's ranks, and how many communicators over them this
+        # process made before: the same in every process of the mesh)
+        self.procs = mesh.procs if split(mesh) else None
         self.owned: list[int] = []
         self.opened: list[int] = []
         self.heap_bytes = 0
         self.gen = 0
         if self.procs is not None:
-            _SEQ += 1
-            self.key = f"symm/{_SEQ}"
+            ranks = ",".join(map(str, mesh.ranks))
+            _SEQ[ranks] = _SEQ.get(ranks, 0) + 1
+            self.key = f"symm/{ranks}/{_SEQ[ranks]}"
         self.half = 0          # inbox bytes per parity
         self.n_chunk = 0
         self.inbox: list[torch.Tensor] = []
@@ -172,8 +177,9 @@ class Communicator:
 
     def _grow_heap(self, half: int, n_chunk: int) -> tuple:
         """New zeroed heap buffers for this process's ranks, their
-        handles exchanged with the group's processes through the store
-        and the peers' opened: the W inbox and flag bases, rank order."""
+        handles exchanged with the mesh's processes through the store
+        and the peers' opened: the W inbox and flag bases, rank order
+        (process q's ranks the q-th block of ``len(mesh.local)``)."""
         from repro_torch.distributed import processes
         mesh, lib = self.mesh, _heap_lib()
         W, hb = mesh.size, lib.symm_handle_bytes()
@@ -190,16 +196,14 @@ class Communicator:
                     handles += h.raw
             self.gen += 1
             key = f"{self.key}/{self.gen}"
-            members = processes.peers(mesh.shape, self.procs.world,
-                                      self.procs.rank, ("model",))
+            members = mesh.peers
             processes.publish(self.procs, key, handles)
             n = len(mesh.local)
-            g0 = mesh.first - mesh.first % mesh.model
             for q, got in zip(members, processes.collect(self.procs, key,
                                                          members)):
                 if q == self.procs.rank:
                     continue
-                lo = g0 + members.index(q) * n
+                lo = members.index(q) * n
                 for i in range(n):
                     ptrs = []
                     for j in range(2):
@@ -211,31 +215,32 @@ class Communicator:
                         self.opened.append(ptr.value)
                         ptrs.append(ptr.value)
                     mine[lo + i] = ptrs
-        return ([mine[r][0] for r in range(g0, g0 + W)],
-                [mine[r][1] for r in range(g0, g0 + W)])
+        return ([mine[r][0] for r in range(W)],
+                [mine[r][1] for r in range(W)])
 
-    def close(self):
-        """Unmap the peers' heap buffers, wait until every process of the
-        group has, then free this process's (over processes; nothing in
-        one process). Call after the last launch that uses them."""
-        if self.procs is None or not (self.owned or self.opened):
+    def unmap(self):
+        """Unmap the peers' heap buffers (after the last launch)."""
+        if not self.opened:
             return
-        from repro_torch.distributed import processes
         lib = _heap_lib()
         torch.cuda.synchronize(self.mesh.devices[0])
         with torch.cuda.device(self.mesh.devices[0]):
             for p in self.opened:
                 _build.check(lib.symm_heap_close(ctypes.c_void_p(p)),
                              "symm_heap_close")
-            processes.barrier(self.procs, f"{self.key}/closed",
-                              processes.peers(self.mesh.shape,
-                                              self.procs.world,
-                                              self.procs.rank, ("model",)))
+        self.opened = []
+
+    def free(self):
+        """Free this process's heap buffers (once every peer unmapped
+        them)."""
+        lib = _heap_lib() if self.owned else None
+        with torch.cuda.device(self.mesh.devices[0]):
             for p in self.owned:
                 _build.check(lib.symm_heap_free(ctypes.c_void_p(p)),
                              "symm_heap_free")
-        self.opened, self.owned = [], []
+        self.owned = []
         self.heap_bytes = 0
+
 
     def epoch(self, i: int = 0) -> int:
         """The epoch of distinct device ``i``: the number of fused
@@ -253,7 +258,26 @@ class Communicator:
         return Call(slot, self.half, self.n_chunk, W, self.tables)
 
 
-_SEQ = 0          # communicators over processes made so far (store keys)
+_SEQ: dict = {}    # communicators over processes made, by their ranks
+_CLOSES = [0]      # close() calls over processes made so far (store keys)
+
+
+def close(comms, mesh):
+    """Release the heap buffers of ``comms`` (communicators of ``mesh``
+    and of its spans): every process of ``mesh`` unmaps what it opened,
+    waits at one barrier for all of them, then frees what it owns; every
+    process calls it alike, after the last launch. Nothing in one
+    process."""
+    comms = [c for c in comms if c.procs is not None]
+    if not split(mesh):
+        return
+    from repro_torch.distributed import processes
+    for c in comms:
+        c.unmap()
+    _CLOSES[0] += 1
+    processes.barrier(mesh.procs, f"symm/closed/{_CLOSES[0]}", mesh.peers)
+    for c in comms:
+        c.free()
 
 
 def _heap_lib():
@@ -362,27 +386,27 @@ def ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
-# ------------------------------------------- the model axis over processes
+# ---------------------------------------------- collectives over processes
 _OPS = {"gather": 0, "sum": 1}
 _SUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK_BYTES = 1 << 16            # bytes a block of an exchange pushes
 
 
 def split(mesh) -> bool:
-    """Whether processes split ``mesh``'s model axis (its per-rank lists
-    then hold this process's ranks only)."""
-    return mesh is not None and mesh.split > 1
+    """Whether other processes hold ranks of ``mesh`` (``Mesh.spans``:
+    its per-rank lists then hold this process's ranks only)."""
+    return mesh is not None and mesh.spans
 
 
 def width(blocks, mesh) -> int:
-    """W: every rank of the group (``mesh.size``) where processes split
-    ``mesh``'s model axis, else ``len(blocks)`` (every rank here)."""
+    """W: every rank of ``mesh`` (``mesh.size``) where processes share
+    it, else ``len(blocks)`` (every rank here)."""
     return mesh.size if split(mesh) else len(blocks)
 
 
 def rank_ids(blocks, mesh) -> list:
-    """The global rank of each entry of a per-rank list: ``mesh.local``
-    where processes split the model axis, else 0 .. len - 1."""
+    """The rank of each entry of a per-rank list: ``mesh.local`` where
+    processes share ``mesh``, else 0 .. len - 1."""
     return list(mesh.local) if split(mesh) else list(range(len(blocks)))
 
 
@@ -409,7 +433,7 @@ def exchange_plan(nbytes: int, capacity: int) -> int:
 
 def exchange(blocks, mesh, op: str = "gather", axis: int = 0):
     """One launch of ``csrc/symm_exchange.cu`` over this process's ranks
-    of ``mesh`` (processes split its model axis; CUDA tensors, one
+    of ``mesh`` (other processes hold ranks of it; CUDA tensors, one
     shape and dtype): ``op`` ``"gather"`` joins every rank's block along
     ``axis`` in rank order, ``"sum"`` adds them in rank order (float32 or
     bfloat16, each partial sum rounded to the dtype, as ``acc + x`` is).
@@ -469,7 +493,7 @@ def every_rank(blocks, mesh) -> list:
     device, from this process's ranks' ``blocks`` (one shape and dtype):
     the blocks themselves where one process holds the group; over
     processes on the card one :func:`exchange` (the blocks stacked), on
-    the CPU the gloo link of the model peers."""
+    the CPU the gloo link of the mesh's processes."""
     if not split(mesh):
         return list(blocks)
     b0 = blocks[0]
@@ -477,14 +501,14 @@ def every_rank(blocks, mesh) -> list:
         return list(exchange([t.unsqueeze(0) for t in blocks], mesh,
                              "gather", 0).unbind(0))
     exchange.plain_calls += 1
-    parts = mesh.model_link._all_gather(torch.stack(
+    parts = mesh.link._all_gather(torch.stack(
         [t.contiguous() for t in blocks]))
     return [t for p in parts for t in p.unbind(0)]
 
 
 def all_gather(blocks, mesh, axis: int) -> torch.Tensor:
     """Every rank's block joined along ``axis`` in rank order, on this
-    process's device (processes split ``mesh``'s model axis)."""
+    process's device (other processes hold ranks of ``mesh``)."""
     if blocks[0].device.type == "cuda":
         return exchange(blocks, mesh, "gather", axis)
     return torch.cat(every_rank(blocks, mesh), dim=axis)
@@ -492,7 +516,7 @@ def all_gather(blocks, mesh, axis: int) -> torch.Tensor:
 
 def all_reduce(blocks, mesh) -> torch.Tensor:
     """Every rank's block summed in rank order (``acc + x``), on this
-    process's device (processes split ``mesh``'s model axis)."""
+    process's device (other processes hold ranks of ``mesh``)."""
     if blocks[0].device.type == "cuda":
         return exchange(blocks, mesh, "sum")
     acc = None

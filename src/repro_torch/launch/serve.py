@@ -31,14 +31,16 @@ the KV caches' batch on the data groups:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --devices cuda:0,cuda:0,cuda:0,cuda:0 --tp 2   # virtual ranks
 
-Under torchrun the processes split the model axis (``--tp`` is the
-job's; each process holds a block of ``--tp / P`` ranks on its one
-device: ``cuda:$LOCAL_RANK``, or what its ``--devices`` lists), as JAX
-drives one model axis from several hosts; what a decode step gathers or
-sums over ``model`` crosses processes device-side (``kernels.symm``),
-``torch.distributed`` (gloo) carries only the heap's handles and the
-end-of-run agreement of the streams; process 0 prints and writes
-``--metrics-file``:
+Under torchrun the mesh is every rank of the job, JAX's mesh over every
+device: each of the P processes lists its ranks on its one device
+(``--devices``, by default ``--tp / P`` on ``cuda:$LOCAL_RANK``), and
+the mesh is (data = P x its ranks / tp, model = tp). A process holds
+whole data groups, or a block of one group's model ranks (the attention
+families only), as JAX drives its mesh from several hosts; what a
+decode step gathers or sums over ``model``, ``data`` and ``pod`` crosses
+processes device-side (``kernels.symm``), ``torch.distributed`` (gloo)
+carries only the heap's handles and the end-of-run agreement of the
+streams; process 0 prints and writes ``--metrics-file``:
 
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m repro_torch.launch.serve --arch llama3-8b --tp 4 \
@@ -46,6 +48,12 @@ end-of-run agreement of the streams; process 0 prints and writes
   python -m torch.distributed.run --standalone --nproc-per-node 2 \
       -m repro_torch.launch.serve --arch llama3-8b --smoke \
       --device cpu --tp 2
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch llama3-8b --smoke \
+      --device cpu --tp 2 --devices cpu,cpu   # (2, 2), a group each
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch llama3-8b --smoke \
+      --device cpu --tp 2 --devices cpu   # (2, 2), split model axis
 
 ``--ckpt-dir`` serves the
 parameters of the latest checkpoint there (keys ``params%%...``, as the
@@ -174,8 +182,7 @@ def main(argv=None):
     try:
         return _serve(args, cfg, mesh, lead)
     finally:
-        if mesh.symm is not None:
-            mesh.symm.close()
+        mesh.close()
         if procs is not None and joined:
             processes.shutdown()
 
@@ -190,11 +197,14 @@ def _device(args) -> str:
 
 def join(args, cfg):
     """This process's place in the job (``processes.init`` from
-    torchrun's environment; None for one process) and the mesh: over
-    processes they split the model axis, which serving supports at data
-    1 for the attention families only (``processes.check_model_split``);
-    a layout of whole data groups over processes is refused. Before any
-    parameter is drawn."""
+    torchrun's environment; None for one process) and the mesh: over P
+    processes each lists its ranks (``--devices``, or ``--tp`` / P on
+    its device), the mesh is (data = P x its ranks / tp, model = tp),
+    and a process holds whole data groups or a block of one group's
+    model ranks (``launch.mesh.make_mesh(split_model=True)``); the
+    families outside the attention ones refuse a split model axis, and
+    a mesh of more ranks than one collective spans refuses
+    (``processes.check_model_split``). Before any parameter is drawn."""
     dtype = (args.devices.split(",")[0].strip().split(":")[0]
              if args.devices else args.device)
     procs = processes.init("gloo", dtype)
@@ -202,11 +212,6 @@ def join(args, cfg):
                      split_model=True)
     if procs is None:
         return procs, mesh
-    if mesh.split == 1:
-        raise NotImplementedError(
-            f"serving over {procs.world} processes that each hold whole "
-            f"data groups of mesh {dict(mesh.shape)}: not yet "
-            f"({processes.NEXT['data']})")
     processes.check_model_split(mesh.shape, procs.world, what="serve",
                                 cfg=cfg)
     if mesh.devices[0].type == "cuda":
@@ -256,8 +261,7 @@ def _serve(args, cfg, mesh, lead):
     if mesh.procs is not None:
         stats["processes"] = mesh.procs.world
         stats["host_bytes"] = mesh.procs.host_bytes
-        if mesh.symm is not None:
-            stats["heap_bytes"] = mesh.symm.heap_bytes
+        stats["heap_bytes"] = mesh.heap_bytes
     if lead:
         print(f"[serve] {stats}")
     streams = {r.rid: list(r.out_tokens) for r in done}

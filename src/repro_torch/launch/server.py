@@ -95,6 +95,7 @@ import asyncio
 import concurrent.futures
 import dataclasses
 import json
+import os
 import sys
 import time
 import traceback
@@ -738,7 +739,9 @@ async def _send_json(writer, status: int, obj: dict,
 def build_engine(args):
     """Model, mesh and Engine from the CLI args, as
     ``repro_torch.launch.serve`` builds them (seeded random weights),
-    with the fault plan, the degraded ladder and ``--resume``."""
+    with the fault plan, the degraded ladder and ``--resume``. Under
+    torchrun (``WORLD_SIZE`` > 1) it refuses before any parameter is
+    drawn: the server does not join the job yet."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.distributed import context as dctx
     from repro_torch.launch.mesh import make_mesh
@@ -746,6 +749,13 @@ def build_engine(args):
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.faults import FaultPlan
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise NotImplementedError(
+            f"the server under torchrun ({world} processes): each process "
+            f"would serve alone; not yet (ROADMAP queue 1, item 4: the "
+            f"server joins the job); serve over processes with "
+            f"repro_torch.launch.serve")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)

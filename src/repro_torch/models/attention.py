@@ -325,8 +325,11 @@ def _attn_data(cfg, data, q, k, v, cache, cur_len, active, block_tables,
     contiguous caches hold each data group's rows (``Mesh.rows``) over
     its model sub-mesh: each group writes and attends its rows there,
     and the groups' outputs are joined over ``data`` (where the batch
-    does not divide, every group runs every row on its copy and group
-    0's output is kept)."""
+    does not divide, every group runs every row on its copy and the
+    first group's output is kept). Over processes each attends its own
+    groups' rows and the rows are joined across them
+    (``patterns.join_groups``); the paged pool's combine spans every
+    rank of the job."""
     mode = dctx.current().fusion_mode
     if block_tables is not None:
         def per(t):
@@ -341,9 +344,11 @@ def _attn_data(cfg, data, q, k, v, cache, cur_len, active, block_tables,
     M, B = data.model, q.shape[0]
     cl, act = data.per_rank(cur_len), data.per_rank(active)
     outs = []
-    for g in range(data.dp):
+    for g in data.local_groups:
         grp, rows = data.group(g), data.rows(g, B)
-        ranks = range(g * M, (g + 1) * M)
+        # this process's ranks of group g, as indices of its lists
+        ranks = [r - data.first for r in range(g * M, (g + 1) * M)
+                 if r in data.local]
 
         def sel(t):
             return [cm.to_device(t[rows], d) for d in grp.devices]
@@ -356,9 +361,7 @@ def _attn_data(cfg, data, q, k, v, cache, cur_len, active, block_tables,
         outs.append(cm.to_device(og[0], q.device))
     if B % data.dp:
         return outs[0]
-    o = torch.cat(outs, dim=0)
-    cm.record("all-gather", cm.nbytes(o), data.dp)
-    return o
+    return patterns.join_groups(outs, q.device)
 
 
 def _strided(cfg, q, k, v, cache, cur_len, active, scale):

@@ -100,6 +100,16 @@ def dense_group(x, ws):
     return [y.reshape(*lead, w.shape[1]) for y, w in zip(ys, ws)]
 
 
+def dense_group_ranks(xs, wss):
+    """``[dense_group(x, ws) for x, ws in zip(xs, wss)]`` for this
+    process's model ranks; weights cut over ``data`` across processes
+    cross them in one collective for every rank
+    (``cm.stationary_ranks``)."""
+    if isinstance(wss[0][0], cm.Stationary):
+        return cm.stationary_ranks(dense_group, xs, wss, kdim=0)
+    return [dense_group(x, ws) for x, ws in zip(xs, wss)]
+
+
 # ---------------------------------------------------------- slot state
 def select_(active, old, new):
     """``old[b] = new[b]`` for the slots of ``active`` (B,) bool, IN

@@ -852,8 +852,9 @@ def _leaf_lists(tree) -> list:
 def _zero_slot(tree, slot: int, batch: int):
     """Zero one slot of every leaf of ``tree`` (the slot at dim 1), in
     place; over data groups in each copy of the slot's group, at its row
-    there (``Mesh.rows``): a list of ``mesh.size`` entries is per rank
-    (rank r in group r // M), another per ``Mesh.holders`` entry (the
+    there (``Mesh.rows``): a list with an entry for each rank this
+    process holds is per rank (rank r in group r // M), another per
+    ``Mesh.holders`` entry (the
     two agree where both lengths are equal: every rank on its own
     device)."""
     mesh = _data_mesh()
@@ -862,8 +863,8 @@ def _zero_slot(tree, slot: int, batch: int):
             if mesh is None:
                 t[:, slot].zero_()
                 continue
-            g = (i // mesh.model if len(leaf) == mesh.size
-                 else mesh.holders[i][0])
+            g = ((mesh.first + i) // mesh.model
+                 if len(leaf) == len(mesh.local) else mesh.holders[i][0])
             rows = mesh.rows(g, batch)
             if rows.start <= slot < rows.stop:
                 t[:, slot - rows.start].zero_()
@@ -932,13 +933,14 @@ def step_ranks(params, cfg) -> StepRanks:
     split = ps[0].split
     if data is not None:
         if split is None or not isinstance(params, list) \
-                or len(ps) != data.size:
+                or len(ps) != len(data.local):
             raise ValueError(
                 f"{len(ps)} parameter trees "
                 f"({'shards' if split else 'whole'}) for a mesh of "
-                f"{data.size} ranks with {data.dp} data groups: decode on "
-                f"a data mesh takes lm.shard_params(params, mesh), one per "
-                f"rank (the weights' embed dim stays cut over data)")
+                f"{len(data.local)} ranks here with {data.dp} data groups:"
+                f" decode on a data mesh takes lm.shard_params(params, "
+                f"mesh), one per rank (the weights' embed dim stays cut "
+                f"over data)")
         return StepRanks(_stationary_views(ps, data, cfg), split)
     mesh = _mesh()
     W, n_dev = (1, 1) if mesh is None else (len(mesh.devices),
@@ -957,16 +959,27 @@ def step_ranks(params, cfg) -> StepRanks:
 
 def _stationary_views(ps: list, mesh, cfg) -> list:
     """The weights-stationary decode's parameters over a mesh with data
-    groups: one ``fsdp.View`` per model rank m of data group 0 (the
-    ranks that run the weight sites), each leaf that the ``data`` axis
-    cuts the ``cm.Stationary`` of its D blocks (ranks (0, g, m) of the
-    first pod: the pods hold copies), every other leaf rank m's own.
-    Nothing is gathered or copied: the views wrap the shards' tensors."""
+    groups: one ``fsdp.View`` per model rank m this process holds of its
+    first data group h (the ranks that run the weight sites: group 0's
+    in one process), each leaf that the ``data`` axis cuts the
+    ``cm.Stationary`` of its D blocks (ranks (pod, e, m) of h's pod:
+    the pods hold copies; over processes the blocks of the groups held
+    here, the rest reached through the span of the D ranks,
+    ``Mesh.span``), every other leaf rank m's own. Nothing is gathered
+    or copied: the views wrap the shards' tensors."""
     M, D = mesh.model, mesh.axis_size("data")
+    h = mesh.local_groups[0]
+    pod, lo = h // D, mesh.first
+    held = [e for e in range(D) if pod * D + e in mesh.local_groups]
     ddims = data_dims(cfg, mesh)
     views = []
     for m in range(M):
-        peers = [dict(ps[g * M + m].named_parameters()) for g in range(D)]
+        if h * M + m not in mesh.local:
+            continue
+        span = mesh.span([(pod * D + e) * M + m for e in range(D)])
+        span = span if span.spans else None
+        peers = [dict(ps[(pod * D + e) * M + m - lo].named_parameters())
+                 for e in held]
         tree: dict = {}
         for name, t in peers[0].items():
             node = tree
@@ -975,8 +988,8 @@ def _stationary_views(ps: list, mesh, cfg) -> list:
                 node = node.setdefault(k, {})
             dim = ddims[name]
             node[leaf] = t if dim is None else cm.Stationary(
-                [p[name] for p in peers], dim)
-        views.append(fsdp.View(tree, ps[m].device))
+                [p[name] for p in peers], dim, span)
+        views.append(fsdp.View(tree, ps[h * M + m - lo].device))
     return views
 
 
@@ -1052,7 +1065,7 @@ def decode_step(params, token, state, cfg, active=None,
     if data is None:
         return _decode_step(ps, split, token, state, cfg, active,
                             gather_width, bounded)
-    sub = data.group(0)
+    sub = data.group(data.local_groups[0])
     with dctx.use(dctx.DistContext(sub if sub.size > 1 else None,
                                    dctx.current().fusion_mode, data)):
         return _decode_step(ps, split, token, state, cfg, active,

@@ -264,8 +264,8 @@ def _decode_data(params, dev, x, caches, cfg, active, cols, rows):
     else:
         zx = [dense(xd, p["in_proj"]) for p, xd in zip(dev, x)]
     y = patterns.over_groups(
-        lambda c, z, a: _decode_mix(dev[0], z, c, cfg, a, x[0].dtype),
-        caches, zx[0], active[0])
+        lambda p, c, z, a: _decode_mix(p, z, c, cfg, a, x[0].dtype),
+        dev[0], caches, zx[0], active[0])
     y = [cm.to_device(y, xd.device) for xd in x]
     if not rows:
         return [dense(yd, p["out_proj"]) for p, yd in zip(dev, y)]

@@ -287,15 +287,15 @@ def _decode_data(params, dev, x, states, cfg, active, split):
     the channel mix on the whole batch, as the model axis splits it."""
     if split["ck"] is None:
         y = patterns.over_groups(
-            lambda st, xr, a: apply_rwkv_decode(dev[0], xr, st, cfg, a),
-            states, x[0], active[0])
+            lambda p, st, xr, a: apply_rwkv_decode(p, xr, st, cfg, a),
+            dev[0], states, x[0], active[0])
         return [cm.to_device(y, xd.device) for xd in x]
 
-    def time_mix(st, xr, a):
-        xr, xk, new = _decode_time(dev[0], xr, st)
+    def time_mix(p, st, xr, a):
+        xr, xk, new = _decode_time(p, xr, st)
         _commit(st, a, *new)
         return xr, xk
-    xs, xk = patterns.over_groups(time_mix, states, x[0], active[0])
+    xs, xk = patterns.over_groups(time_mix, dev[0], states, x[0], active[0])
     (k,) = patterns.column_shards([cm.to_device(xk, xd.device) for xd in x],
                                   [[p["ck"] for p in params]])
     cv = patterns.row_parallel_sum([torch.square(F.relu(t)) for t in k],

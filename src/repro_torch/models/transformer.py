@@ -217,8 +217,8 @@ def copy_paged_block(cfg, caches, src: int, dst: int):
     copy-on-write; recurrent state is untouched. The KV leaves are
     tensors (one rank) or per-rank shard lists; over W ranks global
     block t lives on rank t // n_loc at t % n_loc, and a copy between
-    ranks goes through the receiving rank's device. Where processes split
-    the ambient mesh's model axis the lists hold this process's ranks:
+    ranks goes through the receiving rank's device. Where other processes
+    hold ranks of the ambient mesh the lists hold this process's ranks:
     a block that crosses processes goes through one exchange of every
     rank's candidate (``kernels.symm.every_rank``: the source block on its
     owner, zeros elsewhere), which every process makes."""

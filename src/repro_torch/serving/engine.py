@@ -97,6 +97,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed import processes
 from repro_torch.distributed.fault_tolerance import StragglerWatchdog
 from repro_torch.models import lm
 from repro_torch.serving import sampler as sampler_lib
@@ -885,7 +886,10 @@ class Engine:
 
     def run(self, max_ticks: int = 10_000) -> list[Request]:
         """Run until all submitted requests finish (or ``max_ticks``
-        ticks elapse in this call)."""
+        ticks elapse in this call). Where the mesh spans processes, each
+        runs this engine and waits first until every one is here
+        (``processes.align``): one may still be building its engine."""
+        processes.align(self.ctx.mesh, "run")
         finished = []
         start = self.tick_count
         while ((self.queue or self.active)
@@ -895,19 +899,18 @@ class Engine:
         return finished
 
     def _agree(self, finished):
-        """Where processes split the mesh's model axis, each runs this
-        engine on the same requests and samples the same logits: compare
-        the finished streams over the job's store, raise if they part."""
+        """Where the mesh spans processes (its model axis split, or its
+        data groups over them), each runs this engine on the same
+        requests and samples the same logits: compare the finished
+        streams of every process of the mesh over the job's store, raise
+        if they part."""
         mesh = self.ctx.mesh
-        if mesh is None or mesh.split == 1:
+        if mesh is None or not mesh.spans:
             return
-        from repro_torch.distributed import processes
         streams = repr(sorted((r.rid, list(r.out_tokens))
                               for r in finished)).encode()
         processes.agree(mesh.procs, "streams",
-                        hashlib.blake2b(streams).digest(),
-                        processes.peers(mesh.shape, mesh.procs.world,
-                                        mesh.procs.rank, ("model",)),
+                        hashlib.blake2b(streams).digest(), mesh.peers,
                         "streams")
 
     # --------------------------------------------- drain / snapshot / restore

@@ -47,6 +47,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import processes
 from repro_torch.models import lm
 from repro_torch.serving import sampler as sampler_lib
 
@@ -63,26 +65,6 @@ def launch_counted() -> tuple:
             kfd.flash_decode_paged_partial,
             kfd.flash_decode_paged_fused, kfd.flash_decode_partial,
             kfd.flash_decode_fused, ag_gemm_fused, symm.exchange)
-
-
-def _captured_alike():
-    """Where processes split the ambient mesh's model axis, wait until
-    every process of the group has captured this graph: a capture takes
-    seconds of host time, and a replay's first cross-process call would
-    otherwise spin on a peer still capturing (``csrc/symm.cuh``)."""
-    from repro_torch.distributed import context as dctx
-    from repro_torch.distributed import processes
-    mesh = dctx.current().mesh
-    if mesh is None or mesh.split == 1:
-        return
-    global _CAPTURES
-    _CAPTURES += 1
-    processes.barrier(mesh.procs, f"captured/{_CAPTURES}",
-                      processes.peers(mesh.shape, mesh.procs.world,
-                                      mesh.procs.rank, ("model",)))
-
-
-_CAPTURES = 0               # graphs captured over a split model axis
 
 
 class MegatickRunner:
@@ -202,7 +184,9 @@ class MegatickRunner:
             finally:
                 if collect:
                     gc.enable()
-        _captured_alike()
+        # a capture takes seconds of host time: no replay's first
+        # cross-process call may spin on a peer still capturing
+        processes.align(dctx.current().mesh, "captured")
         launches = [(fn, fn.launches - n0)
                     for fn, n0 in zip(counted, before) if fn.launches != n0]
         for fn, n in launches:            # recorded, not launched

@@ -87,7 +87,7 @@ import pytest  # noqa: E402
 torch = pytest.importorskip("torch")
 
 import torch_processes_worker as worker  # noqa: E402
-from test_torch_processes import Pool  # noqa: E402
+from test_torch_processes import Job, Pool  # noqa: E402
 
 from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.distributed import processes  # noqa: E402
@@ -268,6 +268,75 @@ def test_model_split_rank_maps(shape, world, S, blocks):
                 q for q in range(world) if q % S == p % S)
         else:
             assert processes.peers(shape, world, p, "model") == (p,)
+            G = shape["data"] // world
+            assert processes.peers(shape, world, p, "data") == (
+                tuple(range(world)) if G < shape["data"] else (p,))
+        # the ranks a model rank's data sums span, and the processes
+        # that hold them: its data peers
+        mesh = Mesh(["cpu"] * len(blocks[p]), tuple(shape.values()),
+                    tuple(shape), processes.Processes(p, world))
+        W = shape["model"]
+        assert mesh.span(mesh.ranks) is mesh      # its own communicator
+        for r in blocks[p]:
+            span = mesh.axis_span(r, "data")
+            want = tuple(range(r % W, mesh.size, W))
+            assert span.ranks == want
+            if shape["data"] > 1:
+                assert span.spans and span.peers == processes.peers(
+                    shape, world, p, "data")
+                assert r // W in span.local
+                assert len(span.local) * len(span.peers) == span.size
+
+
+def test_align_waits_for_every_process_of_the_mesh(monkeypatch):
+    """(e) ``processes.align``, at ``Engine.run`` and each graph capture:
+    over processes a barrier on the job's store over every process of
+    the mesh (each call its own key, alike in every process); in one
+    process nothing."""
+    class Store:
+        def __init__(self):
+            self.set_keys, self.got = [], []
+
+        def set(self, key, value):
+            self.set_keys.append(key)
+
+        def get(self, key):
+            self.got.append(key)
+            return b"1"
+    store = Store()
+    monkeypatch.setattr(processes, "_store", lambda: store)
+    processes.align(None, "run")
+    processes.align(Mesh(["cpu"] * 4, (2, 2), ("data", "model")), "run")
+    assert store.set_keys == store.got == []
+    for p in range(2):
+        mesh = Mesh(["cpu"] * 2, (2, 2), ("data", "model"),
+                    processes.Processes(p, 2))
+        processes.align(mesh, "run")
+        key = store.set_keys[-1].rsplit("/", 1)[0]
+        assert store.set_keys[-1] == f"{key}/{p}"
+        assert store.got[-2:] == [f"{key}/0", f"{key}/1"]
+    processes.align(mesh, "run")
+    assert store.set_keys[-1] != f"{key}/1"
+
+
+def test_serving_refuses_a_mesh_wider_than_a_span():
+    """(e) Over processes a serving collective spans up to the whole mesh
+    (the paged pool's combine), and the exchange and the fused kernels
+    take a 32-bit mask of ranks: a mesh of more than
+    ``processes.MAX_SPAN`` ranks refuses before any draw, naming the
+    limit; 32 ranks serve, and one process is not limited."""
+    cfg = smoke_config(get_config("llama3-8b"))
+    with pytest.raises(ValueError, match="MAX_SPAN=32"):
+        processes.check_model_split({"data": 4, "model": 16}, 4,
+                                    what="serve", cfg=cfg)
+    with pytest.raises(ValueError, match="MAX_SPAN=32"):
+        processes.check_model_split({"data": 1, "model": 64}, 2,
+                                    what="serve", cfg=cfg)
+    processes.check_model_split({"data": 2, "model": 16}, 2, what="serve",
+                                cfg=cfg)
+    processes.check_model_split({"data": 4, "model": 16}, 1, what="serve",
+                                cfg=cfg)
+    processes.check_model_split({"data": 4, "model": 16}, 4, what="train")
 
 
 def test_mesh_over_model_processes():
@@ -289,15 +358,16 @@ def test_mesh_over_model_processes():
 @pytest.mark.parametrize("case", ["serve_data", "serve_zamba2",
                                   "serve_rwkv6", "serve_paligemma",
                                   "train"])
-def test_refusals_before_any_draw(pool, case):
-    """(e) Over 2 processes, each refuses before any parameter is drawn,
-    naming the ROADMAP item that carries it: serving data groups over
-    processes, the families outside the slice over a split model axis,
-    the trainer over a split model axis."""
+def test_refusals_before_any_draw(pool, tmp_path, case):
+    """(e) Over 2 processes (``serve_data``: 4, a (2, 2) mesh whose model
+    axis they split), each refuses before any parameter is drawn, naming
+    the ROADMAP item that carries it: the families outside the slice
+    over a split model axis, on a mesh with data groups too; the trainer
+    over a split model axis."""
     cpu = ["--smoke", "--device", "cpu"]
     entry, argv, item = {
-        "serve_data": ("serve", ["--arch", "llama3-8b", *cpu, "--tp", "2",
-                                 "--devices", "cpu,cpu"], "1c"),
+        "serve_data": ("serve", ["--arch", "zamba2-1.2b", *cpu, "--tp",
+                                 "2", "--devices", "cpu"], "1d"),
         "serve_zamba2": ("serve", ["--arch", "zamba2-1.2b", *cpu, "--tp",
                                    "2"], "1d"),
         "serve_rwkv6": ("serve", ["--arch", "rwkv6-3b", *cpu, "--tp", "2"],
@@ -306,7 +376,11 @@ def test_refusals_before_any_draw(pool, case):
                                       "--tp", "2"], "1d"),
         "train": ("train", ["--arch", "llama3-8b", *cpu, "--tp", "2",
                             "--devices", "cpu", "--steps", "1"], "1b")}[case]
-    res = pool().submit("refused", entry=entry, argv=argv).results()
+    if case == "serve_data":
+        res = Job(tmp_path, "refused", world=4, entry=entry,
+                  argv=argv).results()
+    else:
+        res = pool().submit("refused", entry=entry, argv=argv).results()
     for r in res:
         assert r["msg"] is not None and not r["drawn"], r
         assert f"ROADMAP queue 1, item {item}" in r["msg"], r["msg"]
@@ -320,18 +394,23 @@ def test_refusals_before_any_draw(pool, case):
                                      ("paligemma-3b", False)])
 def test_check_model_split_families(arch, ok):
     """(e) Which families serve over a split model axis: the attention
-    families (dense and MoE); the hybrid, recurrent and vlm ones refuse;
-    serving data groups over such a layout and the trainer refuse."""
+    families (dense and MoE), at data 1 and on a mesh with data groups;
+    the hybrid, recurrent and vlm ones refuse at both; every family
+    serves whole data groups over processes; the trainer refuses a
+    split model axis."""
     cfg = smoke_config(get_config(arch))
-    split = {"data": 1, "model": 4}
-    if ok:
-        processes.check_model_split(split, 2, what="serve", cfg=cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="item 1d"):
-            processes.check_model_split(split, 2, what="serve", cfg=cfg)
-    with pytest.raises(NotImplementedError, match="item 1c"):
-        processes.check_model_split({"data": 2, "model": 4}, 4,
-                                    what="serve", cfg=cfg)
+    for split, world in (({"data": 1, "model": 4}, 2),
+                         ({"data": 2, "model": 4}, 4)):
+        if ok:
+            processes.check_model_split(split, world, what="serve",
+                                        cfg=cfg)
+        else:
+            with pytest.raises(NotImplementedError, match="item 1d"):
+                processes.check_model_split(split, world, what="serve",
+                                            cfg=cfg)
+    processes.check_model_split({"data": 2, "model": 4}, 2, what="serve",
+                                cfg=cfg)
     with pytest.raises(NotImplementedError, match="item 1b"):
-        processes.check_model_split(split, 2, what="train")
+        processes.check_model_split({"data": 1, "model": 4}, 2,
+                                    what="train")
     processes.check_model_split({"data": 2, "model": 2}, 2, what="train")

@@ -298,7 +298,7 @@ def fused_on_card(path, W=4):
                [q] * n, mine("sk"), mine("sv"), [cur.clamp_max(
                    W * x["sk"][0].shape[1])] * n, scale, mesh=mesh)}
     torch.cuda.synchronize()
-    mesh.symm.close()
+    mesh.close()
     return {k: [t.cpu() for t in v] for k, v in out.items()}
 
 
@@ -322,3 +322,107 @@ def copy_block(W=4, src=1, dst=6):
                 k[:, b].fill_(r * n + b)
         lm.copy_cache_block(st, cfg, src, dst)
     return [k.clone() for k in st["caches"]["k"]]
+
+
+# ------------------------------------- serving, data groups over processes
+def data_mesh(D, M, pods=1, procs=None):
+    """A (pods x D, M) serving mesh of CPU ranks (``pods`` > 1: (pod,
+    data, model)) over this job's processes, each its block of the ranks
+    (whole data groups, or a block of one group's model ranks), or every
+    rank here without ``procs``; the job's process groups made."""
+    from repro_torch.launch.mesh import make_mesh, make_mesh_for_devices
+    world = 1 if procs is None else procs.world
+    n = pods * D * M
+    devs = ["cpu"] * (n // world)
+    if pods > 1:
+        mesh = make_mesh_for_devices(n, M, pods, devices=devs, procs=procs)
+    else:
+        mesh = make_mesh(M, devices=devs, procs=procs, split_model=True)
+    if procs is not None:
+        procs.connect(mesh.shape)
+    return mesh
+
+
+def _params(cfg, mesh, tree_file):
+    """``cfg``'s shards over ``mesh``: born sharded from seed 0, or cut
+    from the npz ``tree_file`` (dotted paths under ``p/``)."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import lm
+    if tree_file is None:
+        return lm.init_params(cfg, seed=0, device="cpu", mesh=mesh)
+    with np.load(tree_file) as z:
+        tree: dict = {}
+        for k in z.files:
+            if not k.startswith("p/"):
+                continue
+            node = tree
+            *path, leaf = k[2:].split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = z[k]
+    return params_from_numpy(tree, cfg, device="cpu", mesh=mesh)
+
+
+def data_steps(arch="llama3-8b", D=2, M=2, pods=1, mode="auto",
+               paged=False, steps=4, batch=4, max_len=16, tree_file=None):
+    """``steps`` decode steps of ``arch``'s float32 smoke over a (pods x
+    D, M) mesh (over this job's processes, or one process), on its
+    shards (:func:`_params`); the contiguous state, or (``paged``) a
+    pool of 16 blocks of 2 tokens whose every slot's 4 table entries are
+    a fixed draw of distinct blocks (on several ranks); the same seeded
+    tokens everywhere. Returns each step's logits."""
+    from repro_torch.distributed import processes
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.models import lm
+    cfg = _cfg(arch, True)
+    mesh = data_mesh(D, M, pods, processes.current())
+    params = _params(cfg, mesh, tree_file)
+    toks = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (steps, batch, 1)).astype(np.int32)
+    out = []
+    with use(DistContext(mesh, mode)), torch.inference_mode():
+        if paged:
+            st = lm.init_paged_decode_state(params, cfg, batch, 16, 2, 4)
+            table = np.random.default_rng(1).permutation(16)[
+                :batch * 4].reshape(batch, 4).astype(np.int32)
+            for t in st["block_tables"]:
+                t.copy_(torch.from_numpy(table))
+        else:
+            st = lm.init_decode_state(params, cfg, batch, max_len)
+        for i in range(steps):
+            lg, st = lm.decode_step(params, torch.from_numpy(toks[i]), st,
+                                    cfg)
+            out.append(lg.float().clone())
+    mesh.close()
+    return out
+
+
+def data_engine(arch="llama3-8b", D=2, M=2, pods=1, mode="auto", K=1,
+                n_layers=2):
+    """The engine on ``arch``'s float32 smoke (``n_layers``) over a (pods
+    x D, M) mesh (over this job's processes, or one process), paged
+    pool, 4 requests of seeded prompts (SPLIT_REQS), greedy, megaticks
+    of K. Returns the streams."""
+    from repro_torch.distributed import processes
+    from repro_torch.distributed.context import DistContext, use
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, Request
+    cfg = _cfg(arch, True).replace(n_layers=n_layers)
+    mesh = data_mesh(D, M, pods, processes.current())
+    params = lm.init_params(cfg, seed=0, device="cpu", mesh=mesh)
+    rng = np.random.default_rng(7)
+    with use(DistContext(mesh, mode)):
+        eng = Engine(params, cfg, batch=4, max_len=64, block_size=4,
+                     prefill_chunk=4, decode_steps=K, device="cpu")
+        for rid, (n, at) in enumerate(SPLIT_REQS):
+            eng.submit(Request(rid=rid, prompt=[
+                int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+                max_new_tokens=6), at_tick=at)
+        done = eng.run()
+    mesh.close()
+    return {r.rid: list(r.out_tokens) for r in done}
+
+
+def cases(todo):
+    """Each ``(task, kwargs)`` of ``todo`` in turn: their results."""
+    return [globals()[task](**kwargs) for task, kwargs in todo]
